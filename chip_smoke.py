@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch port (``src/repro_torch``).
+
+    python3 chip_smoke.py        # from the repository root, one NVIDIA card
+
+Phases, each of which raises on failure (the script then exits non-zero
+and prints no result):
+
+1. card and build: prints the card's name and power limit, builds every
+   CUDA kernel of the port from ``src/repro_torch/kernels/csrc`` (one
+   ``nvcc`` per source, all started together);
+2. kernels: holds each kernel against its plain PyTorch version on the
+   card at the serving path's shapes, and times the kernel, the plain
+   version, one PyTorch library call computing the same function, and
+   the least time the card could take (its bound);
+3. serve: full-width gemma-7b (28 layers, random bf16 weights from a
+   seed) serves 8 ragged requests offline through the port's engine;
+   the kernel's launch counter, zeroed just before, must show it ran
+   in every layer of every chunk step, and a second run must give the
+   same tokens. A reduced gemma-7b checks the same path on the card
+   against the CPU's plain path.
+
+The second-to-last line is the kernels' JSON record, the last line
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.models import lm  # noqa: E402
+from repro_torch.serve.engine import (  # noqa: E402
+    Engine,
+    ServeConfig,
+    synthetic_requests,
+)
+from repro_torch.serve.scenarios import run_offline  # noqa: E402
+
+# H100 SXM data sheet: HBM rate and dense peaks by operand type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # abs and rel
+PROMPT_LENS = (5, 128, 17, 96, 33, 64, 120, 9)  # ragged, in 5..128
+NEW_TOKENS = 32
+
+
+def phase(name: str) -> None:
+    print(f"== {name}", flush=True)
+
+
+# --------------------------------------------------------------------------- #
+# Phase 2: kernel vs plain at the serving shapes.
+# --------------------------------------------------------------------------- #
+def paged_case(seed, *, B, C, H, K, D, page, npg, dtype, lens, nvs, holes=()):
+    """Page tables as the engine builds them (contiguous from page 0,
+    -1 past a row's length), plus optional unmapped holes; the last
+    row is idle (n_valid 1, nothing mapped)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    P = B * npg
+    q = torch.randn((B, C, H, D), generator=gen, device="cuda").to(dtype)
+    kp = torch.randn((P + 1, page, K, D), generator=gen, device="cuda").to(dtype)
+    vp = torch.randn((P + 1, page, K, D), generator=gen, device="cuda").to(dtype)
+    rng = np.random.RandomState(seed)
+    free = list(rng.permutation(P))
+    pt = np.full((B, npg), -1, np.int32)
+    pos = np.zeros((B,), np.int32)
+    for b, (n_tok, nv) in enumerate(zip(lens, nvs)):
+        n_pages = -(-n_tok // page)
+        pt[b, :n_pages] = [free.pop() for _ in range(n_pages)]
+        pos[b] = max(0, n_tok - nv)
+    for b, p in holes:
+        pt[b, p] = -1
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return dict(q=q, kp=kp, vp=vp, page_table=t(pt), pos=t(pos),
+                n_valid=t(np.asarray(nvs, np.int32)))
+
+
+def work(case, window):
+    """Bytes the function must move and the operations it must do on
+    these inputs: each K/V row some valid query sees, read once; q, the
+    tables and the output once; 4*D flops per visible query-key pair."""
+    q, kp = case["q"], case["kp"]
+    B, C, H, D = q.shape
+    page, K = kp.shape[1], kp.shape[2]
+    pt = case["page_table"].cpu().numpy()
+    pos = case["pos"].cpu().numpy()
+    nv = case["n_valid"].cpu().numpy()
+    kv_rows = pairs = 0
+    for b in range(B):
+        keys = np.arange(pt.shape[1] * page)
+        mapped = pt[b, keys // page] >= 0
+        qpos = pos[b] + np.arange(min(C, nv[b]))
+        vis = mapped[None] & (keys[None] <= qpos[:, None])
+        if window is not None:
+            vis &= keys[None] > qpos[:, None] - window
+        pairs += int(vis.sum()) * H
+        kv_rows += int(vis.any(0).sum())
+    elt = q.element_size()
+    nbytes = (2 * kv_rows * K * D * kp.element_size() + 2 * q.numel() * elt
+              + sum(case[k].numel() * 4 for k in ("page_table", "pos", "n_valid")))
+    return nbytes, 4 * D * pairs
+
+
+def time_ms(fn, iters=30):
+    """Mean ms per call from CUDA events, each call after a write of
+    128 MB that evicts the 50 MB L2 (in the engine each layer's
+    attention follows ~0.6 GB of weight reads). A GPU-side sleep first
+    lets the host queue every call before the card starts, so host
+    delays do not land inside the timed intervals."""
+    flush = torch.empty(32 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of GPU clock cycles
+    ev = []
+    for _ in range(iters):
+        flush.zero_()
+        s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        s.record()
+        fn()
+        e.record()
+        ev.append((s, e))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in ev) / iters
+
+
+def sdpa_inputs(case, window):
+    """Dense gathered K/V and a float mask for one
+    ``scaled_dot_product_attention`` call (the library yardstick)."""
+    q, kp, vp, pt = case["q"], case["kp"], case["vp"], case["page_table"]
+    B, C, H, D = q.shape
+    page, K = kp.shape[1], kp.shape[2]
+    npg = pt.shape[1]
+    safe = pt.long().clamp(0, kp.shape[0] - 1)
+    k = kp[safe].reshape(B, npg * page, K, D).transpose(1, 2)
+    v = vp[safe].reshape(B, npg * page, K, D).transpose(1, 2)
+    keys = torch.arange(npg * page, device="cuda")
+    qpos = case["pos"].long()[:, None] + torch.arange(C, device="cuda")
+    lim = (case["pos"] + case["n_valid"]).long()
+    ok = ((pt.long() >= 0).repeat_interleave(page, 1)[:, None, :]
+          & (keys < lim[:, None, None]) & (keys <= qpos[:, :, None]))
+    if window is not None:
+        ok &= keys > qpos[:, :, None] - window
+    mask = torch.zeros(ok.shape, dtype=q.dtype, device="cuda")
+    mask.masked_fill_(~ok, -1e30)
+    return (q.transpose(1, 2).contiguous(), k.contiguous(), v.contiguous(),
+            mask[:, None])
+
+
+def check_kernel():
+    phase("kernels: paged_attention vs plain PyTorch on the card")
+    main = dict(B=8, H=16, K=16, D=256, page=16, npg=10,
+                lens=[160, 5, 37, 128, 64, 99, 16, 0])
+    cases = []
+    for dtype in (torch.bfloat16, torch.float32):
+        cases += [
+            ("main_C1", dict(main, C=1, nvs=[1] * 8), None, dtype),
+            ("main_C8", dict(main, C=8, nvs=[1, 5, 8, 1, 8, 3, 1, 1],
+                             holes=[(3, 2)]), None, dtype),
+            ("window64", dict(main, C=8, nvs=[1, 5, 8, 1, 8, 3, 1, 1]), 64,
+             dtype),
+            ("D64_gqa", dict(main, H=8, K=2, D=64, C=8,
+                             nvs=[1, 5, 8, 1, 8, 3, 1, 1]), None, dtype),
+        ]
+    main_err = 0.0
+    for i, (name, shape, window, dtype) in enumerate(cases):
+        case = paged_case(i, dtype=dtype, **shape)
+        got = pa.paged_attention_cuda(**case, window=window)
+        torch.cuda.synchronize()
+        want = pa.paged_attention_torch(**case, window=window)
+        err = 0.0
+        nv = case["n_valid"].cpu().tolist()
+        for b in range(len(nv) - 1):  # the last row is idle: no keys
+            g, w = got[b, :nv[b]].float(), want[b, :nv[b]].float()
+            err = max(err, (g - w).abs().max().item())
+            tol = TOL[dtype]
+            if not torch.allclose(g, w, rtol=tol, atol=tol):
+                raise AssertionError(
+                    f"paged_attention {name} {dtype}: kernel != plain, "
+                    f"max |diff| {err} > {tol} (row {b})")
+        if not (got[-1] == 0).all() or not torch.isfinite(got).all():
+            raise AssertionError(f"paged_attention {name}: idle row not 0")
+        if dtype == torch.bfloat16 and name.startswith("main"):
+            main_err = max(main_err, err)
+        print(f"  {name:9s} {str(dtype):15s} max|kernel-plain| {err:.3e} "
+              f"(tol {TOL[dtype]:g}) ok", flush=True)
+
+    # Timing at the engine's chunk shape: B 8, C 8, bf16, page 16.
+    case = paged_case(99, dtype=torch.bfloat16, C=8,
+                      nvs=[1, 5, 8, 1, 8, 3, 1, 1], **main)
+    nbytes, flops = work(case, None)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    qs, ks, vs, mask = sdpa_inputs(case, None)
+    rec = dict(
+        name="paged_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:186",
+        max_abs_err=main_err,
+        ms=time_ms(lambda: pa.paged_attention_cuda(**case)),
+        plain_ms=time_ms(lambda: pa.paged_attention_torch(**case)),
+        bound_ms=max(t_bytes, t_ops),
+        bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qs, ks, vs, attn_mask=mask)),
+    )
+    print(f"  timing B8 C8 H16 D256 page16 bf16: kernel {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, "
+          f"{flops} flop)", flush=True)
+    return rec
+
+
+# --------------------------------------------------------------------------- #
+# Phase 3: serve.
+# --------------------------------------------------------------------------- #
+def tokens_of(report):
+    return [r.tokens for r in sorted(report.requests, key=lambda r: r.id)]
+
+
+def serve_full():
+    phase("serve: gemma-7b full width, 28 layers, bf16, offline")
+    cfg = get_config("gemma-7b")
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{sum(p.numel() for p in iter_tensors(params)) / 1e9:.2f} B "
+          f"params in {time.perf_counter() - t0:.1f} s", flush=True)
+    scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+                       page_size=16, prefill_chunk=8)
+    engine = Engine(cfg, params, scfg, device="cuda")
+    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                           seed=1))  # warm-up
+
+    def workload():
+        return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
+                                  prompt_len=max(PROMPT_LENS), seed=0,
+                                  prompt_lens=PROMPT_LENS)
+
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention_cuda.launches = 0
+    report = run_offline(engine, workload())
+    launches = pa.paged_attention_cuda.launches
+    steps = len(report.steps)
+    s = report.summary()
+    s["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {report.format()}", flush=True)
+    print(f"  chunk steps {steps}, paged_attention launches {launches} "
+          f"({launches / max(steps, 1):.0f} per step), peak memory "
+          f"{s['peak_mem_gib']:.2f} GiB", flush=True)
+    if launches < cfg.n_layers * steps or steps == 0:
+        raise AssertionError(
+            f"paged_attention ran {launches} times in {steps} chunk steps; "
+            f"expected >= {cfg.n_layers} per step")
+    got = tokens_of(report)
+    if len(got) != 8 or any(len(t) != NEW_TOKENS for t in got):
+        raise AssertionError(f"not every request got {NEW_TOKENS} tokens")
+    if any(not 0 <= tok < cfg.vocab for t in got for tok in t):
+        raise AssertionError("token id out of the vocabulary")
+    # The second run, traced: where the device time goes, and how busy
+    # the card is (the trace slows the host side, not the kernels).
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = tokens_of(run_offline(engine, workload()))
+        torch.cuda.synchronize()
+    if again != got:
+        raise AssertionError("a second run of the same workload differs")
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_kernels = sum(e.count for e in kernels)
+    print(f"  traced run: {n_kernels} kernels ({n_kernels / steps:.0f} per "
+          f"step), device busy {busy_ms:.1f} ms = "
+          f"{100 * busy_ms / (report.elapsed_s * 1e3):.1f}% of the untraced "
+          f"run's {report.elapsed_s * 1e3:.1f} ms; top kernels:", flush=True)
+    for e in kernels[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
+              f"{e.key[:100]}")
+
+    # one chunk step at full width: finite logits of the right shape
+    B, C = 8, scfg.prefill_chunk
+    cache = lm.init_paged_cache(cfg, 16, 16, device="cuda")
+    pt = torch.full((B, 2), -1, dtype=torch.int32, device="cuda")
+    pt[:, 0] = torch.arange(B, dtype=torch.int32)
+    with torch.inference_mode():
+        logits, _ = lm.decode_chunk(
+            params, cfg, torch.randint(0, cfg.vocab, (B, C), device="cuda"),
+            cache, pt, torch.zeros(B, dtype=torch.int32, device="cuda"),
+            torch.full((B,), C, dtype=torch.int32, device="cuda"))
+    if tuple(logits.shape) != (B, cfg.vocab) or not torch.isfinite(logits).all():
+        raise AssertionError(f"full-width logits {tuple(logits.shape)} not "
+                             f"finite / not (B, vocab)")
+    s["launches"] = launches
+    s["chunk_steps"] = steps
+    s["device_busy_ms"] = busy_ms
+    s["kernels_per_step"] = n_kernels / steps
+    print(f"  serve summary {json.dumps(s)}", flush=True)
+    del params, engine, cache
+    torch.cuda.empty_cache()
+    return launches
+
+
+def iter_tensors(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from iter_tensors(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from iter_tensors(v)
+    else:
+        yield tree
+
+
+def reduced_vs_cpu():
+    """Reduced gemma-7b in fp32: the card's path (kernel) against the
+    CPU's (plain attention) on the same weights: logits of one mixed
+    chunk step, then the greedy tokens of a ragged offline workload."""
+    phase("check: reduced gemma-7b, card vs CPU plain path, fp32")
+    cfg = dataclasses.replace(get_config("gemma-7b").reduced(),
+                              dtype="float32", kv_cache_dtype="float32",
+                              n_layers=2)
+    cpu = lm.init_lm(cfg, 0, device="cpu")
+    gpu = _to(cpu, "cuda")
+    toks = torch.randint(0, cfg.vocab, (3, 4),
+                         generator=torch.Generator().manual_seed(0))
+    pt = torch.tensor([[7, -1, -1, -1], [2, 9, -1, -1], [-1, -1, -1, -1]],
+                      dtype=torch.int32)
+    pos = torch.tensor([0, 5, 0], dtype=torch.int32)
+    nv = torch.tensor([4, 1, 1], dtype=torch.int32)
+    out = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        cache = lm.init_paged_cache(cfg, 12, 4, device=dev)
+        g = torch.Generator().manual_seed(1)
+        for name in ("kp", "vp"):
+            cache[name].copy_(torch.randn(cache[name].shape, generator=g))
+        with torch.inference_mode():
+            logits, _ = lm.decode_chunk(params, cfg, toks.to(dev), cache,
+                                        pt.to(dev), pos.to(dev), nv.to(dev))
+        out[dev] = logits[:2].float().cpu()
+    err = (out["cpu"] - out["cuda"]).abs().max().item()
+    print(f"  decode_chunk logits max|card-cpu| {err:.3e} (tol 1e-3)")
+    if not torch.allclose(out["cpu"], out["cuda"], rtol=1e-3, atol=1e-3):
+        raise AssertionError(f"reduced logits differ card vs CPU: {err}")
+    scfg = ServeConfig(max_batch=3, max_len=32, page_size=4, prefill_chunk=4)
+    toks = {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        reqs = synthetic_requests(cfg, n=5, tokens=6, prompt_len=14, seed=7,
+                                  prompt_lens=(3, 9, 14, 5, 11))
+        toks[dev] = tokens_of(run_offline(
+            Engine(cfg, params, scfg, device=dev), reqs))
+    if toks["cpu"] != toks["cuda"]:
+        raise AssertionError("reduced greedy tokens differ card vs CPU")
+    print("  greedy tokens identical card vs CPU (5 ragged requests)")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this script "
+              "needs an NVIDIA card", file=sys.stderr)
+        return 1
+    phase("card and build")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(smi, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False  # fp32 checks in full fp32
+    t0 = time.perf_counter()
+    reports = build.build()
+    for name, log in reports.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+    print(f"  built {sorted(build.sources())} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+    rec = check_kernel()
+    reduced_vs_cpu()
+    rec["launches"] = serve_full()
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(smi)
+    print(json.dumps({"kernels": [{k: rec[k] for k in keys}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

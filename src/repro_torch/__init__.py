@@ -1,0 +1,27 @@
+"""PyTorch + CUDA port of the ``repro`` serving path for one NVIDIA H100.
+
+The JAX package ``repro`` stays the reference; this package keeps its
+own copies of what it needs and imports nothing of it. Slice 1 covers
+paged serving of ``gemma-7b``: configs, the paged-attention kernel
+(hand-written CUDA C++ for ``sm_90a``), the decoder layers, the paged
+KV pool, the scheduler and the continuous-batching engine.
+
+Entry points take ``device`` (default ``"cuda"``) and refuse to fall
+back to the CPU when no card is present; tests pass ``device="cpu"``,
+where every kernel's plain PyTorch version runs instead.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; raises when it names CUDA and
+    no card is visible, so an entry point never runs quietly on the
+    CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available in this process; pass device='cpu' "
+            "(--device cpu) to run the plain PyTorch path on the CPU")
+    return dev

@@ -1,0 +1,1 @@
+"""Model code of the port: the decoder layers and the paged-serving LM."""

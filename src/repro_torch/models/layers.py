@@ -1,0 +1,161 @@
+"""Layers of the paged serving path (``repro.models.layers``): RMSNorm,
+half-split RoPE, GQA projections, the GeGLU FFN and paged-KV attention.
+
+Norms, RoPE and softmax run in fp32 and cast back, as the reference
+does; projections run in the config's compute dtype. Parameters arrive
+already in that dtype (see ``lm.init_lm``). Parameter layouts are the
+reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo``
+(H, hd, d), ``wu``/``wg`` (d, f), ``wd`` (f, d).
+"""
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+
+# jax.nn.gelu defaults to the tanh approximation; torch's default is erf.
+_ACT = {
+    "gelu": functools.partial(F.gelu, approximate="tanh"),
+    "silu": F.silu,
+}
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise NotImplementedError(
+            f"dtype {name!r}: the port's paged pool holds bfloat16 or "
+            f"float32; int8/int4 pools are the next serving slice")
+    return _DTYPES[name]
+
+
+def apply_norm(params, x, eps: float = 1e-6):
+    """RMSNorm ``x * rsqrt(mean(x^2) + eps) * scale`` in fp32 (no
+    ``1 + scale``)."""
+    x32 = x.float()
+    var = x32.pow(2).mean(-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps) * params["scale"].float()
+    return y.to(x.dtype)
+
+
+def apply_rope(x, positions, *, theta: float):
+    """Half-split rotary embedding. x: (B, S, H, D); positions: (B, S)."""
+    half = x.shape[-1] // 2
+    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.float()[..., None] * freqs           # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., :half], x32[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qkv(params, x, which: str):
+    """x: (B, S, d) @ w (d, heads, hd) -> (B, S, heads, hd)."""
+    w = params["w" + which]
+    d, nh, hd = w.shape
+    return (x @ w.reshape(d, nh * hd)).reshape(*x.shape[:-1], nh, hd)
+
+
+def apply_ffn(params, x, cfg: ModelConfig):
+    h = x @ params["wu"]
+    if cfg.glu:
+        h = _ACT[cfg.activation](x @ params["wg"]) * h
+    else:
+        h = _ACT[cfg.activation](h)
+    return h @ params["wd"]
+
+
+def gather_last(x, last_pos):
+    """Per-row slice x (B, S, d) at ``last_pos`` (B,) -> (B, 1, d)."""
+    rows = torch.arange(x.shape[0], device=x.device)
+    return x[rows, last_pos.to(x.device, torch.long)][:, None, :]
+
+
+# ---- paged KV cache -------------------------------------------------------- #
+def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page: int, *,
+                        n_layers: int = 1, device="cpu"):
+    """Physical page pools ``(n_layers, n_pages + 1, page, K, hd)``.
+
+    The trailing page (index ``n_pages``) is the trash page that absorbs
+    masked writes, so the scatter in :func:`paged_cache_insert` needs no
+    conditional.
+    """
+    dt = dtype_of(cfg.kv_cache_dtype)
+    shape = (n_layers, n_pages + 1, page, cfg.n_kv_heads, cfg.head_dim)
+    return {"kp": torch.zeros(shape, dtype=dt, device=device),
+            "vp": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid):
+    """Scatter C new tokens' K/V into their rows' pages, in place.
+
+    k_new/v_new: (B, C, K, hd); cache: one layer's ``kp``/``vp`` pools
+    (P1, page, K, hd). Token i of row b lands at logical position
+    ``pos[b] + i``; tokens at i >= n_valid[b], and positions whose page
+    is unmapped, go to the trash page. Unlike the reference, which
+    returns new arrays, the pools are updated in place (``index_copy_``)
+    and the same dict is returned.
+    """
+    P1, page = cache["kp"].shape[:2]
+    B, C = k_new.shape[:2]
+    npg = page_table.shape[1]
+    dev = k_new.device
+    ar = torch.arange(C, device=dev)
+    logical = pos.to(dev, torch.long).reshape(B, 1) + ar[None, :]
+    pg, off = logical // page, logical % page
+    phys = torch.gather(page_table.to(dev, torch.long), 1,
+                        pg.clamp(0, npg - 1))
+    ok = ar[None, :] < n_valid.to(dev, torch.long).reshape(B, 1)
+    ok &= (phys >= 0) & (pg < npg)
+    row = torch.where(ok, phys, P1 - 1)
+    idx = (row * page + off).reshape(B * C)
+    for name, new in (("kp", k_new), ("vp", v_new)):
+        pool = cache[name]
+        flat = pool.view(P1 * page, *pool.shape[2:])
+        flat.index_copy_(0, idx, new.reshape(B * C, *new.shape[2:])
+                         .to(pool.dtype))
+    return cache
+
+
+def paged_copy_pages(cache, src, dst):
+    """Copy pool pages ``src[i] -> dst[i]`` in place (the device half of
+    a copy-on-write); pools may be per-layer or layer-stacked."""
+    axis = 1 if cache["kp"].dim() == 5 else 0
+    for pool in cache.values():
+        s = torch.as_tensor(src, dtype=torch.long, device=pool.device)
+        d = torch.as_tensor(dst, dtype=torch.long, device=pool.device)
+        pool.index_copy_(axis, d, pool.index_select(axis, s))
+    return cache
+
+
+def attention_decode_paged(params, x, cfg: ModelConfig, cache, page_table,
+                           pos, n_valid, *, window=None):
+    """C-token attention against one layer's paged pool.
+
+    x: (B, C, d), the chunk program's mixed batch (decode rows feed one
+    real token, chunked-prefill rows up to C). The new K/V go into the
+    rows' pages first, then every query attends causally over exactly
+    its row's occupied pages. Returns (B, C, d).
+    """
+    B, C, _ = x.shape
+    q = _qkv(params, x, "q")
+    k_new = _qkv(params, x, "k")
+    v_new = _qkv(params, x, "v")
+    posm = (pos.to(x.device, torch.long).reshape(B, 1)
+            + torch.arange(C, device=x.device)[None, :])
+    q = apply_rope(q, posm, theta=cfg.rope_theta)
+    k_new = apply_rope(k_new, posm, theta=cfg.rope_theta)
+    paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid)
+    out = ops.paged_attention(q, cache["kp"], cache["vp"], page_table,
+                              pos=pos, n_valid=n_valid, window=window)
+    wo = params["wo"]
+    H, hd, d = wo.shape
+    return out.reshape(B, C, H * hd) @ wo.reshape(H * hd, d)

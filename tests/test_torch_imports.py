@@ -1,0 +1,93 @@
+"""The port stands alone: importing it (and ``chip_smoke``) loads
+neither JAX nor anything of the ``repro`` package, no source under
+``src/repro_torch`` names them, and an entry point left at its default
+device refuses to run where CUDA is absent instead of using the CPU."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_MODULES = [
+    "repro_torch",
+    "repro_torch.configs",
+    "repro_torch.kernels.build",
+    "repro_torch.kernels.ops",
+    "repro_torch.kernels.paged_attention",
+    "repro_torch.models.layers",
+    "repro_torch.models.lm",
+    "repro_torch.serve.cache",
+    "repro_torch.serve.engine",
+    "repro_torch.serve.metrics",
+    "repro_torch.serve.request",
+    "repro_torch.serve.scenarios",
+    "repro_torch.serve.scheduler",
+    "repro_torch.serve.slo",
+    "repro_torch.launch.serve",
+]
+
+
+def test_import_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}: importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or "
+        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=f"{ROOT / 'src'}{os.pathsep}{ROOT}")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "BAD []"
+
+
+_FORBIDDEN = re.compile(
+    r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b(?!_torch)"
+    r"|from\s+repro(\.|\s+import\b))", re.M)
+
+
+def test_sources_name_no_jax_or_repro_import():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 15
+    for f in files:
+        hits = _FORBIDDEN.findall(f.read_text())
+        assert not hits, f"{f}: {hits}"
+
+
+def test_default_device_refuses_without_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("gemma-7b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lm.init_lm(cfg)
+    params = lm.init_lm(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Engine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "gemma-7b", "--tokens", "1", "--batch", "1"])
+
+
+def test_chip_smoke_fails_without_cuda(tmp_path):
+    """Run where CUDA is absent, and alone in an empty directory, the
+    smoke script exits non-zero and prints no result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, env=env,
+                         timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
+    lone = tmp_path / "chip_smoke.py"
+    lone.write_text((ROOT / "chip_smoke.py").read_text())
+    out = subprocess.run([sys.executable, str(lone)], capture_output=True,
+                         text=True, env=env, cwd=tmp_path, timeout=120)
+    assert out.returncode != 0 and '"ok"' not in out.stdout
