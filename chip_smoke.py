@@ -10,15 +10,27 @@ and prints no result):
    CUDA kernel of the port from ``src/repro_torch/kernels/csrc`` (one
    ``nvcc`` per source, all started together);
 2. kernels: holds each kernel against its plain PyTorch version on the
-   card at the serving path's shapes, and times the kernel, the plain
-   version, one PyTorch library call computing the same function, and
-   the least time the card could take (its bound);
-3. serve: full-width gemma-7b (28 layers, random bf16 weights from a
+   card at the shapes its path gives it (paged attention at the serving
+   chunk's, flash attention forward and backward at the train step's
+   and at edge cases), and times the kernel, the plain version, one
+   PyTorch library call computing the same function, and the least
+   time the card could take (its bound);
+3. checks: reduced gemma-7b in fp32 on the card against the CPU's
+   plain path, serving (logits and greedy tokens) and training (the
+   loss of 3 steps from the same weights and batches);
+4. serve: full-width gemma-7b (28 layers, random bf16 weights from a
    seed) serves 8 ragged requests offline through the port's engine;
    the kernel's launch counter, zeroed just before, must show it ran
    in every layer of every chunk step, and a second run must give the
-   same tokens. A reduced gemma-7b checks the same path on the card
-   against the CPU's plain path.
+   same tokens;
+5. train: full-width gemma-7b cut to 8 layers (fp32 masters, gradients
+   and Adam moments, bf16 compute, remat) takes 4 steps of batch 4 x
+   2048 tokens through ``Trainer.fit`` and one eval; the flash kernels'
+   counters, zeroed just before, must show every layer's attention went
+   through them (forward twice per layer per step, with the remat
+   recompute, and once per layer per eval batch; backward once per
+   layer per step), and a second run from the same seed must give the
+   same losses.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -39,7 +51,12 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data.pipeline import (  # noqa: E402
+    synthetic_eval_set,
+    synthetic_lm_batches,
+)
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
@@ -48,6 +65,9 @@ from repro_torch.serve.engine import (  # noqa: E402
     synthetic_requests,
 )
 from repro_torch.serve.scenarios import run_offline  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.train.hooks import Hook  # noqa: E402
+from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM data sheet: HBM rate and dense peaks by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -55,6 +75,8 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # abs and rel
 PROMPT_LENS = (5, 128, 17, 96, 33, 64, 120, 9)  # ragged, in 5..128
 NEW_TOKENS = 32
+TRAIN_LAYERS = 8  # 16 B/param of state: 28 layers need 137 GB, 8 take 48
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
 
 
 def phase(name: str) -> None:
@@ -225,7 +247,151 @@ def check_kernel():
 
 
 # --------------------------------------------------------------------------- #
-# Phase 3: serve.
+# Phase 2b: flash attention forward and backward vs plain.
+# --------------------------------------------------------------------------- #
+FLASH_CASES = [  # name, B, Sq, Sk, H, K, D, causal, window, q_off, k_off
+    ("train", 2, 2048, 2048, 16, 16, 256, True, None, 0, 0),
+    ("ragged", 2, 300, 437, 4, 4, 128, True, None, 137, 0),
+    ("bidir", 1, 300, 437, 4, 4, 128, False, None, 0, 0),
+    ("window64", 1, 512, 512, 8, 8, 64, True, 64, 0, 0),
+    ("koff-37", 1, 128, 165, 2, 2, 64, True, 40, 0, -37),
+    ("gqa8/2", 2, 256, 256, 8, 2, 128, True, None, 0, 0),
+]
+
+
+def flash_inputs(seed, B, Sq, Sk, H, K, D, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return randn(B, Sq, H, D), randn(B, Sk, K, D), randn(B, Sk, K, D), \
+        randn(B, Sq, H, D)
+
+
+def flash_work(B, Sq, Sk, H, D, opts):
+    """Operations of one forward and one backward on these inputs: 4 * D
+    flops per visible query-key pair and head forward (two products),
+    10 * D backward (S recomputed, dP, dV, dK, dQ)."""
+    pairs = int(fa.visible_mask(Sq, Sk, **opts).sum())
+    return 4 * D * pairs * B * H, 10 * D * pairs * B * H
+
+
+def bound(flops, nbytes, dtype):
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_flash():
+    phase("kernels: flash_attention forward and backward vs plain PyTorch")
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        tol = TOL[dtype]
+        for i, (name, B, Sq, Sk, H, K, D, causal, window, qo, ko) in \
+                enumerate(FLASH_CASES):
+            opts = dict(causal=causal, window=window, q_offset=qo,
+                        k_offset=ko)
+            q, k, v, do = flash_inputs(i, B, Sq, Sk, H, K, D, dtype)
+            out, lse = fa.flash_attention_fwd_cuda(q, k, v, **opts)
+            dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do,
+                                                     **opts)
+            torch.cuda.synchronize()
+            qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+            want = fa.flash_attention_torch(qp, kp, vp, **opts)
+            want.backward(do)
+            rows = fa.visible_mask(Sq, Sk, device="cuda", **opts).any(1)
+            line = []
+            for label, got, ref in (("out", out[:, rows], want[:, rows]),
+                                    ("dq", dq[:, rows], qp.grad[:, rows]),
+                                    ("dk", dk, kp.grad), ("dv", dv, vp.grad)):
+                g, w = got.float(), ref.float()
+                err = (g - w).abs().max().item()
+                if not (torch.isfinite(g).all()
+                        and torch.allclose(g, w, rtol=tol, atol=tol)):
+                    raise AssertionError(
+                        f"flash_attention {name} {dtype} {label}: kernel != "
+                        f"plain, max |diff| {err} > {tol}")
+                if name == "train" and dtype == torch.bfloat16:
+                    key = "fwd" if label == "out" else "bwd"
+                    errs[key] = max(errs[key], err)
+                line.append(f"{label} {err:.2e}")
+            if not (out[:, ~rows] == 0).all():
+                raise AssertionError(f"flash_attention {name}: rows with no "
+                                     f"visible key are not 0")
+            print(f"  {name:9s} {str(dtype):15s} max|kernel-plain| "
+                  f"{', '.join(line)} (tol {tol:g}) ok", flush=True)
+            del q, k, v, do, out, lse, dq, dk, dv, qp, kp, vp, want
+    torch.cuda.empty_cache()
+
+    # Timing at the train step's shape: B 4, S 2048, 16 heads of 256.
+    B, S, H, D, dtype = TRAIN_BATCH, TRAIN_SEQ, 16, 256, torch.bfloat16
+    opts = dict(causal=True, window=None, q_offset=0, k_offset=0)
+    q, k, v, do = flash_inputs(99, B, S, S, H, H, D, dtype)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    fwd_flops, bwd_flops = flash_work(B, S, S, H, D, opts)
+    # Each input read once, each output written once. Forward: q, k, v
+    # in; out and the fp32 lse out. Backward: q, k, v, out, dout and lse
+    # in; dq, dk, dv out.
+    one = B * S * H * D * q.element_size()
+    fwd_bytes = 4 * one + B * H * S * 4
+    bwd_bytes = 8 * one + B * H * S * 4
+    qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+    plain_out = fa.flash_attention_torch(qp, kp, vp)
+    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
+                  for t in (q, k, v))
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True)
+
+    sdpa_out = sdpa()
+    do_s = do.transpose(1, 2)
+    times = dict(
+        fwd=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v)),
+        bwd=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse,
+                                                        do)),
+        plain_fwd=time_ms(lambda: fa.flash_attention_torch(q, k, v), 10),
+        plain_bwd=time_ms(lambda: torch.autograd.grad(
+            plain_out, (qp, kp, vp), do, retain_graph=True), 10),
+        sdpa_fwd=time_ms(lambda: sdpa().detach()),
+        sdpa_bwd=time_ms(lambda: torch.autograd.grad(
+            sdpa_out, (qs, ks, vs), do_s, retain_graph=True)),
+    )
+    times["sdpa_fwd_bwd"] = time_ms(lambda: torch.autograd.grad(
+        sdpa(), (qs, ks, vs), do_s))
+    fwd_b, fwd_by = bound(fwd_flops, fwd_bytes, dtype)
+    bwd_b, bwd_by = bound(bwd_flops, bwd_bytes, dtype)
+    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    recs = [
+        dict(name="flash_attention_fwd", route="cuda", source=src,
+             replaces="src/repro/kernels/flash_attention.py:102",
+             max_abs_err=errs["fwd"], ms=times["fwd"],
+             plain_ms=times["plain_fwd"], bound_ms=fwd_b, bound_by=fwd_by,
+             library_ms=times["sdpa_fwd"]),
+        dict(name="flash_attention_bwd", route="cuda", source=src,
+             replaces="src/repro/kernels/flash_attention.py:102",
+             max_abs_err=errs["bwd"], ms=times["bwd"],
+             plain_ms=times["plain_bwd"], bound_ms=bwd_b, bound_by=bwd_by,
+             library_ms=times["sdpa_bwd"]),
+    ]
+    print(f"  timing B{B} S{S} H{H} D{D} bf16 causal: forward kernel "
+          f"{times['fwd']:.4f} ms (bound {fwd_b:.4f}, {fwd_by}: "
+          f"{fwd_flops} flop, {fwd_bytes} B), plain {times['plain_fwd']:.4f}"
+          f" ms, sdpa {times['sdpa_fwd']:.4f} ms; backward kernels "
+          f"{times['bwd']:.4f} ms (bound {bwd_b:.4f}, {bwd_by}: {bwd_flops} "
+          f"flop, {bwd_bytes} B), plain {times['plain_bwd']:.4f} ms, sdpa "
+          f"{times['sdpa_bwd']:.4f} ms; sdpa forward+backward "
+          f"{times['sdpa_fwd_bwd']:.4f} ms", flush=True)
+    del q, k, v, do, out, lse, qp, kp, vp, plain_out, qs, ks, vs, sdpa_out
+    torch.cuda.empty_cache()
+    return recs
+
+
+# --------------------------------------------------------------------------- #
+# Phase 4: serve.
 # --------------------------------------------------------------------------- #
 def tokens_of(report):
     return [r.tokens for r in sorted(report.requests, key=lambda r: r.id)]
@@ -238,7 +404,7 @@ def serve_full():
     params = lm.init_lm(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     print(f"  init {cfg.n_layers} layers, d_model {cfg.d_model}, "
-          f"{sum(p.numel() for p in iter_tensors(params)) / 1e9:.2f} B "
+          f"{sum(p.numel() for p in tree_leaves(params)) / 1e9:.2f} B "
           f"params in {time.perf_counter() - t0:.1f} s", flush=True)
     scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
                        page_size=16, prefill_chunk=8)
@@ -316,17 +482,6 @@ def serve_full():
     return launches
 
 
-def iter_tensors(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from iter_tensors(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from iter_tensors(v)
-    else:
-        yield tree
-
-
 def reduced_vs_cpu():
     """Reduced gemma-7b in fp32: the card's path (kernel) against the
     CPU's (plain attention) on the same weights: logits of one mixed
@@ -336,7 +491,7 @@ def reduced_vs_cpu():
                               dtype="float32", kv_cache_dtype="float32",
                               n_layers=2)
     cpu = lm.init_lm(cfg, 0, device="cpu")
-    gpu = _to(cpu, "cuda")
+    gpu = tree_map(lambda t: t.to("cuda"), cpu)
     toks = torch.randint(0, cfg.vocab, (3, 4),
                          generator=torch.Generator().manual_seed(0))
     pt = torch.tensor([[7, -1, -1, -1], [2, 9, -1, -1], [-1, -1, -1, -1]],
@@ -369,12 +524,153 @@ def reduced_vs_cpu():
     print("  greedy tokens identical card vs CPU (5 ragged requests)")
 
 
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_to(v, dev) for v in tree]
-    return tree.to(dev)
+def reduced_train_vs_cpu():
+    """Reduced gemma-7b in fp32: 3 train steps on the card (flash
+    kernels, cuBLAS) and on the CPU (plain attention) from the same
+    weights and batches. The losses agree within rtol 1e-4: both sides
+    compute in fp32, and differ only in the order of their sums (the
+    kernels' online softmax, cuBLAS against the CPU's BLAS)."""
+    phase("check: reduced gemma-7b training, card vs CPU plain path, fp32")
+    cfg = dataclasses.replace(get_config("gemma-7b").reduced(),
+                              dtype="float32", n_layers=2)
+    init = lm.init_lm(cfg, 0, device="cpu", dtype=torch.float32)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), init)
+        tr = Trainer(cfg, TrainerConfig(total_steps=3, log_every=0),
+                     device=dev, params=params)
+        hist = tr.fit(synthetic_lm_batches(cfg, batch=4, seq=64, steps=3))
+        losses[dev] = [r["loss"] for r in hist]
+    print(f"  losses cpu {losses['cpu']}\n  losses card {losses['cuda']}")
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0):
+        raise AssertionError(f"reduced train losses differ card vs CPU: "
+                             f"{losses}")
+
+
+class SyncEveryStep(Hook):
+    """Makes ``fit`` wait for the card after each step, so that
+    ``step_ms`` is the step's time on the card."""
+
+    needs_sync = True
+
+
+def full_train_config():
+    return dataclasses.replace(get_config("gemma-7b"),
+                               n_layers=TRAIN_LAYERS)
+
+
+def run_trainer(cfg, steps):
+    """A fresh trainer (weights from seed 0) fitted for ``steps`` steps of
+    ``synthetic_lm_batches(seed=0)``; returns (trainer, history)."""
+    tr = Trainer(cfg, TrainerConfig(total_steps=steps, log_every=1),
+                 device="cuda")
+    hist = tr.fit(synthetic_lm_batches(cfg, batch=TRAIN_BATCH,
+                                       seq=TRAIN_SEQ, steps=steps, seed=0),
+                  hooks=tr.default_hooks() + [SyncEveryStep()])
+    return tr, hist
+
+
+def kernel_kind(name: str) -> str:
+    """Coarse class of a kernel, from its name."""
+    for kind, marks in (("flash", ("flash_",)),
+                        ("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")),
+                        ("copy/cast", ("direct_copy", "copy_kernel")),
+                        ("reduction", ("reduce_kernel", "softmax", "logsumexp")),
+                        ("elementwise", ("elementwise",))):
+        if any(m in name for m in marks):
+            return kind
+    return "other"
+
+
+def train_full():
+    phase(f"train: gemma-7b full width, {TRAIN_LAYERS} layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, fp32 masters, bf16 compute, remat")
+    cfg = full_train_config()
+    if not cfg.remat:
+        raise AssertionError("the full config trains with remat")
+    eval_fn = synthetic_eval_set(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+    n_eval = sum(1 for _ in eval_fn())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fa.flash_attention_fwd_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.launches = 0
+    tr, hist = run_trainer(cfg, TRAIN_STEPS)
+    ev = tr.evaluate(eval_fn)
+    torch.cuda.synchronize()
+    launches = (fa.flash_attention_fwd_cuda.launches,
+                fa.flash_attention_bwd_cuda.launches)
+    wall = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(tr.state["params"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in hist]
+    print(f"  {n_params / 1e9:.3f} B params; {TRAIN_STEPS} steps + eval "
+          f"({n_eval} batches) in {wall:.1f} s; losses {losses}; eval_nll "
+          f"{ev['eval_nll']:.4f}; peak memory {peak:.2f} GiB", flush=True)
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)) \
+            or not np.isfinite(ev["eval_nll"]):
+        raise AssertionError(f"non-finite or missing losses: {hist}, {ev}")
+    want = (2 * cfg.n_layers * TRAIN_STEPS + cfg.n_layers * n_eval,
+            cfg.n_layers * TRAIN_STEPS)
+    print(f"  flash launches: forward {launches[0]}, backward {launches[1]} "
+          f"(expected {want[0]}, {want[1]})", flush=True)
+    if launches != want:
+        raise AssertionError(f"flash kernel launches {launches} != {want}")
+    step_ms = float(np.median([r["step_ms"] for r in hist[1:]]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    print(f"  step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}: "
+          f"{[round(r['step_ms'], 1) for r in hist]}), {tok_s:.0f} tokens/s",
+          flush=True)
+
+    # One more step, traced: where the card's time goes.
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {"tokens": torch.from_numpy(next(iter(synthetic_lm_batches(
+        cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, steps=1, seed=7)))["tokens"]
+    ).cuda()}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.state, _ = tr._train_step(tr.state, batch)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    flash_ms = sum(e.self_device_time_total for e in kernels
+                   if "flash_" in e.key) / 1e3
+    print(f"  traced step: {sum(e.count for e in kernels)} kernels, device "
+          f"busy {busy_ms:.1f} ms = {100 * busy_ms / step_ms:.1f}% of the "
+          f"untraced step's {step_ms:.1f} ms; flash kernels {flash_ms:.1f} "
+          f"ms = {100 * flash_ms / busy_ms:.1f}% of device time; top "
+          f"kernels:", flush=True)
+    for e in kernels[:12]:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
+              f"{e.key[:100]}")
+    by_kind = {}
+    for e in kernels:
+        kind = kernel_kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + e.self_device_time_total / 1e3
+    print("  device time by kind: " + ", ".join(
+        f"{k} {v:.1f} ms ({100 * v / busy_ms:.1f}%)"
+        for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        flush=True)
+    summary = dict(step_ms=step_ms, tokens_per_s=tok_s, peak_mem_gib=peak,
+                   losses=losses, eval_nll=ev["eval_nll"],
+                   device_busy_ms=busy_ms, flash_ms=flash_ms,
+                   by_kind_ms=by_kind, n_params=n_params)
+    print(f"  train summary {json.dumps(summary)}", flush=True)
+    del tr, batch, prof
+    torch.cuda.empty_cache()
+
+    # The same seed again, 2 steps: the same losses.
+    tr, again = run_trainer(cfg, 2)
+    again = [r["loss"] for r in again]
+    del tr
+    torch.cuda.empty_cache()
+    same = again == losses[:2]
+    print(f"  second run, 2 steps: losses {again} "
+          f"({'bitwise equal' if same else 'not bitwise equal'})", flush=True)
+    if not np.allclose(again, losses[:2], rtol=1e-5, atol=0):
+        raise AssertionError(f"a second run differs: {again} vs {losses[:2]}")
+    return launches
 
 
 def main() -> int:
@@ -398,13 +694,15 @@ def main() -> int:
     print(f"  built {sorted(build.sources())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    rec = check_kernel()
+    recs = [check_kernel(), *check_flash()]
     reduced_vs_cpu()
-    rec["launches"] = serve_full()
+    reduced_train_vs_cpu()
+    recs[0]["launches"] = serve_full()
+    recs[1]["launches"], recs[2]["launches"] = train_full()
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)
-    print(json.dumps({"kernels": [{k: rec[k] for k in keys}]}))
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,13 @@
-"""PyTorch + CUDA port of the ``repro`` serving path for one NVIDIA H100.
+"""PyTorch + CUDA port of ``repro`` for one NVIDIA H100.
 
 The JAX package ``repro`` stays the reference; this package keeps its
 own copies of what it needs and imports nothing of it. Slice 1 covers
 paged serving of ``gemma-7b``: configs, the paged-attention kernel
 (hand-written CUDA C++ for ``sm_90a``), the decoder layers, the paged
-KV pool, the scheduler and the continuous-batching engine.
+KV pool, the scheduler and the continuous-batching engine. Slice 2
+trains it: the flash-attention forward and backward kernels, the
+full-sequence forward with remat and chunked loss, Adam under a cosine
+warmup, the train and eval steps, the ``Trainer`` and its CLI.
 
 Entry points take ``device`` (default ``"cuda"``) and refuse to fall
 back to the CPU when no card is present; tests pass ``device="cpu"``,

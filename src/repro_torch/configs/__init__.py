@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-Slice 1 of the port serves ``gemma-7b`` only; the other architectures
-of the JAX package are known by name and refused until their slice.
+The port covers ``gemma-7b`` only (serving and training); the other
+architectures of the JAX package are known by name and refused until
+their slice.
 """
 from __future__ import annotations
 
@@ -36,8 +37,8 @@ def get_config(arch: str) -> ModelConfig:
     for arch_id, module in _NOT_PORTED.items():
         if arch in (arch_id, module):
             raise NotImplementedError(
-                f"arch {arch_id!r} is not ported yet: slice 1 of the "
-                f"PyTorch port serves gemma-7b only (see ROADMAP.md)")
+                f"arch {arch_id!r} is not ported yet: the PyTorch port "
+                f"covers gemma-7b only (see ROADMAP.md)")
     if arch not in _PORTED:
         raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
     return _PORTED[arch]

@@ -1,7 +1,7 @@
 """Model config for the port: the ``repro.configs.base`` fields that
-the paged serving path reads, with the same names, defaults and
-``reduced()`` rule, so one architecture id builds the same model on
-both sides (tests compare every kept field)."""
+the paged serving path and the train step read, with the same names,
+defaults and ``reduced()`` rule, so one architecture id builds the same
+model on both sides (tests compare every kept field)."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,8 +31,14 @@ class ModelConfig:
     glu: bool = True
     tie_embeddings: bool = False
     block_pattern: Tuple[LayerSpec, ...] = ()
+    remat: bool = True                # recompute each layer in backward
+    loss_chunk: int = 256             # CE computed in seq chunks of this size
     dtype: str = "bfloat16"           # activation / compute dtype
+    param_dtype: str = "float32"      # master weights
     kv_cache_dtype: str = "bfloat16"  # paged pool dtype
+    grad_dtype: str = "float32"       # gradient summation dtype
+    moment_dtype: str = "float32"     # Adam moment dtype
+    microbatches: int = 1             # gradient-accumulation microbatches
 
     def __post_init__(self):
         if self.n_heads:
@@ -71,4 +77,6 @@ class ModelConfig:
             n_heads=n_heads,
             n_kv_heads=n_kv,
             head_dim=(d_model // n_heads) if n_heads else 0,
+            remat=False,
+            microbatches=1,
         )

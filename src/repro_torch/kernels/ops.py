@@ -6,7 +6,29 @@ sends CUDA tensors down the plain path.
 """
 from __future__ import annotations
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+
+
+def attention(q, k, v, *, causal=True, window=None, q_offset=0, k_offset=0,
+              scale=None):
+    """Multi-head (GQA) full-sequence attention
+    (``repro.kernels.ops.attention``), differentiable.
+
+    q: (B, Sq, H, D); k, v: (B, Sk, K, D). Softmax accumulators in
+    fp32; returns (B, Sq, H, D) in q's dtype. Offsets are the absolute
+    positions of q[0] and k[0] and must be Python ints, as the TPU
+    kernel requires; keys at negative positions are masked. CUDA
+    tensors go through the flash-attention kernels (forward and
+    backward), CPU tensors through their plain version.
+    """
+    for name, x in (("q_offset", q_offset), ("k_offset", k_offset)):
+        if not isinstance(x, int):
+            raise ValueError(f"attention: {name} must be a Python int")
+    impl = (_fa.flash_attention_cuda if q.device.type == "cuda"
+            else _fa.flash_attention_torch)
+    return impl(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                k_offset=k_offset, scale=scale)
 
 
 def paged_attention(q, kp, vp, page_table, *, pos, n_valid, window=None,

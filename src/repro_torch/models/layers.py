@@ -1,5 +1,6 @@
-"""Layers of the paged serving path (``repro.models.layers``): RMSNorm,
-half-split RoPE, GQA projections, the GeGLU FFN and paged-KV attention.
+"""Layers of the paged serving path and the train step
+(``repro.models.layers``): RMSNorm, half-split RoPE, GQA projections,
+the GeGLU FFN, full-sequence attention and paged-KV attention.
 
 Norms, RoPE and softmax run in fp32 and cast back, as the reference
 does; projections run in the config's compute dtype. Parameters arrive
@@ -81,7 +82,7 @@ def gather_last(x, last_pos):
 
 # ---- paged KV cache -------------------------------------------------------- #
 def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page: int, *,
-                        n_layers: int = 1, device="cpu"):
+                        n_layers: int = 1, device):
     """Physical page pools ``(n_layers, n_pages + 1, page, K, hd)``.
 
     The trailing page (index ``n_pages``) is the trash page that absorbs
@@ -134,6 +135,24 @@ def paged_copy_pages(cache, src, dst):
         d = torch.as_tensor(dst, dtype=torch.long, device=pool.device)
         pool.index_copy_(axis, d, pool.index_select(axis, s))
     return cache
+
+
+def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
+                   causal=True):
+    """Full-sequence self-attention (train / prefill).
+
+    x: (B, S, d); positions: (B, S) RoPE positions. Returns (out (B, S,
+    d), (k, v)), k/v (B, S, K, hd) in the compute dtype, as the
+    reference returns them for cache construction.
+    """
+    B, S, _ = x.shape
+    q = apply_rope(_qkv(params, x, "q"), positions, theta=cfg.rope_theta)
+    k = apply_rope(_qkv(params, x, "k"), positions, theta=cfg.rope_theta)
+    v = _qkv(params, x, "v")
+    out = ops.attention(q, k, v, causal=causal, window=window)
+    wo = params["wo"]
+    H, hd, d = wo.shape
+    return out.reshape(B, S, H * hd) @ wo.reshape(H * hd, d), (k, v)
 
 
 def attention_decode_paged(params, x, cfg: ModelConfig, cache, page_table,

@@ -1,13 +1,17 @@
-"""Decoder-only LM for paged serving (``repro.models.lm``): weights,
-embedding, tied head, the paged cache and the chunk program.
+"""Decoder-only LM (``repro.models.lm``): weights, embedding, tied
+head, the full-sequence forward and chunked loss of the train step, the
+paged cache and the serving chunk program.
 
 The reference stacks layer weights on a leading axis and scans over
 them; here ``params["layers"]`` is a list walked by a Python loop.
 
 Stored dtype: the reference keeps fp32 master weights and casts them to
 the compute dtype (bf16) at every use. Serving never updates weights,
-so the port stores them in the compute dtype once; the values the
-matrix products see are the same.
+so the port stores them in the compute dtype once; training keeps fp32
+masters (``init_lm(dtype=torch.float32)``) and casts them once per step
+(``optim.precision.compute_cast``). Either way the layers receive
+weights already in the compute dtype, and the values the matrix
+products see are the reference's.
 """
 from __future__ import annotations
 
@@ -15,10 +19,12 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.utils import tree_map
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -26,8 +32,8 @@ def _check_supported(cfg: ModelConfig) -> None:
             or any((s.mixer, s.ffn) != ("attn", "dense")
                    for s in cfg.block_pattern)):
         raise NotImplementedError(
-            f"{cfg.name}: slice 1 of the port serves dense attention "
-            f"stacks with tied embeddings (gemma-7b) only")
+            f"{cfg.name}: the port runs dense attention stacks with "
+            f"tied embeddings (gemma-7b) only")
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
@@ -90,17 +96,12 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     def conv(a):
         return torch.tensor(np.asarray(a, np.float32)).to(dev, dt)
 
-    def tree_map(node, fn):
-        if isinstance(node, dict):
-            return {k: tree_map(v, fn) for k, v in node.items()}
-        return fn(node)
-
     (stacked,) = tree["blocks"]
     return {
         "embed": conv(tree["embed"]),
-        "layers": [tree_map(stacked, lambda a, i=i: conv(np.asarray(a)[i]))
+        "layers": [tree_map(lambda a, i=i: conv(np.asarray(a)[i]), stacked)
                    for i in range(cfg.n_layers)],
-        "final_norm": tree_map(tree["final_norm"], conv),
+        "final_norm": tree_map(conv, tree["final_norm"]),
     }
 
 
@@ -111,6 +112,95 @@ def _embed(params, tokens):
 def _head(params, x):
     """Tied output projection: x (B, S, d) @ embed^T -> (B, S, vocab)."""
     return x @ params["embed"].T
+
+
+def _positions(B: int, S: int, device):
+    """RoPE positions 0..S-1 for every row, (B, S)."""
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def _apply_block_full(cfg: ModelConfig, lp, x, positions, window=None):
+    """One decoder layer over the full sequence: pre-norm attention,
+    then the pre-norm dense FFN, each added to the residual stream."""
+    h = L.apply_norm(lp["norm1"], x)
+    y, _ = L.attention_full(lp["mixer"], h, cfg, positions=positions,
+                            window=window)
+    x = x + y
+    h = L.apply_norm(lp["norm2"], x)
+    return x + L.apply_ffn(lp["ffn"], h, cfg)
+
+
+def forward_hidden(params, cfg: ModelConfig, tokens, *, window=None):
+    """Full-sequence forward up to the final norm (no output projection).
+
+    tokens: (B, S). Returns hidden (B, S, d). With ``cfg.remat`` each
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant): only
+    its input is kept, and the backward recomputes the layer, as the
+    reference's ``jax.checkpoint`` over the scanned block does.
+    """
+    x = _embed(params, tokens)
+    B, S, _ = x.shape
+    positions = _positions(B, S, x.device)
+    for lp in params["layers"]:
+        if cfg.remat:
+            # Nothing random runs inside a layer: no RNG state to stash.
+            x = checkpoint(_apply_block_full, cfg, lp, x, positions, window,
+                           use_reentrant=False, preserve_rng_state=False)
+        else:
+            x = _apply_block_full(cfg, lp, x, positions, window)
+    return L.apply_norm(params["final_norm"], x)
+
+
+def forward(params, cfg: ModelConfig, tokens, *, window=None):
+    """Full-sequence forward. Returns logits (B, S, vocab)."""
+    return _head(params, forward_hidden(params, cfg, tokens, window=window))
+
+
+def _ce_chunk(params, h, targets):
+    """Summed next-token NLL of one chunk: (B, c, d), (B, c) -> (B,),
+    from fp32 logits of the tied head."""
+    lg = _head(params, h).float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+    return (logz - gold).sum(-1)
+
+
+def _chunked_ce(params, cfg: ModelConfig, hidden, targets):
+    """Per-example summed cross entropy, in sequence chunks of
+    ``cfg.loss_chunk``, each checkpointed so that no chunk's (B, c,
+    vocab) fp32 logits stay alive for the backward: it recomputes them.
+
+    hidden: (B, S, d) aligned with targets (B, S). Returns (B,) fp32.
+    """
+    B, S, _ = hidden.shape
+    c = min(cfg.loss_chunk, S)
+    targets = targets.to(hidden.device, torch.long)
+    acc = torch.zeros(B, dtype=torch.float32, device=hidden.device)
+    for s0 in range(0, S, c):
+        acc = acc + checkpoint(_ce_chunk, params, hidden[:, s0:s0 + c],
+                               targets[:, s0:s0 + c],
+                               use_reentrant=False, preserve_rng_state=False)
+    return acc
+
+
+def per_example_nll(params, cfg: ModelConfig, batch):
+    """(mean next-token nll per example (B,), aux 0.0) for masked
+    distributed eval (C4)."""
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    hidden = forward_hidden(params, cfg, tokens)
+    tgt = tokens[:, 1:]
+    nll_sum = _chunked_ce(params, cfg, hidden[:, :-1], tgt)
+    return nll_sum / tgt.shape[1], 0.0
+
+
+def loss_fn(params, cfg: ModelConfig, batch):
+    """Next-token cross entropy in fp32 (no MoE aux term in a dense
+    stack). batch: {"tokens": (B, S) int}. Returns (loss, {"nll",
+    "aux"})."""
+    nll_ex, aux = per_example_nll(params, cfg, batch)
+    nll = nll_ex.mean()
+    return nll, {"nll": nll, "aux": aux}
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page: int, *,

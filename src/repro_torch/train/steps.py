@@ -1,0 +1,123 @@
+"""Train and eval step builders (``repro.train.steps``) for one device.
+
+The reference's steps are pure functions that XLA compiles and shards;
+here they run eagerly. ``train_step(state, batch)`` computes the loss
+of the bf16 compute copy of the fp32 masters (C7), its gradient through
+autograd (the attention gradient through the flash backward kernel on
+the card), casts the gradient to ``grad_dtype``, and applies the
+optimizer, which updates ``state`` in place and returns it.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Sequence
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+from repro_torch.optim import Optimizer, adam, compute_cast, cosine_warmup
+from repro_torch.utils import tree_leaves
+
+# Metric names make_train_step can add to its metrics dict
+# (TrainerConfig.metrics).
+EXTRA_METRICS = ("grad_norm", "param_norm")
+
+
+def make_optimizer(cfg: ModelConfig, total_steps: int = 10_000) -> Optimizer:
+    """Default optimizer: Adam with a cosine schedule (the paper's
+    Transformer choice, with tuned betas for large batch)."""
+    return adam(
+        cosine_warmup(3e-4, min(1000, total_steps // 10), total_steps),
+        b1=0.9, b2=0.95, eps=1e-8,
+        moment_dtype=cfg.moment_dtype,
+    )
+
+
+def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *, seed=0,
+                     device="cuda", params=None) -> Dict:
+    """{"params": fp32 masters, "opt": optimizer state}. ``params``
+    takes a tree already on the device (e.g. the weight bridge's);
+    otherwise :func:`lm.init_lm` draws it from a seeded generator."""
+    if params is None:
+        params = lm.init_lm(cfg, seed, device=device,
+                            dtype=getattr(torch, cfg.param_dtype))
+    return {"params": params, "opt": optimizer.init(params)}
+
+
+def _global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """L2 norm over every leaf, in fp32."""
+    return torch.sqrt(sum(g.float().square().sum() for g in leaves))
+
+
+def _value_and_grad(cfg: ModelConfig, params, batch):
+    """(loss, metrics, gradient leaves in ``grad_dtype``) of
+    ``lm.loss_fn`` at the compute copy of ``params``."""
+    leaves = tree_leaves(params)
+    with torch.enable_grad():
+        for w in leaves:
+            w.requires_grad_(True)
+        loss, metrics = lm.loss_fn(compute_cast(params, cfg.dtype), cfg,
+                                   batch)
+        grads = torch.autograd.grad(loss, leaves)
+    gdt = getattr(torch, cfg.grad_dtype)
+    return (loss.detach(), metrics["nll"].detach(),
+            [g.to(gdt) for g in grads])
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
+                    extra_metrics=()) -> Callable:
+    """``train_step(state, batch) -> (state, metrics)``; metrics are
+    0-d device tensors {"loss", "nll"} plus any of ``EXTRA_METRICS``.
+    With ``cfg.microbatches`` M > 1 the batch splits into M row blocks
+    whose gradients are summed in ``grad_dtype`` and divided by M."""
+    M = cfg.microbatches
+    unknown = [m for m in extra_metrics if m not in EXTRA_METRICS]
+    if unknown:
+        raise ValueError(
+            f"unknown extra metric(s) {unknown}; supported: {EXTRA_METRICS}")
+
+    def train_step(state, batch):
+        params, opt_state = state["params"], state["opt"]
+        if M > 1:
+            b = batch["tokens"].shape[0] // M
+            grads: List[torch.Tensor] = []
+            losses, nlls = [], []
+            for i in range(M):
+                mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+                mb_loss, nll, g = _value_and_grad(cfg, params, mb)
+                if grads:
+                    for acc, x in zip(grads, g):
+                        acc.add_(x)
+                else:
+                    grads = g
+                losses.append(mb_loss)
+                nlls.append(nll)
+            for g in grads:
+                g.div_(M)
+            loss = sum(losses) / M  # summed in order, as the reference
+            nll = torch.stack(nlls).mean()
+        else:
+            loss, nll, grads = _value_and_grad(cfg, params, batch)
+        metrics = {"loss": loss, "nll": nll}
+        if "grad_norm" in extra_metrics:
+            metrics["grad_norm"] = _global_norm(grads)
+        new_params, new_opt = optimizer.update(grads, opt_state, params)
+        if "param_norm" in extra_metrics:
+            metrics["param_norm"] = _global_norm(tree_leaves(new_params))
+        return {"params": new_params, "opt": new_opt}, metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: ModelConfig) -> Callable:
+    """Distributed eval (C4): ``eval_step(params, batch, mask)`` returns
+    (sum of per-example nll over real examples, their count)."""
+
+    @torch.no_grad()
+    def eval_step(params, batch, mask):
+        nll_ex, _ = lm.per_example_nll(compute_cast(params, cfg.dtype), cfg,
+                                       batch)
+        mask = mask.to(nll_ex.device)
+        return (nll_ex * mask).sum(), mask.sum()
+
+    return eval_step

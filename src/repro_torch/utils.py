@@ -1,0 +1,25 @@
+"""Parameter trees of the port: nested dicts and lists with tensors at
+the leaves (the JAX package's pytrees)."""
+from __future__ import annotations
+
+from typing import Any, Callable, List
+
+
+def tree_map(fn: Callable, *trees) -> Any:
+    """``fn`` over the leaves of trees of one structure."""
+    head = trees[0]
+    if isinstance(head, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in head}
+    if isinstance(head, (list, tuple)):
+        return type(head)(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def tree_leaves(tree) -> List[Any]:
+    """Leaves in a fixed order: dict keys sorted, as ``jax.tree_util``
+    flattens, so leaf lists of two trees of one structure line up."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]

@@ -15,11 +15,18 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "repro_torch",
     "repro_torch.configs",
+    "repro_torch.core.distributed_eval",
+    "repro_torch.data.pipeline",
     "repro_torch.kernels.build",
+    "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_attention",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
+    "repro_torch.optim",
+    "repro_torch.optim.adam",
+    "repro_torch.optim.precision",
+    "repro_torch.optim.schedules",
     "repro_torch.serve.cache",
     "repro_torch.serve.engine",
     "repro_torch.serve.metrics",
@@ -28,6 +35,12 @@ PORT_MODULES = [
     "repro_torch.serve.scheduler",
     "repro_torch.serve.slo",
     "repro_torch.launch.serve",
+    "repro_torch.launch.train",
+    "repro_torch.train.hooks",
+    "repro_torch.train.steps",
+    "repro_torch.train.tracker",
+    "repro_torch.train.trainer",
+    "repro_torch.utils",
 ]
 
 
