@@ -11,18 +11,28 @@ and prints no result):
    ``nvcc`` per source, all started together);
 2. kernels: holds each kernel against its plain PyTorch version on the
    card at the shapes its path gives it (paged attention at the serving
-   chunk's, flash attention forward and backward at the train step's
+   chunk's, from bf16/fp32 pools and through its int8 and int4
+   branches, flash attention forward and backward at the train step's
    and at edge cases), and times the kernel, the plain version, one
    PyTorch library call computing the same function, and the least
    time the card could take (its bound);
 3. checks: reduced gemma-7b in fp32 on the card against the CPU's
-   plain path, serving (logits and greedy tokens) and training (the
+   plain path, serving (logits and greedy tokens; and from int8 and
+   int4 pools with the prefix cache and speculative decoding, which
+   must also equal the card's tokens with both off) and training (the
    loss of 3 steps from the same weights and batches);
 4. serve: full-width gemma-7b (28 layers, random bf16 weights from a
    seed) serves 8 ragged requests offline through the port's engine;
    the kernel's launch counter, zeroed just before, must show it ran
    in every layer of every chunk step, and a second run must give the
-   same tokens;
+   same tokens. Then the same model serves a server-scenario stream of
+   shared-prefix requests from an int8 pool with the prefix cache and
+   n-gram speculative decoding (the int8 branch must run in every layer
+   of every chunk step, the cache must hit, drafts must be proposed, a
+   second run must repeat, a replay drafter must get drafts accepted),
+   beside the same stream from a bf16 pool for comparison, and then
+   offline from an int4 pool (the int4 branch in every layer of every
+   chunk step);
 5. train: full-width gemma-7b cut to 8 layers (fp32 masters, gradients
    and Adam moments, bf16 compute, remat) takes 4 steps of batch 4 x
    2048 tokens through ``Trainer.fit`` and one eval; the flash kernels'
@@ -58,13 +68,15 @@ from repro_torch.data.pipeline import (  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine,
     ServeConfig,
     synthetic_requests,
 )
-from repro_torch.serve.scenarios import run_offline  # noqa: E402
+from repro_torch.serve.scenarios import run_offline, run_server  # noqa: E402
+from repro_torch.serve.speculative import DraftModelDrafter  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train.hooks import Hook  # noqa: E402
 from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
@@ -75,6 +87,10 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}  # abs and rel
 PROMPT_LENS = (5, 128, 17, 96, 33, 64, 120, 9)  # ragged, in 5..128
 NEW_TOKENS = 32
+# The quantized serving stream: 2 templates of 96 tokens (6 pages of
+# 16), private suffixes of 32, Poisson arrivals at 0.5 a step.
+SHARED, SUFFIX, RATE = 96, 32, 0.5
+INT4_TOKENS = 16
 TRAIN_LAYERS = 8  # 16 B/param of state: 28 layers need 137 GB, 8 take 48
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
 
@@ -131,7 +147,10 @@ def work(case, window):
         pairs += int(vis.sum()) * H
         kv_rows += int(vis.any(0).sum())
     elt = q.element_size()
-    nbytes = (2 * kv_rows * K * D * kp.element_size() + 2 * q.numel() * elt
+    # a K or V row: its stored bytes (D/2 for int4), plus a quantized
+    # pool's fp32 scale
+    row = kp.shape[-1] * kp.element_size() + (4 if "kp_scale" in case else 0)
+    nbytes = (2 * kv_rows * K * row + 2 * q.numel() * elt
               + sum(case[k].numel() * 4 for k in ("page_table", "pos", "n_valid")))
     return nbytes, 4 * D * pairs
 
@@ -160,15 +179,20 @@ def time_ms(fn, iters=30):
 
 
 def sdpa_inputs(case, window):
-    """Dense gathered K/V and a float mask for one
-    ``scaled_dot_product_attention`` call (the library yardstick)."""
+    """Dense gathered K/V (dequantized to q's dtype for an int8/int4
+    pool) and a float mask for one ``scaled_dot_product_attention`` call
+    (the library yardstick)."""
     q, kp, vp, pt = case["q"], case["kp"], case["vp"], case["page_table"]
     B, C, H, D = q.shape
     page, K = kp.shape[1], kp.shape[2]
     npg = pt.shape[1]
     safe = pt.long().clamp(0, kp.shape[0] - 1)
-    k = kp[safe].reshape(B, npg * page, K, D).transpose(1, 2)
-    v = vp[safe].reshape(B, npg * page, K, D).transpose(1, 2)
+    k, v = kp[safe], vp[safe]
+    if "kp_scale" in case:  # pre-dequantized: SDPA times no dequant
+        k = quant.dequantize(k, case["kp_scale"][safe], D).to(q.dtype)
+        v = quant.dequantize(v, case["vp_scale"][safe], D).to(q.dtype)
+    k = k.reshape(B, npg * page, K, D).transpose(1, 2)
+    v = v.reshape(B, npg * page, K, D).transpose(1, 2)
     keys = torch.arange(npg * page, device="cuda")
     qpos = case["pos"].long()[:, None] + torch.arange(C, device="cuda")
     lim = (case["pos"] + case["n_valid"]).long()
@@ -182,68 +206,99 @@ def sdpa_inputs(case, window):
             mask[:, None])
 
 
+def quant_case(seed, kind, dtype, **shape):
+    """``paged_case`` with q in ``dtype`` and its K/V pools quantized by
+    ``quant`` (int8, or int4 packed over D/2) beside their fp32 scales."""
+    case = paged_case(seed, dtype=torch.float32, **shape)
+    qz = quant.quantize_int8 if kind == "int8" else quant.quantize_int4
+    case["kp"], case["kp_scale"] = qz(case["kp"])
+    case["vp"], case["vp_scale"] = qz(case["vp"])
+    case["q"] = case["q"].to(dtype)
+    return case
+
+
 def check_kernel():
-    phase("kernels: paged_attention vs plain PyTorch on the card")
+    """The paged kernel against its plain version on the same inputs, for
+    bf16/fp32 pools and through its int8 and int4 branches (the plain
+    version dequantizes with ``quant.dequantize``), at the engine's chunk
+    shape and at edge cases; then each pool kind timed at gemma-7b's
+    shape. Returns the three records."""
+    phase("kernels: paged_attention (bf16/fp32 pools, int8 and int4 "
+          "branches) vs plain PyTorch on the card")
     main = dict(B=8, H=16, K=16, D=256, page=16, npg=10,
                 lens=[160, 5, 37, 128, 64, 99, 16, 0])
-    cases = []
-    for dtype in (torch.bfloat16, torch.float32):
-        cases += [
-            ("main_C1", dict(main, C=1, nvs=[1] * 8), None, dtype),
-            ("main_C8", dict(main, C=8, nvs=[1, 5, 8, 1, 8, 3, 1, 1],
-                             holes=[(3, 2)]), None, dtype),
-            ("window64", dict(main, C=8, nvs=[1, 5, 8, 1, 8, 3, 1, 1]), 64,
-             dtype),
-            ("D64_gqa", dict(main, H=8, K=2, D=64, C=8,
-                             nvs=[1, 5, 8, 1, 8, 3, 1, 1]), None, dtype),
-        ]
-    main_err = 0.0
-    for i, (name, shape, window, dtype) in enumerate(cases):
-        case = paged_case(i, dtype=dtype, **shape)
-        got = pa.paged_attention_cuda(**case, window=window)
-        torch.cuda.synchronize()
-        want = pa.paged_attention_torch(**case, window=window)
-        err = 0.0
-        nv = case["n_valid"].cpu().tolist()
-        for b in range(len(nv) - 1):  # the last row is idle: no keys
-            g, w = got[b, :nv[b]].float(), want[b, :nv[b]].float()
-            err = max(err, (g - w).abs().max().item())
-            tol = TOL[dtype]
-            if not torch.allclose(g, w, rtol=tol, atol=tol):
-                raise AssertionError(
-                    f"paged_attention {name} {dtype}: kernel != plain, "
-                    f"max |diff| {err} > {tol} (row {b})")
-        if not (got[-1] == 0).all() or not torch.isfinite(got).all():
-            raise AssertionError(f"paged_attention {name}: idle row not 0")
-        if dtype == torch.bfloat16 and name.startswith("main"):
-            main_err = max(main_err, err)
-        print(f"  {name:9s} {str(dtype):15s} max|kernel-plain| {err:.3e} "
-              f"(tol {TOL[dtype]:g}) ok", flush=True)
+    ragged = [1, 5, 8, 1, 8, 3, 1, 1]
+    recs = []
+    for kind in ("", "int8", "int4"):
+        def make(seed, dtype, kind=kind, **shape):
+            if kind:
+                return quant_case(seed, kind, dtype, **shape)
+            return paged_case(seed, dtype=dtype, **shape)
 
-    # Timing at the engine's chunk shape: B 8, C 8, bf16, page 16.
-    case = paged_case(99, dtype=torch.bfloat16, C=8,
-                      nvs=[1, 5, 8, 1, 8, 3, 1, 1], **main)
-    nbytes, flops = work(case, None)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    qs, ks, vs, mask = sdpa_inputs(case, None)
-    rec = dict(
-        name="paged_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:186",
-        max_abs_err=main_err,
-        ms=time_ms(lambda: pa.paged_attention_cuda(**case)),
-        plain_ms=time_ms(lambda: pa.paged_attention_torch(**case)),
-        bound_ms=max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qs, ks, vs, attn_mask=mask)),
-    )
-    print(f"  timing B8 C8 H16 D256 page16 bf16: kernel {rec['ms']:.4f} ms, "
-          f"plain {rec['plain_ms']:.4f} ms, sdpa {rec['library_ms']:.4f} ms, "
-          f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, "
-          f"{flops} flop)", flush=True)
-    return rec
+        main_err = 0.0
+        for i, (name, shape, window, dtype) in enumerate(
+                (name, shape, window, dtype)
+                for dtype in (torch.bfloat16, torch.float32)
+                for name, shape, window in (
+                    ("main_C1", dict(main, C=1, nvs=[1] * 8), None),
+                    ("main_C8", dict(main, C=8, nvs=ragged, holes=[(3, 2)]),
+                     None),
+                    ("window64", dict(main, C=8, nvs=ragged), 64),
+                    ("D64_gqa", dict(main, H=8, K=2, D=64, C=8, nvs=ragged),
+                     None),
+                    ("D128_gqa", dict(main, K=4, D=128, C=8, nvs=ragged),
+                     None))):
+            case = make(i, dtype, **shape)
+            got = pa.paged_attention_cuda(**case, window=window)
+            torch.cuda.synchronize()
+            want = pa.paged_attention_torch(**case, window=window)
+            err, tol = 0.0, TOL[dtype]
+            nv = case["n_valid"].cpu().tolist()
+            for b in range(len(nv) - 1):  # the last row is idle: no keys
+                g, w = got[b, :nv[b]].float(), want[b, :nv[b]].float()
+                err = max(err, (g - w).abs().max().item())
+                if not torch.allclose(g, w, rtol=tol, atol=tol):
+                    raise AssertionError(
+                        f"paged_attention {kind} {name} {dtype}: kernel != "
+                        f"plain, max |diff| {err} > {tol} (row {b})")
+            if not (got[-1] == 0).all() or not torch.isfinite(got).all():
+                raise AssertionError(
+                    f"paged_attention {kind} {name}: idle row not 0")
+            if dtype == torch.bfloat16 and name.startswith("main"):
+                main_err = max(main_err, err)
+            print(f"  {kind or 'bf16/fp32 pool':14s} {name:9s} "
+                  f"{str(dtype):15s} max|kernel-plain| {err:.3e} (tol "
+                  f"{tol:g}) ok", flush=True)
+
+        # Timing at the engine's chunk shape: B 8, C 8, bf16 q, page 16.
+        case = make(99, torch.bfloat16, C=8, nvs=ragged, **main)
+        nbytes, flops = work(case, None)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+        qs, ks, vs, mask = sdpa_inputs(case, None)
+        rec = dict(
+            name="paged_attention" + (f"_{kind}" if kind else ""),
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:186",
+            max_abs_err=main_err,
+            ms=time_ms(lambda: pa.paged_attention_cuda(**case)),
+            plain_ms=time_ms(lambda: pa.paged_attention_torch(**case)),
+            bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask)),
+        )
+        sdpa_note = (" (on pre-gathered K/V dequantized to bf16 beforehand: "
+                     "attention without the dequant)" if kind else "")
+        print(f"  timing {kind or 'bf16 pool'} B8 C8 H16 D256 page16 bf16 q: "
+              f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
+              f"sdpa {rec['library_ms']:.4f} ms{sdpa_note}, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, "
+              f"{flops} flop)", flush=True)
+        recs.append(rec)
+    return recs
 
 
 # --------------------------------------------------------------------------- #
@@ -397,8 +452,8 @@ def tokens_of(report):
     return [r.tokens for r in sorted(report.requests, key=lambda r: r.id)]
 
 
-def serve_full():
-    phase("serve: gemma-7b full width, 28 layers, bf16, offline")
+def full_serve_params():
+    """Random bf16 weights of full-width gemma-7b from seed 0."""
     cfg = get_config("gemma-7b")
     t0 = time.perf_counter()
     params = lm.init_lm(cfg, seed=0, device="cuda")
@@ -406,6 +461,12 @@ def serve_full():
     print(f"  init {cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"{sum(p.numel() for p in tree_leaves(params)) / 1e9:.2f} B "
           f"params in {time.perf_counter() - t0:.1f} s", flush=True)
+    return params
+
+
+def serve_full(params):
+    phase("serve: gemma-7b full width, 28 layers, bf16, offline")
+    cfg = get_config("gemma-7b")
     scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
                        page_size=16, prefill_chunk=8)
     engine = Engine(cfg, params, scfg, device="cuda")
@@ -418,9 +479,11 @@ def serve_full():
                                   prompt_lens=PROMPT_LENS)
 
     torch.cuda.reset_peak_memory_stats()
-    pa.paged_attention_cuda.launches = 0
+    pa.reset_launches()
     report = run_offline(engine, workload())
-    launches = pa.paged_attention_cuda.launches
+    launches = pa.paged_attention_cuda.launches_by_kind["bfloat16"]
+    if pa.paged_attention_cuda.launches != launches:
+        raise AssertionError("a bf16 pool launched another branch")
     steps = len(report.steps)
     s = report.summary()
     s["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -477,9 +540,194 @@ def serve_full():
     s["device_busy_ms"] = busy_ms
     s["kernels_per_step"] = n_kernels / steps
     print(f"  serve summary {json.dumps(s)}", flush=True)
-    del params, engine, cache
+    del engine, cache
     torch.cuda.empty_cache()
     return launches
+
+
+def trace_busy(fn):
+    """Run ``fn`` under the profiler; (its result, device-busy ms, the
+    kernels sorted by device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.self_device_time_total > 0),
+                     key=lambda e: -e.self_device_time_total)
+    return out, sum(e.self_device_time_total for e in kernels) / 1e3, kernels
+
+
+def pool_bytes(engine):
+    """(bytes of the engine's KV pools and scales, bytes of a bf16 pool
+    of the same pages)."""
+    cache = engine._cache
+    have = sum(t.numel() * t.element_size() for t in cache.values())
+    cfg = engine.cfg
+    rows = cache["kp"].shape[:-1].numel()
+    return have, 2 * rows * cfg.head_dim * 2
+
+
+def replay_drafter(report):
+    """Proposes each request's next tokens from ``report``'s run."""
+    runs = [(list(r.prompt), list(r.tokens)) for r in report.requests]
+
+    def fn(ctx, k):
+        for prompt, toks in runs:
+            if ctx[:len(prompt)] == prompt:
+                return toks[len(ctx) - len(prompt):][:k]
+        return []
+    return DraftModelDrafter(fn)
+
+
+def same_share(a, b):
+    """Share of positions where two runs' tokens agree."""
+    pairs = [(x, y) for ta, tb in zip(tokens_of(a), tokens_of(b))
+             for x, y in zip(ta, tb)]
+    return sum(x == y for x, y in pairs) / max(len(pairs), 1)
+
+
+def serve_quant(params):
+    """Full-width gemma-7b serves a server-scenario stream of
+    shared-prefix requests with the prefix cache and n-gram speculation,
+    from a bf16 pool (for comparison) and from an int8 pool (the main
+    path of the quantized branch); then offline from an int4 pool."""
+    phase("serve: gemma-7b full width, 28 layers, bf16 weights, server "
+          "scenario, prefix cache, n-gram speculation (draft 3); bf16 and "
+          "int8 pools")
+    cfg = get_config("gemma-7b")
+    base = dict(max_batch=8, max_len=SHARED + SUFFIX + NEW_TOKENS,
+                page_size=16, prefill_chunk=8, prefix_cache=True)
+    spec = dict(spec_decode="ngram", draft_len=3)
+
+    def workload(tokens=NEW_TOKENS, scenario="server"):
+        return synthetic_requests(
+            cfg, n=8, tokens=tokens, prompt_len=SHARED + SUFFIX,
+            scenario=scenario, seed=0, arrival_rate=RATE,
+            shared_prefix_len=SHARED, n_templates=2)
+
+    out = {}
+    for kv in ("bfloat16", "int8"):
+        engine = Engine(cfg, params, ServeConfig(kv_dtype=kv, **base, **spec),
+                        device="cuda")
+        run_offline(engine, synthetic_requests(cfg, n=2, tokens=2,
+                                               prompt_len=8, seed=1))
+        torch.cuda.reset_peak_memory_stats()
+        pa.reset_launches()
+        report = run_server(engine, workload())
+        launches = dict(pa.paged_attention_cuda.launches_by_kind)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        steps = len(report.steps)
+        have, bf16 = pool_bytes(engine)
+        again, busy_ms, kernels = trace_busy(
+            lambda: run_server(engine, workload()))
+        paged_ms = sum(e.self_device_time_total for e in kernels
+                       if "paged_attention" in e.key) / 1e3
+        per_step = sum(e.count for e in kernels) / len(again.steps)
+        s = report.summary()
+        s.update(peak_mem_gib=peak, chunk_steps=steps, launches=launches,
+                 draft_accepted=report.draft_accepted, pool_bytes=have,
+                 bf16_pool_bytes=bf16, device_busy_ms=busy_ms,
+                 busy_share=busy_ms / (report.elapsed_s * 1e3),
+                 paged_attention_device_ms=paged_ms,
+                 kernels_per_step=per_step,
+                 traced_run_elapsed_s=again.elapsed_s)
+        print(f"  {kv} pool: {report.format()}", flush=True)
+        print(f"  {kv} pool: prefix_hit_rate {report.prefix_hit_rate:.4f}, "
+              f"draft_tokens {report.draft_tokens} (accepted "
+              f"{report.draft_accepted}, spec_accept_rate "
+              f"{report.spec_accept_rate:.4f}), preemptions "
+              f"{report.preemptions}; chunk steps {steps}, paged_attention "
+              f"launches {launches}; pool {have} B vs {bf16} B as bf16 "
+              f"({have / bf16:.3f}x); peak memory {peak:.2f} GiB", flush=True)
+        print(f"  {kv} pool, traced run: {per_step:.0f} kernels per chunk "
+              f"step, device busy {busy_ms:.1f} ms = "
+              f"{100 * busy_ms / (report.elapsed_s * 1e3):.1f}% of the "
+              f"untraced run's {report.elapsed_s * 1e3:.1f} ms; "
+              f"paged_attention {paged_ms:.2f} ms of device time", flush=True)
+        if tokens_of(again) != tokens_of(report):
+            raise AssertionError(f"{kv}: a second run of the stream differs")
+        if launches[kv] != cfg.n_layers * steps or steps == 0 or \
+                sum(launches.values()) != launches[kv]:
+            raise AssertionError(
+                f"{kv}: paged_attention launches {launches} in {steps} chunk "
+                f"steps; expected {cfg.n_layers} per step, all of kind {kv}")
+        if not report.prefix_hit_rate or report.draft_tokens == 0:
+            raise AssertionError(f"{kv}: prefix_hit_rate "
+                                 f"{report.prefix_hit_rate}, draft_tokens "
+                                 f"{report.draft_tokens}; both must be > 0")
+        got = tokens_of(report)
+        if any(len(t) != NEW_TOKENS or not all(0 <= x < cfg.vocab for x in t)
+               for t in got) or len(got) != 8:
+            raise AssertionError(f"{kv}: not 8 x {NEW_TOKENS} tokens in the "
+                                 f"vocabulary")
+        out[kv] = (engine, report, s)
+
+    # The int8 stream without speculation, and with a drafter that
+    # replays that run's tokens.
+    engine = out["int8"][0]
+    plain_eng = Engine(cfg, params, ServeConfig(kv_dtype="int8", **base),
+                       device="cuda")
+    plain = run_server(plain_eng, workload())
+    replay = run_server(
+        Engine(cfg, params, ServeConfig(kv_dtype="int8", **base, **spec),
+               drafter=replay_drafter(plain), device="cuda"), workload())
+    s = out["int8"][2]
+    s.update(ngram_same_as_plain=same_share(out["int8"][1], plain),
+             replay_same_as_plain=same_share(replay, plain),
+             replay_draft_tokens=replay.draft_tokens,
+             replay_accepted=replay.draft_accepted,
+             replay_tokens_per_s=replay.tokens_per_s,
+             plain_tokens_per_s=plain.tokens_per_s)
+    print(f"  int8 pool, speculation off: {plain.format()}", flush=True)
+    print(f"  int8 pool, replay drafter: {replay.format()}; draft_tokens "
+          f"{replay.draft_tokens}, accepted {replay.draft_accepted}", flush=True)
+    print(f"  tokens equal to the speculation-off run: n-gram "
+          f"{100 * s['ngram_same_as_plain']:.1f}%, replay "
+          f"{100 * s['replay_same_as_plain']:.1f}% (not gated: a bf16 "
+          f"near-tie may flip between a C-token and a 1-token pass)",
+          flush=True)
+    if replay.draft_accepted == 0:
+        raise AssertionError("replay drafter: no draft accepted")
+    for kv in ("bfloat16", "int8"):
+        print(f"  serve {kv} summary {json.dumps(out[kv][2])}", flush=True)
+    int8_launches = out["int8"][2]["launches"]["int8"]
+    del out, engine, plain_eng
+    torch.cuda.empty_cache()
+
+    phase("serve: gemma-7b full width, int4 pool, offline, prefix cache, "
+          "n-gram speculation")
+    engine = Engine(cfg, params, ServeConfig(kv_dtype="int4", **base, **spec),
+                    device="cuda")
+    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                           seed=1))
+    pa.reset_launches()
+    report = run_offline(engine, workload(INT4_TOKENS, "offline"))
+    launches = dict(pa.paged_attention_cuda.launches_by_kind)
+    steps = len(report.steps)
+    have, bf16 = pool_bytes(engine)
+    print(f"  int4 pool: {report.format()}", flush=True)
+    print(f"  int4 pool: prefix_hit_rate {report.prefix_hit_rate:.4f}, "
+          f"draft_tokens {report.draft_tokens} (accepted "
+          f"{report.draft_accepted}); chunk steps {steps}, paged_attention "
+          f"launches {launches}; pool {have} B vs {bf16} B as bf16 "
+          f"({have / bf16:.3f}x)", flush=True)
+    if launches["int4"] != cfg.n_layers * steps or steps == 0 or \
+            sum(launches.values()) != launches["int4"]:
+        raise AssertionError(
+            f"int4: paged_attention launches {launches} in {steps} chunk "
+            f"steps; expected {cfg.n_layers} per step, all int4")
+    got = tokens_of(report)
+    if len(got) != 8 or any(len(t) != INT4_TOKENS for t in got):
+        raise AssertionError(f"int4: not 8 x {INT4_TOKENS} tokens")
+    s = report.summary()
+    s.update(chunk_steps=steps, launches=launches, pool_bytes=have,
+             bf16_pool_bytes=bf16)
+    print(f"  serve int4 summary {json.dumps(s)}", flush=True)
+    del engine
+    torch.cuda.empty_cache()
+    return int8_launches, launches["int4"]
 
 
 def reduced_vs_cpu():
@@ -522,6 +770,54 @@ def reduced_vs_cpu():
     if toks["cpu"] != toks["cuda"]:
         raise AssertionError("reduced greedy tokens differ card vs CPU")
     print("  greedy tokens identical card vs CPU (5 ragged requests)")
+
+
+def reduced_quant_vs_cpu():
+    """Reduced gemma-7b in fp32 from int8 and int4 pools, with the prefix
+    cache and n-gram speculative decoding, on a shared-prefix server
+    stream under pool pressure: the card's greedy tokens (kernel
+    branches) equal the CPU's (plain path), and equal the card's with
+    prefix cache and speculation off; drafts are proposed and the cache
+    hits."""
+    phase("check: reduced gemma-7b, int8/int4 pools, prefix cache + "
+          "speculative decoding, card vs CPU plain path, fp32")
+    cfg = dataclasses.replace(get_config("gemma-7b").reduced(),
+                              dtype="float32", kv_cache_dtype="float32",
+                              n_layers=2)
+    cpu = lm.init_lm(cfg, 0, device="cpu")
+    gpu = tree_map(lambda t: t.to("cuda"), cpu)
+    knobs = dict(max_batch=3, max_len=32, page_size=4, prefill_chunk=6,
+                 n_pages=12)
+
+    def workload():
+        return synthetic_requests(cfg, n=6, tokens=8, prompt_len=16,
+                                  scenario="server", seed=9,
+                                  shared_prefix_len=8, n_templates=2)
+
+    for kv in ("int8", "int4"):
+        on = ServeConfig(kv_dtype=kv, prefix_cache=True, spec_decode="ngram",
+                         draft_len=3, **knobs)
+        reps = {dev: run_server(Engine(cfg, params, on, device=dev),
+                                workload())
+                for dev, params in (("cpu", cpu), ("cuda", gpu))}
+        off = run_server(Engine(cfg, gpu, ServeConfig(kv_dtype=kv, **knobs),
+                                device="cuda"), workload())
+        card = reps["cuda"]
+        print(f"  {kv}: drafts {card.draft_tokens} (accepted "
+              f"{card.draft_accepted}; cpu {reps['cpu'].draft_tokens}), "
+              f"prefix_hit_rate {card.prefix_hit_rate:.3f}, preemptions "
+              f"{card.preemptions}", flush=True)
+        if tokens_of(card) != tokens_of(reps["cpu"]):
+            raise AssertionError(f"reduced {kv} greedy tokens differ card vs "
+                                 f"CPU")
+        if tokens_of(card) != tokens_of(off):
+            raise AssertionError(f"reduced {kv}: prefix cache + speculation "
+                                 f"changed the card's greedy tokens")
+        if card.draft_tokens == 0 or not card.prefix_hit_rate:
+            raise AssertionError(f"reduced {kv}: no draft proposed or no "
+                                 f"prefix hit")
+        print(f"  {kv}: greedy tokens identical card vs CPU, and with prefix "
+              f"cache + speculation off", flush=True)
 
 
 def reduced_train_vs_cpu():
@@ -694,11 +990,19 @@ def main() -> int:
     print(f"  built {sorted(build.sources())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
-    recs = [check_kernel(), *check_flash()]
+    paged, int8, int4 = check_kernel()
+    flash_fwd, flash_bwd = check_flash()
     reduced_vs_cpu()
+    reduced_quant_vs_cpu()
     reduced_train_vs_cpu()
-    recs[0]["launches"] = serve_full()
-    recs[1]["launches"], recs[2]["launches"] = train_full()
+    phase("serve: full-width gemma-7b weights")
+    params = full_serve_params()
+    paged["launches"] = serve_full(params)
+    int8["launches"], int4["launches"] = serve_quant(params)
+    del params
+    torch.cuda.empty_cache()
+    flash_fwd["launches"], flash_bwd["launches"] = train_full()
+    recs = [paged, int8, int4, flash_fwd, flash_bwd]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)

@@ -35,7 +35,8 @@ class ModelConfig:
     loss_chunk: int = 256             # CE computed in seq chunks of this size
     dtype: str = "bfloat16"           # activation / compute dtype
     param_dtype: str = "float32"      # master weights
-    kv_cache_dtype: str = "bfloat16"  # paged pool dtype
+    kv_cache_dtype: str = "bfloat16"  # paged pool: bfloat16 | float32 |
+    #                                   int8 | int4 (quantized, fp32 scales)
     grad_dtype: str = "float32"       # gradient summation dtype
     moment_dtype: str = "float32"     # Adam moment dtype
     microbatches: int = 1             # gradient-accumulation microbatches

@@ -1,10 +1,12 @@
-// Ragged paged attention for Hopper (sm_90a), plain C entry point.
+// Ragged paged attention for Hopper (sm_90a), plain C entry points.
 //
 // Replaces the TPU kernel repro/kernels/paged_attention.py:_kernel
-// (pl.pallas_call at paged_attention.py:186). For every batch row b and
-// query head h it computes, for each of the row's C new tokens (query
-// i sits at absolute position pos[b] + i), softmax(q . K^T * scale)
-// over the keys j with  page_table[b, j / page] >= 0,  j < pos + n_valid,
+// (pl.pallas_call at paged_attention.py:186), bf16/fp32 pools and the
+// quantized branches (int4=True or the ks_ref/vs_ref scale operands,
+// paged_attention.py:55-59, :75-82). For every batch row b and query
+// head h it computes, for each of the row's C new tokens (query i sits
+// at absolute position pos[b] + i), softmax(q . K^T * scale) over the
+// keys j with  page_table[b, j / page] >= 0,  j < pos + n_valid,
 // j <= qpos  and (window > 0)  j > qpos - window,  and sums V under those
 // weights. Accumulators are fp32; the output is in q's dtype.
 //
@@ -12,7 +14,7 @@
 // here one block owns (row b, head h, kWarps consecutive queries), reads
 // its own page-table row, pos and n_valid, and walks only the key range
 // its valid queries can see, kTile keys at a time. All 128 threads stage
-// a tile of K and V (16-byte loads, converted to fp32) in shared memory;
+// a tile of K and V (16-byte loads, widened to fp32) in shared memory;
 // each warp then runs the online softmax for its one query, holding q,
 // m, l and a D/32-wide slice of acc in registers. Unmapped pages are
 // zero-filled and masked, never read, and page ids are clipped to the
@@ -20,10 +22,20 @@
 // ref.py); this kernel writes 0 for them and skips their work, so an
 // engine decode row (n_valid = 1 of C) pays for one query, not C.
 //
-// Bound on the H100: the bytes of the occupied K/V pages, read once, at
-// 3.35 TB/s; the arithmetic (4 * D flops per query-key pair) is far
-// below the tensor-core rate. A simple, correct first version: no TMA,
-// no wgmma, no split over pages.
+// Quantized pools (int8 values, or int4 nibbles packed over D/2 in the
+// halves layout of repro/kernels/quant.py) carry fp32 scales of shape
+// (P, page, K), one per (token, kv head). The staging loop dequantizes
+// as it widens: (float)value * scale, for K and V alike, so the dots,
+// the softmax and the accumulation stay fp32 exactly as in the bf16
+// branch. An int4 byte is read as int8_t, widened to int, and split
+// into dim j (((b & 0xF) ^ 8) - 8) and dim j + D/2
+// ((((b >> 4) & 0xF) ^ 8) - 8).
+//
+// Bound on the H100: the bytes of the occupied K/V pages (and their
+// scales), read once, at 3.35 TB/s; the arithmetic (4 * D flops per
+// query-key pair) is far below the tensor-core rate. int8 halves and
+// int4 quarters the page bytes of a bf16 pool. A simple, correct first
+// version: no TMA, no wgmma, no split over pages.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -74,6 +86,77 @@ struct Vec<__nv_bfloat16> {
   }
 };
 
+// Quantized pool kinds (the element type of both is int8_t).
+struct Int8Pool {};  // (P, page, K, D) int8 values
+struct Int4Pool {};  // (P, page, K, D / 2) packed nibbles
+
+// How one row (one token, one kv head) of a pool is stored and widened
+// to fp32: kRowElems stored elements a row, kVecs 16-byte loads a row;
+// load(row, v, s, dst) widens load v into the fp32 row dst (times the
+// row's scale s for a quantized pool), zero(v, dst) writes 0 where load
+// v would have written.
+template <typename KVT, int D>
+struct Pool {  // bf16 and fp32 pools
+  using Elem = KVT;
+  static constexpr bool kQuant = false;
+  static constexpr int kRowElems = D;
+  static constexpr int kN = Vec<KVT>::N;
+  static constexpr int kVecs = D / kN;
+  static __device__ __forceinline__ void load(const Elem* row, int v, float,
+                                              float* dst) {
+    Vec<KVT>::load(row + v * kN, dst + v * kN);
+  }
+  static __device__ __forceinline__ void zero(int v, float* dst) {
+#pragma unroll
+    for (int e = 0; e < kN; ++e) dst[v * kN + e] = 0.f;
+  }
+};
+
+template <int D>
+struct Pool<Int8Pool, D> {
+  using Elem = int8_t;
+  static constexpr bool kQuant = true;
+  static constexpr int kRowElems = D;
+  static constexpr int kVecs = D / 16;
+  static __device__ __forceinline__ void load(const Elem* row, int v,
+                                              float s, float* dst) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(row + v * 16);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      dst[v * 16 + e] = static_cast<float>(b[e]) * s;
+  }
+  static __device__ __forceinline__ void zero(int v, float* dst) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dst[v * 16 + e] = 0.f;
+  }
+};
+
+template <int D>
+struct Pool<Int4Pool, D> {
+  using Elem = int8_t;
+  static constexpr bool kQuant = true;
+  static constexpr int kRowElems = D / 2;
+  static constexpr int kVecs = D / 32;  // each 16 bytes hold 32 dims
+  static __device__ __forceinline__ void load(const Elem* row, int v,
+                                              float s, float* dst) {
+    const uint4 raw = *reinterpret_cast<const uint4*>(row + v * 16);
+    const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int x = static_cast<int>(b[e]);
+      const int lo = ((x & 0xF) ^ 8) - 8;         // dim v * 16 + e
+      const int hi = (((x >> 4) & 0xF) ^ 8) - 8;  // dim D / 2 + v * 16 + e
+      dst[v * 16 + e] = static_cast<float>(lo) * s;
+      dst[D / 2 + v * 16 + e] = static_cast<float>(hi) * s;
+    }
+  }
+  static __device__ __forceinline__ void zero(int v, float* dst) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) dst[v * 16 + e] = dst[D / 2 + v * 16 + e] = 0.f;
+  }
+};
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
@@ -82,16 +165,19 @@ __device__ __forceinline__ float warp_sum(float x) {
 
 template <typename QT, typename KVT, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
-                       const KVT* __restrict__ vp,
+paged_attention_kernel(const QT* __restrict__ q,
+                       const typename Pool<KVT, D>::Elem* __restrict__ kp,
+                       const typename Pool<KVT, D>::Elem* __restrict__ vp,
+                       const float* __restrict__ kp_scale,
+                       const float* __restrict__ vp_scale,
                        const int32_t* __restrict__ page_table,
                        const int32_t* __restrict__ pos,
                        const int32_t* __restrict__ n_valid,
                        QT* __restrict__ out, int C, int H, int K, int P,
                        int page, int npg, int window, float scale) {
+  using PoolT = Pool<KVT, D>;
   constexpr int kPerLane = D / 32;
-  constexpr int kVec = Vec<KVT>::N;
-  constexpr int kVecPerRow = D / kVec;
+  constexpr int kVecPerRow = PoolT::kVecs;
   __shared__ __align__(16) float ks[kTile][D];
   __shared__ __align__(16) float vs[kTile][D];
   __shared__ bool mapped[kTile];
@@ -144,17 +230,18 @@ paged_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
       const int j = j0 + t;
       int phys = -1;
       if (j < k_hi) phys = min(pt_row[j / page], P - 1);
-      float* kd = &ks[t][v * kVec];
-      float* vd = &vs[t][v * kVec];
       if (phys >= 0) {
-        const size_t off =
-            ((static_cast<size_t>(phys) * page + j % page) * K + kh) * D +
-            v * kVec;
-        Vec<KVT>::load(kp + off, kd);
-        Vec<KVT>::load(vp + off, vd);
+        const size_t r = (static_cast<size_t>(phys) * page + j % page) * K + kh;
+        float sk = 1.f, sv = 1.f;
+        if constexpr (PoolT::kQuant) {
+          sk = kp_scale[r];
+          sv = vp_scale[r];
+        }
+        PoolT::load(kp + r * PoolT::kRowElems, v, sk, ks[t]);
+        PoolT::load(vp + r * PoolT::kRowElems, v, sv, vs[t]);
       } else {
-#pragma unroll
-        for (int e = 0; e < kVec; ++e) kd[e] = vd[e] = 0.f;
+        PoolT::zero(v, ks[t]);
+        PoolT::zero(v, vs[t]);
       }
       if (v == 0) mapped[t] = phys >= 0;
     }
@@ -201,40 +288,48 @@ paged_attention_kernel(const QT* __restrict__ q, const KVT* __restrict__ kp,
   }
 }
 
+struct Args {
+  const void *q, *kp, *vp, *ks, *vs, *pt, *pos, *nv;
+  void* out;
+  int B, C, H, K, P, page, npg, window;
+  float scale;
+  cudaStream_t stream;
+};
+
 template <typename QT, typename KVT, int D>
-void launch(const void* q, const void* kp, const void* vp, const void* pt,
-            const void* pos, const void* nv, void* out, int B, int C, int H,
-            int K, int P, int page, int npg, int window, float scale,
-            cudaStream_t stream) {
-  dim3 grid((C + kWarps - 1) / kWarps, H, B);
-  paged_attention_kernel<QT, KVT, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const QT*>(q), static_cast<const KVT*>(kp),
-      static_cast<const KVT*>(vp), static_cast<const int32_t*>(pt),
-      static_cast<const int32_t*>(pos), static_cast<const int32_t*>(nv),
-      static_cast<QT*>(out), C, H, K, P, page, npg, window, scale);
+void launch(const Args& a) {
+  using Elem = typename Pool<KVT, D>::Elem;
+  dim3 grid((a.C + kWarps - 1) / kWarps, a.H, a.B);
+  paged_attention_kernel<QT, KVT, D><<<grid, kThreads, 0, a.stream>>>(
+      static_cast<const QT*>(a.q), static_cast<const Elem*>(a.kp),
+      static_cast<const Elem*>(a.vp), static_cast<const float*>(a.ks),
+      static_cast<const float*>(a.vs), static_cast<const int32_t*>(a.pt),
+      static_cast<const int32_t*>(a.pos), static_cast<const int32_t*>(a.nv),
+      static_cast<QT*>(a.out), a.C, a.H, a.K, a.P, a.page, a.npg, a.window,
+      a.scale);
 }
 
 template <typename QT, typename KVT>
-bool launch_d(int D, const void* q, const void* kp, const void* vp,
-              const void* pt, const void* pos, const void* nv, void* out,
-              int B, int C, int H, int K, int P, int page, int npg,
-              int window, float scale, cudaStream_t stream) {
+bool launch_d(int D, const Args& a) {
   switch (D) {
     case 64:
-      launch<QT, KVT, 64>(q, kp, vp, pt, pos, nv, out, B, C, H, K, P, page,
-                          npg, window, scale, stream);
+      launch<QT, KVT, 64>(a);
       return true;
     case 128:
-      launch<QT, KVT, 128>(q, kp, vp, pt, pos, nv, out, B, C, H, K, P, page,
-                           npg, window, scale, stream);
+      launch<QT, KVT, 128>(a);
       return true;
     case 256:
-      launch<QT, KVT, 256>(q, kp, vp, pt, pos, nv, out, B, C, H, K, P, page,
-                           npg, window, scale, stream);
+      launch<QT, KVT, 256>(a);
       return true;
     default:
       return false;
   }
+}
+
+template <typename KVT>
+bool launch_q(int q_bf16, int D, const Args& a) {
+  return q_bf16 ? launch_d<__nv_bfloat16, KVT>(D, a)
+                : launch_d<float, KVT>(D, a);
 }
 
 }  // namespace
@@ -251,23 +346,29 @@ extern "C" int paged_attention_launch(const void* q, const void* kp,
                                       int D, int P, int page, int npg,
                                       int window, float scale, int q_bf16,
                                       int kv_bf16, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  bool ok;
-  if (q_bf16 && kv_bf16)
-    ok = launch_d<__nv_bfloat16, __nv_bfloat16>(
-        D, q, kp, vp, page_table, pos, n_valid, out, B, C, H, K, P, page, npg,
-        window, scale, s);
-  else if (q_bf16)
-    ok = launch_d<__nv_bfloat16, float>(D, q, kp, vp, page_table, pos,
-                                        n_valid, out, B, C, H, K, P, page,
-                                        npg, window, scale, s);
-  else if (kv_bf16)
-    ok = launch_d<float, __nv_bfloat16>(D, q, kp, vp, page_table, pos,
-                                        n_valid, out, B, C, H, K, P, page,
-                                        npg, window, scale, s);
-  else
-    ok = launch_d<float, float>(D, q, kp, vp, page_table, pos, n_valid, out,
-                                B, C, H, K, P, page, npg, window, scale, s);
+  const Args a{q, kp, vp, nullptr, nullptr, page_table, pos, n_valid, out,
+               B, C, H, K, P, page, npg, window, scale,
+               static_cast<cudaStream_t>(stream)};
+  const bool ok = kv_bf16 ? launch_q<__nv_bfloat16>(q_bf16, D, a)
+                          : launch_q<float>(q_bf16, D, a);
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The quantized branches. kp/vp: int8 (P, page, K, D) values, or with
+// packed4 = 1 int4 nibbles (P, page, K, D / 2); kp_scale/vp_scale: fp32
+// (P, page, K). The rest as paged_attention_launch.
+extern "C" int paged_attention_quant_launch(
+    const void* q, const void* kp, const void* vp, const void* kp_scale,
+    const void* vp_scale, const void* page_table, const void* pos,
+    const void* n_valid, void* out, int B, int C, int H, int K, int D, int P,
+    int page, int npg, int window, float scale, int q_bf16, int packed4,
+    void* stream) {
+  const Args a{q, kp, vp, kp_scale, vp_scale, page_table, pos, n_valid, out,
+               B, C, H, K, P, page, npg, window, scale,
+               static_cast<cudaStream_t>(stream)};
+  const bool ok = packed4 ? launch_q<Int4Pool>(q_bf16, D, a)
+                       : launch_q<Int8Pool>(q_bf16, D, a);
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

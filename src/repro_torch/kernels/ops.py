@@ -36,18 +36,19 @@ def paged_attention(q, kp, vp, page_table, *, pos, n_valid, window=None,
     """Ragged attention of C new tokens per row against a paged KV pool
     (``repro.kernels.ops.paged_attention``).
 
-    q: (B, C, H, D); kp/vp: (P, page, K, D) bf16 or fp32 pools, the new
-    tokens' K/V already written into their pages; page_table:
+    q: (B, C, H, D); kp/vp: (P, page, K, hd) pools, the new tokens' K/V
+    already written into their pages: bf16 or fp32 (hd == D), or int8
+    (hd == D) and int4-packed (hd == D // 2) with fp32 per-row scales
+    ``kp_scale``/``vp_scale`` of shape (P, page, K). page_table:
     (B, max_pages) int32 physical page ids (-1 unmapped); pos: (B,)
     absolute position of each row's first token; n_valid: (B,) real
     tokens per row. Returns (B, C, H, D) in q's dtype; queries past
-    ``n_valid`` are garbage the caller masks.
+    ``n_valid`` are garbage the caller masks. CUDA tensors go through
+    the kernel's branch for the pool's kind, CPU tensors through its
+    plain version.
     """
-    if kp_scale is not None or vp_scale is not None:
-        raise NotImplementedError(
-            "quantized (int8/int4) paged pools are the next serving slice "
-            "of the port")
     impl = (_pa.paged_attention_cuda if q.device.type == "cuda"
             else _pa.paged_attention_torch)
     return impl(q, kp, vp, page_table, pos=pos, n_valid=n_valid,
-                window=window, scale=scale)
+                window=window, scale=scale, kp_scale=kp_scale,
+                vp_scale=vp_scale)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, quant
 
 # jax.nn.gelu defaults to the tanh approximation; torch's default is erf.
 _ACT = {
@@ -24,14 +24,16 @@ _ACT = {
     "silu": F.silu,
 }
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# int8 and int4 name quantized paged pools: int8 bytes (int4 packs two
+# values a byte) beside fp32 per-row scales.
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "int8": torch.int8, "int4": torch.int8}
+QUANTIZED = ("int8", "int4")
 
 
 def dtype_of(name: str) -> torch.dtype:
     if name not in _DTYPES:
-        raise NotImplementedError(
-            f"dtype {name!r}: the port's paged pool holds bfloat16 or "
-            f"float32; int8/int4 pools are the next serving slice")
+        raise ValueError(f"unknown dtype {name!r}; known: {sorted(_DTYPES)}")
     return _DTYPES[name]
 
 
@@ -87,23 +89,40 @@ def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page: int, *,
 
     The trailing page (index ``n_pages``) is the trash page that absorbs
     masked writes, so the scatter in :func:`paged_cache_insert` needs no
-    conditional.
+    conditional. An int8 pool holds int8 values, an int4 pool packed
+    nibbles over ``hd // 2``; both add fp32 ``kp_scale``/``vp_scale``
+    of shape ``(n_layers, n_pages + 1, page, K)``, trash page included.
     """
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    store_hd = hd
+    if cfg.kv_cache_dtype == "int4":
+        if hd % 2:
+            raise ValueError(
+                f"int4 KV packs two dims per byte; head_dim {hd} is odd")
+        store_hd = hd // 2
     dt = dtype_of(cfg.kv_cache_dtype)
-    shape = (n_layers, n_pages + 1, page, cfg.n_kv_heads, cfg.head_dim)
-    return {"kp": torch.zeros(shape, dtype=dt, device=device),
-            "vp": torch.zeros(shape, dtype=dt, device=device)}
+    shape = (n_layers, n_pages + 1, page, K, store_hd)
+    cache = {"kp": torch.zeros(shape, dtype=dt, device=device),
+             "vp": torch.zeros(shape, dtype=dt, device=device)}
+    if cfg.kv_cache_dtype in QUANTIZED:
+        for name in ("kp_scale", "vp_scale"):
+            cache[name] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                      device=device)
+    return cache
 
 
 def paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid):
     """Scatter C new tokens' K/V into their rows' pages, in place.
 
     k_new/v_new: (B, C, K, hd); cache: one layer's ``kp``/``vp`` pools
-    (P1, page, K, hd). Token i of row b lands at logical position
-    ``pos[b] + i``; tokens at i >= n_valid[b], and positions whose page
-    is unmapped, go to the trash page. Unlike the reference, which
-    returns new arrays, the pools are updated in place (``index_copy_``)
-    and the same dict is returned.
+    (P1, page, K, hd), plus ``kp_scale``/``vp_scale`` (P1, page, K) for
+    a quantized pool, whose new rows are quantized first (int4 when the
+    pool's trailing axis is ``hd // 2``). Token i of row b lands at
+    logical position ``pos[b] + i``; tokens at i >= n_valid[b], and
+    positions whose page is unmapped, go to the trash page, values and
+    scales alike. Unlike the reference, which returns new arrays, the
+    pools are updated in place (``index_copy_``) and the same dict is
+    returned.
     """
     P1, page = cache["kp"].shape[:2]
     B, C = k_new.shape[:2]
@@ -118,7 +137,14 @@ def paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid):
     ok &= (phys >= 0) & (pg < npg)
     row = torch.where(ok, phys, P1 - 1)
     idx = (row * page + off).reshape(B * C)
-    for name, new in (("kp", k_new), ("vp", v_new)):
+    news = {"kp": k_new, "vp": v_new}
+    if "kp_scale" in cache:
+        hd = k_new.shape[-1]
+        qz = (quant.quantize_int4 if cache["kp"].shape[-1] != hd
+              else quant.quantize_int8)
+        news["kp"], news["kp_scale"] = qz(k_new)
+        news["vp"], news["vp_scale"] = qz(v_new)
+    for name, new in news.items():
         pool = cache[name]
         flat = pool.view(P1 * page, *pool.shape[2:])
         flat.index_copy_(0, idx, new.reshape(B * C, *new.shape[2:])
@@ -128,7 +154,8 @@ def paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid):
 
 def paged_copy_pages(cache, src, dst):
     """Copy pool pages ``src[i] -> dst[i]`` in place (the device half of
-    a copy-on-write); pools may be per-layer or layer-stacked."""
+    a copy-on-write), values and any dequant scales alike; pools may be
+    per-layer or layer-stacked."""
     axis = 1 if cache["kp"].dim() == 5 else 0
     for pool in cache.values():
         s = torch.as_tensor(src, dtype=torch.long, device=pool.device)
@@ -174,7 +201,9 @@ def attention_decode_paged(params, x, cfg: ModelConfig, cache, page_table,
     k_new = apply_rope(k_new, posm, theta=cfg.rope_theta)
     paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid)
     out = ops.paged_attention(q, cache["kp"], cache["vp"], page_table,
-                              pos=pos, n_valid=n_valid, window=window)
+                              pos=pos, n_valid=n_valid, window=window,
+                              kp_scale=cache.get("kp_scale"),
+                              vp_scale=cache.get("vp_scale"))
     wo = params["wo"]
     H, hd, d = wo.shape
     return out.reshape(B, C, H * hd) @ wo.reshape(H * hd, d)

@@ -206,7 +206,9 @@ def loss_fn(params, cfg: ModelConfig, batch):
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page: int, *,
                      device="cuda"):
     """Paged KV pools for every layer: ``kp``/``vp`` of shape
-    (n_layers, n_pages + 1, page, K, hd), the last page the trash page."""
+    (n_layers, n_pages + 1, page, K, hd), the last page the trash page,
+    plus fp32 ``kp_scale``/``vp_scale`` for an int8/int4 pool
+    (``layers.init_paged_kv_cache``)."""
     _check_supported(cfg)
     return L.init_paged_kv_cache(cfg, n_pages, page, n_layers=cfg.n_layers,
                                  device=resolve_device(device))
@@ -226,7 +228,7 @@ def decode_chunk(params, cfg: ModelConfig, tokens, cache, page_table, pos,
     x = _embed(params, tokens)
     for i, lp in enumerate(params["layers"]):
         h = L.apply_norm(lp["norm1"], x)
-        layer_cache = {"kp": cache["kp"][i], "vp": cache["vp"][i]}
+        layer_cache = {name: pool[i] for name, pool in cache.items()}
         x = x + L.attention_decode_paged(
             lp["mixer"], h, cfg, layer_cache, page_table, pos, n_valid,
             window=window)

@@ -1,12 +1,16 @@
-"""Paged KV pool, host side (``repro.serve.cache.PagePool``).
+"""Paged KV pool, host side (``repro.serve.cache``, paged layout).
 
 KV memory is ``n_pages`` fixed-size pages shared by every slot.
 :class:`PagePool` decides which physical pages a slot's logical
 positions map to; the device consumes the mapping as a
 ``(max_batch, max_pages)`` int32 page table (:meth:`PagePool.table_row`).
-Dropping a slot's mapping *is* the invalidation. The reference's
-refcounting, index pins and copy-on-write serve its prefix cache, which
-is a later slice of the port: here a page is free or owned by one slot.
+Dropping a slot's mapping *is* the invalidation. The pool is
+refcounted: one physical page may sit in many slots' tables (the
+cross-request prefix cache, ``serve.prefix.PrefixIndex``), may be
+pinned by the index with no slot referencing it (``cache``/``uncache``),
+and is copy-on-written (``cow``) before a slot writes into a page
+another holder can see. :func:`copy_pages` and :func:`apply_defrag` are
+the device halves of ``cow`` and ``defrag``.
 """
 from __future__ import annotations
 
@@ -15,13 +19,38 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.models.layers import paged_copy_pages
+
 
 class PagePool:
-    """Fixed-size-page allocator over ``n_pages`` physical pages.
+    """Refcounted fixed-size-page allocator over ``n_pages`` physical
+    pages.
 
-    Invariants (tests/test_torch_serve.py): ``alloc`` is all-or-nothing;
-    no page is owned by two slots; free + owned == n_pages; ``defrag``
-    keeps every slot's logical -> token mapping.
+    The pool decides *which* physical pages a slot's logical positions
+    map to; the device side consumes the mapping as an
+    ``(max_batch, max_pages)`` int32 page table (``table_row``). A
+    physical page is in exactly one of three states:
+
+      * **free** — on the free list, content meaningless;
+      * **referenced** — mapped by ``refcount(p) >= 1`` slots (prefix
+        sharing maps one physical page into many tables);
+      * **cached** — refcount 0 but pinned by the prefix index
+        (``cache``), holding reusable KV until ``uncache`` (LRU
+        eviction under pool pressure) releases it.
+
+    Invariants (tests/test_torch_serve.py, tests/test_torch_prefix.py):
+
+      * ``alloc`` is all-or-nothing — a partial grant never leaks pages;
+      * ``free_slot`` decrements every mapped page; only pages reaching
+        refcount 0 *and* not cached return to the free list — no page is
+        freed while any slot or the index can still read it;
+      * ``cow`` never hands a slot a page another holder can see: a
+        shared mapping (refcount > 1, or cached) is swapped for a fresh
+        page, the original keeps its other holders;
+      * ``defrag`` preserves every slot's logical->token mapping *and*
+        all sharing structure (a page mapped by k slots is moved once
+        and all k tables point at its new index); cached pages keep
+        their content too.
     """
 
     def __init__(self, n_pages: int, page_size: int):
@@ -31,7 +60,10 @@ class PagePool:
         self.page_size = page_size
         self._free: List[int] = list(range(n_pages - 1, -1, -1))
         self._slots: Dict[int, List[int]] = {}
+        self._ref: List[int] = [0] * n_pages
+        self._cached: set = set()
 
+    # ------------------------------------------------------------------ #
     def pages_for(self, n_tokens: int) -> int:
         """Pages needed to hold ``n_tokens`` logical positions."""
         return max(0, -(-n_tokens // self.page_size))
@@ -50,13 +82,41 @@ class PagePool:
     def slot_pages(self, slot: int) -> List[int]:
         return list(self._slots.get(slot, ()))
 
+    def refcount(self, page: int) -> int:
+        """Slot references on ``page`` (index pins are separate)."""
+        return self._ref[page]
+
+    def is_cached(self, page: int) -> bool:
+        return page in self._cached
+
+    def is_shared(self, page: int) -> bool:
+        """True when a write to ``page`` would be visible to another
+        holder — a second slot, or the prefix index."""
+        return self._ref[page] > 1 or page in self._cached
+
+    # ------------------------------------------------------------------ #
     def alloc(self, slot: int, n: int) -> bool:
         """Append ``n`` fresh pages to ``slot``; all-or-nothing."""
         if n > len(self._free):
             return False
-        self._slots.setdefault(slot, []).extend(
-            self._free.pop() for _ in range(n))
+        pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._ref[p] = 1
+        self._slots.setdefault(slot, []).extend(pages)
         return True
+
+    def share(self, slot: int, pages: List[int]) -> None:
+        """Append already-live pages to ``slot``'s table (prefix hit).
+
+        Each page must be referenced or cached — sharing a free page
+        would map memory the allocator can hand to someone else.
+        """
+        for p in pages:
+            if self._ref[p] == 0 and p not in self._cached:
+                raise ValueError(f"page {p} is free; cannot share it")
+        for p in pages:
+            self._ref[p] += 1
+        self._slots.setdefault(slot, []).extend(pages)
 
     def ensure(self, slot: int, n_tokens: int) -> bool:
         """Grow ``slot`` so positions [0, n_tokens) are mapped."""
@@ -64,10 +124,57 @@ class PagePool:
         return self.alloc(slot, max(0, self.pages_for(n_tokens) - have))
 
     def free_slot(self, slot: int) -> int:
-        """Return every page of ``slot`` to the free list."""
+        """Drop every mapping of ``slot``; a page returns to the free
+        list only once nothing else (slot or index pin) holds it."""
         pages = self._slots.pop(slot, [])
-        self._free.extend(pages)
+        for p in pages:
+            self._ref[p] -= 1
+            if self._ref[p] == 0 and p not in self._cached:
+                self._free.append(p)
         return len(pages)
+
+    # ------------------------------------------------------------------ #
+    def cache(self, pages: List[int]) -> None:
+        """Pin ``pages`` for the prefix index: refcount-0 pins survive
+        ``free_slot`` and leave the pool only via ``uncache``."""
+        for p in pages:
+            if self._ref[p] == 0 and p not in self._cached:
+                raise ValueError(f"page {p} is free; cannot cache it")
+        self._cached.update(pages)
+
+    def uncache(self, pages: List[int]) -> int:
+        """Drop index pins; returns how many pages became free."""
+        freed = 0
+        for p in pages:
+            if p in self._cached:
+                self._cached.discard(p)
+                if self._ref[p] == 0:
+                    self._free.append(p)
+                    freed += 1
+        return freed
+
+    def cow(self, slot: int, logical: int):
+        """Copy-on-write: give ``slot`` a private page at table index
+        ``logical`` before it writes there.
+
+        Returns ``(src, dst)`` physical ids for the device-side content
+        copy, or ``None`` when the mapping is already private (no copy
+        needed). Raises if a copy is needed but the free list is empty —
+        callers evict/preempt first.
+        """
+        pages = self._slots[slot]
+        src = pages[logical]
+        if not self.is_shared(src):
+            return None
+        if not self._free:
+            raise RuntimeError(
+                f"cow needs a free page (slot {slot}, logical {logical}) "
+                f"but the pool is exhausted")
+        dst = self._free.pop()
+        self._ref[dst] = 1
+        self._ref[src] -= 1  # shared -> still held by someone else
+        pages[logical] = dst
+        return (src, dst)
 
     def table_row(self, slot: int, max_pages: int) -> np.ndarray:
         """(max_pages,) int32 page-table row for ``slot`` (-1 unmapped)."""
@@ -76,35 +183,67 @@ class PagePool:
         row[: len(pages)] = pages
         return row
 
+    # ------------------------------------------------------------------ #
     def defrag(self) -> np.ndarray:
-        """Compact owned pages to the lowest physical indices.
+        """Compact occupied pages to the lowest physical indices.
 
-        Returns ``perm`` (n_pages + 1,) with ``new_pool[i] =
-        old_pool[perm[i]]``; apply it to the device pools with
-        :func:`apply_defrag` before the next step reads the rewritten
-        tables. The trailing trash page stays put.
+        Returns ``perm`` of shape (n_pages + 1,): ``new_pool[i] =
+        old_pool[perm[i]]`` — apply to the device pools with
+        :func:`apply_defrag` *before* the next step consumes the updated
+        page tables. The trailing trash page stays put. After
+        compaction the free list is the contiguous tail.
         """
         order: List[int] = []
+        remap: Dict[int, int] = {}
         for slot in sorted(self._slots):
             new_pages = []
             for old in self._slots[slot]:
-                new_pages.append(len(order))
-                order.append(old)
+                if old not in remap:  # shared pages move exactly once
+                    remap[old] = len(order)
+                    order.append(old)
+                new_pages.append(remap[old])
             self._slots[slot] = new_pages
-        owned = set(order)
-        free_old = [i for i in range(self.n_pages) if i not in owned]
+        # refcount-0 cached pages hold reusable KV: compact them right
+        # after the referenced pages so the free tail stays truly free
+        for old in sorted(self._cached):
+            if old not in remap:
+                remap[old] = len(order)
+                order.append(old)
+        free_old = [i for i in range(self.n_pages) if i not in remap]
         self._free = list(range(self.n_pages - 1, len(order) - 1, -1))
+        new_ref = [0] * self.n_pages
+        for old, new in remap.items():
+            new_ref[new] = self._ref[old]
+        self._ref = new_ref
+        self._cached = {remap[p] for p in self._cached}
         perm = np.empty((self.n_pages + 1,), np.int32)
         perm[: len(order)] = order
         perm[len(order): self.n_pages] = free_old
-        perm[self.n_pages] = self.n_pages
+        perm[self.n_pages] = self.n_pages  # trash page fixed
         return perm
+
+    @staticmethod
+    def remap_from_perm(perm) -> Dict[int, int]:
+        """old physical id -> new physical id for a ``defrag`` perm
+        (``new_pool[i] = old_pool[perm[i]]``); consumed by
+        ``serve.prefix.PrefixIndex.remap``."""
+        return {int(old): new for new, old in enumerate(perm[:-1])}
 
 
 def apply_defrag(cache, perm):
-    """Gather the layer-stacked pools ``(n_layers, n_pages + 1, ...)``
-    into the post-``defrag`` page order, in place."""
+    """Gather the layer-stacked pools ``(n_layers, n_pages + 1, ...)``,
+    values and any dequant scales, into the post-``defrag`` page order,
+    in place."""
     for pool in cache.values():
         idx = torch.as_tensor(perm, dtype=torch.long, device=pool.device)
         pool.copy_(pool.index_select(1, idx))
+    return cache
+
+
+def copy_pages(cache, src: List[int], dst: List[int]):
+    """Duplicate physical pages ``src[i] -> dst[i]`` in every pool of
+    the layer-stacked cache (the device half of :meth:`PagePool.cow`),
+    in place."""
+    if src:
+        paged_copy_pages(cache, src, dst)
     return cache

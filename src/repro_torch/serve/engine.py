@@ -11,9 +11,24 @@ the most SLO slack (youngest first among untagged requests), which
 re-queues at the front and later re-prefills from prompt + tokens so
 far, token-identical under greedy sampling.
 
-This slice serves greedily from bf16 or fp32 pools. Temperature
-sampling, the prefix cache, speculative decoding, int8/int4 pools and
-the slab layout raise ``NotImplementedError``.
+The pool holds bf16, fp32, int8 or int4 K/V (``kv_dtype``; the
+quantized pools carry fp32 per-row scales and run through the paged
+kernel's int8/int4 branches). With ``prefix_cache=True`` every full
+page a slot writes is registered in a radix prefix index
+(:class:`~repro_torch.serve.prefix.PrefixIndex`), and admission maps
+the stream's longest cached page-aligned prefix straight into the new
+slot (refcounted), charges the budget only for new pages and starts
+prefill at the first uncached token; a stream whose every page is
+cached copy-on-writes its last page and re-feeds its last token. With a
+drafter (``spec_decode="ngram"``, or a ``DraftModelDrafter`` passed in)
+decode rows feed ``[last_tok, d_1..d_k]`` and the head over every fed
+position verifies the drafts in the same chunk step. Under pool
+pressure the engine sheds drafts first, then evicts LRU index entries,
+then preempts. Greedy outputs equal those of the plain engine.
+
+Temperature sampling and the slab layout raise ``NotImplementedError``:
+they wait on queue 2 (counter-based sampling keys) and queue 4 (the
+slab layout over ``attention_full``) of ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -32,17 +47,21 @@ from repro_torch.models import lm
 from repro_torch.serve import cache as pool_ops
 from repro_torch.serve import slo
 from repro_torch.serve.metrics import ServeReport, StepTrace
+from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.request import Request
 from repro_torch.serve.scheduler import PagedScheduler
+from repro_torch.serve.speculative import get_drafter
 
-_LATER = "is not ported yet (a later serving slice of the PyTorch port)"
+KV_DTYPES = ("", "bfloat16", "float32", "int8", "int4")
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Engine knobs. ``max_len`` is the per-request token budget (prompt
     + generation). ``page_size`` / ``n_pages`` size the pool; ``n_pages``
-    defaults to ``max_batch * ceil(max_len / page_size)``."""
+    defaults to ``max_batch * ceil(max_len / page_size)``. ``kv_dtype``
+    ('' inherits the model config's ``kv_cache_dtype``) picks the pool;
+    ``spec_decode`` 'ngram' drafts ``draft_len`` tokens a row."""
 
     max_batch: int = 4
     max_len: int = 128
@@ -52,28 +71,37 @@ class ServeConfig:
     page_size: int = 16
     prefill_chunk: int = 8
     n_pages: Optional[int] = None
-    prefix_cache: bool = False
-    kv_dtype: str = ""           # '' inherit model cfg | bfloat16 | float32
-    spec_decode: str = "off"
+    prefix_cache: bool = False   # cross-request KV sharing
+    kv_dtype: str = ""           # '' | bfloat16 | float32 | int8 | int4
+    spec_decode: str = "off"     # off | ngram (greedy only)
+    draft_len: int = 4           # tokens proposed per row per step
 
     def __post_init__(self):
+        if self.temperature > 0.0:
+            raise NotImplementedError(
+                "temperature > 0 is not ported yet: sampling keys per "
+                "(seed, request, position) wait on ROADMAP.md queue 2")
+        if self.kv_layout == "slab":
+            raise NotImplementedError(
+                "kv_layout='slab' is not ported yet: the slab layout "
+                "waits on ROADMAP.md queue 4")
+        if self.kv_layout not in ("auto", "paged"):
+            raise ValueError(f"kv_layout must be 'auto' or 'paged', got "
+                             f"{self.kv_layout!r}")
         if self.page_size < 1 or self.prefill_chunk < 1:
             raise ValueError("page_size and prefill_chunk must be >= 1")
         if self.n_pages is not None and self.n_pages < 1:
             raise ValueError("n_pages must be >= 1")
-        for name, bad in (
-                ("temperature > 0", self.temperature > 0.0),
-                ("prefix_cache", self.prefix_cache),
-                (f"kv_dtype={self.kv_dtype!r}", self.kv_dtype in ("int8", "int4")),
-                (f"spec_decode={self.spec_decode!r}", self.spec_decode != "off"),
-                (f"kv_layout={self.kv_layout!r}", self.kv_layout == "slab")):
-            if bad:
-                raise NotImplementedError(f"{name} {_LATER}")
-        if self.kv_layout not in ("auto", "paged"):
-            raise ValueError(f"kv_layout must be 'auto' or 'paged', got "
-                             f"{self.kv_layout!r}")
-        if self.kv_dtype not in ("", "bfloat16", "float32"):
-            raise ValueError(f"unknown kv_dtype {self.kv_dtype!r}")
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, got "
+                             f"{self.kv_dtype!r}")
+        if self.spec_decode not in ("off", "ngram"):
+            raise ValueError(
+                f"spec_decode must be 'off' or 'ngram', got "
+                f"{self.spec_decode!r} (model-based drafting passes a "
+                f"DraftModelDrafter to the Engine)")
+        if self.draft_len < 1:
+            raise ValueError("draft_len must be >= 1")
 
     @property
     def max_pages(self) -> int:
@@ -87,20 +115,36 @@ class ServeConfig:
 
 class Engine:
     """Paged continuous-batching engine on ``device`` (default CUDA),
-    with ``params`` from ``lm.init_lm`` or ``lm.params_from_numpy``."""
+    with ``params`` from ``lm.init_lm`` or ``lm.params_from_numpy``;
+    ``drafter`` (optional) is any object with ``propose(context, k)``."""
 
     def __init__(self, cfg: ModelConfig, params,
-                 serve: Optional[ServeConfig] = None, *, device="cuda"):
+                 serve: Optional[ServeConfig] = None, *, drafter=None,
+                 device="cuda"):
         self.scfg = serve or ServeConfig()
         if self.scfg.kv_dtype:
             cfg = dataclasses.replace(cfg, kv_cache_dtype=self.scfg.kv_dtype)
+        # Unsupported dtype combos fail here, not mid-step.
+        if cfg.kv_cache_dtype == "int4" and cfg.head_dim % 2:
+            raise ValueError(
+                f"kv_dtype='int4' needs an even head_dim; {cfg.name} has "
+                f"head_dim={cfg.head_dim}")
+        self._drafter = drafter
+        if self._drafter is None:
+            self._drafter = get_drafter(self.scfg.spec_decode)
+        if (self._drafter is not None
+                and self.scfg.draft_len + 1 > self.scfg.prefill_chunk):
+            raise ValueError(
+                f"draft_len+1 ({self.scfg.draft_len + 1}) tokens must fit "
+                f"one chunk; raise prefill_chunk ({self.scfg.prefill_chunk})"
+                f" or lower draft_len")
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
         self.reset()
 
     def reset(self) -> None:
-        """Fresh scheduler, pool and trace state."""
+        """Fresh scheduler, pool, index and trace state."""
         B = self.scfg.max_batch
         self._tok = np.zeros((B,), np.int32)
         self._pos = np.zeros((B,), np.int32)
@@ -110,10 +154,27 @@ class Engine:
         self._trace: List[StepTrace] = []
         self._step_idx = 0
         self._preempted = 0
+        # Prefix-cache state (None / zeros when the cache is off).
+        self._prefix: Optional[PrefixIndex] = None
+        self._start: dict = {}                      # slot -> prefill offset
+        self._n_indexed = np.zeros((B,), np.int32)  # full pages registered
+        self._prefill_total = 0
+        self._prefill_skipped = 0
+        self._pages_shared = 0
+        self._cow = 0
+        self._draft_total = 0     # draft tokens proposed
+        self._draft_accepted = 0  # draft tokens accepted by verification
         self._pool = pool_ops.PagePool(self.scfg.pool_pages,
                                        self.scfg.page_size)
-        self.sched = PagedScheduler(B, self._pool, self._admission_pages,
-                                    on_shortfall=self._admission_preempt)
+        if self.scfg.prefix_cache:
+            self._prefix = PrefixIndex(self._pool, self.scfg.page_size)
+            self.sched = PagedScheduler(
+                B, self._pool, acquire=self._acquire_paged,
+                on_shortfall=self._admission_preempt)
+        else:
+            self.sched = PagedScheduler(
+                B, self._pool, self._admission_pages,
+                on_shortfall=self._admission_preempt)
         self._cache = lm.init_paged_cache(
             self.cfg, self.scfg.pool_pages, self.scfg.page_size,
             device=self.device)
@@ -122,10 +183,63 @@ class Engine:
         self._admit_seq = np.zeros((B,), np.int64)
         self._admit_counter = itertools.count(1)
 
+    # ------------------------------------------------------------------ #
     def _admission_pages(self, req: Request) -> int:
         """Pages the pending prefill stream needs (prompt + any tokens
         generated before a preemption)."""
         return self._pool.pages_for(len(req.prompt) + len(req.tokens))
+
+    def _acquire_paged(self, slot: int, req: Request) -> bool:
+        """Prefix-cache admission: map the stream's longest cached
+        page-aligned prefix into ``slot`` (refcounted ``pool.share``),
+        charge the budget only for the uncached tail (evicting LRU index
+        entries if short), and stage the prefill offset. A stream whose
+        every page is cached copy-on-writes its final page and re-feeds
+        its last token. All-or-nothing: on a shortfall every mapping is
+        rolled back and admission falls back to the cache-off
+        allocation, so the cache never admits less than the cache-off
+        engine would."""
+        stream = list(req.prompt) + list(req.tokens)
+        S = len(stream)
+        ps = self.scfg.page_size
+        need_total = self._pool.pages_for(S)
+        cached = self._prefix.lookup(stream)
+        k = len(cached)
+        full_match = k > 0 and k * ps == S
+        need_new = 1 if full_match else need_total - k
+        if k:
+            self._pool.share(slot, cached)  # pins them against evict
+        if self._pool.free_pages < need_new:
+            self._prefix.evict(need_new - self._pool.free_pages)
+        ok = self._pool.free_pages >= need_new
+        if ok and full_match:
+            src, dst = self._pool.cow(slot, k - 1)
+            pool_ops.copy_pages(self._cache, [src], [dst])
+            self._cow += 1
+        elif ok and need_new:
+            self._pool.alloc(slot, need_new)
+        if not ok:
+            self._pool.free_slot(slot)
+            if not self._pool.alloc(slot, need_total):
+                return False
+            k = full_match = 0
+        start = S - 1 if full_match else k * ps
+        self._start[slot] = start
+        self._prefill_total += S
+        self._prefill_skipped += start
+        self._pages_shared += k
+        return True
+
+    def _register(self, slot: int, req: Request) -> None:
+        """Index every complete page ``slot`` has written (fed tokens are
+        always ``(prompt + tokens)[:pos]``); first writer wins."""
+        ps = self.scfg.page_size
+        full = int(self._pos[slot]) // ps
+        if full <= int(self._n_indexed[slot]):
+            return
+        seq = (list(req.prompt) + list(req.tokens))[:full * ps]
+        self._prefix.insert(seq, self._pool.slot_pages(slot)[:full])
+        self._n_indexed[slot] = full
 
     def submit(self, req: Request) -> None:
         """Register a request; it enters the queue at ``req.arrival_step``."""
@@ -146,15 +260,40 @@ class Engine:
         """Step until every submitted request has finished; the engine is
         reset on return, so a reused engine reports each workload apart."""
         t0 = time.perf_counter()
-        while self._arrivals or self.sched.has_work:
-            self.step()
+        self.drain()
         return self.finalize(t0)
 
+    @property
+    def current_step(self) -> int:
+        """The step index the next :meth:`step` runs as."""
+        return self._step_idx
+
+    def drain(self) -> None:
+        """Step until no submitted request remains unfinished, without
+        building a report (issue-on-completion drivers drain per
+        request and call :meth:`finalize` once)."""
+        while self._arrivals or self.sched.has_work:
+            self.step()
+
     def finalize(self, t0: float) -> ServeReport:
-        report = ServeReport(requests=list(self._finished),
-                             steps=list(self._trace),
-                             elapsed_s=time.perf_counter() - t0,
-                             preemptions=self._preempted)
+        """Build the run's report (elapsed since ``t0``) and reset."""
+        report = ServeReport(
+            requests=list(self._finished),
+            steps=list(self._trace),
+            elapsed_s=time.perf_counter() - t0,
+            preemptions=self._preempted,
+            prefix_hit_rate=(
+                self._prefill_skipped / max(self._prefill_total, 1)
+                if self._prefix is not None else None),
+            pages_shared=self._pages_shared,
+            prefill_tokens_skipped=self._prefill_skipped,
+            cow_copies=self._cow,
+            spec_accept_rate=(
+                self._draft_accepted / max(self._draft_total, 1)
+                if self._drafter is not None else None),
+            draft_tokens=self._draft_total,
+            draft_accepted=self._draft_accepted,
+        )
         self.reset()
         return report
 
@@ -164,6 +303,7 @@ class Engine:
             _, _, req = heapq.heappop(self._arrivals)
             if req.t_arrival is None:
                 req.t_arrival = time.perf_counter()
+                req.s_arrival = self._step_idx
             self.sched.submit(req)
         for slot, req in self.sched.admit():
             self._admit_paged(slot, req)
@@ -172,19 +312,24 @@ class Engine:
         self._step_idx += 1
 
     def defrag(self) -> None:
-        """Compact the page pool; page tables are rewritten and decode
-        output is unchanged."""
-        pool_ops.apply_defrag(self._cache, self._pool.defrag())
+        """Compact the page pool; page tables (and the prefix index) are
+        rewritten and decode output is unchanged."""
+        perm = self._pool.defrag()
+        pool_ops.apply_defrag(self._cache, perm)
+        if self._prefix is not None:
+            self._prefix.remap(pool_ops.PagePool.remap_from_perm(perm))
         for slot in range(self.scfg.max_batch):
             self._ptab[slot] = self._pool.table_row(slot, self.scfg.max_pages)
 
     # ------------------------------------------------------------------ #
     def _preempt_slot(self, victim: int) -> None:
         """Evict ``victim`` to its band's queue front; the scheduler frees
-        its pages."""
+        its pages. With the prefix cache on, the victim later resumes
+        through the index and rediscovers its own surviving pages."""
         self.sched.preempt(victim)
         self._ptab[victim] = -1
         self._stream.pop(victim, None)
+        self._n_indexed[victim] = 0
         self._preempted += 1
 
     def _admission_preempt(self, req: Request) -> bool:
@@ -201,38 +346,77 @@ class Engine:
         return True
 
     def _admit_paged(self, slot: int, req: Request) -> None:
-        """Stage the prefill stream; the scheduler reserved its pages."""
-        self._stream[slot] = list(req.prompt) + list(req.tokens)
-        self._pos[slot] = 0
+        """Stage the prefill stream from its first uncached token; the
+        scheduler reserved (or shared) its pages."""
+        stream = list(req.prompt) + list(req.tokens)
+        start = self._start.pop(slot, 0)
+        self._stream[slot] = stream[start:]
+        self._pos[slot] = start
         self._admit_seq[slot] = next(self._admit_counter)
         self._ptab[slot] = self._pool.table_row(slot, self.scfg.max_pages)
+        if self._prefix is not None:
+            self._n_indexed[slot] = start // self.scfg.page_size
+
+    def _draft(self, active) -> dict:
+        """Up to ``draft_len`` proposed tokens for each decode row, capped
+        so the fed group fits the chunk and full acceptance plus the
+        model's own token never outgrows the request's budget. Rows still
+        prefilling, and rows the drafter has nothing for, decode plainly."""
+        drafts = {}
+        k_max = min(self.scfg.draft_len, self.scfg.prefill_chunk - 1)
+        for slot in sorted(active):
+            if self._stream.get(slot):
+                continue
+            req = active[slot]
+            k = min(k_max, req.max_new_tokens - len(req.tokens) - 1)
+            if k <= 0:
+                continue
+            ctx = list(req.prompt) + list(req.tokens)
+            d = list(self._drafter.propose(ctx, k))[:k]
+            if d:
+                drafts[slot] = [int(t) for t in d]
+        return drafts
 
     def _chunk_once(self) -> None:
-        """One mixed dispatch: decode rows advance one token, prefilling
-        rows up to ``prefill_chunk`` prompt tokens."""
+        """One mixed dispatch: decode rows advance one token (plus any
+        verified drafts), prefilling rows up to ``prefill_chunk`` prompt
+        tokens."""
         C = self.scfg.prefill_chunk
         B = self.scfg.max_batch
         active = dict(self.sched.running())
+        spec = self._drafter is not None
+        drafts = self._draft(active) if spec else {}
 
-        # Lazy decode growth; when the pool runs dry, preempt.
+        # Lazy decode growth; when the pool runs dry, shed drafts first,
+        # then drop cold prefix-cache entries, then preempt.
         while active:
             growth = {}
             for slot in active:
                 if self._stream.get(slot):
                     continue  # prefill pages were reserved at admission
-                need = (self._pool.pages_for(int(self._pos[slot]) + 1)
+                want = int(self._pos[slot]) + 1 + len(drafts.get(slot, ()))
+                need = (self._pool.pages_for(want)
                         - len(self._pool.slot_pages(slot)))
                 if need > 0:
                     growth[slot] = need
-            if sum(growth.values()) <= self._pool.free_pages:
+            shortfall = sum(growth.values()) - self._pool.free_pages
+            if shortfall <= 0:
                 for slot in growth:
-                    self._pool.ensure(slot, int(self._pos[slot]) + 1)
+                    self._pool.ensure(
+                        slot,
+                        int(self._pos[slot]) + 1 + len(drafts.get(slot, ())))
                 break
+            if drafts:
+                drafts.pop(sorted(drafts)[0])  # degrade, deterministically
+                continue
+            if self._prefix is not None and self._prefix.evict(shortfall):
+                continue
             victim = slo.choose_victim(
                 active, self._step_idx,
                 {s: int(self._admit_seq[s]) for s in active})
             self._preempt_slot(victim)
             active.pop(victim)
+            drafts.pop(victim, None)
         if not active:
             return
 
@@ -251,6 +435,10 @@ class Engine:
                 prefilling = True
             else:
                 toks[slot, 0] = self._tok[slot]
+                d = drafts.get(slot)
+                if d:
+                    toks[slot, 1:1 + len(d)] = d
+                    nv[slot] = 1 + len(d)
             self._ptab[slot] = self._pool.table_row(slot, self.scfg.max_pages)
 
         t0 = time.perf_counter()
@@ -259,7 +447,10 @@ class Engine:
             logits, self._cache = lm.decode_chunk(
                 self.params, self.cfg, torch.from_numpy(toks).to(dev),
                 self._cache, torch.from_numpy(self._ptab).to(dev),
-                torch.from_numpy(posb).to(dev), torch.from_numpy(nv).to(dev))
+                torch.from_numpy(posb).to(dev), torch.from_numpy(nv).to(dev),
+                full_logits=spec)
+            # spec: (B, C) targets, the model's next token after each fed
+            # position; plain: (B,), the token after the last fed one.
             nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         dt = time.perf_counter() - t0
 
@@ -267,19 +458,44 @@ class Engine:
         for slot, req in active.items():
             n = int(nv[slot])
             stream = self._stream.get(slot)
-            self._pos[slot] += n
-            if stream:
-                self._stream[slot] = stream[n:]
-                if self._stream[slot]:
-                    continue  # mid-prompt: logits not sampled yet
-            tok = int(nxt[slot])
-            req.tokens.append(tok)
-            produced += 1
-            if req.t_first_token is None:
-                req.t_first_token = time.perf_counter()
-            self._tok[slot] = tok
-            if req.done or tok == self.scfg.eos_id:
-                self._retire_paged(slot, req)
+            d = drafts.get(slot)
+            if stream or not d:
+                self._pos[slot] += n
+                if self._prefix is not None:
+                    self._register(slot, req)
+                if stream:
+                    self._stream[slot] = stream[n:]
+                    if self._stream[slot]:
+                        continue  # mid-prompt: logits not sampled yet
+                emit = [int(nxt[slot, n - 1] if spec else nxt[slot])]
+            else:
+                k = len(d)
+                a = 0
+                while a < k and d[a] == int(nxt[slot, a]):
+                    a += 1
+                emit = [int(nxt[slot, i]) for i in range(a + 1)]
+                self._draft_total += k
+                self._draft_accepted += a
+                # Rejected positions hold stale draft K/V past the new
+                # n_valid limit; attention never reads them, and the real
+                # tokens overwrite them when those positions are fed.
+                self._pos[slot] += a + 1
+            alive = True
+            for tok in emit:
+                req.tokens.append(tok)
+                produced += 1
+                if req.t_first_token is None:
+                    req.t_first_token = time.perf_counter()
+                    req.s_first_token = self._step_idx
+                self._tok[slot] = tok
+                if req.done or tok == self.scfg.eos_id:
+                    self._retire_paged(slot, req)
+                    alive = False
+                    break
+            if d and not stream and alive and self._prefix is not None:
+                # after the accepted tokens joined req.tokens: every
+                # position below _pos is now a verified token
+                self._register(slot, req)
         self._trace.append(StepTrace(
             "mixed" if prefilling else "decode", dt, produced,
             pool_util=self._pool.utilization()))
@@ -288,26 +504,60 @@ class Engine:
         self.sched.retire(slot)  # frees the slot's pages too
         self._ptab[slot] = -1
         self._stream.pop(slot, None)
+        self._n_indexed[slot] = 0
+        req.t_done = time.perf_counter()
+        req.s_done = self._step_idx
         self._finished.append(req)
 
 
 def synthetic_requests(cfg, *, n: int, tokens: int, prompt_len: int,
-                       seed: int = 0,
+                       scenario: str = "offline", seed: int = 0,
+                       arrival_rate: float = 0.5,
                        prompt_lens: Optional[Sequence[int]] = None,
+                       shared_prefix_len: int = 0, n_templates: int = 1,
+                       suffix_spread: Optional[Sequence[int]] = None,
                        ) -> List[Request]:
-    """Offline synthetic workload, byte-identical to the reference's
-    ``synthetic_requests`` for a token-only arch: ``prompt_lens`` cycles
-    explicit lengths, else each length is drawn from
-    ``[prompt_len // 2, prompt_len]``; ids come from
-    ``np.random.RandomState(seed)``."""
+    """Synthetic workload, byte-identical to the reference's
+    ``synthetic_requests`` for a token-only arch, ids from
+    ``np.random.RandomState(seed)``.
+
+    ``prompt_lens`` cycles explicit lengths, else each length is drawn
+    from ``[prompt_len // 2, prompt_len]``. ``shared_prefix_len > 0``
+    opens request ``i`` with template ``i % n_templates`` (a fixed
+    prefix of that many tokens, also the request's ``template`` key)
+    followed by a private suffix of ``suffix_spread`` cycled lengths, or
+    ``max(1, prompt_len - shared_prefix_len)`` tokens. Any scenario but
+    offline stamps Poisson arrivals at ``arrival_rate`` requests a step,
+    drawn after every prompt, so prompts do not depend on the scenario.
+    """
+    if shared_prefix_len < 0 or n_templates < 1:
+        raise ValueError("shared_prefix_len >= 0 and n_templates >= 1")
     rng = np.random.RandomState(seed)
+    templates = [rng.randint(0, cfg.vocab, size=shared_prefix_len).tolist()
+                 for _ in range(n_templates)] if shared_prefix_len else []
     reqs = []
     for i in range(n):
-        if prompt_lens:
-            p_len = max(1, int(prompt_lens[i % len(prompt_lens)]))
+        if shared_prefix_len:
+            if suffix_spread:
+                s_len = max(1, int(suffix_spread[i % len(suffix_spread)]))
+            else:
+                s_len = max(1, prompt_len - shared_prefix_len)
+            prompt = (templates[i % n_templates]
+                      + rng.randint(0, cfg.vocab, size=s_len).tolist())
+            template = tuple(templates[i % n_templates])
         else:
-            lo = max(1, min(prompt_len // 2, prompt_len))
-            p_len = int(rng.randint(lo, max(lo + 1, prompt_len + 1)))
-        prompt = rng.randint(0, cfg.vocab, size=p_len).tolist()
-        reqs.append(Request(prompt=prompt, max_new_tokens=tokens))
+            template = None
+            if prompt_lens:
+                p_len = max(1, int(prompt_lens[i % len(prompt_lens)]))
+            else:
+                lo = max(1, min(prompt_len // 2, prompt_len))
+                p_len = int(rng.randint(lo, max(lo + 1, prompt_len + 1)))
+            prompt = rng.randint(0, cfg.vocab, size=p_len).tolist()
+        reqs.append(Request(prompt=prompt, max_new_tokens=tokens,
+                            template=template))
+    if scenario != "offline":
+        from repro_torch.serve.scenarios import poisson_arrivals
+
+        for r, a in zip(reqs, poisson_arrivals(rng, n, arrival_rate)):
+            r.arrival_step = int(a)
     return reqs

@@ -27,21 +27,29 @@ class RequestState(enum.Enum):
 class Request:
     """One generation request: prompt token ids, generation budget and
     the engine step it becomes visible at (0 = offline). ``slo`` holds
-    the request's latency class (see ``serve.slo``), None for
-    best-effort traffic."""
+    the request's latency class (``serve.slo.SLOClass``), None for
+    best-effort traffic; ``template`` is any hashable naming the shared
+    prompt template the request opens with (None = untemplated)."""
 
     prompt: List[int]
     max_new_tokens: int = 16
     arrival_step: int = 0
     id: int = dataclasses.field(default_factory=lambda: next(_ids))
     slo: Optional[Any] = None
+    template: Optional[Any] = None
 
     # -- runtime state (owned by scheduler/engine) ---------------------- #
     state: RequestState = RequestState.WAITING
     slot: Optional[int] = None
     tokens: List[int] = dataclasses.field(default_factory=list)
-    t_arrival: Optional[float] = None
-    t_first_token: Optional[float] = None
+    t_arrival: Optional[float] = None      # wall clock at queue entry
+    t_first_token: Optional[float] = None  # wall clock after prefill
+    t_done: Optional[float] = None         # wall clock at retirement
+    # Step-clock twins of the wall stamps (engine scheduling rounds):
+    # deterministic, so SLO budgets are checked machine-independently.
+    s_arrival: Optional[int] = None
+    s_first_token: Optional[int] = None
+    s_done: Optional[int] = None
     # Scheduler ticket (set at first submit, kept across preemptions).
     sched_seq: Optional[int] = None
 
@@ -64,3 +72,9 @@ class Request:
         if self.t_first_token is None or self.t_arrival is None:
             return None
         return self.t_first_token - self.t_arrival
+
+    @property
+    def latency_s(self) -> Optional[float]:
+        if self.t_done is None or self.t_arrival is None:
+            return None
+        return self.t_done - self.t_arrival

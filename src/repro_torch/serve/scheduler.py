@@ -102,20 +102,29 @@ class Scheduler:
 class PagedScheduler(Scheduler):
     """Admission by free-page budget: ``cost(req)`` pages are reserved
     all-or-nothing as the request is admitted, and a blocked queue head
-    blocks everyone behind it. ``on_shortfall(req) -> bool`` (the SLO
+    blocks everyone behind it. With the prefix cache on, the engine
+    passes ``acquire(slot, req) -> bool`` instead of ``cost``: it maps
+    the stream's cached pages into the slot and charges only the new
+    ones, still all-or-nothing. ``on_shortfall(req) -> bool`` (the SLO
     hook) may free capacity by preempting; True retries the admission."""
 
-    def __init__(self, max_batch: int, pool, cost, on_shortfall=None):
+    def __init__(self, max_batch: int, pool, cost=None, acquire=None,
+                 on_shortfall=None):
+        if (cost is None) == (acquire is None):
+            raise ValueError("pass exactly one of cost / acquire")
         super().__init__(max_batch)
         self.pool = pool
         self._cost = cost
+        self._acquire = acquire
         self._on_shortfall = on_shortfall
 
     def _can_admit(self, slot: int, req: Request) -> bool:
         while True:
-            if self.pool.alloc(slot, self._cost(req)):
-                return True
-            if self._on_shortfall is None or not self._on_shortfall(req):
+            ok = (self._acquire(slot, req) if self._acquire is not None
+                  else self.pool.alloc(slot, self._cost(req)))
+            if ok or self._on_shortfall is None:
+                return ok
+            if not self._on_shortfall(req):
                 return False
 
     def preempt(self, slot: int) -> Request:

@@ -21,6 +21,7 @@ PORT_MODULES = [
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_attention",
+    "repro_torch.kernels.quant",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
     "repro_torch.optim",
@@ -30,10 +31,12 @@ PORT_MODULES = [
     "repro_torch.serve.cache",
     "repro_torch.serve.engine",
     "repro_torch.serve.metrics",
+    "repro_torch.serve.prefix",
     "repro_torch.serve.request",
     "repro_torch.serve.scenarios",
     "repro_torch.serve.scheduler",
     "repro_torch.serve.slo",
+    "repro_torch.serve.speculative",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
     "repro_torch.train.hooks",

@@ -127,12 +127,20 @@ def test_cuda_wrapper_rejects_cpu_tensors():
 
 
 def test_ops_refuses_quantized_pools():
+    """Quantized pools are ported (tests/test_torch_quant.py); ``ops``
+    still refuses the malformed ones the reference refuses: one scale
+    without the other, and a trailing axis that is neither head_dim
+    (int8) nor head_dim // 2 (int4)."""
     q, kp, vp, pt, pos, nv = (torch.from_numpy(a) for a in _case(
         **CASES["ragged_gqa"]))
-    with pytest.raises(NotImplementedError, match="int8/int4"):
-        ops.paged_attention(q, kp, vp, pt, pos=pos, n_valid=nv,
-                            kp_scale=torch.ones(kp.shape[:3]),
-                            vp_scale=torch.ones(kp.shape[:3]))
+    s = torch.ones(kp.shape[:3])
+    with pytest.raises(ValueError, match="together"):
+        ops.paged_attention(q, kp.to(torch.int8), vp.to(torch.int8), pt,
+                            pos=pos, n_valid=nv, kp_scale=s)
+    with pytest.raises(ValueError, match="matches neither"):
+        ops.paged_attention(q, kp[..., :5].to(torch.int8),
+                            vp[..., :5].to(torch.int8), pt, pos=pos,
+                            n_valid=nv, kp_scale=s, vp_scale=s)
 
 
 @pytest.fixture

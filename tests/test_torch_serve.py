@@ -101,9 +101,7 @@ def test_defrag_mid_run_keeps_tokens(models):
 
 def test_engine_rejects_unported_and_oversized(models):
     _, _, cfg, params = models
-    for bad in (dict(temperature=0.8), dict(prefix_cache=True),
-                dict(kv_dtype="int8"), dict(spec_decode="ngram"),
-                dict(kv_layout="slab")):
+    for bad in (dict(temperature=0.8), dict(kv_layout="slab")):
         with pytest.raises(NotImplementedError, match="not ported"):
             ServeConfig(**bad)
     eng = Engine(cfg, params, ServeConfig(max_batch=1, max_len=16,
