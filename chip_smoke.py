@@ -13,14 +13,16 @@ and prints no result):
    card at the shapes its path gives it (paged attention at the serving
    chunk's, from bf16/fp32 pools and through its int8 and int4
    branches, flash attention forward and backward at the train step's
-   and at edge cases), and times the kernel, the plain version, one
-   PyTorch library call computing the same function, and the least
-   time the card could take (its bound);
+   and at edge cases, the LSTM cell forward (with and without its saved
+   gates) and backward at GNMT's shape and at edge cases), and times the
+   kernel, the plain version, one PyTorch library call computing the
+   same function, and the least time the card could take (its bound);
 3. checks: reduced gemma-7b in fp32 on the card against the CPU's
    plain path, serving (logits and greedy tokens; and from int8 and
    int4 pools with the prefix cache and speculative decoding, which
    must also equal the card's tokens with both off) and training (the
-   loss of 3 steps from the same weights and batches);
+   loss of 3 steps from the same weights and batches); reduced GNMT in
+   fp32, card against CPU: loss, every gradient, 3 Adam steps;
 4. serve: full-width gemma-7b (28 layers, random bf16 weights from a
    seed) serves 8 ragged requests offline through the port's engine;
    the kernel's launch counter, zeroed just before, must show it ran
@@ -40,7 +42,16 @@ and prints no result):
    through them (forward twice per layer per step, with the remat
    recompute, and once per layer per eval batch; backward once per
    layer per step), and a second run from the same seed must give the
-   same losses.
+   same losses;
+6. train GNMT: full width (F 1024, 4 + 4 layers, vocab 32000, bf16
+   compute, random weights from seed 0) takes 6 steps of batch 128 of
+   bucketized copy-task sentences (4-50 tokens, window 6) through
+   ``repro_torch.launch.gnmt.train``; the LSTM kernels' counters, zeroed
+   just before, must show 5L + 4L*r forward and 9L backward launches in
+   each step of padded length L (r = 2 when the decoder's scan chunks
+   and recomputes); one step traced; then, reported and not gated, the
+   encoder's forward hoisted against in-loop (C9) at batch 2 and 128,
+   and one LSTM layer against cuDNN's ``torch.nn.LSTM``.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -48,6 +59,7 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -65,11 +77,18 @@ from repro_torch.data.pipeline import (  # noqa: E402
     synthetic_eval_set,
     synthetic_lm_batches,
 )
+from repro_torch.data.bucketization import bucketized_batches  # noqa: E402
+from repro_torch.data.pipeline import prefetch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import lstm_cell as lk  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quant  # noqa: E402
+from repro_torch.launch import gnmt as gnmt_cli  # noqa: E402
+from repro_torch.models import gnmt  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models.scan_utils import _largest_divisor_leq  # noqa: E402
+from repro_torch.optim import adam, constant  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine,
     ServeConfig,
@@ -93,6 +112,8 @@ SHARED, SUFFIX, RATE = 96, 32, 0.5
 INT4_TOKENS = 16
 TRAIN_LAYERS = 8  # 16 B/param of state: 28 layers need 137 GB, 8 take 48
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+# GNMT: bucketized copy-task sentences of 4-50 tokens, window 6.
+GNMT_BATCH, GNMT_MAX_LEN, GNMT_WINDOW, GNMT_STEPS = 128, 50, 6, 6
 
 
 def phase(name: str) -> None:
@@ -441,6 +462,151 @@ def check_flash():
           f"{times['sdpa_bwd']:.4f} ms; sdpa forward+backward "
           f"{times['sdpa_fwd_bwd']:.4f} ms", flush=True)
     del q, k, v, do, out, lse, qp, kp, vp, plain_out, qs, ks, vs, sdpa_out
+    torch.cuda.empty_cache()
+    return recs
+
+
+# --------------------------------------------------------------------------- #
+# Phase 2c: the LSTM cell forward and backward vs plain.
+# --------------------------------------------------------------------------- #
+LSTM_CASES = [  # name, B, F, dtype
+    ("gnmt", 128, 1024, torch.bfloat16),     # GNMT's train step
+    ("ragged", 200, 1024, torch.bfloat16),   # a ragged batch tile
+    ("small", 5, 64, torch.float32),
+    ("tiny", 48, 96, torch.bfloat16),
+]
+
+
+def lstm_inputs(seed, B, F, dtype):
+    """x_proj, h, w_h in ``dtype``; c, b fp32; dh in ``dtype``; dc fp32.
+    W_h at GNMT's init scale F^-0.5."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0, dt=torch.float32):
+        return (torch.randn(shape, generator=gen, device="cuda") * scale
+                ).to(dt)
+
+    return dict(x_proj=randn(B, 4 * F, dt=dtype), h_prev=randn(B, F, dt=dtype),
+                c_prev=randn(B, F), w_h=randn(F, 4 * F, scale=F ** -0.5,
+                                              dt=dtype),
+                b=randn(4 * F, scale=0.1)), randn(B, F, dt=dtype), randn(B, F)
+
+
+def plain_gates(x_proj, h_prev, c_prev, w_h, b):
+    pre = x_proj.float() + h_prev.float() @ w_h.float() + b
+    i, f, g, o = pre.chunk(4, dim=-1)
+    return torch.cat([torch.sigmoid(i), torch.sigmoid(f), torch.tanh(g),
+                      torch.sigmoid(o)], dim=-1)
+
+
+def check_lstm():
+    """Both LSTM cell kernels against their plain versions at the shapes
+    of GNMT's path and at edge cases (forward with and without the saved
+    gates, backward from the kernel's own gates), then timed at GNMT's
+    shape (B 128, F 1024, bf16) beside the plain versions and one
+    library call each: ``torch.matmul`` + ``aten._thnn_fused_lstm_cell``
+    forward, ``aten._thnn_fused_lstm_cell_backward_impl`` backward."""
+    phase("kernels: lstm_cell forward and backward vs plain PyTorch")
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for i, (name, B, F, dtype) in enumerate(LSTM_CASES):
+        tol = TOL[dtype]
+        x, dh, dc = lstm_inputs(i, B, F, dtype)
+        h0, c0, none = lk.lstm_cell_fwd_cuda(**x)
+        h, c, gates = lk.lstm_cell_fwd_cuda(**x, save_gates=True)
+        dg, dcp = lk.lstm_cell_bwd_cuda(gates, x["c_prev"], c, dh, dc)
+        torch.cuda.synchronize()
+        if none is not None or not (torch.equal(h0, h) and torch.equal(c0, c)):
+            raise AssertionError(f"lstm_cell {name}: saving the gates changed "
+                                 f"the forward")
+        want_h, want_c = lk.lstm_cell_torch(**x)
+        want_g = plain_gates(**x)
+        want_dg, want_dcp = lk.lstm_cell_bwd_torch(want_g, x["c_prev"], want_c,
+                                                   dh, dc)
+        line = []
+        for label, key, got, ref in (
+                ("h", "fwd", h, want_h), ("c", "fwd", c, want_c),
+                ("gates", "fwd", gates, want_g), ("dgates", "bwd", dg, want_dg),
+                ("dc_prev", "bwd", dcp, want_dcp)):
+            g, w = got.float(), ref.float()
+            err = (g - w).abs().max().item()
+            if not (torch.isfinite(g).all()
+                    and torch.allclose(g, w, rtol=tol, atol=tol)):
+                raise AssertionError(
+                    f"lstm_cell {name} {dtype} {label}: kernel != plain, max "
+                    f"|diff| {err} > {tol}")
+            if name == "gnmt":
+                errs[key] = max(errs[key], err)
+            line.append(f"{label} {err:.2e}")
+        print(f"  {name:7s} B{B} F{F} {str(dtype):15s} max|kernel-plain| "
+              f"{', '.join(line)} (tol {tol:g}) ok", flush=True)
+
+    # Timing at GNMT's shape.
+    name, B, F, dtype = LSTM_CASES[0]
+    x, dh, dc = lstm_inputs(99, B, F, dtype)
+    h, c, gates = lk.lstm_cell_fwd_cuda(**x, save_gates=True)
+    elt = x["x_proj"].element_size()
+    # Each input read once, each output written once. Forward: x_proj, h,
+    # W_h in dtype, c and b fp32 in; h' in dtype, c' and the gates fp32 out.
+    fwd_bytes = (B * 4 * F + B * F + F * 4 * F + B * F) * elt + (
+        B * F + 4 * F + B * F + B * 4 * F) * 4
+    nogates_bytes = fwd_bytes - B * 4 * F * 4
+    fwd_flops = 2 * B * F * 4 * F
+    # Backward: gates, c_prev, c', dc' fp32 and dh in dtype in; dgates and
+    # dc_prev fp32 out; ~20 flops per (row, unit) in fp32.
+    bwd_bytes = (B * 4 * F + 3 * B * F) * 4 + B * F * elt + (
+        B * 4 * F + B * F) * 4
+    bwd_flops = 20 * B * F
+    fwd_b, fwd_by = bound(fwd_flops, fwd_bytes, dtype)
+    ng_b, _ = bound(fwd_flops, nogates_bytes, dtype)
+    t_ops = bwd_flops / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = bwd_bytes / HBM_BYTES_PER_S * 1e3
+    bwd_b, bwd_by = max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                           else "bytes")
+    # The library yardsticks take one dtype for all operands (bf16 c and b
+    # forward, fp32 dh backward) and both biases or none (b, and zeros).
+    c_lib, b_lib = x["c_prev"].to(dtype), x["b"].to(dtype)
+    fused = torch.ops.aten._thnn_fused_lstm_cell
+    fused_bwd = torch.ops.aten._thnn_fused_lstm_cell_backward_impl
+    dh32 = dh.float()
+    _, cy32, ws32 = fused(x["x_proj"].float(), x["h_prev"].float()
+                          @ x["w_h"].float(), x["c_prev"], x["b"],
+                          torch.zeros_like(x["b"]))
+    times = dict(
+        fwd=time_ms(lambda: lk.lstm_cell_fwd_cuda(**x, save_gates=True)),
+        fwd_nogates=time_ms(lambda: lk.lstm_cell_fwd_cuda(**x)),
+        plain_fwd=time_ms(lambda: lk.lstm_cell_torch(**x)),
+        lib_fwd=time_ms(lambda: fused(x["x_proj"], x["h_prev"] @ x["w_h"],
+                                      c_lib, b_lib, torch.zeros_like(b_lib))),
+        bwd=time_ms(lambda: lk.lstm_cell_bwd_cuda(gates, x["c_prev"], c, dh,
+                                                  dc)),
+        plain_bwd=time_ms(lambda: lk.lstm_cell_bwd_torch(
+            gates, x["c_prev"], c, dh, dc)),
+        lib_bwd=time_ms(lambda: fused_bwd(dh32, dc, x["c_prev"], cy32, ws32,
+                                          True)),
+    )
+    src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
+    recs = [
+        dict(name="lstm_cell_fwd", route="cuda", source=src,
+             replaces="src/repro/kernels/lstm_cell.py:51",
+             max_abs_err=errs["fwd"], ms=times["fwd"],
+             plain_ms=times["plain_fwd"], bound_ms=fwd_b, bound_by=fwd_by,
+             library_ms=times["lib_fwd"]),
+        dict(name="lstm_cell_bwd", route="cuda", source=src,
+             replaces="src/repro/kernels/lstm_cell.py:51",
+             max_abs_err=errs["bwd"], ms=times["bwd"],
+             plain_ms=times["plain_bwd"], bound_ms=bwd_b, bound_by=bwd_by,
+             library_ms=times["lib_bwd"]),
+    ]
+    print(f"  timing B{B} F{F} bf16: forward kernel {times['fwd']:.4f} ms with "
+          f"gates (bound {fwd_b:.4f}, {fwd_by}: {fwd_bytes} B, {fwd_flops} "
+          f"flop), {times['fwd_nogates']:.4f} ms without (bound {ng_b:.4f}: "
+          f"{nogates_bytes} B), plain {times['plain_fwd']:.4f} ms, matmul + "
+          f"_thnn_fused_lstm_cell {times['lib_fwd']:.4f} ms; backward kernel "
+          f"{times['bwd']:.4f} ms (bound {bwd_b:.4f}, {bwd_by}: {bwd_bytes} "
+          f"B), plain {times['plain_bwd']:.4f} ms, "
+          f"_thnn_fused_lstm_cell_backward_impl (fp32 dh) "
+          f"{times['lib_bwd']:.4f} ms", flush=True)
+    del x, dh, dc, h, c, gates, cy32, ws32
     torch.cuda.empty_cache()
     return recs
 
@@ -843,6 +1009,62 @@ def reduced_train_vs_cpu():
                              f"{losses}")
 
 
+def gnmt_grads(params, cfg, batch):
+    leaves = tree_leaves(params)
+    for w in leaves:
+        w.requires_grad_(True)
+    loss, _ = gnmt.loss_fn(params, cfg, batch)
+    return loss.item(), [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+def reduced_gnmt_vs_cpu():
+    """GNMT_TINY in fp32 on the card (the LSTM kernels, cuBLAS) against
+    the CPU's plain path on the same weights: loss and every gradient at
+    lengths that make the scans chunk (encoder 70 = 2 x 35, decoder 40 =
+    2 x 20), then the losses of 3 Adam steps on the copy task. Both sides
+    compute in fp32 and differ only in the order of their sums."""
+    phase("check: reduced GNMT (GNMT_TINY), card vs CPU plain path, fp32")
+    cfg = dataclasses.replace(gnmt.GNMT_TINY, dtype="float32")
+    init = gnmt.init_gnmt(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    src = torch.from_numpy(rng.integers(1, cfg.vocab, (3, 70)))
+    tgt = torch.from_numpy(rng.integers(1, cfg.vocab, (3, 40)))
+    mask = torch.ones(3, 40)
+    mask[1, 25:] = 0
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), init)
+        out[dev] = gnmt_grads(params, cfg, {"src": src.to(dev),
+                                            "tgt": tgt.to(dev),
+                                            "tgt_mask": mask.to(dev)})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    err = max(((a - b).abs().max() / max(a.abs().max().item(), 1e-12)).item()
+              for a, b in zip(gc, gg))
+    print(f"  loss cpu {lc:.6f} card {lg:.6f}; gradients max |card-cpu| / "
+          f"max|cpu| {err:.2e} over {len(gc)} leaves (tol 1e-3)", flush=True)
+    if abs(lc - lg) > 1e-4 * abs(lc) or err > 1e-3:
+        raise AssertionError(f"reduced GNMT differs card vs CPU: loss {lc} vs "
+                             f"{lg}, gradient {err}")
+    copy = torch.from_numpy(rng.integers(1, cfg.vocab, (4, 10)))
+    batch = {"src": copy, "tgt": torch.cat([copy[:, :1], copy[:, :-1]], 1)}
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda t: t.to(dev, copy=True), init)
+        opt = adam(constant(3e-3))
+        st = opt.init(params)
+        step = gnmt_cli.make_train_step(cfg, opt)
+        b = {k: v.to(dev) for k, v in batch.items()}
+        losses[dev] = []
+        for _ in range(3):
+            params, st, loss = step(params, st, b)
+            losses[dev].append(loss.item())
+    print(f"  3 Adam steps: losses cpu {losses['cpu']}, card "
+          f"{losses['cuda']}", flush=True)
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0):
+        raise AssertionError(f"reduced GNMT train losses differ card vs CPU: "
+                             f"{losses}")
+
+
 class SyncEveryStep(Hook):
     """Makes ``fit`` wait for the card after each step, so that
     ``step_ms`` is the step's time on the card."""
@@ -969,6 +1191,203 @@ def train_full():
     return launches
 
 
+def gnmt_launches(L):
+    """LSTM kernel launches of one GNMT train step on src = tgt of padded
+    length L: forward 5L encoder cells (the bidirectional layer's two
+    directions and three uni layers; one scan chunk for L <= 64) plus 4L
+    decoder cells, run twice when the decoder's scan has more than one
+    chunk (the checkpointed chunks recompute); backward once per cell."""
+    if L // _largest_divisor_leq(L, 64) > 1:
+        raise ValueError(f"L {L}: the encoder's scan would chunk")
+    r = 2 if L // _largest_divisor_leq(L, 32) > 1 else 1
+    return 5 * L + 4 * L * r, 9 * L
+
+
+def gnmt_stream(cfg, seed=0):
+    """The smoke's bucketized copy-task batches, prefetched: 16 batches'
+    worth of sentences of 4-50 tokens, window 6."""
+    examples = gnmt_cli.synthetic_sentences(
+        cfg.vocab, GNMT_BATCH * 16, GNMT_MAX_LEN, seed=seed)
+    return prefetch(bucketized_batches(examples, GNMT_BATCH,
+                                       window=GNMT_WINDOW), size=2)
+
+
+def train_gnmt_full():
+    """Full-width GNMT (GNMTConfig(): F 1024, 4 + 4 layers, vocab 32000,
+    bf16 compute, fp32 masters, random weights from seed 0) takes 6 steps
+    of batch 128 through ``launch.gnmt.train``; the LSTM kernels'
+    counters, zeroed just before, must match ``gnmt_launches`` in every
+    step. Then one step traced (device busy share), and the C9 and cuDNN
+    readings."""
+    cfg = gnmt.GNMTConfig()
+    phase(f"train: GNMT full width (F {cfg.d_model}, {cfg.n_enc_layers} + "
+          f"{cfg.n_dec_layers} layers, vocab {cfg.vocab}, {cfg.dtype}), batch "
+          f"{GNMT_BATCH}, bucketized sentences of 4-{GNMT_MAX_LEN} tokens, "
+          f"window {GNMT_WINDOW}, {GNMT_STEPS} steps")
+    gc.collect()  # earlier phases' reference cycles still hold memory
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    params = gnmt.init_gnmt(cfg, seed=0, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    # Warm-up: one loss and gradient at the longest length, no update, so
+    # that the allocator and cuBLAS have met the largest shapes before the
+    # timed steps.
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab, (GNMT_BATCH, GNMT_MAX_LEN))).cuda()
+    leaves = tree_leaves(params)
+    for w in leaves:
+        w.requires_grad_(True)
+    torch.autograd.grad(gnmt.loss_fn(params, cfg, {"src": toks,
+                                                   "tgt": toks})[0], leaves)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stream = gnmt_stream(cfg)
+    lk.lstm_cell_fwd_cuda.launches = 0
+    lk.lstm_cell_bwd_cuda.launches = 0
+    try:
+        hist = gnmt_cli.train(cfg, params, stream, steps=GNMT_STEPS,
+                              device="cuda")
+    finally:
+        stream.close()
+    torch.cuda.synchronize()
+    launches = (lk.lstm_cell_fwd_cuda.launches,
+                lk.lstm_cell_bwd_cuda.launches)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in hist]
+    print(f"  {n_params} params; lengths {[r['len'] for r in hist]}; losses "
+          f"{losses}; peak memory {peak:.2f} GiB ({held:.2f} GiB held by "
+          f"the process before the phase)", flush=True)
+    if len(hist) != GNMT_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"non-finite or missing losses: {hist}")
+    lnv = float(np.log(cfg.vocab))
+    if not 0.5 * lnv < losses[0] < 2 * lnv:
+        raise AssertionError(f"first loss {losses[0]} far from ln(vocab) "
+                             f"{lnv}: random weights should predict ~uniformly")
+    for r in hist:
+        want = gnmt_launches(r["len"])
+        print(f"  step {r['batch']}: L {r['len']}, {r['tokens']} target "
+              f"tokens, {r['step_ms']:.1f} ms, lstm launches forward "
+              f"{r['fwd_launches']}, backward {r['bwd_launches']} (expected "
+              f"{want[0]}, {want[1]})", flush=True)
+        if (r["fwd_launches"], r["bwd_launches"]) != want:
+            raise AssertionError(f"step {r['batch']}: lstm launches "
+                                 f"{(r['fwd_launches'], r['bwd_launches'])} "
+                                 f"!= {want}")
+    if launches != tuple(map(sum, zip(*(gnmt_launches(r["len"])
+                                        for r in hist)))):
+        raise AssertionError(f"lstm launches {launches} in the run do not "
+                             f"add up")
+    steady = hist[1:]
+    step_ms = float(np.median([r["step_ms"] for r in steady]))
+    tok_s = (sum(r["tokens"] for r in steady)
+             / (sum(r["step_ms"] for r in steady) / 1e3))
+    print(f"  step {step_ms:.1f} ms (median of steps 2-{GNMT_STEPS}), "
+          f"{tok_s:.0f} target tokens/s (steps 2-{GNMT_STEPS}); lstm launches "
+          f"forward {launches[0]}, backward {launches[1]}", flush=True)
+
+    # One step at the longest length, untimed-then-timed-then-traced.
+    opt = adam(constant(2e-3))
+    st = opt.init(params)
+    step = gnmt_cli.make_train_step(cfg, opt)
+    L = GNMT_MAX_LEN
+    toks = torch.from_numpy(np.random.default_rng(7).integers(
+        1, cfg.vocab, (GNMT_BATCH, L))).cuda()
+    batch = {"src": toks, "tgt": toks,
+             "tgt_mask": torch.ones(toks.shape, device="cuda")}
+    step(params, st, batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(params, st, batch)
+    torch.cuda.synchronize()
+    one_ms = (time.perf_counter() - t0) * 1e3
+    _, busy_ms, kernels = trace_busy(lambda: step(params, st, batch))
+    lstm_ms = {k: sum(e.self_device_time_total for e in kernels
+                      if k in e.key) / 1e3
+               for k in ("lstm_fwd_kernel", "lstm_bwd_kernel")}
+    n_k = sum(e.count for e in kernels)
+    print(f"  traced step at L {L}: {n_k} kernels, device busy {busy_ms:.1f} "
+          f"ms = {100 * busy_ms / one_ms:.1f}% of the same step untraced "
+          f"({one_ms:.1f} ms); lstm_fwd_kernel {lstm_ms['lstm_fwd_kernel']:.1f}"
+          f" ms, lstm_bwd_kernel {lstm_ms['lstm_bwd_kernel']:.1f} ms of device "
+          f"time; top kernels:", flush=True)
+    for e in kernels[:10]:
+        print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
+              f"{e.key[:100]}")
+    summary = dict(step_ms=step_ms, target_tokens_per_s=tok_s,
+                   peak_mem_gib=peak, held_before_gib=held, losses=losses,
+                   lengths=[r["len"] for r in hist],
+                   step_ms_all=[r["step_ms"] for r in hist],
+                   l50_step_ms=one_ms, l50_device_busy_ms=busy_ms,
+                   l50_busy_share=busy_ms / one_ms, l50_kernels=n_k,
+                   l50_lstm_device_ms=lstm_ms, n_params=n_params)
+    print(f"  gnmt train summary {json.dumps(summary)}", flush=True)
+    del st, step
+    gnmt_readings(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def host_ms(fn, reps=5):
+    """Median host ms of ``fn`` to a synchronised card, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ts))
+
+
+def gnmt_readings(cfg, params):
+    """Reported, not gated: the encoder's forward hoisted against in-loop
+    (C9, as benchmarks/gnmt_hoist.py) at batch 2 and 128, L 50; and one
+    uni LSTM layer (B 128, L 50, F 1024) through the port against cuDNN's
+    ``torch.nn.LSTM`` (fp16: PyTorch sends bf16 RNNs to its own loop,
+    not cuDNN), forward and forward + backward."""
+    phase("readings: GNMT encoder hoisted vs in-loop (C9); one LSTM layer vs "
+          "cuDNN")
+    L, F = GNMT_MAX_LEN, cfg.d_model
+    rng = np.random.default_rng(3)
+    out = {}
+    for B in (2, GNMT_BATCH):
+        src = torch.from_numpy(rng.integers(1, cfg.vocab, (B, L))).cuda()
+        for hoist in (True, False):
+            c = dataclasses.replace(cfg, hoist_input_projection=hoist)
+            with torch.no_grad():
+                out[(B, hoist)] = host_ms(lambda: gnmt.encode(params, c, src))
+        print(f"  encoder forward B {B} L {L}: hoisted {out[(B, True)]:.2f} "
+              f"ms, in-loop {out[(B, False)]:.2f} ms (speedup "
+              f"{out[(B, False)] / out[(B, True)]:.2f}x)", flush=True)
+    B = GNMT_BATCH
+    x = torch.randn(B, L, F, device="cuda").to(torch.bfloat16)
+    prm = params["enc2"]
+    lstm = torch.nn.LSTM(F, F, batch_first=True).cuda().half()
+    xh = x.half()
+    with torch.no_grad():
+        port_f = host_ms(lambda: gnmt.lstm_layer(prm, x, cfg))
+        cudnn_f = host_ms(lambda: lstm(xh))
+    xg, xhg = x.clone().requires_grad_(), xh.clone().requires_grad_()
+    port_fb = host_ms(lambda: gnmt.lstm_layer(prm, xg, cfg).float().sum()
+                      .backward())
+    cudnn_fb = host_ms(lambda: lstm(xhg)[0].float().sum().backward())
+    print(f"  one uni LSTM layer B {B} L {L} F {F}: port (bf16, hoisted, lstm "
+          f"kernels) forward {port_f:.2f} ms, forward+backward {port_fb:.2f} "
+          f"ms; cuDNN torch.nn.LSTM (fp16) forward {cudnn_f:.2f} ms, "
+          f"forward+backward {cudnn_fb:.2f} ms", flush=True)
+    print("  gnmt readings " + json.dumps(dict(
+        encoder_fwd_ms={f"B{b}_{'hoisted' if h else 'inloop'}": v
+                        for (b, h), v in out.items()},
+        layer_port_fwd_ms=port_f, layer_port_fwd_bwd_ms=port_fb,
+        layer_cudnn_fwd_ms=cudnn_f, layer_cudnn_fwd_bwd_ms=cudnn_fb)),
+        flush=True)
+    for w in tree_leaves(params):
+        w.grad = None
+    del lstm, x, xh, xg, xhg
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -992,9 +1411,11 @@ def main() -> int:
 
     paged, int8, int4 = check_kernel()
     flash_fwd, flash_bwd = check_flash()
+    lstm_fwd, lstm_bwd = check_lstm()
     reduced_vs_cpu()
     reduced_quant_vs_cpu()
     reduced_train_vs_cpu()
+    reduced_gnmt_vs_cpu()
     phase("serve: full-width gemma-7b weights")
     params = full_serve_params()
     paged["launches"] = serve_full(params)
@@ -1002,7 +1423,8 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     flash_fwd["launches"], flash_bwd["launches"] = train_full()
-    recs = [paged, int8, int4, flash_fwd, flash_bwd]
+    lstm_fwd["launches"], lstm_bwd["launches"] = train_gnmt_full()
+    recs = [paged, int8, int4, flash_fwd, flash_bwd, lstm_fwd, lstm_bwd]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)

@@ -7,6 +7,7 @@ sends CUDA tensors down the plain path.
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import lstm_cell as _lstm
 from repro_torch.kernels import paged_attention as _pa
 
 
@@ -52,3 +53,17 @@ def paged_attention(q, kp, vp, page_table, *, pos, n_valid, window=None,
     return impl(q, kp, vp, page_table, pos=pos, n_valid=n_valid,
                 window=window, scale=scale, kp_scale=kp_scale,
                 vp_scale=vp_scale)
+
+
+def lstm_cell(x_proj, h_prev, c_prev, w_h, b):
+    """Fused LSTM cell with the input projection pre-hoisted
+    (``repro.kernels.ops.lstm_cell``, GNMT's C9), differentiable.
+
+    x_proj: (B, 4F) this step's input projection; h_prev, c_prev: (B, F);
+    w_h: (F, 4F); b: (4F,); gate order i, f, g, o. Returns (h in
+    x_proj's dtype, c in fp32). CUDA tensors go through the forward and
+    backward kernels, CPU tensors through the plain version.
+    """
+    impl = (_lstm.lstm_cell_cuda if x_proj.device.type == "cuda"
+            else _lstm.lstm_cell_torch)
+    return impl(x_proj, h_prev, c_prev, w_h, b)

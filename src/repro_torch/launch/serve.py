@@ -84,9 +84,11 @@ def main(argv=None) -> int:
     ap.add_argument("--n-templates", type=int, default=1,
                     help="distinct template prefixes to cycle")
     ap.add_argument("--serve-mode", default=None,
-                    help="not ported (sharded serving, ROADMAP.md queue 7)")
+                    help="not ported (sharded serving, ROADMAP.md item "
+                         "'distribution, fleet and bench')")
     ap.add_argument("--n-replicas", type=int, default=0,
-                    help="not ported (the fleet, ROADMAP.md queue 7)")
+                    help="not ported (the fleet, ROADMAP.md item "
+                         "'distribution, fleet and bench')")
     ap.add_argument("--routing", default=None, help="not ported (fleet)")
     ap.add_argument("--chaos", default=None, help="not ported (fleet)")
     ap.add_argument("--chaos-step", type=int, default=None,
@@ -102,7 +104,8 @@ def main(argv=None) -> int:
         if value is not None:
             raise NotImplementedError(
                 f"{flag} is not ported yet (sharded serving and the fleet "
-                f"are ROADMAP.md queue 7)")
+                f"are the ROADMAP.md item 'distribution, fleet and "
+                f"bench')")
 
     from repro_torch import resolve_device
     from repro_torch.models import lm

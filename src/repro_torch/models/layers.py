@@ -111,6 +111,17 @@ def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page: int, *,
     return cache
 
 
+def _check_insert_dtype(pool_dtype, new_dtype, where: str) -> None:
+    """Writes into an integer pool must come through the quantizer: a
+    cast of float K/V into an int8/int4 pool whose scale entries are
+    missing would store truncated values, with no error."""
+    if not pool_dtype.is_floating_point and new_dtype.is_floating_point:
+        raise TypeError(
+            f"{where}: writing {new_dtype} values into a {pool_dtype} pool "
+            "without quantization scales; quantized caches must carry "
+            "kp_scale/vp_scale entries")
+
+
 def paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid):
     """Scatter C new tokens' K/V into their rows' pages, in place.
 
@@ -122,8 +133,13 @@ def paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid):
     positions whose page is unmapped, go to the trash page, values and
     scales alike. Unlike the reference, which returns new arrays, the
     pools are updated in place (``index_copy_``) and the same dict is
-    returned.
+    returned. Float K/V into an integer pool without scales raise
+    ``TypeError`` before anything is written.
     """
+    if "kp_scale" not in cache:
+        for name, new in (("kp", k_new), ("vp", v_new)):
+            _check_insert_dtype(cache[name].dtype, new.dtype,
+                                "paged_cache_insert")
     P1, page = cache["kp"].shape[:2]
     B, C = k_new.shape[:2]
     npg = page_table.shape[1]

@@ -27,8 +27,8 @@ pressure the engine sheds drafts first, then evicts LRU index entries,
 then preempts. Greedy outputs equal those of the plain engine.
 
 Temperature sampling and the slab layout raise ``NotImplementedError``:
-they wait on queue 2 (counter-based sampling keys) and queue 4 (the
-slab layout over ``attention_full``) of ROADMAP.md.
+they wait on the ROADMAP.md item "temperature sampling and the slab
+layout".
 """
 from __future__ import annotations
 
@@ -80,11 +80,13 @@ class ServeConfig:
         if self.temperature > 0.0:
             raise NotImplementedError(
                 "temperature > 0 is not ported yet: sampling keys per "
-                "(seed, request, position) wait on ROADMAP.md queue 2")
+                "(seed, request, position) wait on the ROADMAP.md item "
+                "'temperature sampling and the slab layout'")
         if self.kv_layout == "slab":
             raise NotImplementedError(
                 "kv_layout='slab' is not ported yet: the slab layout "
-                "waits on ROADMAP.md queue 4")
+                "waits on the ROADMAP.md item 'temperature sampling and "
+                "the slab layout'")
         if self.kv_layout not in ("auto", "paged"):
             raise ValueError(f"kv_layout must be 'auto' or 'paged', got "
                              f"{self.kv_layout!r}")

@@ -69,7 +69,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     """``train_step(state, batch) -> (state, metrics)``; metrics are
     0-d device tensors {"loss", "nll"} plus any of ``EXTRA_METRICS``.
     With ``cfg.microbatches`` M > 1 the batch splits into M row blocks
-    whose gradients are summed in ``grad_dtype`` and divided by M."""
+    whose gradients are summed in ``grad_dtype`` and divided by M; a
+    batch whose rows M does not divide raises ``ValueError``."""
     M = cfg.microbatches
     unknown = [m for m in extra_metrics if m not in EXTRA_METRICS]
     if unknown:
@@ -79,7 +80,12 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     def train_step(state, batch):
         params, opt_state = state["params"], state["opt"]
         if M > 1:
-            b = batch["tokens"].shape[0] // M
+            B = batch["tokens"].shape[0]
+            if B % M:
+                raise ValueError(
+                    f"batch of {B} rows does not split into {M} "
+                    f"microbatches")
+            b = B // M
             grads: List[torch.Tensor] = []
             losses, nlls = [], []
             for i in range(M):

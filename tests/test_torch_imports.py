@@ -16,14 +16,18 @@ PORT_MODULES = [
     "repro_torch",
     "repro_torch.configs",
     "repro_torch.core.distributed_eval",
+    "repro_torch.data.bucketization",
     "repro_torch.data.pipeline",
     "repro_torch.kernels.build",
     "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.lstm_cell",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_attention",
     "repro_torch.kernels.quant",
+    "repro_torch.models.gnmt",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
+    "repro_torch.models.scan_utils",
     "repro_torch.optim",
     "repro_torch.optim.adam",
     "repro_torch.optim.precision",
@@ -37,6 +41,7 @@ PORT_MODULES = [
     "repro_torch.serve.scheduler",
     "repro_torch.serve.slo",
     "repro_torch.serve.speculative",
+    "repro_torch.launch.gnmt",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
     "repro_torch.train.hooks",

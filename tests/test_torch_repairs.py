@@ -1,0 +1,102 @@
+"""Faults of the port against the reference, each pinned: a float write
+into an integer KV pool without its scales raises ``TypeError`` before
+anything is written (as ``tests/test_cache.py::
+test_insert_refuses_silent_upcast_into_integer_pool`` pins for the
+reference); a batch that does not split into the microbatches raises
+``ValueError`` instead of training on a subset of its rows; and the
+messages of what is not ported name ROADMAP items, not queue numbers."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
+from repro_torch.serve.engine import ServeConfig  # noqa: E402
+from repro_torch.train import steps  # noqa: E402
+from repro_torch.utils import tree_leaves  # noqa: E402
+
+
+@pytest.mark.parametrize("kv", ["int8", "int4"])
+def test_insert_refuses_float_into_integer_pool_without_scales(kv):
+    """The reference's paged pools, scales stripped, copied into the
+    port: a float write raises before the pools change; the intact
+    quantized cache takes the same write."""
+    cfg = dataclasses.replace(jax_get_config("yi-9b").reduced(),
+                              kv_cache_dtype=kv)
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    ref = JL.init_paged_kv_cache(cfg, 2, 4)
+    cache = {k: torch.from_numpy(np.array(v)) for k, v in ref.items()}
+    bare = {k: v.clone() for k, v in cache.items()
+            if k not in ("kp_scale", "vp_scale")}
+    assert bare["kp"].dtype == torch.int8
+    pt = torch.tensor([[0, 1]], dtype=torch.int32)
+    pos = torch.tensor([0], dtype=torch.int32)
+    nv = torch.tensor([2], dtype=torch.int32)
+    kc = torch.full((1, 2, K, hd), 0.7)
+    before = {k: v.clone() for k, v in bare.items()}
+    with pytest.raises(TypeError, match="quantization scales"):
+        L.paged_cache_insert(bare, kc, kc, pt, pos, nv)
+    for k in bare:
+        assert torch.equal(bare[k], before[k])
+    with pytest.raises(TypeError, match="quantization scales"):
+        L.paged_cache_insert(bare, kc.bfloat16(), kc.bfloat16(), pt, pos, nv)
+    L.paged_cache_insert(cache, kc, kc, pt, pos, nv)
+    assert (cache["kp_scale"][0, :2] > 0).all()
+    # the reference refuses the same write
+    jbare = {k: v for k, v in ref.items() if k not in ("kp_scale", "vp_scale")}
+    with pytest.raises(TypeError, match="quantization scales"):
+        JL.paged_cache_insert(jbare, jnp.asarray(kc.numpy()),
+                              jnp.asarray(kc.numpy()), jnp.asarray(pt.numpy()),
+                              jnp.asarray(pos.numpy()), jnp.asarray(nv.numpy()))
+
+
+def test_float_pools_still_take_float_writes():
+    cfg = get_config("gemma-7b").reduced()
+    cache = L.init_paged_kv_cache(cfg, 2, 4, device="cpu")
+    layer = {k: v[0] for k, v in cache.items()}
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    kc = torch.ones((1, 2, K, hd), dtype=torch.float32)
+    L.paged_cache_insert(layer, kc, kc, torch.tensor([[0, 1]]),
+                         torch.tensor([0]), torch.tensor([2]))
+    assert (layer["kp"][0, :2] == 1).all()
+
+
+def test_microbatches_that_do_not_divide_the_batch_raise():
+    cfg = dataclasses.replace(get_config("gemma-7b").reduced(),
+                              dtype="float32", n_layers=1, microbatches=2)
+    opt = steps.make_optimizer(cfg)
+    state = steps.init_train_state(cfg, opt, device="cpu")
+    before = [w.clone() for w in tree_leaves(state["params"])]
+    step = steps.make_train_step(cfg, opt)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (5, 8),
+                                     generator=torch.Generator().manual_seed(0))}
+    with pytest.raises(ValueError, match="5 rows .* 2 microbatches"):
+        step(state, batch)
+    assert all(torch.equal(a, b) for a, b in zip(
+        before, tree_leaves(state["params"])))
+    assert int(state["opt"]["step"]) == 0
+
+
+def test_not_ported_messages_name_roadmap_items():
+    with pytest.raises(NotImplementedError,
+                       match="temperature sampling and the slab layout"):
+        ServeConfig(temperature=0.5)
+    with pytest.raises(NotImplementedError,
+                       match="temperature sampling and the slab layout"):
+        ServeConfig(kv_layout="slab")
+    with pytest.raises(NotImplementedError,
+                       match="distribution, fleet and bench"):
+        serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",
+                        "--serve-mode", "fsdp"])
+    with pytest.raises(NotImplementedError) as err:
+        serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",
+                        "--n-replicas", "2"])
+    assert "queue" not in str(err.value)
