@@ -14,15 +14,19 @@ and prints no result):
    chunk's, from bf16/fp32 pools and through its int8 and int4
    branches, flash attention forward and backward at the train step's
    and at edge cases, the LSTM cell forward (with and without its saved
-   gates) and backward at GNMT's shape and at edge cases), and times the
-   kernel, the plain version, one PyTorch library call computing the
-   same function, and the least time the card could take (its bound);
+   gates) and backward at GNMT's shape and at edge cases, the two LARS
+   kernels in both rules at ResNet-50's largest leaf and at edge cases,
+   zero norms among them), and times the kernel, the plain version, one
+   PyTorch library call computing the same function, and the least time
+   the card could take (its bound);
 3. checks: reduced gemma-7b in fp32 on the card against the CPU's
    plain path, serving (logits and greedy tokens; and from int8 and
    int4 pools with the prefix cache and speculative decoding, which
    must also equal the card's tokens with both off) and training (the
    loss of 3 steps from the same weights and batches); reduced GNMT in
-   fp32, card against CPU: loss, every gradient, 3 Adam steps;
+   fp32, card against CPU: loss, every gradient, 3 Adam steps; reduced
+   ResNet (stride-2 stem and max pool at 32 x 32) in fp32, card against
+   CPU: loss, every gradient, 3 LARS steps of each rule;
 4. serve: full-width gemma-7b (28 layers, random bf16 weights from a
    seed) serves 8 ragged requests offline through the port's engine;
    the kernel's launch counter, zeroed just before, must show it ran
@@ -51,7 +55,14 @@ and prints no result):
    each step of padded length L (r = 2 when the decoder's scan chunks
    and recomputes); one step traced; then, reported and not gated, the
    encoder's forward hoisted against in-loop (C9) at batch 2 and 128,
-   and one LSTM layer against cuDNN's ``torch.nn.LSTM``.
+   and one LSTM layer against cuDNN's ``torch.nn.LSTM``;
+7. train ResNet-50: full width (224 x 224, 1000 classes, bf16 compute,
+   fp32 masters, random weights from seed 0) takes 6 steps of batch 128
+   under scaled LARS and 2 under unscaled LARS through
+   ``repro_torch.launch.resnet.train``, then sweeps a padded eval set;
+   the LARS kernels' counters, zeroed just before, must show 54 norm and
+   54 update launches in every step; one step traced; a second run must
+   repeat the losses bitwise.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -81,14 +92,18 @@ from repro_torch.data.bucketization import bucketized_batches  # noqa: E402
 from repro_torch.data.pipeline import prefetch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import lars as lk_lars  # noqa: E402
 from repro_torch.kernels import lstm_cell as lk  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.launch import gnmt as gnmt_cli  # noqa: E402
+from repro_torch.launch import resnet as resnet_cli  # noqa: E402
 from repro_torch.models import gnmt  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import resnet  # noqa: E402
 from repro_torch.models.scan_utils import _largest_divisor_leq  # noqa: E402
-from repro_torch.optim import adam, constant  # noqa: E402
+from repro_torch.optim import adam, constant, lars, polynomial_warmup  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine,
     ServeConfig,
@@ -609,6 +624,219 @@ def check_lstm():
     del x, dh, dc, h, c, gates, cy32, ws32
     torch.cuda.empty_cache()
     return recs
+
+
+# --------------------------------------------------------------------------- #
+# Phase 2d: the LARS kernels vs plain.
+# --------------------------------------------------------------------------- #
+LARS_HYPER = dict(weight_decay=1e-4, momentum=0.9, eta=0.001, eps=1e-9)
+TRUST_KW = dict(weight_decay=1e-4, eta=0.001, eps=1e-9)
+APPLY_KW = dict(weight_decay=1e-4, momentum=0.9)
+LARS_LR = 0.25
+LARGEST_LEAF = 3 * 3 * 512 * 512  # ResNet-50's s3b*.conv2
+LARS_CASES = [  # name, n, what is zero, offset in floats (4: not 16 B aligned)
+    ("s3b0.conv2", LARGEST_LEAF, None, 0),
+    ("odd", 1_000_003, None, 0),
+    ("min_size", 1024, None, 0),
+    ("unaligned", 1_000_003, None, 1),
+    ("zero_w", 65_536, "w", 0),
+    ("zero_g", 65_536, "g", 0),
+]
+
+
+def lars_inputs(seed, n, zero=None, offset=0):
+    """w, g, m of n fp32 values at ResNet-like scales (weights ~0.02,
+    gradients and momenta ~1e-3); ``offset`` floats into a larger buffer,
+    so that a nonzero offset breaks 16-byte alignment."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(scale):
+        return at_offset(torch.randn(n, generator=gen, device="cuda") * scale,
+                         offset)
+
+    w, g, m = randn(0.02), randn(1e-3), randn(1e-3)
+    if zero:
+        {"w": w, "g": g}[zero].zero_()
+    return w, g, m
+
+
+def at_offset(x, offset):
+    """A copy of the 1-D ``x`` that starts ``offset`` floats into a fresh
+    buffer."""
+    buf = torch.empty(x.numel() + offset, device=x.device)
+    return buf[offset:].copy_(x)
+
+
+def lars_work(n):
+    """Bytes each phase must move for one leaf of n fp32 elements: the
+    norms read w and g and yield 2 sums; the update reads w, g, m, the
+    sums and lr and writes w and m. Flops an element: 4 for the norms
+    (two FMAs), 6 for the update (three)."""
+    return dict(norms=(8 * n + 8, 4 * n), update=(20 * n + 12, 6 * n))
+
+
+def fused_sgd(ws, gs, ms, lr):
+    """``torch._fused_sgd_`` (the ``tensor_lr`` overload): w -= lr * (mu*m
+    + g + wd*w), the scaled rule when lr = lr * trust."""
+    torch._fused_sgd_(ws, gs, ms, weight_decay=LARS_HYPER["weight_decay"],
+                      momentum=LARS_HYPER["momentum"], lr=lr, dampening=0.0,
+                      nesterov=False, maximize=False, is_first_step=False)
+
+
+def check_lars():
+    """Both LARS kernels against the plain version (``lars_update_torch``)
+    in both rules, at ResNet-50's largest leaf, an odd size, the 1024
+    minimum, an unaligned view (the scalar path) and zero w / zero g
+    (trust exactly 1), within rtol 1e-5, atol 1e-6 on w' and m' (fp32;
+    sums in another order); a rerun must be bitwise equal. Then each
+    kernel timed at the largest leaf beside the plain version and one
+    library call (``_foreach_norm``; ``_fused_sgd_`` where it matches),
+    and both swept over ResNet-50's 54 kernel leaves."""
+    phase("kernels: lars_update norms and update vs plain PyTorch")
+    lr = torch.full((), LARS_LR, device="cuda")
+    err_main = 0.0
+    for i, (name, n, zero, offset) in enumerate(LARS_CASES):
+        for scaled in (True, False):
+            kw = dict(LARS_HYPER, lr=lr, scaled_momentum=scaled)
+            w, g, m = lars_inputs(i, n, zero, offset)
+            want_w, want_m = lk_lars.lars_update_torch(w, g, m, **kw)
+            want_t = lk_lars.lars_trust_torch(w, g, **TRUST_KW)
+            outs = []
+            for _ in range(2):  # the second run must repeat bitwise
+                wk, mk = at_offset(w, offset), at_offset(m, offset)
+                t = torch.empty(1, device="cuda")
+                lk_lars.lars_update_cuda(wk, g, mk, **kw, trust_out=t)
+                outs.append((wk, mk, t))
+            torch.cuda.synchronize()
+            (wk, mk, t), again = outs
+            if not all(torch.equal(a, b) for a, b in zip(outs[0], again)):
+                raise AssertionError(f"lars {name}: a rerun is not bitwise "
+                                     f"equal")
+            errs = []
+            for label, got, ref in (("w", wk, want_w), ("m", mk, want_m)):
+                errs.append((got - ref).abs().max().item())
+                if not (torch.isfinite(got).all() and torch.allclose(
+                        got, ref, rtol=1e-5, atol=1e-6)):
+                    raise AssertionError(
+                        f"lars {name} scaled={scaled} {label}: kernel != "
+                        f"plain, max |diff| {errs[-1]}")
+            trust, want_trust = t.item(), want_t.item()
+            if zero and trust != 1.0:
+                raise AssertionError(f"lars {name}: trust {trust}, must be "
+                                     f"exactly 1 at a zero norm")
+            if abs(trust - want_trust) > 1e-5 * abs(want_trust):
+                raise AssertionError(f"lars {name}: trust {trust} vs plain "
+                                     f"{want_trust}")
+            if name == "s3b0.conv2":
+                err_main = max(err_main, *errs)
+            print(f"  {name:10s} n {n:9d} {'scaled' if scaled else 'unscaled':8s}"
+                  f" trust {trust:.6e} (plain {want_trust:.6e}) max|kernel-"
+                  f"plain| w {errs[0]:.2e}, m {errs[1]:.2e} (rtol 1e-5, atol "
+                  f"1e-6) ok, rerun bitwise equal", flush=True)
+
+    # Timing at the largest leaf, scaled rule.
+    n = LARGEST_LEAF
+    w, g, m = lars_inputs(99, n)
+    w2, m2 = w.clone(), m.clone()
+    partial = lk_lars.lars_norms_cuda(w, g)
+    trust = lk_lars.lars_trust_torch(w, g, **TRUST_KW)
+    # The library's fused SGD at lr * trust computes the scaled rule; it
+    # is the yardstick only if it matches the plain version.
+    want_w, want_m = lk_lars.lars_update_torch(w, g, m, lr=lr, **LARS_HYPER)
+    ws, gs, ms = [w.clone()], [g.clone()], [m.clone()]
+    fused_sgd(ws, gs, ms, lr * trust)
+    sgd_matches = (torch.allclose(ws[0], want_w, rtol=1e-5, atol=1e-6)
+                   and torch.allclose(ms[0], want_m, rtol=1e-5, atol=1e-6))
+    times = dict(
+        norms=time_ms(lambda: lk_lars.lars_norms_cuda(w, g)),
+        update=time_ms(lambda: lk_lars.lars_apply_cuda(
+            w2, g, m2, partial, lr=lr, **LARS_HYPER)),
+        plain_norms=time_ms(lambda: lk_lars.lars_trust_torch(w, g,
+                                                             **TRUST_KW)),
+        plain_update=time_ms(lambda: lk_lars.lars_apply_torch(
+            w, g, m, trust, lr=lr, **APPLY_KW)),
+        lib_norms=time_ms(lambda: torch._foreach_norm([w, g])),
+        lib_update=time_ms(lambda: fused_sgd(ws, gs, ms, lr * trust)),
+    )
+    libs = {"norms": "_foreach_norm([w, g])",
+            "update": "_fused_sgd_ at lr*trust, " + (
+                "matches the plain version" if sgd_matches else
+                "does NOT match the plain version: recorded as none")}
+    src = "src/repro_torch/kernels/csrc/lars.cu"
+    recs = []
+    for key, line in (("norms", 62), ("update", 80)):
+        nbytes, flops = lars_work(n)[key]
+        b, by = bound(flops, nbytes, torch.float32)
+        recs.append(dict(
+            name=f"lars_{key}", route="cuda", source=src,
+            replaces=f"src/repro/kernels/lars.py:{line}",
+            max_abs_err=err_main, ms=times[key],
+            plain_ms=times[f"plain_{key}"], bound_ms=b, bound_by=by,
+            library_ms=(times[f"lib_{key}"]
+                        if key == "norms" or sgd_matches else None)))
+        print(f"  timing n {n} fp32 {key}: kernel {times[key]:.4f} ms (bound "
+              f"{b:.4f}, {by}: {nbytes} B, {flops} flop), plain "
+              f"{times[f'plain_{key}']:.4f} ms, library "
+              f"{times[f'lib_{key}']:.4f} ms ({libs[key]})", flush=True)
+    del w, g, m, w2, m2, ws, gs, ms
+    lars_sweep()
+    return recs
+
+
+def lars_sweep():
+    """Reported, not gated: both kernels over all 54 kernel leaves of
+    ResNet-50 (one launch pair a leaf, as the optimizer runs them),
+    beside the plain versions and the library's multi-tensor calls
+    (``_foreach_norm`` over the 108 tensors; ``_fused_sgd_`` over the 54
+    leaves with one lr, the same bytes but not the same function)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    leaves = [(w, torch.randn(w.shape, generator=gen, device="cuda") * 1e-3,
+               torch.randn(w.shape, generator=gen, device="cuda") * 1e-3)
+              for w in tree_leaves(resnet.init_resnet(resnet.RESNET50, 0))
+              if w.dim() > 1]
+    n = sum(w.numel() for w, _, _ in leaves)
+    lr = torch.full((), LARS_LR, device="cuda")
+    parts = [lk_lars.lars_norms_cuda(w, g) for w, g, _ in leaves]
+    trusts = [lk_lars.lars_trust_torch(w, g, **TRUST_KW)
+              for w, g, _ in leaves]
+
+    def norms():
+        for w, g, _ in leaves:
+            lk_lars.lars_norms_cuda(w, g)
+
+    def update():
+        for (w, g, m), p in zip(leaves, parts):
+            lk_lars.lars_apply_cuda(w, g, m, p, lr=lr, **LARS_HYPER)
+
+    def plain_norms():
+        for w, g, _ in leaves:
+            lk_lars.lars_trust_torch(w, g, **TRUST_KW)
+
+    def plain_update():
+        for (w, g, m), t in zip(leaves, trusts):
+            lk_lars.lars_apply_torch(w, g, m, t, lr=lr, **APPLY_KW)
+
+    flat = [t for w, g, _ in leaves for t in (w, g)]
+    ws, gs, ms = ([x[i] for x in leaves] for i in range(3))
+    t = {k: time_ms(f, 10) for k, f in (
+        ("norms", norms), ("update", update), ("plain_norms", plain_norms),
+        ("plain_update", plain_update),
+        ("lib_norms", lambda: torch._foreach_norm(flat)),
+        ("lib_update", lambda: fused_sgd(ws, gs, ms, lr)))}
+    work = {"norms": 8 * n, "update": 20 * n}
+    print(f"  sweep over ResNet-50's {len(leaves)} kernel leaves ({n} "
+          f"elements): norms {t['norms']:.4f} ms (bound "
+          f"{work['norms'] / HBM_BYTES_PER_S * 1e3:.4f}: {work['norms']} B; "
+          f"plain {t['plain_norms']:.4f}, _foreach_norm over {len(flat)} "
+          f"tensors {t['lib_norms']:.4f}); update {t['update']:.4f} ms "
+          f"(bound {work['update'] / HBM_BYTES_PER_S * 1e3:.4f}: "
+          f"{work['update']} B; plain {t['plain_update']:.4f}, _fused_sgd_ "
+          f"over {len(leaves)} leaves, one lr, {t['lib_update']:.4f})",
+          flush=True)
+    print("  lars sweep " + json.dumps(dict(n=n, leaves=len(leaves), **{
+        f"{k}_ms": v for k, v in t.items()})), flush=True)
+    del leaves, parts, flat, ws, gs, ms
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------------------- #
@@ -1388,6 +1616,256 @@ def gnmt_readings(cfg, params):
     del lstm, x, xh, xg, xhg
 
 
+# --------------------------------------------------------------------------- #
+# ResNet-50 + LARS.
+# --------------------------------------------------------------------------- #
+RESNET_BATCH, RESNET_SIZE = 128, 224
+RESNET_STEPS, RESNET_UNSCALED_STEPS = 6, 2
+
+
+def resnet_grads(params, cfg, batch):
+    leaves = tree_leaves(params)
+    for w in leaves:
+        w.requires_grad_(True)
+    loss, _ = resnet.loss_fn(params, cfg, batch)
+    return loss.item(), [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+
+
+def reduced_resnet_vs_cpu():
+    """RESNET_TINY widths in fp32 with the stride-2 stem and its max pool
+    at 32 x 32 (so the asymmetric SAME pads run), on the card (cuDNN with
+    TF32 off, the LARS kernels for leaves of >= 1024 elements) against the
+    CPU's plain path on the same weights: the loss within rtol 1e-5, every
+    gradient within 1e-3 of its largest entry, then 3 LARS steps of each
+    rule, losses within rtol 1e-4. Both sides compute in fp32 and differ
+    only in the order of their sums."""
+    phase("check: reduced ResNet (RESNET_TINY widths, stride-2 stem + pool, "
+          "32 x 32), card vs CPU plain path, fp32")
+    cfg = dataclasses.replace(resnet.RESNET_TINY, dtype="float32",
+                              stem_stride=2, stem_pool=True)
+    init = resnet.init_resnet(cfg, seed=0, device="cpu")
+    imgs, labels = resnet_cli.synthetic_images(
+        8, 32, cfg.num_classes, np.random.default_rng(0))
+    batch = {"images": torch.from_numpy(imgs),
+             "labels": torch.from_numpy(labels)}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = tree_map(lambda t: t.to(dev, copy=True), init)
+            out[dev] = resnet_grads(params, cfg, {k: v.to(dev)
+                                                  for k, v in batch.items()})
+        (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+        err = max(((a - b).abs().max() / max(a.abs().max().item(), 1e-12)
+                   ).item() for a, b in zip(gc, gg))
+        print(f"  loss cpu {lc:.7f} card {lg:.7f}; gradients max |card-cpu| "
+              f"/ max|cpu| {err:.2e} over {len(gc)} leaves (tol 1e-3)",
+              flush=True)
+        if abs(lc - lg) > 1e-5 * abs(lc) or err > 1e-3:
+            raise AssertionError(f"reduced ResNet differs card vs CPU: loss "
+                                 f"{lc} vs {lg}, gradient {err}")
+        kernel_leaves = sum(w.dim() > 1 and w.numel() >= 1024
+                            for w in tree_leaves(init))
+        for scaled in (True, False):
+            losses = {}
+            for dev in ("cpu", "cuda"):
+                params = tree_map(lambda t: t.to(dev, copy=True), init)
+                b = {k: v.to(dev) for k, v in batch.items()}
+                lk_lars.reset_launches()
+                hist = resnet_cli.train(
+                    cfg, params, lars(polynomial_warmup(0.5, 2, 30),
+                                      scaled_momentum=scaled),
+                    b, steps=3, device=dev, log=lambda _: None)
+                losses[dev] = [r["loss"] for r in hist]
+                launches = [(r["norm_launches"], r["update_launches"])
+                            for r in hist]
+            print(f"  3 LARS steps ({'scaled' if scaled else 'unscaled'}): "
+                  f"losses cpu {losses['cpu']}, card {losses['cuda']}; card "
+                  f"launches a step {launches[0]} (expected "
+                  f"{kernel_leaves} each)", flush=True)
+            if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4,
+                               atol=0):
+                raise AssertionError(f"reduced ResNet LARS losses differ card "
+                                     f"vs CPU: {losses}")
+            if launches != [(kernel_leaves, kernel_leaves)] * 3:
+                raise AssertionError(f"lars launches {launches}, expected "
+                                     f"{kernel_leaves} of each a step")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def resnet_run(cfg, batch, eval_set):
+    """Weights from seed 0, then RESNET_STEPS steps of scaled LARS and
+    RESNET_UNSCALED_STEPS of unscaled LARS, both under
+    ``polynomial_warmup(0.25, 2, 8)``, then one sweep of the padded eval
+    set. Returns (params, history, (top-1, count))."""
+    params = resnet.init_resnet(cfg, seed=0, device="cuda")
+    total = RESNET_STEPS + RESNET_UNSCALED_STEPS
+    hist = []
+    for scaled, steps in ((True, RESNET_STEPS),
+                          (False, RESNET_UNSCALED_STEPS)):
+        opt = lars(polynomial_warmup(resnet_cli.BASE_LR, 2, total),
+                   scaled_momentum=scaled)
+        hist += resnet_cli.train(cfg, params, opt, batch, steps=steps,
+                                 device="cuda", log=lambda _: None)
+    return params, hist, resnet_cli.evaluate(cfg, params, eval_set)
+
+
+def train_resnet_full():
+    """Full-width ResNet-50 v1.5 (RESNET50: 224 x 224, 1000 classes, bf16
+    compute, fp32 masters, gradients and momenta) takes 6 steps of batch
+    128 under scaled LARS and 2 under unscaled LARS, then one sweep of
+    the padded eval set, through ``launch.resnet.train``; the LARS
+    kernels' counters, zeroed just before, must show 54 norm and 54
+    update launches in every step (every kernel leaf of ResNet-50 is at
+    least 4096 elements). Then one step traced, and a second run of the
+    same steps must repeat the losses bitwise (cuDNN held to its
+    deterministic algorithms for the phase)."""
+    cfg = resnet.RESNET50
+    phase(f"train: ResNet-50 v1.5 full width, {RESNET_SIZE} x {RESNET_SIZE}, "
+          f"batch {RESNET_BATCH}, bf16 compute, fp32 masters, LARS scaled "
+          f"{RESNET_STEPS} steps + unscaled {RESNET_UNSCALED_STEPS}, padded "
+          f"eval")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    rng = np.random.default_rng(0)
+    imgs, labels = resnet_cli.synthetic_images(RESNET_BATCH, RESNET_SIZE,
+                                               cfg.num_classes, rng)
+    batch = {"images": torch.from_numpy(imgs).cuda(),
+             "labels": torch.from_numpy(labels).cuda()}
+    eval_set = resnet_cli.padded_eval_set(cfg, RESNET_SIZE, rng, "cuda")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        lk_lars.reset_launches()
+        params, hist, (top1, count) = resnet_run(cfg, batch, eval_set)
+        torch.cuda.synchronize()
+        launches = (lk_lars.lars_norms_cuda.launches,
+                    lk_lars.lars_apply_cuda.launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        leaves = tree_leaves(params)
+        kernel_leaves = sum(w.dim() > 1 for w in leaves)
+        n_params = sum(w.numel() for w in leaves)
+        losses = [r["loss"] for r in hist]
+        for r in hist:
+            print(f"  step {r['step']}: loss {r['loss']:.6f}, acc "
+                  f"{r['acc']:.4f}, {r['step_ms']:.1f} ms, lars launches norms "
+                  f"{r['norm_launches']}, update {r['update_launches']} "
+                  f"(expected {kernel_leaves} each)", flush=True)
+        print(f"  {n_params} params, {kernel_leaves} kernel leaves; eval "
+              f"top-1 {top1:.4f} over {count} real examples (padded to "
+              f"{resnet_cli.EVAL_BATCH * len(eval_set)}); lars launches in "
+              f"the run: norms {launches[0]}, update {launches[1]}; peak "
+              f"memory {peak:.2f} GiB ({held:.2f} GiB held before the phase)",
+              flush=True)
+        if n_params != 25_557_032 or kernel_leaves != 54:
+            raise AssertionError(f"ResNet-50 has {n_params} params in "
+                                 f"{kernel_leaves} kernel leaves")
+        if not all(np.isfinite(losses)) or count != resnet_cli.EVAL_IMAGES:
+            raise AssertionError(f"non-finite losses or eval count: {hist}")
+        lnc = float(np.log(cfg.num_classes))
+        if not 0.5 * lnc < losses[0] < 2 * lnc:
+            raise AssertionError(f"first loss {losses[0]} far from ln(1000)")
+        bad = [r for r in hist if (r["norm_launches"], r["update_launches"])
+               != (kernel_leaves, kernel_leaves)]
+        if bad or launches != (len(hist) * kernel_leaves,) * 2:
+            raise AssertionError(f"lars launches per step not {kernel_leaves}:"
+                                 f" {bad}, run total {launches}")
+        step_ms = float(np.median([r["step_ms"]
+                                   for r in hist[1:RESNET_STEPS]]))
+        img_s = RESNET_BATCH / (step_ms / 1e3)
+        print(f"  step {step_ms:.1f} ms (median of steps 2-{RESNET_STEPS}), "
+              f"{img_s:.0f} images/s", flush=True)
+
+        # One more step, untimed, timed, then traced; and the optimizer's
+        # update alone: host enqueue time against its time to the card.
+        opt = lars(polynomial_warmup(resnet_cli.BASE_LR, 2, 8))
+        st = opt.init(params)
+        step = resnet_cli.make_train_step(cfg, opt)
+        step(params, st, batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, st, batch)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        _, busy_ms, kernels = trace_busy(lambda: step(params, st, batch))
+        lars_ms = sum(e.self_device_time_total for e in kernels
+                      if "lars_" in e.key) / 1e3
+        n_k = sum(e.count for e in kernels)
+        print(f"  traced step: {n_k} kernels, device busy {busy_ms:.1f} ms = "
+              f"{100 * busy_ms / one_ms:.1f}% of the same step untraced "
+              f"({one_ms:.1f} ms); lars kernels {lars_ms:.3f} ms = "
+              f"{100 * lars_ms / busy_ms:.2f}% of device time; top kernels:",
+              flush=True)
+        for e in kernels[:12]:
+            print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
+                  f"{e.key[:100]}")
+        by_kind = {}
+        for e in kernels:
+            kind = kernel_kind(e.key)
+            by_kind[kind] = (by_kind.get(kind, 0.0)
+                             + e.self_device_time_total / 1e3)
+        print("  device time by kind: " + ", ".join(
+            f"{k} {v:.1f} ms ({100 * v / busy_ms:.1f}%)"
+            for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])),
+            flush=True)
+        grads = [torch.zeros_like(w) for w in leaves]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.update(grads, st, params)
+        enq_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        upd_ms = (time.perf_counter() - t0) * 1e3
+        # ... and its 54 kernel leaves alone, as the optimizer calls them
+        lr = torch.full((), resnet_cli.BASE_LR, device="cuda")
+        triples = [(w, g, m) for w, g, m in zip(
+            leaves, grads, tree_leaves(st["m"])) if w.dim() > 1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w, g, m in triples:
+            ops.lars_update(w, g, m, lr=lr, **LARS_HYPER)
+        lars_enq_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        lars_host_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  optimizer update alone: host enqueue {enq_ms:.2f} ms, to "
+              f"the card's end {upd_ms:.2f} ms; its {len(triples)} kernel "
+              f"leaves alone ({2 * len(triples)} lars launches): host enqueue "
+              f"{lars_enq_ms:.2f} ms ({1e3 * lars_enq_ms / len(triples):.1f} "
+              f"us a leaf), to the card's end {lars_host_ms:.2f} ms, against "
+              f"{lars_ms:.3f} ms of lars device time in the traced step",
+              flush=True)
+        summary = dict(step_ms=step_ms, images_per_s=img_s, peak_mem_gib=peak,
+                       held_before_gib=held, losses=losses,
+                       step_ms_all=[r["step_ms"] for r in hist],
+                       eval_top1=top1, launches=launches,
+                       traced_step_ms=one_ms, device_busy_ms=busy_ms,
+                       busy_share=busy_ms / one_ms, kernels_per_step=n_k,
+                       lars_device_ms=lars_ms, by_kind_ms=by_kind,
+                       update_enqueue_ms=enq_ms, update_ms=upd_ms,
+                       lars_leaves_enqueue_ms=lars_enq_ms,
+                       lars_leaves_ms=lars_host_ms,
+                       n_params=n_params)
+        print(f"  resnet train summary {json.dumps(summary)}", flush=True)
+        del params, leaves, st, step, grads, kernels, triples
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _, again, _ = resnet_run(cfg, batch, eval_set)
+        again = [r["loss"] for r in again]
+        print(f"  second run: losses {again} ("
+              f"{'bitwise equal' if again == losses else 'NOT bitwise equal'})",
+              flush=True)
+        if again != losses:
+            raise AssertionError(f"a second run differs: {again} vs {losses}")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1412,10 +1890,12 @@ def main() -> int:
     paged, int8, int4 = check_kernel()
     flash_fwd, flash_bwd = check_flash()
     lstm_fwd, lstm_bwd = check_lstm()
+    lars_norms, lars_update = check_lars()
     reduced_vs_cpu()
     reduced_quant_vs_cpu()
     reduced_train_vs_cpu()
     reduced_gnmt_vs_cpu()
+    reduced_resnet_vs_cpu()
     phase("serve: full-width gemma-7b weights")
     params = full_serve_params()
     paged["launches"] = serve_full(params)
@@ -1424,7 +1904,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_fwd["launches"], flash_bwd["launches"] = train_full()
     lstm_fwd["launches"], lstm_bwd["launches"] = train_gnmt_full()
-    recs = [paged, int8, int4, flash_fwd, flash_bwd, lstm_fwd, lstm_bwd]
+    lars_norms["launches"], lars_update["launches"] = train_resnet_full()
+    recs = [paged, int8, int4, flash_fwd, flash_bwd, lstm_fwd, lstm_bwd,
+            lars_norms, lars_update]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)

@@ -7,7 +7,10 @@ paged serving of ``gemma-7b``: configs, the paged-attention kernel
 KV pool, the scheduler and the continuous-batching engine. Slice 2
 trains it: the flash-attention forward and backward kernels, the
 full-sequence forward with remat and chunked loss, Adam under a cosine
-warmup, the train and eval steps, the ``Trainer`` and its CLI.
+warmup, the train and eval steps, the ``Trainer`` and its CLI. Later
+slices serve from int8/int4 pools (the paged kernel's quantized
+branches), train GNMT through the LSTM cell kernels, and train
+ResNet-50 v1.5 with LARS through the ``lars_update`` kernels.
 
 Entry points take ``device`` (default ``"cuda"``) and refuse to fall
 back to the CPU when no card is present; tests pass ``device="cpu"``,

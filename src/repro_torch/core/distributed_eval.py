@@ -1,6 +1,7 @@
 """Distributed evaluation (paper §2, C4; ``repro.core.distributed_eval``):
 the eval set is zero-padded to a multiple of the eval batch, and the
-padded examples are masked out of the metric."""
+padded examples are masked out of the metric. The metric tensors stay on
+the device; only the final sums leave it."""
 from __future__ import annotations
 
 from typing import Dict, Tuple
@@ -22,3 +23,17 @@ def pad_eval_dataset(examples: Dict[str, np.ndarray], global_batch: int
     }
     mask = np.concatenate([np.ones(n, np.float32), np.zeros(n_pad, np.float32)])
     return padded, mask
+
+
+def masked_top1(logits, labels, mask):
+    """Top-1 accuracy counting only real examples. Returns (correct,
+    count), fp32 tensors on the logits' device, so that batches can be
+    accumulated exactly."""
+    pred = logits.argmax(-1)
+    correct = ((pred == labels) * mask).sum()
+    return correct, mask.sum()
+
+
+def masked_mean_loss(per_example_loss, mask):
+    """(sum of the real examples' losses, their count)."""
+    return (per_example_loss * mask).sum(), mask.sum()

@@ -1,0 +1,203 @@
+"""LARS weight update (paper Figs. 5 and 6): the CUDA kernels' wrappers and
+the plain PyTorch versions.
+
+The kernels (``csrc/lars.cu``) replace the two TPU kernels of
+``repro/kernels/lars.py``, the weight-update hot spot of MLPerf ResNet-50:
+``_norms_kernel`` (``pallas_call`` at line 62), the per-block fp32 partial
+sums of w^2 and g^2, and ``_update_kernel`` (``pallas_call`` at line 80),
+the elementwise momentum and trust-scaled update. What bounds both on an
+H100 is bytes: 8 B an element read for the norms, 12 B read and 8 B
+written for the update. The norms kernel writes one partial pair per
+block (a fixed grid, no atomics, so a rerun is bitwise equal); the update
+kernel sums the pairs in its prologue, applies the trust rule, reads lr
+from device memory and writes w and m in place, so the optimizer step
+never reads a norm, the trust or lr on the host.
+
+:func:`lars_update_cuda` launches both (:func:`lars_norms_cuda`, then
+:func:`lars_apply_cuda`) on contiguous fp32 CUDA tensors and raises on
+anything else; :func:`lars_update_torch` is the plain version
+(``repro/kernels/ref.py:117-140``), which the CPU path and the on-card
+comparison use.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+THREADS = 256           # csrc/lars.cu kThreads
+MAX_NORM_BLOCKS = 264   # csrc/lars.cu kMaxNormBlocks: 2 per SM of 132
+
+
+def lars_trust_torch(w, g, *, weight_decay, eta, eps=1e-9):
+    """The trust ratio of ``repro/kernels/ref.py:126-130``, an fp32 0-d
+    tensor: ``eta*||w|| / (||g|| + wd*||w|| + eps)`` when both norms are
+    > 0, else exactly 1."""
+    w_norm = torch.linalg.vector_norm(w.float())
+    g_norm = torch.linalg.vector_norm(g.float())
+    return torch.where(
+        (w_norm > 0) & (g_norm > 0),
+        eta * w_norm / (g_norm + weight_decay * w_norm + eps),
+        torch.ones((), dtype=torch.float32, device=w_norm.device))
+
+
+def lars_apply_torch(w, g, m, trust, *, lr, weight_decay, momentum,
+                     scaled_momentum=True):
+    """The elementwise update of ``repro/kernels/ref.py:131-140`` given the
+    trust: returns new (w', m') in fp32."""
+    w32, g32, m32 = w.float(), g.float(), m.float()
+    update = g32 + weight_decay * w32
+    if scaled_momentum:  # Fig. 5: v = mu*v + (g + wd*w); w -= lr*trust*v
+        new_m = momentum * m32 + update
+        new_w = w32 - lr * trust * new_m
+    else:                # Fig. 6: v = mu*v + lr*trust*(g + wd*w); w -= v
+        new_m = momentum * m32 + lr * trust * update
+        new_w = w32 - new_m
+    return new_w, new_m
+
+
+def lars_update_torch(w, g, m, *, lr, weight_decay, momentum, eta, eps=1e-9,
+                      scaled_momentum=True):
+    """``repro.kernels.ref.lars_update``: all math in fp32; ``lr`` a float
+    or an fp32 0-d tensor. Returns new (w' in w's dtype, m' in m's
+    dtype); the inputs are not changed."""
+    trust = lars_trust_torch(w, g, weight_decay=weight_decay, eta=eta,
+                             eps=eps)
+    new_w, new_m = lars_apply_torch(
+        w, g, m, trust, lr=lr, weight_decay=weight_decay, momentum=momentum,
+        scaled_momentum=scaled_momentum)
+    return new_w.to(w.dtype), new_m.to(m.dtype)
+
+
+def norm_blocks(n: int) -> int:
+    """The norms kernel's grid for n elements (one partial pair a block):
+    one 256-thread block per 1024 elements, at most 264. A function of n
+    alone, so a rerun sums in the same order."""
+    return max(1, min(MAX_NORM_BLOCKS, -(-n // (4 * THREADS))))
+
+
+def _check(name, tensors, dev=None):
+    """Every tensor an fp32, contiguous CUDA tensor on one device, all of
+    one shape; returns that device."""
+    dev = dev or tensors[0][1].device
+    shape = tensors[0][1].shape
+    for label, t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: {label} is on {t.device}; every input "
+                             f"must be a CUDA tensor on {dev}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: {label} is {t.dtype}; the kernel takes "
+                            f"torch.float32")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {label} is not contiguous")
+        if t.shape != shape:
+            raise ValueError(f"{name}: {label} has shape {tuple(t.shape)}, "
+                             f"expected {tuple(shape)}")
+    return dev
+
+
+def _device_scalar(name, x, dev):
+    """``x`` (a float or a one-element fp32 tensor on ``dev``) as a
+    one-element fp32 tensor on ``dev``, without a host round trip."""
+    if not isinstance(x, torch.Tensor):
+        return torch.full((), float(x), dtype=torch.float32, device=dev)
+    if x.device != dev or x.dtype != torch.float32 or x.numel() != 1:
+        raise ValueError(f"{name}: lr must be a float or a one-element fp32 "
+                         f"tensor on {dev}, got {x.dtype} {tuple(x.shape)} "
+                         f"on {x.device}")
+    return x.contiguous()
+
+
+def lars_norms_cuda(w, g):
+    """Launch the norms kernel: returns the (norm_blocks(n), 2) fp32
+    partial sums of w^2 and g^2 (one pair per block). Counts each launch
+    in ``lars_norms_cuda.launches``."""
+    name = "lars_norms_cuda"
+    dev = _check(name, (("w", w), ("g", g)))
+    n = w.numel()
+    partial = torch.empty((norm_blocks(n), 2), dtype=torch.float32,
+                          device=dev)
+    if n == 0:
+        return partial.zero_()
+    err = _lib().lars_norms(w.data_ptr(), g.data_ptr(), partial.data_ptr(),
+                            n, partial.shape[0],
+                            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"lars_norms: CUDA error {err}")
+    lars_norms_cuda.launches += 1
+    return partial
+
+
+lars_norms_cuda.launches = 0
+
+
+def lars_apply_cuda(w, g, m, partial, *, lr, weight_decay, momentum, eta,
+                    eps=1e-9, scaled_momentum=True, trust_out=None):
+    """Launch the update kernel on the partial sums of
+    :func:`lars_norms_cuda`: the trust, then w and m updated in place.
+    ``lr`` a float or a one-element fp32 CUDA tensor (read on the card);
+    ``trust_out``, if given, a one-element fp32 CUDA tensor the kernel
+    writes the trust to. Returns (w, m). Counts each launch in
+    ``lars_apply_cuda.launches``."""
+    name = "lars_apply_cuda"
+    dev = _check(name, (("w", w), ("g", g), ("m", m)))
+    _check(name, (("partial", partial),), dev)
+    if partial.dim() != 2 or partial.shape[1] != 2 or not (
+            1 <= partial.shape[0] <= MAX_NORM_BLOCKS):
+        raise ValueError(f"{name}: partial must be (k, 2) with 1 <= k <= "
+                         f"{MAX_NORM_BLOCKS}, got {tuple(partial.shape)}")
+    if len({w.data_ptr(), g.data_ptr(), m.data_ptr()}) != 3 and w.numel():
+        raise ValueError(f"{name}: w, g and m must not share memory")
+    lr = _device_scalar(name, lr, dev)
+    if trust_out is not None:
+        _check(name, (("trust_out", trust_out),), dev)
+        if trust_out.numel() != 1:
+            raise ValueError(f"{name}: trust_out must hold one value")
+    if w.numel() == 0:
+        return w, m
+    err = _lib().lars_update(
+        w.data_ptr(), g.data_ptr(), m.data_ptr(), partial.data_ptr(),
+        partial.shape[0], lr.data_ptr(),
+        trust_out.data_ptr() if trust_out is not None else None, w.numel(),
+        weight_decay, momentum, eta, eps, int(bool(scaled_momentum)),
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"lars_update: CUDA error {err}")
+    lars_apply_cuda.launches += 1
+    return w, m
+
+
+lars_apply_cuda.launches = 0
+
+
+def lars_update_cuda(w, g, m, *, lr, weight_decay, momentum, eta, eps=1e-9,
+                     scaled_momentum=True, trust_out=None):
+    """:func:`lars_update_torch` through the two kernels, in place: w, g
+    and m contiguous fp32 CUDA tensors of one shape, ``lr`` a float or a
+    one-element fp32 CUDA tensor. Writes w' and m' into w and m and
+    returns them. Launches on the current stream and does not
+    synchronise."""
+    partial = lars_norms_cuda(w, g)
+    return lars_apply_cuda(w, g, m, partial, lr=lr,
+                           weight_decay=weight_decay, momentum=momentum,
+                           eta=eta, eps=eps, scaled_momentum=scaled_momentum,
+                           trust_out=trust_out)
+
+
+def reset_launches() -> None:
+    lars_norms_cuda.launches = 0
+    lars_apply_cuda.launches = 0
+
+
+def _lib() -> ctypes.CDLL:
+    from repro_torch.kernels import build
+
+    lib = build.load("lars")
+    if lib.lars_norms.argtypes is None:
+        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                       ctypes.c_float)
+        lib.lars_norms.argtypes = [p, p, p, ll, i, p]
+        lib.lars_norms.restype = i
+        lib.lars_update.argtypes = [p, p, p, p, i, p, p, ll, f, f, f, f, i, p]
+        lib.lars_update.restype = i
+    return lib

@@ -2,13 +2,19 @@
 
 CUDA tensors go to the hand-written kernel, which launches or raises;
 CPU tensors take its plain PyTorch version. There is no switch that
-sends CUDA tensors down the plain path.
+sends CUDA tensors down the plain path; the one size rule is the
+reference's own (``lars_update`` below 1024 elements).
 """
 from __future__ import annotations
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import lars as _lars
 from repro_torch.kernels import lstm_cell as _lstm
 from repro_torch.kernels import paged_attention as _pa
+
+# ``repro.kernels.ops``' ``min_size`` for lars_update (ops.py:383): smaller
+# leaves take the plain op, where a launch costs more than it saves.
+LARS_MIN_SIZE = 1024
 
 
 def attention(q, k, v, *, causal=True, window=None, q_offset=0, k_offset=0,
@@ -67,3 +73,27 @@ def lstm_cell(x_proj, h_prev, c_prev, w_h, b):
     impl = (_lstm.lstm_cell_cuda if x_proj.device.type == "cuda"
             else _lstm.lstm_cell_torch)
     return impl(x_proj, h_prev, c_prev, w_h, b)
+
+
+def _is_cuda(t) -> bool:
+    return t.device.type == "cuda"
+
+
+def lars_update(w, g, m, *, lr, weight_decay, momentum, eta, eps=1e-9,
+                scaled_momentum=True):
+    """Fused LARS update of one leaf (``repro.kernels.ops.lars_update``,
+    paper Fig. 5 ``scaled_momentum=True`` or Fig. 6), all math in fp32.
+
+    w, g, m: one shape; ``lr`` a float or an fp32 0-d tensor. Returns
+    (w', m'). CUDA tensors of at least ``LARS_MIN_SIZE`` (1024) elements
+    go through the two CUDA kernels, which write w' and m' into w and m
+    (contiguous fp32) and return them; smaller CUDA tensors and CPU
+    tensors take the plain version, which returns new tensors. The size
+    rule is the reference's own ``min_size`` (``ops.py:276-278``, ``:383``),
+    not a fallback: every ResNet-50 leaf that reaches here is larger.
+    """
+    kw = dict(lr=lr, weight_decay=weight_decay, momentum=momentum, eta=eta,
+              eps=eps, scaled_momentum=scaled_momentum)
+    if _is_cuda(w) and w.numel() >= LARS_MIN_SIZE:
+        return _lars.lars_update_cuda(w, g, m, **kw)
+    return _lars.lars_update_torch(w, g, m, **kw)

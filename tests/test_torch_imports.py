@@ -16,10 +16,12 @@ PORT_MODULES = [
     "repro_torch",
     "repro_torch.configs",
     "repro_torch.core.distributed_eval",
+    "repro_torch.core.distributed_norm",
     "repro_torch.data.bucketization",
     "repro_torch.data.pipeline",
     "repro_torch.kernels.build",
     "repro_torch.kernels.flash_attention",
+    "repro_torch.kernels.lars",
     "repro_torch.kernels.lstm_cell",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_attention",
@@ -27,11 +29,14 @@ PORT_MODULES = [
     "repro_torch.models.gnmt",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
+    "repro_torch.models.resnet",
     "repro_torch.models.scan_utils",
     "repro_torch.optim",
     "repro_torch.optim.adam",
+    "repro_torch.optim.lars",
     "repro_torch.optim.precision",
     "repro_torch.optim.schedules",
+    "repro_torch.optim.sgd",
     "repro_torch.serve.cache",
     "repro_torch.serve.engine",
     "repro_torch.serve.metrics",
@@ -42,6 +47,7 @@ PORT_MODULES = [
     "repro_torch.serve.slo",
     "repro_torch.serve.speculative",
     "repro_torch.launch.gnmt",
+    "repro_torch.launch.resnet",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
     "repro_torch.train.hooks",
@@ -84,7 +90,7 @@ def test_sources_name_no_jax_or_repro_import():
 
 def test_default_device_refuses_without_cuda(monkeypatch):
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.launch import resnet, serve
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine
 
@@ -97,6 +103,8 @@ def test_default_device_refuses_without_cuda(monkeypatch):
         Engine(cfg, params)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--arch", "gemma-7b", "--tokens", "1", "--batch", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resnet.main(["--steps", "1"])
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
