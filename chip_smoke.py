@@ -16,9 +16,12 @@ and prints no result):
    and at edge cases, the LSTM cell forward (with and without its saved
    gates) and backward at GNMT's shape and at edge cases, the two LARS
    kernels in both rules at ResNet-50's largest leaf and at edge cases,
-   zero norms among them), and times the kernel, the plain version, one
-   PyTorch library call computing the same function, and the least time
-   the card could take (its bound);
+   zero norms among them, the Mamba selective scan at jamba's prefill
+   shape with bf16 and fp32 inputs, at odd shapes, S = 1 and strided B/C,
+   and the flash forward at jamba's attention shape), and times the
+   kernel, the plain version, one PyTorch library call computing the
+   same function where there is one, and the least time the card could
+   take (its bound);
 3. checks: reduced gemma-7b in fp32 on the card against the CPU's
    plain path, serving (logits and greedy tokens; and from int8 and
    int4 pools with the prefix cache and speculative decoding, which
@@ -26,7 +29,9 @@ and prints no result):
    loss of 3 steps from the same weights and batches); reduced GNMT in
    fp32, card against CPU: loss, every gradient, 3 Adam steps; reduced
    ResNet (stride-2 stem and max pool at 32 x 32) in fp32, card against
-   CPU: loss, every gradient, 3 LARS steps of each rule;
+   CPU: loss, every gradient, 3 LARS steps of each rule; reduced
+   jamba-1.5-large in fp32 from the same ``params_from_numpy`` weights,
+   card against CPU: prefill logits and a slab engine's greedy tokens;
 4. serve: full-width gemma-7b (28 layers, random bf16 weights from a
    seed) serves 8 ragged requests offline through the port's engine;
    the kernel's launch counter, zeroed just before, must show it ran
@@ -38,7 +43,13 @@ and prints no result):
    second run must repeat, a replay drafter must get drafts accepted),
    beside the same stream from a bf16 pool for comparison, and then
    offline from an int4 pool (the int4 branch in every layer of every
-   chunk step);
+   chunk step). Then jamba-1.5-large at full width cut to 3 layers (a
+   Mamba + dense, a Mamba + MoE and an attention + dense layer; 12.9 B
+   random bf16 parameters) serves the same 8 ragged requests from the
+   slot slab: the counters, zeroed just before, must show mamba_scan in
+   both Mamba layers of every prefill (16) and the flash forward once a
+   prefill (8); a second run must give the same tokens; one prefill and
+   one decode step are traced;
 5. train: full-width gemma-7b cut to 8 layers (fp32 masters, gradients
    and Adam moments, bf16 compute, remat) takes 4 steps of batch 4 x
    2048 tokens through ``Trainer.fit`` and one eval; the flash kernels'
@@ -65,7 +76,9 @@ and prints no result):
    repeat the losses bitwise.
 
 The second-to-last line is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
+the names in ``PHASES``) runs the named phases alone after the build
+and prints no result line.
 """
 from __future__ import annotations
 
@@ -94,6 +107,7 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import lars as lk_lars  # noqa: E402
 from repro_torch.kernels import lstm_cell as lk  # noqa: E402
+from repro_torch.kernels import mamba as mk  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quant  # noqa: E402
@@ -109,6 +123,7 @@ from repro_torch.serve.engine import (  # noqa: E402
     ServeConfig,
     synthetic_requests,
 )
+from repro_torch.serve import cache as slab_ops  # noqa: E402
 from repro_torch.serve.scenarios import run_offline, run_server  # noqa: E402
 from repro_torch.serve.speculative import DraftModelDrafter  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
@@ -840,6 +855,195 @@ def lars_sweep():
 
 
 # --------------------------------------------------------------------------- #
+# Phase 2e: the mamba_scan kernel vs plain; flash at jamba's prefill shape.
+# --------------------------------------------------------------------------- #
+JAMBA = "jamba-1.5-large-398b"
+MAMBA_SHAPE = (1, 256, 16384, 16)  # jamba's prefill: Bt 1, S 256, Di, N
+MAMBA_CASES = [  # name, (Bt, S, Di, N), u's dtype, B and C as views
+    ("prefill", MAMBA_SHAPE, torch.bfloat16, True),
+    ("prefill", MAMBA_SHAPE, torch.float32, True),
+    ("odd", (2, 17, 33, 4), torch.float32, True),
+    ("odd", (2, 17, 33, 4), torch.bfloat16, False),
+    ("S1", (3, 1, 100, 16), torch.float32, True),
+    ("contiguous", (1, 64, 2048, 16), torch.float32, False),
+]
+SFU_EXP_PER_CLOCK = 16  # exponentials a clock on one SM's special-function units
+N_SMS = 132
+
+
+def mamba_inputs(seed, Bt, S, Di, N, u_dtype, views):
+    """tests/test_kernels.py's recipe: u ~ 0.5 N, dt = 0.1 softplus(N),
+    A = -|N|, B, C ~ 0.3 N, D ~ 0.1 N; with ``views`` B and C are column
+    slices of one (Bt, S, 8 + 2N) tensor, as ``apply_mamba`` passes them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    u = (0.5 * randn(Bt, S, Di)).to(u_dtype)
+    dt = 0.1 * torch.nn.functional.softplus(randn(Bt, S, Di))
+    A = -randn(Di, N).abs()
+    D = 0.1 * randn(Di)
+    if views:
+        x_dbl = 0.3 * randn(Bt, S, 8 + 2 * N)
+        B, C = x_dbl[..., 8:8 + N], x_dbl[..., 8 + N:]
+    else:
+        B, C = 0.3 * randn(Bt, S, N), 0.3 * randn(Bt, S, N)
+    return u, dt, A, B, C, D
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each value of x: 2^(e - 8) for |x| in
+    [2^(e-1), 2^e) (8 significant bits)."""
+    _, e = torch.frexp(x.float())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), e - 8)
+
+
+def mamba_work(Bt, S, Di, N, u_dtype):
+    """(bytes, exponentials) of one scan: u and y in u's dtype, dt, A, B,
+    C, D and the final h in fp32, each read or written once; one
+    exponential per (row, step, channel, state)."""
+    e = torch.finfo(u_dtype).bits // 8
+    nbytes = (2 * Bt * S * Di * e + 4 * (Bt * S * Di + Di * N + 2 * Bt * S * N
+                                         + Di + Bt * Di * N))
+    return nbytes, Bt * S * Di * N
+
+
+def sm_clock_hz():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def check_mamba():
+    """The kernel against its plain version on the card (y to rtol 1e-4,
+    atol 1e-5 with fp32 u; with bf16 u, where both round their fp32 y to
+    bf16 once, to one bf16 ulp beyond that tolerance; h to rtol 1e-4,
+    atol 1e-5), two launches a case bitwise equal; then timed at
+    jamba's prefill shape beside its bound."""
+    phase("kernels: mamba_scan vs plain PyTorch")
+    err = 0.0
+    for i, (name, shape, u_dtype, views) in enumerate(MAMBA_CASES):
+        args = mamba_inputs(i, *shape, u_dtype, views)
+        before = mk.mamba_scan_cuda.launches
+        y, h = mk.mamba_scan_cuda(*args)
+        y2, h2 = mk.mamba_scan_cuda(*args)
+        torch.cuda.synchronize()
+        if mk.mamba_scan_cuda.launches - before != 2:
+            raise AssertionError("mamba_scan: not one launch a call")
+        if not (torch.equal(y, y2) and torch.equal(h, h2)):
+            raise AssertionError(f"mamba_scan {name}: a rerun differs")
+        want_y, want_h = mk.mamba_scan_torch(*args)
+        h_err = (h - want_h).abs().max().item()
+        y_err = (y.float() - want_y.float()).abs().max().item()
+        if not (torch.isfinite(y.float()).all()
+                and torch.allclose(h, want_h, rtol=1e-4, atol=1e-5)):
+            raise AssertionError(f"mamba_scan {name} {u_dtype}: h != plain, "
+                                 f"max |diff| {h_err}")
+        if u_dtype == torch.float32:
+            ok = torch.allclose(y, want_y, rtol=1e-4, atol=1e-5)
+            tol = "rtol 1e-4, atol 1e-5"
+        else:
+            # both round an fp32 y held to rtol 1e-4, atol 1e-5 to bf16
+            # once: they may differ by that plus one bf16 ulp
+            want = want_y.float()
+            diff = (y.float() - want).abs()
+            ok = bool((diff <= bf16_ulp(want) + 1e-5
+                       + 1e-4 * want.abs()).all())
+            over = diff > bf16_ulp(want)
+            tol = (f"one bf16 ulp + rtol 1e-4, atol 1e-5; {int(over.sum())} "
+                   f"of {diff.numel()} values beyond one ulp")
+        if not ok:
+            raise AssertionError(f"mamba_scan {name} {u_dtype}: y != plain, "
+                                 f"max |diff| {y_err} ({tol})")
+        if name == "prefill" and u_dtype == torch.bfloat16:
+            err = y_err
+        print(f"  {name:10s} {str(shape):20s} u {str(u_dtype):14s} "
+              f"{'views' if views else 'contiguous'}: max|kernel-plain| y "
+              f"{y_err:.2e} ({tol}), h {h_err:.2e}; rerun bitwise equal",
+              flush=True)
+        del args, y, h, y2, h2, want_y, want_h
+    torch.cuda.empty_cache()
+
+    args = mamba_inputs(99, *MAMBA_SHAPE, torch.bfloat16, True)
+    ms = time_ms(lambda: mk.mamba_scan_cuda(*args))
+    plain_ms = time_ms(lambda: mk.mamba_scan_torch(*args), 5)
+    nbytes, n_exp = mamba_work(*MAMBA_SHAPE, torch.bfloat16)
+    clock = sm_clock_hz()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_exp / (SFU_EXP_PER_CLOCK * N_SMS * clock) * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    print(f"  timing {MAMBA_SHAPE} bf16 u: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}): bytes "
+          f"{nbytes} B = {t_bytes:.4f} ms at 3.35 TB/s, exponentials {n_exp} "
+          f"at {SFU_EXP_PER_CLOCK}/clock/SM x {N_SMS} SMs x "
+          f"{clock / 1e9:.3f} GHz = {t_ops:.4f} ms", flush=True)
+    print("  library_ms null: no single PyTorch call computes a selective "
+          "scan", flush=True)
+    del args
+    torch.cuda.empty_cache()
+    return dict(name="mamba_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                replaces="src/repro/kernels/mamba.py:58", max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None)
+
+
+def check_flash_jamba():
+    """The flash forward at jamba's attention layer (64 heads, 8 KV heads
+    of 128, no positions, batch 1, causal, bf16) against its plain
+    version at S 128 and 17, timed at S 128."""
+    phase("kernels: flash_attention forward at jamba's prefill shape vs "
+          "plain PyTorch")
+    H, K, D, dtype = 64, 8, 128, torch.bfloat16
+    tol = TOL[dtype]
+    for S in (128, 17):
+        q, k, v, _ = flash_inputs(S, 1, S, S, H, K, D, dtype)
+        out, _ = fa.flash_attention_fwd_cuda(q, k, v)
+        want = fa.flash_attention_torch(q, k, v)
+        err = (out.float() - want.float()).abs().max().item()
+        if not (torch.isfinite(out.float()).all() and torch.allclose(
+                out.float(), want.float(), rtol=tol, atol=tol)):
+            raise AssertionError(f"flash at jamba's shape, S {S}: kernel != "
+                                 f"plain, max |diff| {err}")
+        print(f"  B1 S{S} H{H} K{K} D{D} bf16 causal: max|kernel-plain| "
+              f"{err:.2e} (tol {tol:g}) ok", flush=True)
+        if S == 128:
+            max_err = err
+    S = 128
+    q, k, v, _ = flash_inputs(7, 1, S, S, H, K, D, dtype)
+    opts = dict(causal=True, window=None, q_offset=0, k_offset=0)
+    flops, _ = flash_work(1, S, S, H, D, opts)
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size() + H * S * 4
+    qs = q.transpose(1, 2)
+    ks, vs = (t.repeat_interleave(H // K, dim=2).transpose(1, 2)
+              for t in (k, v))
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True)
+
+    ms = time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v))
+    plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v))
+    sdpa_ms = time_ms(sdpa)
+    b, by = bound(flops, nbytes, dtype)
+    print(f"  timing B1 S{S} H{H} K{K} D{D}: kernel {ms:.4f} ms (bound "
+          f"{b:.4f}, {by}: {flops} flop, {nbytes} B), plain {plain_ms:.4f} "
+          f"ms, sdpa {sdpa_ms:.4f} ms (on K/V expanded to {H} heads "
+          f"beforehand)", flush=True)
+    return dict(name="flash_attention_fwd_jamba", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:102",
+                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                bound_by=by, library_ms=sdpa_ms)
+
+
+# --------------------------------------------------------------------------- #
 # Phase 4: serve.
 # --------------------------------------------------------------------------- #
 def tokens_of(report):
@@ -1166,6 +1370,66 @@ def reduced_vs_cpu():
     print("  greedy tokens identical card vs CPU (5 ragged requests)")
 
 
+def reference_layout(params, cfg):
+    """The port's parameters as the JAX package lays them out, in numpy:
+    ``blocks`` one tree per pattern position, each leaf stacked over the
+    blocks (what ``lm.params_from_numpy`` takes)."""
+    P = len(cfg.block_pattern)
+    layers = params["layers"]
+
+    def stack(*xs):
+        return np.stack([x.float().cpu().numpy() for x in xs])
+
+    blocks = tuple(tree_map(stack, *layers[j::P]) for j in range(P))
+    tree = {k: tree_map(lambda t: t.float().cpu().numpy(), v)
+            for k, v in params.items() if k != "layers"}
+    return {**tree, "blocks": blocks}
+
+
+def reduced_jamba_vs_cpu():
+    """Reduced jamba-1.5-large (a Mamba + dense, a Mamba + MoE and an
+    attention + dense layer) in fp32 from the same ``params_from_numpy``
+    weights: the card's path (mamba_scan and flash kernels) against the
+    CPU's plain path: prefill logits to 1e-4 of their largest entry, then
+    the greedy tokens of a 4-request slab engine."""
+    phase("check: reduced jamba-1.5-large, card vs CPU plain path, fp32")
+    cfg = dataclasses.replace(get_config(JAMBA).reduced(), dtype="float32",
+                              kv_cache_dtype="float32")
+    tree = reference_layout(lm.init_lm(cfg, 0, device="cpu"), cfg)
+    params = {dev: lm.params_from_numpy(tree, cfg, device=dev)
+              for dev in ("cpu", "cuda")}
+    toks = torch.randint(0, cfg.vocab, (2, 24),
+                         generator=torch.Generator().manual_seed(0))
+    out = {}
+    mk.reset_launches()
+    for dev in ("cpu", "cuda"):
+        with torch.inference_mode():
+            logits, _ = lm.prefill(params[dev], cfg, toks.to(dev))
+        out[dev] = logits.float().cpu()
+    if mk.mamba_scan_cuda.launches != 2:
+        raise AssertionError(f"the card's prefill launched mamba_scan "
+                             f"{mk.mamba_scan_cuda.launches} times, not 2")
+    err = (out["cpu"] - out["cuda"]).abs().max().item()
+    rel = err / out["cpu"].abs().max().item()
+    print(f"  prefill logits max|card-cpu| {err:.3e} = {rel:.2e} of the "
+          f"largest (tol 1e-4)", flush=True)
+    if rel > 1e-4:
+        raise AssertionError(f"reduced jamba logits differ card vs CPU: {rel}")
+    scfg = ServeConfig(max_batch=4, max_len=40)
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        reqs = synthetic_requests(cfg, n=4, tokens=8, prompt_len=24, seed=3,
+                                  prompt_lens=(5, 24, 11, 17))
+        eng = Engine(cfg, params[dev], scfg, device=dev)
+        if eng.layout != "slab":
+            raise AssertionError(f"jamba served from {eng.layout}")
+        toks[dev] = tokens_of(run_offline(eng, reqs))
+    if toks["cpu"] != toks["cuda"]:
+        raise AssertionError("reduced jamba greedy tokens differ card vs CPU")
+    print("  greedy tokens identical card vs CPU (4 requests, slab engine)",
+          flush=True)
+
+
 def reduced_quant_vs_cpu():
     """Reduced gemma-7b in fp32 from int8 and int4 pools, with the prefix
     cache and n-gram speculative decoding, on a shared-prefix server
@@ -1298,6 +1562,141 @@ class SyncEveryStep(Hook):
     ``step_ms`` is the step's time on the card."""
 
     needs_sync = True
+
+
+def jamba_cut():
+    """Full-width jamba-1.5-large cut to 3 layers: positions 0, 1 and 4 of
+    its 8-layer pattern, (mamba, dense), (mamba, moe), (attn, dense),
+    the three kinds its reduced() keeps; every width published."""
+    cfg = get_config(JAMBA)
+    pat = cfg.block_pattern
+    return dataclasses.replace(cfg, n_layers=3,
+                               block_pattern=(pat[0], pat[1], pat[4]))
+
+
+def timed_and_traced(fn, reps=3):
+    """(median host ms of ``fn`` to the card's end over ``reps`` runs,
+    device-busy ms of one traced run, its kernels by device time)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    _, busy, kernels = trace_busy(fn)
+    return float(np.median(times)), busy, kernels
+
+
+def serve_jamba_full():
+    """Full-width jamba (the 3-layer cut, random bf16 weights from seed
+    0) serves 8 ragged requests offline through the slab engine: each
+    prefill runs both Mamba layers through mamba_scan and the attention
+    layer through the flash forward (asserted by the counters, zeroed
+    just before), a second run repeats the tokens, and one decode step
+    and one prefill are traced."""
+    cfg = jamba_cut()
+    phase("serve: jamba-1.5-large full width, 3-layer cut (mamba+dense, "
+          "mamba+moe, attn+dense), bf16, slab, offline")
+    n = cfg.param_count()
+    print(f"  {n} parameters ({n * 2 / 2**30:.1f} GiB in bf16); d_model "
+          f"{cfg.d_model}, Di {cfg.mamba.expand * cfg.d_model}, "
+          f"{cfg.moe.n_experts} experts of d_ff {cfg.d_ff} top-"
+          f"{cfg.moe.top_k}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, vocab {cfg.vocab}", flush=True)
+    gc.collect()  # earlier phases' reference cycles still hold memory
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  init in {time.perf_counter() - t0:.1f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30 - held:.2f} GiB of "
+          f"weights ({held:.2f} GiB held by the process before the phase)",
+          flush=True)
+    scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+                       kv_layout="slab")
+    engine = Engine(cfg, params, scfg, device="cuda")
+    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                           seed=1))  # warm-up
+
+    def workload():
+        return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
+                                  prompt_len=max(PROMPT_LENS), seed=0,
+                                  prompt_lens=PROMPT_LENS)
+
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launches()
+    fa.flash_attention_fwd_cuda.launches = 0
+    report = run_offline(engine, workload())
+    launches = mk.mamba_scan_cuda.launches
+    flash = fa.flash_attention_fwd_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    s = report.summary()
+    print(f"  {report.format()}", flush=True)
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.block_pattern)
+    print(f"  mamba_scan launches {launches} (expected {n_mamba} x 8), "
+          f"flash forward launches {flash} (expected 8, one a prefill), "
+          f"peak memory {peak:.2f} GiB ({held:.2f} GiB held before the "
+          f"phase)", flush=True)
+    if launches != n_mamba * 8 or flash != 8:
+        raise AssertionError(f"launches: mamba_scan {launches}, flash {flash}")
+    got = tokens_of(report)
+    if len(got) != 8 or any(len(t) != NEW_TOKENS for t in got):
+        raise AssertionError(f"not every request got {NEW_TOKENS} tokens")
+    if any(not 0 <= tok < cfg.vocab for t in got for tok in t):
+        raise AssertionError("token id out of the vocabulary")
+    again = tokens_of(run_offline(engine, workload()))
+    if again != got:
+        raise AssertionError("a second run of the same workload differs")
+    print("  a second run gives the same greedy tokens", flush=True)
+
+    # One prefill of a 128-token prompt, and one decode step over 8 slots
+    # that each hold that prompt, timed and traced.
+    B, S = scfg.max_batch, max(PROMPT_LENS)
+    prompt = torch.randint(0, cfg.vocab, (1, S), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(2))
+    last = torch.full((1,), S - 1, dtype=torch.long, device="cuda")
+    slab = slab_ops.init_slab(cfg, B, scfg.max_len, device="cuda")
+    with torch.inference_mode():
+        _, cache = lm.prefill(params, cfg, prompt, cache_len=scfg.max_len,
+                              last_pos=last)
+        for slot in range(B):
+            slab_ops.write_slot(slab, cache, slot)
+    tok = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((B,), S, dtype=torch.long, device="cuda")
+
+    def decode():
+        with torch.inference_mode():
+            lm.decode_step(params, cfg, tok, slab, pos)
+
+    def prefill():
+        with torch.inference_mode():
+            lm.prefill(params, cfg, prompt, cache_len=scfg.max_len,
+                       last_pos=last)
+
+    readings = {}
+    for name, fn in (("decode step", decode), ("prefill", prefill)):
+        ms, busy, kernels = timed_and_traced(fn)
+        scan_ms = sum(e.self_device_time_total for e in kernels
+                      if "mamba_scan" in e.key) / 1e3
+        readings[name] = dict(ms=ms, busy_ms=busy, mamba_scan_ms=scan_ms)
+        print(f"  {name}: {ms:.2f} ms (median of 3, to the card's end); "
+              f"traced: {sum(e.count for e in kernels)} kernels, device "
+              f"busy {busy:.2f} ms = {100 * busy / ms:.1f}%, mamba_scan "
+              f"{scan_ms:.3f} ms = {100 * scan_ms / max(busy, 1e-9):.2f}% of "
+              f"device time; top kernels:", flush=True)
+        for e in kernels[:8]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:5d}x {e.key[:100]}")
+    s.update(peak_mem_gib=peak, held_before_gib=held,
+             mamba_scan_launches=launches,
+             flash_launches=flash, readings=readings, n_params=n)
+    print(f"  jamba serve summary {json.dumps(s)}", flush=True)
+    del engine, params, slab, cache, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, flash
 
 
 def full_train_config():
@@ -1866,7 +2265,22 @@ def train_resnet_full():
     return launches
 
 
-def main() -> int:
+PHASES = {  # --only names: the phases a short run may pick
+    "paged": check_kernel, "flash": check_flash, "lstm": check_lstm,
+    "lars": check_lars, "mamba": check_mamba,
+    "flash-jamba": check_flash_jamba, "check-jamba": reduced_jamba_vs_cpu,
+    "serve-jamba": serve_jamba_full,
+}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--only", default="",
+                    help="comma-separated phases to run after the build "
+                         f"({', '.join(PHASES)}); prints no result line")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -1886,13 +2300,21 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}")
     print(f"  built {sorted(build.sources())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if args.only:
+        for name in args.only.split(","):
+            PHASES[name]()
+        print(smi)
+        return 0
 
     paged, int8, int4 = check_kernel()
     flash_fwd, flash_bwd = check_flash()
     lstm_fwd, lstm_bwd = check_lstm()
     lars_norms, lars_update = check_lars()
+    mamba = check_mamba()
+    flash_jamba = check_flash_jamba()
     reduced_vs_cpu()
     reduced_quant_vs_cpu()
+    reduced_jamba_vs_cpu()
     reduced_train_vs_cpu()
     reduced_gnmt_vs_cpu()
     reduced_resnet_vs_cpu()
@@ -1902,11 +2324,12 @@ def main() -> int:
     int8["launches"], int4["launches"] = serve_quant(params)
     del params
     torch.cuda.empty_cache()
+    mamba["launches"], flash_jamba["launches"] = serve_jamba_full()
     flash_fwd["launches"], flash_bwd["launches"] = train_full()
     lstm_fwd["launches"], lstm_bwd["launches"] = train_gnmt_full()
     lars_norms["launches"], lars_update["launches"] = train_resnet_full()
-    recs = [paged, int8, int4, flash_fwd, flash_bwd, lstm_fwd, lstm_bwd,
-            lars_norms, lars_update]
+    recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,
+            lstm_fwd, lstm_bwd, lars_norms, lars_update]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi)

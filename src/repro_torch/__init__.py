@@ -9,8 +9,10 @@ trains it: the flash-attention forward and backward kernels, the
 full-sequence forward with remat and chunked loss, Adam under a cosine
 warmup, the train and eval steps, the ``Trainer`` and its CLI. Later
 slices serve from int8/int4 pools (the paged kernel's quantized
-branches), train GNMT through the LSTM cell kernels, and train
-ResNet-50 v1.5 with LARS through the ``lars_update`` kernels.
+branches), train GNMT through the LSTM cell kernels, train ResNet-50
+v1.5 with LARS through the ``lars_update`` kernels, and serve
+``jamba-1.5-large`` (Mamba, MoE and attention layers) through the
+slot-slab layout, its Mamba prefill through the ``mamba_scan`` kernel.
 
 Entry points take ``device`` (default ``"cuda"``) and refuse to fall
 back to the CPU when no card is present; tests pass ``device="cpu"``,

@@ -1,6 +1,7 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-The port covers ``gemma-7b`` only (serving and training); the other
+The port covers ``gemma-7b`` (serving and training) and
+``jamba-1.5-large-398b`` (serving through the slab layout); the other
 architectures of the JAX package are known by name and refused until
 their slice.
 """
@@ -8,15 +9,24 @@ from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import gemma_7b
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs import gemma_7b, jamba_1_5_large_398b
+from repro_torch.configs.base import (
+    LayerSpec,
+    MambaConfig,
+    ModelConfig,
+    MoEConfig,
+)
 
-_PORTED = {"gemma-7b": gemma_7b.CONFIG}
+# arch id -> (module name, config)
+_PORTED = {
+    "gemma-7b": ("gemma_7b", gemma_7b.CONFIG),
+    "jamba-1.5-large-398b": ("jamba_1_5_large_398b",
+                             jamba_1_5_large_398b.CONFIG),
+}
 
 # The JAX package's other architectures (id -> module name), for the
 # error message and module-style ids.
 _NOT_PORTED = {
-    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
     "grok-1-314b": "grok_1_314b",
     "whisper-medium": "whisper_medium",
     "mixtral-8x7b": "mixtral_8x7b",
@@ -33,15 +43,18 @@ def list_archs() -> List[str]:
 
 
 def get_config(arch: str) -> ModelConfig:
-    arch = arch.replace("_", "-") if arch == "gemma_7b" else arch
+    """The config of ``arch`` (an id, or its module-style name)."""
+    for arch_id, (module, cfg) in _PORTED.items():
+        if arch in (arch_id, module):
+            return cfg
     for arch_id, module in _NOT_PORTED.items():
         if arch in (arch_id, module):
             raise NotImplementedError(
                 f"arch {arch_id!r} is not ported yet: the PyTorch port "
-                f"covers gemma-7b only (see ROADMAP.md)")
-    if arch not in _PORTED:
-        raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
-    return _PORTED[arch]
+                f"covers {', '.join(_PORTED)} (the other families are "
+                f"ROADMAP.md item 3)")
+    raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
 
 
-__all__ = ["LayerSpec", "ModelConfig", "get_config", "list_archs"]
+__all__ = ["LayerSpec", "MambaConfig", "ModelConfig", "MoEConfig",
+           "get_config", "list_archs"]

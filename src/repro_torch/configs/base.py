@@ -1,17 +1,39 @@
 """Model config for the port: the ``repro.configs.base`` fields that
-the paged serving path and the train step read, with the same names,
-defaults and ``reduced()`` rule, so one architecture id builds the same
-model on both sides (tests compare every kept field)."""
+the serving path and the train step read, with the same names, defaults
+and ``reduced()`` rule, so one architecture id builds the same model on
+both sides (tests compare every kept field)."""
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts FFN (switch/mixtral-style top-k routing)."""
+    n_experts: int
+    top_k: int = 2
+    capacity_factor: float = 1.25
+    aux_loss_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class MambaConfig:
+    """Mamba (S6) mixer [arXiv:2312.00752], used by hybrid stacks."""
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
 
 
 @dataclass(frozen=True)
 class LayerSpec:
-    """One layer of a stack. mixer: 'attn'; ffn: 'dense'."""
+    """One layer of a (possibly heterogeneous) stack.
+
+    mixer: 'attn' | 'mamba' (the reference's 'rwkv6' is not ported);
+    ffn: 'dense' | 'moe' | 'none'.
+    """
     mixer: str = "attn"
     ffn: str = "dense"
 
@@ -23,20 +45,29 @@ class ModelConfig:
     d_model: int
     d_ff: int
     vocab: int
+    family: str = "dense"     # 'dense' | 'moe' | 'ssm' | 'hybrid' | ...
     n_heads: int = 0
     n_kv_heads: int = 0
     head_dim: int = 0         # 0 -> d_model // n_heads
+    rope: str = "rope"        # 'rope' | 'none' (no positional encoding)
     rope_theta: float = 10000.0
     activation: str = "silu"  # 'silu' (SwiGLU) | 'gelu' (GeGLU, tanh form)
     glu: bool = True
     tie_embeddings: bool = False
+    sliding_window: Optional[int] = None   # native sliding-window attention
+    # Window used only for the long-context decode variant on archs whose
+    # native attention is full and causal.
+    long_context_window: Optional[int] = None
+    moe: Optional[MoEConfig] = None
+    mamba: Optional[MambaConfig] = None
     block_pattern: Tuple[LayerSpec, ...] = ()
     remat: bool = True                # recompute each layer in backward
     loss_chunk: int = 256             # CE computed in seq chunks of this size
     dtype: str = "bfloat16"           # activation / compute dtype
     param_dtype: str = "float32"      # master weights
-    kv_cache_dtype: str = "bfloat16"  # paged pool: bfloat16 | float32 |
-    #                                   int8 | int4 (quantized, fp32 scales)
+    kv_cache_dtype: str = "bfloat16"  # KV cache: bfloat16 | float32 |
+    #                                   int8 | int4 (quantized, fp32 scales;
+    #                                   int4 on the paged layout only)
     grad_dtype: str = "float32"       # gradient summation dtype
     moment_dtype: str = "float32"     # Adam moment dtype
     microbatches: int = 1             # gradient-accumulation microbatches
@@ -46,7 +77,9 @@ class ModelConfig:
             object.__setattr__(
                 self, "head_dim", self.head_dim or self.d_model // self.n_heads)
         if not self.block_pattern:
-            object.__setattr__(self, "block_pattern", (LayerSpec(),))
+            mixer = "mamba" if self.family == "ssm" else "attn"
+            ffn = "moe" if self.moe is not None else "dense"
+            object.__setattr__(self, "block_pattern", (LayerSpec(mixer, ffn),))
         if self.n_layers % len(self.block_pattern) != 0:
             raise ValueError(
                 f"{self.name}: n_layers={self.n_layers} not divisible by "
@@ -56,10 +89,27 @@ class ModelConfig:
     def n_blocks(self) -> int:
         return self.n_layers // len(self.block_pattern)
 
+    @property
+    def uses_moe(self) -> bool:
+        return any(s.ffn == "moe" for s in self.block_pattern)
+
     def reduced(self) -> "ModelConfig":
         """CPU smoke variant: same family and pattern, tiny dims
-        (``repro.configs.base.ModelConfig.reduced`` for a dense stack)."""
+        (``repro.configs.base.ModelConfig.reduced``): up to 4 distinct
+        (mixer, ffn) kinds kept, at most 4 experts at a no-drop capacity
+        factor, windows capped at 64."""
         pat = self.block_pattern[: max(1, min(2, len(self.block_pattern)))]
+        kinds = {(s.mixer, s.ffn) for s in self.block_pattern}
+        if len(kinds) > len(pat):
+            seen, keep = set(), []
+            for s in self.block_pattern:
+                k = (s.mixer, s.ffn)
+                if k not in seen:
+                    seen.add(k)
+                    keep.append(s)
+                if len(keep) == 4:
+                    break
+            pat = tuple(keep)
         d_model = min(self.d_model, 256)
         n_heads = min(self.n_heads, 4) if self.n_heads else 0
         n_kv = min(self.n_kv_heads, n_heads) if self.n_kv_heads else 0
@@ -78,6 +128,41 @@ class ModelConfig:
             n_heads=n_heads,
             n_kv_heads=n_kv,
             head_dim=(d_model // n_heads) if n_heads else 0,
+            # capacity factor = n_experts: no token is ever dropped
+            moe=None if self.moe is None else dataclasses.replace(
+                self.moe, n_experts=min(self.moe.n_experts, 4),
+                capacity_factor=float(min(self.moe.n_experts, 4))),
+            sliding_window=None if self.sliding_window is None else 64,
+            long_context_window=(None if self.long_context_window is None
+                                 else 64),
             remat=False,
             microbatches=1,
         )
+
+    def param_count(self) -> int:
+        """Analytic parameter count (``repro.configs.base``'s rule for
+        attention and Mamba mixers, dense and MoE FFNs)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        total = v * d + (0 if self.tie_embeddings else v * d)
+        for spec in self.block_pattern:
+            mixer = 0
+            if spec.mixer == "attn":
+                hd = self.head_dim
+                mixer = (d * (self.n_heads * hd) * 2
+                         + d * (self.n_kv_heads * hd) * 2)
+            elif spec.mixer == "mamba":
+                m = self.mamba or MambaConfig()
+                di = m.expand * d
+                dt_rank = m.dt_rank or -(-d // 16)
+                mixer = (d * di * 2 + di * m.d_conv
+                         + di * (dt_rank + 2 * m.d_state) + dt_rank * di
+                         + di * m.d_state + di + di * d)
+            if spec.ffn == "dense":
+                ffn = d * f * (3 if self.glu else 2)
+            elif spec.ffn == "moe":
+                ffn = (self.moe.n_experts * d * f * (3 if self.glu else 2)
+                       + d * self.moe.n_experts)
+            else:
+                ffn = 0
+            total += self.n_blocks * (mixer + ffn)
+        return int(total)

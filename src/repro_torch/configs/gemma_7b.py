@@ -7,6 +7,7 @@ from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(
     name="gemma-7b",
+    family="dense",
     n_layers=28,
     d_model=3072,
     n_heads=16,
@@ -17,4 +18,5 @@ CONFIG = ModelConfig(
     activation="gelu",
     glu=True,  # GeGLU
     tie_embeddings=True,
+    long_context_window=4096,  # sliding-window decode for long contexts
 )

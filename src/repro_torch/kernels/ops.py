@@ -3,13 +3,19 @@
 CUDA tensors go to the hand-written kernel, which launches or raises;
 CPU tensors take its plain PyTorch version. There is no switch that
 sends CUDA tensors down the plain path; the one size rule is the
-reference's own (``lars_update`` below 1024 elements).
+reference's own (``lars_update`` below 1024 elements). The ops that
+have no Pallas kernel in the reference (``decode_attention``,
+``moe_gating``, ``mamba_step``) are plain PyTorch on both devices.
 """
 from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import lars as _lars
 from repro_torch.kernels import lstm_cell as _lstm
+from repro_torch.kernels import mamba as _mamba
 from repro_torch.kernels import paged_attention as _pa
 
 # ``repro.kernels.ops``' ``min_size`` for lars_update (ops.py:383): smaller
@@ -97,3 +103,101 @@ def lars_update(w, g, m, *, lr, weight_decay, momentum, eta, eps=1e-9,
     if _is_cuda(w) and w.numel() >= LARS_MIN_SIZE:
         return _lars.lars_update_cuda(w, g, m, **kw)
     return _lars.lars_update_torch(w, g, m, **kw)
+
+
+def mamba_scan(u, dt, A, B, C, D):
+    """Mamba S6 selective scan from h = 0 (``repro.kernels.ops.mamba_scan``).
+
+    u, dt: (Bt, S, Di); A: (Di, N); B, C: (Bt, S, N); D: (Di,). Returns
+    (y (Bt, S, Di) in u's dtype, final h (Bt, Di, N) fp32). CUDA tensors
+    go through the ``mamba_scan`` kernel, CPU tensors through its plain
+    version. Forward only: the reference has no backward kernel.
+    """
+    impl = (_mamba.mamba_scan_cuda if u.device.type == "cuda"
+            else _mamba.mamba_scan_torch)
+    return impl(u, dt, A, B, C, D)
+
+
+def mamba_step(h, u_t, dt_t, A, B_t, C_t, D):
+    """One decode step of the selective scan (``repro.kernels.ops.
+    mamba_step``, ``ops.py:341-352``), plain PyTorch on both devices: the
+    reference has no Pallas kernel for it. h: (Bt, Di, N) fp32; u_t,
+    dt_t: (Bt, Di); B_t, C_t: (Bt, N). Returns (h', y (Bt, Di) in u_t's
+    dtype)."""
+    dt32, u32 = dt_t.float(), u_t.float()
+    da = torch.exp(dt32[..., None] * A.float())
+    h = da * h + dt32[..., None] * B_t.float()[:, None, :] * u32[..., None]
+    y = torch.einsum("bdn,bn->bd", h, C_t.float()) + D.float() * u32
+    return h, y.to(u_t.dtype)
+
+
+def moe_gating(x, router_w, *, top_k, capacity):
+    """Top-k gating with capacity dispatch (``repro.kernels.ref.
+    moe_gating``, ``ref.py:143-180``), plain PyTorch on both devices: the
+    reference has no Pallas kernel for it.
+
+    x: (G, S, d); router_w: (d, E). Each of ``top_k`` rounds sends every
+    token to its best remaining expert (ties to the lowest index), at
+    the next free position of that expert's ``capacity`` slots in the
+    group, or nowhere once they are full. Returns (dispatch (G, S, E,
+    capacity) fp32 0/1, combine (same) fp32 gate weights, aux scalar: the
+    Switch load-balance loss ``E * sum_e f_e * p_e``)."""
+    G, S, _ = x.shape
+    E = router_w.shape[-1]
+    gates = torch.softmax(x.float() @ router_w.float(), dim=-1)  # (G, S, E)
+    dispatch = torch.zeros((G, S, E, capacity), dtype=torch.float32,
+                           device=x.device)
+    combine = torch.zeros_like(dispatch)
+    slots = torch.arange(capacity, device=x.device)
+    fill = torch.zeros((G, E), dtype=torch.int64, device=x.device)
+    remaining = gates
+    for _ in range(top_k):
+        idx = torch.argmax(remaining, dim=-1)                    # (G, S)
+        gate = torch.gather(remaining, -1, idx[..., None])[..., 0]
+        onehot = F.one_hot(idx, E).float()                       # (G, S, E)
+        pos = torch.cumsum(onehot, dim=1) - onehot + fill[:, None, :]
+        pos_tok = torch.gather(pos, -1, idx[..., None])[..., 0].long()
+        keep = pos_tok < capacity
+        poh = (pos_tok[..., None] == slots).float()              # (G, S, C)
+        d_k = (onehot[..., None] * poh[:, :, None, :]
+               * keep[..., None, None])
+        dispatch = dispatch + d_k
+        combine = combine + d_k * gate[..., None, None]
+        fill = fill + (onehot * keep[..., None]).sum(1).long()
+        remaining = remaining * (1.0 - onehot)
+    top1 = F.one_hot(torch.argmax(gates, dim=-1), E).float()
+    aux = E * torch.sum(top1.mean(dim=(0, 1)) * gates.mean(dim=(0, 1)))
+    return dispatch, combine, aux
+
+
+def decode_attention(q, k_cache, v_cache, slot_pos, *, pos, window=None,
+                     scale=None, k_scale=None, v_scale=None):
+    """One-token attention against a slab KV cache (``repro.kernels.ops.
+    decode_attention``, ``_decode_attention_jnp`` at ``ops.py:167``),
+    plain PyTorch on both devices: the reference has no Pallas kernel
+    for it.
+
+    q: (B, 1, H, D); k_cache/v_cache: (B, L, K, D), float or int8 with
+    fp32 ``k_scale``/``v_scale`` (B, L, K); slot_pos: (B, L) int32, the
+    position in each slot (-1 empty); pos: an int or (B,) per-row
+    positions. A slot is visible when 0 <= slot_pos <= pos (and within
+    ``window``); masking is a finite -1e30. Returns (B, 1, H, D) in q's
+    dtype."""
+    B, _, H, D = q.shape
+    K = k_cache.shape[2]
+    scale = scale if scale is not None else D ** -0.5
+    kf, vf = k_cache.float(), v_cache.float()
+    if k_scale is not None:
+        kf = kf * k_scale[..., None].float()
+    if v_scale is not None:
+        vf = vf * v_scale[..., None].float()
+    qf = (q.float() * scale).reshape(B, K, H // K, D)
+    logits = torch.einsum("bkgd,blkd->bkgl", qf, kf)
+    posb = torch.as_tensor(pos, device=q.device).long().reshape(-1, 1)
+    valid = (slot_pos >= 0) & (slot_pos <= posb)
+    if window is not None:
+        valid &= slot_pos > posb - window
+    logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgl,blkd->bkgd", probs, vf)
+    return out.reshape(B, 1, H, D).to(q.dtype)

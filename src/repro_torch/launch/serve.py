@@ -14,14 +14,18 @@
 Builds ``--batch`` synthetic requests with the scenario's arrivals
 (``serve.scenarios.make_trace``; prompts and arrivals byte-identical to
 ``repro.launch.serve``'s for the same seed), drives them through the
-paged engine in the chosen MLPerf-Inference scenario, and prints the
+engine in the chosen MLPerf-Inference scenario, and prints the
 throughput / latency summary, the prefix-cache, speculative and SLO
-lines where they apply, and each request's greedy tokens. The model is
-``reduced()`` unless ``--full``; weights are random from ``--seed``.
-Runs on the card by default and refuses to run without one unless
-``--device cpu`` is given. ``--temperature > 0``, ``--kv-layout slab``,
-``--serve-mode`` and the fleet flags are not ported and raise
-``NotImplementedError``.
+lines where they apply, and each request's greedy tokens. gemma-7b
+serves from the paged pool by default (``--kv-layout slab`` for the
+slot slab, prompts padded to ``--prompt-len``); jamba-1.5-large-398b,
+whose Mamba layers carry prompt state, serves from the slab only, each
+prompt prefilled at its exact length. The model is ``reduced()`` unless
+``--full`` (all 72 layers of jamba at full width, which one card cannot
+hold); weights are random from ``--seed``. Runs on the card by default
+and refuses to run without one unless ``--device cpu`` is given.
+``--temperature > 0``, ``--serve-mode`` and the fleet flags are not
+ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ def main(argv=None) -> int:
                     help="only 0 (greedy) is ported")
     ap.add_argument("--kv-layout", default="auto",
                     choices=["auto", "paged", "slab"],
-                    help="only the paged layout is ported")
+                    help="KV layout: paged pool or slot slab (auto: paged "
+                         "for attention-only stacks, slab otherwise)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page")
     ap.add_argument("--prefill-chunk", type=int, default=8,
@@ -115,6 +120,7 @@ def main(argv=None) -> int:
     scfg = ServeConfig(
         max_batch=args.batch if args.max_batch is None else args.max_batch,
         max_len=args.prompt_len + args.tokens,
+        prefill_len=args.prompt_len,
         temperature=args.temperature,
         kv_layout=args.kv_layout,
         page_size=args.page_size,
@@ -145,7 +151,7 @@ def main(argv=None) -> int:
         cfg, n=min(2, scfg.max_batch), tokens=2, prompt_len=args.prompt_len,
         seed=args.seed + 1))
     report = scenario_driver(args.scenario)(engine, reqs)
-    kv = "paged" + (f"/{args.kv_dtype}" if args.kv_dtype else "")
+    kv = engine.layout + (f"/{args.kv_dtype}" if args.kv_dtype else "")
     print(f"{args.arch} [{args.scenario}, device={device}, "
           f"slots={scfg.max_batch}, kv={kv}]: {report.format()}")
     if report.prefix_hit_rate is not None:

@@ -1,21 +1,29 @@
-"""Layers of the paged serving path and the train step
+"""Layers of the port's serving and training paths
 (``repro.models.layers``): RMSNorm, half-split RoPE, GQA projections,
-the GeGLU FFN, full-sequence attention and paged-KV attention.
+the dense GLU FFN, the MoE FFN, the Mamba (S6) mixer, full-sequence
+attention, slab-KV decode attention and paged-KV attention.
 
-Norms, RoPE and softmax run in fp32 and cast back, as the reference
-does; projections run in the config's compute dtype. Parameters arrive
-already in that dtype (see ``lm.init_lm``). Parameter layouts are the
-reference's: ``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo``
-(H, hd, d), ``wu``/``wg`` (d, f), ``wd`` (f, d).
+Norms, RoPE, softmax and the SSM recurrence run in fp32 and cast back,
+as the reference does; projections run in the config's compute dtype.
+Parameters arrive already in that dtype (see ``lm.init_lm``), except
+the leaves the reference uses in fp32 (:data:`FP32_LEAVES`: Mamba's
+``x_proj``, ``dt_w``, ``dt_bias``, ``A_log`` and ``D``, and the MoE
+``router``), which stay fp32. Parameter layouts are the reference's:
+``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo`` (H, hd, d),
+``wu``/``wg`` (d, f), ``wd`` (f, d); MoE ``router`` (d, E), ``wu``/``wg``
+(E, d, f), ``wd`` (E, f, d); Mamba ``wx``/``wz`` (d, Di), ``conv_w``
+(d_conv, Di), ``conv_b`` (Di,), ``x_proj`` (Di, R + 2N), ``dt_w`` (R,
+Di), ``dt_bias``/``D`` (Di,), ``A_log`` (Di, N), ``out_proj`` (Di, d).
 """
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MambaConfig, ModelConfig
 from repro_torch.kernels import ops, quant
 
 # jax.nn.gelu defaults to the tanh approximation; torch's default is erf.
@@ -29,6 +37,9 @@ _ACT = {
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int8": torch.int8, "int4": torch.int8}
 QUANTIZED = ("int8", "int4")
+# Leaves the reference reads in fp32 whatever the compute dtype
+# (``layers.py:655-664``, ``ref.py:151``); they are stored in fp32.
+FP32_LEAVES = ("x_proj", "dt_w", "dt_bias", "A_log", "D", "router")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -77,7 +88,10 @@ def apply_ffn(params, x, cfg: ModelConfig):
 
 
 def gather_last(x, last_pos):
-    """Per-row slice x (B, S, d) at ``last_pos`` (B,) -> (B, 1, d)."""
+    """Per-row slice x (B, S, d) at ``last_pos`` (B,) -> (B, 1, d);
+    ``last_pos`` None takes position S - 1 of every row."""
+    if last_pos is None:
+        return x[:, -1:, :]
     rows = torch.arange(x.shape[0], device=x.device)
     return x[rows, last_pos.to(x.device, torch.long)][:, None, :]
 
@@ -119,7 +133,7 @@ def _check_insert_dtype(pool_dtype, new_dtype, where: str) -> None:
         raise TypeError(
             f"{where}: writing {new_dtype} values into a {pool_dtype} pool "
             "without quantization scales; quantized caches must carry "
-            "kp_scale/vp_scale entries")
+            "k_scale/v_scale (slab) or kp_scale/vp_scale (paged) entries")
 
 
 def paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid):
@@ -184,14 +198,16 @@ def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
                    causal=True):
     """Full-sequence self-attention (train / prefill).
 
-    x: (B, S, d); positions: (B, S) RoPE positions. Returns (out (B, S,
+    x: (B, S, d); positions: (B, S) RoPE positions (unused when
+    ``cfg.rope == "none"``). Returns (out (B, S,
     d), (k, v)), k/v (B, S, K, hd) in the compute dtype, as the
     reference returns them for cache construction.
     """
     B, S, _ = x.shape
-    q = apply_rope(_qkv(params, x, "q"), positions, theta=cfg.rope_theta)
-    k = apply_rope(_qkv(params, x, "k"), positions, theta=cfg.rope_theta)
-    v = _qkv(params, x, "v")
+    q, k, v = (_qkv(params, x, w) for w in "qkv")
+    if cfg.rope != "none":
+        q = apply_rope(q, positions, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, theta=cfg.rope_theta)
     out = ops.attention(q, k, v, causal=causal, window=window)
     wo = params["wo"]
     H, hd, d = wo.shape
@@ -211,10 +227,11 @@ def attention_decode_paged(params, x, cfg: ModelConfig, cache, page_table,
     q = _qkv(params, x, "q")
     k_new = _qkv(params, x, "k")
     v_new = _qkv(params, x, "v")
-    posm = (pos.to(x.device, torch.long).reshape(B, 1)
-            + torch.arange(C, device=x.device)[None, :])
-    q = apply_rope(q, posm, theta=cfg.rope_theta)
-    k_new = apply_rope(k_new, posm, theta=cfg.rope_theta)
+    if cfg.rope != "none":
+        posm = (pos.to(x.device, torch.long).reshape(B, 1)
+                + torch.arange(C, device=x.device)[None, :])
+        q = apply_rope(q, posm, theta=cfg.rope_theta)
+        k_new = apply_rope(k_new, posm, theta=cfg.rope_theta)
     paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid)
     out = ops.paged_attention(q, cache["kp"], cache["vp"], page_table,
                               pos=pos, n_valid=n_valid, window=window,
@@ -223,3 +240,285 @@ def attention_decode_paged(params, x, cfg: ModelConfig, cache, page_table,
     wo = params["wo"]
     H, hd, d = wo.shape
     return out.reshape(B, C, H * hd) @ wo.reshape(H * hd, d)
+
+
+# ---- slab KV cache (``repro.models.layers``, ``layers.py:155-320``) ------- #
+def init_kv_cache(cfg: ModelConfig, B: int, length: int, *, device):
+    """One attention layer's slab cache: ``k``/``v`` (B, length, K, hd)
+    in the compute dtype (int8 with fp32 ``k_scale``/``v_scale`` (B,
+    length, K) when ``kv_cache_dtype`` is int8) and ``slot_pos`` (B,
+    length) int32, the absolute position held in each slot (-1 empty).
+    An int4 slab raises ``ValueError``: int4 packs pool pages."""
+    K, hd = cfg.n_kv_heads, cfg.head_dim
+    if cfg.kv_cache_dtype == "int4":
+        raise ValueError(
+            "int4 KV is only supported by the paged layout "
+            "(kv_cache_dtype='int4' with a slab cache)")
+    int8 = cfg.kv_cache_dtype == "int8"
+    dt = torch.int8 if int8 else dtype_of(cfg.dtype)
+    cache = {
+        "k": torch.zeros((B, length, K, hd), dtype=dt, device=device),
+        "v": torch.zeros((B, length, K, hd), dtype=dt, device=device),
+        "slot_pos": torch.full((B, length), -1, dtype=torch.int32,
+                               device=device),
+    }
+    if int8:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros((B, length, K), dtype=torch.float32,
+                                      device=device)
+    return cache
+
+
+def cache_insert(cache, k_new, v_new, pos):
+    """Insert one token's K/V per row at ring slot ``pos % L``, in place.
+    k_new/v_new: (B, K, hd); ``pos`` an int, a 0-d tensor, or (B,) per-row
+    positions (continuous batching). Returns the same dict."""
+    B = cache["k"].shape[0]
+    posv = torch.as_tensor(pos, device=k_new.device).long().reshape(-1)
+    return _cache_insert_per_row(cache, k_new, v_new, posv.expand(B))
+
+
+def _cache_insert_per_row(cache, k_new, v_new, posv):
+    """:func:`cache_insert` with per-row positions posv: (B,). An int8
+    slab quantizes the new rows first; float K/V into an integer slab
+    without scales raise ``TypeError`` before anything is written."""
+    B, L = cache["k"].shape[:2]
+    if "k_scale" in cache:
+        news = {}
+        news["k"], news["k_scale"] = quant.quantize_int8(k_new)
+        news["v"], news["v_scale"] = quant.quantize_int8(v_new)
+    else:
+        _check_insert_dtype(cache["k"].dtype, k_new.dtype, "cache_insert")
+        news = {"k": k_new, "v": v_new}
+    rows = torch.arange(B, device=k_new.device)
+    slot = posv % L
+    for name, new in news.items():
+        cache[name][rows, slot] = new.to(cache[name].dtype)
+    cache["slot_pos"][rows, slot] = posv.to(torch.int32)
+    return cache
+
+
+def cache_from_prefill(cfg: ModelConfig, k, v, length: int):
+    """A slab cache of ``length`` slots from prefill K/V (B, S, K, hd),
+    S <= length: slots 0..S-1 hold positions 0..S-1 (quantized for an
+    int8 slab)."""
+    B, S = k.shape[:2]
+    cache = init_kv_cache(cfg, B, length, device=k.device)
+    if "k_scale" in cache:
+        cache["k"][:, :S], cache["k_scale"][:, :S] = quant.quantize_int8(k)
+        cache["v"][:, :S], cache["v_scale"][:, :S] = quant.quantize_int8(v)
+    else:
+        cache["k"][:, :S] = k.to(cache["k"].dtype)
+        cache["v"][:, :S] = v.to(cache["v"].dtype)
+    cache["slot_pos"][:, :S] = torch.arange(S, dtype=torch.int32,
+                                            device=k.device)
+    return cache
+
+
+def attention_decode(params, x, cfg: ModelConfig, cache, *, pos,
+                     window=None):
+    """One-token attention against one layer's slab cache. x: (B, 1, d);
+    ``pos`` an int or (B,) absolute positions (each row decodes at its
+    own offset). The new K/V go into the cache first (in place), then
+    ``ops.decode_attention`` reads it. Returns (out (B, 1, d), cache)."""
+    B = x.shape[0]
+    q, k_new, v_new = (_qkv(params, x, w) for w in "qkv")
+    if cfg.rope != "none":
+        posv = torch.as_tensor(pos, device=x.device).long().reshape(-1, 1)
+        posv = posv.expand(B, 1)
+        q = apply_rope(q, posv, theta=cfg.rope_theta)
+        k_new = apply_rope(k_new, posv, theta=cfg.rope_theta)
+    cache_insert(cache, k_new[:, 0], v_new[:, 0], pos)
+    out = ops.decode_attention(q, cache["k"], cache["v"], cache["slot_pos"],
+                               pos=pos, window=window,
+                               k_scale=cache.get("k_scale"),
+                               v_scale=cache.get("v_scale"))
+    wo = params["wo"]
+    H, hd, d = wo.shape
+    return out.reshape(B, 1, H * hd) @ wo.reshape(H * hd, d), cache
+
+
+# ---- Mixture-of-Experts FFN (``layers.py:544-603``) ----------------------- #
+MOE_GROUP = 256  # tokens per dispatch group
+
+
+def apply_moe(params, x, cfg: ModelConfig):
+    """GShard-style top-k capacity dispatch. x: (B, S, d) -> (y (B, S, d)
+    in x's dtype, aux loss). Tokens are grouped ``Sg = min(256, S)`` at a
+    time, ``B * S // Sg`` groups, each expert taking at most
+    ``ceil(Sg * top_k * capacity_factor / E)`` tokens a group (the rest
+    are dropped, as in the reference). Dispatch and combine are dense
+    einsums, the combine in fp32. A token count that ``Sg`` does not
+    divide (a prompt longer than 256 and not a multiple of it) raises
+    ``ValueError``, where the reference fails to reshape."""
+    B, S, d = x.shape
+    E, k = cfg.moe.n_experts, cfg.moe.top_k
+    Sg = min(MOE_GROUP, S)
+    if (B * S) % Sg:
+        raise ValueError(
+            f"apply_moe: {B * S} tokens do not split into groups of {Sg} "
+            f"(the reference groups min({MOE_GROUP}, S) tokens and has no "
+            f"padding)")
+    xg = x.reshape(B * S // Sg, Sg, d)
+    cap = max(1, int(math.ceil(Sg * k * cfg.moe.capacity_factor / E)))
+    dispatch, combine, aux = ops.moe_gating(xg, params["router"], top_k=k,
+                                            capacity=cap)
+    xin = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xg)
+    h = torch.einsum("egcd,edf->egcf", xin, params["wu"])
+    if cfg.glu:
+        g = torch.einsum("egcd,edf->egcf", xin, params["wg"])
+        h = _ACT[cfg.activation](g) * h
+    else:
+        h = _ACT[cfg.activation](h)
+    out = torch.einsum("egcf,efd->egcd", h, params["wd"])
+    y = torch.einsum("gsec,egcd->gsd", combine, out.float())
+    return y.reshape(B, S, d).to(x.dtype), aux
+
+
+# ---- Mamba (S6 selective scan) mixer (``layers.py:609-712``) -------------- #
+def _mamba_dims(cfg: ModelConfig):
+    """(MambaConfig, Di = expand * d_model, dt_rank = ceil(d / 16) if 0)."""
+    m = cfg.mamba or MambaConfig()
+    return m, m.expand * cfg.d_model, m.dt_rank or -(-cfg.d_model // 16)
+
+
+def _softplus(x):
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``:
+    ``max(x, 0) + log1p(exp(-|x|))`` (``F.softplus`` switches to x above
+    its threshold of 20 instead)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _mamba_conv(u, conv_w, conv_b, state=None):
+    """Causal depthwise conv over time, written out as the reference
+    writes it: the ``Kc`` shifted products summed in tap order in u's
+    dtype, then ``conv_b`` added. u: (B, S, Di); conv_w: (Kc, Di);
+    state: (B, Kc - 1, Di), the previous pre-conv inputs (decode), or
+    None (zeros). Returns (out, new state: the last Kc - 1 pre-conv
+    inputs)."""
+    Kc, S = conv_w.shape[0], u.shape[1]
+    if state is None:
+        up = F.pad(u, (0, 0, Kc - 1, 0))
+    else:
+        up = torch.cat([state.to(u.dtype), u], dim=1)
+    out = 0
+    for i in range(Kc):
+        out = out + up[:, i:i + S, :] * conv_w[i][None, None]
+    out = out + conv_b[None, None]
+    return out, (up[:, -(Kc - 1):, :] if Kc > 1 else None)
+
+
+def _mamba_ssm_inputs(params, u, cfg: ModelConfig):
+    """(dt, A, B, C, D) of the scan from the post-conv activations u, in
+    fp32: ``x_dbl = u @ x_proj`` split into (dt_in, B, C) column slices
+    (B and C stay views), ``dt = softplus(dt_in @ dt_w + dt_bias)``,
+    ``A = -exp(A_log)``."""
+    m, _, R = _mamba_dims(cfg)
+    x_dbl = u.float() @ params["x_proj"].float()
+    dt_in, Bc, Cc = torch.split(x_dbl, [R, m.d_state, m.d_state], dim=-1)
+    dt = _softplus(dt_in @ params["dt_w"].float() + params["dt_bias"].float())
+    return dt, -torch.exp(params["A_log"].float()), Bc, Cc, params["D"]
+
+
+def apply_mamba(params, x, cfg: ModelConfig, *, cache=None):
+    """Full-sequence Mamba mixer (prefill). x: (B, S, d) in the compute
+    dtype; ``cache`` {"conv"} continues from earlier inputs (None: from
+    zeros). The scan goes through ``ops.mamba_scan`` (the CUDA kernel on
+    the card). Returns (out (B, S, d), {"conv": the last d_conv - 1
+    pre-conv inputs, "ssm": the final state (B, Di, N) fp32})."""
+    dt_c = x.dtype
+    u = x @ params["wx"]
+    z = x @ params["wz"]
+    u, new_conv = _mamba_conv(u, params["conv_w"], params["conv_b"],
+                              None if cache is None else cache["conv"])
+    u = F.silu(u)
+    dt, A, Bc, Cc, D = _mamba_ssm_inputs(params, u, cfg)
+    y, h = ops.mamba_scan(u, dt, A, Bc, Cc, D)
+    y = y * F.silu(z)
+    out = y.to(dt_c) @ params["out_proj"]
+    return out, {"conv": new_conv.to(dt_c), "ssm": h}
+
+
+def apply_mamba_step(params, x, cfg: ModelConfig, cache):
+    """One-token Mamba decode. x: (B, 1, d); cache {"conv", "ssm"}.
+    Returns (out (B, 1, d), new cache)."""
+    dt_c = x.dtype
+    u = x @ params["wx"]
+    z = x @ params["wz"]
+    u, new_conv = _mamba_conv(u, params["conv_w"], params["conv_b"],
+                              cache["conv"])
+    u = F.silu(u)
+    dt, A, Bc, Cc, D = _mamba_ssm_inputs(params, u, cfg)
+    h, y = ops.mamba_step(cache["ssm"], u[:, 0], dt[:, 0], A, Bc[:, 0],
+                          Cc[:, 0], D)
+    y = y[:, None] * F.silu(z)
+    out = y.to(dt_c) @ params["out_proj"]
+    return out, {"conv": new_conv.to(cache["conv"].dtype), "ssm": h}
+
+
+def init_mamba_cache(cfg: ModelConfig, B: int, *, device):
+    """Decode state of one Mamba layer: ``conv`` (B, d_conv - 1, Di) in
+    the compute dtype and ``ssm`` (B, Di, N) fp32, both zero."""
+    m, di, _ = _mamba_dims(cfg)
+    return {"conv": torch.zeros((B, m.d_conv - 1, di),
+                                dtype=dtype_of(cfg.dtype), device=device),
+            "ssm": torch.zeros((B, di, m.d_state), dtype=torch.float32,
+                               device=device)}
+
+
+# ---- parameters ------------------------------------------------------------ #
+def init_attention(cfg: ModelConfig, normal):
+    """``layers.init_attention``'s shapes and scales; ``normal(shape,
+    scale)`` draws N(0, 1) * scale in the stored dtype."""
+    d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": normal((d, H, hd), d ** -0.5),
+            "wk": normal((d, K, hd), d ** -0.5),
+            "wv": normal((d, K, hd), d ** -0.5),
+            "wo": normal((H, hd, d), (H * hd) ** -0.5)}
+
+
+def init_ffn(cfg: ModelConfig, normal):
+    """``layers.init_ffn``: ``wu``/``wg`` (d, f) at d^-0.5, ``wd`` (f, d)
+    at f^-0.5 (``wg`` only for a GLU)."""
+    d, f = cfg.d_model, cfg.d_ff
+    prm = {"wu": normal((d, f), d ** -0.5)}
+    if cfg.glu:
+        prm["wg"] = normal((d, f), d ** -0.5)
+    prm["wd"] = normal((f, d), f ** -0.5)
+    return prm
+
+
+def init_moe(cfg: ModelConfig, normal):
+    """``layers.init_moe``: fp32 ``router`` (d, E) and per-expert
+    ``wu``/``wg`` (E, d, f), ``wd`` (E, f, d)."""
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
+    prm = {"router": normal((d, E), d ** -0.5, torch.float32),
+           "wu": normal((E, d, f), d ** -0.5),
+           "wd": normal((E, f, d), f ** -0.5)}
+    if cfg.glu:
+        prm["wg"] = normal((E, d, f), d ** -0.5)
+    return prm
+
+
+def init_mamba(cfg: ModelConfig, normal, *, dtype, device):
+    """``layers.init_mamba``'s shapes, scales and constants: ``A_log =
+    log(1..N)`` on every channel, ``dt_bias`` -4.6 (softplus ~ 0.01),
+    ``D`` ones and ``conv_b`` zeros; ``x_proj``, ``dt_w``, ``dt_bias``,
+    ``A_log`` and ``D`` in fp32, the rest in ``dtype``."""
+    m, di, R = _mamba_dims(cfg)
+    d, N = cfg.d_model, m.d_state
+    dev = device
+    f32 = torch.float32
+    A = torch.arange(1, N + 1, dtype=f32, device=dev)[None].repeat(di, 1)
+    return {
+        "wx": normal((d, di), d ** -0.5),
+        "wz": normal((d, di), d ** -0.5),
+        "conv_w": normal((m.d_conv, di), m.d_conv ** -0.5),
+        "conv_b": torch.zeros(di, dtype=dtype, device=dev),
+        "x_proj": normal((di, R + 2 * N), di ** -0.5, f32),
+        "dt_w": normal((R, di), R ** -0.5, f32),
+        "dt_bias": torch.full((di,), -4.6, dtype=f32, device=dev),
+        "A_log": torch.log(A),
+        "D": torch.ones(di, dtype=f32, device=dev),
+        "out_proj": normal((di, d), di ** -0.5),
+    }

@@ -1,9 +1,13 @@
-"""Decoder-only LM (``repro.models.lm``): weights, embedding, tied
-head, the full-sequence forward and chunked loss of the train step, the
-paged cache and the serving chunk program.
+"""Decoder-only LM (``repro.models.lm``): weights, embedding, the
+output head, the full-sequence forward and chunked loss of the train
+step, the slab cache with its prefill and decode step, the paged cache
+and the serving chunk program.
 
-The reference stacks layer weights on a leading axis and scans over
-them; here ``params["layers"]`` is a list walked by a Python loop.
+The stack follows ``cfg.block_pattern``: layer i runs the pattern's
+entry ``i % len(pattern)``, an attention or Mamba mixer, then a dense,
+MoE or no FFN. The reference stacks each pattern position's weights
+over blocks and scans over them; here ``params["layers"]`` is a list
+walked by a Python loop, and so are the caches.
 
 Stored dtype: the reference keeps fp32 master weights and casts them to
 the compute dtype (bf16) at every use. Serving never updates weights,
@@ -11,68 +15,96 @@ so the port stores them in the compute dtype once; training keeps fp32
 masters (``init_lm(dtype=torch.float32)``) and casts them once per step
 (``optim.precision.compute_cast``). Either way the layers receive
 weights already in the compute dtype, and the values the matrix
-products see are the reference's.
+products see are the reference's. The leaves the reference reads in
+fp32 (``layers.FP32_LEAVES``) stay fp32 in every case.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
-from repro_torch.utils import tree_map
+
+_MIXERS = ("attn", "mamba")
+_FFNS = ("dense", "moe", "none")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (not cfg.tie_embeddings
-            or any((s.mixer, s.ffn) != ("attn", "dense")
-                   for s in cfg.block_pattern)):
+    for s in cfg.block_pattern:
+        if s.mixer not in _MIXERS or s.ffn not in _FFNS:
+            raise NotImplementedError(
+                f"{cfg.name}: a ({s.mixer}, {s.ffn}) layer is not ported; "
+                f"the port runs {'/'.join(_MIXERS)} mixers with "
+                f"{'/'.join(_FFNS)} FFNs (the other families are "
+                f"ROADMAP.md item 3)")
+
+
+def _check_trainable(cfg: ModelConfig) -> None:
+    if any((s.mixer, s.ffn) != ("attn", "dense") for s in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs dense attention stacks with "
-            f"tied embeddings (gemma-7b) only")
+            f"{cfg.name}: training a Mamba or MoE stack is not ported yet "
+            f"(the mamba_scan backward kernel and the MoE aux loss are "
+            f"ROADMAP.md item 3, jamba training)")
+
+
+def _spec_of(cfg: ModelConfig, i: int) -> LayerSpec:
+    """The pattern entry of layer i."""
+    return cfg.block_pattern[i % len(cfg.block_pattern)]
 
 
 def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
             dtype=None) -> Dict[str, Any]:
-    """Random weights with the reference's scales (``lm.py:62``,
-    ``layers.py:101``, ``layers.py:516``), made on ``device`` from a
-    ``torch.Generator`` seeded with ``seed``: normal(0, 1) times
-    d^-0.5 for the embedding and the q/k/v/up/gate projections,
-    (H*hd)^-0.5 for ``wo``, d_ff^-0.5 for ``wd``; norm scales are ones.
-    The numbers differ from ``jax.random``'s; parity tests copy JAX
-    weights in with :func:`params_from_numpy` instead."""
+    """Random weights with the reference's scales and constants
+    (``lm.py:62``, ``layers.py:101``, ``:516``, ``:547``, ``:616``), made
+    on ``device`` from a ``torch.Generator`` seeded with ``seed``:
+    normal(0, 1) times d^-0.5 for the embedding, the untied head and the
+    projections out of d, (H*hd)^-0.5 for ``wo``, the input width^-0.5
+    for the others; norm scales are ones; Mamba's ``A_log``, ``dt_bias``,
+    ``D`` and ``conv_b`` are the reference's constants. Leaves are in
+    ``dtype`` (default: the compute dtype), ``layers.FP32_LEAVES`` in
+    fp32. The numbers differ from ``jax.random``'s; parity tests copy
+    JAX weights in with :func:`params_from_numpy` instead."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or L.dtype_of(cfg.dtype)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    d, H, K, hd, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                      cfg.head_dim, cfg.d_ff)
+    d = cfg.d_model
 
-    def normal(shape, scale):
-        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
-        return w.mul_(scale).to(dt)
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32)
+
+    def normal(shape, scale, out_dtype=dt):
+        if int(np.prod(shape)) < 2 ** 31:
+            return draw(shape).mul_(scale).to(out_dtype)
+        # one expert at a time: no fp32 copy of a whole >2^31 tensor
+        w = torch.empty(shape, dtype=out_dtype, device=dev)
+        for i in range(shape[0]):
+            w[i] = draw(shape[1:]).mul_(scale)
+        return w
 
     def ones():
         return {"scale": torch.ones(d, device=dev, dtype=dt)}
 
     params = {"embed": normal((cfg.vocab, d), d ** -0.5), "layers": []}
-    for _ in range(cfg.n_layers):
-        params["layers"].append({
-            "norm1": ones(),
-            "mixer": {"wq": normal((d, H, hd), d ** -0.5),
-                      "wk": normal((d, K, hd), d ** -0.5),
-                      "wv": normal((d, K, hd), d ** -0.5),
-                      "wo": normal((H, hd, d), (H * hd) ** -0.5)},
-            "norm2": ones(),
-            "ffn": {"wu": normal((d, f), d ** -0.5),
-                    "wg": normal((d, f), d ** -0.5),
-                    "wd": normal((f, d), f ** -0.5)},
-        })
+    for i in range(cfg.n_layers):
+        spec = _spec_of(cfg, i)
+        layer = {"norm1": ones(), "mixer": (
+            L.init_attention(cfg, normal) if spec.mixer == "attn"
+            else L.init_mamba(cfg, normal, dtype=dt, device=dev))}
+        if spec.ffn != "none":
+            layer["norm2"] = ones()
+            layer["ffn"] = (L.init_moe(cfg, normal) if spec.ffn == "moe"
+                            else L.init_ffn(cfg, normal))
+        params["layers"].append(layer)
     params["final_norm"] = ones()
+    if not cfg.tie_embeddings:
+        params["head"] = normal((d, cfg.vocab), d ** -0.5)
     return params
 
 
@@ -81,28 +113,40 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     """The weight bridge: the reference's parameter tree, as numpy
     arrays (``split_tree(ModelAPI(cfg).init(cfg, key))[0]``), to the
     port's parameters on ``device`` in ``dtype`` (default: the config's
-    compute dtype).
+    compute dtype; ``layers.FP32_LEAVES`` stay fp32).
 
     The tree keeps the reference's names and layouts: ``embed`` (V, d);
-    ``blocks[0]`` stacked over ``n_blocks`` with ``norm1``/``norm2``
-    ``scale``, ``mixer`` ``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd),
-    ``wo`` (H, hd, d) and ``ffn`` ``wu``/``wg`` (d, f), ``wd`` (f, d);
-    ``final_norm`` ``scale``. Arrays are taken as fp32, then cast.
+    ``blocks``, one tree per pattern position, each leaf stacked over
+    ``n_blocks`` (layer ``b * len(pattern) + j`` is ``blocks[j][b]``),
+    with ``norm1``/``norm2`` ``scale``, the ``mixer`` and the ``ffn``
+    leaves of ``layers``; ``final_norm`` ``scale``; ``head`` (d, V) when
+    untied. Arrays are taken as fp32, then cast.
     """
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or L.dtype_of(cfg.dtype)
 
-    def conv(a):
-        return torch.tensor(np.asarray(a, np.float32)).to(dev, dt)
+    def conv(a, name=""):
+        t = torch.tensor(np.asarray(a, np.float32))
+        return t.to(dev, torch.float32 if name in L.FP32_LEAVES else dt)
 
-    (stacked,) = tree["blocks"]
-    return {
+    def named(tree, b=None):
+        if isinstance(tree, dict):
+            return {k: (named(v, b) if isinstance(v, dict)
+                        else conv(v if b is None else np.asarray(v)[b], k))
+                    for k, v in tree.items()}
+        return conv(tree if b is None else np.asarray(tree)[b])
+
+    P = len(cfg.block_pattern)
+    params = {
         "embed": conv(tree["embed"]),
-        "layers": [tree_map(lambda a, i=i: conv(np.asarray(a)[i]), stacked)
+        "layers": [named(tree["blocks"][i % P], i // P)
                    for i in range(cfg.n_layers)],
-        "final_norm": tree_map(conv, tree["final_norm"]),
+        "final_norm": named(tree["final_norm"]),
     }
+    if not cfg.tie_embeddings:
+        params["head"] = conv(tree["head"])
+    return params
 
 
 def _embed(params, tokens):
@@ -110,7 +154,10 @@ def _embed(params, tokens):
 
 
 def _head(params, x):
-    """Tied output projection: x (B, S, d) @ embed^T -> (B, S, vocab)."""
+    """Output projection x (B, S, d) -> (B, S, vocab): ``head`` (d, V)
+    when untied, else the embedding's transpose."""
+    if "head" in params:
+        return x @ params["head"]
     return x @ params["embed"].T
 
 
@@ -119,35 +166,48 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
-def _apply_block_full(cfg: ModelConfig, lp, x, positions, window=None):
-    """One decoder layer over the full sequence: pre-norm attention,
-    then the pre-norm dense FFN, each added to the residual stream."""
+def _apply_block_full(cfg: ModelConfig, spec: LayerSpec, lp, x, positions,
+                      window=None):
+    """One layer over the full sequence: pre-norm attention or Mamba
+    mixer, then the pre-norm dense or MoE FFN (if any), each added to
+    the residual stream. Returns (x, MoE aux loss or 0.0, the mixer's
+    state: (k, v) for attention, {"conv", "ssm"} for Mamba)."""
     h = L.apply_norm(lp["norm1"], x)
-    y, _ = L.attention_full(lp["mixer"], h, cfg, positions=positions,
-                            window=window)
-    x = x + y
-    h = L.apply_norm(lp["norm2"], x)
-    return x + L.apply_ffn(lp["ffn"], h, cfg)
+    if spec.mixer == "attn":
+        y, state = L.attention_full(lp["mixer"], h, cfg, positions=positions,
+                                    window=window)
+    else:
+        y, state = L.apply_mamba(lp["mixer"], h, cfg)
+    x, aux = _ffn(cfg, spec, lp, x + y)
+    return x, aux, state
+
+
+def _layer_out(cfg, spec, lp, x, positions, window):
+    """:func:`_apply_block_full`'s residual stream alone (what a
+    checkpointed layer keeps)."""
+    return _apply_block_full(cfg, spec, lp, x, positions, window)[0]
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens, *, window=None):
     """Full-sequence forward up to the final norm (no output projection).
 
-    tokens: (B, S). Returns hidden (B, S, d). With ``cfg.remat`` each
-    layer runs under ``torch.utils.checkpoint`` (non-reentrant): only
-    its input is kept, and the backward recomputes the layer, as the
-    reference's ``jax.checkpoint`` over the scanned block does.
+    tokens: (B, S). Returns hidden (B, S, d); a MoE layer's aux loss is
+    not kept (training MoE stacks is not ported). With ``cfg.remat``
+    each layer runs under ``torch.utils.checkpoint`` (non-reentrant):
+    only its input is kept, and the backward recomputes the layer, as
+    the reference's ``jax.checkpoint`` over the scanned block does.
     """
     x = _embed(params, tokens)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
-    for lp in params["layers"]:
+    for i, lp in enumerate(params["layers"]):
+        spec = _spec_of(cfg, i)
         if cfg.remat:
             # Nothing random runs inside a layer: no RNG state to stash.
-            x = checkpoint(_apply_block_full, cfg, lp, x, positions, window,
+            x = checkpoint(_layer_out, cfg, spec, lp, x, positions, window,
                            use_reentrant=False, preserve_rng_state=False)
         else:
-            x = _apply_block_full(cfg, lp, x, positions, window)
+            x = _layer_out(cfg, spec, lp, x, positions, window)
     return L.apply_norm(params["final_norm"], x)
 
 
@@ -158,7 +218,7 @@ def forward(params, cfg: ModelConfig, tokens, *, window=None):
 
 def _ce_chunk(params, h, targets):
     """Summed next-token NLL of one chunk: (B, c, d), (B, c) -> (B,),
-    from fp32 logits of the tied head."""
+    from fp32 logits of the head."""
     lg = _head(params, h).float()
     logz = torch.logsumexp(lg, dim=-1)
     gold = torch.gather(lg, -1, targets[..., None])[..., 0]
@@ -185,8 +245,9 @@ def _chunked_ce(params, cfg: ModelConfig, hidden, targets):
 
 def per_example_nll(params, cfg: ModelConfig, batch):
     """(mean next-token nll per example (B,), aux 0.0) for masked
-    distributed eval (C4)."""
-    _check_supported(cfg)
+    distributed eval (C4). Dense attention stacks only: a Mamba or MoE
+    stack raises ``NotImplementedError``."""
+    _check_trainable(cfg)
     tokens = batch["tokens"]
     hidden = forward_hidden(params, cfg, tokens)
     tgt = tokens[:, 1:]
@@ -208,8 +269,15 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page: int, *,
     """Paged KV pools for every layer: ``kp``/``vp`` of shape
     (n_layers, n_pages + 1, page, K, hd), the last page the trash page,
     plus fp32 ``kp_scale``/``vp_scale`` for an int8/int4 pool
-    (``layers.init_paged_kv_cache``)."""
+    (``layers.init_paged_kv_cache``). Attention-only stacks: a recurrent
+    mixer carries per-slot state, not KV, and raises ``ValueError``
+    (it serves from the slab, :func:`init_cache`)."""
     _check_supported(cfg)
+    for spec in cfg.block_pattern:
+        if spec.mixer != "attn":
+            raise ValueError(
+                f"paged KV cache requires an attention-only stack; "
+                f"{cfg.name} has a {spec.mixer!r} mixer")
     return L.init_paged_kv_cache(cfg, n_pages, page, n_layers=cfg.n_layers,
                                  device=resolve_device(device))
 
@@ -232,9 +300,92 @@ def decode_chunk(params, cfg: ModelConfig, tokens, cache, page_table, pos,
         x = x + L.attention_decode_paged(
             lp["mixer"], h, cfg, layer_cache, page_table, pos, n_valid,
             window=window)
-        h = L.apply_norm(lp["norm2"], x)
-        x = x + L.apply_ffn(lp["ffn"], h, cfg)
+        x, _ = _ffn(cfg, _spec_of(cfg, i), lp, x)
     x = L.apply_norm(params["final_norm"], x)
     if full_logits:
         return _head(params, x), cache
     return _head(params, L.gather_last(x, n_valid - 1))[:, 0], cache
+
+
+def _ffn(cfg: ModelConfig, spec: LayerSpec, lp, x):
+    """The layer's pre-norm dense or MoE FFN (if any) added to the
+    residual stream x. Returns (x, the MoE aux loss or 0.0)."""
+    if spec.ffn == "none":
+        return x, 0.0
+    h = L.apply_norm(lp["norm2"], x)
+    if spec.ffn == "moe":
+        y, aux = L.apply_moe(lp["ffn"], h, cfg)
+        return x + y, aux
+    return x + L.apply_ffn(lp["ffn"], h, cfg), 0.0
+
+
+# ---- slab serving: cache, prefill, decode (``lm.py:296-471``) -------------- #
+def _attn_cache_len(seq_len: int, window) -> int:
+    return min(seq_len, window) if window else seq_len
+
+
+def init_cache(cfg: ModelConfig, B: int, seq_len: int, window=None, *,
+               device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """The slab decode cache: one dict per layer, batch on axis 0: an
+    attention layer's K/V slab of ``min(seq_len, window)`` slots
+    (``layers.init_kv_cache``), a Mamba layer's conv and SSM state
+    (``layers.init_mamba_cache``)."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    L_attn = _attn_cache_len(seq_len, window)
+    return [L.init_kv_cache(cfg, B, L_attn, device=dev)
+            if _spec_of(cfg, i).mixer == "attn"
+            else L.init_mamba_cache(cfg, B, device=dev)
+            for i in range(cfg.n_layers)]
+
+
+def prefill(params, cfg: ModelConfig, tokens, *, cache_len=None, window=None,
+            last_pos=None):
+    """Forward over the prompt, building the slab decode cache.
+
+    tokens: (B, S). Returns (logits (B, vocab) at ``last_pos`` (B,) per
+    row, or at S - 1 when None; the cache, one dict per layer). An
+    attention layer's cache holds ``min(cache_len, window)`` slots
+    (default S) with the last that many prompt positions' K/V; a Mamba
+    layer's holds its final conv inputs and SSM state. Serving right-pads
+    prompts of attention-only stacks to one length and reads each
+    prompt's true last position (causality makes the positions up to it
+    those of an unpadded prefill).
+    """
+    _check_supported(cfg)
+    x = _embed(params, tokens)
+    B, S, _ = x.shape
+    L_attn = _attn_cache_len(cache_len or S, window)
+    positions = _positions(B, S, x.device)
+    caches = []
+    for i, lp in enumerate(params["layers"]):
+        spec = _spec_of(cfg, i)
+        x, _, state = _apply_block_full(cfg, spec, lp, x, positions, window)
+        if spec.mixer == "attn":
+            k, v = state
+            caches.append(L.cache_from_prefill(cfg, k[:, -L_attn:],
+                                               v[:, -L_attn:], L_attn))
+        else:  # a Mamba layer's state is its decode cache entry
+            caches.append(state)
+    x = L.apply_norm(params["final_norm"], x)
+    return _head(params, L.gather_last(x, last_pos))[:, 0], caches
+
+
+def decode_step(params, cfg: ModelConfig, token, cache, pos, *, window=None):
+    """One decode step for every row. token: (B, 1) ids; ``pos`` an int
+    or (B,) absolute positions (each row an independent sequence at its
+    own offset, continuous batching); cache: :func:`init_cache`'s list.
+    Attention K/V are written into the cache in place; Mamba states are
+    replaced. Returns (logits (B, vocab), the cache)."""
+    x = _embed(params, token)
+    for i, lp in enumerate(params["layers"]):
+        spec = _spec_of(cfg, i)
+        h = L.apply_norm(lp["norm1"], x)
+        if spec.mixer == "attn":
+            y, cache[i] = L.attention_decode(lp["mixer"], h, cfg, cache[i],
+                                             pos=pos, window=window)
+        else:
+            y, cache[i] = L.apply_mamba_step(lp["mixer"], h, cfg, cache[i])
+        x, _ = _ffn(cfg, spec, lp, x + y)  # decode drops the aux loss
+    x = L.apply_norm(params["final_norm"], x)
+    return _head(params, x)[:, 0], cache

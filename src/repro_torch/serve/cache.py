@@ -1,4 +1,13 @@
-"""Paged KV pool, host side (``repro.serve.cache``, paged layout).
+"""KV-cache memory for continuous batching (``repro.serve.cache``): the
+dense slot slab and the paged pool.
+
+**Slot slab** (recurrent and hybrid stacks, or ``kv_layout="slab"``):
+the model's decode cache (``lm.init_cache``) with batch = ``max_batch``,
+one dict per layer with the batch on axis 0. A *slot* is one index of
+that axis: admission writes a freshly prefilled single-request cache
+into it (:func:`write_slot`), retirement abandons it.
+
+**Paged pool** (attention-only stacks):
 
 KV memory is ``n_pages`` fixed-size pages shared by every slot.
 :class:`PagePool` decides which physical pages a slot's logical
@@ -19,7 +28,43 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from repro_torch.models import lm
 from repro_torch.models.layers import paged_copy_pages
+
+
+def init_slab(cfg, max_batch: int, max_len: int, window=None, *,
+              device="cuda"):
+    """Batched decode cache with one slot per concurrent request."""
+    return lm.init_cache(cfg, max_batch, max_len, window, device=device)
+
+
+def write_slot(slab, cache, slot: int):
+    """Write a prefilled single-request cache (batch 1) into ``slot`` of
+    the slab, in place; returns the slab."""
+    for dst, src in zip(slab, cache):
+        for name, t in dst.items():
+            t[slot:slot + 1] = src[name].to(t.dtype)
+    return slab
+
+
+def read_slot(slab, slot: int):
+    """A copy of ``slot``'s cache (batch kept, size 1)."""
+    return [{name: t[slot:slot + 1].clone() for name, t in layer.items()}
+            for layer in slab]
+
+
+def invalidate_beyond(cache, true_len):
+    """Mark an attention cache's slots at index >= ``true_len`` empty
+    (``slot_pos`` -1), in place, so that a prompt right-padded to one
+    prefill length decodes as an unpadded one would. true_len: (B,)
+    per-row true lengths. Recurrent entries are left as they are."""
+    for layer in cache:
+        if "slot_pos" in layer and "k" in layer:
+            sp = layer["slot_pos"]
+            tl = torch.as_tensor(true_len, device=sp.device).reshape(-1, 1)
+            idx = torch.arange(sp.shape[-1], device=sp.device)
+            sp.masked_fill_(idx[None, :] >= tl, -1)
+    return cache
 
 
 class PagePool:

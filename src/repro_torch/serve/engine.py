@@ -1,8 +1,9 @@
-"""Continuous-batching engine over the paged KV pool
-(``repro.serve.engine``, paged layout).
+"""Continuous-batching engine (``repro.serve.engine``): two KV layouts
+behind one surface (submit / step / run).
 
-KV lives in a shared :class:`~repro_torch.serve.cache.PagePool`; one
-chunk program (``lm.decode_chunk``) advances every slot each round.
+**paged** (the default for attention-only stacks): KV lives in a shared
+:class:`~repro_torch.serve.cache.PagePool`; one chunk program
+(``lm.decode_chunk``) advances every slot each round.
 Decode rows feed one token; admitted prompts stream through the same
 (B, C) batch as ``prefill_chunk``-sized slices. Admission is by
 free-page budget (:class:`~repro_torch.serve.scheduler.PagedScheduler`);
@@ -26,9 +27,20 @@ position verifies the drafts in the same chunk step. Under pool
 pressure the engine sheds drafts first, then evicts LRU index entries,
 then preempts. Greedy outputs equal those of the plain engine.
 
-Temperature sampling and the slab layout raise ``NotImplementedError``:
-they wait on the ROADMAP.md item "temperature sampling and the slab
-layout".
+**slab** (stacks with a recurrent mixer, such as jamba's Mamba layers,
+or ``kv_layout="slab"``): the dense per-slot decode cache
+(``serve.cache.init_slab``) and two programs: ``prefill`` of one
+admitted request (``lm.prefill``, written into its slot by
+``serve.cache.write_slot``) and ``decode`` of one token for every slot
+(``lm.decode_step`` with a per-slot position vector; idle slots compute
+garbage in their own rows, which admission overwrites). A recurrent
+mixer carries prompt state, so such stacks prefill at the exact prompt
+length; attention-only stacks pad prompts to ``prefill_len`` and mask
+the padding (``serve.cache.invalidate_beyond``). Greedy tokens are the
+same in both layouts.
+
+Temperature sampling raises ``NotImplementedError``: it waits on the
+ROADMAP.md item "temperature sampling".
 """
 from __future__ import annotations
 
@@ -49,25 +61,34 @@ from repro_torch.serve import slo
 from repro_torch.serve.metrics import ServeReport, StepTrace
 from repro_torch.serve.prefix import PrefixIndex
 from repro_torch.serve.request import Request
-from repro_torch.serve.scheduler import PagedScheduler
+from repro_torch.serve.scheduler import PagedScheduler, Scheduler
 from repro_torch.serve.speculative import get_drafter
+from repro_torch.train.steps import (
+    make_serve_decode_step,
+    make_serve_prefill_step,
+)
 
 KV_DTYPES = ("", "bfloat16", "float32", "int8", "int4")
+KV_LAYOUTS = ("auto", "slab", "paged")
 
 
 @dataclasses.dataclass(frozen=True)
 class ServeConfig:
     """Engine knobs. ``max_len`` is the per-request token budget (prompt
-    + generation). ``page_size`` / ``n_pages`` size the pool; ``n_pages``
-    defaults to ``max_batch * ceil(max_len / page_size)``. ``kv_dtype``
-    ('' inherits the model config's ``kv_cache_dtype``) picks the pool;
-    ``spec_decode`` 'ngram' drafts ``draft_len`` tokens a row."""
+    + generation). ``prefill_len`` is the slab layout's padded prompt
+    length for attention-only stacks (recurrent stacks prefill at the
+    exact prompt length; the paged layout ignores it). ``page_size`` /
+    ``n_pages`` size the pool; ``n_pages`` defaults to ``max_batch *
+    ceil(max_len / page_size)``. ``kv_dtype`` ('' inherits the model
+    config's ``kv_cache_dtype``) picks the cache; ``spec_decode`` 'ngram'
+    drafts ``draft_len`` tokens a row."""
 
     max_batch: int = 4
     max_len: int = 128
+    prefill_len: int = 32
     temperature: float = 0.0
     eos_id: Optional[int] = None
-    kv_layout: str = "auto"      # auto | paged
+    kv_layout: str = "auto"      # auto | slab | paged
     page_size: int = 16
     prefill_chunk: int = 8
     n_pages: Optional[int] = None
@@ -81,15 +102,14 @@ class ServeConfig:
             raise NotImplementedError(
                 "temperature > 0 is not ported yet: sampling keys per "
                 "(seed, request, position) wait on the ROADMAP.md item "
-                "'temperature sampling and the slab layout'")
-        if self.kv_layout == "slab":
-            raise NotImplementedError(
-                "kv_layout='slab' is not ported yet: the slab layout "
-                "waits on the ROADMAP.md item 'temperature sampling and "
-                "the slab layout'")
-        if self.kv_layout not in ("auto", "paged"):
-            raise ValueError(f"kv_layout must be 'auto' or 'paged', got "
+                "'temperature sampling'")
+        if self.kv_layout not in KV_LAYOUTS:
+            raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got "
                              f"{self.kv_layout!r}")
+        # The reference raises for 'auto' too; here the paged layout,
+        # which never pads, is never asked to size a knob it ignores.
+        if self.kv_layout == "slab" and self.prefill_len > self.max_len:
+            raise ValueError("prefill_len exceeds max_len")
         if self.page_size < 1 or self.prefill_chunk < 1:
             raise ValueError("page_size and prefill_chunk must be >= 1")
         if self.n_pages is not None and self.n_pages < 1:
@@ -116,9 +136,10 @@ class ServeConfig:
 
 
 class Engine:
-    """Paged continuous-batching engine on ``device`` (default CUDA),
-    with ``params`` from ``lm.init_lm`` or ``lm.params_from_numpy``;
-    ``drafter`` (optional) is any object with ``propose(context, k)``."""
+    """Continuous-batching engine on ``device`` (default CUDA), with
+    ``params`` from ``lm.init_lm`` or ``lm.params_from_numpy``;
+    ``drafter`` (optional, paged only) is any object with
+    ``propose(context, k)``. ``layout`` is the KV layout in use."""
 
     def __init__(self, cfg: ModelConfig, params,
                  serve: Optional[ServeConfig] = None, *, drafter=None,
@@ -126,23 +147,55 @@ class Engine:
         self.scfg = serve or ServeConfig()
         if self.scfg.kv_dtype:
             cfg = dataclasses.replace(cfg, kv_cache_dtype=self.scfg.kv_dtype)
-        # Unsupported dtype combos fail here, not mid-step.
-        if cfg.kv_cache_dtype == "int4" and cfg.head_dim % 2:
+        # Recurrent mixers carry prompt state: exact-length prefill, slab.
+        self._exact = any(s.mixer != "attn" for s in cfg.block_pattern)
+        layout = self.scfg.kv_layout
+        if layout == "auto":
+            layout = "slab" if self._exact else "paged"
+        elif layout == "paged" and self._exact:
             raise ValueError(
-                f"kv_dtype='int4' needs an even head_dim; {cfg.name} has "
-                f"head_dim={cfg.head_dim}")
+                f"kv_layout='paged' needs an attention-only stack; "
+                f"{cfg.name} has a recurrent mixer — use kv_layout='slab'")
+        if self.scfg.prefix_cache and layout != "paged":
+            raise ValueError(
+                "prefix_cache shares pages of the paged KV pool; the slab "
+                "layout has no pages to share — use kv_layout='paged' "
+                "(or drop prefix_cache for this arch)")
+        # Unsupported dtype / layout combos fail here, not mid-step.
+        if cfg.kv_cache_dtype == "int4":
+            if layout != "paged":
+                raise ValueError(
+                    "kv_dtype='int4' packs pool pages two-dims-per-byte; "
+                    "only the paged layout supports it — use "
+                    "kv_layout='paged' or kv_dtype='int8'")
+            if cfg.head_dim % 2:
+                raise ValueError(
+                    f"kv_dtype='int4' needs an even head_dim; {cfg.name} "
+                    f"has head_dim={cfg.head_dim}")
         self._drafter = drafter
         if self._drafter is None:
             self._drafter = get_drafter(self.scfg.spec_decode)
-        if (self._drafter is not None
-                and self.scfg.draft_len + 1 > self.scfg.prefill_chunk):
-            raise ValueError(
-                f"draft_len+1 ({self.scfg.draft_len + 1}) tokens must fit "
-                f"one chunk; raise prefill_chunk ({self.scfg.prefill_chunk})"
-                f" or lower draft_len")
+        if self._drafter is not None:
+            if layout != "paged":
+                raise ValueError(
+                    "speculative decoding verifies drafts through the "
+                    "paged chunk program; use kv_layout='paged'")
+            if self.scfg.draft_len + 1 > self.scfg.prefill_chunk:
+                raise ValueError(
+                    f"draft_len+1 ({self.scfg.draft_len + 1}) tokens must "
+                    f"fit one chunk; raise prefill_chunk "
+                    f"({self.scfg.prefill_chunk}) or lower draft_len")
+        if (layout == "slab" and not self._exact
+                and self.scfg.prefill_len > self.scfg.max_len):
+            raise ValueError("prefill_len exceeds max_len")
+        self.layout = layout
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        if layout == "slab":
+            self._prefill = make_serve_prefill_step(
+                cfg, cache_len=self.scfg.max_len)
+            self._decode = make_serve_decode_step(cfg)
         self.reset()
 
     def reset(self) -> None:
@@ -166,6 +219,11 @@ class Engine:
         self._cow = 0
         self._draft_total = 0     # draft tokens proposed
         self._draft_accepted = 0  # draft tokens accepted by verification
+        if self.layout == "slab":
+            self.sched = Scheduler(B)
+            self._slab = pool_ops.init_slab(self.cfg, B, self.scfg.max_len,
+                                            device=self.device)
+            return
         self._pool = pool_ops.PagePool(self.scfg.pool_pages,
                                        self.scfg.page_size)
         if self.scfg.prefix_cache:
@@ -250,11 +308,17 @@ class Engine:
                 f"request {req.id}: prompt+generation "
                 f"({req.prompt_len}+{req.max_new_tokens}) "
                 f"exceeds max_len={self.scfg.max_len}")
-        need = self._pool.pages_for(req.prompt_len + req.max_new_tokens)
-        if need > self.scfg.pool_pages:
+        if self.layout == "paged":
+            need = self._pool.pages_for(req.prompt_len + req.max_new_tokens)
+            if need > self.scfg.pool_pages:
+                raise ValueError(
+                    f"request {req.id}: needs {need} pages but the pool has "
+                    f"{self.scfg.pool_pages}; raise n_pages or shrink the "
+                    f"request")
+        elif not self._exact and req.prompt_len > self.scfg.prefill_len:
             raise ValueError(
-                f"request {req.id}: needs {need} pages but the pool has "
-                f"{self.scfg.pool_pages}; raise n_pages or shrink the request")
+                f"request {req.id}: prompt_len {req.prompt_len} exceeds "
+                f"prefill_len={self.scfg.prefill_len}")
         heapq.heappush(
             self._arrivals, (req.arrival_step, next(self._arrival_seq), req))
 
@@ -300,22 +364,26 @@ class Engine:
         return report
 
     def step(self) -> None:
-        """One scheduling round: arrivals -> admissions -> chunk step."""
+        """One scheduling round: arrivals -> admissions -> batched step
+        (a chunk step on the paged layout, a decode step on the slab)."""
         while self._arrivals and self._arrivals[0][0] <= self._step_idx:
             _, _, req = heapq.heappop(self._arrivals)
             if req.t_arrival is None:
                 req.t_arrival = time.perf_counter()
                 req.s_arrival = self._step_idx
             self.sched.submit(req)
+        paged = self.layout == "paged"
         for slot, req in self.sched.admit():
-            self._admit_paged(slot, req)
+            (self._admit_paged if paged else self._admit_slab)(slot, req)
         if self.sched.n_active:
-            self._chunk_once()
+            (self._chunk_once if paged else self._decode_once)()
         self._step_idx += 1
 
     def defrag(self) -> None:
         """Compact the page pool; page tables (and the prefix index) are
         rewritten and decode output is unchanged."""
+        if self.layout != "paged":
+            raise ValueError("defrag is a paged-layout operation")
         perm = self._pool.defrag()
         pool_ops.apply_defrag(self._cache, perm)
         if self._prefix is not None:
@@ -507,6 +575,63 @@ class Engine:
         self._ptab[slot] = -1
         self._stream.pop(slot, None)
         self._n_indexed[slot] = 0
+        req.t_done = time.perf_counter()
+        req.s_done = self._step_idx
+        self._finished.append(req)
+
+    # ---- slab layout --------------------------------------------------- #
+    def _admit_slab(self, slot: int, req: Request) -> None:
+        """Prefill ``req`` (padded to ``prefill_len`` unless the stack is
+        recurrent) into ``slot``; samples its first token."""
+        P = req.prompt_len
+        pad_to = P if self._exact else self.scfg.prefill_len
+        toks = np.zeros((1, pad_to), np.int64)
+        toks[0, :P] = req.prompt
+        dev = self.device
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, cache = self._prefill(
+                self.params, {"tokens": torch.from_numpy(toks).to(dev)},
+                torch.full((1,), P - 1, dtype=torch.long, device=dev))
+            pool_ops.invalidate_beyond(cache, torch.full((1,), P, device=dev))
+            pool_ops.write_slot(self._slab, cache, slot)
+            tok = int(torch.argmax(logits, dim=-1)[0])
+        dt = time.perf_counter() - t0
+
+        req.tokens.append(tok)
+        req.t_first_token = time.perf_counter()
+        req.s_first_token = self._step_idx
+        self._trace.append(StepTrace("prefill", dt, 1))
+        if req.done or tok == self.scfg.eos_id:
+            self._retire_slab(slot, req)
+        else:
+            self._tok[slot] = tok
+            self._pos[slot] = P
+
+    def _decode_once(self) -> None:
+        """Advance every occupied slot by one token (one decode step over
+        all slots; idle ones compute garbage in their own rows)."""
+        dev = self.device
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            logits, self._slab = self._decode(
+                self.params, torch.from_numpy(self._tok[:, None]).to(dev),
+                self._slab, torch.from_numpy(self._pos).to(dev))
+            next_tok = torch.argmax(logits, dim=-1).cpu().numpy()
+        dt = time.perf_counter() - t0
+
+        running = self.sched.running()
+        for slot, req in running:
+            tok = int(next_tok[slot])
+            req.tokens.append(tok)
+            self._tok[slot] = tok
+            self._pos[slot] += 1
+            if req.done or tok == self.scfg.eos_id:
+                self._retire_slab(slot, req)
+        self._trace.append(StepTrace("decode", dt, len(running)))
+
+    def _retire_slab(self, slot: int, req: Request) -> None:
+        self.sched.retire(slot)
         req.t_done = time.perf_counter()
         req.s_done = self._step_idx
         self._finished.append(req)

@@ -1,4 +1,5 @@
-"""Train and eval step builders (``repro.train.steps``) for one device.
+"""Train, eval and slab serving step factories (``repro.train.steps``)
+for one device.
 
 The reference's steps are pure functions that XLA compiles and shards;
 here they run eagerly. ``train_step(state, batch)`` computes the loss
@@ -127,3 +128,27 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
         return (nll_ex * mask).sum(), mask.sum()
 
     return eval_step
+
+
+def make_serve_prefill_step(cfg: ModelConfig, *, cache_len: int,
+                            window=None) -> Callable:
+    """``prefill_step(params, batch, last_pos)``: (logits at each row's
+    true last prompt position ``last_pos`` (B,), slab cache of
+    ``cache_len`` slots). Padded positions' K/V stay in the cache; the
+    engine masks them with ``serve.cache.invalidate_beyond``."""
+
+    def prefill_step(params, batch, last_pos):
+        return lm.prefill(params, cfg, batch["tokens"], cache_len=cache_len,
+                          window=window, last_pos=last_pos)
+
+    return prefill_step
+
+
+def make_serve_decode_step(cfg: ModelConfig, *, window=None) -> Callable:
+    """``decode_step(params, token, cache, pos)``: one token for every
+    slot, ``pos`` (B,) one absolute offset per slot."""
+
+    def decode_step(params, token, cache, pos):
+        return lm.decode_step(params, cfg, token, cache, pos, window=window)
+
+    return decode_step

@@ -15,6 +15,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "repro_torch",
     "repro_torch.configs",
+    "repro_torch.configs.base",
+    "repro_torch.configs.gemma_7b",
+    "repro_torch.configs.jamba_1_5_large_398b",
     "repro_torch.core.distributed_eval",
     "repro_torch.core.distributed_norm",
     "repro_torch.data.bucketization",
@@ -23,6 +26,7 @@ PORT_MODULES = [
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.lars",
     "repro_torch.kernels.lstm_cell",
+    "repro_torch.kernels.mamba",
     "repro_torch.kernels.ops",
     "repro_torch.kernels.paged_attention",
     "repro_torch.kernels.quant",

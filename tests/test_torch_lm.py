@@ -30,24 +30,38 @@ def _cfgs():
             dataclasses.replace(get_config("gemma-7b").reduced(), **FP32))
 
 
+def _plain(value):
+    """A field for comparison across the two packages' dataclasses."""
+    if dataclasses.is_dataclass(value):
+        return dataclasses.asdict(value)
+    if isinstance(value, tuple):
+        return [_plain(v) for v in value]
+    return value
+
+
+@pytest.mark.parametrize("arch", ["gemma-7b", "jamba-1.5-large-398b"])
 @pytest.mark.parametrize("reduced", [False, True])
-def test_config_copy_matches_reference(reduced):
-    ref_cfg, cfg = jax_get_config("gemma-7b"), get_config("gemma_7b")
+def test_config_copy_matches_reference(reduced, arch):
+    ref_cfg, cfg = jax_get_config(arch), get_config(arch.replace("-", "_")
+                                                   .replace(".", "_"))
     if reduced:
         ref_cfg, cfg = ref_cfg.reduced(), cfg.reduced()
     for f in dataclasses.fields(ModelConfig):
-        mine, theirs = getattr(cfg, f.name), getattr(ref_cfg, f.name)
-        if f.name == "block_pattern":
-            mine = [(s.mixer, s.ffn) for s in mine]
-            theirs = [(s.mixer, s.ffn) for s in theirs]
-        assert mine == theirs, f.name
+        assert _plain(getattr(cfg, f.name)) == _plain(getattr(ref_cfg,
+                                                              f.name)), f.name
     assert cfg.n_blocks == ref_cfg.n_blocks
-    assert (cfg.head_dim, cfg.n_layers) == ((64, 1) if reduced else (256, 28))
+    assert cfg.param_count() == ref_cfg.param_count()
+    want = {("gemma-7b", False): (256, 28), ("gemma-7b", True): (64, 1),
+            ("jamba-1.5-large-398b", False): (128, 72),
+            ("jamba-1.5-large-398b", True): (64, 3)}[arch, reduced]
+    assert (cfg.head_dim, cfg.n_layers) == want
 
 
 def test_other_archs_refused_by_name():
-    with pytest.raises(NotImplementedError, match="gemma-7b only"):
+    with pytest.raises(NotImplementedError, match="mixtral-8x7b.*not ported"):
         get_config("mixtral-8x7b")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3"):
+        get_config("rwkv6_3b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 

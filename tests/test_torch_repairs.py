@@ -87,11 +87,10 @@ def test_microbatches_that_do_not_divide_the_batch_raise():
 
 def test_not_ported_messages_name_roadmap_items():
     with pytest.raises(NotImplementedError,
-                       match="temperature sampling and the slab layout"):
+                       match="ROADMAP.md item 'temperature sampling'"):
         ServeConfig(temperature=0.5)
-    with pytest.raises(NotImplementedError,
-                       match="temperature sampling and the slab layout"):
-        ServeConfig(kv_layout="slab")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3"):
+        get_config("mixtral-8x7b")
     with pytest.raises(NotImplementedError,
                        match="distribution, fleet and bench"):
         serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",
