@@ -229,6 +229,21 @@ def time_ms(fn, iters=30):
     return sum(s.elapsed_time(e) for s, e in ev) / iters
 
 
+def enqueue_us(fn, iters=500):
+    """Mean host microseconds to enqueue one call of ``fn`` while a
+    GPU-side sleep keeps the card busy, so no call waits on the card."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(500_000_000)  # ~0.25 s of GPU clock cycles
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
+
+
 def sdpa_inputs(case, window):
     """Dense gathered K/V (dequantized to q's dtype for an int8/int4
     pool) and a float mask for one ``scaled_dot_product_attention`` call
@@ -486,10 +501,12 @@ def check_flash():
     print(f"  timing B{B} S{S} H{H} D{D} bf16 causal: forward kernel "
           f"{times['fwd']:.4f} ms (bound {fwd_b:.4f}, {fwd_by}: "
           f"{fwd_flops} flop, {fwd_bytes} B), plain {times['plain_fwd']:.4f}"
-          f" ms, sdpa {times['sdpa_fwd']:.4f} ms; backward kernels "
+          f" ms, sdpa {times['sdpa_fwd']:.4f} ms, kernel/sdpa "
+          f"{times['fwd'] / times['sdpa_fwd']:.3f}; backward kernels "
           f"{times['bwd']:.4f} ms (bound {bwd_b:.4f}, {bwd_by}: {bwd_flops} "
           f"flop, {bwd_bytes} B), plain {times['plain_bwd']:.4f} ms, sdpa "
-          f"{times['sdpa_bwd']:.4f} ms; sdpa forward+backward "
+          f"{times['sdpa_bwd']:.4f} ms, kernel/sdpa "
+          f"{times['bwd'] / times['sdpa_bwd']:.3f}; sdpa forward+backward "
           f"{times['sdpa_fwd_bwd']:.4f} ms", flush=True)
     del q, k, v, do, out, lse, qp, kp, vp, plain_out, qs, ks, vs, sdpa_out
     torch.cuda.empty_cache()
@@ -614,6 +631,10 @@ def check_lstm():
         lib_bwd=time_ms(lambda: fused_bwd(dh32, dc, x["c_prev"], cy32, ws32,
                                           True)),
     )
+    # GNMT's step is host-bound: the forward wrapper's host cost per call
+    # (checks, allocation, two tensor-map encodes, the launch).
+    fwd_enqueue = enqueue_us(lambda: lk.lstm_cell_fwd_cuda(**x,
+                                                           save_gates=True))
     src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     recs = [
         dict(name="lstm_cell_fwd", route="cuda", source=src,
@@ -631,11 +652,14 @@ def check_lstm():
           f"gates (bound {fwd_b:.4f}, {fwd_by}: {fwd_bytes} B, {fwd_flops} "
           f"flop), {times['fwd_nogates']:.4f} ms without (bound {ng_b:.4f}: "
           f"{nogates_bytes} B), plain {times['plain_fwd']:.4f} ms, matmul + "
-          f"_thnn_fused_lstm_cell {times['lib_fwd']:.4f} ms; backward kernel "
+          f"_thnn_fused_lstm_cell {times['lib_fwd']:.4f} ms, kernel/library "
+          f"{times['fwd'] / times['lib_fwd']:.3f}; backward kernel "
           f"{times['bwd']:.4f} ms (bound {bwd_b:.4f}, {bwd_by}: {bwd_bytes} "
           f"B), plain {times['plain_bwd']:.4f} ms, "
           f"_thnn_fused_lstm_cell_backward_impl (fp32 dh) "
-          f"{times['lib_bwd']:.4f} ms", flush=True)
+          f"{times['lib_bwd']:.4f} ms, kernel/library "
+          f"{times['bwd'] / times['lib_bwd']:.3f}; host enqueue of the "
+          f"forward wrapper {fwd_enqueue:.1f} us a call", flush=True)
     del x, dh, dc, h, c, gates, cy32, ws32
     torch.cuda.empty_cache()
     return recs
@@ -1035,7 +1059,7 @@ def check_flash_jamba():
     print(f"  timing B1 S{S} H{H} K{K} D{D}: kernel {ms:.4f} ms (bound "
           f"{b:.4f}, {by}: {flops} flop, {nbytes} B), plain {plain_ms:.4f} "
           f"ms, sdpa {sdpa_ms:.4f} ms (on K/V expanded to {H} heads "
-          f"beforehand)", flush=True)
+          f"beforehand), kernel/sdpa {ms / sdpa_ms:.3f}", flush=True)
     return dict(name="flash_attention_fwd_jamba", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:102",
@@ -2296,7 +2320,7 @@ def main(argv=None) -> int:
     reports = build.build()
     for name, log in reports.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("registers", "spill", "warning")):
                 print(f"  {name}: {line.strip()}")
     print(f"  built {sorted(build.sources())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)

@@ -4,6 +4,9 @@ Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared
 library ``build/kernels/lib<name>.so`` under the repository root, at
 first use, and is loaded with ``ctypes``: a plain C interface builds in
 seconds, where a source that includes PyTorch's headers takes minutes.
+``csrc/sm90.cuh`` holds the Hopper helpers (mbarriers, TMA, wgmma) the
+sources share; libcuda's ``cuTensorMapEncodeTiled`` is looked up at
+run time with ``dlsym``, so nothing links beyond the CUDA runtime.
 Nothing here touches CUDA when the module is imported, so the package
 imports on a machine without a card or a toolkit.
 """
@@ -42,9 +45,12 @@ def _nvcc() -> str:
 
 
 def _stale(name: str) -> bool:
+    """The library is missing or older than its source or any shared
+    header (``csrc/*.cuh``)."""
     lib = library_path(name)
-    return (not lib.exists()
-            or lib.stat().st_mtime < sources()[name].stat().st_mtime)
+    newest = max(p.stat().st_mtime
+                 for p in [sources()[name], *CSRC.glob("*.cuh")])
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def build(names: Iterable[str] = ()) -> Dict[str, str]:

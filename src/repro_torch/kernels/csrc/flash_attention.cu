@@ -22,29 +22,48 @@
 // order, so results are bitwise repeatable.
 //
 // Design. The TPU grid's sequential KV axis carried m/l/acc in VMEM;
-// here one block of 8 warps owns a query tile of one (b, h) and loops
-// inside itself over only the key tiles its causal/window band reaches
-// (the block skip of ops._chunked_attention). Tiles of Q, K and V are
-// staged in dynamic shared memory (a 64 x 256 bf16 tile is 33 KB, past
-// the 48 KB static limit once three are held). The two products run on
-// the tensor cores as mma.sync m16n8k16 (bf16 in, fp32 accumulate), each
-// warp owning a 16-row block and a run of 8-column tiles whose
-// accumulator layout is known, so the online-softmax rescale happens in
-// registers. Scores are scaled in fp32 (not a bf16-rounded q), masked
-// with a finite -1e30 and exponentiated only where visible; P and dS are
-// rounded to bf16 for the second product (about 4e-3 relative). The fp32
-// variant runs the same tiles through CUDA-core FMAs at full fp32.
-// A row with no visible key is written as 0, with an LSE of +1e30 that
-// makes its gradients 0 (such rows are garbage by contract).
+// here a block owns a query tile of one (b, h) and loops inside itself
+// over only the key tiles its causal/window band reaches (the block skip
+// of ops._chunked_attention). Scores are scaled in fp32 (not a
+// bf16-rounded q), masked with a finite -1e30 and exponentiated only
+// where visible; P and dS are rounded to bf16 for the second product
+// (about 4e-3 relative). A row with no visible key is written as 0, with
+// an LSE of +1e30 that makes its gradients 0 (such rows are garbage by
+// contract).
+//
+// The bf16 forward is warp-specialised for Hopper. A block of three
+// warpgroups owns 128 query rows. The producer warpgroup gives up its
+// registers (setmaxnreg 24) and one of its threads issues TMA loads: Q
+// once, then 64-key tiles of K and V into a ring of stages (2 at D 256,
+// 4 below), each signalled by a "full" mbarrier and released by an
+// "empty" one. The two consumer warpgroups (setmaxnreg 240) own 64 rows
+// each and per key tile run S = Q K^T as wgmma m64n64k16 with both
+// operands K-major in shared memory, the online softmax on the wgmma
+// accumulator in registers (row max and sum over the 4 lanes of a quad,
+// exp2 of log2e-scaled scores), and O += P V as wgmma with P taken from
+// the S registers rounded to bf16 (its layout is wgmma's A-register
+// layout) and V read MN-major (transposed) from shared memory, in 64-wide
+// column blocks of O. No score tile touches shared memory and the
+// warpgroups never meet at a block-wide barrier. Every tile arrives in
+// the 128-byte swizzle, as D / 64 boxes of 64 columns (128 bytes), from
+// 4-D tensor maps over (D, heads, S, B), so a tile past Sq or Sk is
+// zero-filled within its own batch. Only tiles that cross the causal
+// diagonal, the window edge, a negative key position or Sk are masked;
+// a warpgroup skips tiles its 64 rows cannot see. Query tiles run
+// longest first (grid y reversed, heads and batch on x), so the causal
+// tail does not leave SMs idle. At D 256: Q 64 KB plus 2 stages of K and
+// V (128 KB) in shared memory, O's 64 x 256 fp32 accumulator 128
+// registers a consumer thread.
+//
+// The fp32 forward and the backward kernels stage tiles in padded shared
+// memory: bf16 products as mma.sync m16n8k16 (fp32 accumulate) on 8
+// warps, fp32 through CUDA-core FMAs at full fp32.
 //
 // Bound on the H100 at the train shape (B 4, S 2048, 16 heads of 256,
 // causal, bf16): operations, 4 * B * H * D * S(S+1)/2 flops forward
 // (1.37e11, 0.139 ms at 989 TFLOP/s) against 268 MB moved (0.080 ms at
-// 3.35 TB/s); the backward does 2.5 times the forward's flops. A simple,
-// correct first version: no TMA, no wgmma, one block per SM.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// 3.35 TB/s); the backward does 2.5 times the forward's flops.
+#include "sm90.cuh"
 
 namespace {
 
@@ -82,13 +101,13 @@ struct Pad<bf16> {
   static constexpr int v = 8;
 };
 
-// Tile sizes: bf16 takes 64-row tiles (32 key rows in dK/dV, whose two
-// accumulators live in registers); fp32 tiles are 32 rows, to fit.
+// Tile sizes of the staged kernels: bf16 takes 64-row tiles (32 key rows
+// in dK/dV, whose two accumulators live in registers); fp32 tiles are 32
+// rows, to fit. (The bf16 forward has its own, FwdLayout.)
 template <typename T>
 struct Tiles;
 template <>
 struct Tiles<bf16> {
-  static constexpr int FQ = 64, FK = 64;  // forward
   static constexpr int KQ = 64, KK = 32;  // dK/dV
   static constexpr int QQ = 64, QK = 64;  // dQ
 };
@@ -253,20 +272,23 @@ __host__ __device__ constexpr int ld_of(int cols) {
   return cols + Pad<T>::v;
 }
 
-template <typename T, int D, int BQ, int BK>
-constexpr size_t fwd_smem() {
+template <int D, int BQ, int BK>
+constexpr size_t fwd_fp32_smem() {
+  using T = float;
   return sizeof(T) * ((BQ + 2 * BK) * ld_of<T>(D) + BQ * ld_of<T>(BK)) +
          sizeof(float) * (BQ * (BK + 4) + BQ);
 }
 
 // ---------------------------------------------------------------------------
-// Forward: one block per (query tile, h, b).
+// Forward, fp32: one block of 8 warps per (query tile, h, b), tiles staged
+// in shared memory, CUDA-core FMAs.
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BQ, int BK>
+template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
-                 float* __restrict__ lse, Params p) {
+flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ out,
+                      float* __restrict__ lse, Params p) {
+  using T = float;
   constexpr int LD = ld_of<T>(D);
   constexpr int LDP = ld_of<T>(BK);
   constexpr int LDS = BK + 4;
@@ -367,6 +389,239 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
   store_acc<T, D, NTO>(out, acc, b, i0, m0, wc * NTO * 8, p.Sq, p.H, h,
                        row_s[m0 + acc_row(0)], row_s[m0 + acc_row(2)]);
+}
+
+// ---------------------------------------------------------------------------
+// Forward, bf16: warp-specialised, TMA into a ring of K/V stages, wgmma.
+// ---------------------------------------------------------------------------
+constexpr int kFwdRows = 128;     // query rows a block: 2 consumer warpgroups
+constexpr int kFwdKeys = 64;      // keys a stage
+constexpr int kFwdThreads = 384;  // 2 consumer warpgroups + 1 producer
+constexpr int kConsumers = 256;   // threads that release a stage
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory of the bf16 forward: Q as D / 64 column blocks of 128 rows
+// of 128 bytes, then per stage K and V as D / 64 blocks of 64 rows each,
+// every block in TMA's 128-byte swizzle and 1024-aligned.
+template <int D>
+struct FwdLayout {
+  static constexpr int kCols = D / 64;
+  static constexpr int kStages = D == 256 ? 2 : 4;
+  static constexpr int kQBlock = kFwdRows * 128;
+  static constexpr int kKVBlock = kFwdKeys * 128;
+  static constexpr int kQBytes = kCols * kQBlock;
+  static constexpr int kStageBytes = 2 * kCols * kKVBlock;  // K, then V
+  static constexpr size_t kSmem = 1024 + kQBytes + kStages * kStageBytes;
+};
+
+// One consumer warpgroup: rows [i0 + 64 wg, + 64) of head h, batch b, over
+// the block's key tiles t_lo .. t_lo + n_tiles - 1.
+template <int D>
+__device__ __forceinline__ void fwd_consumer(
+    const Params& p, uint32_t q_base, uint32_t kv_base, uint64_t* q_full,
+    uint64_t* full, uint64_t* empty, int i0, int t_lo, int n_tiles, int h,
+    int b, bf16* __restrict__ out, float* __restrict__ lse) {
+  using L = FwdLayout<D>;
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int a0 = i0 + 64 * wg;        // the warpgroup's first row
+  const int a1 = min(p.Sq, a0 + 64);  // past its last real row
+  int wj_lo = 0, wj_hi = 0;           // keys its rows can see
+  if (a0 < a1) key_range(p, a0, a1, wj_lo, wj_hi);
+  const int row0 = a0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const float scale2 = p.scale * kLog2e;
+  const uint32_t q_addr = q_base + wg * 64 * 128;
+
+  float o[L::kCols][32];
+#pragma unroll
+  for (int c = 0; c < L::kCols; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};  // m in log2 units
+
+  sm90::mbar_wait(q_full, 0);
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s = n % L::kStages;
+    const int j0 = (t_lo + n) * kFwdKeys;
+    sm90::mbar_wait(&full[s], (n / L::kStages) & 1);
+    if (j0 < wj_hi && j0 + kFwdKeys > wj_lo) {
+      const uint32_t k_addr = kv_base + s * L::kStageBytes;
+      const uint32_t v_addr = k_addr + L::kCols * L::kKVBlock;
+      float sc[32];
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t at = (kk % 4) * 32;  // 16 columns
+        sm90::wgmma_ss_k_k(
+            sc, sm90::sw128_desc(q_addr + (kk / 4) * L::kQBlock + at, 16, 1024),
+            sm90::sw128_desc(k_addr + (kk / 4) * L::kKVBlock + at, 16, 1024),
+            kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+      sm90::fence_regs(sc);
+
+      // Scale into log2 units; mask only a tile that some (row, key) of
+      // this warpgroup cannot see.
+      const bool interior =
+          j0 + kFwdKeys <= p.Sk && p.k_off + j0 >= 0 &&
+          (!p.causal || p.k_off + j0 + kFwdKeys - 1 <= p.q_off + a0) &&
+          (p.window <= 0 || p.k_off + j0 > p.q_off + a1 - 1 - p.window);
+      if (interior) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) sc[i] *= scale2;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row0 + (e >= 2 ? 8 : 0);
+            const int col = j0 + 8 * i + 2 * t + (e & 1);
+            sc[4 * i + e] =
+                visible(p, row, col) ? sc[4 * i + e] * scale2 : kNeg;
+          }
+      }
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+      float corr[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        corr[r] = exp2f(m[r] - mx[r]);
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const float x = sc[i];
+        const float pv = (interior || x > kNeg) ? exp2f(x - m[r]) : 0.f;
+        sc[i] = pv;
+        sum[r] += pv;
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r];
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) o[c][i] *= corr[(i >> 1) & 1];
+
+      // P (64 x 64) in wgmma's A-register layout: k-step kk covers the
+      // accumulator's 8-column tiles 2kk and 2kk + 1.
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          pa[kk][r] = sm90::pack_bf16(sc[8 * kk + 2 * r], sc[8 * kk + 2 * r + 1]);
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c) sm90::fence_regs(o[c]);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int c = 0; c < L::kCols; ++c)
+          sm90::wgmma_rs_mn(
+              o[c], pa[kk],
+              sm90::sw128_desc(v_addr + c * L::kKVBlock + kk * 2048,
+                               L::kKVBlock, 1024));
+      sm90::wgmma_commit();
+      sm90::wgmma_wait_all();
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c) sm90::fence_regs(o[c]);
+    }
+    sm90::mbar_arrive(&empty[s]);
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    if (row >= p.Sq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    bf16* dst = out + ((static_cast<size_t>(b) * p.Sq + row) * p.H + h) * D +
+                2 * t;
+#pragma unroll
+    for (int c = 0; c < L::kCols; ++c)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * i) = sm90::pack_bf16(
+            o[c][4 * i + 2 * r] * inv, o[c][4 * i + 2 * r + 1] * inv);
+    if (t == 0)
+      lse[(static_cast<size_t>(b) * p.H + h) * p.Sq + row] =
+          l[r] > 0.f ? m[r] * kLn2 + logf(l[r]) : kMaskedLse;
+  }
+}
+
+// Grid (H * B, query tiles): x is (b, h), y the query tile counted from
+// the last, so the longest causal tiles start first.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
+                 __grid_constant__ const CUtensorMap kmap,
+                 __grid_constant__ const CUtensorMap vmap,
+                 bf16* __restrict__ out, float* __restrict__ lse, Params p) {
+  using L = FwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, full[L::kStages], empty[L::kStages];
+  unsigned char* Qs = sm90::align1024(smem_raw);
+  unsigned char* KVs = Qs + L::kQBytes;
+
+  const int h = blockIdx.x % p.H, b = blockIdx.x / p.H;
+  const int i0 = (gridDim.y - 1 - blockIdx.y) * kFwdRows;
+  const int kh = h / (p.H / p.K);
+  int j_lo, j_hi;
+  key_range(p, i0, min(p.Sq, i0 + kFwdRows), j_lo, j_hi);
+  const int t_lo = j_lo / kFwdKeys;
+  const int n_tiles =
+      j_hi > j_lo ? (j_hi + kFwdKeys - 1) / kFwdKeys - t_lo : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&q_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers) {
+      sm90::mbar_expect_tx(&q_full, L::kQBytes);
+      for (int c = 0; c < L::kCols; ++c)
+        sm90::tma_load_4d(Qs + c * L::kQBlock, &qmap, &q_full, 64 * c, h, i0,
+                          b);
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % L::kStages;
+        if (n >= L::kStages)
+          sm90::mbar_wait(&empty[s], (n / L::kStages - 1) & 1);
+        const int j0 = (t_lo + n) * kFwdKeys;
+        unsigned char* Ks = KVs + s * L::kStageBytes;
+        unsigned char* Vs = Ks + L::kCols * L::kKVBlock;
+        sm90::mbar_expect_tx(&full[s], L::kStageBytes);
+        for (int c = 0; c < L::kCols; ++c) {
+          sm90::tma_load_4d(Ks + c * L::kKVBlock, &kmap, &full[s], 64 * c, kh,
+                            j0, b);
+          sm90::tma_load_4d(Vs + c * L::kKVBlock, &vmap, &full[s], 64 * c, kh,
+                            j0, b);
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<240>();
+    fwd_consumer<D>(p, sm90::smem_u32(Qs), sm90::smem_u32(KVs), &q_full, full,
+                    empty, i0, t_lo, n_tiles, h, b, out, lse);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -587,18 +842,51 @@ int set_smem(Kernel kernel, size_t bytes) {
       static_cast<int>(bytes)));
 }
 
-template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-        const Params& p, cudaStream_t s) {
-  constexpr int BQ = Tiles<T>::FQ, BK = Tiles<T>::FK;
-  constexpr size_t bytes = fwd_smem<T, D, BQ, BK>();
+template <int D>
+int fwd_fp32(const void* q, const void* k, const void* v, void* out,
+             void* lse, const Params& p, cudaStream_t s) {
+  constexpr int BQ = Tiles<float>::FQ, BK = Tiles<float>::FK;
+  constexpr size_t bytes = fwd_fp32_smem<D, BQ, BK>();
   static_assert(bytes <= kMaxSmem, "forward tiles exceed shared memory");
-  auto kernel = flash_fwd_kernel<T, D, BQ, BK>;
+  auto kernel = flash_fwd_fp32_kernel<D, BQ, BK>;
   if (int err = set_smem(kernel, bytes)) return err;
   kernel<<<dim3(cdiv(p.Sq, BQ), p.H, p.B), kThreads, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out),
       static_cast<float*>(lse), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Tensor map of a (B, S, NH, D) bf16 tensor as (D, NH, S, B), boxes of 64
+// columns of one head over `rows` rows of one batch. S 0 (no keys, so no
+// tile is ever loaded) is described as 1 row of `fallback`.
+template <int D>
+int head_map(CUtensorMap* map, const void* base, const void* fallback, int B,
+             int S, int NH, int rows) {
+  const uint64_t row = static_cast<uint64_t>(NH) * D * sizeof(bf16);
+  const uint64_t dims[4] = {D, static_cast<uint64_t>(NH),
+                            static_cast<uint64_t>(S > 0 ? S : 1),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {D * sizeof(bf16), row,
+                               row * static_cast<uint64_t>(S > 0 ? S : 1)};
+  const uint32_t box[4] = {64, 1, static_cast<uint32_t>(rows), 1};
+  return sm90::encode_bf16_map<4>(map, S > 0 ? base : fallback, dims,
+                                  strides, box, true);
+}
+
+template <int D>
+int fwd_bf16(const void* q, const void* k, const void* v, void* out,
+             void* lse, const Params& p, cudaStream_t s) {
+  using L = FwdLayout<D>;
+  static_assert(L::kSmem <= kMaxSmem, "forward tiles exceed shared memory");
+  CUtensorMap qm, km, vm;
+  if (int err = head_map<D>(&qm, q, q, p.B, p.Sq, p.H, kFwdRows)) return err;
+  if (int err = head_map<D>(&km, k, q, p.B, p.Sk, p.K, kFwdKeys)) return err;
+  if (int err = head_map<D>(&vm, v, q, p.B, p.Sk, p.K, kFwdKeys)) return err;
+  auto kernel = flash_fwd_kernel<D>;
+  if (int err = set_smem(kernel, L::kSmem)) return err;
+  kernel<<<dim3(p.H * p.B, cdiv(p.Sq, kFwdRows)), kFwdThreads, L::kSmem, s>>>(
+      qm, km, vm, static_cast<bf16*>(out), static_cast<float*>(lse), p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -668,7 +956,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
   const Params p =
       make_params(B, Sq, Sk, H, K, causal, window, q_off, k_off, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FWD(T, DD) return fwd<T, DD>(q, k, v, out, lse, p, s)
+#define FWD(KIND, DD) return fwd_##KIND<DD>(q, k, v, out, lse, p, s)
   if (is_bf16) {
     switch (D) {
       case 64: FWD(bf16, 64);
@@ -677,9 +965,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     }
   } else {
     switch (D) {
-      case 64: FWD(float, 64);
-      case 128: FWD(float, 128);
-      case 256: FWD(float, 256);
+      case 64: FWD(fp32, 64);
+      case 128: FWD(fp32, 128);
+      case 256: FWD(fp32, 256);
     }
   }
 #undef FWD

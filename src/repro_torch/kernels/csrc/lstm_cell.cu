@@ -18,112 +18,237 @@
 //
 // Design. On the TPU, W_h (F, 4F) stays resident in VMEM across a grid over
 // batch tiles. At GNMT's F = 1024 it is 8 MiB of bf16, far beyond one SM's
-// 227 KB, so here the grid tiles the batch rows by the hidden units instead:
-// a block owns rows [r0, r0 + 32) and units [j0, j0 + 32) and accumulates
-// the four gate columns of those units together, so the nonlinearities and
-// the c update run in registers in the epilogue and the (B, 4F) gate
-// pre-activations never reach device memory. The k loop over F stages a
-// 32 x 32 tile of h and a 32 x 128 tile of W_h (the four 32-unit gate
-// slices) in shared memory; each of the 4 warps runs mma.sync m16n8k16
-// (bf16 in, fp32 accumulate) on a 16-row x (4 gates x 16 units) block,
-// whose accumulator layout puts the four gates of one (row, unit) in the
-// same thread. The fp32 variant runs the same tiles through CUDA-core FMAs
-// at full fp32, as the reference's fp32 product. Ragged B and F are masked
-// (F must be a multiple of 8, for 16-byte loads).
+// 227 KB, so here the grid tiles the hidden units instead, and each W_h
+// element is read from device memory once per call: a block owns 8 units
+// (their four gate columns, 32 of 4F) and all the batch rows (128 a block;
+// B 128 is one block row), so at F 1024 the grid is 128 blocks. The four
+// gates of a (row, unit) land in one thread's accumulators, so the
+// nonlinearities and the c update run in registers in the epilogue and the
+// (B, 4F) gate pre-activations never reach device memory.
+//
+// The bf16 forward streams the k dimension through a ring of 6 stages of
+// depth 64 in shared memory, kept full by a producer warp whose one thread
+// issues TMA loads (a 128 x 64 tile of h in the 128-byte swizzle, and the
+// four 64 x 8 gate slices of W_h), each stage signalled by a "full"
+// mbarrier and released by an "empty" one, so six tiles' loads are in
+// flight while the tensor cores work. Eight consumer warps each own 16
+// rows: per k step of 16 they read h's A fragment with one ldmatrix and
+// W_h's B fragments for two gates with one ldmatrix.trans, and run
+// mma.sync m16n8k16 (bf16 in, fp32 accumulate). Ragged B and F are
+// zero-filled by TMA and masked in the epilogue (F a multiple of 8, for the
+// tensor maps' 16-byte strides and the 8-unit tiles). The fp32 variant
+// stages 32 x 32 tiles of h and 32 x 128 of W_h through shared memory and
+// runs CUDA-core FMAs at full fp32, as the reference's fp32 product.
 //
 // Bound on the H100 at GNMT's shape (B 128, F 1024, bf16): bytes. The
 // forward moves 11,026,432 B (13,123,584 with the gates), 0.0033 ms
 // (0.0039 ms) at 3.35 TB/s, against 1.07 GFLOP, 0.0011 ms at 989 TFLOP/s:
-// W_h is read again at every time step. Each W_h tile is read by B / 32
-// blocks, from L2 after the first. A simple, correct first version: no
-// cp.async or TMA double buffering, no wgmma, and W_h is not kept on chip
-// across time steps (a persistent kernel could).
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// W_h is read again at every time step. Each block also reads all of h
+// (256 KB at B 128), from L2 after the first.
+#include "sm90.cuh"
 
 namespace {
-
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int BM = 32;  // batch rows a block
-constexpr int BN = 32;  // hidden units a block (4 * BN gate columns)
-constexpr int BK = 32;  // depth of one staged k tile
 
 typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(bf16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// Shared-memory row padding (16 bytes), against bank conflicts.
-template <typename T>
-__host__ __device__ constexpr int pad() {
-  return 16 / static_cast<int>(sizeof(T));
+// ---------------------------------------------------------------------------
+// Forward, bf16: one block per (8-unit tile, 128-row tile); 8 consumer
+// warps and one producer warp over a TMA ring of k tiles.
+// ---------------------------------------------------------------------------
+constexpr int kRows = 128;   // batch rows a block: 8 warps x 16
+constexpr int kUnits = 8;    // hidden units a block: 4 x 8 gate columns
+constexpr int kDepth = 64;   // k depth of a stage
+constexpr int kStages = 6;
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = 32 * kMmaWarps;
+constexpr int kHBytes = kRows * kDepth * 2;      // h tile, 128-byte swizzle
+constexpr int kGateBytes = kDepth * kUnits * 2;  // one gate's W_h slice
+constexpr int kStageBytes = kHBytes + 4 * kGateBytes;
+constexpr size_t kFwdSmem = 1024 + kStages * kStageBytes;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
-// One warp: c[i] += A[m0:m0+16, 0:BK] . B[0:BK, n0+8i : n0+8i+8] for i < NT,
-// A row-major (lda), B row-major (ldb), both in shared memory. Accumulator
-// layout of mma.sync m16n8k16: lane (g = lane / 4, t = lane % 4) holds
-// c[i][0..1] at row g, columns 2t and 2t + 1 of tile i, and c[i][2..3] at
-// row g + 8.
-template <typename T, int NT>
-__device__ __forceinline__ void warp_mma(float (&c)[NT][4], const T* A,
-                                         int lda, int m0, const T* B, int ldb,
-                                         int n0) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int k0 = 0; k0 < BK; k0 += 16) {
-      uint32_t a[4];
-      a[0] = *reinterpret_cast<const uint32_t*>(A + (m0 + g) * lda + k0 + 2 * t);
-      a[1] = *reinterpret_cast<const uint32_t*>(A + (m0 + g + 8) * lda + k0 +
-                                                2 * t);
-      a[2] = *reinterpret_cast<const uint32_t*>(A + (m0 + g) * lda + k0 +
-                                                2 * t + 8);
-      a[3] = *reinterpret_cast<const uint32_t*>(A + (m0 + g + 8) * lda + k0 +
-                                                2 * t + 8);
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const int n = n0 + 8 * i + g;
-        const int k = k0 + 2 * t;
-        const uint32_t b0 = pack(B[k * ldb + n], B[(k + 1) * ldb + n]);
-        const uint32_t b1 = pack(B[(k + 8) * ldb + n], B[(k + 9) * ldb + n]);
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};\n"
-            : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// d += A . B for one m16n8k16 tile; lane (g = lane / 4, t = lane % 4)
+// holds d[0..1] at row g, columns 2t and 2t + 1, and d[2..3] at row g + 8.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__global__ void __launch_bounds__(kMmaThreads + 32, 1)
+lstm_fwd_kernel(__grid_constant__ const CUtensorMap hmap,
+                __grid_constant__ const CUtensorMap wmap,
+                const bf16* __restrict__ xp, const float* __restrict__ c,
+                const float* __restrict__ bias, bf16* __restrict__ h_out,
+                float* __restrict__ c_out, float* __restrict__ gates_out,
+                int B, int F) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  const int j0 = blockIdx.x * kUnits, r0 = blockIdx.y * kRows;
+  const int n_k = (F + kDepth - 1) / kDepth;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kMmaThreads);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp == kMmaWarps) {  // the producer
+    if (lane == 0) {
+      for (int n = 0; n < n_k; ++n) {
+        const int s = n % kStages;
+        if (n >= kStages) sm90::mbar_wait(&empty[s], (n / kStages - 1) & 1);
+        unsigned char* st = smem + s * kStageBytes;
+        sm90::mbar_expect_tx(&full[s], kStageBytes);
+        sm90::tma_load_2d(st, &hmap, &full[s], n * kDepth, r0);
+        for (int q = 0; q < 4; ++q)
+          sm90::tma_load_2d(st + kHBytes + q * kGateBytes, &wmap, &full[s],
+                            q * F + j0, n * kDepth);
       }
     }
-  } else {
-#pragma unroll 4
-    for (int k = 0; k < BK; ++k) {
-      const float a0 = A[(m0 + g) * lda + k];
-      const float a1 = A[(m0 + g + 8) * lda + k];
+    return;
+  }
+
+  // Stage layout: h as 128 rows of 128 bytes (16-byte chunk k ^ row % 8),
+  // then W_h as [gate][k][8 units]. ldmatrix lane addresses: h rows
+  // 0-7 / 8-15 of the warp's 16 at k chunks 2kk / 2kk + 1; W_h rows k
+  // 16kk + 0-7 / 8-15 of gates 2p / 2p + 1.
+  const int m0 = 16 * warp;
+  const int a_row = m0 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const int a_hi = lane >> 4;
+  const int b_gate = lane >> 4;
+  const int b_k = 8 * ((lane >> 3) & 1) + (lane & 7);
+  float acc[4][4];
 #pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const int n = n0 + 8 * i + 2 * t;
-        const float b0 = B[k * ldb + n];
-        const float b1 = B[k * ldb + n + 1];
-        c[i][0] = fmaf(a0, b0, c[i][0]);
-        c[i][1] = fmaf(a0, b1, c[i][1]);
-        c[i][2] = fmaf(a1, b0, c[i][2]);
-        c[i][3] = fmaf(a1, b1, c[i][3]);
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+
+  for (int n = 0; n < n_k; ++n) {
+    const int s = n % kStages;
+    sm90::mbar_wait(&full[s], (n / kStages) & 1);
+    const uint32_t hs = sm90::smem_u32(smem + s * kStageBytes);
+    const uint32_t ws = hs + kHBytes;
+#pragma unroll
+    for (int kk = 0; kk < kDepth / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, hs + a_row * 128 + (((2 * kk + a_hi) ^ (a_row & 7)) << 4));
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr) {
+        uint32_t bw[4];
+        ldmatrix_x4_trans(
+            bw, ws + ((2 * pr + b_gate) * kDepth + 16 * kk + b_k) * 16);
+        mma_bf16(acc[2 * pr], a, bw[0], bw[1]);
+        mma_bf16(acc[2 * pr + 1], a, bw[2], bw[3]);
       }
+    }
+    sm90::mbar_arrive(&empty[s]);
+  }
+
+  const int g = lane / 4, t = lane % 4;
+  const int j = j0 + 2 * t;
+  const size_t F4 = 4 * static_cast<size_t>(F);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + m0 + g + 8 * r;
+    if (row >= B) continue;
+    const size_t xr = static_cast<size_t>(row) * F4;
+    const size_t o = static_cast<size_t>(row) * F + j;
+    float act[4][2];
+    float2 cn, hn;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {  // (x_proj + h . W_h) + b, as the reference
+      const float2 x = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(xp + xr + q * F + j));
+      const float2 bq = *reinterpret_cast<const float2*>(bias + q * F + j);
+      act[q][0] = (acc[q][2 * r] + x.x) + bq.x;
+      act[q][1] = (acc[q][2 * r + 1] + x.y) + bq.y;
+    }
+    const float2 cp = *reinterpret_cast<const float2*>(c + o);
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      act[0][u] = sigmoid(act[0][u]);
+      act[1][u] = sigmoid(act[1][u]);
+      act[2][u] = tanhf(act[2][u]);
+      act[3][u] = sigmoid(act[3][u]);
+    }
+    cn.x = act[1][0] * cp.x + act[0][0] * act[2][0];
+    cn.y = act[1][1] * cp.y + act[0][1] * act[2][1];
+    hn.x = act[3][0] * tanhf(cn.x);
+    hn.y = act[3][1] * tanhf(cn.y);
+    *reinterpret_cast<__nv_bfloat162*>(h_out + o) =
+        __floats2bfloat162_rn(hn.x, hn.y);
+    *reinterpret_cast<float2*>(c_out + o) = cn;
+    if (gates_out)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        *reinterpret_cast<float2*>(gates_out + xr + q * F + j) =
+            make_float2(act[q][0], act[q][1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Forward, fp32: one block of 4 warps per (32-unit tile, 32-row tile), k
+// tiles of depth 32 staged in shared memory, CUDA-core FMAs.
+// ---------------------------------------------------------------------------
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int BM = 32;  // batch rows a block
+constexpr int BN = 32;  // hidden units a block (4 * BN gate columns)
+constexpr int BK = 32;  // depth of one staged k tile
+constexpr int kPad = 4;  // shared row padding (16 bytes), against bank conflicts
+
+// One warp: c[i] += A[m0:m0+16, 0:BK] . B[0:BK, n0+8i : n0+8i+8] for i < NT,
+// A row-major (lda), B row-major (ldb), both in shared memory, in the
+// accumulator layout of mma_bf16.
+template <int NT>
+__device__ __forceinline__ void warp_fma(float (&c)[NT][4], const float* A,
+                                         int lda, int m0, const float* B,
+                                         int ldb, int n0) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 4
+  for (int k = 0; k < BK; ++k) {
+    const float a0 = A[(m0 + g) * lda + k];
+    const float a1 = A[(m0 + g + 8) * lda + k];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      const int n = n0 + 8 * i + 2 * t;
+      const float b0 = B[k * ldb + n];
+      const float b1 = B[k * ldb + n + 1];
+      c[i][0] = fmaf(a0, b0, c[i][0]);
+      c[i][1] = fmaf(a0, b1, c[i][1]);
+      c[i][2] = fmaf(a1, b0, c[i][2]);
+      c[i][3] = fmaf(a1, b1, c[i][3]);
     }
   }
 }
@@ -136,23 +261,17 @@ __device__ __forceinline__ void warp_mma(float (&c)[NT][4], const T* A,
 __device__ __forceinline__ int w_unit(int s) { return 16 * (s >> 6) + (s & 15); }
 __device__ __forceinline__ int w_gate(int s) { return (s >> 4) & 3; }
 
-// ---------------------------------------------------------------------------
-// Forward: one block per (unit tile, row tile).
-// ---------------------------------------------------------------------------
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ h,
-                const float* __restrict__ c, const T* __restrict__ w,
-                const float* __restrict__ bias, T* __restrict__ h_out,
-                float* __restrict__ c_out, float* __restrict__ gates_out,
-                int B, int F) {
-  constexpr int V = 16 / sizeof(T);  // elements per 16-byte load
-  constexpr int LDH = BK + pad<T>();
-  constexpr int LDW = 4 * BN + pad<T>();
-  __shared__ __align__(16)
-      unsigned char smem[sizeof(T) * (BM * LDH + BK * LDW)];
-  T* Hs = reinterpret_cast<T*>(smem);
-  T* Ws = Hs + BM * LDH;
+lstm_fwd_fp32_kernel(const float* __restrict__ xp, const float* __restrict__ h,
+                     const float* __restrict__ c, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ h_out,
+                     float* __restrict__ c_out, float* __restrict__ gates_out,
+                     int B, int F) {
+  constexpr int V = 4;  // floats per 16-byte load
+  constexpr int LDH = BK + kPad;
+  constexpr int LDW = 4 * BN + kPad;
+  __shared__ __align__(16) float Hs[BM * LDH];
+  __shared__ __align__(16) float Ws[BK * LDW];
 
   const int j0 = blockIdx.x * BN, r0 = blockIdx.y * BM;
   const int warp = threadIdx.x >> 5;
@@ -186,7 +305,7 @@ lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ h,
       *reinterpret_cast<uint4*>(Ws + kk * LDW + s) = val;
     }
     __syncthreads();
-    warp_mma<T, 8>(acc, Hs, LDH, m0, Ws, LDW, 64 * wcol);
+    warp_fma<8>(acc, Hs, LDH, m0, Ws, LDW, 64 * wcol);
     __syncthreads();
   }
 
@@ -202,13 +321,13 @@ lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ h,
       float pre[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q)  // (x_proj + h . W_h) + b, as the reference
-        pre[q] = (acc[2 * q + u][e] + to_float(xp[xr + q * F + j])) +
+        pre[q] = (acc[2 * q + u][e] + xp[xr + q * F + j]) +
                  bias[q * F + j];
       const float ig = sigmoid(pre[0]), fg = sigmoid(pre[1]);
       const float gg = tanhf(pre[2]), og = sigmoid(pre[3]);
       const size_t o = static_cast<size_t>(row) * F + j;
       const float cn = fg * c[o] + ig * gg;
-      store(h_out + o, og * tanhf(cn));
+      h_out[o] = og * tanhf(cn);
       c_out[o] = cn;
       if (gates_out) {
         gates_out[xr + j] = ig;
@@ -258,20 +377,39 @@ extern "C" int lstm_cell_fwd(const void* x_proj, const void* h, const void* c,
                              void* c_out, void* gates_out, int B, int F,
                              int is_bf16, void* stream) {
   if (B <= 0 || F <= 0 || F % 8) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((F + BN - 1) / BN, (B + BM - 1) / BM);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    lstm_fwd_kernel<bf16><<<grid, kThreads, 0, s>>>(
-        static_cast<const bf16*>(x_proj), static_cast<const bf16*>(h),
-        static_cast<const float*>(c), static_cast<const bf16*>(w_h),
-        static_cast<const float*>(b), static_cast<bf16*>(h_out),
-        static_cast<float*>(c_out), static_cast<float*>(gates_out), B, F);
-  else
-    lstm_fwd_kernel<float><<<grid, kThreads, 0, s>>>(
+  if (!is_bf16) {
+    lstm_fwd_fp32_kernel<<<dim3((F + BN - 1) / BN, (B + BM - 1) / BM),
+                           kThreads, 0, s>>>(
         static_cast<const float*>(x_proj), static_cast<const float*>(h),
         static_cast<const float*>(c), static_cast<const float*>(w_h),
         static_cast<const float*>(b), static_cast<float*>(h_out),
         static_cast<float*>(c_out), static_cast<float*>(gates_out), B, F);
+    return static_cast<int>(cudaGetLastError());
+  }
+  // h as (F, B), boxes of 64 k by 128 rows; W_h as (4F, F), boxes of 8
+  // gate columns by 64 k.
+  CUtensorMap hmap, wmap;
+  const uint64_t f = static_cast<uint64_t>(F);
+  if (int err = sm90::encode_bf16_map<2>(
+          &hmap, h, {f, static_cast<uint64_t>(B)}, {f * sizeof(bf16)},
+          {static_cast<uint32_t>(kDepth), static_cast<uint32_t>(kRows)}, true))
+    return err;
+  if (int err = sm90::encode_bf16_map<2>(
+          &wmap, w_h, {4 * f, f}, {4 * f * sizeof(bf16)},
+          {static_cast<uint32_t>(kUnits), static_cast<uint32_t>(kDepth)},
+          false))
+    return err;
+  if (int err = static_cast<int>(cudaFuncSetAttribute(
+          lstm_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(kFwdSmem))))
+    return err;
+  lstm_fwd_kernel<<<dim3(F / kUnits, (B + kRows - 1) / kRows),
+                    kMmaThreads + 32, kFwdSmem, s>>>(
+      hmap, wmap, static_cast<const bf16*>(x_proj),
+      static_cast<const float*>(c), static_cast<const float*>(b),
+      static_cast<bf16*>(h_out), static_cast<float*>(c_out),
+      static_cast<float*>(gates_out), B, F);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -131,6 +131,18 @@ CUDA_CASES = [
     (1, 256, 256, 8, 2, 64, True, 64, 0, 0),       # GQA + window
     (1, 96, 133, 2, 2, 64, True, 40, 0, -37),      # negative positions
     (1, 100, 120, 2, 1, 64, False, None, 0, 0),    # bidirectional MQA
+    # Edges of the bf16 forward's tiles (128 query rows a block, 64 keys
+    # a stage, 64-column TMA boxes): Sq and Sk off the tiles with B >= 2
+    # (a box past S must read zeros, not the next batch), jamba's GQA
+    # 64/8 at D 128, and rows left with no visible key by the causal
+    # edge, the window or negative key positions.
+    (2, 200, 333, 4, 4, 128, True, None, 133, 0),
+    (3, 77, 77, 2, 2, 64, False, None, 0, 0),
+    (2, 17, 17, 64, 8, 128, True, None, 0, 0),
+    (1, 128, 128, 64, 8, 128, True, None, 0, 0),
+    (2, 96, 96, 2, 2, 256, True, 16, 0, 50),       # rows 0-49: no key
+    (2, 64, 40, 2, 2, 64, True, 8, 30, -10),       # rows 8-63: no key
+    (2, 130, 190, 4, 2, 256, True, 70, 60, -5),
 ]
 
 
@@ -170,13 +182,39 @@ def test_cuda_kernels_match_plain(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-def test_cuda_kernels_are_deterministic(cuda_device):
+@pytest.mark.parametrize("case", [CUDA_CASES[i] for i in (2, 5, 7, 10)],
+                         ids=str)
+def test_cuda_kernels_are_deterministic(cuda_device, case):
     q, k, v, do = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
-                   for a in _inputs(CUDA_CASES[2], seed=3))
+                   for a in _inputs(case, seed=3))
+    opts = _opts(case)
     runs = []
     for _ in range(2):
-        out, lse = fa.flash_attention_fwd_cuda(q, k, v, window=64)
-        runs.append((out, *fa.flash_attention_bwd_cuda(q, k, v, out, lse, do,
-                                                       window=64)))
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v, **opts)
+        runs.append((out, lse, *fa.flash_attention_bwd_cuda(
+            q, k, v, out, lse, do, **opts)))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CUDA_CASES, ids=str)
+def test_cuda_bf16_forward_lse(cuda_device, case):
+    """The log-sum-exp the backward reads: within 2e-2 of the fp32
+    logsumexp of the masked, scaled scores where a row sees a key, and
+    at least 1e30 where it sees none."""
+    q, k, v, _ = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+                  for a in _inputs(case, seed=4))
+    opts = _opts(case)
+    _, lse = fa.flash_attention_fwd_cuda(q, k, v, **opts)
+    B, Sq, H, D = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // K, dim=2)
+    logits = torch.einsum("bqhd,bshd->bhqs", q.float(), kf) * D ** -0.5
+    mask = fa.visible_mask(Sq, Sk, device=cuda_device, **opts)
+    want = torch.logsumexp(logits.masked_fill(~mask, float("-inf")), -1)
+    rows = torch.from_numpy(_rows(case)).to(cuda_device)
+    torch.testing.assert_close(lse[:, :, rows], want[:, :, rows], rtol=2e-2,
+                               atol=2e-2)
+    assert (lse[:, :, ~rows] >= 1e30).all()
+

@@ -192,9 +192,15 @@ def cuda_device():
 
 
 # The shapes chip_smoke.py holds the kernels at: GNMT's (B 128, F 1024), a
-# ragged batch tile (B 200), and the reference test's small ones.
+# ragged batch tile (B 200), and the reference test's small ones; then
+# the edges of the bf16 forward's tiles (128 rows and 8 units a block, k
+# in stages of 64): B 5, 200 and 128 by F 96, 1000 and 1024.
 CUDA_CASES = [(128, 1024, "bfloat16"), (200, 1024, "bfloat16"),
-              (5, 64, "float32"), (48, 96, "bfloat16"), (37, 1024, "float32")]
+              (5, 64, "float32"), (48, 96, "bfloat16"), (37, 1024, "float32"),
+              (5, 96, "bfloat16"), (5, 1000, "bfloat16"),
+              (5, 1024, "bfloat16"), (200, 96, "bfloat16"),
+              (200, 1000, "bfloat16"), (128, 96, "bfloat16"),
+              (128, 1000, "bfloat16")]
 
 
 @pytest.mark.cuda
@@ -202,7 +208,8 @@ CUDA_CASES = [(128, 1024, "bfloat16"), (200, 1024, "bfloat16"),
 def test_cuda_kernels_match_plain(cuda_device, B, F, dtype):
     """Forward (with and without gates) and backward kernels against the
     plain versions on the same inputs: bf16 within 2e-2 (h' is rounded to
-    bf16), fp32 within 1e-4 (sums in another order)."""
+    bf16), fp32 within 1e-4 (sums in another order); a second forward
+    equal bit for bit."""
     tol = 2e-2 if dtype == "bfloat16" else 1e-4
     arrays = _inputs(B, F, seed=3)
     t, _ = _in_dtype(arrays, dtype)
@@ -211,9 +218,11 @@ def test_cuda_kernels_match_plain(cuda_device, B, F, dtype):
     dc = torch.from_numpy(arrays[6]).to(cuda_device)
     h0, c0, none = lk.lstm_cell_fwd_cuda(*t)
     h, c, gates = lk.lstm_cell_fwd_cuda(*t, save_gates=True)
+    again = lk.lstm_cell_fwd_cuda(*t, save_gates=True)
     dg, dcp = lk.lstm_cell_bwd_cuda(gates, t[2], c, dh, dc)
     torch.cuda.synchronize()
     assert none is None and torch.equal(h0, h) and torch.equal(c0, c)
+    assert all(torch.equal(a, b) for a, b in zip((h, c, gates), again))
     want_h, want_c = lk.lstm_cell_torch(*t)
     want_g = _gates(t)
     want_dg, want_dcp = lk.lstm_cell_bwd_torch(want_g, t[2], want_c, dh, dc)
@@ -237,3 +246,4 @@ def test_cuda_autograd_matches_plain_autograd(cuda_device):
             lk.lstm_cell_bwd_cuda.launches - before[1]) == (1, 1)
     for a, b in zip(*leaves):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-4, atol=1e-4)
+
