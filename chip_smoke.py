@@ -12,8 +12,10 @@ and prints no result):
 2. kernels: holds each kernel against its plain PyTorch version on the
    card at the shapes its path gives it (paged attention at the serving
    chunk's, from bf16/fp32 pools and through its int8 and int4
-   branches, flash attention forward and backward at the train step's
-   and at edge cases, the LSTM cell forward (with and without its saved
+   branches, and at the edges of its key splits, each rerun bitwise
+   equal; flash attention forward and backward at the train step's and
+   at edge cases of its tiles, the backward rerun bitwise equal; the
+   LSTM cell forward (with and without its saved
    gates) and backward at GNMT's shape and at edge cases, the two LARS
    kernels in both rules at ResNet-50's largest leaf and at edge cases,
    zero norms among them, the Mamba selective scan at jamba's prefill
@@ -21,7 +23,9 @@ and prints no result):
    and the flash forward at jamba's attention shape), and times the
    kernel, the plain version, one PyTorch library call computing the
    same function where there is one, and the least time the card could
-   take (its bound);
+   take (its bound); for the paged kernel and the flash backward also
+   the device time of each launch they make (profiler), and for the
+   paged wrapper its host enqueue time and key-split count;
 3. checks: reduced gemma-7b in fp32 on the card against the CPU's
    plain path, serving (logits and greedy tokens; and from int8 and
    int4 pools with the prefix cache and speculative decoding, which
@@ -244,6 +248,27 @@ def enqueue_us(fn, iters=500):
     return (t1 - t0) / iters * 1e6
 
 
+def kernel_split_ms(fn, reps=10):
+    """Device ms a call of ``fn`` spends in each kernel it launches (name
+    -> ms), from the profiler over ``reps`` back-to-back calls (L2 warm)."""
+    fn()
+    torch.cuda.synchronize()
+    _, _, kernels = trace_busy(lambda: [fn() for _ in range(reps)])
+    return {e.key: e.self_device_time_total / 1e3 / reps for e in kernels}
+
+
+def kernel_name(key):
+    """A profiler kernel key cut to its function's name."""
+    key = key.replace("void ", "").replace("(anonymous namespace)::", "")
+    return key.split("<")[0].split("(")[0]
+
+
+def split_line(parts):
+    """'name ms, ...' with each kernel's name cut to its function name."""
+    return ", ".join(f"{kernel_name(name)} {ms:.4f}"
+                     for name, ms in parts.items())
+
+
 def sdpa_inputs(case, window):
     """Dense gathered K/V (dequantized to q's dtype for an int8/int4
     pool) and a float mask for one ``scaled_dot_product_attention`` call
@@ -294,6 +319,26 @@ def check_kernel():
     main = dict(B=8, H=16, K=16, D=256, page=16, npg=10,
                 lens=[160, 5, 37, 128, 64, 99, 16, 0])
     ragged = [1, 5, 8, 1, 8, 3, 1, 1]
+    # Split edges (64 keys a split, 4 pages of 16) over a 12-page table:
+    # ranges ending on a split boundary, rows spanning every split, a
+    # split of unmapped pages, a window dropping leading splits, GQA 8
+    # (C x G = 64 rows), 128 query rows (two row passes), decode at 190.
+    wide = dict(main, npg=12)
+    edge_lens = [64, 128, 192, 190, 63, 65, 127, 0]
+    hole = [(b, p) for b in (1, 2) for p in range(4, 8)]
+    edges = (
+        ("split_edge", dict(wide, C=4, lens=edge_lens,
+                            nvs=[1, 4, 3, 2, 1, 1, 4, 1]), None),
+        ("hole_split", dict(wide, C=4, lens=edge_lens,
+                            nvs=[4, 1, 4, 1, 2, 1, 3, 1], holes=hole), None),
+        ("window40", dict(wide, C=4, lens=[190, 150, 66, 160, 5, 37, 99, 0],
+                          nvs=[1, 4, 2, 4, 1, 3, 2, 1]), 40),
+        ("gqa8", dict(wide, H=16, K=2, D=128, C=8, lens=edge_lens,
+                      nvs=[8, 8, 3, 1, 5, 8, 2, 1]), None),
+        ("rows128", dict(wide, H=16, K=2, D=64, C=16, lens=edge_lens,
+                         nvs=[16, 9, 16, 1, 5, 16, 2, 1]), None),
+        ("decode190", dict(wide, C=1, lens=edge_lens, nvs=[1] * 8), None),
+    )
     recs = []
     for kind in ("", "int8", "int4"):
         def make(seed, dtype, kind=kind, **shape):
@@ -313,7 +358,7 @@ def check_kernel():
                     ("D64_gqa", dict(main, H=8, K=2, D=64, C=8, nvs=ragged),
                      None),
                     ("D128_gqa", dict(main, K=4, D=128, C=8, nvs=ragged),
-                     None))):
+                     None)) + edges):
             case = make(i, dtype, **shape)
             got = pa.paged_attention_cuda(**case, window=window)
             torch.cuda.synchronize()
@@ -327,14 +372,24 @@ def check_kernel():
                     raise AssertionError(
                         f"paged_attention {kind} {name} {dtype}: kernel != "
                         f"plain, max |diff| {err} > {tol} (row {b})")
-            if not (got[-1] == 0).all() or not torch.isfinite(got).all():
+            for b in range(len(nv)):  # queries past n_valid, idle row
+                if not (got[b, nv[b]:] == 0).all() or (
+                        b == len(nv) - 1 and not (got[b] == 0).all()):
+                    raise AssertionError(
+                        f"paged_attention {kind} {name}: row {b} past "
+                        f"n_valid (or idle) not 0")
+            if not torch.isfinite(got).all():
                 raise AssertionError(
-                    f"paged_attention {kind} {name}: idle row not 0")
+                    f"paged_attention {kind} {name}: non-finite output")
+            again = pa.paged_attention_cuda(**case, window=window)
+            if not torch.equal(again, got):
+                raise AssertionError(
+                    f"paged_attention {kind} {name} {dtype}: a rerun differs")
             if dtype == torch.bfloat16 and name.startswith("main"):
                 main_err = max(main_err, err)
-            print(f"  {kind or 'bf16/fp32 pool':14s} {name:9s} "
+            print(f"  {kind or 'bf16/fp32 pool':14s} {name:10s} "
                   f"{str(dtype):15s} max|kernel-plain| {err:.3e} (tol "
-                  f"{tol:g}) ok", flush=True)
+                  f"{tol:g}), rerun bitwise equal, ok", flush=True)
 
         # Timing at the engine's chunk shape: B 8, C 8, bf16 q, page 16.
         case = make(99, torch.bfloat16, C=8, nvs=ragged, **main)
@@ -358,11 +413,18 @@ def check_kernel():
         )
         sdpa_note = (" (on pre-gathered K/V dequantized to bf16 beforehand: "
                      "attention without the dequant)" if kind else "")
+        enq = enqueue_us(lambda: pa.paged_attention_cuda(**case))
+        parts = split_line(kernel_split_ms(
+            lambda: pa.paged_attention_cuda(**case)))
         print(f"  timing {kind or 'bf16 pool'} B8 C8 H16 D256 page16 bf16 q: "
               f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, "
-              f"sdpa {rec['library_ms']:.4f} ms{sdpa_note}, bound "
+              f"sdpa {rec['library_ms']:.4f} ms{sdpa_note}, kernel/sdpa "
+              f"{rec['ms'] / rec['library_ms']:.3f}, bound "
               f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes} B, "
-              f"{flops} flop)", flush=True)
+              f"{flops} flop); {pa.key_splits(main['page'], main['npg'])} "
+              f"key splits of {pa.SPLIT_KEYS}; wrapper enqueue "
+              f"{enq:.1f} us a call; by kernel (ms a call, L2 warm): "
+              f"{parts}", flush=True)
         recs.append(rec)
     return recs
 
@@ -377,6 +439,12 @@ FLASH_CASES = [  # name, B, Sq, Sk, H, K, D, causal, window, q_off, k_off
     ("window64", 1, 512, 512, 8, 8, 64, True, 64, 0, 0),
     ("koff-37", 1, 128, 165, 2, 2, 64, True, 40, 0, -37),
     ("gqa8/2", 2, 256, 256, 8, 2, 128, True, None, 0, 0),
+    # edges of the bf16 backward's 64-row tiles at D 256
+    ("s63", 2, 63, 63, 2, 2, 256, True, None, 0, 0),
+    ("s127/129", 2, 127, 129, 2, 2, 256, True, None, 2, 0),
+    ("gqa16/2", 2, 128, 128, 16, 2, 256, True, None, 0, 0),
+    ("unseen", 2, 64, 256, 2, 2, 256, True, None, 0, 0),
+    ("win-k90", 2, 200, 200, 2, 2, 256, True, 20, 0, 90),
 ]
 
 
@@ -440,8 +508,15 @@ def check_flash():
             if not (out[:, ~rows] == 0).all():
                 raise AssertionError(f"flash_attention {name}: rows with no "
                                      f"visible key are not 0")
+            again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **opts)
+            if not all(torch.equal(a, b) for a, b in zip(again,
+                                                         (dq, dk, dv))):
+                raise AssertionError(f"flash_attention {name} {dtype}: a "
+                                     f"rerun of the backward differs")
+            del again
             print(f"  {name:9s} {str(dtype):15s} max|kernel-plain| "
-                  f"{', '.join(line)} (tol {tol:g}) ok", flush=True)
+                  f"{', '.join(line)} (tol {tol:g}), backward rerun bitwise "
+                  f"equal, ok", flush=True)
             del q, k, v, do, out, lse, dq, dk, dv, qp, kp, vp, want
     torch.cuda.empty_cache()
 
@@ -483,6 +558,8 @@ def check_flash():
     )
     times["sdpa_fwd_bwd"] = time_ms(lambda: torch.autograd.grad(
         sdpa(), (qs, ks, vs), do_s))
+    bwd_parts = kernel_split_ms(
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do), reps=5)
     fwd_b, fwd_by = bound(fwd_flops, fwd_bytes, dtype)
     bwd_b, bwd_by = bound(bwd_flops, bwd_bytes, dtype)
     src = "src/repro_torch/kernels/csrc/flash_attention.cu"
@@ -507,7 +584,8 @@ def check_flash():
           f"flop, {bwd_bytes} B), plain {times['plain_bwd']:.4f} ms, sdpa "
           f"{times['sdpa_bwd']:.4f} ms, kernel/sdpa "
           f"{times['bwd'] / times['sdpa_bwd']:.3f}; sdpa forward+backward "
-          f"{times['sdpa_fwd_bwd']:.4f} ms", flush=True)
+          f"{times['sdpa_fwd_bwd']:.4f} ms; backward by kernel (ms a call, "
+          f"L2 warm): {split_line(bwd_parts)}", flush=True)
     del q, k, v, do, out, lse, qp, kp, vp, plain_out, qs, ks, vs, sdpa_out
     torch.cuda.empty_cache()
     return recs
@@ -1167,6 +1245,11 @@ def serve_full(params):
     return launches
 
 
+# The paged kernel's launches (the split kernel and the merge), by name.
+PAGED_KERNELS = ("paged_split_mma_kernel", "paged_split_f32_kernel",
+                 "paged_combine_kernel")
+
+
 def trace_busy(fn):
     """Run ``fn`` under the profiler; (its result, device-busy ms, the
     kernels sorted by device time)."""
@@ -1245,7 +1328,7 @@ def serve_quant(params):
         again, busy_ms, kernels = trace_busy(
             lambda: run_server(engine, workload()))
         paged_ms = sum(e.self_device_time_total for e in kernels
-                       if "paged_attention" in e.key) / 1e3
+                       if kernel_name(e.key) in PAGED_KERNELS) / 1e3
         per_step = sum(e.count for e in kernels) / len(again.steps)
         s = report.summary()
         s.update(peak_mem_gib=peak, chunk_steps=steps, launches=launches,
@@ -2320,7 +2403,8 @@ def main(argv=None) -> int:
     reports = build.build()
     for name, log in reports.items():
         for line in log.splitlines():
-            if any(w in line for w in ("registers", "spill", "warning")):
+            if any(w in line for w in ("properties for", "registers",
+                                       "spill", "warning")):
                 print(f"  {name}: {line.strip()}")
     print(f"  built {sorted(build.sources())} in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)

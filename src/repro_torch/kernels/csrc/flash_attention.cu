@@ -18,8 +18,10 @@
 // Four kernels: forward; delta; dK/dV (one block per (b, KV head, key
 // tile), looping over the G query heads of that KV head and the query
 // tiles its band reaches, so GQA needs no atomics); dQ (one block per
-// (b, h, query tile), looping over key tiles). Every sum has one fixed
-// order, so results are bitwise repeatable.
+// (b, h, query tile), looping over key tiles). Each output element is
+// summed by one thread, over the tiles in ascending order and within a
+// tile in wgmma's (or the FMA loop's) fixed order, so results are bitwise
+// repeatable.
 //
 // Design. The TPU grid's sequential KV axis carried m/l/acc in VMEM;
 // here a block owns a query tile of one (b, h) and loops inside itself
@@ -55,9 +57,43 @@
 // V (128 KB) in shared memory, O's 64 x 256 fp32 accumulator 128
 // registers a consumer thread.
 //
-// The fp32 forward and the backward kernels stage tiles in padded shared
-// memory: bf16 products as mma.sync m16n8k16 (fp32 accumulate) on 8
-// warps, fp32 through CUDA-core FMAs at full fp32.
+// The bf16 backward has the same skeleton (a TMA producer warpgroup,
+// wgmma consumers, the same tensor maps, masks only on edge tiles). What
+// bounds it is the tensor cores (five products, 10 D flops per visible
+// pair and head) and, at D 256, the registers: the dK and dV sums of a
+// 64-key tile take 2 x 128 fp32 registers a thread across one warpgroup.
+//  * dK/dV: a block owns 64 keys of one KV head; K and V stay in shared
+//    memory (one TMA load), and the producer streams (Q, dO) tiles of 64
+//    query rows through a ring (2 stages at D 256, 4 below), so each
+//    64-key tile reads the band's Q and dO once per query head. Two
+//    consumer warpgroups (setmaxnreg 240) split the work by output: the
+//    first computes S^T = K Q^T, forms P^T = exp(S^T scale - lse) on its
+//    accumulator and owns dV += P^T dO (P^T from registers, dO read
+//    MN-major); the second computes dP^T = V dO^T and owns dK += dS^T Q
+//    with dS^T = P^T o (dP^T - delta). The first hands P^T over in fp32
+//    through a 16 KB shared tile, thread to thread in the accumulator
+//    layout (conflict-free), behind two named barriers: it arrives at
+//    "full" after writing, the second syncs there, reads, and arrives at
+//    "free", where the first syncs before its next write. So the first
+//    never waits for the second except to reuse the tile. Each consumer
+//    holds one 64 x D accumulator (128 registers at D 256) and one 64 x
+//    64 score tile (32).
+//  * dQ: a block owns 64 query rows of one head; Q and dO stay resident,
+//    a ring of 64-key K/V tiles (2 stages at D 256, 4 below) streams the
+//    band, and one consumer warpgroup runs S = Q K^T and dP = dO V^T
+//    (both K-major), dS = P o (dP - delta) in registers, and dQ += dS K
+//    with dS as wgmma's A registers and K read MN-major. It recomputes two
+//    products (7 in all, not 5) so that no sum needs atomics.
+//  Both: the products that accumulate into dK, dV or dQ are one wgmma of
+//  N = D per k-step (m64n256k16 at D 256), and the exp / dS arithmetic
+//  runs as straight-line loops, masked only on an edge tile, since one
+//  consumer warp per SM sub-partition has no other warp to hide its
+//  latency behind. Each 64 x 64 step also streams a 64 KB tile pair
+//  (Q, dO or K, V) from L2, and its S / dP products read both operands
+//  from shared memory.
+//
+// The fp32 forward and backward kernels stage tiles in padded shared
+// memory and run CUDA-core FMAs at full fp32 on 8 warps.
 //
 // Bound on the H100 at the train shape (B 4, S 2048, 16 heads of 256,
 // causal, bf16): operations, 4 * B * H * D * S(S+1)/2 flops forward
@@ -89,135 +125,84 @@ __device__ __forceinline__ bool visible(const Params& p, int i, int j) {
   return true;
 }
 
-// Shared-memory row padding (16 bytes), against bank conflicts.
-template <typename T>
-struct Pad;
-template <>
-struct Pad<float> {
-  static constexpr int v = 4;
-};
-template <>
-struct Pad<bf16> {
-  static constexpr int v = 8;
-};
-
-// Tile sizes of the staged kernels: bf16 takes 64-row tiles (32 key rows
-// in dK/dV, whose two accumulators live in registers); fp32 tiles are 32
-// rows, to fit. (The bf16 forward has its own, FwdLayout.)
-template <typename T>
-struct Tiles;
-template <>
-struct Tiles<bf16> {
-  static constexpr int KQ = 64, KK = 32;  // dK/dV
-  static constexpr int QQ = 64, QK = 64;  // dQ
-};
-template <>
-struct Tiles<float> {
-  static constexpr int FQ = 32, FK = 32;
-  static constexpr int KQ = 32, KK = 32;
-  static constexpr int QQ = 32, QK = 32;
-};
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
+// Key range [j_lo, j_hi) that queries [i0, i1) can see.
+__device__ __forceinline__ void key_range(const Params& p, int i0, int i1,
+                                          int& j_lo, int& j_hi) {
+  j_lo = max(0, -p.k_off);
+  j_hi = p.Sk;
+  if (p.causal) j_hi = min(j_hi, p.q_off + i1 - p.k_off);
+  if (p.window > 0) j_lo = max(j_lo, p.q_off + i0 - p.window + 1 - p.k_off);
 }
-template <>
-__device__ __forceinline__ bf16 from_float<bf16>(float x) {
-  return __float2bfloat16(x);
+
+// Query range [i_lo, i_hi) that keys [j0, min(Sk, j0 + rows)) are seen by.
+__device__ __forceinline__ void query_range(const Params& p, int j0, int rows,
+                                            int& i_lo, int& i_hi) {
+  const int j1 = min(p.Sk, j0 + rows);
+  const int jpos0 = max(j0, -p.k_off);
+  i_lo = 0;
+  i_hi = jpos0 < j1 ? p.Sq : 0;
+  if (p.causal) i_lo = max(0, p.k_off + jpos0 - p.q_off);
+  if (p.window > 0) i_hi = min(i_hi, p.k_off + j1 - 1 + p.window - p.q_off);
 }
+
+// ---------------------------------------------------------------------------
+// The fp32 kernels: tiles staged in shared memory with rows padded by 16
+// bytes (against bank conflicts), 32-row tiles, CUDA-core FMAs on 8 warps.
+// ---------------------------------------------------------------------------
+constexpr int kF32Tile = 32;
+
+__host__ __device__ constexpr int ld_of(int cols) { return cols + 4; }
 
 // Rows [r0, r0 + ROWS) of head hh of a (B, S, NH, D) tensor into a
 // shared tile with row stride ld, 16 bytes a thread; rows past S are 0
 // (a masked P of 0 times uninitialised memory could be NaN).
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_rows(T* dst, int ld, const T* src, int b,
-                                          int r0, int S, int NH, int hh) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, int ld, const float* src,
+                                          int b, int r0, int S, int NH,
+                                          int hh) {
+  constexpr int kPerRow = D / 4;
   for (int idx = threadIdx.x; idx < ROWS * kPerRow; idx += kThreads) {
     const int r = idx / kPerRow;
-    const int c = (idx % kPerRow) * kVec;
+    const int c = (idx % kPerRow) * 4;
     const int row = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
     if (row < S)
-      val = *reinterpret_cast<const uint4*>(
+      val = *reinterpret_cast<const float4*>(
           src + ((static_cast<size_t>(b) * S + row) * NH + hh) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    *reinterpret_cast<float4*>(dst + r * ld + c) = val;
   }
 }
 
 // Element (r, c) of a shared matrix stored row-major (TRANS false) or
 // as its transpose (TRANS true), with row stride ld.
-template <bool TRANS, typename T>
-__device__ __forceinline__ T elem(const T* m, int ld, int r, int c) {
-  return TRANS ? m[c * ld + r] : m[r * ld + c];
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Logical elements (r, c) and (r, c + 1), c even, as one bf16 pair.
 template <bool TRANS>
-__device__ __forceinline__ uint32_t pair_along_c(const bf16* m, int ld, int r,
-                                                 int c) {
-  if (TRANS) return pack(m[c * ld + r], m[(c + 1) * ld + r]);
-  return *reinterpret_cast<const uint32_t*>(m + r * ld + c);
+__device__ __forceinline__ float elem(const float* m, int ld, int r, int c) {
+  return TRANS ? m[c * ld + r] : m[r * ld + c];
 }
 
 // One warp: c[i] += A[m0:m0+16, 0:kdim] . B[0:kdim, n0+8i : n0+8i+8] for
 // i < NT, with A(m, k) = elem<AT>(A, lda, m, k) and B(k, n) =
-// elem<BT>(B, ldb, k, n). Accumulator layout is that of mma.sync
-// m16n8k16: lane (g = lane / 4, t = lane % 4) holds c[i][0..1] at row g,
-// columns 2t and 2t + 1 of tile i, and c[i][2..3] at row g + 8.
-template <typename T, bool AT, bool BT, int NT>
-__device__ __forceinline__ void warp_mma(float (&c)[NT][4], const T* A,
-                                         int lda, int m0, const T* B, int ldb,
-                                         int n0, int kdim) {
+// elem<BT>(B, ldb, k, n), in fp32 FMAs. Accumulator layout is that of
+// mma.sync m16n8k16: lane (g = lane / 4, t = lane % 4) holds c[i][0..1] at
+// row g, columns 2t and 2t + 1 of tile i, and c[i][2..3] at row g + 8.
+template <bool AT, bool BT, int NT>
+__device__ __forceinline__ void warp_mma(float (&c)[NT][4], const float* A,
+                                         int lda, int m0, const float* B,
+                                         int ldb, int n0, int kdim) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  if constexpr (sizeof(T) == 2) {
-    for (int k0 = 0; k0 < kdim; k0 += 16) {
-      uint32_t a[4];
-      a[0] = pair_along_c<AT>(A, lda, m0 + g, k0 + 2 * t);
-      a[1] = pair_along_c<AT>(A, lda, m0 + g + 8, k0 + 2 * t);
-      a[2] = pair_along_c<AT>(A, lda, m0 + g, k0 + 2 * t + 8);
-      a[3] = pair_along_c<AT>(A, lda, m0 + g + 8, k0 + 2 * t + 8);
+  for (int k = 0; k < kdim; ++k) {
+    const float a0 = elem<AT>(A, lda, m0 + g, k);
+    const float a1 = elem<AT>(A, lda, m0 + g + 8, k);
 #pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const int n = n0 + 8 * i + g;
-        // B(k, n), B(k + 1, n): a pair along B's first index, which is
-        // the stored column when B is stored transposed.
-        const uint32_t b0 = pair_along_c<!BT>(B, ldb, n, k0 + 2 * t);
-        const uint32_t b1 = pair_along_c<!BT>(B, ldb, n, k0 + 2 * t + 8);
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-            "{%0, %1, %2, %3};\n"
-            : "+f"(c[i][0]), "+f"(c[i][1]), "+f"(c[i][2]), "+f"(c[i][3])
-            : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-      }
-    }
-  } else {
-    for (int k = 0; k < kdim; ++k) {
-      const float a0 = elem<AT>(A, lda, m0 + g, k);
-      const float a1 = elem<AT>(A, lda, m0 + g + 8, k);
-#pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        const int n = n0 + 8 * i + 2 * t;
-        const float b0 = elem<BT>(B, ldb, k, n);
-        const float b1 = elem<BT>(B, ldb, k, n + 1);
-        c[i][0] = fmaf(a0, b0, c[i][0]);
-        c[i][1] = fmaf(a0, b1, c[i][1]);
-        c[i][2] = fmaf(a1, b0, c[i][2]);
-        c[i][3] = fmaf(a1, b1, c[i][3]);
-      }
+    for (int i = 0; i < NT; ++i) {
+      const int n = n0 + 8 * i + 2 * t;
+      const float b0 = elem<BT>(B, ldb, k, n);
+      const float b1 = elem<BT>(B, ldb, k, n + 1);
+      c[i][0] = fmaf(a0, b0, c[i][0]);
+      c[i][1] = fmaf(a0, b1, c[i][1]);
+      c[i][2] = fmaf(a1, b0, c[i][2]);
+      c[i][3] = fmaf(a1, b1, c[i][3]);
     }
   }
 }
@@ -242,8 +227,8 @@ __device__ __forceinline__ void zero(float (&c)[NT][4]) {
 // Writes a warp's (16 x 8*NT) accumulator block, times mul, to rows
 // [row0 + m0, ...) and columns [n0, ...) of head hh of a (B, S, NH, D)
 // tensor, skipping rows past S.
-template <typename T, int D, int NT>
-__device__ __forceinline__ void store_acc(T* dst, const float (&c)[NT][4],
+template <int D, int NT>
+__device__ __forceinline__ void store_acc(float* dst, const float (&c)[NT][4],
                                           int b, int row0, int m0, int n0,
                                           int S, int NH, int hh, float mul_lo,
                                           float mul_hi) {
@@ -254,28 +239,13 @@ __device__ __forceinline__ void store_acc(T* dst, const float (&c)[NT][4],
       const int row = row0 + m0 + acc_row(e);
       if (row < S)
         dst[((static_cast<size_t>(b) * S + row) * NH + hh) * D + n0 +
-            acc_col(i, e)] = from_float<T>(c[i][e] * (e >= 2 ? mul_hi : mul_lo));
+            acc_col(i, e)] = c[i][e] * (e >= 2 ? mul_hi : mul_lo);
     }
-}
-
-// Key range [j_lo, j_hi) that queries [i0, i1) can see.
-__device__ __forceinline__ void key_range(const Params& p, int i0, int i1,
-                                          int& j_lo, int& j_hi) {
-  j_lo = max(0, -p.k_off);
-  j_hi = p.Sk;
-  if (p.causal) j_hi = min(j_hi, p.q_off + i1 - p.k_off);
-  if (p.window > 0) j_lo = max(j_lo, p.q_off + i0 - p.window + 1 - p.k_off);
-}
-
-template <typename T>
-__host__ __device__ constexpr int ld_of(int cols) {
-  return cols + Pad<T>::v;
 }
 
 template <int D, int BQ, int BK>
 constexpr size_t fwd_fp32_smem() {
-  using T = float;
-  return sizeof(T) * ((BQ + 2 * BK) * ld_of<T>(D) + BQ * ld_of<T>(BK)) +
+  return sizeof(float) * ((BQ + 2 * BK) * ld_of(D) + BQ * ld_of(BK)) +
          sizeof(float) * (BQ * (BK + 4) + BQ);
 }
 
@@ -288,9 +258,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ out,
                       float* __restrict__ lse, Params p) {
-  using T = float;
-  constexpr int LD = ld_of<T>(D);
-  constexpr int LDP = ld_of<T>(BK);
+  constexpr int LD = ld_of(D);
+  constexpr int LDP = ld_of(BK);
   constexpr int LDS = BK + 4;
   constexpr int WPR = kWarps / (BQ / 16);  // warps per 16-row block
   constexpr int NTS = BK / 8 / WPR;        // score tiles per warp
@@ -300,11 +269,11 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   static_assert(NTS * 8 * WPR == BK && NTO * 8 * WPR == D, "warp tiling");
   static_assert(CPT * TPR == BK && TPR <= 32, "softmax tiling");
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* Ks = Qs + BQ * LD;
-  T* Vs = Ks + BK * LD;
-  T* Ps = Vs + BK * LD;
-  float* Ss = reinterpret_cast<float*>(Ps + BQ * LDP);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Ks = Qs + BQ * LD;
+  float* Vs = Ks + BK * LD;
+  float* Ps = Vs + BK * LD;
+  float* Ss = Ps + BQ * LDP;
   float* row_s = Ss + BQ * LDS;
 
   const int i0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -314,7 +283,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int wc = warp % WPR;
   const int srow = threadIdx.x / TPR, spart = threadIdx.x % TPR;
 
-  load_rows<T, D, BQ>(Qs, LD, q, b, i0, p.Sq, p.H, h);
+  load_rows<D, BQ>(Qs, LD, q, b, i0, p.Sq, p.H, h);
   int j_lo, j_hi;
   key_range(p, i0, min(p.Sq, i0 + BQ), j_lo, j_hi);
 
@@ -324,12 +293,12 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int j0 = j_lo / BK * BK; j0 < j_hi; j0 += BK) {
     __syncthreads();  // the previous tile is consumed
-    load_rows<T, D, BK>(Ks, LD, k, b, j0, p.Sk, p.K, kh);
-    load_rows<T, D, BK>(Vs, LD, v, b, j0, p.Sk, p.K, kh);
+    load_rows<D, BK>(Ks, LD, k, b, j0, p.Sk, p.K, kh);
+    load_rows<D, BK>(Vs, LD, v, b, j0, p.Sk, p.K, kh);
     __syncthreads();
     float s[NTS][4];
     zero(s);
-    warp_mma<T, false, true, NTS>(s, Qs, LD, m0, Ks, LD, wc * NTS * 8, D);
+    warp_mma<false, true, NTS>(s, Qs, LD, m0, Ks, LD, wc * NTS * 8, D);
 #pragma unroll
     for (int i = 0; i < NTS; ++i)
 #pragma unroll
@@ -349,12 +318,12 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m_run, mx);
       float sum = 0.f;
-      T* pr = Ps + srow * LDP + spart * CPT;
+      float* pr = Ps + srow * LDP + spart * CPT;
 #pragma unroll
       for (int c = 0; c < CPT; ++c) {
         const float x = sr[c];
         const float pv = x > kNeg ? expf(x - m_new) : 0.f;
-        pr[c] = from_float<T>(pv);
+        pr[c] = pv;
         sum += pv;
       }
 #pragma unroll
@@ -374,8 +343,7 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       acc[i][2] *= c_hi;
       acc[i][3] *= c_hi;
     }
-    warp_mma<T, false, false, NTO>(acc, Ps, LDP, m0, Vs, LD, wc * NTO * 8,
-                                   BK);
+    warp_mma<false, false, NTO>(acc, Ps, LDP, m0, Vs, LD, wc * NTO * 8, BK);
   }
 
   __syncthreads();  // every warp has read the last tile's corrections
@@ -387,8 +355,8 @@ flash_fwd_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
           l_run > 0.f ? m_run + logf(l_run) : kMaskedLse;
   }
   __syncthreads();
-  store_acc<T, D, NTO>(out, acc, b, i0, m0, wc * NTO * 8, p.Sq, p.H, h,
-                       row_s[m0 + acc_row(0)], row_s[m0 + acc_row(2)]);
+  store_acc<D, NTO>(out, acc, b, i0, m0, wc * NTO * 8, p.Sq, p.H, h,
+                    row_s[m0 + acc_row(0)], row_s[m0 + acc_row(2)]);
 }
 
 // ---------------------------------------------------------------------------
@@ -624,9 +592,13 @@ flash_fwd_kernel(__grid_constant__ const CUtensorMap qmap,
   }
 }
 
+
 // ---------------------------------------------------------------------------
 // delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d], one warp a row.
 // ---------------------------------------------------------------------------
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -652,13 +624,13 @@ flash_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 
 // P and dS of one (query tile, key tile) pair, in a warp's accumulator
 // block: P = exp(S * scale - lse) where visible, else 0; dS = P (dP -
-// delta). Rounded to T into Pt / dSt (row stride ldp) when non-null.
-template <typename T, int NT>
+// delta). Written into Pt / dSt (row stride ldp) when non-null.
+template <int NT>
 __device__ __forceinline__ void p_and_ds(const Params& p, const float (&s)[NT][4],
                                          const float (&dp)[NT][4],
                                          const float* lse_s,
                                          const float* delta_s, int i0, int j0,
-                                         int m0, int n0, T* Pt, T* dSt,
+                                         int m0, int n0, float* Pt, float* dSt,
                                          int ldp) {
 #pragma unroll
   for (int i = 0; i < NT; ++i)
@@ -668,8 +640,8 @@ __device__ __forceinline__ void p_and_ds(const Params& p, const float (&s)[NT][4
       const float pv = visible(p, i0 + r, j0 + c)
                            ? expf(s[i][e] * p.scale - lse_s[r])
                            : 0.f;
-      if (Pt) Pt[r * ldp + c] = from_float<T>(pv);
-      dSt[r * ldp + c] = from_float<T>(pv * (dp[i][e] - delta_s[r]));
+      if (Pt) Pt[r * ldp + c] = pv;
+      dSt[r * ldp + c] = pv * (dp[i][e] - delta_s[r]);
     }
 }
 
@@ -688,38 +660,38 @@ __device__ __forceinline__ void load_row_stats(float* lse_s, float* delta_s,
   }
 }
 
-template <typename T, int D, int BQ, int BK>
-constexpr size_t dkdv_smem() {
-  return sizeof(T) * ((2 * BK + 2 * BQ) * ld_of<T>(D) +
-                      2 * BQ * ld_of<T>(BK)) +
-         sizeof(float) * 2 * BQ;
+template <int D, int BQ, int BK>
+constexpr size_t dkdv_fp32_smem() {
+  return sizeof(float) * ((2 * BK + 2 * BQ) * ld_of(D) + 2 * BQ * ld_of(BK) +
+                          2 * BQ);
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: one block per (key tile, KV head, b).
+// dK, dV, fp32: one block per (key tile, KV head, b).
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BQ, int BK>
+template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
-flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const T* __restrict__ dout,
-                  const float* __restrict__ lse,
-                  const float* __restrict__ delta, T* __restrict__ dk,
-                  T* __restrict__ dv, Params p) {
-  constexpr int LD = ld_of<T>(D);
-  constexpr int LDP = ld_of<T>(BK);
+flash_dkdv_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta, float* __restrict__ dk,
+                       float* __restrict__ dv, Params p) {
+  constexpr int LD = ld_of(D);
+  constexpr int LDP = ld_of(BK);
   constexpr int WPR_S = kWarps / (BQ / 16);  // S, dP: BQ x BK
   constexpr int NTS = BK / 8 / WPR_S;
   constexpr int WPR_A = kWarps / (BK / 16);  // dK, dV: BK x D
   constexpr int NTA = D / 8 / WPR_A;
   static_assert(NTS * 8 * WPR_S == BK && NTA * 8 * WPR_A == D, "warp tiling");
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Ks = reinterpret_cast<T*>(smem);
-  T* Vs = Ks + BK * LD;
-  T* Qs = Vs + BK * LD;
-  T* dOs = Qs + BQ * LD;
-  T* Pt = dOs + BQ * LD;
-  T* dSt = Pt + BQ * LDP;
-  float* lse_s = reinterpret_cast<float*>(dSt + BQ * LDP);
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + BK * LD;
+  float* Qs = Vs + BK * LD;
+  float* dOs = Qs + BQ * LD;
+  float* Pt = dOs + BQ * LD;
+  float* dSt = Pt + BQ * LDP;
+  float* lse_s = dSt + BQ * LDP;
   float* delta_s = lse_s + BQ;
 
   const int j0 = blockIdx.x * BK, kh = blockIdx.y, b = blockIdx.z;
@@ -728,16 +700,10 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ms = (warp / WPR_S) * 16, ns = (warp % WPR_S) * NTS * 8;
   const int ma = (warp / WPR_A) * 16, na = (warp % WPR_A) * NTA * 8;
 
-  load_rows<T, D, BK>(Ks, LD, k, b, j0, p.Sk, p.K, kh);
-  load_rows<T, D, BK>(Vs, LD, v, b, j0, p.Sk, p.K, kh);
-
-  // Query range [i_lo, i_hi) that keys [max(j0, -k_off), j1) are seen by.
-  const int j1 = min(p.Sk, j0 + BK);
-  const int jpos0 = max(j0, -p.k_off);
-  int i_lo = 0, i_hi = jpos0 < j1 ? p.Sq : 0;
-  if (p.causal) i_lo = max(0, p.k_off + jpos0 - p.q_off);
-  if (p.window > 0)
-    i_hi = min(i_hi, p.k_off + j1 - 1 + p.window - p.q_off);
+  load_rows<D, BK>(Ks, LD, k, b, j0, p.Sk, p.K, kh);
+  load_rows<D, BK>(Vs, LD, v, b, j0, p.Sk, p.K, kh);
+  int i_lo, i_hi;
+  query_range(p, j0, BK, i_lo, i_hi);
 
   float dk_acc[NTA][4], dv_acc[NTA][4];
   zero(dk_acc);
@@ -746,56 +712,56 @@ flash_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int h = kh * G + gh;
     for (int i0 = i_lo / BQ * BQ; i0 < i_hi; i0 += BQ) {
       __syncthreads();  // the previous query tile is consumed
-      load_rows<T, D, BQ>(Qs, LD, q, b, i0, p.Sq, p.H, h);
-      load_rows<T, D, BQ>(dOs, LD, dout, b, i0, p.Sq, p.H, h);
+      load_rows<D, BQ>(Qs, LD, q, b, i0, p.Sq, p.H, h);
+      load_rows<D, BQ>(dOs, LD, dout, b, i0, p.Sq, p.H, h);
       load_row_stats<BQ>(lse_s, delta_s, lse, delta, p, b, h, i0);
       __syncthreads();
       float s[NTS][4], dp[NTS][4];
       zero(s);
       zero(dp);
-      warp_mma<T, false, true, NTS>(s, Qs, LD, ms, Ks, LD, ns, D);
-      warp_mma<T, false, true, NTS>(dp, dOs, LD, ms, Vs, LD, ns, D);
-      p_and_ds<T, NTS>(p, s, dp, lse_s, delta_s, i0, j0, ms, ns, Pt, dSt,
-                       LDP);
+      warp_mma<false, true, NTS>(s, Qs, LD, ms, Ks, LD, ns, D);
+      warp_mma<false, true, NTS>(dp, dOs, LD, ms, Vs, LD, ns, D);
+      p_and_ds<NTS>(p, s, dp, lse_s, delta_s, i0, j0, ms, ns, Pt, dSt, LDP);
       __syncthreads();
       // dV += P^T dO and dK += dS^T Q over this tile's BQ queries.
-      warp_mma<T, true, false, NTA>(dv_acc, Pt, LDP, ma, dOs, LD, na, BQ);
-      warp_mma<T, true, false, NTA>(dk_acc, dSt, LDP, ma, Qs, LD, na, BQ);
+      warp_mma<true, false, NTA>(dv_acc, Pt, LDP, ma, dOs, LD, na, BQ);
+      warp_mma<true, false, NTA>(dk_acc, dSt, LDP, ma, Qs, LD, na, BQ);
     }
   }
-  store_acc<T, D, NTA>(dv, dv_acc, b, j0, ma, na, p.Sk, p.K, kh, 1.f, 1.f);
-  store_acc<T, D, NTA>(dk, dk_acc, b, j0, ma, na, p.Sk, p.K, kh, p.scale,
-                       p.scale);
+  store_acc<D, NTA>(dv, dv_acc, b, j0, ma, na, p.Sk, p.K, kh, 1.f, 1.f);
+  store_acc<D, NTA>(dk, dk_acc, b, j0, ma, na, p.Sk, p.K, kh, p.scale,
+                    p.scale);
 }
 
-template <typename T, int D, int BQ, int BK>
-constexpr size_t dq_smem() {
-  return sizeof(T) * ((2 * BQ + 2 * BK) * ld_of<T>(D) + BQ * ld_of<T>(BK)) +
-         sizeof(float) * 2 * BQ;
+template <int D, int BQ, int BK>
+constexpr size_t dq_fp32_smem() {
+  return sizeof(float) * ((2 * BQ + 2 * BK) * ld_of(D) + BQ * ld_of(BK) +
+                          2 * BQ);
 }
 
 // ---------------------------------------------------------------------------
-// dQ: one block per (query tile, h, b).
+// dQ, fp32: one block per (query tile, h, b).
 // ---------------------------------------------------------------------------
-template <typename T, int D, int BQ, int BK>
+template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
-                const float* __restrict__ lse, const float* __restrict__ delta,
-                T* __restrict__ dq, Params p) {
-  constexpr int LD = ld_of<T>(D);
-  constexpr int LDP = ld_of<T>(BK);
+flash_dq_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dq,
+                     Params p) {
+  constexpr int LD = ld_of(D);
+  constexpr int LDP = ld_of(BK);
   constexpr int WPR = kWarps / (BQ / 16);
   constexpr int NTS = BK / 8 / WPR;
   constexpr int NTO = D / 8 / WPR;
   static_assert(NTS * 8 * WPR == BK && NTO * 8 * WPR == D, "warp tiling");
   extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem);
-  T* dOs = Qs + BQ * LD;
-  T* Ks = dOs + BQ * LD;
-  T* Vs = Ks + BK * LD;
-  T* dSs = Vs + BK * LD;
-  float* lse_s = reinterpret_cast<float*>(dSs + BQ * LDP);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + BQ * LD;
+  float* Ks = dOs + BQ * LD;
+  float* Vs = Ks + BK * LD;
+  float* dSs = Vs + BK * LD;
+  float* lse_s = dSs + BQ * LDP;
   float* delta_s = lse_s + BQ;
 
   const int i0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
@@ -803,8 +769,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int warp = threadIdx.x >> 5;
   const int m0 = (warp / WPR) * 16, wc = warp % WPR;
 
-  load_rows<T, D, BQ>(Qs, LD, q, b, i0, p.Sq, p.H, h);
-  load_rows<T, D, BQ>(dOs, LD, dout, b, i0, p.Sq, p.H, h);
+  load_rows<D, BQ>(Qs, LD, q, b, i0, p.Sq, p.H, h);
+  load_rows<D, BQ>(dOs, LD, dout, b, i0, p.Sq, p.H, h);
   load_row_stats<BQ>(lse_s, delta_s, lse, delta, p, b, h, i0);
   int j_lo, j_hi;
   key_range(p, i0, min(p.Sq, i0 + BQ), j_lo, j_hi);
@@ -813,22 +779,418 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero(acc);
   for (int j0 = j_lo / BK * BK; j0 < j_hi; j0 += BK) {
     __syncthreads();  // the previous key tile is consumed
-    load_rows<T, D, BK>(Ks, LD, k, b, j0, p.Sk, p.K, kh);
-    load_rows<T, D, BK>(Vs, LD, v, b, j0, p.Sk, p.K, kh);
+    load_rows<D, BK>(Ks, LD, k, b, j0, p.Sk, p.K, kh);
+    load_rows<D, BK>(Vs, LD, v, b, j0, p.Sk, p.K, kh);
     __syncthreads();
     float s[NTS][4], dp[NTS][4];
     zero(s);
     zero(dp);
-    warp_mma<T, false, true, NTS>(s, Qs, LD, m0, Ks, LD, wc * NTS * 8, D);
-    warp_mma<T, false, true, NTS>(dp, dOs, LD, m0, Vs, LD, wc * NTS * 8, D);
-    p_and_ds<T, NTS>(p, s, dp, lse_s, delta_s, i0, j0, m0, wc * NTS * 8,
-                     static_cast<T*>(nullptr), dSs, LDP);
+    warp_mma<false, true, NTS>(s, Qs, LD, m0, Ks, LD, wc * NTS * 8, D);
+    warp_mma<false, true, NTS>(dp, dOs, LD, m0, Vs, LD, wc * NTS * 8, D);
+    p_and_ds<NTS>(p, s, dp, lse_s, delta_s, i0, j0, m0, wc * NTS * 8,
+                  nullptr, dSs, LDP);
     __syncthreads();
-    warp_mma<T, false, false, NTO>(acc, dSs, LDP, m0, Ks, LD, wc * NTO * 8,
-                                   BK);
+    warp_mma<false, false, NTO>(acc, dSs, LDP, m0, Ks, LD, wc * NTO * 8, BK);
   }
-  store_acc<T, D, NTO>(dq, acc, b, i0, m0, wc * NTO * 8, p.Sq, p.H, h,
-                       p.scale, p.scale);
+  store_acc<D, NTO>(dq, acc, b, i0, m0, wc * NTO * 8, p.Sq, p.H, h, p.scale,
+                    p.scale);
+}
+
+// ---------------------------------------------------------------------------
+// Backward, bf16: warp-specialised, TMA rings, wgmma (see the header).
+// ---------------------------------------------------------------------------
+constexpr int kBwdTile = 64;     // keys a dK/dV block, query rows a dQ block,
+                                 // rows a streamed tile
+constexpr int kBox = 64 * 128;   // one 64-row box of 64 columns, 128 B a row
+constexpr int kDqThreads = 256;  // 1 consumer warpgroup + 1 producer
+constexpr int kXchFull = 1, kXchFree = 2;  // named barriers of the P^T tile
+
+// Shared memory of the bf16 backward: pairs of 64-row tiles (K and V, or Q
+// and dO), each D / 64 boxes in TMA's 128-byte swizzle, 1024-aligned; the
+// resident pair, then kStages streamed pairs, then (dK/dV) P^T in fp32.
+template <int D>
+struct BwdLayout {
+  static constexpr int kCols = D / 64;
+  static constexpr int kStages = D == 256 ? 2 : 4;
+  static constexpr int kPair = 2 * kCols * kBox;
+  static constexpr int kXch = 64 * 64 * 4;
+  static constexpr size_t kDkdvSmem = 1024 + (1 + kStages) * kPair + kXch;
+  static constexpr size_t kDqSmem = 1024 + (1 + kStages) * kPair;
+};
+
+// Whether every (query, key) of queries [i0, i0 + 64) and keys
+// [j0, j0 + 64) is visible, so the tile needs no mask.
+__device__ __forceinline__ bool tile_interior(const Params& p, int i0,
+                                              int j0) {
+  constexpr int T = kBwdTile;
+  return i0 + T <= p.Sq && j0 + T <= p.Sk && p.k_off + j0 >= 0 &&
+         (!p.causal || p.k_off + j0 + T - 1 <= p.q_off + i0) &&
+         (p.window <= 0 || p.k_off + j0 > p.q_off + i0 + T - 1 - p.window);
+}
+
+// wgmma descriptors of a 64-row tile stored as D / 64 swizzled boxes:
+// k-step kk (16 columns) read K-major, or k-step kk (16 rows) of column
+// box c read MN-major.
+__device__ __forceinline__ uint64_t kmajor(uint32_t tile, int kk) {
+  return sm90::sw128_desc(tile + (kk / 4) * kBox + (kk % 4) * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t mnmajor(uint32_t tile, int c, int kk) {
+  return sm90::sw128_desc(tile + c * kBox + kk * 2048, kBox, 1024);
+}
+
+// A 64 x 64 fp32 accumulator rounded to bf16 in wgmma's A-register
+// layout: k-step kk covers the accumulator's 8-column tiles 2kk, 2kk + 1.
+__device__ __forceinline__ void to_a_regs(uint32_t (&a)[4][4],
+                                          const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      a[kk][r] = sm90::pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+}
+
+// acc += a . tile over the 4 k-steps of a 64 x D tile read MN-major, one
+// wgmma of N = D per k-step; returns with the sums in acc (D / 2 fp32
+// registers in the accumulator layout over D / 8 column tiles).
+template <int D>
+__device__ __forceinline__ void accumulate_rs(float (&acc)[D / 2],
+                                              const uint32_t (&a)[4][4],
+                                              uint32_t tile) {
+  sm90::fence_regs(acc);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = mnmajor(tile, 0, kk);
+    if constexpr (D == 256) sm90::wgmma_rs_mn_n256(acc, a[kk], db);
+    else if constexpr (D == 128) sm90::wgmma_rs_mn_n128(acc, a[kk], db);
+    else sm90::wgmma_rs_mn(acc, a[kk], db);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait_all();
+  sm90::fence_regs(acc);
+}
+
+// Stores a warpgroup's 64 x D accumulator (times mul) as bf16 rows
+// [r0, r0 + 64) of head hh of a (B, S, NH, D) tensor, skipping rows past S.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst,
+                                           const float (&acc)[D / 2], int b,
+                                           int r0, int S, int NH, int hh,
+                                           float mul) {
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 16 * (tid / 32) + g + 8 * r;
+    if (row >= S) continue;
+    bf16* d = dst + ((static_cast<size_t>(b) * S + row) * NH + hh) * D + 2 * t;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i)
+      *reinterpret_cast<uint32_t*>(d + 8 * i) = sm90::pack_bf16(
+          acc[4 * i + 2 * r] * mul, acc[4 * i + 2 * r + 1] * mul);
+  }
+}
+
+// One consumer warpgroup of the dK/dV kernel, keys [j0, j0 + 64) of KV
+// head kh over its n_it = G * nq (query head, query tile) steps. The dV
+// side (first warpgroup) computes S^T = K Q^T, P^T and dV += P^T dO; the
+// dK side computes dP^T = V dO^T, dS^T and dK += dS^T Q.
+template <int D>
+__device__ __forceinline__ void dkdv_consumer(
+    const Params& p, bool dv_side, uint32_t kv_base, uint32_t qd_base,
+    float* xch, uint64_t* kv_full, uint64_t* full, uint64_t* empty, int j0,
+    int kh, int b, int G, int qt0, int nq, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dst) {
+  using L = BwdLayout<D>;
+  const int tid = threadIdx.x % 128;
+  const int lane = tid % 32, t = lane % 4;
+  const int key0 = j0 + 16 * (tid / 32) + lane / 4;  // rows key0, key0 + 8
+  const int n_it = G * nq;
+  const float scale2 = p.scale * kLog2e;
+  const uint32_t a_tile = kv_base + (dv_side ? 0 : L::kCols * kBox);
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n_it > 0) sm90::mbar_wait(kv_full, 0);
+
+  // The column statistic of this thread's 16 queries in step n: lse in
+  // log2 units (dV side) or delta (dK side), loaded a step ahead; queries
+  // past Sq are masked.
+  auto load_stat = [&](float (&st)[16], int n) {
+    const int h = kh * G + n / nq;
+    const int i0 = (qt0 + n % nq) * kBwdTile;
+    const float* src = (dv_side ? lse : delta) +
+                       (static_cast<size_t>(b) * p.H + h) * p.Sq;
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int col = i0 + 8 * (i / 2) + 2 * t + (i & 1);
+      st[i] = col < p.Sq ? src[col] * (dv_side ? kLog2e : 1.f) : 0.f;
+    }
+  };
+  float stat[16], next[16];
+  if (n_it > 0) load_stat(stat, 0);
+
+  for (int n = 0; n < n_it; ++n) {
+    const int s = n % L::kStages;
+    const int i0 = (qt0 + n % nq) * kBwdTile;
+    const uint32_t q_tile = qd_base + s * L::kPair;
+    const uint32_t do_tile = q_tile + L::kCols * kBox;
+    if (n + 1 < n_it) load_stat(next, n + 1);
+    sm90::mbar_wait(&full[s], (n / L::kStages) & 1);
+
+    float x[32];  // S^T or dP^T: rows keys, columns queries
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss_k_k(x, kmajor(a_tile, kk),
+                         kmajor(dv_side ? q_tile : do_tile, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(x);
+
+    if (dv_side) {  // P^T = exp(S^T scale - lse), handed to the dK side
+      // Straight-line loops (no branch per element), masked only on an
+      // edge tile.
+      if (tile_interior(p, i0, j0)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          x[i] = exp2f(x[i] * scale2 - stat[2 * (i / 4) + (i & 1)]);
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int col = i0 + 8 * (i / 4) + 2 * t + (i & 1);
+          const int row = key0 + ((i & 2) ? 8 : 0);
+          const float e = exp2f(x[i] * scale2 - stat[2 * (i / 4) + (i & 1)]);
+          x[i] = visible(p, col, row) ? e : 0.f;
+        }
+      }
+      if (n > 0) sm90::bar_sync(kXchFree, 256);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) xch[i * 128 + tid] = x[i];
+      sm90::bar_arrive(kXchFull, 256);
+    } else {  // dS^T = P^T o (dP^T - delta)
+      sm90::bar_sync(kXchFull, 256);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        x[i] = xch[i * 128 + tid] * (x[i] - stat[2 * (i / 4) + (i & 1)]);
+      if (n + 1 < n_it) sm90::bar_arrive(kXchFree, 256);
+    }
+    uint32_t a[4][4];
+    to_a_regs(a, x);
+    accumulate_rs<D>(acc, a, dv_side ? do_tile : q_tile);  // dV, dK
+    sm90::mbar_arrive(&empty[s]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) stat[i] = next[i];
+  }
+  store_rows<D>(dst, acc, b, j0, p.Sk, p.K, kh, dv_side ? 1.f : p.scale);
+}
+
+// Grid (key tiles, K * B): x is the key tile from the first, whose
+// causal band is the longest, so long blocks start first; y is (b, kv
+// head), so the blocks in flight share one head's Q and dO in L2.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+flash_dkdv_kernel(__grid_constant__ const CUtensorMap qmap,
+                  __grid_constant__ const CUtensorMap kmap,
+                  __grid_constant__ const CUtensorMap vmap,
+                  __grid_constant__ const CUtensorMap domap,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, Params p) {
+  using L = BwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, full[L::kStages], empty[L::kStages];
+  unsigned char* KVs = sm90::align1024(smem_raw);  // K, then V
+  unsigned char* QDs = KVs + L::kPair;             // stages of Q, then dO
+  float* xch = reinterpret_cast<float*>(QDs + L::kStages * L::kPair);
+
+  const int kh = blockIdx.y % p.K, b = blockIdx.y / p.K;
+  const int j0 = blockIdx.x * kBwdTile;
+  const int G = p.H / p.K;
+  int i_lo, i_hi;
+  query_range(p, j0, kBwdTile, i_lo, i_hi);
+  const int qt0 = i_lo / kBwdTile;
+  const int nq = i_hi > i_lo ? (i_hi + kBwdTile - 1) / kBwdTile - qt0 : 0;
+  const int n_it = G * nq;  // (query head, query tile) steps, head-major
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&kv_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warpgroup
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == kConsumers && n_it > 0) {
+      sm90::mbar_expect_tx(&kv_full, L::kPair);
+      for (int c = 0; c < L::kCols; ++c) {
+        sm90::tma_load_4d(KVs + c * kBox, &kmap, &kv_full, 64 * c, kh, j0, b);
+        sm90::tma_load_4d(KVs + (L::kCols + c) * kBox, &vmap, &kv_full,
+                          64 * c, kh, j0, b);
+      }
+      for (int n = 0; n < n_it; ++n) {
+        const int s = n % L::kStages;
+        if (n >= L::kStages)
+          sm90::mbar_wait(&empty[s], (n / L::kStages - 1) & 1);
+        const int h = kh * G + n / nq;
+        const int i0 = (qt0 + n % nq) * kBwdTile;
+        unsigned char* st = QDs + s * L::kPair;
+        sm90::mbar_expect_tx(&full[s], L::kPair);
+        for (int c = 0; c < L::kCols; ++c) {
+          sm90::tma_load_4d(st + c * kBox, &qmap, &full[s], 64 * c, h, i0, b);
+          sm90::tma_load_4d(st + (L::kCols + c) * kBox, &domap, &full[s],
+                            64 * c, h, i0, b);
+        }
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<240>();
+    const bool dv_side = threadIdx.x < 128;
+    dkdv_consumer<D>(p, dv_side, sm90::smem_u32(KVs), sm90::smem_u32(QDs),
+                     xch, &kv_full, full, empty, j0, kh, b, G, qt0, nq, lse,
+                     delta, dv_side ? dv : dk);
+  }
+}
+
+// The consumer warpgroup of the dQ kernel: rows [i0, i0 + 64) of head h
+// over the key tiles t_lo .. t_lo + n_tiles - 1.
+template <int D>
+__device__ __forceinline__ void dq_consumer(
+    const Params& p, uint32_t qd_base, uint32_t kv_base, uint64_t* qd_full,
+    uint64_t* full, uint64_t* empty, int i0, int t_lo, int n_tiles, int h,
+    int b, const float* __restrict__ lse, const float* __restrict__ delta,
+    bf16* __restrict__ dq) {
+  using L = BwdLayout<D>;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, t = lane % 4;
+  const int row0 = i0 + 16 * (tid / 32) + lane / 4;  // rows row0, row0 + 8
+  const float scale2 = p.scale * kLog2e;
+  const uint32_t do_tile = qd_base + L::kCols * kBox;
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + 8 * r;
+    const size_t at = (static_cast<size_t>(b) * p.H + h) * p.Sq + row;
+    lse2[r] = row < p.Sq ? lse[at] * kLog2e : 0.f;
+    dlt[r] = row < p.Sq ? delta[at] : 0.f;
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  if (n_tiles > 0) sm90::mbar_wait(qd_full, 0);
+
+  for (int n = 0; n < n_tiles; ++n) {
+    const int s = n % L::kStages;
+    const int j0 = (t_lo + n) * kBwdTile;
+    const uint32_t k_tile = kv_base + s * L::kPair;
+    const uint32_t v_tile = k_tile + L::kCols * kBox;
+    sm90::mbar_wait(&full[s], (n / L::kStages) & 1);
+    float sc[32], dp[32];  // S = Q K^T, dP = dO V^T
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss_k_k(sc, kmajor(qd_base, kk), kmajor(k_tile, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sm90::wgmma_ss_k_k(dp, kmajor(do_tile, kk), kmajor(v_tile, kk), kk > 0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_regs(sc);
+    sm90::fence_regs(dp);
+
+    // dS = P o (dP - delta): straight-line loops (no branch per
+    // element), masked only on an edge tile.
+    if (tile_interior(p, i0, j0)) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        sc[i] = exp2f(sc[i] * scale2 - lse2[r]) * (dp[i] - dlt[r]);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const int col = j0 + 8 * (i / 4) + 2 * t + (i & 1);
+        const float pv = exp2f(sc[i] * scale2 - lse2[r]);
+        sc[i] = visible(p, row0 + 8 * r, col) ? pv * (dp[i] - dlt[r]) : 0.f;
+      }
+    }
+    uint32_t a[4][4];
+    to_a_regs(a, sc);
+    accumulate_rs<D>(acc, a, k_tile);  // dQ += dS K
+    sm90::mbar_arrive(&empty[s]);
+  }
+  store_rows<D>(dq, acc, b, i0, p.Sq, p.H, h, p.scale);
+}
+
+// Grid (query tiles, H * B): x is the query tile counted from the last,
+// so the longest causal tiles start first; y is (b, h), so the blocks in
+// flight share one head's K and V in L2.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+flash_dq_kernel(__grid_constant__ const CUtensorMap qmap,
+                __grid_constant__ const CUtensorMap kmap,
+                __grid_constant__ const CUtensorMap vmap,
+                __grid_constant__ const CUtensorMap domap,
+                const float* __restrict__ lse, const float* __restrict__ delta,
+                bf16* __restrict__ dq, Params p) {
+  using L = BwdLayout<D>;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t qd_full, full[L::kStages], empty[L::kStages];
+  unsigned char* QDs = sm90::align1024(smem_raw);  // Q, then dO
+  unsigned char* KVs = QDs + L::kPair;             // stages of K, then V
+
+  const int h = blockIdx.y % p.H, b = blockIdx.y / p.H;
+  const int i0 = (gridDim.x - 1 - blockIdx.x) * kBwdTile;
+  const int kh = h / (p.H / p.K);
+  int j_lo, j_hi;
+  key_range(p, i0, min(p.Sq, i0 + kBwdTile), j_lo, j_hi);
+  const int t_lo = j_lo / kBwdTile;
+  const int n_tiles =
+      j_hi > j_lo ? (j_hi + kBwdTile - 1) / kBwdTile - t_lo : 0;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(&qd_full, 1);
+    for (int s = 0; s < L::kStages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
+    }
+    sm90::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warpgroup
+    if (threadIdx.x == 128 && n_tiles > 0) {
+      sm90::mbar_expect_tx(&qd_full, L::kPair);
+      for (int c = 0; c < L::kCols; ++c) {
+        sm90::tma_load_4d(QDs + c * kBox, &qmap, &qd_full, 64 * c, h, i0, b);
+        sm90::tma_load_4d(QDs + (L::kCols + c) * kBox, &domap, &qd_full,
+                          64 * c, h, i0, b);
+      }
+      for (int n = 0; n < n_tiles; ++n) {
+        const int s = n % L::kStages;
+        if (n >= L::kStages)
+          sm90::mbar_wait(&empty[s], (n / L::kStages - 1) & 1);
+        const int j0 = (t_lo + n) * kBwdTile;
+        unsigned char* st = KVs + s * L::kPair;
+        sm90::mbar_expect_tx(&full[s], L::kPair);
+        for (int c = 0; c < L::kCols; ++c) {
+          sm90::tma_load_4d(st + c * kBox, &kmap, &full[s], 64 * c, kh, j0, b);
+          sm90::tma_load_4d(st + (L::kCols + c) * kBox, &vmap, &full[s],
+                            64 * c, kh, j0, b);
+        }
+      }
+    }
+  } else {
+    dq_consumer<D>(p, sm90::smem_u32(QDs), sm90::smem_u32(KVs), &qd_full,
+                   full, empty, i0, t_lo, n_tiles, h, b, lse, delta, dq);
+  }
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
@@ -845,7 +1207,7 @@ int set_smem(Kernel kernel, size_t bytes) {
 template <int D>
 int fwd_fp32(const void* q, const void* k, const void* v, void* out,
              void* lse, const Params& p, cudaStream_t s) {
-  constexpr int BQ = Tiles<float>::FQ, BK = Tiles<float>::FK;
+  constexpr int BQ = kF32Tile, BK = kF32Tile;
   constexpr size_t bytes = fwd_fp32_smem<D, BQ, BK>();
   static_assert(bytes <= kMaxSmem, "forward tiles exceed shared memory");
   auto kernel = flash_fwd_fp32_kernel<D, BQ, BK>;
@@ -890,37 +1252,72 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int bwd(const void* q, const void* k, const void* v, const void* out,
-        const void* dout, const void* lse, void* delta, void* dq, void* dk,
-        void* dv, const Params& p, cudaStream_t s) {
-  const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(k);
-  const T* vt = static_cast<const T*>(v);
-  const T* dot = static_cast<const T*>(dout);
-  const float* lset = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
+template <typename T>
+int launch_delta(const void* out, const void* dout, void* dl, const Params& p,
+          int D, cudaStream_t s) {
   const int rows = p.B * p.Sq * p.H;
   flash_delta_kernel<T><<<cdiv(rows, kWarps), kThreads, 0, s>>>(
-      static_cast<const T*>(out), dot, dl, p.B, p.Sq, p.H, D);
-  if (int err = static_cast<int>(cudaGetLastError())) return err;
+      static_cast<const T*>(out), static_cast<const T*>(dout),
+      static_cast<float*>(dl), p.B, p.Sq, p.H, D);
+  return static_cast<int>(cudaGetLastError());
+}
 
-  constexpr int KQ = Tiles<T>::KQ, KK = Tiles<T>::KK;
-  constexpr size_t kv_bytes = dkdv_smem<T, D, KQ, KK>();
+template <int D>
+int bwd_fp32(const void* q, const void* k, const void* v, const void* out,
+             const void* dout, const void* lse, void* dl, void* dq, void* dk,
+             void* dv, const Params& p, cudaStream_t s) {
+  if (int err = launch_delta<float>(out, dout, dl, p, D, s)) return err;
+  const float* qt = static_cast<const float*>(q);
+  const float* kt = static_cast<const float*>(k);
+  const float* vt = static_cast<const float*>(v);
+  const float* dot = static_cast<const float*>(dout);
+  const float* lset = static_cast<const float*>(lse);
+  const float* dlt = static_cast<const float*>(dl);
+  constexpr int T = kF32Tile;
+  constexpr size_t kv_bytes = dkdv_fp32_smem<D, T, T>();
   static_assert(kv_bytes <= kMaxSmem, "dK/dV tiles exceed shared memory");
-  auto kv_kernel = flash_dkdv_kernel<T, D, KQ, KK>;
+  auto kv_kernel = flash_dkdv_fp32_kernel<D, T, T>;
   if (int err = set_smem(kv_kernel, kv_bytes)) return err;
-  kv_kernel<<<dim3(cdiv(p.Sk, KK), p.K, p.B), kThreads, kv_bytes, s>>>(
-      qt, kt, vt, dot, lset, dl, static_cast<T*>(dk), static_cast<T*>(dv), p);
+  kv_kernel<<<dim3(cdiv(p.Sk, T), p.K, p.B), kThreads, kv_bytes, s>>>(
+      qt, kt, vt, dot, lset, dlt, static_cast<float*>(dk),
+      static_cast<float*>(dv), p);
   if (int err = static_cast<int>(cudaGetLastError())) return err;
-
-  constexpr int QQ = Tiles<T>::QQ, QK = Tiles<T>::QK;
-  constexpr size_t q_bytes = dq_smem<T, D, QQ, QK>();
+  constexpr size_t q_bytes = dq_fp32_smem<D, T, T>();
   static_assert(q_bytes <= kMaxSmem, "dQ tiles exceed shared memory");
-  auto q_kernel = flash_dq_kernel<T, D, QQ, QK>;
+  auto q_kernel = flash_dq_fp32_kernel<D, T, T>;
   if (int err = set_smem(q_kernel, q_bytes)) return err;
-  q_kernel<<<dim3(cdiv(p.Sq, QQ), p.H, p.B), kThreads, q_bytes, s>>>(
-      qt, kt, vt, dot, lset, dl, static_cast<T*>(dq), p);
+  q_kernel<<<dim3(cdiv(p.Sq, T), p.H, p.B), kThreads, q_bytes, s>>>(
+      qt, kt, vt, dot, lset, dlt, static_cast<float*>(dq), p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int bwd_bf16(const void* q, const void* k, const void* v, const void* out,
+             const void* dout, const void* lse, void* dl, void* dq, void* dk,
+             void* dv, const Params& p, cudaStream_t s) {
+  using L = BwdLayout<D>;
+  static_assert(L::kDkdvSmem <= kMaxSmem && L::kDqSmem <= kMaxSmem,
+                "backward tiles exceed shared memory");
+  if (int err = launch_delta<bf16>(out, dout, dl, p, D, s)) return err;
+  CUtensorMap qm, km, vm, dom;
+  if (int err = head_map<D>(&qm, q, q, p.B, p.Sq, p.H, kBwdTile)) return err;
+  if (int err = head_map<D>(&km, k, q, p.B, p.Sk, p.K, kBwdTile)) return err;
+  if (int err = head_map<D>(&vm, v, q, p.B, p.Sk, p.K, kBwdTile)) return err;
+  if (int err = head_map<D>(&dom, dout, q, p.B, p.Sq, p.H, kBwdTile))
+    return err;
+  const float* lset = static_cast<const float*>(lse);
+  const float* dlt = static_cast<const float*>(dl);
+  auto kv_kernel = flash_dkdv_kernel<D>;
+  if (int err = set_smem(kv_kernel, L::kDkdvSmem)) return err;
+  kv_kernel<<<dim3(cdiv(p.Sk, kBwdTile), p.K * p.B), kFwdThreads,
+              L::kDkdvSmem, s>>>(qm, km, vm, dom, lset, dlt,
+                                 static_cast<bf16*>(dk),
+                                 static_cast<bf16*>(dv), p);
+  if (int err = static_cast<int>(cudaGetLastError())) return err;
+  auto q_kernel = flash_dq_kernel<D>;
+  if (int err = set_smem(q_kernel, L::kDqSmem)) return err;
+  q_kernel<<<dim3(cdiv(p.Sq, kBwdTile), p.H * p.B), kDqThreads, L::kDqSmem,
+             s>>>(qm, km, vm, dom, lset, dlt, static_cast<bf16*>(dq), p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -989,8 +1386,8 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
   const Params p =
       make_params(B, Sq, Sk, H, K, causal, window, q_off, k_off, scale);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BWD(T, DD) \
-  return bwd<T, DD>(q, k, v, out, dout, lse, delta, dq, dk, dv, p, s)
+#define BWD(KIND, DD) \
+  return bwd_##KIND<DD>(q, k, v, out, dout, lse, delta, dq, dk, dv, p, s)
   if (is_bf16) {
     switch (D) {
       case 64: BWD(bf16, 64);
@@ -999,9 +1396,9 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     }
   } else {
     switch (D) {
-      case 64: BWD(float, 64);
-      case 128: BWD(float, 128);
-      case 256: BWD(float, 256);
+      case 64: BWD(fp32, 64);
+      case 128: BWD(fp32, 128);
+      case 256: BWD(fp32, 256);
     }
   }
 #undef BWD

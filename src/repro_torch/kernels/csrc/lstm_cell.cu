@@ -72,33 +72,6 @@ constexpr int kGateBytes = kDepth * kUnits * 2;  // one gate's W_h slice
 constexpr int kStageBytes = kHBytes + 4 * kGateBytes;
 constexpr size_t kFwdSmem = 1024 + kStages * kStageBytes;
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-// d += A . B for one m16n8k16 tile; lane (g = lane / 4, t = lane % 4)
-// holds d[0..1] at row g, columns 2t and 2t + 1, and d[2..3] at row g + 8.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __global__ void __launch_bounds__(kMmaThreads + 32, 1)
 lstm_fwd_kernel(__grid_constant__ const CUtensorMap hmap,
                 __grid_constant__ const CUtensorMap wmap,
@@ -161,14 +134,15 @@ lstm_fwd_kernel(__grid_constant__ const CUtensorMap hmap,
 #pragma unroll
     for (int kk = 0; kk < kDepth / 16; ++kk) {
       uint32_t a[4];
-      ldmatrix_x4(a, hs + a_row * 128 + (((2 * kk + a_hi) ^ (a_row & 7)) << 4));
+      sm90::ldmatrix_x4(
+          a, hs + a_row * 128 + (((2 * kk + a_hi) ^ (a_row & 7)) << 4));
 #pragma unroll
       for (int pr = 0; pr < 2; ++pr) {
         uint32_t bw[4];
-        ldmatrix_x4_trans(
+        sm90::ldmatrix_x4_trans(
             bw, ws + ((2 * pr + b_gate) * kDepth + 16 * kk + b_k) * 16);
-        mma_bf16(acc[2 * pr], a, bw[0], bw[1]);
-        mma_bf16(acc[2 * pr + 1], a, bw[2], bw[3]);
+        sm90::mma_bf16(acc[2 * pr], a, bw[0], bw[1]);
+        sm90::mma_bf16(acc[2 * pr + 1], a, bw[2], bw[3]);
       }
     }
     sm90::mbar_arrive(&empty[s]);
@@ -229,7 +203,7 @@ constexpr int kPad = 4;  // shared row padding (16 bytes), against bank conflict
 
 // One warp: c[i] += A[m0:m0+16, 0:BK] . B[0:BK, n0+8i : n0+8i+8] for i < NT,
 // A row-major (lda), B row-major (ldb), both in shared memory, in the
-// accumulator layout of mma_bf16.
+// accumulator layout of sm90::mma_bf16.
 template <int NT>
 __device__ __forceinline__ void warp_fma(float (&c)[NT][4], const float* A,
                                          int lda, int m0, const float* B,

@@ -5,14 +5,14 @@ The kernel (``csrc/paged_attention.cu``) replaces the TPU kernel
 ``repro/kernels/paged_attention.py:_kernel``, for bf16/fp32 pools and
 for its quantized branches: int8 pools, and int4 pools packed two
 values a byte over ``head_dim // 2``, each with fp32 per-(token,
-kv-head) scales that the kernel applies as it stages K and V. It runs
-online-softmax attention for the C new tokens of each batch row
-against only the pages that row maps, causal on absolute positions,
-with an optional window and GQA. What bounds it on an H100 is the bytes
-of the occupied K/V pages (and their scales), read once, at 3.35 TB/s:
-one block per (row, head, 4 queries) walks just the key range its valid
-queries can see, so a ragged batch pays for the tokens it holds, not
-for ``max_pages``.
+kv-head) scales. It runs softmax attention for the C new tokens of each
+batch row against only the pages that row maps, causal on absolute
+positions, with an optional window and GQA. What bounds it on an H100
+is the bytes of the K/V rows some valid query sees, read once, at 3.35
+TB/s, a few microseconds at serving shapes; so it splits each row's
+keys into blocks of :data:`SPLIT_KEYS` (flash-decoding): a block per
+(key split, kv head, row) stages its split once for all the kv head's
+query rows, and a second launch merges the splits in a fixed order.
 
 :func:`paged_attention_cuda` launches the kernel on CUDA tensors and
 raises on anything it does not take; :func:`paged_attention_torch` is
@@ -28,6 +28,21 @@ from repro_torch.kernels import quant
 
 _DTYPES = (torch.bfloat16, torch.float32)
 _HEAD_DIMS = (64, 128, 256)
+SPLIT_KEYS = 64  # keys a split: ``kSplit`` in csrc/paged_attention.cu
+
+
+def key_splits(page: int, max_pages: int) -> int:
+    """Key splits (blocks per row and kv head) of a launch over a page
+    table of ``max_pages`` pages of ``page`` tokens: static shapes only,
+    so the host never reads the table, ``pos`` or ``n_valid``."""
+    return -(-(page * max_pages) // SPLIT_KEYS)
+
+
+def scratch_floats(B: int, C: int, H: int, D: int, page: int,
+                   max_pages: int) -> int:
+    """fp32 scratch of a launch: per (row, head, query, split) the
+    split's unnormalised sum over D and its (max, sum) pair."""
+    return B * C * H * key_splits(page, max_pages) * (D + 2)
 
 
 def pool_kind(kp, kp_scale, head_dim: int) -> str:
@@ -115,10 +130,11 @@ def paged_attention_cuda(q, kp, vp, page_table, *, pos, n_valid,
     bf16 or fp32, or int8 with fp32 ``kp_scale``/``vp_scale`` of shape
     (P, page, K) (an int4 pool's trailing axis is ``D // 2``); head_dim
     64, 128 or 256; int32 page table, pos and n_valid; all contiguous,
-    pools 16-byte aligned. Launches on the current stream, does not
-    synchronise, and counts each launch in ``paged_attention_cuda.launches``
-    and, by pool kind ('bfloat16', 'float32', 'int8', 'int4'), in
-    ``paged_attention_cuda.launches_by_kind``.
+    q and the pools 16-byte aligned. Allocates its scratch with
+    ``torch.empty``, launches the split kernel and the merge on the
+    current stream, does not synchronise, and counts each call in
+    ``paged_attention_cuda.launches`` and, by pool kind ('bfloat16',
+    'float32', 'int8', 'int4'), in ``paged_attention_cuda.launches_by_kind``.
     """
     B, C, H, D = q.shape
     P, page, K, _ = kp.shape
@@ -154,7 +170,7 @@ def paged_attention_cuda(q, kp, vp, page_table, *, pos, n_valid,
                 raise ValueError(
                     f"paged_attention_cuda: {name} must be float32 "
                     f"{(P, page, K)}, got {t.dtype} {tuple(t.shape)}")
-    for name in ("kp", "vp"):
+    for name in ("q", "kp", "vp"):
         if tensors[name].data_ptr() % 16:
             raise ValueError(f"paged_attention_cuda: {name} is not 16-byte "
                              f"aligned")
@@ -176,7 +192,10 @@ def paged_attention_cuda(q, kp, vp, page_table, *, pos, n_valid,
 
     lib = _bind(build.load("paged_attention"))
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    shape_args = (B, C, H, K, D, P, page, npg, window or 0,
+    n_scratch = scratch_floats(B, C, H, D, page, npg)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=q.device)
+    shape_args = (scratch.data_ptr(), n_scratch, B, C, H, K, D, P, page,
+                  npg, window or 0,
                   float(scale if scale is not None else D ** -0.5),
                   int(q.dtype == torch.bfloat16))
     if quantized:
@@ -210,12 +229,13 @@ reset_launches()
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    n = ctypes.c_longlong
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = [p] * 7 + [i] * 9 + [f, i, i, p]
+        fn.argtypes = [p] * 8 + [n] + [i] * 9 + [f, i, i, p]
         fn.restype = i
     fn = lib.paged_attention_quant_launch
     if fn.argtypes is None:
-        fn.argtypes = [p] * 9 + [i] * 9 + [f, i, i, p]
+        fn.argtypes = [p] * 10 + [n] + [i] * 9 + [f, i, i, p]
         fn.restype = i
     return lib

@@ -143,6 +143,18 @@ CUDA_CASES = [
     (2, 96, 96, 2, 2, 256, True, 16, 0, 50),       # rows 0-49: no key
     (2, 64, 40, 2, 2, 64, True, 8, 30, -10),       # rows 8-63: no key
     (2, 130, 190, 4, 2, 256, True, 70, 60, -5),
+    # Edges of the bf16 backward's tiles (64 keys a dK/dV block, 64 query
+    # rows a dQ block and a streamed tile) at D 256 with B >= 2: Sq and Sk
+    # one below and above a tile; GQA 16/2, so dK/dV sum over 8 query
+    # heads; key tiles that no query sees (causal keys past the last
+    # query, and a window).
+    (2, 63, 63, 2, 2, 256, True, None, 0, 0),
+    (2, 65, 65, 2, 2, 256, True, None, 0, 0),
+    (2, 127, 129, 2, 2, 256, True, None, 2, 0),
+    (2, 129, 127, 2, 1, 256, False, None, 0, 0),
+    (2, 128, 128, 16, 2, 256, True, None, 0, 0),
+    (2, 64, 256, 2, 2, 256, True, None, 0, 0),     # key tiles 1-3: no query
+    (2, 200, 200, 2, 2, 256, True, 20, 0, 90),     # tiles 2-3 unseen
 ]
 
 
@@ -182,8 +194,8 @@ def test_cuda_kernels_match_plain(cuda_device, case, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", [CUDA_CASES[i] for i in (2, 5, 7, 10)],
-                         ids=str)
+@pytest.mark.parametrize(
+    "case", [CUDA_CASES[i] for i in (2, 5, 7, 10, 16, 17)], ids=str)
 def test_cuda_kernels_are_deterministic(cuda_device, case):
     q, k, v, do = (torch.from_numpy(a).to(cuda_device, torch.bfloat16)
                    for a in _inputs(case, seed=3))

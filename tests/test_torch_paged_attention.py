@@ -17,6 +17,7 @@ from repro.kernels import paged_attention as pallas_pa  # noqa: E402
 from repro.kernels import ref  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import quant  # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}  # tests/test_kernels.py _tol
@@ -176,3 +177,92 @@ def test_cuda_kernel_matches_plain(cuda_device, D, window, dtype):
         np.testing.assert_allclose(got[b, :n], want[b, :n], **tol)
         assert (got[b, n:] == 0).all()
     assert (got[2] == 0).all()  # idle row: nothing to attend -> 0
+
+
+def test_key_splits_come_from_static_shapes():
+    """The split count and scratch size depend on the page table's shape
+    only, so the wrapper never reads pos, n_valid or the table back."""
+    assert pa.SPLIT_KEYS == 64
+    assert [pa.key_splits(16, n) for n in (1, 4, 5, 8, 10, 12)] == \
+        [1, 1, 2, 2, 3, 3]
+    assert pa.key_splits(2, 6) == 1 and pa.key_splits(4, 17) == 2
+    assert pa.scratch_floats(8, 8, 16, 256, 16, 10) == 8 * 8 * 16 * 3 * 258
+
+
+# Split edges (64 keys a split, 4 pages of 16): (H, K, D, C, npg, lens,
+# nvs, window, holes). Rows: a range ending exactly on a split boundary
+# (64, 128), a row spanning every split (192), one whose middle split
+# maps no page, a window that drops the leading splits, GQA 8 (C x G =
+# 64 rows), C x G past 64 rows (two row passes), decode C 1 at 190 keys;
+# the last row is idle.
+SPLIT_CASES = {
+    "boundary": (4, 2, 128, 4, 12, [64, 128, 192, 5, 0], [1, 4, 3, 2, 1],
+                 None, ()),
+    "hole_split": (4, 4, 128, 4, 12, [192, 190, 70, 0], [4, 1, 2, 1], None,
+                   [(0, 4), (0, 5), (0, 6), (0, 7), (1, 4), (1, 5), (1, 6),
+                    (1, 7)]),
+    "window_drops": (4, 2, 256, 4, 12, [190, 150, 66, 0], [1, 4, 2, 1], 40,
+                     ()),
+    "gqa8": (16, 2, 128, 8, 12, [190, 64, 100, 0], [8, 8, 3, 1], None, ()),
+    "rows_past_64": (16, 2, 64, 16, 12, [130, 40, 0], [16, 9, 1], None, ()),
+    "decode190": (4, 4, 256, 1, 12, [190, 190, 63, 0], [1, 1, 1, 1], None,
+                  ()),
+}
+
+
+def _split_case(name, kind, dtype, device):
+    H, K, D, C, npg, lens, nvs, window, holes = SPLIT_CASES[name]
+    B = len(lens)
+    q, kp, vp, pt, pos, nv = _case(
+        seed=7, B=B, C=C, H=H, K=K, D=D, page=16, P=B * npg, npg=npg,
+        lens=lens, nvs=nvs, idle=(B - 1,))
+    for b, p in holes:
+        pt[b, p] = -1
+    tdt = getattr(torch, dtype)
+    case = dict(q=torch.from_numpy(q).to(device, tdt),
+                page_table=torch.from_numpy(pt).to(device),
+                pos=torch.from_numpy(pos).to(device),
+                n_valid=torch.from_numpy(nv).to(device))
+    kpt, vpt = (torch.from_numpy(a).to(device) for a in (kp, vp))
+    if kind:
+        qz = quant.quantize_int8 if kind == "int8" else quant.quantize_int4
+        case["kp"], case["kp_scale"] = qz(kpt)
+        case["vp"], case["vp_scale"] = qz(vpt)
+    else:
+        case["kp"], case["vp"] = kpt.to(tdt), vpt.to(tdt)
+    return case, window, nvs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["", "int8", "int4"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(SPLIT_CASES))
+def test_cuda_kernel_split_edges(cuda_device, name, dtype, kind):
+    """Split-KV edges against the plain version on valid queries (fp32
+    1e-4, bf16 the output's rounding); queries past n_valid and the idle
+    row are 0; one call counts one launch of its pool kind."""
+    case, window, nvs = _split_case(name, kind, dtype, cuda_device)
+    pool = kind or dtype
+    before = dict(pa.paged_attention_cuda.launches_by_kind)
+    got = pa.paged_attention_cuda(**case, window=window)
+    torch.cuda.synchronize()
+    assert pa.paged_attention_cuda.launches_by_kind[pool] == before[pool] + 1
+    want = pa.paged_attention_torch(**case, window=window)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == "float32" else TOL[dtype]
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    for b, n in enumerate(nvs[:-1]):
+        np.testing.assert_allclose(got[b, :n], want[b, :n], **tol,
+                                   err_msg=f"row {b}")
+        assert (got[b, n:] == 0).all()
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["", "int8", "int4"])
+@pytest.mark.parametrize("name", ["gqa8", "hole_split", "rows_past_64"])
+def test_cuda_kernel_is_deterministic(cuda_device, name, kind):
+    """Reruns are bitwise equal: every sum has one fixed order and the
+    splits merge in ascending order, with no atomics."""
+    case, window, _ = _split_case(name, kind, "bfloat16", cuda_device)
+    runs = [pa.paged_attention_cuda(**case, window=window) for _ in range(3)]
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[0], runs[2])
