@@ -15,11 +15,13 @@ and prints no result):
    branches, and at the edges of its key splits, each rerun bitwise
    equal; flash attention forward and backward at the train step's and
    at edge cases of its tiles, the backward rerun bitwise equal; the
-   LSTM cell forward (with and without its saved
-   gates) and backward at GNMT's shape and at edge cases, the two LARS
-   kernels in both rules at ResNet-50's largest leaf and at edge cases,
-   zero norms among them, the Mamba selective scan at jamba's prefill
-   shape with bf16 and fp32 inputs, at odd shapes, S = 1 and strided B/C,
+   LSTM cell forward (with and without its saved gates) and backward
+   (dgates, dc_prev, dx, db; reruns bitwise) at GNMT's shape and at edge
+   cases, the two LARS kernels in both rules at ResNet-50's largest leaf
+   and at edge cases, zero norms among them, and the norms kernel's one
+   launch over ResNet-50's 54 kernel leaves (bitwise equal to one-leaf
+   launches), the Mamba selective scan at jamba's prefill shape with
+   bf16 and fp32 inputs, at odd shapes, S = 1 and strided B/C,
    and the flash forward at jamba's attention shape), and times the
    kernel, the plain version, one PyTorch library call computing the
    same function where there is one, and the least time the card could
@@ -75,9 +77,9 @@ and prints no result):
    fp32 masters, random weights from seed 0) takes 6 steps of batch 128
    under scaled LARS and 2 under unscaled LARS through
    ``repro_torch.launch.resnet.train``, then sweeps a padded eval set;
-   the LARS kernels' counters, zeroed just before, must show 54 norm and
-   54 update launches in every step; one step traced; a second run must
-   repeat the losses bitwise.
+   the LARS kernels' counters, zeroed just before, must show one norms
+   launch over the 54 kernel leaves and 54 update launches in every
+   step; one step traced; a second run must repeat the losses bitwise.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -599,6 +601,7 @@ LSTM_CASES = [  # name, B, F, dtype
     ("ragged", 200, 1024, torch.bfloat16),   # a ragged batch tile
     ("small", 5, 64, torch.float32),
     ("tiny", 48, 96, torch.bfloat16),
+    ("f40", 128, 40, torch.bfloat16),        # 5 backward blocks of 8 units
 ]
 
 
@@ -638,32 +641,42 @@ def check_lstm():
         x, dh, dc = lstm_inputs(i, B, F, dtype)
         h0, c0, none = lk.lstm_cell_fwd_cuda(**x)
         h, c, gates = lk.lstm_cell_fwd_cuda(**x, save_gates=True)
-        dg, dcp = lk.lstm_cell_bwd_cuda(gates, x["c_prev"], c, dh, dc)
+        dg, dcp, dx, db = lk.lstm_cell_bwd_cuda(gates, x["c_prev"], c, dh, dc)
+        again = lk.lstm_cell_bwd_cuda(gates, x["c_prev"], c, dh, dc)
         torch.cuda.synchronize()
         if none is not None or not (torch.equal(h0, h) and torch.equal(c0, c)):
             raise AssertionError(f"lstm_cell {name}: saving the gates changed "
                                  f"the forward")
+        if not all(torch.equal(a, b) for a, b in zip((dg, dcp, dx, db),
+                                                     again)):
+            raise AssertionError(f"lstm_cell {name}: a backward rerun is not "
+                                 f"bitwise equal")
         want_h, want_c = lk.lstm_cell_torch(**x)
         want_g = plain_gates(**x)
-        want_dg, want_dcp = lk.lstm_cell_bwd_torch(want_g, x["c_prev"], want_c,
-                                                   dh, dc)
+        want_dg, want_dcp, want_dx, want_db = lk.lstm_cell_bwd_torch(
+            want_g, x["c_prev"], want_c, dh, dc)
         line = []
-        for label, key, got, ref in (
-                ("h", "fwd", h, want_h), ("c", "fwd", c, want_c),
-                ("gates", "fwd", gates, want_g), ("dgates", "bwd", dg, want_dg),
-                ("dc_prev", "bwd", dcp, want_dcp)):
+        # db sums B rows of dgates: its tolerance is dgates' times sqrt(B)
+        for label, key, got, ref, t in (
+                ("h", "fwd", h, want_h, tol), ("c", "fwd", c, want_c, tol),
+                ("gates", "fwd", gates, want_g, tol),
+                ("dgates", "bwd", dg, want_dg, tol),
+                ("dc_prev", "bwd", dcp, want_dcp, tol),
+                ("dx", "bwd", dx, want_dx, tol),
+                ("db", "bwd", db, want_db, tol * B ** 0.5)):
             g, w = got.float(), ref.float()
             err = (g - w).abs().max().item()
             if not (torch.isfinite(g).all()
-                    and torch.allclose(g, w, rtol=tol, atol=tol)):
+                    and torch.allclose(g, w, rtol=t, atol=t)):
                 raise AssertionError(
                     f"lstm_cell {name} {dtype} {label}: kernel != plain, max "
-                    f"|diff| {err} > {tol}")
+                    f"|diff| {err} > {t}")
             if name == "gnmt":
                 errs[key] = max(errs[key], err)
             line.append(f"{label} {err:.2e}")
         print(f"  {name:7s} B{B} F{F} {str(dtype):15s} max|kernel-plain| "
-              f"{', '.join(line)} (tol {tol:g}) ok", flush=True)
+              f"{', '.join(line)} (tol {tol:g}, db {tol * B ** 0.5:g}) ok, "
+              f"backward rerun bitwise equal", flush=True)
 
     # Timing at GNMT's shape.
     name, B, F, dtype = LSTM_CASES[0]
@@ -676,11 +689,12 @@ def check_lstm():
         B * F + 4 * F + B * F + B * 4 * F) * 4
     nogates_bytes = fwd_bytes - B * 4 * F * 4
     fwd_flops = 2 * B * F * 4 * F
-    # Backward: gates, c_prev, c', dc' fp32 and dh in dtype in; dgates and
-    # dc_prev fp32 out; ~20 flops per (row, unit) in fp32.
+    # Backward: gates, c_prev, c', dc' fp32 and dh in dtype in; dgates,
+    # dc_prev and db fp32 and dx in dtype out; ~20 flops per (row, unit)
+    # in fp32, and 4 adds for db.
     bwd_bytes = (B * 4 * F + 3 * B * F) * 4 + B * F * elt + (
-        B * 4 * F + B * F) * 4
-    bwd_flops = 20 * B * F
+        B * 4 * F + B * F + 4 * F) * 4 + B * 4 * F * elt
+    bwd_flops = 24 * B * F
     fwd_b, fwd_by = bound(fwd_flops, fwd_bytes, dtype)
     ng_b, _ = bound(fwd_flops, nogates_bytes, dtype)
     t_ops = bwd_flops / PEAK_FLOPS[torch.float32] * 1e3
@@ -713,6 +727,8 @@ def check_lstm():
     # (checks, allocation, two tensor-map encodes, the launch).
     fwd_enqueue = enqueue_us(lambda: lk.lstm_cell_fwd_cuda(**x,
                                                            save_gates=True))
+    bwd_enqueue = enqueue_us(lambda: lk.lstm_cell_bwd_cuda(
+        gates, x["c_prev"], c, dh, dc))
     src = "src/repro_torch/kernels/csrc/lstm_cell.cu"
     recs = [
         dict(name="lstm_cell_fwd", route="cuda", source=src,
@@ -736,8 +752,9 @@ def check_lstm():
           f"B), plain {times['plain_bwd']:.4f} ms, "
           f"_thnn_fused_lstm_cell_backward_impl (fp32 dh) "
           f"{times['lib_bwd']:.4f} ms, kernel/library "
-          f"{times['bwd'] / times['lib_bwd']:.3f}; host enqueue of the "
-          f"forward wrapper {fwd_enqueue:.1f} us a call", flush=True)
+          f"{times['bwd'] / times['lib_bwd']:.3f}; host enqueue of the forward "
+          f"wrapper {fwd_enqueue:.1f} us a call, of the backward wrapper "
+          f"{bwd_enqueue:.1f} us a call", flush=True)
     del x, dh, dc, h, c, gates, cy32, ws32
     torch.cuda.empty_cache()
     return recs
@@ -808,7 +825,10 @@ def check_lars():
     sums in another order); a rerun must be bitwise equal. Then each
     kernel timed at the largest leaf beside the plain version and one
     library call (``_foreach_norm``; ``_fused_sgd_`` where it matches),
-    and both swept over ResNet-50's 54 kernel leaves."""
+    and both over ResNet-50's 54 kernel leaves as the optimizer runs them
+    (``lars_sweep``: one norms launch, then an update launch a leaf).
+    Returns the records (norms from the sweep, update from the largest
+    leaf)."""
     phase("kernels: lars_update norms and update vs plain PyTorch")
     lr = torch.full((), LARS_LR, device="cuda")
     err_main = 0.0
@@ -851,7 +871,8 @@ def check_lars():
                   f"plain| w {errs[0]:.2e}, m {errs[1]:.2e} (rtol 1e-5, atol "
                   f"1e-6) ok, rerun bitwise equal", flush=True)
 
-    # Timing at the largest leaf, scaled rule.
+    # Timing at the largest leaf, scaled rule: the update's record; the
+    # norms kernel's record is taken over the 54 leaves (lars_sweep).
     n = LARGEST_LEAF
     w, g, m = lars_inputs(99, n)
     w2, m2 = w.clone(), m.clone()
@@ -868,8 +889,7 @@ def check_lars():
         norms=time_ms(lambda: lk_lars.lars_norms_cuda(w, g)),
         update=time_ms(lambda: lk_lars.lars_apply_cuda(
             w2, g, m2, partial, lr=lr, **LARS_HYPER)),
-        plain_norms=time_ms(lambda: lk_lars.lars_trust_torch(w, g,
-                                                             **TRUST_KW)),
+        plain_norms=time_ms(lambda: lk_lars.lars_partials_torch(w, g)),
         plain_update=time_ms(lambda: lk_lars.lars_apply_torch(
             w, g, m, trust, lr=lr, **APPLY_KW)),
         lib_norms=time_ms(lambda: torch._foreach_norm([w, g])),
@@ -880,80 +900,172 @@ def check_lars():
                 "matches the plain version" if sgd_matches else
                 "does NOT match the plain version: recorded as none")}
     src = "src/repro_torch/kernels/csrc/lars.cu"
-    recs = []
-    for key, line in (("norms", 62), ("update", 80)):
+    for key in ("norms", "update"):
         nbytes, flops = lars_work(n)[key]
         b, by = bound(flops, nbytes, torch.float32)
-        recs.append(dict(
-            name=f"lars_{key}", route="cuda", source=src,
-            replaces=f"src/repro/kernels/lars.py:{line}",
-            max_abs_err=err_main, ms=times[key],
-            plain_ms=times[f"plain_{key}"], bound_ms=b, bound_by=by,
-            library_ms=(times[f"lib_{key}"]
-                        if key == "norms" or sgd_matches else None)))
         print(f"  timing n {n} fp32 {key}: kernel {times[key]:.4f} ms (bound "
               f"{b:.4f}, {by}: {nbytes} B, {flops} flop), plain "
               f"{times[f'plain_{key}']:.4f} ms, library "
               f"{times[f'lib_{key}']:.4f} ms ({libs[key]})", flush=True)
+    nbytes, flops = lars_work(n)["update"]
+    b, by = bound(flops, nbytes, torch.float32)
+    update = dict(
+        name="lars_update", route="cuda", source=src,
+        replaces="src/repro/kernels/lars.py:80", max_abs_err=err_main,
+        ms=times["update"], plain_ms=times["plain_update"], bound_ms=b,
+        bound_by=by, library_ms=times["lib_update"] if sgd_matches else None)
     del w, g, m, w2, m2, ws, gs, ms
-    lars_sweep()
-    return recs
+    return lars_sweep(src), update
 
 
-def lars_sweep():
-    """Reported, not gated: both kernels over all 54 kernel leaves of
-    ResNet-50 (one launch pair a leaf, as the optimizer runs them),
-    beside the plain versions and the library's multi-tensor calls
-    (``_foreach_norm`` over the 108 tensors; ``_fused_sgd_`` over the 54
-    leaves with one lr, the same bytes but not the same function)."""
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    leaves = [(w, torch.randn(w.shape, generator=gen, device="cuda") * 1e-3,
-               torch.randn(w.shape, generator=gen, device="cuda") * 1e-3)
-              for w in tree_leaves(resnet.init_resnet(resnet.RESNET50, 0))
-              if w.dim() > 1]
-    n = sum(w.numel() for w, _, _ in leaves)
+def resnet50_lars_leaves(seed=5):
+    """ResNet-50's 54 kernel leaves (weights from seed 0), with gradients
+    and momenta ~N(0, 1e-3) from ``seed``, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [(w, torch.randn(w.shape, generator=gen, device="cuda") * 1e-3,
+             torch.randn(w.shape, generator=gen, device="cuda") * 1e-3)
+            for w in tree_leaves(resnet.init_resnet(resnet.RESNET50, 0))
+            if w.dim() > 1]
+
+
+def check_norms_multi(name, ws, gs, launches):
+    """The multi-leaf norms launch over ``ws``/``gs``: ``launches`` kernel
+    launches, a rerun bitwise equal, every leaf's rows bitwise equal to
+    its one-leaf call and within rtol 1e-5 of the plain chunk sums (fp32
+    sums of <= 9216 squares in two orders). Returns the largest |kernel -
+    plain|."""
+    before = lk_lars.lars_norms_multi_cuda.launches
+    cat, parts = lk_lars.lars_norms_multi_cuda(ws, gs)
+    again, _ = lk_lars.lars_norms_multi_cuda(ws, gs)
+    ones = [lk_lars.lars_norms_cuda(w, g) for w, g in zip(ws, gs)]
+    plain = [lk_lars.lars_partials_torch(w, g) for w, g in zip(ws, gs)]
+    torch.cuda.synchronize()
+    made = (lk_lars.lars_norms_multi_cuda.launches - before) // 2
+    if made != launches or not torch.equal(cat, again):
+        raise AssertionError(f"lars norms {name}: {made} launches (expected "
+                             f"{launches}) or a rerun not bitwise equal")
+    err = 0.0
+    for i, (part, one, ref) in enumerate(zip(parts, ones, plain)):
+        if not torch.equal(part, one):
+            raise AssertionError(f"lars norms {name}: leaf {i}'s partials "
+                                 f"differ from its one-leaf launch")
+        err = max(err, (part - ref).abs().max().item())
+        if not torch.allclose(part, ref, rtol=1e-5, atol=0):
+            raise AssertionError(f"lars norms {name}: leaf {i} != plain, max "
+                                 f"|diff| {(part - ref).abs().max().item()}")
+    print(f"  norms {name}: {len(ws)} leaves, {cat.shape[0]} chunks, "
+          f"{launches} launch(es), rerun bitwise equal, every leaf bitwise "
+          f"equal to its one-leaf launch, max|kernel-plain| {err:.2e} (rtol "
+          f"1e-5) ok", flush=True)
+    return err
+
+
+def lars_sweep(src):
+    """The norms kernel as the optimizer runs it: one launch over all 54
+    kernel leaves of ResNet-50, held bitwise against the one-leaf launches
+    (and at the edges: odd, unaligned and 1024-element leaves, and past
+    one launch's 64-leaf table), and ``ops.lars_update_leaves`` over the
+    54 leaves against the plain version in both rules (1 norms and 54
+    update launches). Then timed in turns against the library's
+    multi-tensor ``_foreach_norm`` over the 108 tensors, beside the
+    plain chunk sums; the 54 update launches beside the plain version and
+    ``_fused_sgd_`` over the 54 leaves with one lr (the same bytes, not
+    the same function). Returns the norms kernel's record."""
+    leaves = resnet50_lars_leaves()
+    ws, gs, ms = ([x[i] for x in leaves] for i in range(3))
+    n = sum(w.numel() for w in ws)
     lr = torch.full((), LARS_LR, device="cuda")
-    parts = [lk_lars.lars_norms_cuda(w, g) for w, g, _ in leaves]
+    err = check_norms_multi("resnet50", ws, gs, 1)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    extra = [torch.randn(k, generator=gen, device="cuda")
+             for k in (1_000_003, 1024, 1_000_003, 4097)]
+    extra[2] = at_offset(extra[2], 1)  # not 16-byte aligned
+    check_norms_multi("edges", extra + ws[:3],
+                      [x.flip(0).contiguous() for x in extra] + gs[:3], 1)
+    check_norms_multi("past the table", ws * 2 + [extra[1]] * 12,
+                      gs * 2 + [extra[0][:1024]] * 12, 2)
+    for scaled in (True, False):
+        kw = dict(LARS_HYPER, lr=lr, scaled_momentum=scaled)
+        wk, mk = [w.clone() for w in ws], [m.clone() for m in ms]
+        before = (lk_lars.lars_norms_multi_cuda.launches,
+                  lk_lars.lars_apply_cuda.launches)
+        ops.lars_update_leaves(wk, gs, mk, **kw)
+        torch.cuda.synchronize()
+        made = (lk_lars.lars_norms_multi_cuda.launches - before[0],
+                lk_lars.lars_apply_cuda.launches - before[1])
+        worst = 0.0
+        for w, g, m, a, c in zip(ws, gs, ms, wk, mk):
+            want_w, want_m = lk_lars.lars_update_torch(w, g, m, **kw)
+            for got, ref in ((a, want_w), (c, want_m)):
+                worst = max(worst, (got - ref).abs().max().item())
+                if not torch.allclose(got, ref, rtol=1e-5, atol=1e-6):
+                    raise AssertionError(f"lars_update_leaves != plain, max "
+                                         f"|diff| {worst}")
+        if made != (1, len(ws)):
+            raise AssertionError(f"lars_update_leaves made {made} launches, "
+                                 f"expected (1, {len(ws)})")
+        print(f"  lars_update_leaves over the 54 leaves "
+              f"({'scaled' if scaled else 'unscaled'}): launches norms "
+              f"{made[0]}, update {made[1]}; max|kernel-plain| w, m "
+              f"{worst:.2e} (rtol 1e-5, atol 1e-6) ok", flush=True)
+        del wk, mk
+
+    _, parts = lk_lars.lars_norms_multi_cuda(ws, gs)
     trusts = [lk_lars.lars_trust_torch(w, g, **TRUST_KW)
-              for w, g, _ in leaves]
+              for w, g in zip(ws, gs)]
 
     def norms():
-        for w, g, _ in leaves:
-            lk_lars.lars_norms_cuda(w, g)
+        lk_lars.lars_norms_multi_cuda(ws, gs)
 
     def update():
-        for (w, g, m), p in zip(leaves, parts):
+        for w, g, m, p in zip(ws, gs, ms, parts):
             lk_lars.lars_apply_cuda(w, g, m, p, lr=lr, **LARS_HYPER)
 
     def plain_norms():
-        for w, g, _ in leaves:
-            lk_lars.lars_trust_torch(w, g, **TRUST_KW)
+        for w, g in zip(ws, gs):
+            lk_lars.lars_partials_torch(w, g)
 
     def plain_update():
-        for (w, g, m), t in zip(leaves, trusts):
+        for w, g, m, t in zip(ws, gs, ms, trusts):
             lk_lars.lars_apply_torch(w, g, m, t, lr=lr, **APPLY_KW)
 
-    flat = [t for w, g, _ in leaves for t in (w, g)]
-    ws, gs, ms = ([x[i] for x in leaves] for i in range(3))
-    t = {k: time_ms(f, 10) for k, f in (
-        ("norms", norms), ("update", update), ("plain_norms", plain_norms),
+    flat = [t for w, g in zip(ws, gs) for t in (w, g)]
+    turns = {}
+    for key, fn in (("norms", norms), ("lib_norms",
+                                       lambda: torch._foreach_norm(flat)),
+                    ("norms", norms), ("lib_norms",
+                                       lambda: torch._foreach_norm(flat))):
+        turns.setdefault(key, []).append(time_ms(fn, 10))
+    t = {k: float(np.mean(v)) for k, v in turns.items()}
+    t.update({k: time_ms(f, 10) for k, f in (
+        ("update", update), ("plain_norms", plain_norms),
         ("plain_update", plain_update),
-        ("lib_norms", lambda: torch._foreach_norm(flat)),
-        ("lib_update", lambda: fused_sgd(ws, gs, ms, lr)))}
-    work = {"norms": 8 * n, "update": 20 * n}
-    print(f"  sweep over ResNet-50's {len(leaves)} kernel leaves ({n} "
-          f"elements): norms {t['norms']:.4f} ms (bound "
-          f"{work['norms'] / HBM_BYTES_PER_S * 1e3:.4f}: {work['norms']} B; "
-          f"plain {t['plain_norms']:.4f}, _foreach_norm over {len(flat)} "
-          f"tensors {t['lib_norms']:.4f}); update {t['update']:.4f} ms "
-          f"(bound {work['update'] / HBM_BYTES_PER_S * 1e3:.4f}: "
-          f"{work['update']} B; plain {t['plain_update']:.4f}, _fused_sgd_ "
-          f"over {len(leaves)} leaves, one lr, {t['lib_update']:.4f})",
-          flush=True)
-    print("  lars sweep " + json.dumps(dict(n=n, leaves=len(leaves), **{
-        f"{k}_ms": v for k, v in t.items()})), flush=True)
-    del leaves, parts, flat, ws, gs, ms
+        ("lib_update", lambda: fused_sgd(ws, gs, ms, lr)))})
+    nbytes = 8 * n + 8 * len(ws)  # w and g read once, one pair a leaf out
+    flops = 4 * n
+    b, by = bound(flops, nbytes, torch.float32)
+    work_update = 20 * n
+    print(f"  sweep over ResNet-50's {len(ws)} kernel leaves ({n} "
+          f"elements): norms, one launch, in turns with _foreach_norm over "
+          f"{len(flat)} tensors: {turns['norms'][0]:.4f} / "
+          f"{turns['lib_norms'][0]:.4f} / {turns['norms'][1]:.4f} / "
+          f"{turns['lib_norms'][1]:.4f} ms; kernel {t['norms']:.4f} ms "
+          f"(bound {b:.4f}, {by}: {nbytes} B; kernel/library "
+          f"{t['norms'] / t['lib_norms']:.3f}; plain chunk sums "
+          f"{t['plain_norms']:.4f}); update, {len(ws)} launches, "
+          f"{t['update']:.4f} ms (bound "
+          f"{work_update / HBM_BYTES_PER_S * 1e3:.4f}: {work_update} B; "
+          f"plain {t['plain_update']:.4f}, _fused_sgd_ over {len(ws)} "
+          f"leaves, one lr, {t['lib_update']:.4f})", flush=True)
+    print("  lars sweep " + json.dumps(dict(n=n, leaves=len(ws), **{
+        f"{k}_ms": v for k, v in t.items()}, norms_turns_ms=turns)),
+        flush=True)
+    del leaves, ws, gs, ms, parts, flat, extra
     torch.cuda.empty_cache()
+    return dict(name="lars_norms", route="cuda", source=src,
+                replaces="src/repro/kernels/lars.py:62", max_abs_err=err,
+                ms=t["norms"], plain_ms=t["plain_norms"], bound_ms=b,
+                bound_by=by, library_ms=t["lib_norms"])
 
 
 # --------------------------------------------------------------------------- #
@@ -2186,17 +2298,18 @@ def reduced_resnet_vs_cpu():
                 losses[dev] = [r["loss"] for r in hist]
                 launches = [(r["norm_launches"], r["update_launches"])
                             for r in hist]
+            want = (int(kernel_leaves > 0), kernel_leaves)
             print(f"  3 LARS steps ({'scaled' if scaled else 'unscaled'}): "
                   f"losses cpu {losses['cpu']}, card {losses['cuda']}; card "
-                  f"launches a step {launches[0]} (expected "
-                  f"{kernel_leaves} each)", flush=True)
+                  f"launches a step {launches[0]} (expected norms "
+                  f"{want[0]}, update {want[1]})", flush=True)
             if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4,
                                atol=0):
                 raise AssertionError(f"reduced ResNet LARS losses differ card "
                                      f"vs CPU: {losses}")
-            if launches != [(kernel_leaves, kernel_leaves)] * 3:
+            if launches != [want] * 3:
                 raise AssertionError(f"lars launches {launches}, expected "
-                                     f"{kernel_leaves} of each a step")
+                                     f"{want} a step")
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
 
@@ -2223,9 +2336,9 @@ def train_resnet_full():
     compute, fp32 masters, gradients and momenta) takes 6 steps of batch
     128 under scaled LARS and 2 under unscaled LARS, then one sweep of
     the padded eval set, through ``launch.resnet.train``; the LARS
-    kernels' counters, zeroed just before, must show 54 norm and 54
-    update launches in every step (every kernel leaf of ResNet-50 is at
-    least 4096 elements). Then one step traced, and a second run of the
+    kernels' counters, zeroed just before, must show 1 norms launch (over
+    the 54 kernel leaves) and 54 update launches in every step (every
+    kernel leaf of ResNet-50 is at least 4096 elements). Then one step traced, and a second run of the
     same steps must repeat the losses bitwise (cuDNN held to its
     deterministic algorithms for the phase)."""
     cfg = resnet.RESNET50
@@ -2249,7 +2362,8 @@ def train_resnet_full():
         lk_lars.reset_launches()
         params, hist, (top1, count) = resnet_run(cfg, batch, eval_set)
         torch.cuda.synchronize()
-        launches = (lk_lars.lars_norms_cuda.launches,
+        launches = (lk_lars.lars_norms_cuda.launches
+                    + lk_lars.lars_norms_multi_cuda.launches,
                     lk_lars.lars_apply_cuda.launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
         leaves = tree_leaves(params)
@@ -2260,7 +2374,7 @@ def train_resnet_full():
             print(f"  step {r['step']}: loss {r['loss']:.6f}, acc "
                   f"{r['acc']:.4f}, {r['step_ms']:.1f} ms, lars launches norms "
                   f"{r['norm_launches']}, update {r['update_launches']} "
-                  f"(expected {kernel_leaves} each)", flush=True)
+                  f"(expected 1 and {kernel_leaves})", flush=True)
         print(f"  {n_params} params, {kernel_leaves} kernel leaves; eval "
               f"top-1 {top1:.4f} over {count} real examples (padded to "
               f"{resnet_cli.EVAL_BATCH * len(eval_set)}); lars launches in "
@@ -2276,10 +2390,11 @@ def train_resnet_full():
         if not 0.5 * lnc < losses[0] < 2 * lnc:
             raise AssertionError(f"first loss {losses[0]} far from ln(1000)")
         bad = [r for r in hist if (r["norm_launches"], r["update_launches"])
-               != (kernel_leaves, kernel_leaves)]
-        if bad or launches != (len(hist) * kernel_leaves,) * 2:
-            raise AssertionError(f"lars launches per step not {kernel_leaves}:"
-                                 f" {bad}, run total {launches}")
+               != (1, kernel_leaves)]
+        if bad or launches != (len(hist), len(hist) * kernel_leaves):
+            raise AssertionError(f"lars launches per step not 1 norms and "
+                                 f"{kernel_leaves} update: {bad}, run total "
+                                 f"{launches}")
         step_ms = float(np.median([r["step_ms"]
                                    for r in hist[1:RESNET_STEPS]]))
         img_s = RESNET_BATCH / (step_ms / 1e3)
@@ -2331,14 +2446,13 @@ def train_resnet_full():
             leaves, grads, tree_leaves(st["m"])) if w.dim() > 1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for w, g, m in triples:
-            ops.lars_update(w, g, m, lr=lr, **LARS_HYPER)
+        ops.lars_update_leaves(*map(list, zip(*triples)), lr=lr, **LARS_HYPER)
         lars_enq_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
         lars_host_ms = (time.perf_counter() - t0) * 1e3
         print(f"  optimizer update alone: host enqueue {enq_ms:.2f} ms, to "
               f"the card's end {upd_ms:.2f} ms; its {len(triples)} kernel "
-              f"leaves alone ({2 * len(triples)} lars launches): host enqueue "
+              f"leaves alone ({1 + len(triples)} lars launches): host enqueue "
               f"{lars_enq_ms:.2f} ms ({1e3 * lars_enq_ms / len(triples):.1f} "
               f"us a leaf), to the card's end {lars_host_ms:.2f} ms, against "
               f"{lars_ms:.3f} ms of lars device time in the traced step",
@@ -2376,7 +2490,8 @@ PHASES = {  # --only names: the phases a short run may pick
     "paged": check_kernel, "flash": check_flash, "lstm": check_lstm,
     "lars": check_lars, "mamba": check_mamba,
     "flash-jamba": check_flash_jamba, "check-jamba": reduced_jamba_vs_cpu,
-    "serve-jamba": serve_jamba_full,
+    "serve-jamba": serve_jamba_full, "train-gnmt": train_gnmt_full,
+    "train-resnet": train_resnet_full,
 }
 
 

@@ -11,27 +11,34 @@
 // and write w' and m' over w and m (the caller holds no second copy).
 //
 // Design. The TPU pads the leaf to 64k-element VMEM tiles and runs its grid
-// in order; here blocks run in parallel and nothing carries over between
-// them, so the reduction is two-phase without atomics:
-//   1. lars_norms_kernel: a fixed grid (at most kMaxNormBlocks) strides over
-//      w and g with 16-byte loads, accumulates w^2 and g^2 per thread in
-//      fp32, reduces per block (warp shuffles, then shared memory) and
-//      writes one (sum w^2, sum g^2) pair per block.
-//   2. lars_update_kernel: every block first sums the pairs in the same
-//      fixed order (so every block, and every rerun, gets the bitwise same
-//      trust), applies the trust rule, reads lr from device memory, then
-//      runs the elementwise update with 16-byte loads and stores.
-// The grid of phase 1 is a function of n alone (the caller passes it), so a
-// rerun on the same inputs is bitwise equal. lr and the trust never leave
-// the card: the caller does not synchronise.
+// in order over "each core's 1/N shard of the flattened parameter buffer",
+// one pass over all leaves. Here blocks run in parallel and nothing carries
+// over between them, so the reduction is two-phase without atomics:
+//   1. lars_norms_kernel: one launch over up to kMaxLeaves leaves (every
+//      kernel leaf of a ResNet-50 step). Each leaf is cut into chunks whose
+//      length is a function of n alone (kernels/lars.py:norm_chunk: at
+//      least 4096 elements, a multiple of 1024, at most kMaxNormBlocks
+//      chunks a leaf); the leaf table (pointers, n, first chunk, chunk
+//      length) travels by value as a __grid_constant__ parameter, so
+//      nothing is copied to the card first. A fixed grid of persistent
+//      blocks (8 an SM) walks the launch's chunk list with a fixed stride;
+//      every thread keeps 4 float4 pairs in flight, and a chunk's (sum w^2,
+//      sum g^2) pair is reduced by one block in a fixed order and written
+//      to its own slot, so a leaf's pairs are bit for bit the same alone or
+//      beside other leaves, and on every rerun. (A producer thread feeding
+//      a ring of 1-D bulk copies to consumer warps measured no faster.)
+//   2. lars_update_kernel: every block first sums the leaf's pairs in the
+//      same fixed order (so every block, and every rerun, gets the bitwise
+//      same trust), applies the trust rule, reads lr from device memory,
+//      then runs the elementwise update with 16-byte loads and stores.
+// lr and the trust never leave the card: the caller does not synchronise.
 //
 // Bound on the H100: bytes. Phase 1 reads 8 B an element, phase 2 reads 12
-// and writes 8: at ResNet-50's largest leaf (3x3x512x512, 2,359,296
-// elements) 18,874,368 B = 0.0056 ms and 47,185,920 B = 0.0141 ms at
-// 3.35 TB/s. A simple, correct first version: one launch pair per leaf (a
-// multi-tensor launch over all leaves would hide the small leaves' launch
-// latency), and each phase-2 block re-reduces the <= 264 pairs (2 KiB from
-// L2) in its prologue instead of a third, one-block launch.
+// and writes 8: over ResNet-50's 54 kernel leaves (25,502,912 elements)
+// 204 MB = 0.0609 ms; at its largest leaf (3x3x512x512) 18,874,368 B =
+// 0.0056 ms and 47,185,920 B = 0.0141 ms at 3.35 TB/s. Phase 2 is still one
+// launch a leaf, and each of its blocks re-reduces the leaf's <= 264 pairs
+// (2 KiB from L2) in its prologue instead of a third, one-block launch.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,8 +46,25 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxNormBlocks = 264;     // 2 per SM of the H100's 132
+constexpr int kMaxNormBlocks = 264;     // partial pairs of one leaf at most
 constexpr int kMaxUpdateBlocks = 132 * 8;
+constexpr int kMaxLeaves = 64;          // leaves a norms launch
+
+// One leaf of a norms launch; kernels/lars.py:_NormLeaf packs it (32 B).
+struct NormLeaf {
+  const float* w;
+  const float* g;
+  long long n;
+  int first;  // index of the leaf's first chunk within the launch
+  int chunk;  // chunk length in elements, a multiple of 1024
+};
+struct NormTable {
+  NormLeaf leaf[kMaxLeaves];
+  int n_leaves;
+  int n_chunks;
+};
+static_assert(sizeof(NormLeaf) == 32, "kernels/lars.py packs 32-byte leaves");
+static_assert(sizeof(NormTable) <= 4096, "kernel parameters are at most 4 KB");
 
 __device__ __forceinline__ float2 warp_sum2(float2 v) {
 #pragma unroll
@@ -67,33 +91,77 @@ __device__ __forceinline__ void sq2(float2& acc, float w, float g) {
   acc.y = fmaf(g, g, acc.y);
 }
 
-// V = 4: every pointer 16-byte aligned, float4 loads; V = 1: scalar loads.
-template <int V>
-__global__ void __launch_bounds__(kThreads)
-lars_norms_kernel(const float* __restrict__ w, const float* __restrict__ g,
-                  float2* __restrict__ partial, long long n) {
-  float2 acc = make_float2(0.f, 0.f);
-  const long long nv = n / V;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < nv; i += stride) {
-    if constexpr (V == 4) {
-      const float4 a = reinterpret_cast<const float4*>(w)[i];
-      const float4 b = reinterpret_cast<const float4*>(g)[i];
-      sq2(acc, a.x, b.x);
-      sq2(acc, a.y, b.y);
-      sq2(acc, a.z, b.z);
-      sq2(acc, a.w, b.w);
-    } else {
-      sq2(acc, w[i], g[i]);
-    }
+__device__ __forceinline__ void sq2(float2& acc, float4 a, float4 b) {
+  sq2(acc, a.x, b.x);
+  sq2(acc, a.y, b.y);
+  sq2(acc, a.z, b.z);
+  sq2(acc, a.w, b.w);
+}
+
+// Chunk c of the launch: its leaf's w and g from the chunk's start, its
+// length, and whether both pointers are 16-byte aligned (the chunk start is
+// a multiple of 1024 elements, so the leaf's alignment is the chunk's).
+struct Chunk {
+  const float* w;
+  const float* g;
+  int len;
+  bool vec;
+};
+
+__device__ __forceinline__ Chunk chunk_of(const NormTable& t, int c) {
+  int lo = 0, hi = t.n_leaves - 1;  // the last leaf whose first chunk <= c
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (t.leaf[mid].first <= c) lo = mid; else hi = mid - 1;
   }
-  if (blockIdx.x == 0)  // the < V elements past the last full vector
-    for (long long i = nv * V + threadIdx.x; i < n; i += kThreads)
-      sq2(acc, w[i], g[i]);
-  acc = block_sum2(acc);
-  if (threadIdx.x == 0) partial[blockIdx.x] = acc;
+  const NormLeaf& L = t.leaf[lo];
+  const long long begin = static_cast<long long>(c - L.first) * L.chunk;
+  const long long left = L.n - begin;
+  Chunk k;
+  k.w = L.w + begin;
+  k.g = L.g + begin;
+  k.len = static_cast<int>(left < L.chunk ? left : L.chunk);
+  k.vec = ((reinterpret_cast<uintptr_t>(L.w) |
+            reinterpret_cast<uintptr_t>(L.g)) & 15) == 0;
+  return k;
+}
+
+// Every thread keeps kUnroll float4 pairs of w and g in flight: a chunk of
+// 4096 elements is one round of loads for the block.
+constexpr int kUnroll = 4;
+constexpr int kNormGrid = 132 * 8;  // persistent blocks: 8 an SM
+
+__global__ void __launch_bounds__(kThreads)
+lars_norms_kernel(const __grid_constant__ NormTable t,
+                  float2* __restrict__ partial) {
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int c = blockIdx.x; c < t.n_chunks; c += gridDim.x) {
+    const Chunk k = chunk_of(t, c);
+    float2 acc = make_float2(0.f, 0.f);
+    int done = 0;
+    if (k.vec) {
+      const float4* __restrict__ w4 = reinterpret_cast<const float4*>(k.w);
+      const float4* __restrict__ g4 = reinterpret_cast<const float4*>(k.g);
+      const int nv = k.len >> 2;
+      for (int base = threadIdx.x; base < nv; base += kUnroll * kThreads) {
+        float4 a[kUnroll], b[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int i = base + u * kThreads;
+          a[u] = i < nv ? __ldg(w4 + i) : zero;
+          b[u] = i < nv ? __ldg(g4 + i) : zero;
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) sq2(acc, a[u], b[u]);
+      }
+      done = nv << 2;
+    }
+    for (int i = done + threadIdx.x; i < k.len; i += kThreads)
+      sq2(acc, k.w[i], k.g[i]);  // an unaligned leaf, or the < 4 left over
+    acc = block_sum2(acc);
+    if (threadIdx.x == 0) partial[c] = acc;
+    __syncthreads();  // block_sum2's slots are written again next chunk
+  }
 }
 
 template <bool kScaled>
@@ -161,27 +229,38 @@ bool aligned16(const void* a, const void* b, const void* c) {
 
 }  // namespace
 
-// w, g: n fp32 values. Writes partial[0 .. n_blocks) as (sum w^2, sum g^2)
-// pairs (2 * n_blocks fp32). n_blocks in [1, 264], chosen by the caller as a
-// function of n only.
-extern "C" int lars_norms(const void* w, const void* g, void* partial,
-                          long long n, int n_blocks, void* stream) {
-  if (n <= 0 || n_blocks < 1 || n_blocks > kMaxNormBlocks)
+// leaves: n_leaves (1 .. kMaxLeaves) NormLeaf entries in host memory, each
+// with n > 0, chunk a multiple of 1024 giving at most kMaxNormBlocks chunks,
+// and first the number of chunks of the leaves before it. Writes partial[c]
+// = (sum w^2, sum g^2) over chunk c, for every chunk of the launch (2 fp32
+// values each).
+extern "C" int lars_norms(const void* leaves, int n_leaves, void* partial,
+                          void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* wf = static_cast<const float*>(w);
-  const float* gf = static_cast<const float*>(g);
-  float2* out = static_cast<float2*>(partial);
-  if (aligned16(w, g, g))
-    lars_norms_kernel<4><<<n_blocks, kThreads, 0, s>>>(wf, gf, out, n);
-  else
-    lars_norms_kernel<1><<<n_blocks, kThreads, 0, s>>>(wf, gf, out, n);
+  NormTable t = {};
+  const NormLeaf* in = static_cast<const NormLeaf*>(leaves);
+  int next = 0;
+  for (int i = 0; i < n_leaves; ++i) {
+    const NormLeaf& L = in[i];
+    if (L.n <= 0 || L.chunk <= 0 || L.chunk % 1024 || L.first != next)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const long long k = (L.n + L.chunk - 1) / L.chunk;
+    if (k > kMaxNormBlocks) return static_cast<int>(cudaErrorInvalidValue);
+    t.leaf[i] = L;
+    next += static_cast<int>(k);
+  }
+  t.n_leaves = n_leaves;
+  t.n_chunks = next;
+  lars_norms_kernel<<<next < kNormGrid ? next : kNormGrid, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      t, static_cast<float2*>(partial));
   return static_cast<int>(cudaGetLastError());
 }
 
-// w, m (updated in place), g: n fp32 values; partial: n_parts pairs from
-// lars_norms; lr: one fp32 value on the card; trust_out: one fp32 value the
-// trust is written to, or null. scaled: 1 for Fig. 5, 0 for Fig. 6.
+// w, m (updated in place), g: n fp32 values; partial: the leaf's n_parts
+// pairs from lars_norms; lr: one fp32 value on the card; trust_out: one fp32
+// value the trust is written to, or null. scaled: 1 for Fig. 5, 0 for Fig. 6.
 extern "C" int lars_update(void* w, const void* g, void* m,
                            const void* partial, int n_parts, const void* lr,
                            void* trust_out, long long n, float wd, float mu,

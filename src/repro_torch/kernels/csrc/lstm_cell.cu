@@ -14,7 +14,9 @@
 //   dc = dc' + dh' * o * (1 - tanh(c')^2);   dc_prev = dc * f
 //   di = dc * g * i(1-i);  df = dc * c * f(1-f);  dg = dc * i * (1-g^2);
 //   do = dh' * tanh(c') * o(1-o)
-// (dx_proj, db, dh_prev and dW_h follow from dgates outside the kernel).
+// and in the same pass dx_proj (dgates in x_proj's dtype) and db (dgates
+// summed over the rows); dh_prev and dW_h follow from dgates outside the
+// kernel, as two fp32 products.
 //
 // Design. On the TPU, W_h (F, 4F) stays resident in VMEM across a grid over
 // batch tiles. At GNMT's F = 1024 it is 8 MiB of bf16, far beyond one SM's
@@ -45,14 +47,21 @@
 // (0.0039 ms) at 3.35 TB/s, against 1.07 GFLOP, 0.0011 ms at 989 TFLOP/s:
 // W_h is read again at every time step. Each block also reads all of h
 // (256 KB at B 128), from L2 after the first.
+//
+// The backward moves 7,618,560 B at that shape (gates, c_prev, c', dc' and
+// bf16 dh in; dgates, dc_prev, bf16 dx and db out), 0.0023 ms at 3.35 TB/s.
+// It writes dx and db itself, so no launch reads dgates again. Blocks of 8
+// units over all rows (32-byte pieces of each row), and TMA boxes of 8
+// units x 128 rows, measured slower than the 4-block cluster strips of 32
+// units below.
+#include <cooperative_groups.h>
+
 #include "sm90.cuh"
 
 namespace {
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
@@ -313,30 +322,126 @@ lstm_fwd_fp32_kernel(const float* __restrict__ xp, const float* __restrict__ h,
 }
 
 // ---------------------------------------------------------------------------
-// Backward of the cell-local part: one thread per (row, unit).
+// Backward of the cell-local part, one fused pass. A cluster of 4 blocks
+// owns a strip of 32 units (128 columns of dgates, 32 of each gate) over
+// all B rows, so every row of every operand is read and written as whole
+// 128-byte lines; block k of the cluster takes rows 32k .. 32k + 31 of
+// every 128-row tile, and a thread owns (row, 4 units) and issues all its
+// 16-byte loads before their first use. It writes dgates and dc_prev in
+// fp32, dx (dgates in dh's dtype, bf16 only: an fp32 dx is dgates itself)
+// and db: each block sums its columns over its rows in a fixed order
+// (shuffles within a warp, then the warps in order through shared memory),
+// blocks 1-3 push their sums into block 0's shared memory, and block 0 adds
+// the four in rank order. No atomics, and a rerun is bitwise equal.
 // ---------------------------------------------------------------------------
+constexpr int kBwdThreads = 256;        // 32 rows x 8 threads of 4 units
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kCluster = 4;             // blocks a strip
+constexpr int kStrip = 32;              // units a strip
+constexpr int kBlockRows = kBwdThreads / (kStrip / 4);
+
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+}
+__device__ __forceinline__ void ld4(const bf16* p, float (&v)[4]) {
+  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&x.y));
+  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
+}
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void st4(bf16* p, const float (&v)[4]) {
+  uint2 x;
+  x.x = sm90::pack_bf16(v[0], v[1]);
+  x.y = sm90::pack_bf16(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) = x;
+}
+
 template <typename T>
-__global__ void __launch_bounds__(256)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kBwdThreads)
 lstm_bwd_kernel(const float* __restrict__ gates,
                 const float* __restrict__ c_prev,
                 const float* __restrict__ c_new, const T* __restrict__ dh,
                 const float* __restrict__ dc_new, float* __restrict__ dgates,
-                float* __restrict__ dc_prev, int B, int F) {
-  const size_t n = static_cast<size_t>(B) * F;
-  for (size_t idx = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
-       idx < n; idx += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t row = idx / F, j = idx % F;
-    const size_t gr = row * 4 * static_cast<size_t>(F) + j;
-    const float ig = gates[gr], fg = gates[gr + F];
-    const float gg = gates[gr + 2 * F], og = gates[gr + 3 * F];
-    const float tc = tanhf(c_new[idx]);
-    const float dhv = to_float(dh[idx]);
-    const float dc = dc_new[idx] + dhv * og * (1.f - tc * tc);
-    dgates[gr] = dc * gg * (ig * (1.f - ig));
-    dgates[gr + F] = dc * c_prev[idx] * (fg * (1.f - fg));
-    dgates[gr + 2 * F] = dc * ig * (1.f - gg * gg);
-    dgates[gr + 3 * F] = dhv * tc * (og * (1.f - og));
-    dc_prev[idx] = dc * fg;
+                float* __restrict__ dc_prev, T* __restrict__ dx,
+                float* __restrict__ db, int B, int F) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  __shared__ float part[kBwdWarps][4 * kStrip];
+  __shared__ float slots[kCluster][4 * kStrip];  // block 0's: each block's sums
+  sm90::cluster_arrive_relaxed();  // waited on before the first remote store
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int j0 = (blockIdx.x / kCluster) * kStrip;
+  const int j = j0 + 4 * (threadIdx.x % (kStrip / 4));
+  const size_t F4 = 4 * static_cast<size_t>(F);
+  float sum[4][4] = {};
+  if (j < F)
+    for (int row = rank * kBlockRows + threadIdx.x / (kStrip / 4); row < B;
+         row += kCluster * kBlockRows) {
+      const size_t o = static_cast<size_t>(row) * F + j;
+      const size_t gr = static_cast<size_t>(row) * F4 + j;
+      float gt[4][4], cp[4], cn[4], dhv[4], dcn[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) ld4(gates + gr + q * F, gt[q]);
+      ld4(c_prev + o, cp);
+      ld4(c_new + o, cn);
+      ld4(dh + o, dhv);
+      ld4(dc_new + o, dcn);
+      float d[4][4], dcp[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {  // gates in the order i, f, g, o
+        const float ig = gt[0][u], fg = gt[1][u], gg = gt[2][u];
+        const float og = gt[3][u];
+        const float tc = tanhf(cn[u]);
+        const float dc = dcn[u] + dhv[u] * og * (1.f - tc * tc);
+        d[0][u] = dc * gg * (ig * (1.f - ig));
+        d[1][u] = dc * cp[u] * (fg * (1.f - fg));
+        d[2][u] = dc * ig * (1.f - gg * gg);
+        d[3][u] = dhv[u] * tc * (og * (1.f - og));
+        dcp[u] = dc * fg;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        st4(dgates + gr + q * F, d[q]);
+        if (dx) st4(dx + gr + q * F, d[q]);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) sum[q][u] += d[q][u];
+      }
+      st4(dc_prev + o, dcp);
+    }
+  // Lanes l, l + 8, l + 16, l + 24 hold the same 4 units: a butterfly over
+  // lane bits 3-4, then the warps in order.
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float v = sum[q][u];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < kStrip / 4) part[warp][q * kStrip + 4 * lane + u] = v;
+    }
+  __syncthreads();
+  sm90::cluster_wait();  // every block of the cluster has started
+  if (threadIdx.x < 4 * kStrip) {
+    float v = part[0][threadIdx.x];
+    for (int w = 1; w < kBwdWarps; ++w) v += part[w][threadIdx.x];
+    cluster.map_shared_rank(&slots[0][0], 0)[rank * 4 * kStrip +
+                                            threadIdx.x] = v;
+  }
+  sm90::cluster_arrive_release();
+  if (rank != 0) return;
+  sm90::cluster_wait();  // the four blocks' sums are in slots
+  if (threadIdx.x < 4 * kStrip) {
+    float v = slots[0][threadIdx.x];
+    for (int r = 1; r < kCluster; ++r) v += slots[r][threadIdx.x];
+    const int c = j0 + threadIdx.x % kStrip;
+    if (c < F) db[(threadIdx.x / kStrip) * F + c] = v;
   }
 }
 
@@ -388,29 +493,34 @@ extern "C" int lstm_cell_fwd(const void* x_proj, const void* h, const void* c,
 }
 
 // gates (B, 4F) activated, c_prev, c_new (B, F) fp32; dh (B, F) bf16
-// (dh_bf16 = 1) or fp32; dc_new (B, F) fp32. Writes dgates
-// (B, 4F) (gradients of the pre-activations) and dc_prev (B, F), fp32.
+// (dh_bf16 = 1) or fp32; dc_new (B, F) fp32. Writes dgates (B, 4F) (the
+// gradients of the pre-activations) and dc_prev (B, F) in fp32, db (4F,)
+// fp32 (dgates summed over the rows) and, for bf16 dh, dx (B, 4F): dgates
+// in bf16 (dx is null for fp32 dh). All pointers 16-byte aligned, F a
+// multiple of 8.
 extern "C" int lstm_cell_bwd(const void* gates, const void* c_prev,
                              const void* c_new, const void* dh,
                              const void* dc_new, void* dgates, void* dc_prev,
-                             int B, int F, int dh_bf16, void* stream) {
-  if (B <= 0 || F <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t n = static_cast<size_t>(B) * F;
-  const int blocks = static_cast<int>((n + 255) / 256 < 132 * 16
-                                          ? (n + 255) / 256
-                                          : 132 * 16);
+                             void* dx, void* db, int B, int F, int dh_bf16,
+                             void* stream) {
+  if (B <= 0 || F <= 0 || F % 8 || (dh_bf16 != 0) != (dx != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const dim3 grid(kCluster * ((F + kStrip - 1) / kStrip));
+  const float* g = static_cast<const float*>(gates);
+  const float* cp = static_cast<const float*>(c_prev);
+  const float* cn = static_cast<const float*>(c_new);
+  const float* dcn = static_cast<const float*>(dc_new);
+  float* dg = static_cast<float*>(dgates);
+  float* dcp = static_cast<float*>(dc_prev);
+  float* dbf = static_cast<float*>(db);
   if (dh_bf16)
-    lstm_bwd_kernel<bf16><<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(gates), static_cast<const float*>(c_prev),
-        static_cast<const float*>(c_new), static_cast<const bf16*>(dh),
-        static_cast<const float*>(dc_new), static_cast<float*>(dgates),
-        static_cast<float*>(dc_prev), B, F);
+    lstm_bwd_kernel<bf16><<<grid, kBwdThreads, 0, s>>>(
+        g, cp, cn, static_cast<const bf16*>(dh), dcn, dg, dcp,
+        static_cast<bf16*>(dx), dbf, B, F);
   else
-    lstm_bwd_kernel<float><<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(gates), static_cast<const float*>(c_prev),
-        static_cast<const float*>(c_new), static_cast<const float*>(dh),
-        static_cast<const float*>(dc_new), static_cast<float*>(dgates),
-        static_cast<float*>(dc_prev), B, F);
+    lstm_bwd_kernel<float><<<grid, kBwdThreads, 0, s>>>(
+        g, cp, cn, static_cast<const float*>(dh), dcn, dg, dcp, nullptr, dbf,
+        B, F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
 // addresses, mbarriers, TMA tensor loads and their tensor maps, the
 // warpgroup matrix multiply (wgmma) with its shared-memory descriptors,
-// named barriers, cp.async copies, and mma.sync with ldmatrix fragments.
+// named and cluster barriers, cp.async copies, and mma.sync with ldmatrix
+// fragments.
 //
 // Tensor maps are encoded on the host by cuTensorMapEncodeTiled, looked
 // up with dlsym in the loaded libcuda.so.1, so the libraries link against
@@ -304,6 +305,22 @@ __device__ __forceinline__ void bar_sync(int id, int count) {
 }
 __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// The cluster barrier, split: every thread of every block of the cluster
+// arrives, then waits for all non-exited threads' arrivals of that phase.
+// arrive.release orders the caller's earlier (also remote) shared-memory
+// stores before the waiters' later loads; a block may arrive and exit.
+// ---------------------------------------------------------------------------
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------

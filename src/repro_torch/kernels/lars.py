@@ -7,17 +7,24 @@ The kernels (``csrc/lars.cu``) replace the two TPU kernels of
 sums of w^2 and g^2, and ``_update_kernel`` (``pallas_call`` at line 80),
 the elementwise momentum and trust-scaled update. What bounds both on an
 H100 is bytes: 8 B an element read for the norms, 12 B read and 8 B
-written for the update. The norms kernel writes one partial pair per
-block (a fixed grid, no atomics, so a rerun is bitwise equal); the update
-kernel sums the pairs in its prologue, applies the trust rule, reads lr
+written for the update. The norms kernel takes up to ``MAX_LEAVES``
+leaves in one launch, as the TPU kernel passes once over the flattened
+parameter buffer: each leaf is cut into chunks by :func:`norm_chunk` (a
+function of n alone) and each chunk's (sum w^2, sum g^2) pair lands in
+its own row (a fixed order, no atomics, so a leaf's pairs are bitwise
+the same alone, beside other leaves, and on a rerun). The update kernel
+sums its leaf's pairs in its prologue, applies the trust rule, reads lr
 from device memory and writes w and m in place, so the optimizer step
 never reads a norm, the trust or lr on the host.
 
-:func:`lars_update_cuda` launches both (:func:`lars_norms_cuda`, then
-:func:`lars_apply_cuda`) on contiguous fp32 CUDA tensors and raises on
-anything else; :func:`lars_update_torch` is the plain version
-(``repro/kernels/ref.py:117-140``), which the CPU path and the on-card
-comparison use.
+:func:`lars_norms_multi_cuda` launches the norms kernel over many leaves
+(one launch a step for ResNet-50's 54), :func:`lars_norms_cuda` over one,
+:func:`lars_apply_cuda` the update kernel on a leaf's pairs, and
+:func:`lars_update_cuda` both for one leaf; all take contiguous fp32 CUDA
+tensors and raise on anything else. :func:`lars_update_torch` is the plain
+version (``repro/kernels/ref.py:117-140``) and :func:`lars_partials_torch`
+the plain version of the norms kernel's output; the CPU path and the
+on-card comparison use them.
 """
 from __future__ import annotations
 
@@ -26,7 +33,10 @@ import ctypes
 import torch
 
 THREADS = 256           # csrc/lars.cu kThreads
-MAX_NORM_BLOCKS = 264   # csrc/lars.cu kMaxNormBlocks: 2 per SM of 132
+MAX_NORM_BLOCKS = 264   # csrc/lars.cu kMaxNormBlocks: partial pairs a leaf
+MAX_LEAVES = 64         # csrc/lars.cu kMaxLeaves: leaves a norms launch
+MIN_CHUNK = 4096        # elements: a chunk is at least this long ...
+CHUNK_ALIGN = 1024      # ... and a multiple of this
 
 
 def lars_trust_torch(w, g, *, weight_decay, eta, eps=1e-9):
@@ -69,11 +79,70 @@ def lars_update_torch(w, g, m, *, lr, weight_decay, momentum, eta, eps=1e-9,
     return new_w.to(w.dtype), new_m.to(m.dtype)
 
 
+def norm_chunk(n: int) -> int:
+    """The norms kernel's chunk length for a leaf of n elements: at least
+    ``MIN_CHUNK``, a multiple of ``CHUNK_ALIGN``, and long enough that the
+    leaf has at most ``MAX_NORM_BLOCKS`` chunks. A function of n alone, so
+    a leaf's partial sums do not depend on the leaves launched beside it."""
+    want = max(MIN_CHUNK, -(-n // MAX_NORM_BLOCKS))
+    return -(-want // CHUNK_ALIGN) * CHUNK_ALIGN
+
+
 def norm_blocks(n: int) -> int:
-    """The norms kernel's grid for n elements (one partial pair a block):
-    one 256-thread block per 1024 elements, at most 264. A function of n
-    alone, so a rerun sums in the same order."""
-    return max(1, min(MAX_NORM_BLOCKS, -(-n // (4 * THREADS))))
+    """The number of partial pairs (chunks) of a leaf of n elements, at
+    least 1 and at most ``MAX_NORM_BLOCKS``."""
+    return max(1, -(-n // norm_chunk(n)))
+
+
+def chunk_plan(ns):
+    """Row ranges of the leaves' partial pairs in one (total, 2) output:
+    for leaf sizes ``ns``, a list of (first row, rows, chunk length), the
+    first rows cumulative."""
+    plan, first = [], 0
+    for n in ns:
+        k = norm_blocks(n)
+        plan.append((first, k, norm_chunk(n)))
+        first += k
+    return plan
+
+
+class _NormLeaf(ctypes.Structure):
+    """``csrc/lars.cu`` ``NormLeaf``: field for field, 32 bytes."""
+    _fields_ = [("w", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("first", ctypes.c_int),
+                ("chunk", ctypes.c_int)]
+
+
+def leaf_tables(w_ptrs, g_ptrs, ns):
+    """The norms launches for leaves at device addresses ``w_ptrs`` and
+    ``g_ptrs`` of sizes ``ns`` (each > 0): a list of (ctypes array of
+    ``_NormLeaf``, first output row, rows), at most ``MAX_LEAVES`` leaves a
+    launch, each leaf's ``first`` counted from its launch's first row."""
+    plan = chunk_plan(ns)
+    launches = []
+    for s in range(0, len(ns), MAX_LEAVES):
+        idx = range(s, min(s + MAX_LEAVES, len(ns)))
+        row0 = plan[s][0]
+        table = (_NormLeaf * len(idx))(*(
+            _NormLeaf(w_ptrs[i], g_ptrs[i], ns[i], plan[i][0] - row0,
+                      plan[i][2]) for i in idx))
+        last = plan[idx[-1]]
+        launches.append((table, row0, last[0] + last[1] - row0))
+    return launches
+
+
+def lars_partials_torch(w, g):
+    """The norms kernel's output for one leaf, plain: (norm_blocks(n), 2)
+    fp32 sums of w^2 and g^2 over each chunk of ``norm_chunk(n)``
+    elements (summed in another order than the kernel's)."""
+    n = w.numel()
+    k, chunk = norm_blocks(n), norm_chunk(n)
+    out = []
+    for t in (w, g):
+        flat = t.reshape(-1).float()
+        flat = torch.cat([flat, flat.new_zeros(k * chunk - n)])
+        out.append(flat.reshape(k, chunk).square().sum(1))
+    return torch.stack(out, dim=1)
 
 
 def _check(name, tensors, dev=None):
@@ -108,27 +177,66 @@ def _device_scalar(name, x, dev):
     return x.contiguous()
 
 
+def _norms_launch(name, ws, gs, dev):
+    """Launch the norms kernel over leaves ``ws``/``gs`` (checked, each
+    > 0 elements). Returns the (total, 2) output and the kernel launches
+    made."""
+    ns = [w.numel() for w in ws]
+    tables = leaf_tables([w.data_ptr() for w in ws],
+                         [g.data_ptr() for g in gs], ns)
+    total = sum(rows for _, _, rows in tables)
+    partial = torch.empty((total, 2), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib()
+    for table, row0, _ in tables:
+        err = lib.lars_norms(ctypes.addressof(table), len(table),
+                             partial[row0:].data_ptr(), stream)
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+    return partial, len(tables)
+
+
 def lars_norms_cuda(w, g):
-    """Launch the norms kernel: returns the (norm_blocks(n), 2) fp32
-    partial sums of w^2 and g^2 (one pair per block). Counts each launch
+    """Launch the norms kernel on one leaf: returns the (norm_blocks(n), 2)
+    fp32 partial sums of w^2 and g^2 (one pair a chunk). Counts each launch
     in ``lars_norms_cuda.launches``."""
     name = "lars_norms_cuda"
     dev = _check(name, (("w", w), ("g", g)))
-    n = w.numel()
-    partial = torch.empty((norm_blocks(n), 2), dtype=torch.float32,
-                          device=dev)
-    if n == 0:
-        return partial.zero_()
-    err = _lib().lars_norms(w.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                            n, partial.shape[0],
-                            torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"lars_norms: CUDA error {err}")
-    lars_norms_cuda.launches += 1
+    if w.numel() == 0:
+        return torch.zeros((1, 2), dtype=torch.float32, device=dev)
+    partial, n = _norms_launch(name, [w], [g], dev)
+    lars_norms_cuda.launches += n
     return partial
 
 
 lars_norms_cuda.launches = 0
+
+
+def lars_norms_multi_cuda(ws, gs):
+    """Launch the norms kernel over many leaves at once: ``ws[i]`` and
+    ``gs[i]`` contiguous fp32 CUDA tensors of one shape and at least one
+    element, all on one device. Returns (the (total, 2) fp32 partial sums,
+    one row a chunk, leaves in order; and each leaf's row slice of it, the
+    ``partial`` that :func:`lars_apply_cuda` takes). One kernel launch for
+    every ``MAX_LEAVES`` leaves, each counted in
+    ``lars_norms_multi_cuda.launches``; leaf i's rows equal
+    ``lars_norms_cuda(ws[i], gs[i])`` bit for bit."""
+    name = "lars_norms_multi_cuda"
+    if len(ws) != len(gs) or not ws:
+        raise ValueError(f"{name}: needs as many gradients as weights, and "
+                         f"at least one leaf; got {len(ws)} and {len(gs)}")
+    dev = ws[0].device
+    for i, (w, g) in enumerate(zip(ws, gs)):
+        _check(name, ((f"ws[{i}]", w), (f"gs[{i}]", g)), dev)
+        if w.numel() == 0:
+            raise ValueError(f"{name}: ws[{i}] has no elements")
+    partial, n = _norms_launch(name, ws, gs, dev)
+    lars_norms_multi_cuda.launches += n
+    plan = chunk_plan([w.numel() for w in ws])
+    return partial, [partial[first:first + k] for first, k, _ in plan]
+
+
+lars_norms_multi_cuda.launches = 0
 
 
 def lars_apply_cuda(w, g, m, partial, *, lr, weight_decay, momentum, eta,
@@ -186,6 +294,7 @@ def lars_update_cuda(w, g, m, *, lr, weight_decay, momentum, eta, eps=1e-9,
 
 def reset_launches() -> None:
     lars_norms_cuda.launches = 0
+    lars_norms_multi_cuda.launches = 0
     lars_apply_cuda.launches = 0
 
 
@@ -196,7 +305,7 @@ def _lib() -> ctypes.CDLL:
     if lib.lars_norms.argtypes is None:
         p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_float)
-        lib.lars_norms.argtypes = [p, p, p, ll, i, p]
+        lib.lars_norms.argtypes = [p, i, p, p]
         lib.lars_norms.restype = i
         lib.lars_update.argtypes = [p, p, p, p, i, p, p, ll, f, f, f, f, i, p]
         lib.lars_update.restype = i

@@ -8,9 +8,10 @@ GNMT's input projection hoisted out of the time loop (C9), the cell
 nonlinearities and state update is the whole loop body. The reference has
 no backward kernel; GNMT trains through ``jax.grad`` of
 ``repro/kernels/ref.py:lstm_cell``. Here the backward kernel is the cell's
-elementwise part, from the activated gates the forward saved, and the
-products that follow from its ``dgates`` stay ``torch.matmul``, as the
-reference left them to XLA.
+elementwise part, from the activated gates the forward saved, in one pass
+that also writes the gradients of x_proj and b; the products that follow
+from its ``dgates`` stay ``torch.matmul``, as the reference left them to
+XLA.
 
 What bounds the forward on an H100 at GNMT's shape (B 128, F 1024, bf16)
 is bytes: re-reading W_h (8 MiB) at every time step, 0.0033 ms at
@@ -51,16 +52,18 @@ def lstm_cell_bwd_torch(gates, c_prev, c_new, dh, dc):
     """The cell-local backward: from the activated gates (B, 4F) in the
     order i, f, g, o, c_prev and c_new (B, F), and the gradients dh of
     h_new and dc of c_new, returns (dgates (B, 4F), the gradient of the
-    gate pre-activations, and dc_prev (B, F)), both fp32."""
+    gate pre-activations, and dc_prev (B, F), both fp32; dx, dgates in
+    dh's dtype, which is x_proj's, the gradient of x_proj; db (4F,) fp32,
+    dgates summed over the rows, the gradient of b)."""
     i, f, g, o = gates.float().chunk(4, dim=-1)
     tc = torch.tanh(c_new.float())
-    dh = dh.float()
-    dc_tot = dc.float() + dh * o * (1 - tc * tc)
+    dh32 = dh.float()
+    dc_tot = dc.float() + dh32 * o * (1 - tc * tc)
     dgates = torch.cat([dc_tot * g * (i * (1 - i)),
                         dc_tot * c_prev.float() * (f * (1 - f)),
                         dc_tot * i * (1 - g * g),
-                        dh * tc * (o * (1 - o))], dim=-1)
-    return dgates, dc_tot * f
+                        dh32 * tc * (o * (1 - o))], dim=-1)
+    return dgates, dc_tot * f, dgates.to(dh.dtype), dgates.sum(0)
 
 
 def _check(name, tensors, dev):
@@ -144,14 +147,17 @@ lstm_cell_fwd_cuda.launches = 0
 
 def lstm_cell_bwd_cuda(gates, c_prev, c_new, dh, dc):
     """Launch the backward kernel: :func:`lstm_cell_bwd_torch` on CUDA
-    tensors. gates (B, 4F), c_prev, c_new and dc fp32; dh bf16 or fp32.
-    Returns (dgates (B, 4F), dc_prev (B, F)), fp32. Counts each launch
-    in ``lstm_cell_bwd_cuda.launches``."""
+    tensors. gates (B, 4F), c_prev, c_new and dc fp32; dh bf16 or fp32;
+    F a multiple of 8. Returns (dgates (B, 4F), dc_prev (B, F), dx (B, 4F)
+    in dh's dtype, db (4F,)); for fp32 dh, dx is dgates itself. Counts
+    each launch in ``lstm_cell_bwd_cuda.launches``."""
     name = "lstm_cell_bwd_cuda"
     if c_prev.dim() != 2:
         raise ValueError(f"{name}: c_prev must be (B, F), got "
                          f"{tuple(c_prev.shape)}")
     B, F = c_prev.shape
+    if F % 8:
+        raise ValueError(f"{name}: F = {F}; the kernel takes a multiple of 8")
     _shape(name, "gates", gates, (B, 4 * F))
     _dtype(name, "dh", dh, _DTYPES)
     named = [("gates", gates), ("c_prev", c_prev), ("c_new", c_new),
@@ -165,17 +171,21 @@ def lstm_cell_bwd_cuda(gates, c_prev, c_new, dh, dc):
     dev = c_prev.device
     dgates = torch.empty((B, 4 * F), dtype=torch.float32, device=dev)
     dc_prev = torch.empty((B, F), dtype=torch.float32, device=dev)
+    bf16 = dh.dtype == torch.bfloat16
+    dx = (torch.empty((B, 4 * F), dtype=dh.dtype, device=dev) if bf16
+          else dgates)
+    db = torch.empty((4 * F,), dtype=torch.float32, device=dev)
     if B == 0 or F == 0:
-        return dgates, dc_prev
+        return dgates, dc_prev, dx, db.zero_()
     err = _lib().lstm_cell_bwd(
         gates.data_ptr(), c_prev.data_ptr(), c_new.data_ptr(), dh.data_ptr(),
-        dc.data_ptr(), dgates.data_ptr(),
-        dc_prev.data_ptr(), B, F, int(dh.dtype == torch.bfloat16),
+        dc.data_ptr(), dgates.data_ptr(), dc_prev.data_ptr(),
+        dx.data_ptr() if bf16 else None, db.data_ptr(), B, F, int(bf16),
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"lstm_cell_bwd: CUDA error {err}")
     lstm_cell_bwd_cuda.launches += 1
-    return dgates, dc_prev
+    return dgates, dc_prev, dx, db
 
 
 lstm_cell_bwd_cuda.launches = 0
@@ -184,10 +194,9 @@ lstm_cell_bwd_cuda.launches = 0
 class LSTMCell(torch.autograd.Function):
     """The cell through the forward kernel, with the backward kernel as
     its gradient. The forward has the kernel write the activated gates
-    and saves them; the backward launches the backward kernel and then
-    forms
+    and saves them; the backward kernel writes dgates, dc_prev, dx_proj
+    (dgates in x_proj's dtype) and db (dgates summed over rows), and then
 
-        dx_proj = dgates in x_proj's dtype;   db = dgates summed over rows
         dh_prev = dgates . W_h^T;             dW_h = h_prev^T . dgates
 
     The two products run as ``torch.matmul`` in full fp32 (h_prev and W_h
@@ -207,15 +216,15 @@ class LSTMCell(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dh, dc):
         h_prev, c_prev, w_h, gates, c = ctx.saved_tensors
-        dgates, dc_prev = lstm_cell_bwd_cuda(gates, c_prev, c, dh, dc)
+        dgates, dc_prev, dx, db = lstm_cell_bwd_cuda(gates, c_prev, c,
+                                                     dh.to(ctx.xp_dtype), dc)
         need = ctx.needs_input_grad
-        dx = dgates.to(ctx.xp_dtype) if need[0] else None
         dh_prev = ((dgates @ w_h.float().t()).to(h_prev.dtype)
                    if need[1] else None)
         dw = ((h_prev.float().t() @ dgates).to(w_h.dtype)
               if need[3] else None)
-        db = dgates.sum(0) if need[4] else None
-        return dx, dh_prev, dc_prev if need[2] else None, dw, db
+        return (dx if need[0] else None, dh_prev,
+                dc_prev if need[2] else None, dw, db if need[4] else None)
 
 
 def lstm_cell_cuda(x_proj, h_prev, c_prev, w_h, b):
@@ -238,6 +247,6 @@ def _lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.lstm_cell_fwd.argtypes = [p] * 8 + [i] * 3 + [p]
         lib.lstm_cell_fwd.restype = i
-        lib.lstm_cell_bwd.argtypes = [p] * 7 + [i] * 3 + [p]
+        lib.lstm_cell_bwd.argtypes = [p] * 9 + [i] * 3 + [p]
         lib.lstm_cell_bwd.restype = i
     return lib

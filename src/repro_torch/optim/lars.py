@@ -10,10 +10,11 @@ scaled_momentum=False (Fig. 6, You et al.):
     v   = m*v + lam*lr*(g + beta*w)
     w   = w - v
 
-Leaves of 2 or more dimensions go through ``kernels.ops.lars_update``
-(on the card the two CUDA kernels, for every leaf of at least 1024
-elements); 1-D leaves (biases, norm scales) take heavy-ball momentum with
-no adaptation and no weight decay, as the MLPerf reference does
+Leaves of 2 or more dimensions go through
+``kernels.ops.lars_update_leaves`` once a step (on the card one norms
+launch over every leaf of at least 1024 elements, then one update launch
+a leaf); 1-D leaves (biases, norm scales) take heavy-ball momentum with no
+adaptation and no weight decay, as the MLPerf reference does
 (``lars.py:43-48``). Momenta are fp32 for every leaf.
 
 Unlike the reference, which returns new arrays, ``update`` writes the new
@@ -47,23 +48,27 @@ def lars(lr_schedule, momentum: float = 0.9, weight_decay: float = 1e-4,
     def update(grads, state, params, step=None):
         step = state["step"] if step is None else step
         lr = lr_schedule(step)
+        kernel = []  # (w, its fp32 view, g, m) of the leaves of 2+ dims
         for w, g, m in zip(tree_leaves(params), tree_leaves(grads),
                            tree_leaves(state["m"])):
-            lr_d = lr.to(w.device)
             g32 = g.float()
             if w.dim() <= 1:  # bias/norm: heavy-ball momentum, no adaptation
                 m.mul_(momentum).add_(g32)
-                w.copy_(w.float() - lr_d * m)
+                w.copy_(w.float() - lr.to(w.device) * m)
                 continue
-            w32 = w if w.dtype == torch.float32 else w.float()
-            new_w, new_m = ops.lars_update(
-                w32, g32.contiguous(), m, lr=lr_d,
+            kernel.append((w, w if w.dtype == torch.float32 else w.float(),
+                           g32.contiguous(), m))
+        if kernel:
+            ws, w32s, gs, ms = map(list, zip(*kernel))
+            new = ops.lars_update_leaves(
+                w32s, gs, ms, lr=lr.to(ws[0].device),
                 weight_decay=weight_decay, momentum=momentum, eta=eta,
                 eps=eps, scaled_momentum=scaled_momentum)
-            if new_m is not m:  # the plain path returns new tensors
-                m.copy_(new_m)
-            if new_w is not w:
-                w.copy_(new_w)
+            for w, m, (new_w, new_m) in zip(ws, ms, new):
+                if new_m is not m:  # the plain path returns new tensors
+                    m.copy_(new_m)
+                if new_w is not w:
+                    w.copy_(new_w)
         return params, {"m": state["m"], "step": step + 1}
 
     return Optimizer(

@@ -5,6 +5,8 @@ rules, at zero norms too; the norms kernel's grid rule; the routing of
 refusals; ``polynomial_warmup``; the ``lars`` and ``sgd_momentum``
 optimizers over a tree of 1-D and larger leaves; and, on a card only
 (marked ``cuda``), both CUDA kernels against the plain version."""
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -95,9 +97,80 @@ def test_trust_follows_the_reference_formula():
 
 
 def test_norm_blocks_is_a_function_of_n_within_the_kernels_grid():
-    assert [lk.norm_blocks(n) for n in (1, 1024, 1025, 4096, 270_336)] == [
-        1, 1, 2, 4, 264]
-    assert lk.norm_blocks(3 * 3 * 512 * 512) == lk.MAX_NORM_BLOCKS == 264
+    """One partial pair a chunk: chunks of at least 4096 elements, so up
+    to 1,081,344 elements (264 x 4096) a leaf has n / 4096 of them, and
+    past that at most 264 (ResNet-50's largest leaf: 256 of 9216)."""
+    assert [lk.norm_blocks(n) for n in (1, 1024, 1025, 4096, 270_336,
+                                         1_081_344, 1_081_345)] == [
+        1, 1, 1, 1, 66, 264, 212]
+    assert lk.norm_blocks(3 * 3 * 512 * 512) == 256
+    assert lk.MAX_NORM_BLOCKS == 264
+
+
+SIZES = [1, 1023, 1024, 4096, 4097, 9408, 270_336, 1_000_003, 1_081_344,
+         1_081_345, 2_048_000, 2_359_296, 10 ** 8]
+
+
+def test_chunk_plan_is_a_function_of_n_with_cumulative_rows():
+    """Each leaf's chunk length is a multiple of 1024, at least 4096, and
+    gives at most 264 chunks that just cover the leaf; a leaf's (rows,
+    chunk) does not depend on the leaves beside it; first rows add up."""
+    for n in SIZES:
+        chunk, k = lk.norm_chunk(n), lk.norm_blocks(n)
+        assert chunk % lk.CHUNK_ALIGN == 0 and chunk >= lk.MIN_CHUNK
+        assert 1 <= k <= lk.MAX_NORM_BLOCKS
+        assert (k - 1) * chunk < n <= k * chunk
+    rng = np.random.default_rng(0)
+    for _ in range(5):
+        ns = list(rng.permutation(SIZES))
+        plan = lk.chunk_plan(ns)
+        first = 0
+        for n, (row, rows, chunk) in zip(ns, plan):
+            assert (row, rows, chunk) == (first, lk.norm_blocks(n),
+                                          lk.norm_chunk(n))
+            first += rows
+
+
+def test_leaf_table_packing_field_order_and_launch_cap():
+    """The ctypes leaf matches csrc/lars.cu's NormLeaf field for field (w,
+    g, n, first, chunk at offsets 0, 8, 16, 24, 28; 32 bytes); on fake
+    pointers, 130 leaves pack into launches of 64, 64 and 2, each leaf's
+    ``first`` counted from its launch's first output row."""
+    L = lk._NormLeaf
+    assert [(f, getattr(L, f).offset) for f, _ in L._fields_] == [
+        ("w", 0), ("g", 8), ("n", 16), ("first", 24), ("chunk", 28)]
+    assert ctypes.sizeof(L) == 32
+    ns = [4096 * (1 + i % 7) + i for i in range(130)]
+    ws = [0x7F0000000000 + 0x100000 * i for i in range(130)]
+    gs = [0x7E0000000000 + 0x100000 * i for i in range(130)]
+    tables = lk.leaf_tables(ws, gs, ns)
+    assert [len(t) for t, _, _ in tables] == [lk.MAX_LEAVES] * 2 + [2]
+    plan = lk.chunk_plan(ns)
+    i = 0
+    for table, row0, rows in tables:
+        assert row0 == plan[i][0]
+        for leaf in table:
+            first, k, chunk = plan[i]
+            assert (leaf.w, leaf.g, leaf.n, leaf.first, leaf.chunk) == (
+                ws[i], gs[i], ns[i], first - row0, chunk)
+            i += 1
+        assert rows == plan[i - 1][0] + plan[i - 1][1] - row0
+    assert i == 130 and sum(r for _, _, r in tables) == sum(
+        k for _, k, _ in plan)
+
+
+@pytest.mark.parametrize("n", [1, 1023, 4096, 9408, 2 * 65536 + 5])
+def test_partials_torch_are_chunk_sums(n):
+    """The plain version of the norms kernel's output: one (sum w^2, sum
+    g^2) row per chunk, adding up to the squared norms."""
+    w, g, _ = map(torch.from_numpy, _inputs((n,), seed=8))
+    part = lk.lars_partials_torch(w, g)
+    assert part.shape == (lk.norm_blocks(n), 2)
+    assert part.dtype == torch.float32
+    chunk = lk.norm_chunk(n)
+    torch.testing.assert_close(part[0, 0], w[:chunk].square().sum())
+    torch.testing.assert_close(part.sum(0), torch.stack(
+        [w.square().sum(), g.square().sum()]), rtol=1e-5, atol=0)
 
 
 @pytest.fixture
@@ -133,6 +206,108 @@ def test_ops_routes_cpu_tensors_to_plain():
     for a, b in zip(got, lk.lars_update_torch(w, g, m, **HYPER)):
         assert torch.equal(a, b)
     assert (lk.lars_norms_cuda.launches, lk.lars_apply_cuda.launches) == before
+
+
+@pytest.fixture
+def counted_leaves(monkeypatch):
+    """``ops.lars_update_leaves`` sees every tensor as a CUDA tensor; the
+    multi-leaf norms wrapper and the update wrapper are counted stand-ins:
+    the first returns the plain chunk sums and each leaf's slice of them,
+    the second updates in place from the trust of its slice."""
+    calls = {"norms": [], "apply": []}
+
+    def norms(ws, gs):
+        calls["norms"].append([w.numel() for w in ws])
+        parts = [lk.lars_partials_torch(w, g) for w, g in zip(ws, gs)]
+        cat = torch.cat(parts)
+        plan = lk.chunk_plan([w.numel() for w in ws])
+        return cat, [cat[first:first + k] for first, k, _ in plan]
+
+    def apply(w, g, m, partial, *, lr, weight_decay, momentum, eta,
+              eps=1e-9, scaled_momentum=True):
+        calls["apply"].append(w.numel())
+        assert partial.shape == (lk.norm_blocks(w.numel()), 2)
+        wn, gn = partial.sum(0).sqrt()
+        trust = torch.where((wn > 0) & (gn > 0),
+                            eta * wn / (gn + weight_decay * wn + eps),
+                            torch.ones(()))
+        new_w, new_m = lk.lars_apply_torch(
+            w, g, m, trust, lr=lr, weight_decay=weight_decay,
+            momentum=momentum, scaled_momentum=scaled_momentum)
+        w.copy_(new_w)
+        m.copy_(new_m)
+        return w, m
+
+    monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
+    monkeypatch.setattr(lk, "lars_norms_multi_cuda", norms)
+    monkeypatch.setattr(lk, "lars_apply_cuda", apply)
+    return calls
+
+
+def test_ops_update_leaves_routes_by_min_size(counted_leaves):
+    """Leaves of >= 1024 elements share one norms call and take one
+    update each, in place; smaller ones take the plain update; every
+    leaf's (w', m') matches ``lars_update_torch``."""
+    ns = [1023, 4096, 64, 1024, 9408]
+    leaves = [tuple(map(torch.from_numpy, _inputs((n,), seed=10 + i)))
+              for i, n in enumerate(ns)]
+    want = [lk.lars_update_torch(w, g, m, **HYPER) for w, g, m in leaves]
+    ws, gs, ms = ([x.clone() for x in t] for t in zip(*leaves))
+    got = ops.lars_update_leaves(ws, gs, ms, **HYPER)
+    assert counted_leaves == {"norms": [[4096, 1024, 9408]],
+                              "apply": [4096, 1024, 9408]}
+    for i, ((gw, gm), (ww, wm)) in enumerate(zip(got, want)):
+        if ns[i] >= ops.LARS_MIN_SIZE:
+            assert gw is ws[i] and gm is ms[i]
+        _close(gw, ww)
+        _close(gm, wm)
+
+
+@pytest.mark.parametrize("scaled", [True, False])
+def test_optimizer_makes_one_norms_launch_a_step(counted_leaves, monkeypatch,
+                                                 scaled):
+    """``lars`` over the tree of 1-D leaves, a 512-element leaf and two
+    kernel leaves, through the stand-ins: one norms call a step over the
+    two kernel leaves, one update each, the small leaf on the plain path,
+    and the same weights and momenta as the CPU path (within rtol 1e-5,
+    atol 1e-6) after 3 steps."""
+    params, grads = _tree()
+    runs = {}
+    for cuda in (True, False):
+        if not cuda:
+            monkeypatch.setattr(ops, "_is_cuda", lambda t: False)
+        opt = lars(polynomial_warmup(0.5, 2, 10), scaled_momentum=scaled)
+        vals = _to_torch(params)
+        st = opt.init(vals)
+        for g in grads:
+            vals, st = opt.update(_to_torch(g), st, vals)
+        runs[cuda] = tree_leaves(vals) + tree_leaves(st["m"])
+    assert counted_leaves["norms"] == [[1152, 2560]] * 3
+    assert counted_leaves["apply"] == [1152, 2560] * 3
+    for got, want in zip(runs[True], runs[False]):
+        _close(got, want)
+
+
+def test_ops_update_leaves_routes_cpu_tensors_to_plain():
+    before = (lk.lars_norms_multi_cuda.launches, lk.lars_apply_cuda.launches)
+    leaves = [tuple(map(torch.from_numpy, _inputs(s, seed=20 + i)))
+              for i, s in enumerate([(64, 64), (3, 3, 8, 16), (7,)])]
+    got = ops.lars_update_leaves(*zip(*leaves), **HYPER)
+    for (gw, gm), (w, g, m) in zip(got, leaves):
+        ww, wm = lk.lars_update_torch(w, g, m, **HYPER)
+        assert torch.equal(gw, ww) and torch.equal(gm, wm)
+    assert (lk.lars_norms_multi_cuda.launches,
+            lk.lars_apply_cuda.launches) == before
+
+
+def test_multi_norms_refuses_bad_inputs():
+    w, g, _ = map(torch.from_numpy, _inputs((64, 64), seed=9))
+    with pytest.raises(ValueError, match="as many gradients"):
+        lk.lars_norms_multi_cuda([w, w], [g])
+    with pytest.raises(ValueError, match="at least one leaf"):
+        lk.lars_norms_multi_cuda([], [])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lk.lars_norms_multi_cuda([w], [g])
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
@@ -288,3 +463,80 @@ def test_cuda_kernels_match_plain(cuda_device, n, zero, scaled):
     torch.testing.assert_close(mk, want_m, rtol=1e-5, atol=1e-6)
     if zero:
         assert t.item() == 1.0
+
+
+def _resnet50_leaves(device, seed=11):
+    """ResNet-50's 54 kernel leaves (weights from seed 0) with gradients
+    and momenta ~N(0, 1e-3) from ``seed``, on ``device``."""
+    from repro_torch.models import resnet
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ws = [w for w in tree_leaves(resnet.init_resnet(resnet.RESNET50, 0,
+                                                    device=device))
+          if w.dim() > 1]
+    return [(w, torch.randn(w.shape, generator=gen, device=device) * 1e-3,
+             torch.randn(w.shape, generator=gen, device=device) * 1e-3)
+            for w in ws]
+
+
+def _offset(x, k):
+    """A copy of x starting k floats into a fresh buffer (k = 1: not 16-byte
+    aligned)."""
+    buf = torch.empty(x.numel() + k, device=x.device)
+    return buf[k:].copy_(x.reshape(-1))
+
+
+@pytest.mark.cuda
+def test_cuda_multi_norms_equal_one_leaf_norms_bitwise(cuda_device):
+    """The multi-leaf launch's partials equal the one-leaf call's bit for
+    bit, for ResNet-50's 54 kernel leaves (one launch), for odd, unaligned
+    and 1024-element leaves among them, and past one launch's table cap
+    (120 leaves, two launches); each within rtol 1e-5 of the plain chunk
+    sums; a rerun bitwise equal."""
+    leaves = _resnet50_leaves(cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    extra = [torch.randn(n, generator=gen, device=cuda_device)
+             for n in (1_000_003, 1024, 1_000_003, 4097)]
+    extra[2] = _offset(extra[2], 1)  # not 16-byte aligned
+    cases = {"resnet50": [(w, g) for w, g, _ in leaves],
+             "edges": [(x, x.flip(0).contiguous()) for x in extra]
+             + [(w, g) for w, g, _ in leaves[:3]],
+             "past_cap": [(w, g) for w, g, _ in leaves] * 2
+             + [(extra[1], extra[0][:1024])] * 12}
+    for name, pairs in cases.items():
+        ws, gs = (list(t) for t in zip(*pairs))
+        before = lk.lars_norms_multi_cuda.launches
+        cat, parts = lk.lars_norms_multi_cuda(ws, gs)
+        again, _ = lk.lars_norms_multi_cuda(ws, gs)
+        torch.cuda.synchronize()
+        assert lk.lars_norms_multi_cuda.launches - before == 2 * -(
+            -len(ws) // lk.MAX_LEAVES), name
+        assert torch.equal(cat, again), name
+        assert cat.shape == (sum(lk.norm_blocks(w.numel()) for w in ws), 2)
+        for i, (w, g) in enumerate(pairs):
+            one = lk.lars_norms_cuda(w, g)
+            assert torch.equal(parts[i], one), (name, i)
+            torch.testing.assert_close(one, lk.lars_partials_torch(w, g),
+                                       rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [True, False])
+def test_cuda_update_leaves_match_plain(cuda_device, scaled):
+    """``ops.lars_update_leaves`` over ResNet-50's 54 kernel leaves: one
+    norms launch and 54 update launches, w' and m' within rtol 1e-5,
+    atol 1e-6 of the plain version, written in place."""
+    leaves = _resnet50_leaves(cuda_device, seed=13)
+    lr = torch.full((), 0.1, device=cuda_device)
+    kw = dict(HYPER, lr=lr, scaled_momentum=scaled)
+    want = [lk.lars_update_torch(w, g, m, **kw) for w, g, m in leaves]
+    ws, gs, ms = ([x.clone() for x in t] for t in zip(*leaves))
+    before = (lk.lars_norms_multi_cuda.launches, lk.lars_apply_cuda.launches)
+    got = ops.lars_update_leaves(ws, gs, ms, **kw)
+    torch.cuda.synchronize()
+    assert (lk.lars_norms_multi_cuda.launches - before[0],
+            lk.lars_apply_cuda.launches - before[1]) == (1, 54)
+    for (gw, gm), (ww, wm), w, m in zip(got, want, ws, ms):
+        assert gw is w and gm is m
+        torch.testing.assert_close(gw, ww, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)

@@ -64,12 +64,13 @@ def test_plain_forward_matches_ref_and_pallas_kernel(B, F, block, dtype):
 
 
 def _five_grads(t, gates, c_new, dh, dc):
-    """dx_proj, dh_prev, dc_prev, dw_h, db from the plain backward, as
-    ``LSTMCell.backward`` forms them."""
+    """dx_proj, dh_prev, dc_prev, dw_h, db from the plain backward (which
+    gives dx_proj and db itself), as ``LSTMCell.backward`` forms them."""
     xp, h, c, w, b = t
-    dgates, dc_prev = lk.lstm_cell_bwd_torch(gates, c, c_new, dh, dc)
-    return (dgates.to(xp.dtype), (dgates @ w.float().t()).to(h.dtype),
-            dc_prev, (h.float().t() @ dgates).to(w.dtype), dgates.sum(0))
+    dgates, dc_prev, dx, db = lk.lstm_cell_bwd_torch(gates, c, c_new,
+                                                     dh.to(xp.dtype), dc)
+    return (dx, (dgates @ w.float().t()).to(h.dtype), dc_prev,
+            (h.float().t() @ dgates).to(w.dtype), db)
 
 
 def _gates(t):
@@ -98,6 +99,71 @@ def test_plain_backward_matches_jax_vjp_of_ref(B, F, block):
                           want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("B,F,block", SHAPES)
+def test_plain_backward_dx_and_db_match_jax_grad(B, F, block):
+    """The plain backward's own dx and db against ``jax.grad`` of
+    ``ref.lstm_cell`` with respect to x_proj and b (fp32, rtol 1e-5, atol
+    1e-6); dx is dgates in dh's dtype, bit for bit, in fp32 and bf16."""
+    arrays = _inputs(B, F, seed=5)
+    t, j = _in_dtype(arrays, "float32")
+    dh, dc = arrays[5], arrays[6]
+
+    def loss(xp, b):
+        h, c = jax_ref.lstm_cell(xp, j[1], j[2], j[3], b)
+        return jnp.sum(h * dh) + jnp.sum(c * dc)
+
+    want_dx, want_db = jax.grad(loss, argnums=(0, 1))(j[0], j[4])
+    _, c_new = lk.lstm_cell_torch(*t)
+    dgates, _, dx, db = lk.lstm_cell_bwd_torch(
+        _gates(t), t[2], c_new, torch.from_numpy(dh), torch.from_numpy(dc))
+    assert dx.dtype == torch.float32 and db.shape == (4 * F,)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), rtol=1e-5,
+                               atol=1e-6)
+    np.testing.assert_allclose(db.numpy(), np.asarray(want_db), rtol=1e-5,
+                               atol=1e-6)
+    *_, dx16, db16 = lk.lstm_cell_bwd_torch(
+        _gates(t), t[2], c_new, torch.from_numpy(dh).bfloat16(),
+        torch.from_numpy(dc))
+    assert dx16.dtype == torch.bfloat16 and db16.dtype == torch.float32
+    _, _, _, db_again = lk.lstm_cell_bwd_torch(
+        _gates(t), t[2], c_new, torch.from_numpy(dh).bfloat16().float(),
+        torch.from_numpy(dc))
+    assert torch.equal(db16, db_again)
+
+
+def test_autograd_function_matches_autograd_of_plain_bf16(monkeypatch):
+    """``LSTMCell`` on bf16 x_proj, h and W_h with its kernels swapped for
+    their plain versions: dx_proj comes back in bf16 and every gradient
+    matches autograd of :func:`lstm_cell_torch` (within bf16 rounding of
+    dx_proj, dh_prev and dW_h: 1e-2); the backward runs once, with bf16
+    dh."""
+    seen = []
+
+    def fwd(xp, h, c, w, b, *, save_gates=False):
+        h2, c2 = lk.lstm_cell_torch(xp, h, c, w, b)
+        return h2, c2, _gates((xp, h, c, w, b)) if save_gates else None
+
+    def bwd(gates, c_prev, c_new, dh, dc):
+        seen.append(dh.dtype)
+        return lk.lstm_cell_bwd_torch(gates, c_prev, c_new, dh, dc)
+
+    monkeypatch.setattr(lk, "lstm_cell_fwd_cuda", fwd)
+    monkeypatch.setattr(lk, "lstm_cell_bwd_cuda", bwd)
+    arrays = _inputs(6, 16, seed=6)
+    t, _ = _in_dtype(arrays, "bfloat16")
+    dh = torch.from_numpy(arrays[5]).bfloat16()
+    dc = torch.from_numpy(arrays[6])
+    leaves = [[x.clone().requires_grad_() for x in t] for _ in range(2)]
+    torch.autograd.backward(lk.LSTMCell.apply(*leaves[0]), (dh, dc))
+    torch.autograd.backward(lk.lstm_cell_torch(*leaves[1]), (dh, dc))
+    assert seen == [torch.bfloat16]
+    assert leaves[0][0].grad.dtype == torch.bfloat16
+    for a, b in zip(*leaves):
+        assert a.grad.dtype == b.grad.dtype
+        torch.testing.assert_close(a.grad.float(), b.grad.float(),
+                                   rtol=1e-2, atol=1e-2)
 
 
 def test_autograd_function_matches_autograd_of_plain(monkeypatch):
@@ -181,6 +247,14 @@ def test_cuda_wrappers_refuse_cpu_tensors_and_bad_inputs():
         lk.lstm_cell_bwd_cuda(torch.zeros(5, 256), c, c, h, c.double())
 
 
+def test_backward_wrapper_refuses_f_off_the_tile():
+    """The backward kernel's blocks own 8 units: F must be a multiple of
+    8, checked before the device."""
+    c = torch.zeros(5, 60)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        lk.lstm_cell_bwd_cuda(torch.zeros(5, 240), c, c, c, c)
+
+
 # --------------------------------------------------------------------------- #
 # On the card (skipped without one).
 # --------------------------------------------------------------------------- #
@@ -219,18 +293,66 @@ def test_cuda_kernels_match_plain(cuda_device, B, F, dtype):
     h0, c0, none = lk.lstm_cell_fwd_cuda(*t)
     h, c, gates = lk.lstm_cell_fwd_cuda(*t, save_gates=True)
     again = lk.lstm_cell_fwd_cuda(*t, save_gates=True)
-    dg, dcp = lk.lstm_cell_bwd_cuda(gates, t[2], c, dh, dc)
+    dg, dcp, dx, db = lk.lstm_cell_bwd_cuda(gates, t[2], c, dh, dc)
     torch.cuda.synchronize()
     assert none is None and torch.equal(h0, h) and torch.equal(c0, c)
     assert all(torch.equal(a, b) for a, b in zip((h, c, gates), again))
     want_h, want_c = lk.lstm_cell_torch(*t)
     want_g = _gates(t)
-    want_dg, want_dcp = lk.lstm_cell_bwd_torch(want_g, t[2], want_c, dh, dc)
+    want_dg, want_dcp, want_dx, want_db = lk.lstm_cell_bwd_torch(
+        want_g, t[2], want_c, dh, dc)
+    assert dx.dtype == dh.dtype
     for got, ref in ((h, want_h), (c, want_c), (gates, want_g),
-                     (dg, want_dg), (dcp, want_dcp)):
+                     (dg, want_dg), (dcp, want_dcp), (dx, want_dx)):
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got.float(), ref.float(), rtol=tol,
                                    atol=tol)
+    # db sums B rows of dgates: the tolerance of one entry, times sqrt(B)
+    torch.testing.assert_close(db, want_db, rtol=tol, atol=tol * B ** 0.5)
+
+
+# The backward's own edges: one row, a ragged second row tile, F 40 (5
+# blocks) and GNMT's F 1024, each with bf16 and fp32 dh.
+BWD_CASES = [(1, 1024), (200, 1024), (128, 40), (200, 40), (128, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("B,F", BWD_CASES, ids=str)
+def test_cuda_backward_four_outputs_match_plain(cuda_device, B, F, dtype):
+    """dgates, dc_prev, dx (in dh's dtype; dgates itself for fp32) and db
+    from the kernel against the plain backward on the same inputs (the
+    gates from the plain forward): fp32 within 1e-5 (the same arithmetic
+    in another compiler), dx within one bf16 rounding, db within 1e-5 x
+    sqrt(B) (rows summed in another order); one launch a call; a rerun
+    bitwise equal."""
+    arrays = _inputs(B, F, seed=7)
+    t, _ = _in_dtype(arrays, dtype)
+    t = [x.to(cuda_device) for x in t]
+    dh = torch.from_numpy(arrays[5]).to(cuda_device, t[0].dtype)
+    dc = torch.from_numpy(arrays[6]).to(cuda_device)
+    gates = _gates(t)
+    _, c_new = lk.lstm_cell_torch(*t)
+    before = lk.lstm_cell_bwd_cuda.launches
+    outs = [lk.lstm_cell_bwd_cuda(gates, t[2], c_new, dh, dc)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert lk.lstm_cell_bwd_cuda.launches - before == 2
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    dg, dcp, dx, db = outs[0]
+    want = lk.lstm_cell_bwd_torch(gates, t[2], c_new, dh, dc)
+    assert dx.dtype == dh.dtype and db.shape == (4 * F,)
+    if dtype == "float32":
+        assert dx.data_ptr() == dg.data_ptr()
+    for got in (dg, dcp, dx, db):
+        assert torch.isfinite(got).all()
+    torch.testing.assert_close(dg, want[0], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dcp, want[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(dx.float(), want[2].float(),
+                               rtol=1e-2 if dtype == "bfloat16" else 1e-5,
+                               atol=1e-5)
+    torch.testing.assert_close(db, want[3], rtol=1e-5,
+                               atol=1e-5 * B ** 0.5)
 
 
 @pytest.mark.cuda

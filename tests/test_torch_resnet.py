@@ -456,8 +456,9 @@ def cuda_device():
 @pytest.mark.parametrize("scaled", [True, False], ids=["scaled", "unscaled"])
 def test_cuda_three_lars_steps_match_cpu(cuda_device, scaled):
     """pool32 in fp32 (TF32 off) on the card against the CPU: 3 LARS
-    steps' losses within rtol 1e-4; on the card every leaf of >= 1024
-    elements launches both kernels once a step."""
+    steps' losses within rtol 1e-4; on the card a step makes one norms
+    launch over the leaves of >= 1024 elements and one update launch
+    each."""
     jcfg, cfg, size = _cfgs("pool32")
     tree = _jax_params(jcfg)
     imgs, labels = _batch(8, size, jcfg.num_classes, seed=5)
@@ -479,8 +480,9 @@ def test_cuda_three_lars_steps_match_cpu(cuda_device, scaled):
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     card = out[str(cuda_device)]
+    assert n_kernel > 0
     assert all((r["norm_launches"], r["update_launches"]) ==
-               (n_kernel, n_kernel) for r in card)
+               (1, n_kernel) for r in card)
     np.testing.assert_allclose([r["loss"] for r in card],
                                [r["loss"] for r in out["cpu"]], rtol=1e-4)
-    assert lk.lars_norms_cuda.launches >= 3 * n_kernel
+    assert lk.lars_norms_multi_cuda.launches >= 3
