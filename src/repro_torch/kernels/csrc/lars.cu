@@ -13,32 +13,40 @@
 // Design. The TPU pads the leaf to 64k-element VMEM tiles and runs its grid
 // in order over "each core's 1/N shard of the flattened parameter buffer",
 // one pass over all leaves. Here blocks run in parallel and nothing carries
-// over between them, so the reduction is two-phase without atomics:
-//   1. lars_norms_kernel: one launch over up to kMaxLeaves leaves (every
-//      kernel leaf of a ResNet-50 step). Each leaf is cut into chunks whose
-//      length is a function of n alone (kernels/lars.py:norm_chunk: at
-//      least 4096 elements, a multiple of 1024, at most kMaxNormBlocks
-//      chunks a leaf); the leaf table (pointers, n, first chunk, chunk
-//      length) travels by value as a __grid_constant__ parameter, so
-//      nothing is copied to the card first. A fixed grid of persistent
-//      blocks (8 an SM) walks the launch's chunk list with a fixed stride;
-//      every thread keeps 4 float4 pairs in flight, and a chunk's (sum w^2,
-//      sum g^2) pair is reduced by one block in a fixed order and written
-//      to its own slot, so a leaf's pairs are bit for bit the same alone or
-//      beside other leaves, and on every rerun. (A producer thread feeding
-//      a ring of 1-D bulk copies to consumer warps measured no faster.)
-//   2. lars_update_kernel: every block first sums the leaf's pairs in the
-//      same fixed order (so every block, and every rerun, gets the bitwise
-//      same trust), applies the trust rule, reads lr from device memory,
-//      then runs the elementwise update with 16-byte loads and stores.
+// over between them, so the reduction is two-phase without atomics, and each
+// phase is one launch over up to kMaxLeaves leaves (every kernel leaf of a
+// ResNet-50 step). Each launch's leaf table (pointers, n, the leaf's range
+// in the launch's work list) travels by value as a __grid_constant__
+// parameter, so nothing is copied to the card first; a fixed grid of
+// persistent blocks walks the work list, and every thread keeps several
+// 16-byte loads per tensor in flight (kUnroll).
+//   1. lars_norms_kernel: each leaf is cut into chunks whose length is a
+//      function of n alone (kernels/lars.py:norm_chunk: at least 4096
+//      elements, a multiple of 1024, at most kMaxNormBlocks chunks a
+//      leaf); 8 blocks an SM walk the chunk list with a fixed stride, and a
+//      chunk's (sum w^2, sum g^2) pair is reduced by one block in a fixed
+//      order and written to its own slot, so a leaf's pairs are bit for bit
+//      the same alone or beside other leaves, and on every rerun. (A
+//      producer thread feeding a ring of 1-D bulk copies to consumer warps
+//      measured no faster.)
+//   2. lars_update_kernel: each leaf is cut into tiles of kTile elements;
+//      as many blocks as fit on the card at once each take one contiguous
+//      range of the tile list, so a block crosses few leaf boundaries. On
+//      its first tile of a leaf a block issues the tile's loads of w, g and
+//      m, then sums the leaf's rows of the norms output in one fixed order
+//      (strided per thread, then block_sum2: the trust is bitwise the same
+//      in every block, in every launch the leaf is part of, and on every
+//      rerun) while they are in flight, applies the trust rule and reads lr
+//      from device memory; then every tile runs the elementwise update with
+//      16-byte loads and stores (an unaligned leaf takes the scalar path).
+//      A leaf's w' and m' are bitwise those of a one-leaf launch.
 // lr and the trust never leave the card: the caller does not synchronise.
 //
 // Bound on the H100: bytes. Phase 1 reads 8 B an element, phase 2 reads 12
 // and writes 8: over ResNet-50's 54 kernel leaves (25,502,912 elements)
-// 204 MB = 0.0609 ms; at its largest leaf (3x3x512x512) 18,874,368 B =
-// 0.0056 ms and 47,185,920 B = 0.0141 ms at 3.35 TB/s. Phase 2 is still one
-// launch a leaf, and each of its blocks re-reduces the leaf's <= 264 pairs
-// (2 KiB from L2) in its prologue instead of a third, one-block launch.
+// 204 MB = 0.0609 ms and 510 MB = 0.1523 ms at 3.35 TB/s; at its largest
+// leaf (3x3x512x512) 18,874,368 B = 0.0056 ms and 47,185,920 B = 0.0141 ms.
+#include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,8 +55,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxNormBlocks = 264;     // partial pairs of one leaf at most
-constexpr int kMaxUpdateBlocks = 132 * 8;
-constexpr int kMaxLeaves = 64;          // leaves a norms launch
+constexpr int kMaxLeaves = 64;          // leaves a launch
 
 // One leaf of a norms launch; kernels/lars.py:_NormLeaf packs it (32 B).
 struct NormLeaf {
@@ -177,54 +184,135 @@ __device__ __forceinline__ void update1(float& w, float g, float& m,
   }
 }
 
-template <int V, bool kScaled>
-__global__ void __launch_bounds__(kThreads)
-lars_update_kernel(float* __restrict__ w, const float* __restrict__ g,
-                   float* __restrict__ m, const float2* __restrict__ partial,
-                   int n_parts, const float* __restrict__ lr,
-                   float* __restrict__ trust_out, long long n, float wd,
-                   float mu, float eta, float eps) {
+// One leaf of an update launch; kernels/lars.py:_UpdateLeaf packs it (48 B).
+struct UpdateLeaf {
+  float* w;
+  const float* g;
+  float* m;
+  const float2* part;  // the leaf's rows of the norms output
+  long long n;
+  int parts;           // how many rows
+  int first;           // index of the leaf's first tile within the launch
+};
+struct UpdateTable {
+  UpdateLeaf leaf[kMaxLeaves];
+  int n_leaves;
+  int n_tiles;
+};
+static_assert(sizeof(UpdateLeaf) == 48, "kernels/lars.py packs 48-byte leaves");
+// the table and the kernel's other 32 bytes of parameters
+static_assert(sizeof(UpdateTable) + 32 <= 4096,
+              "kernel parameters are at most 4 KB");
+
+// Elements a tile: one round of kUnroll float4 loads of w, g and m a thread.
+constexpr int kTile = kUnroll * kThreads * 4;
+
+__device__ __forceinline__ bool aligned16(const void* a, const void* b,
+                                          const void* c) {
+  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+           reinterpret_cast<uintptr_t>(c)) & 15) == 0;
+}
+
+// The leaf's trust from its rows of the norms output, in every thread.
+__device__ __forceinline__ float leaf_trust(const UpdateLeaf& L, float wd,
+                                            float eta, float eps) {
   float2 s = make_float2(0.f, 0.f);
-  for (int i = threadIdx.x; i < n_parts; i += kThreads) {
-    const float2 p = partial[i];
+  for (int i = threadIdx.x; i < L.parts; i += kThreads) {
+    const float2 p = L.part[i];
     s.x += p.x;
     s.y += p.y;
   }
   s = block_sum2(s);
+  __syncthreads();  // block_sum2's slots are written again at the next leaf
   const float wn = sqrtf(s.x), gn = sqrtf(s.y);
-  const float trust =
-      (wn > 0.f && gn > 0.f) ? eta * wn / (gn + wd * wn + eps) : 1.f;
-  if (trust_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0)
-    *trust_out = trust;
-  const float scale = *lr * trust;
-
-  const long long nv = n / V;
-  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                     threadIdx.x;
-       i < nv; i += stride) {
-    if constexpr (V == 4) {
-      float4 a = reinterpret_cast<const float4*>(w)[i];
-      const float4 b = reinterpret_cast<const float4*>(g)[i];
-      float4 c = reinterpret_cast<const float4*>(m)[i];
-      update1<kScaled>(a.x, b.x, c.x, scale, wd, mu);
-      update1<kScaled>(a.y, b.y, c.y, scale, wd, mu);
-      update1<kScaled>(a.z, b.z, c.z, scale, wd, mu);
-      update1<kScaled>(a.w, b.w, c.w, scale, wd, mu);
-      reinterpret_cast<float4*>(w)[i] = a;
-      reinterpret_cast<float4*>(m)[i] = c;
-    } else {
-      update1<kScaled>(w[i], g[i], m[i], scale, wd, mu);
-    }
-  }
-  if (blockIdx.x == 0)
-    for (long long i = nv * V + threadIdx.x; i < n; i += kThreads)
-      update1<kScaled>(w[i], g[i], m[i], scale, wd, mu);
+  return (wn > 0.f && gn > 0.f) ? eta * wn / (gn + wd * wn + eps) : 1.f;
 }
 
-bool aligned16(const void* a, const void* b, const void* c) {
-  return ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
-           reinterpret_cast<uintptr_t>(c)) & 15) == 0;
+template <bool kScaled>
+__device__ __forceinline__ void update4(float4& w, const float4& g, float4& m,
+                                        float scale, float wd, float mu) {
+  update1<kScaled>(w.x, g.x, m.x, scale, wd, mu);
+  update1<kScaled>(w.y, g.y, m.y, scale, wd, mu);
+  update1<kScaled>(w.z, g.z, m.z, scale, wd, mu);
+  update1<kScaled>(w.w, g.w, m.w, scale, wd, mu);
+}
+
+template <bool kScaled>
+__global__ void __launch_bounds__(kThreads)
+lars_update_kernel(const __grid_constant__ UpdateTable t,
+                   const float* __restrict__ lr,
+                   float* __restrict__ trust_out, float wd, float mu,
+                   float eta, float eps) {
+  // this block's tiles: [lo, hi), one contiguous range of the work list
+  const int lo = static_cast<int>(static_cast<long long>(blockIdx.x) *
+                                  t.n_tiles / gridDim.x);
+  const int hi = static_cast<int>(static_cast<long long>(blockIdx.x + 1) *
+                                  t.n_tiles / gridDim.x);
+  int li = 0, top = t.n_leaves - 1;  // the last leaf whose first tile <= lo
+  while (li < top) {
+    const int mid = (li + top + 1) >> 1;
+    if (t.leaf[mid].first <= lo) li = mid; else top = mid - 1;
+  }
+  const float rate = *lr;
+  int cur = -1;  // the leaf whose trust `scale` holds
+  float scale = 0.f;
+  for (int c = lo; c < hi; ++c) {
+    while (li + 1 < t.n_leaves && t.leaf[li + 1].first <= c) ++li;
+    const UpdateLeaf& L = t.leaf[li];
+    const long long begin = static_cast<long long>(c - L.first) * kTile;
+    const long long left = L.n - begin;
+    const int len = static_cast<int>(left < kTile ? left : kTile);
+    float* __restrict__ w = L.w + begin;
+    const float* __restrict__ g = L.g + begin;
+    float* __restrict__ m = L.m + begin;
+    const int nv = aligned16(L.w, L.g, L.m) ? len >> 2 : 0;
+    float4 a[kUnroll], b[kUnroll], d[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (i < nv) {
+        a[u] = reinterpret_cast<const float4*>(w)[i];
+        b[u] = __ldg(reinterpret_cast<const float4*>(g) + i);
+        d[u] = reinterpret_cast<const float4*>(m)[i];
+      }
+    }
+    if (li != cur) {  // the block's first tile of this leaf: loads in flight
+      const float trust = leaf_trust(L, wd, eta, eps);
+      if (trust_out != nullptr && c == L.first && threadIdx.x == 0)
+        trust_out[li] = trust;
+      scale = rate * trust;
+      cur = li;
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int i = threadIdx.x + u * kThreads;
+      if (i < nv) {
+        update4<kScaled>(a[u], b[u], d[u], scale, wd, mu);
+        reinterpret_cast<float4*>(w)[i] = a[u];
+        reinterpret_cast<float4*>(m)[i] = d[u];
+      }
+    }
+    for (int i = (nv << 2) + threadIdx.x; i < len; i += kThreads)
+      update1<kScaled>(w[i], g[i], m[i], scale, wd, mu);  // unaligned, or < 4
+  }
+}
+
+// Blocks of lars_update_kernel<kScaled> that fit on the card at once.
+template <bool kScaled>
+int resident_blocks() {
+  static int blocks = 0;
+  if (blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &per_sm, lars_update_kernel<kScaled>, kThreads, 0) !=
+            cudaSuccess)
+      return 0;
+    blocks = sms * per_sm;
+  }
+  return blocks;
 }
 
 }  // namespace
@@ -258,38 +346,44 @@ extern "C" int lars_norms(const void* leaves, int n_leaves, void* partial,
   return static_cast<int>(cudaGetLastError());
 }
 
-// w, m (updated in place), g: n fp32 values; partial: the leaf's n_parts
-// pairs from lars_norms; lr: one fp32 value on the card; trust_out: one fp32
-// value the trust is written to, or null. scaled: 1 for Fig. 5, 0 for Fig. 6.
-extern "C" int lars_update(void* w, const void* g, void* m,
-                           const void* partial, int n_parts, const void* lr,
-                           void* trust_out, long long n, float wd, float mu,
-                           float eta, float eps, int scaled, void* stream) {
-  if (n <= 0 || n_parts < 1 || n_parts > kMaxNormBlocks)
+// leaves: n_leaves (1 .. kMaxLeaves) UpdateLeaf entries in host memory, each
+// with w, g, m (n > 0 fp32 values; w and m updated in place), part (its
+// parts rows of (sum w^2, sum g^2) from lars_norms, 1 .. kMaxNormBlocks), and
+// first the number of tiles (kTile elements, the last one short) of the
+// leaves before it. lr: one fp32 value on the card; trust_out: n_leaves fp32
+// values the trusts are written to, or null. scaled: 1 for Fig. 5, 0 for
+// Fig. 6.
+extern "C" int lars_update(const void* leaves, int n_leaves, const void* lr,
+                           void* trust_out, float wd, float mu, float eta,
+                           float eps, int scaled, void* stream) {
+  if (n_leaves < 1 || n_leaves > kMaxLeaves || lr == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = aligned16(w, g, m);
-  long long want = ((vec ? n / 4 : n) + kThreads - 1) / kThreads;
-  if (want < 1) want = 1;
-  const int blocks =
-      static_cast<int>(want < kMaxUpdateBlocks ? want : kMaxUpdateBlocks);
+  UpdateTable t = {};
+  const UpdateLeaf* in = static_cast<const UpdateLeaf*>(leaves);
+  long long next = 0;
+  for (int i = 0; i < n_leaves; ++i) {
+    const UpdateLeaf& L = in[i];
+    if (L.n <= 0 || L.parts < 1 || L.parts > kMaxNormBlocks ||
+        L.first != next || !L.w || !L.g || !L.m || !L.part)
+      return static_cast<int>(cudaErrorInvalidValue);
+    t.leaf[i] = L;
+    next += (L.n + kTile - 1) / kTile;
+    if (next > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  t.n_leaves = n_leaves;
+  t.n_tiles = static_cast<int>(next);
+  const int resident = scaled ? resident_blocks<true>()
+                              : resident_blocks<false>();
+  if (resident < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int grid = t.n_tiles < resident ? t.n_tiles : resident;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* wf = static_cast<float*>(w);
-  const float* gf = static_cast<const float*>(g);
-  float* mf = static_cast<float*>(m);
-  const float2* pf = static_cast<const float2*>(partial);
   const float* lrf = static_cast<const float*>(lr);
   float* tf = static_cast<float*>(trust_out);
-#define LARS_LAUNCH(V, S)                                                    \
-  lars_update_kernel<V, S><<<blocks, kThreads, 0, s>>>(                      \
-      wf, gf, mf, pf, n_parts, lrf, tf, n, wd, mu, eta, eps)
-  if (vec && scaled)
-    LARS_LAUNCH(4, true);
-  else if (vec)
-    LARS_LAUNCH(4, false);
-  else if (scaled)
-    LARS_LAUNCH(1, true);
+  if (scaled)
+    lars_update_kernel<true><<<grid, kThreads, 0, s>>>(t, lrf, tf, wd, mu,
+                                                       eta, eps);
   else
-    LARS_LAUNCH(1, false);
-#undef LARS_LAUNCH
+    lars_update_kernel<false><<<grid, kThreads, 0, s>>>(t, lrf, tf, wd, mu,
+                                                        eta, eps);
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,19 +7,23 @@ The kernels (``csrc/lars.cu``) replace the two TPU kernels of
 sums of w^2 and g^2, and ``_update_kernel`` (``pallas_call`` at line 80),
 the elementwise momentum and trust-scaled update. What bounds both on an
 H100 is bytes: 8 B an element read for the norms, 12 B read and 8 B
-written for the update. The norms kernel takes up to ``MAX_LEAVES``
-leaves in one launch, as the TPU kernel passes once over the flattened
-parameter buffer: each leaf is cut into chunks by :func:`norm_chunk` (a
-function of n alone) and each chunk's (sum w^2, sum g^2) pair lands in
-its own row (a fixed order, no atomics, so a leaf's pairs are bitwise
-the same alone, beside other leaves, and on a rerun). The update kernel
-sums its leaf's pairs in its prologue, applies the trust rule, reads lr
-from device memory and writes w and m in place, so the optimizer step
-never reads a norm, the trust or lr on the host.
+written for the update. Each kernel takes up to ``MAX_LEAVES`` leaves in
+one launch, as the TPU kernel passes once over the flattened parameter
+buffer; the leaf table travels by value. The norms kernel cuts each leaf
+into chunks by :func:`norm_chunk` (a function of n alone) and writes each
+chunk's (sum w^2, sum g^2) pair to its own row (a fixed order, no atomics,
+so a leaf's pairs are bitwise the same alone, beside other leaves, and on
+a rerun). The update kernel cuts each leaf into tiles of ``UPDATE_TILE``
+elements; a block sums a leaf's rows in one fixed order the first time it
+meets the leaf, applies the trust rule, reads lr from device memory and
+writes w and m in place, so the optimizer step never reads a norm, the
+trust or lr on the host, and a leaf's w' and m' are bitwise those of its
+one-leaf launch.
 
 :func:`lars_norms_multi_cuda` launches the norms kernel over many leaves
-(one launch a step for ResNet-50's 54), :func:`lars_norms_cuda` over one,
-:func:`lars_apply_cuda` the update kernel on a leaf's pairs, and
+(one launch a step for ResNet-50's 54), :func:`lars_norms_cuda` over one;
+:func:`lars_apply_multi_cuda` launches the update kernel over many leaves
+(one launch a step too), :func:`lars_apply_cuda` over one, and
 :func:`lars_update_cuda` both for one leaf; all take contiguous fp32 CUDA
 tensors and raise on anything else. :func:`lars_update_torch` is the plain
 version (``repro/kernels/ref.py:117-140``) and :func:`lars_partials_torch`
@@ -34,9 +38,10 @@ import torch
 
 THREADS = 256           # csrc/lars.cu kThreads
 MAX_NORM_BLOCKS = 264   # csrc/lars.cu kMaxNormBlocks: partial pairs a leaf
-MAX_LEAVES = 64         # csrc/lars.cu kMaxLeaves: leaves a norms launch
-MIN_CHUNK = 4096        # elements: a chunk is at least this long ...
+MAX_LEAVES = 64         # csrc/lars.cu kMaxLeaves: leaves a launch
+MIN_CHUNK = 4096        # elements: a norms chunk is at least this long ...
 CHUNK_ALIGN = 1024      # ... and a multiple of this
+UPDATE_TILE = 4096      # csrc/lars.cu kTile: elements an update work item
 
 
 def lars_trust_torch(w, g, *, weight_decay, eta, eps=1e-9):
@@ -128,6 +133,38 @@ def leaf_tables(w_ptrs, g_ptrs, ns):
                       plan[i][2]) for i in idx))
         last = plan[idx[-1]]
         launches.append((table, row0, last[0] + last[1] - row0))
+    return launches
+
+
+class _UpdateLeaf(ctypes.Structure):
+    """``csrc/lars.cu`` ``UpdateLeaf``: field for field, 48 bytes."""
+    _fields_ = [("w", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("m", ctypes.c_void_p), ("part", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("parts", ctypes.c_int),
+                ("first", ctypes.c_int)]
+
+
+def update_tiles(n: int) -> int:
+    """The update kernel's work items for a leaf of n elements: tiles of
+    ``UPDATE_TILE`` elements, the last one short."""
+    return -(-n // UPDATE_TILE)
+
+
+def update_tables(w_ptrs, g_ptrs, m_ptrs, part_ptrs, parts, ns):
+    """The update launches for leaves at device addresses ``w_ptrs``,
+    ``g_ptrs``, ``m_ptrs`` of sizes ``ns`` (each > 0), each with ``parts``
+    rows of the norms output at ``part_ptrs``: a list of (ctypes array of
+    ``_UpdateLeaf``, index of its first leaf), at most ``MAX_LEAVES``
+    leaves a launch, each leaf's ``first`` tile counted from its launch's
+    start."""
+    launches = []
+    for s in range(0, len(ns), MAX_LEAVES):
+        rows, first = [], 0
+        for i in range(s, min(s + MAX_LEAVES, len(ns))):
+            rows.append(_UpdateLeaf(w_ptrs[i], g_ptrs[i], m_ptrs[i],
+                                    part_ptrs[i], ns[i], parts[i], first))
+            first += update_tiles(ns[i])
+        launches.append(((_UpdateLeaf * len(rows))(*rows), s))
     return launches
 
 
@@ -239,9 +276,92 @@ def lars_norms_multi_cuda(ws, gs):
 lars_norms_multi_cuda.launches = 0
 
 
+def _check_partial(name, label, partial, dev):
+    _check(name, ((label, partial),), dev)
+    if partial.dim() != 2 or partial.shape[1] != 2 or not (
+            1 <= partial.shape[0] <= MAX_NORM_BLOCKS):
+        raise ValueError(f"{name}: {label} must be (k, 2) with 1 <= k <= "
+                         f"{MAX_NORM_BLOCKS}, got {tuple(partial.shape)}")
+
+
+def _apply_launch(name, ws, gs, ms, parts, lr, trust_out, dev, *,
+                  weight_decay, momentum, eta, eps, scaled_momentum):
+    """Launch the update kernel over checked leaves of > 0 elements, one
+    launch every ``MAX_LEAVES`` leaves; returns the launches made."""
+    tables = update_tables([w.data_ptr() for w in ws],
+                           [g.data_ptr() for g in gs],
+                           [m.data_ptr() for m in ms],
+                           [p.data_ptr() for p in parts],
+                           [p.shape[0] for p in parts],
+                           [w.numel() for w in ws])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = _lib()
+    for table, s in tables:
+        err = lib.lars_update(
+            ctypes.addressof(table), len(table), lr.data_ptr(),
+            trust_out[s:].data_ptr() if trust_out is not None else None,
+            weight_decay, momentum, eta, eps, int(bool(scaled_momentum)),
+            stream)
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+    return len(tables)
+
+
+def _check_disjoint(name, ws, gs, ms):
+    """No two leaves write the same memory, and no leaf reads a gradient
+    another leaf (or itself) writes."""
+    written = [t.data_ptr() for t in (*ws, *ms)]
+    seen = set(written)
+    if len(seen) != len(written) or any(g.data_ptr() in seen for g in gs):
+        raise ValueError(f"{name}: w, g and m must not share memory, within "
+                         f"a leaf or across leaves")
+
+
+def lars_apply_multi_cuda(ws, gs, ms, parts, *, lr, weight_decay, momentum,
+                          eta, eps=1e-9, scaled_momentum=True,
+                          trust_out=None):
+    """Launch the update kernel over many leaves at once: ``ws[i]``,
+    ``gs[i]``, ``ms[i]`` contiguous fp32 CUDA tensors of one shape and at
+    least one element, all on one device, w and m updated in place;
+    ``parts[i]`` leaf i's (k, 2) rows of the norms output (the slices
+    :func:`lars_norms_multi_cuda` returns), 1 <= k <= ``MAX_NORM_BLOCKS``.
+    ``lr`` a float or a one-element fp32 CUDA tensor (read on the card);
+    ``trust_out``, if given, an (n_leaves,) fp32 CUDA tensor the trusts are
+    written to. Returns (ws, ms). One kernel launch for every
+    ``MAX_LEAVES`` leaves, each counted in
+    ``lars_apply_multi_cuda.launches``; leaf i's w' and m' equal
+    :func:`lars_apply_cuda` on it alone bit for bit."""
+    name = "lars_apply_multi_cuda"
+    if not (len(ws) == len(gs) == len(ms) == len(parts)) or not ws:
+        raise ValueError(f"{name}: needs one gradient, momentum and partial "
+                         f"a weight, and at least one leaf; got {len(ws)}, "
+                         f"{len(gs)}, {len(ms)} and {len(parts)}")
+    dev = ws[0].device
+    for i, (w, g, m, p) in enumerate(zip(ws, gs, ms, parts)):
+        _check(name, ((f"ws[{i}]", w), (f"gs[{i}]", g), (f"ms[{i}]", m)), dev)
+        _check_partial(name, f"parts[{i}]", p, dev)
+        if w.numel() == 0:
+            raise ValueError(f"{name}: ws[{i}] has no elements")
+    _check_disjoint(name, ws, gs, ms)
+    lr = _device_scalar(name, lr, dev)
+    if trust_out is not None:
+        _check(name, (("trust_out", trust_out),), dev)
+        if trust_out.shape != (len(ws),):
+            raise ValueError(f"{name}: trust_out must be ({len(ws)},), got "
+                             f"{tuple(trust_out.shape)}")
+    lars_apply_multi_cuda.launches += _apply_launch(
+        name, ws, gs, ms, parts, lr, trust_out, dev,
+        weight_decay=weight_decay, momentum=momentum, eta=eta, eps=eps,
+        scaled_momentum=scaled_momentum)
+    return ws, ms
+
+
+lars_apply_multi_cuda.launches = 0
+
+
 def lars_apply_cuda(w, g, m, partial, *, lr, weight_decay, momentum, eta,
                     eps=1e-9, scaled_momentum=True, trust_out=None):
-    """Launch the update kernel on the partial sums of
+    """Launch the update kernel on one leaf, from the partial sums of
     :func:`lars_norms_cuda`: the trust, then w and m updated in place.
     ``lr`` a float or a one-element fp32 CUDA tensor (read on the card);
     ``trust_out``, if given, a one-element fp32 CUDA tensor the kernel
@@ -249,13 +369,9 @@ def lars_apply_cuda(w, g, m, partial, *, lr, weight_decay, momentum, eta,
     ``lars_apply_cuda.launches``."""
     name = "lars_apply_cuda"
     dev = _check(name, (("w", w), ("g", g), ("m", m)))
-    _check(name, (("partial", partial),), dev)
-    if partial.dim() != 2 or partial.shape[1] != 2 or not (
-            1 <= partial.shape[0] <= MAX_NORM_BLOCKS):
-        raise ValueError(f"{name}: partial must be (k, 2) with 1 <= k <= "
-                         f"{MAX_NORM_BLOCKS}, got {tuple(partial.shape)}")
-    if len({w.data_ptr(), g.data_ptr(), m.data_ptr()}) != 3 and w.numel():
-        raise ValueError(f"{name}: w, g and m must not share memory")
+    _check_partial(name, "partial", partial, dev)
+    if w.numel():
+        _check_disjoint(name, [w], [g], [m])
     lr = _device_scalar(name, lr, dev)
     if trust_out is not None:
         _check(name, (("trust_out", trust_out),), dev)
@@ -263,15 +379,11 @@ def lars_apply_cuda(w, g, m, partial, *, lr, weight_decay, momentum, eta,
             raise ValueError(f"{name}: trust_out must hold one value")
     if w.numel() == 0:
         return w, m
-    err = _lib().lars_update(
-        w.data_ptr(), g.data_ptr(), m.data_ptr(), partial.data_ptr(),
-        partial.shape[0], lr.data_ptr(),
-        trust_out.data_ptr() if trust_out is not None else None, w.numel(),
-        weight_decay, momentum, eta, eps, int(bool(scaled_momentum)),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"lars_update: CUDA error {err}")
-    lars_apply_cuda.launches += 1
+    lars_apply_cuda.launches += _apply_launch(
+        name, [w], [g], [m], [partial], lr,
+        trust_out.reshape(1) if trust_out is not None else None, dev,
+        weight_decay=weight_decay, momentum=momentum, eta=eta, eps=eps,
+        scaled_momentum=scaled_momentum)
     return w, m
 
 
@@ -296,6 +408,7 @@ def reset_launches() -> None:
     lars_norms_cuda.launches = 0
     lars_norms_multi_cuda.launches = 0
     lars_apply_cuda.launches = 0
+    lars_apply_multi_cuda.launches = 0
 
 
 def _lib() -> ctypes.CDLL:
@@ -303,10 +416,9 @@ def _lib() -> ctypes.CDLL:
 
     lib = build.load("lars")
     if lib.lars_norms.argtypes is None:
-        p, i, ll, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                       ctypes.c_float)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.lars_norms.argtypes = [p, i, p, p]
         lib.lars_norms.restype = i
-        lib.lars_update.argtypes = [p, p, p, p, i, p, p, ll, f, f, f, f, i, p]
+        lib.lars_update.argtypes = [p, i, p, p, f, f, f, f, i, p]
         lib.lars_update.restype = i
     return lib

@@ -8,12 +8,16 @@ The kernel (``csrc/mamba_scan.cu``) replaces the TPU kernel
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) * B_t
     y_t = h_t . C_t + D * u_t
 
-with the (channel, N) state in registers for the whole time loop and
-time streamed through shared memory, so no (S, Di, N) tensor ever
-reaches device memory. What bounds it on an H100 at Jamba's prefill
-shape (Bt 1, S 256, Di 16384, N 16) is the S * Di * N exponentials on
-the special-function units (about 0.016 ms) more than its 35.7 MB of
-traffic (0.0107 ms).
+with the (channel, N) state in registers for the whole time loop (4
+threads a channel, N / 4 states each, for N up to 16) and time streamed
+through shared memory, the next 16 steps loaded while the current ones
+run, so no (S, Di, N) tensor ever reaches device memory. The decay is
+``exp2(dt * (A * log2 e))`` on the special-function units, and h . C is
+summed over a channel's lanes once every 4 steps, in a fixed order
+(``tests/test_torch_mamba.py`` writes that arithmetic out in PyTorch).
+What bounds it on an H100 at Jamba's prefill shape (Bt 1, S 256, Di
+16384, N 16) is the S * Di * N exponentials on the special-function units
+(about 0.016 ms) more than its 35.7 MB of traffic (0.0107 ms).
 
 :func:`mamba_scan_cuda` launches the kernel on CUDA tensors and raises on
 anything it does not take; :func:`mamba_scan_torch` is the plain version

@@ -109,27 +109,24 @@ def lars_update_leaves(ws, gs, ms, *, lr, weight_decay, momentum, eta,
                        eps=1e-9, scaled_momentum=True):
     """:func:`lars_update` over many leaves, each with its own trust: a
     list of (w', m'), one pair a leaf, in order. The CUDA leaves of at
-    least ``LARS_MIN_SIZE`` elements share one norms launch (one for
-    every ``MAX_LEAVES`` of them), then take one update launch each,
-    which writes w' and m' into w and m; the other leaves take the plain
-    version per leaf, as :func:`lars_update` routes them."""
+    least ``LARS_MIN_SIZE`` elements share one norms launch and one update
+    launch (one of each for every ``MAX_LEAVES`` of them), which writes w'
+    and m' into w and m; the other leaves take the plain version per leaf,
+    as :func:`lars_update` routes them."""
     kw = dict(lr=lr, weight_decay=weight_decay, momentum=momentum, eta=eta,
-              eps=eps)
+              eps=eps, scaled_momentum=scaled_momentum)
     out = [None] * len(ws)
     big = [i for i, w in enumerate(ws)
            if _is_cuda(w) and w.numel() >= LARS_MIN_SIZE]
     if big:
-        _, parts = _lars.lars_norms_multi_cuda([ws[i] for i in big],
-                                               [gs[i] for i in big])
-        for i, part in zip(big, parts):
-            out[i] = _lars.lars_apply_cuda(ws[i], gs[i], ms[i], part,
-                                           scaled_momentum=scaled_momentum,
-                                           **kw)
+        bw, bg, bm = ([x[i] for i in big] for x in (ws, gs, ms))
+        _, parts = _lars.lars_norms_multi_cuda(bw, bg)
+        _lars.lars_apply_multi_cuda(bw, bg, bm, parts, **kw)
+        for i in big:
+            out[i] = (ws[i], ms[i])
     for i, o in enumerate(out):
         if o is None:
-            out[i] = _lars.lars_update_torch(ws[i], gs[i], ms[i],
-                                             scaled_momentum=scaled_momentum,
-                                             **kw)
+            out[i] = _lars.lars_update_torch(ws[i], gs[i], ms[i], **kw)
     return out
 
 

@@ -112,22 +112,25 @@ def train(cfg: R.ResNetConfig, params, optimizer: Optimizer, batch, *,
     resolve_device(device)
     opt_state = optimizer.init(params)
     step_fn = make_train_step(cfg, optimizer)
-    apply = lars_kernels.lars_apply_cuda
 
     def norms():  # the norms kernel's launches, over one leaf or many
         return (lars_kernels.lars_norms_cuda.launches
                 + lars_kernels.lars_norms_multi_cuda.launches)
 
+    def updates():  # the update kernel's launches, over one leaf or many
+        return (lars_kernels.lars_apply_cuda.launches
+                + lars_kernels.lars_apply_multi_cuda.launches)
+
     history = []
     for i in range(steps):
         t0 = time.perf_counter()
-        n0, a0 = norms(), apply.launches
+        n0, a0 = norms(), updates()
         params, opt_state, m = step_fn(params, opt_state, batch)
         loss, acc = torch.stack([m["loss"], m["acc"]]).tolist()  # one read
         rec = dict(step=i + 1, loss=loss, acc=acc,
                    step_ms=(time.perf_counter() - t0) * 1e3,
                    norm_launches=norms() - n0,
-                   update_launches=apply.launches - a0)
+                   update_launches=updates() - a0)
         log(f"step {i + 1}: loss={loss:.4f} acc={acc:.3f}")
         if eval_set is not None and (
                 (i + 1) % EVAL_EVERY == 0 or i + 1 == steps):

@@ -12,8 +12,8 @@ scaled_momentum=False (Fig. 6, You et al.):
 
 Leaves of 2 or more dimensions go through
 ``kernels.ops.lars_update_leaves`` once a step (on the card one norms
-launch over every leaf of at least 1024 elements, then one update launch
-a leaf); 1-D leaves (biases, norm scales) take heavy-ball momentum with no
+launch and one update launch over every leaf of at least 1024
+elements); 1-D leaves (biases, norm scales) take heavy-ball momentum with no
 adaptation and no weight decay, as the MLPerf reference does
 (``lars.py:43-48``). Momenta are fp32 for every leaf.
 

@@ -1,8 +1,8 @@
 """The port's LARS against the JAX reference: the plain update against
 ``ref.lars_update`` and the Pallas kernels in interpret mode, in both
-rules, at zero norms too; the norms kernel's grid rule; the routing of
-``ops.lars_update`` at the reference's 1024-element minimum; the wrappers'
-refusals; ``polynomial_warmup``; the ``lars`` and ``sgd_momentum``
+rules, at zero norms too; the norms kernel's grid rule and both kernels'
+leaf tables; the routing of ``ops.lars_update`` at the reference's
+1024-element minimum; the wrappers' refusals; ``polynomial_warmup``; the ``lars`` and ``sgd_momentum``
 optimizers over a tree of 1-D and larger leaves; and, on a card only
 (marked ``cuda``), both CUDA kernels against the plain version."""
 import ctypes
@@ -211,9 +211,9 @@ def test_ops_routes_cpu_tensors_to_plain():
 @pytest.fixture
 def counted_leaves(monkeypatch):
     """``ops.lars_update_leaves`` sees every tensor as a CUDA tensor; the
-    multi-leaf norms wrapper and the update wrapper are counted stand-ins:
-    the first returns the plain chunk sums and each leaf's slice of them,
-    the second updates in place from the trust of its slice."""
+    multi-leaf norms and update wrappers are counted stand-ins: the first
+    returns the plain chunk sums and each leaf's slice of them, the
+    second updates every leaf in place from the trust of its slice."""
     calls = {"norms": [], "apply": []}
 
     def norms(ws, gs):
@@ -223,31 +223,32 @@ def counted_leaves(monkeypatch):
         plan = lk.chunk_plan([w.numel() for w in ws])
         return cat, [cat[first:first + k] for first, k, _ in plan]
 
-    def apply(w, g, m, partial, *, lr, weight_decay, momentum, eta,
+    def apply(ws, gs, ms, parts, *, lr, weight_decay, momentum, eta,
               eps=1e-9, scaled_momentum=True):
-        calls["apply"].append(w.numel())
-        assert partial.shape == (lk.norm_blocks(w.numel()), 2)
-        wn, gn = partial.sum(0).sqrt()
-        trust = torch.where((wn > 0) & (gn > 0),
-                            eta * wn / (gn + weight_decay * wn + eps),
-                            torch.ones(()))
-        new_w, new_m = lk.lars_apply_torch(
-            w, g, m, trust, lr=lr, weight_decay=weight_decay,
-            momentum=momentum, scaled_momentum=scaled_momentum)
-        w.copy_(new_w)
-        m.copy_(new_m)
-        return w, m
+        calls["apply"].append([w.numel() for w in ws])
+        for w, g, m, partial in zip(ws, gs, ms, parts):
+            assert partial.shape == (lk.norm_blocks(w.numel()), 2)
+            wn, gn = partial.sum(0).sqrt()
+            trust = torch.where((wn > 0) & (gn > 0),
+                                eta * wn / (gn + weight_decay * wn + eps),
+                                torch.ones(()))
+            new_w, new_m = lk.lars_apply_torch(
+                w, g, m, trust, lr=lr, weight_decay=weight_decay,
+                momentum=momentum, scaled_momentum=scaled_momentum)
+            w.copy_(new_w)
+            m.copy_(new_m)
+        return ws, ms
 
     monkeypatch.setattr(ops, "_is_cuda", lambda t: True)
     monkeypatch.setattr(lk, "lars_norms_multi_cuda", norms)
-    monkeypatch.setattr(lk, "lars_apply_cuda", apply)
+    monkeypatch.setattr(lk, "lars_apply_multi_cuda", apply)
     return calls
 
 
 def test_ops_update_leaves_routes_by_min_size(counted_leaves):
-    """Leaves of >= 1024 elements share one norms call and take one
-    update each, in place; smaller ones take the plain update; every
-    leaf's (w', m') matches ``lars_update_torch``."""
+    """Leaves of >= 1024 elements share one norms call and one update
+    call, in place; smaller ones take the plain update; every leaf's (w',
+    m') matches ``lars_update_torch``."""
     ns = [1023, 4096, 64, 1024, 9408]
     leaves = [tuple(map(torch.from_numpy, _inputs((n,), seed=10 + i)))
               for i, n in enumerate(ns)]
@@ -255,7 +256,7 @@ def test_ops_update_leaves_routes_by_min_size(counted_leaves):
     ws, gs, ms = ([x.clone() for x in t] for t in zip(*leaves))
     got = ops.lars_update_leaves(ws, gs, ms, **HYPER)
     assert counted_leaves == {"norms": [[4096, 1024, 9408]],
-                              "apply": [4096, 1024, 9408]}
+                              "apply": [[4096, 1024, 9408]]}
     for i, ((gw, gm), (ww, wm)) in enumerate(zip(got, want)):
         if ns[i] >= ops.LARS_MIN_SIZE:
             assert gw is ws[i] and gm is ms[i]
@@ -267,8 +268,8 @@ def test_ops_update_leaves_routes_by_min_size(counted_leaves):
 def test_optimizer_makes_one_norms_launch_a_step(counted_leaves, monkeypatch,
                                                  scaled):
     """``lars`` over the tree of 1-D leaves, a 512-element leaf and two
-    kernel leaves, through the stand-ins: one norms call a step over the
-    two kernel leaves, one update each, the small leaf on the plain path,
+    kernel leaves, through the stand-ins: one norms call and one update
+    call a step over the two kernel leaves, the small leaf on the plain path,
     and the same weights and momenta as the CPU path (within rtol 1e-5,
     atol 1e-6) after 3 steps."""
     params, grads = _tree()
@@ -283,13 +284,14 @@ def test_optimizer_makes_one_norms_launch_a_step(counted_leaves, monkeypatch,
             vals, st = opt.update(_to_torch(g), st, vals)
         runs[cuda] = tree_leaves(vals) + tree_leaves(st["m"])
     assert counted_leaves["norms"] == [[1152, 2560]] * 3
-    assert counted_leaves["apply"] == [1152, 2560] * 3
+    assert counted_leaves["apply"] == [[1152, 2560]] * 3
     for got, want in zip(runs[True], runs[False]):
         _close(got, want)
 
 
 def test_ops_update_leaves_routes_cpu_tensors_to_plain():
-    before = (lk.lars_norms_multi_cuda.launches, lk.lars_apply_cuda.launches)
+    before = (lk.lars_norms_multi_cuda.launches,
+              lk.lars_apply_multi_cuda.launches)
     leaves = [tuple(map(torch.from_numpy, _inputs(s, seed=20 + i)))
               for i, s in enumerate([(64, 64), (3, 3, 8, 16), (7,)])]
     got = ops.lars_update_leaves(*zip(*leaves), **HYPER)
@@ -297,7 +299,7 @@ def test_ops_update_leaves_routes_cpu_tensors_to_plain():
         ww, wm = lk.lars_update_torch(w, g, m, **HYPER)
         assert torch.equal(gw, ww) and torch.equal(gm, wm)
     assert (lk.lars_norms_multi_cuda.launches,
-            lk.lars_apply_cuda.launches) == before
+            lk.lars_apply_multi_cuda.launches) == before
 
 
 def test_multi_norms_refuses_bad_inputs():
@@ -310,6 +312,75 @@ def test_multi_norms_refuses_bad_inputs():
         lk.lars_norms_multi_cuda([w], [g])
 
 
+def test_update_tiles_cover_each_leaf():
+    """The update kernel's work items: tiles of 4096 elements, the last
+    one short, so a leaf of n elements has ceil(n / 4096) of them."""
+    assert lk.UPDATE_TILE == 4096
+    assert [lk.update_tiles(n) for n in (1, 1024, 4096, 4097, 9408,
+                                         2_359_296)] == [1, 1, 1, 2, 3, 576]
+    for n in SIZES:
+        k = lk.update_tiles(n)
+        assert (k - 1) * lk.UPDATE_TILE < n <= k * lk.UPDATE_TILE
+
+
+def test_update_leaf_table_packing_field_order_and_launch_cap():
+    """The ctypes leaf matches csrc/lars.cu's UpdateLeaf field for field
+    (w, g, m, part, n, parts, first at offsets 0, 8, 16, 24, 32, 40, 44;
+    48 bytes); on fake pointers, 130 leaves pack into launches of 64, 64
+    and 2, each starting at its first leaf's index, each leaf's ``first``
+    the tiles of the leaves before it in its launch."""
+    L = lk._UpdateLeaf
+    assert [(f, getattr(L, f).offset) for f, _ in L._fields_] == [
+        ("w", 0), ("g", 8), ("m", 16), ("part", 24), ("n", 32),
+        ("parts", 40), ("first", 44)]
+    assert ctypes.sizeof(L) == 48
+    ns = [4096 * (1 + i % 7) + i for i in range(130)]
+    ptrs = [[base + 0x100000 * i for i in range(130)]
+            for base in (0x7F0000000000, 0x7E0000000000, 0x7D0000000000,
+                         0x7C0000000000)]
+    parts = [lk.norm_blocks(n) for n in ns]
+    tables = lk.update_tables(*ptrs, parts, ns)
+    assert [(len(t), s) for t, s in tables] == [(lk.MAX_LEAVES, 0),
+                                                (lk.MAX_LEAVES, 64), (2, 128)]
+    i = 0
+    for table, start in tables:
+        first = 0
+        for leaf in table:
+            assert (leaf.w, leaf.g, leaf.m, leaf.part) == tuple(
+                p[i] for p in ptrs)
+            assert (leaf.n, leaf.parts, leaf.first) == (ns[i], parts[i],
+                                                        first)
+            first += lk.update_tiles(ns[i])
+            i += 1
+    assert i == 130
+
+
+def test_multi_update_refuses_bad_inputs():
+    """Lists of different lengths, no leaf, CPU tensors, and leaves that
+    share written memory are refused before anything launches."""
+    w, g, m = map(torch.from_numpy, _inputs((64, 64), seed=9))
+    part = torch.zeros(1, 2)
+    kw = dict(HYPER)
+    before = lk.lars_apply_multi_cuda.launches
+    with pytest.raises(ValueError, match="one gradient, momentum and "
+                                         "partial"):
+        lk.lars_apply_multi_cuda([w, w], [g], [m], [part], **kw)
+    with pytest.raises(ValueError, match="one gradient, momentum and "
+                                         "partial"):
+        lk.lars_apply_multi_cuda([w], [g], [m], [], **kw)
+    with pytest.raises(ValueError, match="at least one leaf"):
+        lk.lars_apply_multi_cuda([], [], [], [], **kw)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lk.lars_apply_multi_cuda([w], [g], [m], [part], **kw)
+    assert lk.lars_apply_multi_cuda.launches == before
+    w2, m2 = w.clone(), m.clone()
+    lk._check_disjoint("x", [w, w2], [g, g], [m, m2])  # g read twice: fine
+    for ws, gs, ms in (([w, w], [g, g], [m, m2]), ([w, w2], [g, g], [m, w]),
+                       ([w, w2], [g, m2], [m, m2]), ([w], [w], [m])):
+        with pytest.raises(ValueError, match="must not share memory"):
+            lk._check_disjoint("x", ws, gs, ms)
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     w, g, m = map(torch.from_numpy, _inputs((64, 64), seed=5))
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -319,6 +390,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensor"):
         lk.lars_apply_cuda(w, g, m, torch.zeros(1, 2), lr=0.1,
                            weight_decay=1e-4, momentum=0.9, eta=0.001)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        lk.lars_apply_multi_cuda([w], [g], [m], [torch.zeros(1, 2)], lr=0.1,
+                                 weight_decay=1e-4, momentum=0.9, eta=0.001)
 
 
 @pytest.mark.parametrize("args", [(0.25, 10, 60), (0.5, 2, 30),
@@ -524,19 +598,69 @@ def test_cuda_multi_norms_equal_one_leaf_norms_bitwise(cuda_device):
 @pytest.mark.parametrize("scaled", [True, False])
 def test_cuda_update_leaves_match_plain(cuda_device, scaled):
     """``ops.lars_update_leaves`` over ResNet-50's 54 kernel leaves: one
-    norms launch and 54 update launches, w' and m' within rtol 1e-5,
-    atol 1e-6 of the plain version, written in place."""
+    norms launch and one update launch, w' and m' within rtol 1e-5, atol
+    1e-6 of the plain version, written in place."""
     leaves = _resnet50_leaves(cuda_device, seed=13)
     lr = torch.full((), 0.1, device=cuda_device)
     kw = dict(HYPER, lr=lr, scaled_momentum=scaled)
     want = [lk.lars_update_torch(w, g, m, **kw) for w, g, m in leaves]
     ws, gs, ms = ([x.clone() for x in t] for t in zip(*leaves))
-    before = (lk.lars_norms_multi_cuda.launches, lk.lars_apply_cuda.launches)
+    before = (lk.lars_norms_multi_cuda.launches,
+              lk.lars_apply_multi_cuda.launches, lk.lars_apply_cuda.launches)
     got = ops.lars_update_leaves(ws, gs, ms, **kw)
     torch.cuda.synchronize()
     assert (lk.lars_norms_multi_cuda.launches - before[0],
-            lk.lars_apply_cuda.launches - before[1]) == (1, 54)
+            lk.lars_apply_multi_cuda.launches - before[1],
+            lk.lars_apply_cuda.launches - before[2]) == (1, 1, 0)
     for (gw, gm), (ww, wm), w, m in zip(got, want, ws, ms):
         assert gw is w and gm is m
         torch.testing.assert_close(gw, ww, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(gm, wm, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scaled", [True, False])
+def test_cuda_multi_update_equals_one_leaf_update_bitwise(cuda_device,
+                                                          scaled):
+    """The multi-leaf update launch's w', m' and trusts equal the one-leaf
+    launch's bit for bit, for ResNet-50's 54 kernel leaves (one launch),
+    for odd, unaligned and 1024-element leaves among them, and past one
+    launch's table cap (120 leaves, two launches); a rerun bitwise
+    equal."""
+    leaves = _resnet50_leaves(cuda_device, seed=14)
+    gen = torch.Generator(device=cuda_device).manual_seed(15)
+    extra = [torch.randn(n, generator=gen, device=cuda_device)
+             for n in (1_000_003, 1024, 1_000_003, 4097)]
+    extra[2] = _offset(extra[2], 1)  # not 16-byte aligned
+    edges = [(x, x.flip(0).contiguous(), 1e-2 * x) for x in extra]
+    lr = torch.full((), 0.1, device=cuda_device)
+    kw = dict(HYPER, lr=lr, scaled_momentum=scaled)
+    cases = {"resnet50": leaves, "edges": edges + leaves[:3],
+             "past_cap": [(w.clone(), g, m.clone()) for w, g, m in leaves]
+             + leaves + [(torch.randn(1024, generator=gen,
+                                      device=cuda_device), edges[1][1],
+                          torch.zeros(1024, device=cuda_device))
+                         for _ in range(12)]}
+    for name, triples in cases.items():
+        ws, gs, ms = (list(t) for t in zip(*triples))
+        _, parts = lk.lars_norms_multi_cuda(ws, gs)
+        before = lk.lars_apply_multi_cuda.launches
+        runs = []
+        for _ in range(2):
+            wk, mk = [w.clone() for w in ws], [m.clone() for m in ms]
+            t = torch.empty(len(ws), device=cuda_device)
+            lk.lars_apply_multi_cuda(wk, gs, mk, parts, **kw, trust_out=t)
+            runs.append((wk, mk, t))
+        torch.cuda.synchronize()
+        assert lk.lars_apply_multi_cuda.launches - before == 2 * -(
+            -len(ws) // lk.MAX_LEAVES), name
+        (wk, mk, t), (w2, m2, t2) = runs
+        assert torch.equal(t, t2) and all(
+            torch.equal(a, b) for a, b in zip(wk + mk, w2 + m2)), name
+        for i, (w, g, m) in enumerate(triples):
+            w1, m1 = w.clone(), m.clone()
+            t1 = torch.empty(1, device=cuda_device)
+            lk.lars_apply_cuda(w1, g, m1, parts[i], **kw, trust_out=t1)
+            assert torch.equal(wk[i], w1) and torch.equal(mk[i], m1), (
+                name, i)
+            assert torch.equal(t[i:i + 1], t1), (name, i)

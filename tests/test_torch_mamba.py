@@ -63,6 +63,62 @@ def test_plain_scan_matches_ref_jnp_and_pallas(shape):
                                    atol=1e-5)
 
 
+def _lanes_and_states(N):
+    """csrc/mamba_scan.cu's launch_n: the lanes a channel and the states a
+    lane for N states."""
+    if N <= 16:
+        return 4, 1 << (-(-N // 4) - 1).bit_length()
+    return 8, 1 << (-(-N // 8) - 1).bit_length()
+
+
+def _kernel_order_scan(u, dt, A, B, C, D):
+    """The CUDA kernel's arithmetic in PyTorch, fp32: the decay as
+    ``exp2(dt * (A * log2 e))``, the input as ``(dt * u) * B``, and h . C
+    summed as the kernel sums it: lanes of neighbouring states (a power of
+    two a lane, padded with zeros), each lane's states in order, then the
+    lanes pairwise, halves first (with 4 lanes: l with l + 2, then + 1).
+    Not bitwise the kernel: PyTorch's exp2 and products are not
+    ex2.approx and FFMA."""
+    Bt, S, Di = u.shape
+    N = A.shape[-1]
+    lanes, per = _lanes_and_states(N)
+    a2 = A * torch.tensor(np.log2(np.e), dtype=torch.float32)
+    h = torch.zeros((Bt, Di, N), dtype=torch.float32)
+    ys = []
+    for t in range(S):
+        dtu = dt[:, t] * u[:, t]
+        h = (torch.exp2(dt[:, t, :, None] * a2) * h
+             + dtu[..., None] * B[:, t, None, :])
+        prod = torch.nn.functional.pad(h * C[:, t, None, :],
+                                       (0, lanes * per - N))
+        prod = prod.reshape(Bt, Di, lanes, per)
+        part = prod[..., 0]
+        for p in range(1, per):
+            part = part + prod[..., p]
+        while part.shape[-1] > 1:
+            half = part.shape[-1] // 2
+            part = part[..., :half] + part[..., half:]
+        ys.append(part[..., 0] + D * u[:, t])
+    return torch.stack(ys, dim=1), h
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 24, 16), (2, 45, 12, 13),
+                                   (1, 33, 8, 64)], ids=str)
+def test_kernel_arithmetic_matches_reference_jnp(shape):
+    """The kernel's reordered arithmetic (exp2 of the pre-scaled A, h . C
+    summed in its lane order) stays within the scan's stated tolerance of
+    ``ops._mamba_scan_jnp`` (rtol 1e-4, atol 1e-5 on y and h): at N 16
+    and S 256 (Jamba's state at a whole number of chunks), an odd N whose
+    states pad the lanes, and N 64 (8 lanes of 8 states)."""
+    args = _scan_inputs(*shape, seed=5)
+    y, h = _kernel_order_scan(*map(torch.from_numpy, args))
+    want_y, want_h = jax_ops._mamba_scan_jnp(*map(jnp.asarray, args))
+    np.testing.assert_allclose(y.numpy(), np.asarray(want_y), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(h.numpy(), np.asarray(want_h), rtol=1e-4,
+                               atol=1e-5)
+
+
 def test_plain_scan_keeps_bf16_u_dtype():
     args = list(map(torch.from_numpy, _scan_inputs(1, 5, 8, 4)))
     u32 = args[0]
@@ -204,8 +260,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-# chip_smoke.py's cases: Jamba's prefill shape, an odd one, S = 1.
-CUDA_CASES = [(1, 256, 16384, 16), (2, 17, 33, 4), (3, 1, 100, 16)]
+# chip_smoke.py's cases: Jamba's prefill shape, an odd one, S = 1, N = 64
+# and an odd N (S no whole number of 32-step chunks).
+CUDA_CASES = [(1, 256, 16384, 16), (2, 17, 33, 4), (3, 1, 100, 16),
+              (2, 70, 1000, 64), (2, 77, 300, 13)]
 
 
 @pytest.mark.cuda

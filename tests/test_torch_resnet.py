@@ -457,8 +457,7 @@ def cuda_device():
 def test_cuda_three_lars_steps_match_cpu(cuda_device, scaled):
     """pool32 in fp32 (TF32 off) on the card against the CPU: 3 LARS
     steps' losses within rtol 1e-4; on the card a step makes one norms
-    launch over the leaves of >= 1024 elements and one update launch
-    each."""
+    launch and one update launch over the leaves of >= 1024 elements."""
     jcfg, cfg, size = _cfgs("pool32")
     tree = _jax_params(jcfg)
     imgs, labels = _batch(8, size, jcfg.num_classes, seed=5)
@@ -481,8 +480,8 @@ def test_cuda_three_lars_steps_match_cpu(cuda_device, scaled):
         torch.backends.cudnn.allow_tf32 = tf32
     card = out[str(cuda_device)]
     assert n_kernel > 0
-    assert all((r["norm_launches"], r["update_launches"]) ==
-               (1, n_kernel) for r in card)
+    assert all((r["norm_launches"], r["update_launches"]) == (1, 1)
+               for r in card)
     np.testing.assert_allclose([r["loss"] for r in card],
                                [r["loss"] for r in out["cpu"]], rtol=1e-4)
     assert lk.lars_norms_multi_cuda.launches >= 3
