@@ -55,7 +55,14 @@ and prints no result):
    slot slab: the counters, zeroed just before, must show mamba_scan in
    both Mamba layers of every prefill (16) and the flash forward once a
    prefill (8); a second run must give the same tokens; one prefill and
-   one decode step are traced;
+   one decode step are traced. Then (``serve-sample``) the 28-layer
+   model serves the 8 ragged requests at temperature 0.8 and greedy:
+   the port's threefry on the card gives the published known answers
+   and the key words JAX gives, keys and draws bitwise equal to the
+   CPU's; the paged kernel runs in every layer of every sampled chunk
+   step, a second sampled run repeats the tokens, 65,536 keys at one
+   position draw from fp32 logits within a total variation of 0.02 of
+   softmax, and the sampler's device time and kernels a call are read;
 5. train: full-width gemma-7b cut to 8 layers (fp32 masters, gradients
    and Adam moments, bf16 compute, remat) takes 4 steps of batch 4 x
    2048 tokens through ``Trainer.fit`` and one eval; the flash kernels'
@@ -63,7 +70,14 @@ and prints no result):
    through them (forward twice per layer per step, with the remat
    recompute, and once per layer per eval batch; backward once per
    layer per step), and a second run from the same seed must give the
-   same losses;
+   same losses. Then (``train-resume``) the same model cut to 2 layers
+   (1 when the temporary directory cannot hold two of their 16 GB
+   checkpoints) takes 6 steps from the streaming pipeline through the
+   double buffer with async checkpoints at steps 3 and 6, and a fresh
+   trainer resumed from step 3 takes steps 4-6: its losses and final
+   state must equal the first run's bitwise, both checkpoints and a sync
+   save must read back equal to the state, and the flash counters must
+   show the resumed steps went through the kernels;
 6. train GNMT: full width (F 1024, 4 + 4 layers, vocab 32000, bf16
    compute, random weights from seed 0) takes 6 steps of batch 128 of
    bucketized copy-task sentences (4-50 tokens, window 6) through
@@ -107,6 +121,7 @@ from repro_torch.data.pipeline import (  # noqa: E402
     synthetic_eval_set,
     synthetic_lm_batches,
 )
+from repro_torch.data import Pipeline, SyntheticShardSource  # noqa: E402
 from repro_torch.data.bucketization import bucketized_batches  # noqa: E402
 from repro_torch.data.pipeline import prefetch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -124,6 +139,7 @@ from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
 from repro_torch.models.scan_utils import _largest_divisor_leq  # noqa: E402
 from repro_torch.optim import adam, constant, lars, polynomial_warmup  # noqa: E402
+from repro_torch import random as rnd  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine,
     ServeConfig,
@@ -133,8 +149,9 @@ from repro_torch.serve import cache as slab_ops  # noqa: E402
 from repro_torch.serve.scenarios import run_offline, run_server  # noqa: E402
 from repro_torch.serve.speculative import DraftModelDrafter  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
+from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.hooks import Hook  # noqa: E402
-from repro_torch.utils import tree_leaves, tree_map  # noqa: E402
+from repro_torch.utils import Stacked, tree_leaves, tree_map  # noqa: E402
 
 # H100 SXM data sheet: HBM rate and dense peaks by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -2553,12 +2570,398 @@ def train_resnet_full():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 4b: temperature sampling at full width.
+# --------------------------------------------------------------------------- #
+SAMPLE_T = 0.8
+# Random123's kat_vectors for threefry2x32_20: (key, counter) -> out.
+THREEFRY_KAT = [((0, 0), (0, 0), (0x6B200159, 0x99BA4EFE)),
+                ((0xFFFFFFFF, 0xFFFFFFFF), (0xFFFFFFFF, 0xFFFFFFFF),
+                 (0x1CB996FC, 0xBB002BE7)),
+                ((0x13198A2E, 0x03707344), (0x243F6A88, 0x85A308D3),
+                 (0xC4923A9C, 0x483DF7A0))]
+# fold_in(fold_in(PRNGKey(seed), rid), pos), from jax.random.key_data
+# (the same table as tests/test_torch_random.py:KEY_WORDS).
+KEY_WORDS = {(0, 0, 0): (0xF84E8312, 0x2FEF64F3),
+             (0, 100, 133): (0xAC830C4B, 0x2A29DA69),
+             (0, 107, 160): (0x44563976, 0x804B3348),
+             (2**31 - 1, 7, 159): (0x9FDCBB65, 0x8241141D),
+             (1, 2**32 - 1, 131071): (0x7FBA2311, 0xFCFBF4D7)}
+FREQ_KEYS, FREQ_ROWS, FREQ_TOP, FREQ_TV = 65536, 1024, 31, 0.02
+
+
+def check_sampler_bits():
+    """The port's threefry on the card: the published known answers, the
+    key words JAX gives, and keys and uniform bits bitwise equal to the
+    CPU's for the same (seed, rid, pos)."""
+    dev = "cuda"
+    for (k0, k1), (x0, x1), want in THREEFRY_KAT:
+        got = rnd.threefry2x32(*(torch.tensor(v, device=dev)
+                                 for v in (k0, k1, x0, x1)))
+        if tuple(int(v) for v in got) != want:
+            raise AssertionError(f"threefry known answer {want}: got "
+                                 f"{[hex(int(v)) for v in got]}")
+    for (seed, rid, pos), want in KEY_WORDS.items():
+        got = rnd.fold_in(rnd.fold_in(rnd.prng_key(seed, dev), rid), pos)
+        if tuple(got.tolist()) != want:
+            raise AssertionError(f"key words of {(seed, rid, pos)}: "
+                                 f"{got.tolist()} != {want}")
+    rids = torch.arange(100, 108)
+    pos = torch.tensor([133, 160, 21, 129, 65, 96, 152, 41])
+    for seed in (0, 1, 2**31 - 1):
+        keys = {d: rnd.fold_in(rnd.fold_in(rnd.prng_key(seed, d),
+                                           rids.to(d)), pos.to(d))
+                for d in ("cpu", dev)}
+        if not torch.equal(keys["cpu"], keys[dev].cpu()):
+            raise AssertionError(f"seed {seed}: card keys differ from CPU")
+        for width in (8, 32):
+            a = rnd.random_bits(keys[dev], width, (get_config("gemma-7b")
+                                                  .vocab,))
+            b = rnd.random_bits(keys["cpu"], width, (a.shape[-1],))
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{width}-bit draws differ card/CPU")
+        for dt in (torch.bfloat16, torch.float32):
+            a = rnd.uniform(keys[dev], (4096,), dt)
+            b = rnd.uniform(keys["cpu"], (4096,), dt)
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"{dt} uniforms differ card/CPU")
+    print(f"  threefry: {len(THREEFRY_KAT)} known answers, "
+          f"{len(KEY_WORDS)} JAX key words, keys and 8/32-bit draws and "
+          f"bf16/fp32 uniforms (8 rows x 256,000) bitwise equal card/CPU",
+          flush=True)
+
+
+def sampler_cost(engine, logits):
+    """The engine's draw at (B, V): device ms of one call (the sum of its
+    kernels' times, profiler), its kernels, and the wall ms a call over
+    10 back-to-back calls, which the host's enqueue of those kernels
+    sets (a GPU-side sleep cannot hold them all: the launch queue
+    fills)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B = logits.shape[0]
+    rid = torch.arange(100, 100 + B, device="cuda")
+    pos = torch.full((B,), 133, device="cuda")
+
+    def draw():
+        return engine._sample(logits, rid, pos)
+
+    for _ in range(3):
+        draw()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        draw()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) / 10 * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        draw()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    n = sum(e.count for e in kernels)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    return dict(device_ms=busy, launches=n, wall_ms=wall_ms)
+
+
+def sample_frequencies(key, logits_row):
+    """Token frequencies of FREQ_KEYS draws at one position against
+    softmax(logits / t): the total variation over the FREQ_TOP most
+    likely tokens and the rest as one bin. In the logits' dtype; with
+    bf16 logits the uniforms have 7 random bits (as in JAX), which
+    biases Gumbel-max, so the gate reads the fp32 draw."""
+    V = logits_row.shape[-1]
+    keys = rnd.fold_in(rnd.fold_in(key, torch.arange(FREQ_KEYS,
+                                                     device="cuda")), 160)
+    counts = torch.zeros(V, dtype=torch.int64, device="cuda")
+    t = torch.tensor(SAMPLE_T, dtype=logits_row.dtype, device="cuda")
+    scaled = logits_row / t
+    for i in range(0, FREQ_KEYS, FREQ_ROWS):
+        draws = rnd.categorical(keys[i:i + FREQ_ROWS],
+                                scaled.expand(FREQ_ROWS, V))
+        counts += torch.bincount(draws, minlength=V)
+    p = torch.softmax(scaled.double(), dim=-1)
+    top = torch.topk(p, FREQ_TOP).indices
+    freq = counts.double() / FREQ_KEYS
+    pb = torch.cat([p[top], (1 - p[top].sum())[None]])
+    fb = torch.cat([freq[top], (1 - freq[top].sum())[None]])
+    return 0.5 * (fb - pb).abs().sum().item(), p[top].sum().item()
+
+
+def serve_sample(params):
+    """Full-width gemma-7b serves stream (a) at temperature 0.8: the
+    sampler's bits against the CPU and JAX's constants, the stream
+    through the paged kernel twice (same tokens), beside greedy on the
+    same stream, token frequencies at one position against softmax, and
+    the sampler's cost at B 8 x V 256,000."""
+    phase(f"serve-sample: gemma-7b full width, 28 layers, bf16, offline, "
+          f"temperature {SAMPLE_T}")
+    check_sampler_bits()
+    cfg = get_config("gemma-7b")
+    base = dict(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+                page_size=16, prefill_chunk=8)
+
+    def workload():
+        reqs = synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
+                                  prompt_len=max(PROMPT_LENS), seed=0,
+                                  prompt_lens=PROMPT_LENS)
+        for i, r in enumerate(reqs):
+            r.id = 100 + i  # the keys depend on the id: pin it
+        return reqs
+
+    engines = {t: Engine(cfg, params, ServeConfig(temperature=t, seed=0,
+                                                  **base), device="cuda")
+               for t in (0.0, SAMPLE_T)}
+    for engine in engines.values():  # warm-up
+        run_offline(engine, synthetic_requests(cfg, n=2, tokens=2,
+                                               prompt_len=8, seed=1))
+    reports = {}
+    for t in (0.0, SAMPLE_T):
+        pa.reset_launches()
+        reports[t] = run_offline(engines[t], workload())
+        launches = pa.paged_attention_cuda.launches
+        steps = len(reports[t].steps)
+        print(f"  temperature {t}: {reports[t].format()}; {steps} chunk "
+              f"steps, paged_attention launches {launches}", flush=True)
+        if launches < cfg.n_layers * steps or steps == 0:
+            raise AssertionError(
+                f"paged_attention ran {launches} times in {steps} chunk "
+                f"steps at temperature {t}")
+    got = tokens_of(reports[SAMPLE_T])
+    if len(got) != 8 or any(len(x) != NEW_TOKENS for x in got) or \
+            any(not 0 <= tok < cfg.vocab for x in got for tok in x):
+        raise AssertionError("sampled stream: wrong counts or ids")
+    again = tokens_of(run_offline(engines[SAMPLE_T], workload()))
+    if again != got:
+        raise AssertionError("a second sampled run of the stream differs")
+    if got == tokens_of(reports[0.0]):
+        raise AssertionError("temperature 0.8 drew the greedy tokens")
+    print(f"  second sampled run: same tokens; differs from greedy in "
+          f"{sum(a != b for x, y in zip(got, tokens_of(reports[0.0])) for a, b in zip(x, y))}"
+          f" of {8 * NEW_TOKENS} tokens", flush=True)
+
+    # logits of one chunk step at full width (B 8 rows, bf16)
+    B, C = 8, base["prefill_chunk"]
+    cache = lm.init_paged_cache(cfg, 16, 16, device="cuda")
+    pt = torch.full((B, 2), -1, dtype=torch.int32, device="cuda")
+    pt[:, 0] = torch.arange(B, dtype=torch.int32)
+    with torch.inference_mode():
+        logits, _ = lm.decode_chunk(
+            params, cfg, torch.randint(0, cfg.vocab, (B, C), device="cuda",
+                                       generator=torch.Generator("cuda")
+                                       .manual_seed(0)),
+            cache, pt, torch.zeros(B, dtype=torch.int32, device="cuda"),
+            torch.full((B,), C, dtype=torch.int32, device="cuda"))
+        key = engines[SAMPLE_T]._key
+        tv, mass = sample_frequencies(key, logits[0].float())
+        tv_bf16, _ = sample_frequencies(key, logits[0])
+        cost = sampler_cost(engines[SAMPLE_T], logits)
+    print(f"  frequencies of {FREQ_KEYS} keys at one position: total "
+          f"variation {tv:.5f} from fp32 logits over the top {FREQ_TOP} "
+          f"tokens (mass {mass:.4f}) + the rest (bound {FREQ_TV}); "
+          f"{tv_bf16:.5f} from the bf16 logits the engine draws from "
+          f"(recorded)", flush=True)
+    if not tv < FREQ_TV:
+        raise AssertionError(f"sampled frequencies off softmax: TV {tv}")
+    step_ms = 1e3 * reports[SAMPLE_T].elapsed_s / len(reports[SAMPLE_T].steps)
+    print(f"  sampler at B {B} x V {cfg.vocab}: {cost['device_ms']:.4f} ms "
+          f"of device time and {cost['launches']} kernels a call, "
+          f"{cost['wall_ms']:.3f} ms wall a call back to back; a sampled "
+          f"chunk step {step_ms:.1f} ms", flush=True)
+    s = {str(t): reports[t].summary() for t in reports}
+    s["sampler"] = cost
+    s["frequency_tv"] = tv
+    s["frequency_tv_bf16"] = tv_bf16
+    print(f"  serve-sample summary {json.dumps(s)}", flush=True)
+    del engines, cache, logits
+    torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------- #
+# Phase 5b: checkpoints and resume at full width (2-layer cut).
+# --------------------------------------------------------------------------- #
+RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY = 2, 6, 3
+CKPT_BYTES_PER_PARAM = 12  # fp32 master + Adam's two fp32 moments
+
+
+def resume_layers(free_bytes):
+    """2 layers when the disk holds two of their checkpoints with 10% to
+    spare, else 1 (gemma-7b: attention q, k, v, o, the GeGLU FFN and two
+    norm scales a layer; the tied embedding and the final norm)."""
+    c = get_config("gemma-7b")
+    per_layer = (2 * c.d_model * c.n_heads * c.head_dim
+                 + 2 * c.d_model * c.n_kv_heads * c.head_dim
+                 + 3 * c.d_model * c.d_ff + 2 * c.d_model)
+    fixed = c.vocab * c.d_model + c.d_model
+    need = 2 * CKPT_BYTES_PER_PARAM * (fixed + RESUME_LAYERS * per_layer)
+    return RESUME_LAYERS if free_bytes > 1.1 * need else 1
+
+
+def state_parts(tr):
+    leaves = ckpt._flatten_with_names(tr.checkpoint_tree())[1]
+    return [p for leaf in leaves
+            for p in (leaf.parts if isinstance(leaf, Stacked) else [leaf])]
+
+
+def equal_to_checkpoint(path, tr):
+    """Every array of the checkpoint at ``path`` against the trainer's
+    live state, bitwise, one array at a time; returns the bytes read."""
+    names, leaves = ckpt._flatten_with_names(tr.checkpoint_tree())
+    with open(os.path.join(path, "manifest.json")) as f:
+        if json.load(f)["names"] != names:
+            raise AssertionError(f"{path}: names differ from the state")
+    nbytes = 0
+    with np.load(os.path.join(path, "arrays.npz")) as data:
+        for i, leaf in enumerate(leaves):
+            a = torch.from_numpy(data[f"a{i}"])
+            nbytes += a.numel() * a.element_size()
+            parts = leaf.parts if isinstance(leaf, Stacked) else [leaf]
+            for b, part in enumerate(parts):
+                want = a[b] if isinstance(leaf, Stacked) else a
+                if not torch.equal(part.detach().cpu(), want):
+                    raise AssertionError(f"{path}: {names[i]} differs")
+    return nbytes
+
+
+def resume_pipeline(cfg, cache_dir, start):
+    src = SyntheticShardSource(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                               n_batches=RESUME_STEPS, shard_size=2, seed=0)
+    return Pipeline(src, cache_dir=cache_dir, prefetch_depth=2,
+                    start_batch=start)
+
+
+def train_resume():
+    """Run A: 6 steps with async checkpoints at 3 and 6, fed by the
+    streaming pipeline through the double buffer. Run B: a fresh trainer
+    resumed from step_3 takes steps 4-6 from the pipeline at batch 3.
+    B's losses and final state must equal A's bitwise, both async
+    checkpoints and a sync save of A's state must read back equal to it,
+    and the flash kernels must carry the resumed steps."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
+    free = shutil.disk_usage(root).free
+    n_layers = resume_layers(free)
+    phase(f"train-resume: gemma-7b full width, {n_layers} layers, batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {RESUME_STEPS} steps, async "
+          f"checkpoints every {RESUME_EVERY}, resume from step "
+          f"{RESUME_EVERY}, streaming pipeline + double buffer")
+    print(f"  {root}: {free / 1e9:.1f} GB free; {n_layers} layers "
+          f"({'as planned' if n_layers == RESUME_LAYERS else 'cut: the disk cannot hold two 2-layer checkpoints'})",
+          flush=True)
+    cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=n_layers)
+    cache_dir = os.path.join(root, "data_cache")
+    run_dir = os.path.join(root, "run_a")
+    try:
+        def trainer(every):
+            return Trainer(cfg, TrainerConfig(
+                total_steps=RESUME_STEPS, log_every=1,
+                checkpoint_every=every, checkpoint_dir=run_dir,
+                async_checkpoint=True, double_buffer=True), device="cuda")
+
+        fa.flash_attention_fwd_cuda.launches = 0
+        fa.flash_attention_bwd_cuda.launches = 0
+        tr_a = trainer(RESUME_EVERY)
+        n_params = sum(p.numel() for p in tree_leaves(tr_a.state["params"]))
+        with resume_pipeline(cfg, cache_dir, 0) as pipe:
+            hist_a = tr_a.fit(pipe, hooks=tr_a.default_hooks()
+                              + [SyncEveryStep()])
+        torch.cuda.synchronize()
+        launches_a = (fa.flash_attention_fwd_cuda.launches,
+                      fa.flash_attention_bwd_cuda.launches)
+        for h in tr_a._hooks:  # free the snapshot buffers
+            if getattr(h, "checkpointer", None) is not None:
+                h.checkpointer.release()
+        torch.cuda.empty_cache()
+        saved = sorted(d for d in os.listdir(run_dir)
+                       if not d.startswith("."))
+        if saved != ["step_3", "step_6"]:
+            raise AssertionError(f"run A saved {saved}")
+        t0 = time.perf_counter()
+        nbytes = equal_to_checkpoint(os.path.join(run_dir, "step_6"), tr_a)
+        check_s = time.perf_counter() - t0
+        print(f"  run A: {n_params / 1e9:.3f} B params, checkpoints of "
+              f"{nbytes / 1e9:.2f} GB; losses {[r['loss'] for r in hist_a]};"
+              f" async step_6 reads back bitwise equal to the state "
+              f"({nbytes / 1e9 / check_s:.2f} GB/s read and compared)",
+              flush=True)
+
+        # the sync twin of step_6, with step_6 removed: two on disk
+        shutil.rmtree(os.path.join(run_dir, "step_6"))
+        sync_path = os.path.join(root, "sync_6")
+        t0 = time.perf_counter()
+        ckpt.save_checkpoint(sync_path, tr_a.checkpoint_tree(),
+                             step=RESUME_STEPS)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+        equal_to_checkpoint(sync_path, tr_a)
+        async_ms = [r["ckpt_block_ms"] for r in hist_a
+                    if r["ckpt_block_ms"] > 0]
+        print(f"  ckpt_block_ms: async {[round(x, 3) for x in async_ms]} "
+              f"(steps {RESUME_EVERY}, {RESUME_STEPS}), sync "
+              f"{sync_ms:.1f} ({nbytes / 1e6 / sync_ms:.2f} GB/s written); "
+              f"the sync save reads back equal to the state", flush=True)
+
+        tr_b = trainer(0)
+        t0 = time.perf_counter()
+        start = tr_b.resume(os.path.join(run_dir, f"step_{RESUME_EVERY}"))
+        torch.cuda.synchronize()
+        read_s = time.perf_counter() - t0
+        fa.flash_attention_fwd_cuda.launches = 0
+        fa.flash_attention_bwd_cuda.launches = 0
+        with resume_pipeline(cfg, cache_dir, start) as pipe:
+            hist_b = tr_b.fit(pipe, hooks=tr_b.default_hooks()
+                              + [SyncEveryStep()])
+        torch.cuda.synchronize()
+        launches_b = (fa.flash_attention_fwd_cuda.launches,
+                      fa.flash_attention_bwd_cuda.launches)
+        losses_a = [r["loss"] for r in hist_a[start:]]
+        losses_b = [r["loss"] for r in hist_b]
+        print(f"  run B: resumed at step {start} ({nbytes / 1e9 / read_s:.2f}"
+              f" GB/s read); steps {[r['step'] for r in hist_b]}, losses "
+              f"{losses_b} (run A: {losses_a})", flush=True)
+        if [r["step"] for r in hist_b] != list(range(start + 1,
+                                                     RESUME_STEPS + 1)):
+            raise AssertionError("run B did not take steps 4-6")
+        if losses_b != losses_a:
+            raise AssertionError("resumed losses differ from run A's")
+        for a, b in zip(state_parts(tr_a), state_parts(tr_b)):
+            if not torch.equal(a, b):
+                raise AssertionError("run B's final state differs from A's")
+        equal_to_checkpoint(sync_path, tr_b)
+        L = cfg.n_layers
+        want_b = (2 * L * (RESUME_STEPS - start), L * (RESUME_STEPS - start))
+        print(f"  final params and moments bitwise equal A's (and step_6 "
+              f"read back); flash launches A {launches_a}, B {launches_b} "
+              f"(expected {want_b} for B)", flush=True)
+        if launches_b != want_b or launches_a != (2 * L * RESUME_STEPS,
+                                                  L * RESUME_STEPS):
+            raise AssertionError(f"flash launches {launches_a}, "
+                                 f"{launches_b}")
+        waits = [round(r["data_wait_ms"], 3) for r in hist_a + hist_b]
+        steps_ms = [round(r["step_ms"], 1) for r in hist_a + hist_b]
+        summary = dict(n_layers=n_layers, n_params=n_params,
+                       ckpt_bytes=nbytes, async_block_ms=async_ms,
+                       sync_block_ms=sync_ms,
+                       write_gb_s=nbytes / 1e6 / sync_ms,
+                       read_gb_s=nbytes / 1e9 / read_s,
+                       data_wait_ms=waits, step_ms=steps_ms,
+                       losses=[r["loss"] for r in hist_a])
+        print(f"  train-resume summary {json.dumps(summary)}", flush=True)
+        del tr_a, tr_b
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return launches_b
+
+
 PHASES = {  # --only names: the phases a short run may pick
     "paged": check_kernel, "flash": check_flash, "lstm": check_lstm,
     "lars": check_lars, "mamba": check_mamba,
     "flash-jamba": check_flash_jamba, "check-jamba": reduced_jamba_vs_cpu,
     "serve-jamba": serve_jamba_full, "train-gnmt": train_gnmt_full,
     "train-resnet": train_resnet_full,
+    "serve-sample": lambda: serve_sample(full_serve_params()),
+    "train-resume": train_resume,
 }
 
 
@@ -2612,10 +3015,12 @@ def main(argv=None) -> int:
     params = full_serve_params()
     paged["launches"] = serve_full(params)
     int8["launches"], int4["launches"] = serve_quant(params)
+    serve_sample(params)
     del params
     torch.cuda.empty_cache()
     mamba["launches"], flash_jamba["launches"] = serve_jamba_full()
     flash_fwd["launches"], flash_bwd["launches"] = train_full()
+    train_resume()
     lstm_fwd["launches"], lstm_bwd["launches"] = train_gnmt_full()
     lars_norms["launches"], lars_update["launches"] = train_resnet_full()
     recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,

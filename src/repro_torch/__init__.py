@@ -13,6 +13,11 @@ branches), train GNMT through the LSTM cell kernels, train ResNet-50
 v1.5 with LARS through the ``lars_update`` kernels, and serve
 ``jamba-1.5-large`` (Mamba, MoE and attention layers) through the
 slot-slab layout, its Mamba prefill through the ``mamba_scan`` kernel.
+The serving engine samples at a temperature with counter-based keys bit
+for bit those of ``jax.random`` (:mod:`repro_torch.random`); the trainer
+saves and resumes checkpoints in the reference's format and reads the
+streaming input pipeline (:mod:`repro_torch.data`) through a
+double-buffered input stage.
 
 Entry points take ``device`` (default ``"cuda"``) and refuse to fall
 back to the CPU when no card is present; tests pass ``device="cpu"``,

@@ -4,8 +4,9 @@ The LM batches are numpy with the reference's generator calls, so a seed
 gives byte-identical batches on both sides: zipfian tokens with a
 learnable bigram structure, enough for the loss to fall. Text-only: the
 port's architectures have no media frontend yet. Beside them, GNMT's
-round-robin multi-host distribution and the background prefetch
-(paper sections 2 and 3).
+round-robin multi-host distribution, the background prefetch and the
+streaming :class:`Pipeline` (source -> shard cache -> prefetch; paper
+sections 2 and 3).
 """
 from __future__ import annotations
 
@@ -90,6 +91,67 @@ class RoundRobinHostPipeline:
                     yield next(s)
                 except StopIteration:
                     done[h] = True
+
+
+class Pipeline:
+    """The streaming training input, as one iterator: a shard-addressed
+    :class:`~repro_torch.data.source.Source`, through an optional
+    checksum-verified :class:`~repro_torch.data.cache.ShardCache` at
+    ``cache_dir``, into a bounded background
+    :class:`~repro_torch.data.prefetch.Prefetcher`, yielding host batch
+    dicts.
+
+    ``start_batch`` seeks a resumed run to its stream position, reading
+    only the shards from the one that holds it. Each ``__iter__``
+    restarts from ``start_batch`` on a fresh worker thread; ``wait_ms``
+    is the current iteration's consumer stall; ``close()`` (or leaving a
+    ``with`` block) stops the worker.
+    """
+
+    def __init__(self, source, *, cache_dir: Optional[str] = None,
+                 prefetch_depth: int = 2, start_batch: int = 0,
+                 verify_cache: bool = True):
+        if start_batch < 0:
+            raise ValueError(f"start_batch must be >= 0, got {start_batch}")
+        self.source = source
+        self.prefetch_depth = prefetch_depth
+        self.start_batch = start_batch
+        self._prefetcher = None
+        self._store = source
+        if cache_dir:
+            from repro_torch.data.cache import ShardCache
+
+            self._store = ShardCache(cache_dir).ensure(source,
+                                                       verify=verify_cache)
+
+    def _shard_stream(self) -> Iterator[Dict]:
+        first, skip = divmod(self.start_batch, self.source.shard_size)
+        for i in range(first, self._store.n_shards):
+            yield from self._store.shard(i)[skip:]
+            skip = 0
+
+    def __iter__(self) -> Iterator[Dict]:
+        from repro_torch.data.prefetch import Prefetcher
+
+        self.close()
+        self._prefetcher = Prefetcher(self._shard_stream(),
+                                      depth=self.prefetch_depth)
+        return self._prefetcher
+
+    @property
+    def wait_ms(self) -> float:
+        return self._prefetcher.wait_ms if self._prefetcher else 0.0
+
+    def close(self) -> None:
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+            self._prefetcher = None
+
+    def __enter__(self) -> "Pipeline":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
 
 class _End:

@@ -9,14 +9,16 @@
         [--scenario offline|server|single_stream|multi_stream] \
         [--arrival-rate 0.5] [--arrival-pattern poisson|bursty|diurnal] \
         [--query-size 2] [--query-interval 8] \
-        [--slo-classes interactive,batch] [--seed 0] [--device cuda|cpu]
+        [--slo-classes interactive,batch] [--temperature 0.8] [--seed 0] \
+        [--device cuda|cpu]
 
 Builds ``--batch`` synthetic requests with the scenario's arrivals
 (``serve.scenarios.make_trace``; prompts and arrivals byte-identical to
 ``repro.launch.serve``'s for the same seed), drives them through the
 engine in the chosen MLPerf-Inference scenario, and prints the
 throughput / latency summary, the prefix-cache, speculative and SLO
-lines where they apply, and each request's greedy tokens. gemma-7b
+lines where they apply, and each request's tokens: greedy, or sampled
+at ``--temperature`` with keys from ``--seed``. gemma-7b
 serves from the paged pool by default (``--kv-layout slab`` for the
 slot slab, prompts padded to ``--prompt-len``); jamba-1.5-large-398b,
 whose Mamba layers carry prompt state, serves from the slab only, each
@@ -24,8 +26,8 @@ prompt prefilled at its exact length. The model is ``reduced()`` unless
 ``--full`` (all 72 layers of jamba at full width, which one card cannot
 hold); weights are random from ``--seed``. Runs on the card by default
 and refuses to run without one unless ``--device cpu`` is given.
-``--temperature > 0``, ``--serve-mode`` and the fleet flags are not
-ported and raise ``NotImplementedError``.
+``--serve-mode`` and the fleet flags are not ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -62,7 +64,7 @@ def main(argv=None) -> int:
                     help="comma-separated SLO classes to cycle requests "
                          "through (interactive|standard|batch)")
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="only 0 (greedy) is ported")
+                    help="0: greedy; > 0: sample with keys from --seed")
     ap.add_argument("--kv-layout", default="auto",
                     choices=["auto", "paged", "slab"],
                     help="KV layout: paged pool or slot slab (auto: paged "
@@ -122,6 +124,7 @@ def main(argv=None) -> int:
         max_len=args.prompt_len + args.tokens,
         prefill_len=args.prompt_len,
         temperature=args.temperature,
+        seed=args.seed,
         kv_layout=args.kv_layout,
         page_size=args.page_size,
         prefill_chunk=args.prefill_chunk,

@@ -6,13 +6,17 @@ widths) on the card; ``--device cpu`` runs the plain PyTorch path. The
 flags and console output are those of ``python -m repro.launch.train``:
 a ``step N: loss=... nll=...`` line every ``max(1, steps // 10)``
 steps, eval lines with ``--eval-every``, then ``done {last record}``.
+``--checkpoint-every N`` saves ``--checkpoint-dir``/step_<N> every N
+steps and at the end; ``--resume DIR`` restores a checkpoint and runs
+on to the global ``--steps``, skipping the batches the checkpointed
+steps consumed, so an interrupted and resumed run equals an
+uninterrupted one step for step.
 """
 from __future__ import annotations
 
 import argparse
+import itertools
 import sys
-
-_LATER = "is the checkpoint slice of the port (see ROADMAP.md)"
 
 
 def main(argv=None):
@@ -28,14 +32,14 @@ def main(argv=None):
                     help="one device; pod meshes are not ported")
     ap.add_argument("--eval-every", type=int, default=0)
     ap.add_argument("--checkpoint-every", type=int, default=0)
-    ap.add_argument("--resume", default=None, metavar="CKPT_DIR")
+    ap.add_argument("--checkpoint-dir", default="/tmp/repro_ckpt")
+    ap.add_argument("--resume", default=None, metavar="CKPT_DIR",
+                    help="resume from a checkpoint dir (a run dir with "
+                         "step_<N> subdirs, or one step_<N> dir); --steps "
+                         "still means global steps")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain path)")
     args = ap.parse_args(argv)
-    if args.checkpoint_every:
-        raise NotImplementedError(f"--checkpoint-every {_LATER}")
-    if args.resume:
-        raise NotImplementedError(f"--resume {_LATER}")
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import (
@@ -48,10 +52,16 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     tcfg = TrainerConfig(total_steps=args.steps, eval_every=args.eval_every,
+                         checkpoint_every=args.checkpoint_every,
+                         checkpoint_dir=args.checkpoint_dir,
                          log_every=max(1, args.steps // 10))
     trainer = Trainer(cfg, tcfg, device=args.device)
-    batches = synthetic_lm_batches(cfg, batch=args.batch, seq=args.seq,
-                                   steps=args.steps)
+    start = trainer.resume(args.resume) if args.resume else 0
+    # one stream for the whole run: a resumed run skips what its
+    # checkpointed steps consumed
+    batches = itertools.islice(
+        synthetic_lm_batches(cfg, batch=args.batch, seq=args.seq,
+                             steps=args.steps), start, None)
     eval_fn = None
     if args.eval_every:
         eval_fn = synthetic_eval_set(cfg, batch=args.batch, seq=args.seq)

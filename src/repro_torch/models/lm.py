@@ -29,6 +29,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.utils import Stacked, tree_map
 
 _MIXERS = ("attn", "mamba")
 _FFNS = ("dense", "moe", "none")
@@ -147,6 +148,24 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     if not cfg.tie_embeddings:
         params["head"] = conv(tree["head"])
     return params
+
+
+def reference_tree(params, cfg: ModelConfig) -> Dict[str, Any]:
+    """The port's parameter tree (or a tree of its shape, such as Adam's
+    moments) in the reference's names and layouts, the inverse of
+    :func:`params_from_numpy`: ``blocks[j]`` holds pattern position j,
+    each leaf a :class:`~repro_torch.utils.Stacked` of the tensors of
+    layers j, j + P, ... No tensor is copied: checkpoints write and
+    restore through it."""
+    P = len(cfg.block_pattern)
+    layers = params["layers"]
+    out = {"embed": params["embed"],
+           "blocks": tuple(tree_map(lambda *ps: Stacked(ps), *layers[j::P])
+                           for j in range(P)),
+           "final_norm": params["final_norm"]}
+    if "head" in params:
+        out["head"] = params["head"]
+    return out
 
 
 def _embed(params, tokens):

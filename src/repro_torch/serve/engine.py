@@ -39,8 +39,12 @@ length; attention-only stacks pad prompts to ``prefill_len`` and mask
 the padding (``serve.cache.invalidate_beyond``). Greedy tokens are the
 same in both layouts.
 
-Temperature sampling raises ``NotImplementedError``: it waits on the
-ROADMAP.md item "temperature sampling".
+With ``temperature > 0`` every token is drawn from its own key,
+``fold_in(fold_in(prng_key(seed), request id), position)``
+(:mod:`repro_torch.random`, bit for bit the reference's ``jax.random``
+keys), by Gumbel-max over ``logits / temperature``: a draw depends on
+the request and the position alone, not on the slot or the batch.
+Speculative decoding stays greedy-only.
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import lm
+from repro_torch.random import fold_in, prng_key, sample
 from repro_torch.serve import cache as pool_ops
 from repro_torch.serve import slo
 from repro_torch.serve.metrics import ServeReport, StepTrace
@@ -81,12 +86,14 @@ class ServeConfig:
     ``n_pages`` size the pool; ``n_pages`` defaults to ``max_batch *
     ceil(max_len / page_size)``. ``kv_dtype`` ('' inherits the model
     config's ``kv_cache_dtype``) picks the cache; ``spec_decode`` 'ngram'
-    drafts ``draft_len`` tokens a row."""
+    drafts ``draft_len`` tokens a row. ``temperature > 0`` samples with
+    keys from ``seed``."""
 
     max_batch: int = 4
     max_len: int = 128
     prefill_len: int = 32
     temperature: float = 0.0
+    seed: int = 0                # sampling key (temperature > 0)
     eos_id: Optional[int] = None
     kv_layout: str = "auto"      # auto | slab | paged
     page_size: int = 16
@@ -98,11 +105,6 @@ class ServeConfig:
     draft_len: int = 4           # tokens proposed per row per step
 
     def __post_init__(self):
-        if self.temperature > 0.0:
-            raise NotImplementedError(
-                "temperature > 0 is not ported yet: sampling keys per "
-                "(seed, request, position) wait on the ROADMAP.md item "
-                "'temperature sampling'")
         if self.kv_layout not in KV_LAYOUTS:
             raise ValueError(f"kv_layout must be one of {KV_LAYOUTS}, got "
                              f"{self.kv_layout!r}")
@@ -180,6 +182,10 @@ class Engine:
                 raise ValueError(
                     "speculative decoding verifies drafts through the "
                     "paged chunk program; use kv_layout='paged'")
+            if self.scfg.temperature > 0.0:
+                raise ValueError(
+                    "speculative decoding is greedy-only (acceptance "
+                    "compares against argmax); set temperature=0")
             if self.scfg.draft_len + 1 > self.scfg.prefill_chunk:
                 raise ValueError(
                     f"draft_len+1 ({self.scfg.draft_len + 1}) tokens must "
@@ -192,6 +198,7 @@ class Engine:
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
+        self._key = prng_key(self.scfg.seed, self.device)
         if layout == "slab":
             self._prefill = make_serve_prefill_step(
                 cfg, cache_len=self.scfg.max_len)
@@ -203,6 +210,7 @@ class Engine:
         B = self.scfg.max_batch
         self._tok = np.zeros((B,), np.int32)
         self._pos = np.zeros((B,), np.int32)
+        self._rid = np.zeros((B,), np.int64)  # each slot's request id
         self._arrivals: list = []
         self._arrival_seq = itertools.count()
         self._finished: List[Request] = []
@@ -422,6 +430,7 @@ class Engine:
         start = self._start.pop(slot, 0)
         self._stream[slot] = stream[start:]
         self._pos[slot] = start
+        self._rid[slot] = req.id
         self._admit_seq[slot] = next(self._admit_counter)
         self._ptab[slot] = self._pool.table_row(slot, self.scfg.max_pages)
         if self._prefix is not None:
@@ -514,14 +523,21 @@ class Engine:
         t0 = time.perf_counter()
         dev = self.device
         with torch.inference_mode():
+            pos_d = torch.from_numpy(posb).to(dev)
+            nv_d = torch.from_numpy(nv).to(dev)
+            rid_d = self._rows(self._rid)
             logits, self._cache = lm.decode_chunk(
                 self.params, self.cfg, torch.from_numpy(toks).to(dev),
                 self._cache, torch.from_numpy(self._ptab).to(dev),
-                torch.from_numpy(posb).to(dev), torch.from_numpy(nv).to(dev),
-                full_logits=spec)
-            # spec: (B, C) targets, the model's next token after each fed
-            # position; plain: (B,), the token after the last fed one.
-            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+                pos_d, nv_d, full_logits=spec)
+            # spec: (B, C) greedy targets, the model's next token after
+            # each fed position; plain: (B,), the token drawn after the
+            # last fed one, at position posb + nv.
+            if spec:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                nxt = self._sample(logits, rid_d, pos_d, nv_d)
+            nxt = nxt.cpu().numpy()
         dt = time.perf_counter() - t0
 
         produced = 0
@@ -595,7 +611,7 @@ class Engine:
                 torch.full((1,), P - 1, dtype=torch.long, device=dev))
             pool_ops.invalidate_beyond(cache, torch.full((1,), P, device=dev))
             pool_ops.write_slot(self._slab, cache, slot)
-            tok = int(torch.argmax(logits, dim=-1)[0])
+            tok = int(self._sample(logits, req.id, P)[0])
         dt = time.perf_counter() - t0
 
         req.tokens.append(tok)
@@ -607,6 +623,7 @@ class Engine:
         else:
             self._tok[slot] = tok
             self._pos[slot] = P
+            self._rid[slot] = req.id
 
     def _decode_once(self) -> None:
         """Advance every occupied slot by one token (one decode step over
@@ -614,10 +631,13 @@ class Engine:
         dev = self.device
         t0 = time.perf_counter()
         with torch.inference_mode():
+            pos_d = torch.from_numpy(self._pos).to(dev)
+            rid_d = self._rows(self._rid)
             logits, self._slab = self._decode(
                 self.params, torch.from_numpy(self._tok[:, None]).to(dev),
-                self._slab, torch.from_numpy(self._pos).to(dev))
-            next_tok = torch.argmax(logits, dim=-1).cpu().numpy()
+                self._slab, pos_d)
+            # the fed token sits at _pos; the drawn one at _pos + 1
+            next_tok = self._sample(logits, rid_d, pos_d, 1).cpu().numpy()
         dt = time.perf_counter() - t0
 
         running = self.sched.running()
@@ -635,6 +655,34 @@ class Engine:
         req.t_done = time.perf_counter()
         req.s_done = self._step_idx
         self._finished.append(req)
+
+    # ------------------------------------------------------------------ #
+    def _rows(self, ids: np.ndarray):
+        """Per-slot request ids on the device when sampling (uploaded
+        before the step's kernels are queued), else None."""
+        if self.scfg.temperature <= 0.0:
+            return None
+        return torch.from_numpy(ids).to(self.device)
+
+    def _sample(self, logits, rid, pos, ahead=0):
+        """Greedy at ``temperature <= 0``; else one draw a row from the
+        key ``fold_in(fold_in(key, rid), pos + ahead)``, the drawn token's
+        position (the reference's ``Engine._sample``). ``rid``, ``pos``
+        and ``ahead`` are ints (prefill, one row) or (B,) tensors on the
+        logits' device, so the keys are made there and the draw adds no
+        host sync."""
+        if self.scfg.temperature <= 0.0:
+            return torch.argmax(logits, dim=-1)
+        B = logits.shape[0]
+
+        def rows(x):
+            if torch.is_tensor(x):
+                return x.to(torch.int64).expand(B)
+            return torch.full((B,), int(x), dtype=torch.int64,
+                              device=logits.device)
+
+        keys = fold_in(fold_in(self._key, rows(rid)), rows(pos) + rows(ahead))
+        return sample(keys, logits, self.scfg.temperature)
 
 
 def synthetic_requests(cfg, *, n: int, tokens: int, prompt_len: int,

@@ -1,15 +1,18 @@
 """Training loop (``repro.train.trainer``) on one device.
 
 ``fit`` runs the train step and appends one record per step to the
-returned history; logging and the paper's nested train-and-eval loop
-(C4) are hooks (:mod:`repro_torch.train.hooks`). The reference runs the
+returned history; logging, the paper's nested train-and-eval loop (C4)
+and checkpointing are hooks (:mod:`repro_torch.train.hooks`). ``resume``
+restores a checkpoint (in the reference's format, so either package's
+checkpoints resume in the other) and ``fit`` then continues at its step.
+With ``double_buffer`` the next batch's host-to-device copy runs on a
+side stream while the current step computes. The reference runs the
 same loop under a device mesh; here there is one device and no mesh.
-Checkpoints, resume and the double-buffered input stage are a later
-slice of the port and are refused.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Callable, Iterable, List, Optional, Tuple
 
@@ -17,23 +20,29 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import lm
+from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import steps as T
-from repro_torch.train.hooks import EvalHook, Hook, MetricsLogger
-from repro_torch.utils import tree_map
-
-_LATER = "the checkpoint slice of the port (see ROADMAP.md)"
+from repro_torch.train.hooks import (
+    CheckpointHook,
+    EvalHook,
+    Hook,
+    MetricsLogger,
+)
+from repro_torch.utils import tree_leaves, tree_map
 
 
 @dataclasses.dataclass
 class TrainerConfig:
-    total_steps: int = 100       # global step budget
+    total_steps: int = 100       # global step budget (resume counts toward it)
     eval_every: int = 0          # 0 = no eval
-    checkpoint_every: int = 0    # 0 = no checkpoints (others: not ported)
+    checkpoint_every: int = 0    # 0 = no checkpoints
+    checkpoint_dir: str = "/tmp/repro_ckpt"
     log_every: int = 10
     seed: int = 0
     metrics: Tuple[str, ...] = ()  # extra step metrics (e.g. "grad_norm")
-    async_checkpoint: bool = False  # not ported
-    double_buffer: bool = False    # not ported
+    async_checkpoint: bool = False  # background checkpoint writer
+    double_buffer: bool = False    # stage the next batch's H2D ahead of the step
     metrics_out: str = ""          # JSONL path for the full metric stream
 
 
@@ -53,14 +62,6 @@ class Trainer:
                  optimizer=None, *, device="cuda", params=None):
         self.cfg = cfg
         self.tcfg = tcfg or TrainerConfig()
-        if self.tcfg.checkpoint_every:
-            raise NotImplementedError(f"checkpoint_every: {_LATER}")
-        if self.tcfg.async_checkpoint:
-            raise NotImplementedError(f"async_checkpoint: {_LATER}")
-        if self.tcfg.double_buffer:
-            raise NotImplementedError(
-                "double_buffer: the streaming data slice of the port "
-                "(see ROADMAP.md)")
         self.device = resolve_device(device)
         self.optimizer = optimizer or T.make_optimizer(
             cfg, self.tcfg.total_steps)
@@ -78,8 +79,9 @@ class Trainer:
     def default_hooks(self, eval_batches: Optional[Callable] = None
                       ) -> List[Hook]:
         """The stock hooks ``TrainerConfig`` implies: the metrics logger
-        (with a JSONL sink when ``metrics_out`` is set) and, with
-        ``eval_every``, the eval hook."""
+        (with a JSONL sink when ``metrics_out`` is set), with
+        ``eval_every`` the eval hook and with ``checkpoint_every`` the
+        checkpoint hook (async with ``async_checkpoint``)."""
         sinks = []
         if self.tcfg.metrics_out:
             from repro_torch.train.tracker import JsonlSink
@@ -88,6 +90,10 @@ class Trainer:
         hooks: List[Hook] = [MetricsLogger(self.tcfg.log_every, sinks=sinks)]
         if self.tcfg.eval_every and eval_batches is not None:
             hooks.append(EvalHook(eval_batches, self.tcfg.eval_every))
+        if self.tcfg.checkpoint_every:
+            hooks.append(CheckpointHook(
+                self.tcfg.checkpoint_every, self.tcfg.checkpoint_dir,
+                async_save=self.tcfg.async_checkpoint))
         return hooks
 
     def emit(self, event: str, *args) -> None:
@@ -95,8 +101,38 @@ class Trainer:
         for h in self._hooks:
             getattr(h, event)(self, *args)
 
+    def checkpoint_tree(self):
+        """The train state in the reference's names and layouts (each
+        parameter-shaped tree through ``lm.reference_tree``), as views of
+        the live tensors: what checkpoints write and resume restores."""
+        def ref(tree):
+            if isinstance(tree, dict) and "layers" in tree:
+                return lm.reference_tree(tree, self.cfg)
+            return tree
+
+        opt = {k: ref(v) for k, v in self.state["opt"].items()}
+        return {"params": ref(self.state["params"]), "opt": opt}
+
     def resume(self, ckpt_dir: str) -> int:
-        raise NotImplementedError(f"resume: {_LATER}")
+        """Restore the state from a checkpoint and return its step.
+
+        ``ckpt_dir`` is a run directory of ``step_<N>`` subdirectories
+        (the latest wins) or one ``step_<N>`` directory. ``fit`` then
+        continues at ``start_step``, and ``total_steps`` stays the
+        global budget."""
+        step = ckpt.latest_step(ckpt_dir)
+        if step is not None:
+            path = os.path.join(ckpt_dir, f"step_{step}")
+        else:
+            path = ckpt_dir
+            step = ckpt.manifest_step(path)
+            if step is None:
+                raise ValueError(
+                    f"{ckpt_dir}: no step_<N> checkpoints and no step "
+                    "recorded in manifest.json")
+        ckpt.restore_into(path, self.checkpoint_tree())
+        self.start_step = int(step)
+        return self.start_step
 
     def evaluate(self, eval_batches: Callable) -> dict:
         """Distributed eval (C4) over ``eval_batches()`` -> ``(batch,
@@ -110,6 +146,44 @@ class Trainer:
             cnt += float(c)
         return {"eval_nll": nll / max(cnt, 1.0)}
 
+    def _device_stream(self, batches: Iterable) -> Iterable:
+        """The double buffer: batch i + 1's host-to-device copy is queued
+        before step i runs, so the step never waits on it. On the card
+        the copy runs from pinned memory on a side stream; before a step
+        reads the batch, the compute stream waits on the copy's event,
+        and the batch's tensors are recorded on the compute stream, so
+        the caching allocator cannot reuse their memory early. On the
+        CPU the same order, without streams."""
+        cuda = self.device.type == "cuda"
+        if cuda:
+            side = torch.cuda.Stream(self.device)
+            compute = torch.cuda.current_stream(self.device)
+
+        def stage(batch):
+            if not cuda:
+                return _to_device(batch, self.device), None
+            host = tree_map(lambda a: torch.as_tensor(a).pin_memory(), batch)
+            with torch.cuda.stream(side):
+                staged = tree_map(
+                    lambda t: t.to(self.device, non_blocking=True), host)
+                return staged, side.record_event()
+
+        def ready(staged, event):
+            if event is not None:
+                compute.wait_event(event)
+                for t in tree_leaves(staged):
+                    t.record_stream(compute)
+            return staged
+
+        pending = None
+        for batch in batches:
+            nxt = stage(batch)
+            if pending is not None:
+                yield ready(*pending)
+            pending = nxt
+        if pending is not None:
+            yield ready(*pending)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -117,17 +191,23 @@ class Trainer:
     def fit(self, train_batches: Iterable,
             eval_batches: Optional[Callable] = None,
             hooks: Optional[List[Hook]] = None) -> List[dict]:
-        """Run up to ``total_steps`` steps; returns the per-step history
-        (``step``, ``loss``, ``nll``, ``step_ms``, ``data_wait_ms``,
-        ``ckpt_block_ms`` and whatever hooks add). ``step_ms`` is the
-        host's time in the step call; it is the card's step time only
-        when a hook sets ``needs_sync``."""
+        """Run up to ``total_steps`` global steps from ``start_step``;
+        returns the per-step history (``step``, ``loss``, ``nll``,
+        ``step_ms``, ``data_wait_ms``, ``ckpt_block_ms`` and whatever
+        hooks add). ``step_ms`` is the host's time in the step call; it
+        is the card's step time only when a hook sets ``needs_sync``.
+        ``data_wait_ms`` is the host's time blocked on the input (with
+        the double buffer, the next batch's staging included);
+        ``ckpt_block_ms`` its time blocked on a checkpoint, 0 on steps
+        without one."""
         self._hooks = (self.default_hooks(eval_batches)
                        if hooks is None else list(hooks))
         needs_sync = any(getattr(h, "needs_sync", False)
                          for h in self._hooks)
         history: List[dict] = []
         step = self.start_step
+        if self.tcfg.double_buffer:
+            train_batches = self._device_stream(train_batches)
         it = iter(train_batches)
         while step < self.tcfg.total_steps:
             t_wait = time.perf_counter()

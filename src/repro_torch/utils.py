@@ -23,3 +23,24 @@ def tree_leaves(tree) -> List[Any]:
     if isinstance(tree, (list, tuple)):
         return [x for t in tree for x in tree_leaves(t)]
     return [tree]
+
+
+class Stacked:
+    """One array of the reference's layout that the port holds as
+    ``parts``, one tensor per layer: the reference stacks the layers of
+    a pattern position along a new leading axis. A tree leaf (the tree
+    functions above do not descend into it); checkpoints save it as the
+    stack and restore it into each part."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+        if not self.parts:
+            raise ValueError("Stacked needs at least one part")
+
+    @property
+    def shape(self):
+        return (len(self.parts), *self.parts[0].shape)
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
