@@ -62,7 +62,9 @@ and prints no result):
    CPU's; the paged kernel runs in every layer of every sampled chunk
    step, a second sampled run repeats the tokens, 65,536 keys at one
    position draw from fp32 logits within a total variation of 0.02 of
-   softmax, and the sampler's device time and kernels a call are read;
+   softmax over 32 bins of equal mass, where a greedy, a uniform and a
+   temperature-blind sampler each read more than that, and the
+   sampler's device time and kernels a call are read;
 5. train: full-width gemma-7b cut to 8 layers (fp32 masters, gradients
    and Adam moments, bf16 compute, remat) takes 4 steps of batch 4 x
    2048 tokens through ``Trainer.fit`` and one eval; the flash kernels'
@@ -2587,7 +2589,7 @@ KEY_WORDS = {(0, 0, 0): (0xF84E8312, 0x2FEF64F3),
              (0, 107, 160): (0x44563976, 0x804B3348),
              (2**31 - 1, 7, 159): (0x9FDCBB65, 0x8241141D),
              (1, 2**32 - 1, 131071): (0x7FBA2311, 0xFCFBF4D7)}
-FREQ_KEYS, FREQ_ROWS, FREQ_TOP, FREQ_TV = 65536, 1024, 31, 0.02
+FREQ_KEYS, FREQ_ROWS, FREQ_BINS, FREQ_TV = 65536, 1024, 32, 0.02
 
 
 def check_sampler_bits():
@@ -2663,12 +2665,24 @@ def sampler_cost(engine, logits):
     return dict(device_ms=busy, launches=n, wall_ms=wall_ms)
 
 
+def _binned(x, bins):
+    return torch.zeros(FREQ_BINS, dtype=torch.float64,
+                       device=x.device).scatter_add_(0, bins, x.double())
+
+
 def sample_frequencies(key, logits_row):
     """Token frequencies of FREQ_KEYS draws at one position against
-    softmax(logits / t): the total variation over the FREQ_TOP most
-    likely tokens and the rest as one bin. In the logits' dtype; with
-    bf16 logits the uniforms have 7 random bits (as in JAX), which
-    biases Gumbel-max, so the gate reads the fp32 draw."""
+    p = softmax(logits / t), as the total variation over FREQ_BINS bins
+    of equal mass under p (tokens sorted by p, cut at every 1/FREQ_BINS
+    of cumulative mass), so that no bin can hide the sampler's errors.
+
+    Returns the reading, the expected reading of a right sampler from
+    the draws' noise alone, and three controls at the same bins (exact,
+    without noise): a greedy sampler, a uniform one and one that
+    ignores the temperature; and the mass of the 31 likeliest tokens.
+    The draw is in the logits' dtype; with bf16 logits the uniforms
+    have 7 random bits (as in JAX), which biases Gumbel-max, so the
+    gate reads the fp32 draw."""
     V = logits_row.shape[-1]
     keys = rnd.fold_in(rnd.fold_in(key, torch.arange(FREQ_KEYS,
                                                      device="cuda")), 160)
@@ -2680,11 +2694,25 @@ def sample_frequencies(key, logits_row):
                                 scaled.expand(FREQ_ROWS, V))
         counts += torch.bincount(draws, minlength=V)
     p = torch.softmax(scaled.double(), dim=-1)
-    top = torch.topk(p, FREQ_TOP).indices
-    freq = counts.double() / FREQ_KEYS
-    pb = torch.cat([p[top], (1 - p[top].sum())[None]])
-    fb = torch.cat([freq[top], (1 - freq[top].sum())[None]])
-    return 0.5 * (fb - pb).abs().sum().item(), p[top].sum().item()
+    order = torch.argsort(p, descending=True)
+    before = torch.cumsum(p[order], 0) - p[order]
+    bins = torch.empty_like(order)
+    bins[order] = (before * FREQ_BINS).floor().long().clamp(max=FREQ_BINS - 1)
+    pb = _binned(p, bins)
+
+    def tv_of(fb):
+        return 0.5 * (fb - pb).abs().sum().item()
+
+    noise = 0.5 * torch.sqrt(2 * pb * (1 - pb) / (torch.pi * FREQ_KEYS))
+    return dict(
+        tv=tv_of(_binned(counts, bins) / FREQ_KEYS),
+        noise_tv=noise.sum().item(),
+        max_bin_mass=pb.max().item(),
+        greedy_tv=1 - pb[bins[int(torch.argmax(p))]].item(),
+        uniform_tv=tv_of(_binned(torch.ones(V, device="cuda"), bins) / V),
+        untempered_tv=tv_of(_binned(torch.softmax(logits_row.double(), -1),
+                                 bins)),
+        top31_mass=p[order[:31]].sum().item())
 
 
 def serve_sample(params):
@@ -2752,16 +2780,26 @@ def serve_sample(params):
             cache, pt, torch.zeros(B, dtype=torch.int32, device="cuda"),
             torch.full((B,), C, dtype=torch.int32, device="cuda"))
         key = engines[SAMPLE_T]._key
-        tv, mass = sample_frequencies(key, logits[0].float())
-        tv_bf16, _ = sample_frequencies(key, logits[0])
+        freq = sample_frequencies(key, logits[0].float())
+        freq["bf16_tv"] = sample_frequencies(key, logits[0])["tv"]
         cost = sampler_cost(engines[SAMPLE_T], logits)
-    print(f"  frequencies of {FREQ_KEYS} keys at one position: total "
-          f"variation {tv:.5f} from fp32 logits over the top {FREQ_TOP} "
-          f"tokens (mass {mass:.4f}) + the rest (bound {FREQ_TV}); "
-          f"{tv_bf16:.5f} from the bf16 logits the engine draws from "
-          f"(recorded)", flush=True)
-    if not tv < FREQ_TV:
-        raise AssertionError(f"sampled frequencies off softmax: TV {tv}")
+    controls = {k: freq[k] for k in ("greedy_tv", "uniform_tv",
+                                     "untempered_tv")}
+    print(f"  frequencies of {FREQ_KEYS} keys at one position, over "
+          f"{FREQ_BINS} bins of equal softmax mass (largest bin "
+          f"{freq['max_bin_mass']:.4f}; top 31 tokens hold "
+          f"{freq['top31_mass']:.4f}): total variation {freq['tv']:.5f} "
+          f"from fp32 logits (bound {FREQ_TV}; {freq['noise_tv']:.5f} "
+          f"expected from the draws' noise); controls: greedy "
+          f"{controls['greedy_tv']:.4f}, uniform {controls['uniform_tv']:.4f},"
+          f" temperature ignored {controls['untempered_tv']:.4f}; "
+          f"{freq['bf16_tv']:.5f} from the bf16 logits the engine draws "
+          f"from (recorded)", flush=True)
+    if not freq["tv"] < FREQ_TV:
+        raise AssertionError(f"sampled frequencies off softmax: {freq}")
+    if not min(controls.values()) > FREQ_TV:
+        raise AssertionError(f"the frequency gate cannot tell a wrong "
+                             f"sampler at this position: {freq}")
     step_ms = 1e3 * reports[SAMPLE_T].elapsed_s / len(reports[SAMPLE_T].steps)
     print(f"  sampler at B {B} x V {cfg.vocab}: {cost['device_ms']:.4f} ms "
           f"of device time and {cost['launches']} kernels a call, "
@@ -2769,8 +2807,7 @@ def serve_sample(params):
           f"chunk step {step_ms:.1f} ms", flush=True)
     s = {str(t): reports[t].summary() for t in reports}
     s["sampler"] = cost
-    s["frequency_tv"] = tv
-    s["frequency_tv_bf16"] = tv_bf16
+    s["frequencies"] = freq
     print(f"  serve-sample summary {json.dumps(s)}", flush=True)
     del engines, cache, logits
     torch.cuda.empty_cache()

@@ -10,14 +10,14 @@ sections 2 and 3).
 """
 from __future__ import annotations
 
-import queue
-import threading
 from typing import Dict, Iterable, Iterator, List, Optional
 
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.distributed_eval import pad_eval_dataset
+from repro_torch.data.cache import ShardCache
+from repro_torch.data.prefetch import Prefetcher
 
 
 def _zipf_tokens(rng: np.random.Generator, shape, vocab: int) -> np.ndarray:
@@ -93,6 +93,16 @@ class RoundRobinHostPipeline:
                     done[h] = True
 
 
+def seek_batches(store, shard_size: int, start: int = 0) -> Iterator[Dict]:
+    """The flattened batch stream of a shard store (``n_shards`` and
+    ``shard(i)``: a source or its cache) from global batch ``start`` on,
+    reading only the shards from the one that holds it."""
+    first, skip = divmod(start, shard_size)
+    for i in range(first, store.n_shards):
+        yield from store.shard(i)[skip:]
+        skip = 0
+
+
 class Pipeline:
     """The streaming training input, as one iterator: a shard-addressed
     :class:`~repro_torch.data.source.Source`, through an optional
@@ -119,23 +129,15 @@ class Pipeline:
         self._prefetcher = None
         self._store = source
         if cache_dir:
-            from repro_torch.data.cache import ShardCache
-
             self._store = ShardCache(cache_dir).ensure(source,
                                                        verify=verify_cache)
 
-    def _shard_stream(self) -> Iterator[Dict]:
-        first, skip = divmod(self.start_batch, self.source.shard_size)
-        for i in range(first, self._store.n_shards):
-            yield from self._store.shard(i)[skip:]
-            skip = 0
-
     def __iter__(self) -> Iterator[Dict]:
-        from repro_torch.data.prefetch import Prefetcher
-
         self.close()
-        self._prefetcher = Prefetcher(self._shard_stream(),
-                                      depth=self.prefetch_depth)
+        self._prefetcher = Prefetcher(
+            seek_batches(self._store, self.source.shard_size,
+                         self.start_batch),
+            depth=self.prefetch_depth)
         return self._prefetcher
 
     @property
@@ -154,53 +156,13 @@ class Pipeline:
         self.close()
 
 
-class _End:
-    """The end of a prefetched stream, with the exception that ended it
-    (or None)."""
-
-    def __init__(self, exc: Optional[BaseException]):
-        self.exc = exc
-
-
 def prefetch(it: Iterable, size: int = 2) -> Iterator:
-    """Background-thread prefetch of ``size`` items of ``it``, in order.
+    """Background-thread prefetch of ``size`` items of ``it``, in order,
+    through a :class:`~repro_torch.data.prefetch.Prefetcher`.
 
     Unlike the reference, an exception raised by ``it`` is re-raised to
     the consumer, and closing the returned generator (or leaving a
     ``for`` loop over it and dropping it) stops and joins the thread.
     """
-    q: "queue.Queue" = queue.Queue(maxsize=size)
-    stop = threading.Event()
-
-    def put(item) -> bool:
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.05)
-                return True
-            except queue.Full:
-                continue
-        return False
-
-    def worker():
-        try:
-            for item in it:
-                if not put(item):
-                    return
-        except BaseException as exc:  # handed to the consumer, re-raised
-            put(_End(exc))
-            return
-        put(_End(None))
-
-    t = threading.Thread(target=worker, daemon=True)
-    t.start()
-    try:
-        while True:
-            item = q.get()
-            if isinstance(item, _End):
-                if item.exc is not None:
-                    raise item.exc
-                return
-            yield item
-    finally:
-        stop.set()
-        t.join()
+    with Prefetcher(it, depth=size) as p:
+        yield from p

@@ -15,13 +15,12 @@ config.
 """
 from __future__ import annotations
 
-import itertools
 from typing import Dict, Iterator, List, Protocol
 
 import numpy as np
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.data.pipeline import make_lm_batch
+from repro_torch.data.pipeline import make_lm_batch, seek_batches
 
 
 class Source(Protocol):
@@ -86,8 +85,4 @@ class SyntheticShardSource:
     def batches(self, start: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """The flattened stream from global batch ``start`` on, without
         generating the shards before it."""
-        first = start // self.shard_size
-        skip = start - first * self.shard_size
-        for i in range(first, self.n_shards):
-            yield from itertools.islice(self.shard(i), skip, None)
-            skip = 0
+        return seek_batches(self, self.shard_size, start)
