@@ -22,12 +22,16 @@ and prints no result):
    launch over ResNet-50's 54 kernel leaves (bitwise equal to one-leaf
    launches), the Mamba selective scan at jamba's prefill shape with
    bf16 and fp32 inputs, at odd shapes, N = 64, odd N, S = 1 and
-   strided B/C, and the flash forward at jamba's attention shape), and times the
-   kernel, the plain version, one PyTorch library call computing the
-   same function where there is one, and the least time the card could
-   take (its bound); for the paged kernel and the flash backward also
-   the device time of each launch they make (profiler), and for the
-   paged wrapper its host enqueue time and key-split count;
+   strided B/C, the flash forward at jamba's attention shape, the paged
+   kernel at the serving shapes of yi-9b, qwen1.5-32b (int8 pool),
+   command-r-35b, mixtral-8x7b and grok-1-314b, and the flash forward
+   and backward at the train step's shape with 32/4 and 48/8 heads of
+   128), and times the kernel, the plain version, one PyTorch library
+   call computing the same function where there is one, and the least
+   time the card could take (its bound); for the paged kernel and the
+   flash backward also the device time of each launch they make
+   (profiler), and for the paged wrapper its host enqueue time and
+   key-split count;
 3. checks: reduced gemma-7b in fp32 on the card against the CPU's
    plain path, serving (logits and greedy tokens; and from int8 and
    int4 pools with the prefix cache and speculative decoding, which
@@ -95,7 +99,23 @@ and prints no result):
    ``repro_torch.launch.resnet.train``, then sweeps a padded eval set;
    the LARS kernels' counters, zeroed just before, must show one norms
    launch and one update launch over the 54 kernel leaves in every
-   step; one step traced; a second run must repeat the losses bitwise.
+   step; one step traced; a second run must repeat the losses bitwise;
+8. serve the new archs (``serve-archs``): yi-9b, qwen1.5-32b,
+   command-r-35b, mixtral-8x7b and grok-1-314b reduced in fp32, card
+   against CPU (the same greedy tokens from the same numpy weights),
+   then each at every published width, as deep as free memory holds
+   (bf16 weights from seed 0), serving the 8 ragged requests offline
+   from its config's pool (qwen's int8): the paged kernel's counter,
+   zeroed just before, must show one launch per layer per chunk step,
+   a second run must repeat the tokens, and one 8 x 8 chunk step is
+   timed and traced; the card is freed between archs;
+9. train the new archs (``train-archs``): each at full width cut in
+   depth (yi 8, qwen 2, command-r 1, mixtral 2, grok 1 layer, grok also
+   to 4 of its 8 experts, with its 4 microbatches and bf16 gradients and
+   moments) takes 4 steps of batch 4 x 2048 through ``Trainer.fit``:
+   the flash counters must show forward twice and backward once per
+   layer per step and microbatch, and a second run from the same seed
+   must repeat the losses bitwise.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -329,6 +349,36 @@ def quant_case(seed, kind, dtype, **shape):
     return case
 
 
+def hold_paged(case, window, label, tol):
+    """The paged kernel on ``case`` against its plain version: valid
+    queries within ``tol``, queries past n_valid and the idle last row
+    0, finite, a rerun bitwise equal. Returns the largest |difference|."""
+    got = pa.paged_attention_cuda(**case, window=window)
+    torch.cuda.synchronize()
+    want = pa.paged_attention_torch(**case, window=window)
+    err = 0.0
+    nv = case["n_valid"].cpu().tolist()
+    for b in range(len(nv) - 1):  # the last row is idle: no keys
+        g, w = got[b, :nv[b]].float(), want[b, :nv[b]].float()
+        err = max(err, (g - w).abs().max().item())
+        if not torch.allclose(g, w, rtol=tol, atol=tol):
+            raise AssertionError(
+                f"paged_attention {label}: kernel != plain, max |diff| "
+                f"{err} > {tol} (row {b})")
+    for b in range(len(nv)):  # queries past n_valid, idle row
+        if not (got[b, nv[b]:] == 0).all() or (
+                b == len(nv) - 1 and not (got[b] == 0).all()):
+            raise AssertionError(
+                f"paged_attention {label}: row {b} past n_valid (or idle) "
+                f"not 0")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"paged_attention {label}: non-finite output")
+    again = pa.paged_attention_cuda(**case, window=window)
+    if not torch.equal(again, got):
+        raise AssertionError(f"paged_attention {label}: a rerun differs")
+    return err
+
+
 def check_kernel():
     """The paged kernel against its plain version on the same inputs, for
     bf16/fp32 pools and through its int8 and int4 branches (the plain
@@ -381,31 +431,8 @@ def check_kernel():
                     ("D128_gqa", dict(main, K=4, D=128, C=8, nvs=ragged),
                      None)) + edges):
             case = make(i, dtype, **shape)
-            got = pa.paged_attention_cuda(**case, window=window)
-            torch.cuda.synchronize()
-            want = pa.paged_attention_torch(**case, window=window)
-            err, tol = 0.0, TOL[dtype]
-            nv = case["n_valid"].cpu().tolist()
-            for b in range(len(nv) - 1):  # the last row is idle: no keys
-                g, w = got[b, :nv[b]].float(), want[b, :nv[b]].float()
-                err = max(err, (g - w).abs().max().item())
-                if not torch.allclose(g, w, rtol=tol, atol=tol):
-                    raise AssertionError(
-                        f"paged_attention {kind} {name} {dtype}: kernel != "
-                        f"plain, max |diff| {err} > {tol} (row {b})")
-            for b in range(len(nv)):  # queries past n_valid, idle row
-                if not (got[b, nv[b]:] == 0).all() or (
-                        b == len(nv) - 1 and not (got[b] == 0).all()):
-                    raise AssertionError(
-                        f"paged_attention {kind} {name}: row {b} past "
-                        f"n_valid (or idle) not 0")
-            if not torch.isfinite(got).all():
-                raise AssertionError(
-                    f"paged_attention {kind} {name}: non-finite output")
-            again = pa.paged_attention_cuda(**case, window=window)
-            if not torch.equal(again, got):
-                raise AssertionError(
-                    f"paged_attention {kind} {name} {dtype}: a rerun differs")
+            tol = TOL[dtype]
+            err = hold_paged(case, window, f"{kind} {name} {dtype}", tol)
             if dtype == torch.bfloat16 and name.startswith("main"):
                 main_err = max(main_err, err)
             print(f"  {kind or 'bf16/fp32 pool':14s} {name:10s} "
@@ -542,21 +569,36 @@ def check_flash():
     torch.cuda.empty_cache()
 
     # Timing at the train step's shape: B 4, S 2048, 16 heads of 256.
-    B, S, H, D, dtype = TRAIN_BATCH, TRAIN_SEQ, 16, 256, torch.bfloat16
+    q, k, v, do = flash_inputs(99, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 16, 16,
+                               256, torch.bfloat16)
+    recs = flash_records(q, k, v, do, "", (errs["fwd"], errs["bwd"]))
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return recs
+
+
+def flash_records(q, k, v, do, suffix, errs):
+    """The flash kernels' forward and backward records at (q, k, v, do),
+    causal, bf16: kernel, plain and SDPA times (SDPA flash, K/V expanded
+    to the query heads beforehand) beside the bounds; prints them with
+    SDPA forward+backward and the backward's time by kernel. ``errs``:
+    the (forward, backward) max |kernel - plain| the records carry."""
+    B, S, H, D = q.shape
+    K, dtype = k.shape[2], q.dtype
     opts = dict(causal=True, window=None, q_offset=0, k_offset=0)
-    q, k, v, do = flash_inputs(99, B, S, S, H, H, D, dtype)
     out, lse = fa.flash_attention_fwd_cuda(q, k, v)
     fwd_flops, bwd_flops = flash_work(B, S, S, H, D, opts)
     # Each input read once, each output written once. Forward: q, k, v
     # in; out and the fp32 lse out. Backward: q, k, v, out, dout and lse
     # in; dq, dk, dv out.
-    one = B * S * H * D * q.element_size()
-    fwd_bytes = 4 * one + B * H * S * 4
-    bwd_bytes = 8 * one + B * H * S * 4
+    elt = q.element_size()
+    fwd_bytes = (2 * q.numel() + 2 * k.numel()) * elt + B * H * S * 4
+    bwd_bytes = (4 * q.numel() + 4 * k.numel()) * elt + B * H * S * 4
     qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
     plain_out = fa.flash_attention_torch(qp, kp, vp)
-    qs, ks, vs = (t.detach().transpose(1, 2).requires_grad_()
-                  for t in (q, k, v))
+    qs = q.detach().transpose(1, 2).requires_grad_()
+    ks, vs = (t.detach().repeat_interleave(H // K, dim=2).transpose(1, 2)
+              .requires_grad_() for t in (k, v))
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     def sdpa():
@@ -583,20 +625,18 @@ def check_flash():
         lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do), reps=5)
     fwd_b, fwd_by = bound(fwd_flops, fwd_bytes, dtype)
     bwd_b, bwd_by = bound(bwd_flops, bwd_bytes, dtype)
-    src = "src/repro_torch/kernels/csrc/flash_attention.cu"
+    common = dict(route="cuda",
+                  source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                  replaces="src/repro/kernels/flash_attention.py:102")
     recs = [
-        dict(name="flash_attention_fwd", route="cuda", source=src,
-             replaces="src/repro/kernels/flash_attention.py:102",
-             max_abs_err=errs["fwd"], ms=times["fwd"],
-             plain_ms=times["plain_fwd"], bound_ms=fwd_b, bound_by=fwd_by,
-             library_ms=times["sdpa_fwd"]),
-        dict(name="flash_attention_bwd", route="cuda", source=src,
-             replaces="src/repro/kernels/flash_attention.py:102",
-             max_abs_err=errs["bwd"], ms=times["bwd"],
-             plain_ms=times["plain_bwd"], bound_ms=bwd_b, bound_by=bwd_by,
-             library_ms=times["sdpa_bwd"]),
+        dict(name=f"flash_attention_fwd{suffix}", max_abs_err=errs[0],
+             ms=times["fwd"], plain_ms=times["plain_fwd"], bound_ms=fwd_b,
+             bound_by=fwd_by, library_ms=times["sdpa_fwd"], **common),
+        dict(name=f"flash_attention_bwd{suffix}", max_abs_err=errs[1],
+             ms=times["bwd"], plain_ms=times["plain_bwd"], bound_ms=bwd_b,
+             bound_by=bwd_by, library_ms=times["sdpa_bwd"], **common),
     ]
-    print(f"  timing B{B} S{S} H{H} D{D} bf16 causal: forward kernel "
+    print(f"  timing B{B} S{S} H{H} K{K} D{D} {dtype} causal: forward kernel "
           f"{times['fwd']:.4f} ms (bound {fwd_b:.4f}, {fwd_by}: "
           f"{fwd_flops} flop, {fwd_bytes} B), plain {times['plain_fwd']:.4f}"
           f" ms, sdpa {times['sdpa_fwd']:.4f} ms, kernel/sdpa "
@@ -605,9 +645,10 @@ def check_flash():
           f"flop, {bwd_bytes} B), plain {times['plain_bwd']:.4f} ms, sdpa "
           f"{times['sdpa_bwd']:.4f} ms, kernel/sdpa "
           f"{times['bwd'] / times['sdpa_bwd']:.3f}; sdpa forward+backward "
-          f"{times['sdpa_fwd_bwd']:.4f} ms; backward by kernel (ms a call, "
-          f"L2 warm): {split_line(bwd_parts)}", flush=True)
-    del q, k, v, do, out, lse, qp, kp, vp, plain_out, qs, ks, vs, sdpa_out
+          f"{times['sdpa_fwd_bwd']:.4f} ms (sdpa on K/V expanded to {H} "
+          f"heads); backward by kernel (ms a call, L2 warm): "
+          f"{split_line(bwd_parts)}", flush=True)
+    del out, lse, qp, kp, vp, plain_out, qs, ks, vs, sdpa_out
     torch.cuda.empty_cache()
     return recs
 
@@ -2991,14 +3032,423 @@ def train_resume():
     return launches_b
 
 
+# --------------------------------------------------------------------------- #
+# The attention-only archs ported in PR 24: kernels at their shapes, reduced
+# card vs CPU, full-width serving and training.
+# --------------------------------------------------------------------------- #
+ARCHS = ("yi-9b", "qwen1.5-32b", "command-r-35b", "mixtral-8x7b",
+         "grok-1-314b")
+FLASH_ARCHS = ("yi-9b", "grok-1-314b")  # 32/4 and 48/8 heads of 128
+# Full-width training depths (fp32 masters, Adam, bf16 compute, remat):
+# ~18 B a parameter of state with fp32 moments, ~12 B with grok's bf16
+# ones; grok keeps 4 of its 8 experts (one full layer needs ~78 GB).
+TRAIN_ARCH_LAYERS = {"yi-9b": 8, "qwen1.5-32b": 2, "command-r-35b": 1,
+                     "mixtral-8x7b": 2, "grok-1-314b": 1}
+GROK_TRAIN_EXPERTS = 4
+# Room left beside a served model's bf16 weights: the pool, the chunk
+# step's activations and logits, the allocator's slack.
+SERVE_HEADROOM = 6 << 30
+
+
+def gqa_sdpa_inputs(case, window=None):
+    """``sdpa_inputs`` with K/V expanded to the query heads beforehand
+    (the library call then does no GQA)."""
+    qs, ks, vs, mask = sdpa_inputs(case, window)
+    g = qs.shape[1] // ks.shape[1]
+    return (qs, ks.repeat_interleave(g, dim=1).contiguous(),
+            vs.repeat_interleave(g, dim=1).contiguous(), mask)
+
+
+def check_paged_archs():
+    """The paged kernel at each new arch's serving shape (B 8, C 8, page
+    16, ragged rows, its heads of 128, bf16 q): yi 32/4 (G 8), command-r
+    64/8 (G 8), mixtral 32/8 (G 4) and grok 48/8 (G 6) from bf16 pools,
+    qwen 40/40 from its int8 pool; each held against the plain version,
+    rerun bitwise, then timed beside its bound and SDPA. Returns one
+    record an arch."""
+    phase("kernels: paged_attention at the new archs' shapes (heads of "
+          "128; G 8, 8, 4, 6 bf16; qwen 40/40 int8) vs plain PyTorch")
+    main = dict(B=8, C=8, page=16, npg=10, lens=[160, 5, 37, 128, 64, 99,
+                                                 16, 0],
+                nvs=[1, 5, 8, 1, 8, 3, 1, 1])
+    recs = {}
+    for j, arch in enumerate(ARCHS):
+        cfg = get_config(arch)
+        H, K, D, kind = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                         cfg.kv_cache_dtype)
+        shape = dict(main, H=H, K=K, D=D)
+        if kind == "int8":
+            case = quant_case(200 + j, "int8", torch.bfloat16, **shape)
+        else:
+            case = paged_case(200 + j, dtype=torch.bfloat16, **shape)
+        tol = TOL[torch.bfloat16]
+        err = hold_paged(case, None, f"{arch} {H}/{K} {kind}", tol)
+        nbytes, flops = work(case, None)
+        b_ms, by = bound(flops, nbytes, torch.bfloat16)
+        qs, ks, vs, mask = gqa_sdpa_inputs(case)
+        rec = dict(
+            name=f"paged_attention{'_int8' if kind == 'int8' else ''}_{arch}",
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:186",
+            max_abs_err=err,
+            ms=time_ms(lambda: pa.paged_attention_cuda(**case)),
+            plain_ms=time_ms(lambda: pa.paged_attention_torch(**case)),
+            bound_ms=b_ms, bound_by=by,
+            library_ms=time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask)))
+        print(f"  {arch:14s} {H}/{K} (G {H // K}) D{D} {kind} pool: "
+              f"max|kernel-plain| {err:.3e} (tol {tol:g}), rerun bitwise "
+              f"equal; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+              f" ms, sdpa {rec['library_ms']:.4f} ms (K/V gathered"
+              f"{', dequantized' if kind == 'int8' else ''} and expanded to "
+              f"{H} heads beforehand), kernel/sdpa "
+              f"{rec['ms'] / rec['library_ms']:.3f}, bound {b_ms:.4f} ms "
+              f"({by}: {nbytes} B, {flops} flop)", flush=True)
+        recs[arch] = rec
+        del case, qs, ks, vs, mask
+    torch.cuda.empty_cache()
+    return recs
+
+
+def check_flash_archs():
+    """The flash forward and backward at the train step's shape (B 4, S
+    2048, causal, bf16) with yi's 32/4 and grok's 48/8 heads of 128:
+    held against the plain version, the backward rerun bitwise, then
+    timed beside the bounds and SDPA. Returns {arch: (forward record,
+    backward record)}."""
+    phase("kernels: flash_attention forward and backward at B 4, S 2048, "
+          "D 128, 32/4 and 48/8 heads vs plain PyTorch")
+    B, S, D, dtype = TRAIN_BATCH, TRAIN_SEQ, 128, torch.bfloat16
+    tol = TOL[dtype]
+    recs = {}
+    for i, arch in enumerate(FLASH_ARCHS):
+        cfg = get_config(arch)
+        H, K = cfg.n_heads, cfg.n_kv_heads
+        q, k, v, do = flash_inputs(300 + i, B, S, S, H, K, D, dtype)
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+        dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+        torch.cuda.synchronize()
+        qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+        want = fa.flash_attention_torch(qp, kp, vp)
+        want.backward(do)
+        errs = {}
+        for label, got, ref in (("out", out, want), ("dq", dq, qp.grad),
+                                ("dk", dk, kp.grad), ("dv", dv, vp.grad)):
+            g, w = got.float(), ref.float()
+            errs[label] = (g - w).abs().max().item()
+            if not (torch.isfinite(g).all()
+                    and torch.allclose(g, w, rtol=tol, atol=tol)):
+                raise AssertionError(
+                    f"flash_attention {arch} {H}/{K} {label}: kernel != "
+                    f"plain, max |diff| {errs[label]} > {tol}")
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+            raise AssertionError(f"flash_attention {arch}: a rerun of the "
+                                 f"backward differs")
+        print(f"  {arch} B{B} S{S} {H}/{K} (G {H // K}) D{D} bf16 causal: "
+              f"max|kernel-plain| " + ", ".join(
+                  f"{n} {e:.2e}" for n, e in errs.items()) +
+              f" (tol {tol:g}), backward rerun bitwise equal", flush=True)
+        del again, want, out, lse, dq, dk, dv, qp, kp, vp
+        torch.cuda.empty_cache()
+        recs[arch] = tuple(flash_records(
+            q, k, v, do, f"_{arch}",
+            (errs["out"], max(errs["dq"], errs["dk"], errs["dv"]))))
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return recs
+
+
+def perturbed_tree(cfg, seed):
+    """Reference-layout weights of ``cfg`` from ``init_lm`` on the CPU,
+    with norm scales 1 + 0.1 N(0, 1) and norm and q/k/v biases 0.1 N(0,
+    1) drawn with numpy (ones and zeros would pin nothing)."""
+    tree = reference_layout(lm.init_lm(cfg, seed, device="cpu"), cfg)
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: ((1 + 0.1 * rng.standard_normal(np.shape(v)))
+                        .astype(np.float32) if k == "scale" else
+                        (0.1 * rng.standard_normal(np.shape(v)))
+                        .astype(np.float32) if k in ("bias", "bq", "bk", "bv")
+                        else walk(v)) for k, v in t.items()}
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(x) for x in t)
+        return t
+
+    return walk(tree)
+
+
+def reduced_archs_vs_cpu():
+    """Each new arch reduced, in fp32 (qwen from its int8 pool), bridged
+    from the same numpy weights on both devices: the card's paged engine
+    (the paged kernel) gives the CPU's (plain path) greedy tokens."""
+    phase("check: reduced yi-9b, qwen1.5-32b (int8 pool), command-r-35b, "
+          "mixtral-8x7b, grok-1-314b, card vs CPU plain path, fp32")
+    scfg = ServeConfig(max_batch=3, max_len=40, page_size=4, prefill_chunk=8)
+    for i, arch in enumerate(ARCHS):
+        base = get_config(arch).reduced()
+        kv = base.kv_cache_dtype if base.kv_cache_dtype == "int8" else \
+            "float32"
+        cfg = dataclasses.replace(base, dtype="float32", kv_cache_dtype=kv)
+        tree = perturbed_tree(cfg, 40 + i)
+        toks = {}
+        pa.reset_launches()
+        for dev in ("cpu", "cuda"):
+            params = lm.params_from_numpy(tree, cfg, device=dev)
+            reqs = synthetic_requests(cfg, n=5, tokens=6, prompt_len=24,
+                                      seed=7, prompt_lens=(3, 17, 24, 5, 11))
+            toks[dev] = tokens_of(run_offline(
+                Engine(cfg, params, scfg, device=dev), reqs))
+        launches = pa.paged_attention_cuda.launches_by_kind[kv]
+        if toks["cpu"] != toks["cuda"]:
+            raise AssertionError(f"reduced {arch}: greedy tokens differ card "
+                                 f"vs CPU")
+        if launches == 0 or launches != pa.paged_attention_cuda.launches:
+            raise AssertionError(f"reduced {arch}: paged kernel launches "
+                                 f"{pa.paged_attention_cuda.launches_by_kind}")
+        print(f"  {arch}: greedy tokens identical card vs CPU (5 ragged "
+              f"requests, {kv} pool, {launches} paged kernel launches)",
+              flush=True)
+
+
+def layer_bytes(cfg):
+    """(bf16 bytes of one layer, of the embedding and head) of ``cfg``,
+    from the reference's parameter count."""
+    one = dataclasses.replace(cfg, n_layers=1).param_count()
+    fixed = cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return 2 * (one - fixed), 2 * fixed
+
+
+def serve_depth(cfg, free):
+    """The deepest cut of ``cfg`` whose bf16 weights fit in ``free``
+    bytes beside ``SERVE_HEADROOM`` and ``init_lm``'s largest fp32
+    temporary (the embedding, or one MoE layer's ``wu``)."""
+    per_layer, fixed = layer_bytes(cfg)
+    temp = 4 * max(cfg.vocab * cfg.d_model, (cfg.moe.n_experts if cfg.moe
+                                              else 1) * cfg.d_model * cfg.d_ff)
+    room = free - SERVE_HEADROOM - temp - fixed
+    return max(1, min(cfg.n_layers, int(room // per_layer)))
+
+
+def serve_arch(arch):
+    """Full-width ``arch`` at the deepest cut one card holds serves
+    stream (a) greedy from its config's pool; returns (record, paged
+    launches)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    free = torch.cuda.mem_get_info()[0]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=serve_depth(full, free))
+    n = cfg.param_count()
+    cut = ("all layers" if cfg.n_layers == full.n_layers else
+           f"cut to {cfg.n_layers} of {full.n_layers} layers by memory")
+    phase(f"serve: {arch} full width, {cfg.n_layers} layers ({cut}), bf16 "
+          f"weights, {cfg.kv_cache_dtype} pool, offline")
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    print(f"  {n / 1e9:.2f} B params ({2 * n / 1e9:.1f} GB bf16; "
+          f"{free / 2**30:.1f} GiB free before), d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}"
+          + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
+             if cfg.moe else "")
+          + f"; init in {time.perf_counter() - t0:.1f} s", flush=True)
+    scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+                       page_size=16, prefill_chunk=8)
+    engine = Engine(cfg, params, scfg, device="cuda")
+    if engine.layout != "paged":
+        raise AssertionError(f"{arch} served from {engine.layout}")
+    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                           seed=1))  # warm-up
+
+    def workload():
+        return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
+                                  prompt_len=max(PROMPT_LENS), seed=0,
+                                  prompt_lens=PROMPT_LENS)
+
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launches()
+    t0 = time.perf_counter()
+    report = run_offline(engine, workload())
+    kind = cfg.kv_cache_dtype
+    launches = pa.paged_attention_cuda.launches_by_kind[kind]
+    steps = len(report.steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {report.format()}", flush=True)
+    print(f"  chunk steps {steps}, paged_attention launches {launches} "
+          f"({kind} branch; expected {cfg.n_layers} x {steps}), peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    if launches != cfg.n_layers * steps or steps == 0 or \
+            pa.paged_attention_cuda.launches != launches:
+        raise AssertionError(
+            f"{arch}: paged_attention launches "
+            f"{pa.paged_attention_cuda.launches_by_kind} in {steps} chunk "
+            f"steps; expected {cfg.n_layers} {kind} launches a step")
+    got = tokens_of(report)
+    if len(got) != 8 or any(len(t) != NEW_TOKENS for t in got):
+        raise AssertionError(f"{arch}: not every request got {NEW_TOKENS} "
+                             f"tokens")
+    if any(not 0 <= tok < cfg.vocab for t in got for tok in t):
+        raise AssertionError(f"{arch}: token id out of the vocabulary")
+    if tokens_of(run_offline(engine, workload())) != got:
+        raise AssertionError(f"{arch}: a second run of the same workload "
+                             f"differs")
+    print("  a second run gives the same greedy tokens", flush=True)
+
+    # One chunk step at 8 rows x 8 tokens (a mixed prefill step) against
+    # a fresh pool, timed and traced: finite logits, the busy share.
+    B, C = 8, scfg.prefill_chunk
+    cache = lm.init_paged_cache(cfg, 16, 16, device="cuda")
+    pt = torch.full((B, 2), -1, dtype=torch.int32, device="cuda")
+    pt[:, 0] = torch.arange(B, dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab, (B, C), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+    nv = torch.full((B,), C, dtype=torch.int32, device="cuda")
+
+    def chunk():
+        with torch.inference_mode():
+            return lm.decode_chunk(params, cfg, toks, cache, pt, zero, nv)[0]
+
+    logits = chunk()
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{arch}: chunk logits {tuple(logits.shape)} "
+                             f"not finite / not (B, vocab)")
+    ms, busy, kernels = timed_and_traced(chunk)
+    print(f"  one chunk step (8 x 8 tokens): {ms:.2f} ms (median of 3, to "
+          f"the card's end); traced: {sum(e.count for e in kernels)} "
+          f"kernels, device busy {busy:.2f} ms = {100 * busy / ms:.1f}%; "
+          f"top kernels:", flush=True)
+    for e in kernels[:6]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
+              f"{e.key[:100]}")
+    s = report.summary()
+    s.update(arch=arch, n_layers=cfg.n_layers, n_params=n, kv=kind,
+             peak_mem_gib=peak, launches=launches, chunk_steps=steps,
+             chunk_ms=ms, chunk_busy_ms=busy, chunk_busy_share=busy / ms,
+             wall_s=time.perf_counter() - t0)
+    print(f"  serve summary {json.dumps(s)}", flush=True)
+    del engine, params, cache, report, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_archs():
+    """The reduced archs card vs CPU, then each arch at full width in
+    turn, the card freed between them. Returns {arch: paged launches}."""
+    t0 = time.perf_counter()
+    reduced_archs_vs_cpu()
+    launches = {arch: serve_arch(arch) for arch in ARCHS}
+    print(f"  serve-archs wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
+def train_arch_config(arch):
+    cfg = dataclasses.replace(get_config(arch),
+                              n_layers=TRAIN_ARCH_LAYERS[arch])
+    if arch == "grok-1-314b":
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=GROK_TRAIN_EXPERTS))
+    return cfg
+
+
+def train_arch(arch):
+    """Full-width ``arch`` cut to ``TRAIN_ARCH_LAYERS`` (grok also to 4
+    experts) takes 4 steps of batch 4 x 2048 through ``Trainer.fit``;
+    the flash counters must show forward twice and backward once per
+    layer per step (per microbatch), and a second run from the same seed
+    must repeat the losses bitwise. Returns the flash launches."""
+    cfg = train_arch_config(arch)
+    full = get_config(arch)
+    cuts = [f"{cfg.n_layers} of {full.n_layers} layers"]
+    if cfg.moe and cfg.moe.n_experts != full.moe.n_experts:
+        cuts.append(f"{cfg.moe.n_experts} of {full.moe.n_experts} experts")
+    phase(f"train: {arch} full width, {' and '.join(cuts)} (memory), batch "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ}, {cfg.microbatches} microbatch(es), "
+          f"fp32 masters, {cfg.grad_dtype} gradients, {cfg.moment_dtype} "
+          f"moments, bf16 compute, remat")
+    if not cfg.remat:
+        raise AssertionError("the full config trains with remat")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.flash_attention_fwd_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    tr, hist = run_trainer(cfg, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (fa.flash_attention_fwd_cuda.launches,
+                fa.flash_attention_bwd_cuda.launches)
+    n_params = sum(p.numel() for p in tree_leaves(tr.state["params"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in hist]
+    nlls = [r["nll"] for r in hist]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    M = cfg.microbatches
+    want = (2 * cfg.n_layers * M * TRAIN_STEPS, cfg.n_layers * M * TRAIN_STEPS)
+    step_ms = float(np.median([r["step_ms"] for r in hist[1:]]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    aux = [a - b for a, b in zip(losses, nlls)] if cfg.uses_moe else None
+    print(f"  {n_params / 1e9:.3f} B params; {TRAIN_STEPS} steps in "
+          f"{wall:.1f} s; losses {losses}"
+          + (f"; aux term (loss - nll = {cfg.moe.aux_loss_weight} x aux) "
+             f"{aux}" if aux else "")
+          + f"; step {step_ms:.1f} ms (median of steps 2-{TRAIN_STEPS}: "
+          f"{[round(r['step_ms'], 1) for r in hist]}), {tok_s:.0f} "
+          f"tokens/s; peak memory {peak:.2f} GiB; flash launches forward "
+          f"{launches[0]}, backward {launches[1]} (expected {want[0]}, "
+          f"{want[1]})", flush=True)
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch}: non-finite or missing losses {hist}")
+    if launches != want:
+        raise AssertionError(f"{arch}: flash launches {launches} != {want}")
+    tr, again = run_trainer(cfg, 2)
+    again = [r["loss"] for r in again]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  second run, 2 steps: losses {again}", flush=True)
+    if again != losses[:2]:
+        raise AssertionError(f"{arch}: a second run's losses differ: "
+                             f"{again} vs {losses[:2]}")
+    print("  bitwise equal to the first run's", flush=True)
+    summary = dict(arch=arch, n_layers=cfg.n_layers,
+                   n_experts=cfg.moe.n_experts if cfg.moe else None,
+                   n_params=n_params, step_ms=step_ms, tokens_per_s=tok_s,
+                   peak_mem_gib=peak, losses=losses, aux_term=aux,
+                   flash_launches=launches, wall_s=wall)
+    print(f"  train summary {json.dumps(summary)}", flush=True)
+    return launches
+
+
+def train_archs():
+    t0 = time.perf_counter()
+    launches = {arch: train_arch(arch) for arch in ARCHS}
+    print(f"  train-archs wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches
+
+
 PHASES = {  # --only names: the phases a short run may pick
-    "paged": check_kernel, "flash": check_flash, "lstm": check_lstm,
+    "paged": lambda: (check_kernel(), check_paged_archs()),
+    "flash": lambda: (check_flash(), check_flash_archs()),
+    "lstm": check_lstm,
     "lars": check_lars, "mamba": check_mamba,
     "flash-jamba": check_flash_jamba, "check-jamba": reduced_jamba_vs_cpu,
     "serve-jamba": serve_jamba_full, "train-gnmt": train_gnmt_full,
     "train-resnet": train_resnet_full,
     "serve-sample": lambda: serve_sample(full_serve_params()),
     "train-resume": train_resume,
+    "serve-archs": serve_archs, "train-archs": train_archs,
 }
 
 
@@ -3034,10 +3484,13 @@ def main(argv=None) -> int:
         for name in args.only.split(","):
             PHASES[name]()
         print(smi)
+        print(f"  wall {time.perf_counter() - t0:.1f} s", flush=True)
         return 0
 
     paged, int8, int4 = check_kernel()
+    paged_archs = check_paged_archs()
     flash_fwd, flash_bwd = check_flash()
+    flash_archs = check_flash_archs()
     lstm_fwd, lstm_bwd = check_lstm()
     lars_norms, lars_update = check_lars()
     mamba = check_mamba()
@@ -3060,10 +3513,19 @@ def main(argv=None) -> int:
     train_resume()
     lstm_fwd["launches"], lstm_bwd["launches"] = train_gnmt_full()
     lars_norms["launches"], lars_update["launches"] = train_resnet_full()
+    for arch, n in serve_archs().items():
+        paged_archs[arch]["launches"] = n
+    for arch, (fwd, bwd) in train_archs().items():
+        if arch in flash_archs:
+            flash_archs[arch][0]["launches"] = fwd
+            flash_archs[arch][1]["launches"] = bwd
     recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,
-            lstm_fwd, lstm_bwd, lars_norms, lars_update]
+            lstm_fwd, lstm_bwd, lars_norms, lars_update,
+            *paged_archs.values(),
+            *(r for pair in flash_archs.values() for r in pair)]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(f"  whole smoke wall {time.perf_counter() - t0:.1f} s", flush=True)
     print(smi)
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in recs]}))
     print(json.dumps({"ok": True, "device": {

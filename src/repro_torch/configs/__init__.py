@@ -1,15 +1,24 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
-The port covers ``gemma-7b`` (serving and training) and
-``jamba-1.5-large-398b`` (serving through the slab layout); the other
-architectures of the JAX package are known by name and refused until
-their slice.
+The port covers the attention-only LMs ``gemma-7b``, ``yi-9b``,
+``qwen1.5-32b``, ``command-r-35b``, ``mixtral-8x7b`` and ``grok-1-314b``
+(serving and training) and ``jamba-1.5-large-398b`` (serving through
+the slab layout); the other architectures of the JAX package are known
+by name and refused until their slice.
 """
 from __future__ import annotations
 
 from typing import List
 
-from repro_torch.configs import gemma_7b, jamba_1_5_large_398b
+from repro_torch.configs import (
+    command_r_35b,
+    gemma_7b,
+    grok_1_314b,
+    jamba_1_5_large_398b,
+    mixtral_8x7b,
+    qwen1_5_32b,
+    yi_9b,
+)
 from repro_torch.configs.base import (
     LayerSpec,
     MambaConfig,
@@ -20,6 +29,11 @@ from repro_torch.configs.base import (
 # arch id -> (module name, config)
 _PORTED = {
     "gemma-7b": ("gemma_7b", gemma_7b.CONFIG),
+    "yi-9b": ("yi_9b", yi_9b.CONFIG),
+    "qwen1.5-32b": ("qwen1_5_32b", qwen1_5_32b.CONFIG),
+    "command-r-35b": ("command_r_35b", command_r_35b.CONFIG),
+    "mixtral-8x7b": ("mixtral_8x7b", mixtral_8x7b.CONFIG),
+    "grok-1-314b": ("grok_1_314b", grok_1_314b.CONFIG),
     "jamba-1.5-large-398b": ("jamba_1_5_large_398b",
                              jamba_1_5_large_398b.CONFIG),
 }
@@ -27,13 +41,8 @@ _PORTED = {
 # The JAX package's other architectures (id -> module name), for the
 # error message and module-style ids.
 _NOT_PORTED = {
-    "grok-1-314b": "grok_1_314b",
     "whisper-medium": "whisper_medium",
-    "mixtral-8x7b": "mixtral_8x7b",
-    "qwen1.5-32b": "qwen1_5_32b",
     "rwkv6-3b": "rwkv6_3b",
-    "yi-9b": "yi_9b",
-    "command-r-35b": "command_r_35b",
     "qwen2-vl-7b": "qwen2_vl_7b",
 }
 

@@ -49,8 +49,10 @@ class ModelConfig:
     n_heads: int = 0
     n_kv_heads: int = 0
     head_dim: int = 0         # 0 -> d_model // n_heads
+    qkv_bias: bool = False    # biases on the q, k and v projections
     rope: str = "rope"        # 'rope' | 'none' (no positional encoding)
     rope_theta: float = 10000.0
+    norm: str = "rmsnorm"     # 'rmsnorm' | 'layernorm'
     activation: str = "silu"  # 'silu' (SwiGLU) | 'gelu' (GeGLU, tanh form)
     glu: bool = True
     tie_embeddings: bool = False

@@ -18,13 +18,17 @@ Builds ``--batch`` synthetic requests with the scenario's arrivals
 engine in the chosen MLPerf-Inference scenario, and prints the
 throughput / latency summary, the prefix-cache, speculative and SLO
 lines where they apply, and each request's tokens: greedy, or sampled
-at ``--temperature`` with keys from ``--seed``. gemma-7b
-serves from the paged pool by default (``--kv-layout slab`` for the
-slot slab, prompts padded to ``--prompt-len``); jamba-1.5-large-398b,
-whose Mamba layers carry prompt state, serves from the slab only, each
-prompt prefilled at its exact length. The model is ``reduced()`` unless
-``--full`` (all 72 layers of jamba at full width, which one card cannot
-hold); weights are random from ``--seed``. Runs on the card by default
+at ``--temperature`` with keys from ``--seed``. The attention-only
+stacks (gemma-7b, yi-9b, qwen1.5-32b, command-r-35b, mixtral-8x7b,
+grok-1-314b) serve from the paged pool by default (``--kv-layout slab``
+for the slot slab, prompts padded to ``--prompt-len``), in the pool
+dtype of their config unless ``--kv-dtype`` (qwen1.5-32b: int8), which
+the summary line names (``kv=paged/int8``) when it is not the compute
+dtype; jamba-1.5-large-398b, whose Mamba layers carry prompt state,
+serves from the slab only, each prompt prefilled at its exact length.
+The model is ``reduced()`` unless ``--full`` (the published widths and
+depth, which one card cannot hold for the larger models); weights are
+random from ``--seed``. Runs on the card by default
 and refuses to run without one unless ``--device cpu`` is given.
 ``--serve-mode`` and the fleet flags are not ported and raise
 ``NotImplementedError``.
@@ -154,7 +158,9 @@ def main(argv=None) -> int:
         cfg, n=min(2, scfg.max_batch), tokens=2, prompt_len=args.prompt_len,
         seed=args.seed + 1))
     report = scenario_driver(args.scenario)(engine, reqs)
-    kv = engine.layout + (f"/{args.kv_dtype}" if args.kv_dtype else "")
+    kv_dtype = engine.cfg.kv_cache_dtype
+    kv = engine.layout + (f"/{kv_dtype}" if args.kv_dtype
+                          or kv_dtype != cfg.dtype else "")
     print(f"{args.arch} [{args.scenario}, device={device}, "
           f"slots={scfg.max_batch}, kv={kv}]: {report.format()}")
     if report.prefix_hit_rate is not None:

@@ -1,15 +1,18 @@
 """Layers of the port's serving and training paths
-(``repro.models.layers``): RMSNorm, half-split RoPE, GQA projections,
-the dense GLU FFN, the MoE FFN, the Mamba (S6) mixer, full-sequence
-attention, slab-KV decode attention and paged-KV attention.
+(``repro.models.layers``): RMSNorm and LayerNorm, half-split RoPE, GQA
+projections (with optional q/k/v biases), the dense GLU FFN, the MoE
+FFN, the Mamba (S6) mixer, full-sequence attention, slab-KV decode
+attention and paged-KV attention.
 
 Norms, RoPE, softmax and the SSM recurrence run in fp32 and cast back,
 as the reference does; projections run in the config's compute dtype.
 Parameters arrive already in that dtype (see ``lm.init_lm``), except
-the leaves the reference uses in fp32 (:data:`FP32_LEAVES`: Mamba's
-``x_proj``, ``dt_w``, ``dt_bias``, ``A_log`` and ``D``, and the MoE
-``router``), which stay fp32. Parameter layouts are the reference's:
-``wq`` (d, H, hd), ``wk``/``wv`` (d, K, hd), ``wo`` (H, hd, d),
+the leaves the reference uses in fp32 (:data:`FP32_LEAVES`: the norms'
+``scale`` and ``bias``, Mamba's ``x_proj``, ``dt_w``, ``dt_bias``,
+``A_log`` and ``D``, and the MoE ``router``), which stay fp32.
+Parameter layouts are the reference's: norm ``scale`` (and LayerNorm
+``bias``) (d,), ``wq`` (d, H, hd), ``bq`` (H, hd), ``wk``/``wv`` (d, K,
+hd), ``bk``/``bv`` (K, hd), ``wo`` (H, hd, d),
 ``wu``/``wg`` (d, f), ``wd`` (f, d); MoE ``router`` (d, E), ``wu``/``wg``
 (E, d, f), ``wd`` (E, f, d); Mamba ``wx``/``wz`` (d, Di), ``conv_w``
 (d_conv, Di), ``conv_b`` (Di,), ``x_proj`` (Di, R + 2N), ``dt_w`` (R,
@@ -37,9 +40,17 @@ _ACT = {
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int8": torch.int8, "int4": torch.int8}
 QUANTIZED = ("int8", "int4")
-# Leaves the reference reads in fp32 whatever the compute dtype
-# (``layers.py:655-664``, ``ref.py:151``); they are stored in fp32.
-FP32_LEAVES = ("x_proj", "dt_w", "dt_bias", "A_log", "D", "router")
+# Leaves the reference reads in fp32 whatever the compute dtype (the
+# norms' ``scale`` and ``bias``, ``layers.py:31-48``; Mamba's and the
+# router, ``layers.py:655-664``, ``ref.py:151``); they are stored in fp32.
+FP32_LEAVES = ("scale", "bias", "x_proj", "dt_w", "dt_bias", "A_log", "D",
+               "router")
+
+
+def stored_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype the leaf ``name`` is kept in when the others are in
+    ``dtype``: fp32 for :data:`FP32_LEAVES`."""
+    return torch.float32 if name in FP32_LEAVES else dtype
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -48,12 +59,30 @@ def dtype_of(name: str) -> torch.dtype:
     return _DTYPES[name]
 
 
+def init_norm(cfg: ModelConfig, *, device):
+    """``layers.init_norm``: fp32 ``scale`` ones of width d_model, and
+    fp32 ``bias`` zeros for a LayerNorm."""
+    d = cfg.d_model
+    prm = {"scale": torch.ones(d, dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        prm["bias"] = torch.zeros(d, dtype=torch.float32, device=device)
+    return prm
+
+
 def apply_norm(params, x, eps: float = 1e-6):
-    """RMSNorm ``x * rsqrt(mean(x^2) + eps) * scale`` in fp32 (no
-    ``1 + scale``)."""
+    """In fp32, cast back to x's dtype: LayerNorm ``(x - mu) * rsqrt(var
+    + eps) * scale + bias`` (biased variance) when ``params`` holds a
+    ``bias``, as the reference decides; else RMSNorm ``x * rsqrt(mean(
+    x^2) + eps) * scale`` (no ``1 + scale``)."""
     x32 = x.float()
-    var = x32.pow(2).mean(-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps) * params["scale"].float()
+    if "bias" in params:
+        mu = x32.mean(-1, keepdim=True)
+        var = (x32 - mu).pow(2).mean(-1, keepdim=True)
+        y = (x32 - mu) * torch.rsqrt(var + eps)
+        y = y * params["scale"].float() + params["bias"].float()
+    else:
+        var = x32.pow(2).mean(-1, keepdim=True)
+        y = x32 * torch.rsqrt(var + eps) * params["scale"].float()
     return y.to(x.dtype)
 
 
@@ -72,10 +101,14 @@ def apply_rope(x, positions, *, theta: float):
 
 
 def _qkv(params, x, which: str):
-    """x: (B, S, d) @ w (d, heads, hd) -> (B, S, heads, hd)."""
+    """x: (B, S, d) @ w (d, heads, hd) -> (B, S, heads, hd), plus the
+    bias ``b<which>`` (heads, hd) in x's dtype after the product when
+    the layer has one (``y + b.astype(dt)``)."""
     w = params["w" + which]
     d, nh, hd = w.shape
-    return (x @ w.reshape(d, nh * hd)).reshape(*x.shape[:-1], nh, hd)
+    y = (x @ w.reshape(d, nh * hd)).reshape(*x.shape[:-1], nh, hd)
+    b = params.get("b" + which)
+    return y if b is None else y + b.to(y.dtype)
 
 
 def apply_ffn(params, x, cfg: ModelConfig):
@@ -467,14 +500,18 @@ def init_mamba_cache(cfg: ModelConfig, B: int, *, device):
 
 
 # ---- parameters ------------------------------------------------------------ #
-def init_attention(cfg: ModelConfig, normal):
+def init_attention(cfg: ModelConfig, normal, zeros):
     """``layers.init_attention``'s shapes and scales; ``normal(shape,
-    scale)`` draws N(0, 1) * scale in the stored dtype."""
+    scale)`` draws N(0, 1) * scale and ``zeros(shape)`` makes the q/k/v
+    biases of a ``qkv_bias`` config, both in the stored dtype."""
     d, H, K, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {"wq": normal((d, H, hd), d ** -0.5),
-            "wk": normal((d, K, hd), d ** -0.5),
-            "wv": normal((d, K, hd), d ** -0.5),
-            "wo": normal((H, hd, d), (H * hd) ** -0.5)}
+    prm = {"wq": normal((d, H, hd), d ** -0.5),
+           "wk": normal((d, K, hd), d ** -0.5),
+           "wv": normal((d, K, hd), d ** -0.5),
+           "wo": normal((H, hd, d), (H * hd) ** -0.5)}
+    if cfg.qkv_bias:
+        prm.update(bq=zeros((H, hd)), bk=zeros((K, hd)), bv=zeros((K, hd)))
+    return prm
 
 
 def init_ffn(cfg: ModelConfig, normal):

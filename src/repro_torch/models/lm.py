@@ -46,11 +46,11 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def _check_trainable(cfg: ModelConfig) -> None:
-    if any((s.mixer, s.ffn) != ("attn", "dense") for s in cfg.block_pattern):
+    if any(s.mixer != "attn" for s in cfg.block_pattern):
         raise NotImplementedError(
-            f"{cfg.name}: training a Mamba or MoE stack is not ported yet "
-            f"(the mamba_scan backward kernel and the MoE aux loss are "
-            f"ROADMAP.md item 3, jamba training)")
+            f"{cfg.name}: training a Mamba stack is not ported yet (the "
+            f"mamba_scan backward kernel is ROADMAP.md item 3.2, jamba "
+            f"training)")
 
 
 def _spec_of(cfg: ModelConfig, i: int) -> LayerSpec:
@@ -65,11 +65,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     on ``device`` from a ``torch.Generator`` seeded with ``seed``:
     normal(0, 1) times d^-0.5 for the embedding, the untied head and the
     projections out of d, (H*hd)^-0.5 for ``wo``, the input width^-0.5
-    for the others; norm scales are ones; Mamba's ``A_log``, ``dt_bias``,
-    ``D`` and ``conv_b`` are the reference's constants. Leaves are in
-    ``dtype`` (default: the compute dtype), ``layers.FP32_LEAVES`` in
-    fp32. The numbers differ from ``jax.random``'s; parity tests copy
-    JAX weights in with :func:`params_from_numpy` instead."""
+    for the others; norm scales are ones, LayerNorm and q/k/v biases
+    zeros; Mamba's ``A_log``, ``dt_bias``, ``D`` and ``conv_b`` are the
+    reference's constants. Leaves are in ``dtype`` (default: the compute
+    dtype), ``layers.FP32_LEAVES`` (the norms' among them) in fp32. The
+    numbers differ from ``jax.random``'s; parity tests copy JAX weights
+    in with :func:`params_from_numpy` instead."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or L.dtype_of(cfg.dtype)
@@ -89,21 +90,24 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
             w[i] = draw(shape[1:]).mul_(scale)
         return w
 
-    def ones():
-        return {"scale": torch.ones(d, device=dev, dtype=dt)}
+    def zeros(shape):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def norm():
+        return L.init_norm(cfg, device=dev)
 
     params = {"embed": normal((cfg.vocab, d), d ** -0.5), "layers": []}
     for i in range(cfg.n_layers):
         spec = _spec_of(cfg, i)
-        layer = {"norm1": ones(), "mixer": (
-            L.init_attention(cfg, normal) if spec.mixer == "attn"
+        layer = {"norm1": norm(), "mixer": (
+            L.init_attention(cfg, normal, zeros) if spec.mixer == "attn"
             else L.init_mamba(cfg, normal, dtype=dt, device=dev))}
         if spec.ffn != "none":
-            layer["norm2"] = ones()
+            layer["norm2"] = norm()
             layer["ffn"] = (L.init_moe(cfg, normal) if spec.ffn == "moe"
                             else L.init_ffn(cfg, normal))
         params["layers"].append(layer)
-    params["final_norm"] = ones()
+    params["final_norm"] = norm()
     if not cfg.tie_embeddings:
         params["head"] = normal((d, cfg.vocab), d ** -0.5)
     return params
@@ -119,9 +123,10 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     The tree keeps the reference's names and layouts: ``embed`` (V, d);
     ``blocks``, one tree per pattern position, each leaf stacked over
     ``n_blocks`` (layer ``b * len(pattern) + j`` is ``blocks[j][b]``),
-    with ``norm1``/``norm2`` ``scale``, the ``mixer`` and the ``ffn``
-    leaves of ``layers``; ``final_norm`` ``scale``; ``head`` (d, V) when
-    untied. Arrays are taken as fp32, then cast.
+    with ``norm1``/``norm2`` ``scale`` (and ``bias`` for a LayerNorm),
+    the ``mixer`` leaves (q/k/v biases included) and the ``ffn`` leaves
+    of ``layers``; ``final_norm``; ``head`` (d, V) when untied. Arrays
+    are taken as fp32, then cast.
     """
     _check_supported(cfg)
     dev = resolve_device(device)
@@ -129,7 +134,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
 
     def conv(a, name=""):
         t = torch.tensor(np.asarray(a, np.float32))
-        return t.to(dev, torch.float32 if name in L.FP32_LEAVES else dt)
+        return t.to(dev, L.stored_dtype(name, dt))
 
     def named(tree, b=None):
         if isinstance(tree, dict):
@@ -148,6 +153,24 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     if not cfg.tie_embeddings:
         params["head"] = conv(tree["head"])
     return params
+
+
+def use_cast(params, cfg: ModelConfig) -> Dict[str, Any]:
+    """The values the reference's layers read from fp32 masters outside
+    its train step (eval, serving), which casts no tree but each weight
+    at use: every fp32 leaf in the compute dtype, ``layers.FP32_LEAVES``
+    (norm leaves, the router, Mamba's) kept fp32, as
+    :func:`params_from_numpy` stores them."""
+    dt = L.dtype_of(cfg.dtype)
+
+    def walk(tree):
+        return {k: (walk(v) if isinstance(v, dict)
+                    else [walk(x) for x in v] if isinstance(v, list)
+                    else v if v.dtype != torch.float32
+                    else v.to(L.stored_dtype(k, dt)))
+                for k, v in tree.items()}
+
+    return walk(params)
 
 
 def reference_tree(params, cfg: ModelConfig) -> Dict[str, Any]:
@@ -202,37 +225,44 @@ def _apply_block_full(cfg: ModelConfig, spec: LayerSpec, lp, x, positions,
 
 
 def _layer_out(cfg, spec, lp, x, positions, window):
-    """:func:`_apply_block_full`'s residual stream alone (what a
-    checkpointed layer keeps)."""
-    return _apply_block_full(cfg, spec, lp, x, positions, window)[0]
+    """:func:`_apply_block_full`'s residual stream and MoE aux loss (what
+    a checkpointed layer returns)."""
+    return _apply_block_full(cfg, spec, lp, x, positions, window)[:2]
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens, *, window=None):
     """Full-sequence forward up to the final norm (no output projection).
 
-    tokens: (B, S). Returns hidden (B, S, d); a MoE layer's aux loss is
-    not kept (training MoE stacks is not ported). With ``cfg.remat``
-    each layer runs under ``torch.utils.checkpoint`` (non-reentrant):
-    only its input is kept, and the backward recomputes the layer, as
-    the reference's ``jax.checkpoint`` over the scanned block does.
+    tokens: (B, S). Returns (hidden (B, S, d), the MoE aux loss summed
+    over layers, 0.0 for a stack without MoE). With ``cfg.remat`` each
+    layer runs under ``torch.utils.checkpoint`` (non-reentrant): only
+    its input is kept, and the backward recomputes the layer, router and
+    aux loss included, as the reference's ``jax.checkpoint`` over the
+    scanned block does.
     """
     x = _embed(params, tokens)
     B, S, _ = x.shape
     positions = _positions(B, S, x.device)
+    aux = 0.0
     for i, lp in enumerate(params["layers"]):
         spec = _spec_of(cfg, i)
         if cfg.remat:
             # Nothing random runs inside a layer: no RNG state to stash.
-            x = checkpoint(_layer_out, cfg, spec, lp, x, positions, window,
-                           use_reentrant=False, preserve_rng_state=False)
+            x, a = checkpoint(_layer_out, cfg, spec, lp, x, positions,
+                              window, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
-            x = _layer_out(cfg, spec, lp, x, positions, window)
-    return L.apply_norm(params["final_norm"], x)
+            x, a = _layer_out(cfg, spec, lp, x, positions, window)
+        aux = aux + a
+    return L.apply_norm(params["final_norm"], x), aux
 
 
 def forward(params, cfg: ModelConfig, tokens, *, window=None):
-    """Full-sequence forward. Returns logits (B, S, vocab)."""
-    return _head(params, forward_hidden(params, cfg, tokens, window=window))
+    """Full-sequence forward. Returns logits (B, S, vocab); the MoE aux
+    loss, which the reference's ``forward`` also returns, is dropped
+    (:func:`forward_hidden` keeps it)."""
+    return _head(params, forward_hidden(params, cfg, tokens,
+                                        window=window)[0])
 
 
 def _ce_chunk(params, h, targets):
@@ -263,24 +293,27 @@ def _chunked_ce(params, cfg: ModelConfig, hidden, targets):
 
 
 def per_example_nll(params, cfg: ModelConfig, batch):
-    """(mean next-token nll per example (B,), aux 0.0) for masked
-    distributed eval (C4). Dense attention stacks only: a Mamba or MoE
-    stack raises ``NotImplementedError``."""
+    """(mean next-token nll per example (B,), the MoE aux loss summed
+    over layers (0.0 without MoE)) for masked distributed eval (C4).
+    Attention stacks only: a Mamba stack raises
+    ``NotImplementedError``."""
     _check_trainable(cfg)
     tokens = batch["tokens"]
-    hidden = forward_hidden(params, cfg, tokens)
+    hidden, aux = forward_hidden(params, cfg, tokens)
     tgt = tokens[:, 1:]
     nll_sum = _chunked_ce(params, cfg, hidden[:, :-1], tgt)
-    return nll_sum / tgt.shape[1], 0.0
+    return nll_sum / tgt.shape[1], aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
-    """Next-token cross entropy in fp32 (no MoE aux term in a dense
-    stack). batch: {"tokens": (B, S) int}. Returns (loss, {"nll",
+    """Next-token cross entropy in fp32, plus ``cfg.moe.aux_loss_weight``
+    times the MoE aux loss for a stack with MoE layers (``lm.py:281-
+    290``). batch: {"tokens": (B, S) int}. Returns (loss, {"nll",
     "aux"})."""
     nll_ex, aux = per_example_nll(params, cfg, batch)
     nll = nll_ex.mean()
-    return nll, {"nll": nll, "aux": aux}
+    total = nll + (cfg.moe.aux_loss_weight * aux if cfg.uses_moe else 0.0)
+    return total, {"nll": nll, "aux": aux}
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page: int, *,

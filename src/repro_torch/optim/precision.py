@@ -1,7 +1,7 @@
 """bfloat16 mixed-precision policy (``repro.optim.precision``, paper
 C7): matrix products take bf16 operands, master weights stay fp32, and
-1-D parameters (norm scales, biases) stay fp32. There is no sharding
-here, so the cast is all the policy does."""
+1-D parameters stay fp32. There is no sharding here, so the cast is all
+the policy does."""
 from __future__ import annotations
 
 import torch
@@ -10,14 +10,24 @@ from repro_torch.utils import tree_map
 
 
 def compute_cast(params, dtype="bfloat16"):
-    """Compute copy of ``params``: every fp32 leaf of 2 or more
-    dimensions cast to ``dtype``; the cast is differentiable, so the
-    gradient reaches the fp32 master in fp32."""
+    """Compute copy of ``params`` as the reference's train step makes it
+    (``repro.optim.precision.compute_cast`` over its tree, whose layers
+    are stacked along a leading axis): every fp32 leaf of 2 or more
+    dimensions cast to ``dtype``, a leaf under ``params["layers"]``
+    counted with that stacking axis, so a layer's norm scales and biases
+    are cast too; a 1-D leaf outside the layers (the final norm's) stays
+    fp32. The cast is differentiable, so the gradient reaches the fp32
+    master in fp32."""
     dt = getattr(torch, dtype)
 
-    def one(w):
-        if w.dtype != torch.float32 or w.dim() <= 1:
-            return w
-        return w.to(dt)
+    def cast(min_dim):
+        def one(w):
+            if w.dtype != torch.float32 or w.dim() < min_dim:
+                return w
+            return w.to(dt)
+        return one
 
-    return tree_map(one, params)
+    if isinstance(params, dict) and "layers" in params:
+        return {k: tree_map(cast(1 if k == "layers" else 2), v)
+                for k, v in params.items()}
+    return tree_map(cast(2), params)

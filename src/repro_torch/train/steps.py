@@ -118,12 +118,13 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 
 def make_eval_step(cfg: ModelConfig) -> Callable:
     """Distributed eval (C4): ``eval_step(params, batch, mask)`` returns
-    (sum of per-example nll over real examples, their count)."""
+    (sum of per-example nll over real examples, their count). As in the
+    reference, whose eval step runs no ``compute_cast``, the fp32 leaves
+    the layers read in fp32 stay unrounded (``lm.use_cast``)."""
 
     @torch.no_grad()
     def eval_step(params, batch, mask):
-        nll_ex, _ = lm.per_example_nll(compute_cast(params, cfg.dtype), cfg,
-                                       batch)
+        nll_ex, _ = lm.per_example_nll(lm.use_cast(params, cfg), cfg, batch)
         mask = mask.to(nll_ex.device)
         return (nll_ex * mask).sum(), mask.sum()
 

@@ -58,8 +58,8 @@ def test_config_copy_matches_reference(reduced, arch):
 
 
 def test_other_archs_refused_by_name():
-    with pytest.raises(NotImplementedError, match="mixtral-8x7b.*not ported"):
-        get_config("mixtral-8x7b")
+    with pytest.raises(NotImplementedError, match="whisper-medium.*not ported"):
+        get_config("whisper-medium")
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 3"):
         get_config("rwkv6_3b")
     with pytest.raises(KeyError):
@@ -200,5 +200,5 @@ def test_init_lm_shapes_scales_and_seed():
     wo = a["layers"][0]["mixer"]["wo"].float()
     assert wo.shape == (4, 64, 256)
     assert abs(wo.std().item() - 256 ** -0.5) < 0.1 * 256 ** -0.5
-    assert torch.equal(a["final_norm"]["scale"],
-                       torch.ones(256, dtype=torch.bfloat16))
+    assert a["final_norm"]["scale"].dtype == torch.float32  # read in fp32
+    assert torch.equal(a["final_norm"]["scale"], torch.ones(256))
