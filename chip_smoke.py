@@ -1404,10 +1404,25 @@ def full_serve_params():
 
 def serve_full(params):
     phase("serve: gemma-7b full width, 28 layers, bf16, offline")
-    cfg = get_config("gemma-7b")
+    return serve_stream(get_config("gemma-7b"), params, trace="run")
+
+
+def serve_stream(cfg, params, *, trace, **extra):
+    """Full-width ``cfg`` serves stream (a), the 8 ragged requests,
+    greedy and offline from its config's pool: the paged kernel's
+    counter, zeroed just before, must show one launch (of the pool's
+    branch) per layer per chunk step, every request must get its tokens
+    from the vocabulary, and a second run must repeat them. Then one
+    chunk step of 8 rows x 8 tokens against a fresh pool must give
+    finite logits. ``trace`` picks what is traced: the second run
+    (``"run"``: device busy share of the stream) or the chunk step
+    (``"chunk"``: timed, then traced). ``extra`` joins the printed
+    summary. Returns the paged launches."""
     scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
                        page_size=16, prefill_chunk=8)
     engine = Engine(cfg, params, scfg, device="cuda")
+    if engine.layout != "paged":
+        raise AssertionError(f"{cfg.name} served from {engine.layout}")
     run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
                                            seed=1))  # warm-up
 
@@ -1418,67 +1433,89 @@ def serve_full(params):
 
     torch.cuda.reset_peak_memory_stats()
     pa.reset_launches()
+    t0 = time.perf_counter()
     report = run_offline(engine, workload())
-    launches = pa.paged_attention_cuda.launches_by_kind["bfloat16"]
-    if pa.paged_attention_cuda.launches != launches:
-        raise AssertionError("a bf16 pool launched another branch")
+    kind = cfg.kv_cache_dtype
+    launches = pa.paged_attention_cuda.launches_by_kind[kind]
     steps = len(report.steps)
     s = report.summary()
-    s["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    s.update(extra, n_layers=cfg.n_layers, kv=kind, launches=launches,
+             chunk_steps=steps,
+             peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30)
     print(f"  {report.format()}", flush=True)
     print(f"  chunk steps {steps}, paged_attention launches {launches} "
-          f"({launches / max(steps, 1):.0f} per step), peak memory "
-          f"{s['peak_mem_gib']:.2f} GiB", flush=True)
-    if launches < cfg.n_layers * steps or steps == 0:
+          f"({kind} branch; expected {cfg.n_layers} x {steps}), peak "
+          f"memory {s['peak_mem_gib']:.2f} GiB", flush=True)
+    if launches != cfg.n_layers * steps or steps == 0 or \
+            pa.paged_attention_cuda.launches != launches:
         raise AssertionError(
-            f"paged_attention ran {launches} times in {steps} chunk steps; "
-            f"expected >= {cfg.n_layers} per step")
+            f"{cfg.name}: paged_attention launches "
+            f"{pa.paged_attention_cuda.launches_by_kind} in {steps} chunk "
+            f"steps; expected {cfg.n_layers} {kind} launches a step")
     got = tokens_of(report)
     if len(got) != 8 or any(len(t) != NEW_TOKENS for t in got):
-        raise AssertionError(f"not every request got {NEW_TOKENS} tokens")
+        raise AssertionError(f"{cfg.name}: not every request got "
+                             f"{NEW_TOKENS} tokens")
     if any(not 0 <= tok < cfg.vocab for t in got for tok in t):
-        raise AssertionError("token id out of the vocabulary")
-    # The second run, traced: where the device time goes, and how busy
-    # the card is (the trace slows the host side, not the kernels).
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        raise AssertionError(f"{cfg.name}: token id out of the vocabulary")
+    if trace == "run":
+        # where the device time goes, and how busy the card is (the
+        # trace slows the host side, not the kernels)
+        again, busy_ms, kernels = trace_busy(
+            lambda: tokens_of(run_offline(engine, workload())))
+        n_kernels = sum(e.count for e in kernels)
+        print(f"  traced second run: {n_kernels} kernels "
+              f"({n_kernels / steps:.0f} per step), device busy "
+              f"{busy_ms:.1f} ms = "
+              f"{100 * busy_ms / (report.elapsed_s * 1e3):.1f}% of the "
+              f"untraced run's {report.elapsed_s * 1e3:.1f} ms; top kernels:",
+              flush=True)
+        for e in kernels[:10]:
+            print(f"    {e.self_device_time_total / 1e3:9.2f} ms "
+                  f"{e.count:6d}x {e.key[:100]}")
+        s.update(device_busy_ms=busy_ms, kernels_per_step=n_kernels / steps)
+    else:
         again = tokens_of(run_offline(engine, workload()))
-        torch.cuda.synchronize()
     if again != got:
-        raise AssertionError("a second run of the same workload differs")
-    kernels = sorted((e for e in prof.key_averages()
-                      if e.self_device_time_total > 0),
-                     key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    n_kernels = sum(e.count for e in kernels)
-    print(f"  traced run: {n_kernels} kernels ({n_kernels / steps:.0f} per "
-          f"step), device busy {busy_ms:.1f} ms = "
-          f"{100 * busy_ms / (report.elapsed_s * 1e3):.1f}% of the untraced "
-          f"run's {report.elapsed_s * 1e3:.1f} ms; top kernels:", flush=True)
-    for e in kernels[:10]:
-        print(f"    {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x "
-              f"{e.key[:100]}")
+        raise AssertionError(f"{cfg.name}: a second run of the same "
+                             f"workload differs")
+    print("  a second run gives the same greedy tokens", flush=True)
 
-    # one chunk step at full width: finite logits of the right shape
+    # One chunk step at 8 rows x 8 tokens (a mixed prefill step) against
+    # a fresh 16-page pool: finite logits of the right shape.
     B, C = 8, scfg.prefill_chunk
     cache = lm.init_paged_cache(cfg, 16, 16, device="cuda")
     pt = torch.full((B, 2), -1, dtype=torch.int32, device="cuda")
     pt[:, 0] = torch.arange(B, dtype=torch.int32)
-    with torch.inference_mode():
-        logits, _ = lm.decode_chunk(
-            params, cfg, torch.randint(0, cfg.vocab, (B, C), device="cuda"),
-            cache, pt, torch.zeros(B, dtype=torch.int32, device="cuda"),
-            torch.full((B,), C, dtype=torch.int32, device="cuda"))
-    if tuple(logits.shape) != (B, cfg.vocab) or not torch.isfinite(logits).all():
-        raise AssertionError(f"full-width logits {tuple(logits.shape)} not "
-                             f"finite / not (B, vocab)")
-    s["launches"] = launches
-    s["chunk_steps"] = steps
-    s["device_busy_ms"] = busy_ms
-    s["kernels_per_step"] = n_kernels / steps
+    toks = torch.randint(0, cfg.vocab, (B, C), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+    nv = torch.full((B,), C, dtype=torch.int32, device="cuda")
+
+    def chunk():
+        with torch.inference_mode():
+            return lm.decode_chunk(params, cfg, toks, cache, pt, zero, nv)[0]
+
+    logits = chunk()
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{cfg.name}: chunk logits "
+                             f"{tuple(logits.shape)} not finite / not "
+                             f"(B, vocab)")
+    if trace == "chunk":
+        ms, busy, kernels = timed_and_traced(chunk)
+        print(f"  one chunk step (8 x 8 tokens): {ms:.2f} ms (median of 3, "
+              f"to the card's end); traced: {sum(e.count for e in kernels)}"
+              f" kernels, device busy {busy:.2f} ms = {100 * busy / ms:.1f}%"
+              f"; top kernels:", flush=True)
+        for e in kernels[:6]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:5d}x {e.key[:100]}")
+        s.update(chunk_ms=ms, chunk_busy_ms=busy, chunk_busy_share=busy / ms)
+    s["wall_s"] = time.perf_counter() - t0
     print(f"  serve summary {json.dumps(s)}", flush=True)
-    del engine, cache
+    del engine, cache, report, logits
+    gc.collect()
     torch.cuda.empty_cache()
     return launches
 
@@ -3033,8 +3070,8 @@ def train_resume():
 
 
 # --------------------------------------------------------------------------- #
-# The attention-only archs ported in PR 24: kernels at their shapes, reduced
-# card vs CPU, full-width serving and training.
+# The dense variants and MoE models (attention-only stacks): kernels at their
+# shapes, reduced card vs CPU, full-width serving and training.
 # --------------------------------------------------------------------------- #
 ARCHS = ("yi-9b", "qwen1.5-32b", "command-r-35b", "mixtral-8x7b",
          "grok-1-314b")
@@ -3113,73 +3150,67 @@ def check_paged_archs():
 
 
 def check_flash_archs():
-    """The flash forward and backward at the train step's shape (B 4, S
-    2048, causal, bf16) with yi's 32/4 and grok's 48/8 heads of 128:
-    held against the plain version, the backward rerun bitwise, then
-    timed beside the bounds and SDPA. Returns {arch: (forward record,
-    backward record)}."""
-    phase("kernels: flash_attention forward and backward at B 4, S 2048, "
-          "D 128, 32/4 and 48/8 heads vs plain PyTorch")
-    B, S, D, dtype = TRAIN_BATCH, TRAIN_SEQ, 128, torch.bfloat16
+    """The flash forward and backward at S 2048, causal, bf16 with yi's
+    32/4 and grok's 48/8 heads of 128, at B 4 and at the batch each
+    microbatch of its train step has (4 // microbatches: grok's 1): held
+    against the plain version, the backward rerun bitwise, then timed
+    beside the bounds and SDPA. Returns {arch: (forward record, backward
+    record)} at the train step's shape; the other shapes are printed."""
+    phase("kernels: flash_attention forward and backward at S 2048, D 128, "
+          "32/4 and 48/8 heads, the train step's batch and B 4, vs plain "
+          "PyTorch")
+    S, D, dtype = TRAIN_SEQ, 128, torch.bfloat16
     tol = TOL[dtype]
     recs = {}
     for i, arch in enumerate(FLASH_ARCHS):
-        cfg = get_config(arch)
+        cfg = train_arch_config(arch)
         H, K = cfg.n_heads, cfg.n_kv_heads
-        q, k, v, do = flash_inputs(300 + i, B, S, S, H, K, D, dtype)
-        out, lse = fa.flash_attention_fwd_cuda(q, k, v)
-        dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
-        torch.cuda.synchronize()
-        qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
-        want = fa.flash_attention_torch(qp, kp, vp)
-        want.backward(do)
-        errs = {}
-        for label, got, ref in (("out", out, want), ("dq", dq, qp.grad),
-                                ("dk", dk, kp.grad), ("dv", dv, vp.grad)):
-            g, w = got.float(), ref.float()
-            errs[label] = (g - w).abs().max().item()
-            if not (torch.isfinite(g).all()
-                    and torch.allclose(g, w, rtol=tol, atol=tol)):
-                raise AssertionError(
-                    f"flash_attention {arch} {H}/{K} {label}: kernel != "
-                    f"plain, max |diff| {errs[label]} > {tol}")
-        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
-        if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
-            raise AssertionError(f"flash_attention {arch}: a rerun of the "
-                                 f"backward differs")
-        print(f"  {arch} B{B} S{S} {H}/{K} (G {H // K}) D{D} bf16 causal: "
-              f"max|kernel-plain| " + ", ".join(
-                  f"{n} {e:.2e}" for n, e in errs.items()) +
-              f" (tol {tol:g}), backward rerun bitwise equal", flush=True)
-        del again, want, out, lse, dq, dk, dv, qp, kp, vp
-        torch.cuda.empty_cache()
-        recs[arch] = tuple(flash_records(
-            q, k, v, do, f"_{arch}",
-            (errs["out"], max(errs["dq"], errs["dk"], errs["dv"]))))
-        del q, k, v, do
-        torch.cuda.empty_cache()
+        path_b = TRAIN_BATCH // cfg.microbatches
+        for B in sorted({TRAIN_BATCH, path_b}):
+            recs_b = check_flash_case(300 + i, arch, B, S, H, K, D, dtype,
+                                      tol, f"_{arch}" if B == path_b
+                                      else f"_{arch}_B{B}")
+            if B == path_b:
+                recs[arch] = recs_b
     return recs
 
 
-def perturbed_tree(cfg, seed):
-    """Reference-layout weights of ``cfg`` from ``init_lm`` on the CPU,
-    with norm scales 1 + 0.1 N(0, 1) and norm and q/k/v biases 0.1 N(0,
-    1) drawn with numpy (ones and zeros would pin nothing)."""
-    tree = reference_layout(lm.init_lm(cfg, seed, device="cpu"), cfg)
-    rng = np.random.default_rng(seed)
-
-    def walk(t):
-        if isinstance(t, dict):
-            return {k: ((1 + 0.1 * rng.standard_normal(np.shape(v)))
-                        .astype(np.float32) if k == "scale" else
-                        (0.1 * rng.standard_normal(np.shape(v)))
-                        .astype(np.float32) if k in ("bias", "bq", "bk", "bv")
-                        else walk(v)) for k, v in t.items()}
-        if isinstance(t, (tuple, list)):
-            return type(t)(walk(x) for x in t)
-        return t
-
-    return walk(tree)
+def check_flash_case(seed, arch, B, S, H, K, D, dtype, tol, suffix):
+    """One shape of ``check_flash_archs``; its (forward, backward)
+    records."""
+    q, k, v, do = flash_inputs(seed, B, S, S, H, K, D, dtype)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+    want = fa.flash_attention_torch(qp, kp, vp)
+    want.backward(do)
+    errs = {}
+    for label, got, ref in (("out", out, want), ("dq", dq, qp.grad),
+                            ("dk", dk, kp.grad), ("dv", dv, vp.grad)):
+        g, w = got.float(), ref.float()
+        errs[label] = (g - w).abs().max().item()
+        if not (torch.isfinite(g).all()
+                and torch.allclose(g, w, rtol=tol, atol=tol)):
+            raise AssertionError(
+                f"flash_attention {arch} B{B} {H}/{K} {label}: kernel != "
+                f"plain, max |diff| {errs[label]} > {tol}")
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
+        raise AssertionError(f"flash_attention {arch} B{B}: a rerun of the "
+                             f"backward differs")
+    print(f"  {arch} B{B} S{S} {H}/{K} (G {H // K}) D{D} bf16 causal: "
+          f"max|kernel-plain| " + ", ".join(
+              f"{n} {e:.2e}" for n, e in errs.items()) +
+          f" (tol {tol:g}), backward rerun bitwise equal", flush=True)
+    del again, want, out, lse, dq, dk, dv, qp, kp, vp
+    torch.cuda.empty_cache()
+    recs = tuple(flash_records(
+        q, k, v, do, suffix,
+        (errs["out"], max(errs["dq"], errs["dk"], errs["dv"]))))
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return recs
 
 
 def reduced_archs_vs_cpu():
@@ -3194,7 +3225,8 @@ def reduced_archs_vs_cpu():
         kv = base.kv_cache_dtype if base.kv_cache_dtype == "int8" else \
             "float32"
         cfg = dataclasses.replace(base, dtype="float32", kv_cache_dtype=kv)
-        tree = perturbed_tree(cfg, 40 + i)
+        tree = lm.perturb_norms(reference_layout(
+            lm.init_lm(cfg, 40 + i, device="cpu"), cfg), 40 + i)
         toks = {}
         pa.reset_launches()
         for dev in ("cpu", "cuda"):
@@ -3236,8 +3268,8 @@ def serve_depth(cfg, free):
 
 def serve_arch(arch):
     """Full-width ``arch`` at the deepest cut one card holds serves
-    stream (a) greedy from its config's pool; returns (record, paged
-    launches)."""
+    stream (a) greedy from its config's pool; returns the paged
+    launches."""
     gc.collect()
     torch.cuda.empty_cache()
     free = torch.cuda.mem_get_info()[0]
@@ -3258,83 +3290,8 @@ def serve_arch(arch):
           + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k}"
              if cfg.moe else "")
           + f"; init in {time.perf_counter() - t0:.1f} s", flush=True)
-    scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
-                       page_size=16, prefill_chunk=8)
-    engine = Engine(cfg, params, scfg, device="cuda")
-    if engine.layout != "paged":
-        raise AssertionError(f"{arch} served from {engine.layout}")
-    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
-                                           seed=1))  # warm-up
-
-    def workload():
-        return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
-                                  prompt_len=max(PROMPT_LENS), seed=0,
-                                  prompt_lens=PROMPT_LENS)
-
-    torch.cuda.reset_peak_memory_stats()
-    pa.reset_launches()
-    t0 = time.perf_counter()
-    report = run_offline(engine, workload())
-    kind = cfg.kv_cache_dtype
-    launches = pa.paged_attention_cuda.launches_by_kind[kind]
-    steps = len(report.steps)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  {report.format()}", flush=True)
-    print(f"  chunk steps {steps}, paged_attention launches {launches} "
-          f"({kind} branch; expected {cfg.n_layers} x {steps}), peak "
-          f"memory {peak:.2f} GiB", flush=True)
-    if launches != cfg.n_layers * steps or steps == 0 or \
-            pa.paged_attention_cuda.launches != launches:
-        raise AssertionError(
-            f"{arch}: paged_attention launches "
-            f"{pa.paged_attention_cuda.launches_by_kind} in {steps} chunk "
-            f"steps; expected {cfg.n_layers} {kind} launches a step")
-    got = tokens_of(report)
-    if len(got) != 8 or any(len(t) != NEW_TOKENS for t in got):
-        raise AssertionError(f"{arch}: not every request got {NEW_TOKENS} "
-                             f"tokens")
-    if any(not 0 <= tok < cfg.vocab for t in got for tok in t):
-        raise AssertionError(f"{arch}: token id out of the vocabulary")
-    if tokens_of(run_offline(engine, workload())) != got:
-        raise AssertionError(f"{arch}: a second run of the same workload "
-                             f"differs")
-    print("  a second run gives the same greedy tokens", flush=True)
-
-    # One chunk step at 8 rows x 8 tokens (a mixed prefill step) against
-    # a fresh pool, timed and traced: finite logits, the busy share.
-    B, C = 8, scfg.prefill_chunk
-    cache = lm.init_paged_cache(cfg, 16, 16, device="cuda")
-    pt = torch.full((B, 2), -1, dtype=torch.int32, device="cuda")
-    pt[:, 0] = torch.arange(B, dtype=torch.int32)
-    toks = torch.randint(0, cfg.vocab, (B, C), device="cuda",
-                         generator=torch.Generator("cuda").manual_seed(3))
-    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
-    nv = torch.full((B,), C, dtype=torch.int32, device="cuda")
-
-    def chunk():
-        with torch.inference_mode():
-            return lm.decode_chunk(params, cfg, toks, cache, pt, zero, nv)[0]
-
-    logits = chunk()
-    if tuple(logits.shape) != (B, cfg.vocab) or \
-            not torch.isfinite(logits.float()).all():
-        raise AssertionError(f"{arch}: chunk logits {tuple(logits.shape)} "
-                             f"not finite / not (B, vocab)")
-    ms, busy, kernels = timed_and_traced(chunk)
-    print(f"  one chunk step (8 x 8 tokens): {ms:.2f} ms (median of 3, to "
-          f"the card's end); traced: {sum(e.count for e in kernels)} "
-          f"kernels, device busy {busy:.2f} ms = {100 * busy / ms:.1f}%; "
-          f"top kernels:", flush=True)
-    for e in kernels[:6]:
-        print(f"    {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x "
-              f"{e.key[:100]}")
-    s = report.summary()
-    s.update(arch=arch, n_layers=cfg.n_layers, n_params=n, kv=kind,
-             peak_mem_gib=peak, launches=launches, chunk_steps=steps,
-             chunk_ms=ms, chunk_busy_ms=busy, chunk_busy_share=busy / ms,
-             wall_s=time.perf_counter() - t0)
-    print(f"  serve summary {json.dumps(s)}", flush=True)
-    del engine, params, cache, report, logits
+    launches = serve_stream(cfg, params, trace="chunk", arch=arch, n_params=n)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return launches

@@ -4,7 +4,7 @@ The port covers the attention-only LMs ``gemma-7b``, ``yi-9b``,
 ``qwen1.5-32b``, ``command-r-35b``, ``mixtral-8x7b`` and ``grok-1-314b``
 (serving and training) and ``jamba-1.5-large-398b`` (serving through
 the slab layout); the other architectures of the JAX package are known
-by name and refused until their slice.
+by name and refused until they are ported (ROADMAP.md item 3).
 """
 from __future__ import annotations
 

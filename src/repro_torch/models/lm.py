@@ -191,6 +191,34 @@ def reference_tree(params, cfg: ModelConfig) -> Dict[str, Any]:
     return out
 
 
+def perturb_norms(tree, seed: int):
+    """A numpy parameter tree (``params_from_numpy``'s input) with every
+    norm ``scale`` drawn as 1 + 0.1 N(0, 1) and every norm ``bias`` and
+    q/k/v bias as 0.1 N(0, 1) from numpy's ``default_rng(seed)``, the
+    rest as it is: weights for parity checks, where the initial ones
+    and zeros would pin nothing."""
+    rng = np.random.default_rng(seed)
+
+    def walk(t):
+        if isinstance(t, dict):
+            out = {}
+            for k, v in t.items():
+                if k == "scale":
+                    out[k] = (1 + 0.1 * rng.standard_normal(np.shape(v))
+                              ).astype(np.float32)
+                elif k in ("bias", "bq", "bk", "bv"):
+                    out[k] = (0.1 * rng.standard_normal(np.shape(v))
+                              ).astype(np.float32)
+                else:
+                    out[k] = walk(v)
+            return out
+        if isinstance(t, (tuple, list)):
+            return type(t)(walk(x) for x in t)
+        return np.asarray(t)
+
+    return walk(tree)
+
+
 def _embed(params, tokens):
     return params["embed"][tokens.to(params["embed"].device, torch.long)]
 

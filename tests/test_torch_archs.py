@@ -65,36 +65,10 @@ def cfgs(arch, **kw):
             dataclasses.replace(get_config(arch).reduced(), **kw))
 
 
-def perturb(tree, seed):
-    """Norm scales 1 + 0.1 N(0, 1), norm and q/k/v biases 0.1 N(0, 1)
-    (the reference initialises them to ones and zeros, which would pin
-    nothing), drawn with numpy."""
-    rng = np.random.default_rng(seed)
-
-    def walk(t):
-        if isinstance(t, dict):
-            out = {}
-            for k, v in t.items():
-                if k == "scale":
-                    out[k] = (1 + 0.1 * rng.standard_normal(np.shape(v))
-                              ).astype(np.float32)
-                elif k in ("bias", "bq", "bk", "bv"):
-                    out[k] = (0.1 * rng.standard_normal(np.shape(v))
-                              ).astype(np.float32)
-                else:
-                    out[k] = walk(v)
-            return out
-        if isinstance(t, (tuple, list)):
-            return type(t)(walk(x) for x in t)
-        return np.asarray(t)
-
-    return walk(tree)
-
-
 def ref_tree(jcfg, seed=0):
     """The reference's parameters for ``jcfg`` as numpy, perturbed."""
     vals = split_tree(JT.ModelAPI(jcfg).init(jcfg, jax.random.PRNGKey(seed)))
-    return perturb(vals[0], seed + 100)
+    return lm.perturb_norms(vals[0], seed + 100)
 
 
 def flat_jax_grads(g, n_layers):

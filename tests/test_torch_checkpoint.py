@@ -289,6 +289,63 @@ def test_cli_resume_equals_uninterrupted_run(tmp_path, capsys):
     assert last(cont) == last(full)
 
 
+@pytest.mark.parametrize("async_save", [False, True])
+def test_resume_with_bf16_state(tmp_path, async_save):
+    """Reduced grok-1-314b keeps its Adam moments in bfloat16 (and 4
+    microbatches of bf16 gradients, as the full config): checkpoints
+    every 2 steps name them ``bfloat16``, and a fresh trainer resumed
+    from step 2 takes steps 3-4 to the uninterrupted run's losses and
+    state, bitwise."""
+    cfg = dataclasses.replace(get_config("grok-1-314b").reduced(),
+                              microbatches=4)
+    assert cfg.moment_dtype == "bfloat16" and cfg.grad_dtype == "bfloat16"
+
+    def run(resume=None, every=2):
+        tr = Trainer(cfg, TrainerConfig(
+            total_steps=4, log_every=0, checkpoint_every=every,
+            checkpoint_dir=str(tmp_path / "run"),
+            async_checkpoint=async_save), device="cpu")
+        start = tr.resume(resume) if resume else 0
+        return tr, tr.fit(itertools.islice(
+            synthetic_lm_batches(cfg, batch=4, seq=16, steps=4), start, None))
+
+    full, hist = run()
+    assert sorted(os.listdir(str(tmp_path / "run"))) == ["step_2", "step_4"]
+    dtypes = json.load(open(str(tmp_path / "run" / "step_2" /
+                                "manifest.json")))["dtypes"]
+    assert "bfloat16" in dtypes
+    want = _state_arrays(full)
+    assert any(w.dtype == torch.bfloat16 for w in want)
+    cont, tail = run(resume=str(tmp_path / "run" / "step_2"), every=0)
+    assert [r["loss"] for r in tail] == [r["loss"] for r in hist[2:]]
+    _assert_equal_state(cont, want)
+
+
+def test_bf16_leaves_in_the_reference_format(tmp_path):
+    """A bfloat16 leaf written by the reference restores into the port
+    bitwise, and the port writes the same manifest and array bytes."""
+    bits = np.random.default_rng(0).standard_normal((3, 5)).astype(np.float32)
+    ref = {"m": jax.numpy.asarray(bits, dtype=jax.numpy.bfloat16),
+           "w": jax.numpy.asarray(bits)}
+    jax_ckpt.save_checkpoint(str(tmp_path / "ref"), ref, step=1)
+    got = ckpt.restore_checkpoint(
+        str(tmp_path / "ref"),
+        {"m": torch.empty(3, 5, dtype=torch.bfloat16), "w": torch.empty(3, 5)})
+    assert got["m"].dtype == torch.bfloat16
+    assert torch.equal(got["m"].view(torch.int16), torch.from_numpy(
+        np.asarray(ref["m"]).view(np.int16)))
+    assert torch.equal(got["w"], torch.from_numpy(bits))
+    ckpt.save_checkpoint(str(tmp_path / "port"), got, step=1)
+    for name in ("ref", "port"):
+        with np.load(str(tmp_path / name / "arrays.npz")) as data:
+            assert data["a0"].dtype == np.dtype("V2")
+            assert data["a0"].tobytes() == np.asarray(ref["m"]).tobytes()
+    manifest = lambda n: json.load(open(  # noqa: E731
+        str(tmp_path / n / "manifest.json")))
+    for key in ("names", "dtypes", "shapes"):
+        assert manifest("port")[key] == manifest("ref")[key]
+
+
 # --------------------------------------------------------------------------- #
 # The reference's format: names, and checkpoints crossing packages.
 # --------------------------------------------------------------------------- #
