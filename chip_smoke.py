@@ -22,7 +22,12 @@ and prints no result):
    launch over ResNet-50's 54 kernel leaves (bitwise equal to one-leaf
    launches), the Mamba selective scan at jamba's prefill shape with
    bf16 and fp32 inputs, at odd shapes, N = 64, odd N, S = 1 and
-   strided B/C, the flash forward at jamba's attention shape, the paged
+   strided B/C, and at jamba's train shape (1 x 2048 x 16384 x 16) with
+   its boundary states every 16 steps, the scan's backward kernel there
+   and at edge cases (S 1, 33, 2047, N 5, 64, Bt 3, fp32 u, contiguous
+   B/C, a zero and a nonzero final-state cotangent, reruns bitwise), the
+   flash forward at jamba's attention shape and forward and backward at
+   its train step's (B 1, S 2048, 64/8 heads of 128), the paged
    kernel at the serving shapes of yi-9b, qwen1.5-32b (int8 pool),
    command-r-35b, mixtral-8x7b and grok-1-314b, and the flash forward
    and backward at the train step's shape with 32/4 and 48/8 heads of
@@ -41,7 +46,8 @@ and prints no result):
    ResNet (stride-2 stem and max pool at 32 x 32) in fp32, card against
    CPU: loss, every gradient, 3 LARS steps of each rule; reduced
    jamba-1.5-large in fp32 from the same ``params_from_numpy`` weights,
-   card against CPU: prefill logits and a slab engine's greedy tokens;
+   card against CPU: prefill logits and a slab engine's greedy tokens,
+   then training: the loss, every gradient and 3 Adam steps;
 4. serve: full-width gemma-7b (28 layers, random bf16 weights from a
    seed) serves 8 ragged requests offline through the port's engine;
    the kernel's launch counter, zeroed just before, must show it ran
@@ -115,7 +121,15 @@ and prints no result):
    moments) takes 4 steps of batch 4 x 2048 through ``Trainer.fit``:
    the flash counters must show forward twice and backward once per
    layer per step and microbatch, and a second run from the same seed
-   must repeat the losses bitwise.
+   must repeat the losses bitwise;
+10. train jamba-1.5-large (``train-jamba``): every published width, cut
+   to a Mamba + dense, a Mamba + MoE (4 of 16 experts) and an attention
+   + dense layer as far as free memory holds (the reckoning is printed),
+   takes 4 steps of batch 8 x 2048 in its 8 microbatches (bf16 gradient
+   sums and moments, fp32 masters, remat) through ``Trainer.fit``: the
+   counters, zeroed just before, must show per step mamba_scan forward
+   32 and backward 16, flash forward 16 and backward 8, and a second run
+   from the same seed must repeat the losses bitwise.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -187,6 +201,7 @@ SHARED, SUFFIX, RATE = 96, 32, 0.5
 INT4_TOKENS = 16
 TRAIN_LAYERS = 8  # 16 B/param of state: 28 layers need 137 GB, 8 take 48
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 2048, 4
+TRAIN_BATCH_JAMBA = 8  # jamba's 8 microbatches, each 1 x 2048
 # GNMT: bucketized copy-task sentences of 4-50 tokens, window 6.
 GNMT_BATCH, GNMT_MAX_LEN, GNMT_WINDOW, GNMT_STEPS = 128, 50, 6, 6
 
@@ -1332,11 +1347,197 @@ def check_mamba():
                 library_ms=None, **readings[0])
 
 
+MAMBA_TRAIN = (1, 2048, 16384, 16)  # a train-step microbatch: Bt 1, S 2048
+MAMBA_BWD_CASES = [  # name, (Bt, S, Di, N), u's dtype, B/C views, dh, K
+    ("train", MAMBA_TRAIN, torch.bfloat16, True, False, mk.STATE_EVERY),
+    ("train", MAMBA_TRAIN, torch.bfloat16, True, True, mk.STATE_EVERY),
+    ("S1", (1, 1, 300, 16), torch.bfloat16, True, True, 16),
+    ("S33", (2, 33, 520, 16), torch.float32, True, True, 16),
+    ("S2047", (1, 2047, 1024, 16), torch.bfloat16, True, True, 16),
+    ("N5", (3, 50, 260, 5), torch.float32, False, True, 16),
+    ("N64", (2, 70, 1000, 64), torch.float32, True, True, 16),
+    ("Bt3", (3, 100, 2048, 16), torch.bfloat16, False, False, 16),
+    ("K48", (2, 150, 700, 16), torch.float32, True, True, 48),  # re-walks
+]
+BWD_NAMES = ("du", "ddt", "dA", "dB", "dC", "dD")
+
+
+def mamba_bwd_work(Bt, S, Di, N, u_dtype, K):
+    """(bytes, exponentials) of one backward: u, dy and du in u's dtype;
+    dt, ddt, A, dA, B, C, dB, dC, D, dD, dh and the (S - 1) // K boundary
+    states in fp32, each read or written once; one exponential per (row,
+    step, channel, state), the decay the reverse recurrence needs."""
+    e = torch.finfo(u_dtype).bits // 8
+    nbytes = (3 * Bt * S * Di * e
+              + 4 * (2 * Bt * S * Di + 2 * Di * N + 4 * Bt * S * N + 2 * Di
+                     + Bt * Di * N
+                     + Bt * mk.n_saved_states(S, K) * Di * N))
+    return nbytes, Bt * S * Di * N
+
+
+def mamba_bound(nbytes, n_exp, clock):
+    """(bound ms, what bounds it, bytes ms, exponentials ms) at 3.35 TB/s
+    and 16 exponentials a clock on each of the 132 SMs."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_exp / (SFU_EXP_PER_CLOCK * N_SMS * clock) * 1e3
+    return (max(t_bytes, t_ops), "operations" if t_ops >= t_bytes
+            else "bytes", t_bytes, t_ops)
+
+
+def scan_close(got, want, extra=None):
+    """(ok, max |got - want|, that over max |want|): |got - want| <= 1e-4
+    |want| + 1e-4 max |want| (plus ``extra``) everywhere. Both are fp32
+    and differ in the order of their sums and in the kernel's ex2.approx
+    (relative error about 2^-22) against exp, which compounds over the
+    up to 2048 decays a state carries: up to ~5e-4 of a long-lived
+    state, and of the terms a near-zero entry cancels."""
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        return False, float("inf"), float("inf")
+    if not w.numel():
+        return True, 0.0, 0.0
+    diff = (g - w).abs()
+    top = w.abs().max()
+    tol = 1e-4 * w.abs() + 1e-4 * top
+    if extra is not None:
+        tol = tol + extra
+    err = diff.max().item()
+    return (bool(torch.isfinite(g).all() and (diff <= tol).all()), err,
+            err / max(top.item(), 1e-30))
+
+
+def hold_mamba_bwd(got, want, u_dtype):
+    """Each of the six gradients against the plain version's by
+    ``scan_close`` (du with bf16 u, which both round once, one bf16 ulp
+    beyond it). Returns ({name: (max |diff|, over max |plain|)}, the
+    names that failed)."""
+    errs, bad = {}, []
+    for n, g, w in zip(BWD_NAMES, got, want):
+        extra = (bf16_ulp(w) if n == "du" and u_dtype == torch.bfloat16
+                 else None)
+        ok, err, rel = scan_close(g, w, extra)
+        errs[n] = (err, rel)
+        if not ok:
+            bad.append(n)
+    return errs, bad
+
+
+def check_mamba_train():
+    """The scan's training path on the card: the forward at the train
+    step's shape (Bt 1, S 2048, Di 16384, N 16, bf16 u) with its boundary
+    states every 16 steps, which equal the plain scan's states at those
+    steps (``scan_close``) while y and h stay bitwise those of the launch
+    without states; then the backward kernel against the plain backward
+    from the same states (``hold_mamba_bwd``) at that shape, with
+    a zero and a nonzero final-state cotangent, and at S 1, 33, 2047, N 5
+    and 64, Bt 3, fp32 u, contiguous B/C and K 48, each rerun bitwise
+    equal; then both timed beside their bounds. Returns the (forward,
+    backward) records at the train shape."""
+    phase("kernels: mamba_scan forward with boundary states and its "
+          "backward at jamba's train shape vs plain PyTorch")
+    args = mamba_inputs(50, *MAMBA_TRAIN, torch.bfloat16, True)
+    y0, h0 = mk.mamba_scan_cuda(*args)
+    y1, h1, hs = mk.mamba_scan_cuda(*args, state_every=mk.STATE_EVERY)
+    torch.cuda.synchronize()
+    if not (torch.equal(y0, y1) and torch.equal(h0, h1)):
+        raise AssertionError("mamba_scan: y or h moved with the boundary "
+                             "states on")
+    _, _, want_hs = mk.mamba_scan_torch(*args, state_every=mk.STATE_EVERY)
+    ok, hs_err, hs_rel = scan_close(hs, want_hs)
+    failed = [] if ok else ["boundary states"]
+    print(f"  forward {MAMBA_TRAIN} bf16 u, states every {mk.STATE_EVERY}: "
+          f"{tuple(hs.shape)} boundary states, max|kernel-plain| "
+          f"{hs_err:.2e} = {hs_rel:.2e} of the largest "
+          f"({'ok' if ok else 'FAILS'}: 1e-4 |plain| + 1e-4 max|plain|); y "
+          f"and h bitwise equal to the launch without states", flush=True)
+    del y0, h0, y1, h1, hs, want_hs, args
+    torch.cuda.empty_cache()
+
+    train_err = 0.0
+    for i, (name, shape, u_dtype, views, with_dh, K) in enumerate(
+            MAMBA_BWD_CASES):
+        Bt, S, Di, N = shape
+        args = mamba_inputs(60 + i, *shape, u_dtype, views)
+        gen = torch.Generator(device="cuda").manual_seed(80 + i)
+        dy = torch.randn((Bt, S, Di), generator=gen, device="cuda").to(
+            u_dtype)
+        dh = (torch.randn((Bt, Di, N), generator=gen, device="cuda")
+              if with_dh else None)
+        _, _, hs = mk.mamba_scan_cuda(*args, state_every=K)
+        before = mk.mamba_scan_bwd_cuda.launches
+        got = mk.mamba_scan_bwd_cuda(*args, hs, dy, dh, state_every=K)
+        again = mk.mamba_scan_bwd_cuda(*args, hs, dy, dh, state_every=K)
+        torch.cuda.synchronize()
+        if mk.mamba_scan_bwd_cuda.launches - before != 2:
+            raise AssertionError("mamba_scan_bwd: not one count a call")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"mamba_scan_bwd {name}: a rerun differs")
+        want = mk.mamba_scan_bwd_torch(*args, hs, dy, dh, state_every=K)
+        errs, bad = hold_mamba_bwd(got, want, u_dtype)
+        failed += [f"backward {name} {shape} {u_dtype} {n}" for n in bad]
+        if name == "train":
+            train_err = max([train_err] + [e for e, _ in errs.values()])
+        print(f"  backward {name:6s} {str(shape):22s} u "
+              f"{str(u_dtype):14s} {'views' if views else 'contiguous'}, "
+              f"dh {'given' if with_dh else 'none'}, K {K}: max|kernel-plain| "
+              + ", ".join(f"{n} {e:.2e} ({r:.1e})"
+                          for n, (e, r) in errs.items())
+              + f"; rerun bitwise equal{'; FAILS ' + str(bad) if bad else ''}",
+              flush=True)
+        del args, dy, dh, hs, got, again, want
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"mamba_scan training path != plain: {failed}")
+
+    clock = sm_clock_hz()
+    args = mamba_inputs(99, *MAMBA_TRAIN, torch.bfloat16, True)
+    K = mk.STATE_EVERY
+    Bt, S, Di, N = MAMBA_TRAIN
+    _, _, hs = mk.mamba_scan_cuda(*args, state_every=K)
+    dy = (0.1 * torch.randn((Bt, S, Di), device="cuda")).to(torch.bfloat16)
+    fwd_ms = time_ms(lambda: mk.mamba_scan_cuda(*args, state_every=K))
+    bare_ms = time_ms(lambda: mk.mamba_scan_cuda(*args))
+    bwd_ms = time_ms(lambda: mk.mamba_scan_bwd_cuda(*args, hs, dy,
+                                                    state_every=K))
+    fwd_plain = time_ms(lambda: mk.mamba_scan_torch(*args, state_every=K), 2)
+    bwd_plain = time_ms(lambda: mk.mamba_scan_bwd_torch(
+        *args, hs, dy, state_every=K), 2)
+    fb, fe = mamba_work(*MAMBA_TRAIN, torch.bfloat16)
+    fb += 4 * hs.numel()  # the boundary states written
+    f_bound, f_by, f_tb, f_te = mamba_bound(fb, fe, clock)
+    bb, be = mamba_bwd_work(*MAMBA_TRAIN, torch.bfloat16, K)
+    b_bound, b_by, b_tb, b_te = mamba_bound(bb, be, clock)
+    print(f"  timing {MAMBA_TRAIN} bf16 u: forward with states {fwd_ms:.4f} "
+          f"ms (without {bare_ms:.4f}), plain {fwd_plain:.2f} ms; bound "
+          f"{f_bound:.4f} ms ({f_by}: {fb} B = {f_tb:.4f} ms, {fe} "
+          f"exponentials = {f_te:.4f} ms at {clock / 1e9:.3f} GHz; "
+          f"{100 * f_bound / fwd_ms:.1f}% of it); backward {bwd_ms:.4f} ms, "
+          f"plain {bwd_plain:.2f} ms; bound {b_bound:.4f} ms ({b_by}: {bb} "
+          f"B = {b_tb:.4f} ms, {be} exponentials = {b_te:.4f} ms; "
+          f"{100 * b_bound / bwd_ms:.1f}% of it); library_ms null: no "
+          f"PyTorch call computes a selective scan or its gradient",
+          flush=True)
+    del args, hs, dy
+    torch.cuda.empty_cache()
+    common = dict(route="cuda",
+                  source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                  replaces="src/repro/kernels/mamba.py:58", library_ms=None)
+    return (dict(name="mamba_scan_train", max_abs_err=hs_err, ms=fwd_ms,
+                 plain_ms=fwd_plain, bound_ms=f_bound, bound_by=f_by,
+                 **common),
+            dict(name="mamba_scan_bwd", max_abs_err=train_err, ms=bwd_ms,
+                 plain_ms=bwd_plain, bound_ms=b_bound, bound_by=b_by,
+                 **common))
+
+
 def check_flash_jamba():
     """The flash forward at jamba's attention layer (64 heads, 8 KV heads
     of 128, no positions, batch 1, causal, bf16) against its plain
-    version at S 128 and 17, timed at S 128."""
-    phase("kernels: flash_attention forward at jamba's prefill shape vs "
+    version at S 128 and 17, timed at S 128; then forward and backward at
+    its train step's shape (B 1, S 2048: one of 8 microbatches), as
+    ``check_flash_case`` holds and times them. Returns (the prefill
+    record, the train shape's forward and backward records)."""
+    phase("kernels: flash_attention at jamba's prefill and train shapes vs "
           "plain PyTorch")
     H, K, D, dtype = 64, 8, 128, torch.bfloat16
     tol = TOL[dtype]
@@ -1376,11 +1577,16 @@ def check_flash_jamba():
           f"{b:.4f}, {by}: {flops} flop, {nbytes} B), plain {plain_ms:.4f} "
           f"ms, sdpa {sdpa_ms:.4f} ms (on K/V expanded to {H} heads "
           f"beforehand), kernel/sdpa {ms / sdpa_ms:.3f}", flush=True)
-    return dict(name="flash_attention_fwd_jamba", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:102",
-                max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b,
-                bound_by=by, library_ms=sdpa_ms)
+    prefill = dict(name="flash_attention_fwd_jamba", route="cuda",
+                   source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                   replaces="src/repro/kernels/flash_attention.py:102",
+                   max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b,
+                   bound_by=by, library_ms=sdpa_ms)
+    del q, k, v, qs, ks, vs
+    train_fwd, train_bwd = check_flash_case(
+        320, JAMBA, TRAIN_BATCH_JAMBA // get_config(JAMBA).microbatches,
+        TRAIN_SEQ, H, K, D, dtype, tol, "_jamba_train")
+    return prefill, train_fwd, train_bwd
 
 
 # --------------------------------------------------------------------------- #
@@ -1812,6 +2018,64 @@ def reduced_jamba_vs_cpu():
           flush=True)
 
 
+def reduced_jamba_train_vs_cpu():
+    """Reduced jamba-1.5-large in fp32 (fp32 gradients and Adam moments)
+    from the same ``params_from_numpy`` weights, norm scales perturbed:
+    the card's path (the mamba_scan forward and backward kernels, the
+    flash kernels, cuBLAS) against the CPU's plain path. The loss to
+    rtol 1e-4 and every gradient to 1e-3 of its leaf's largest entry
+    (GNMT's check: both sides compute in fp32 and differ in the order of
+    their sums), then the losses of 3 Adam steps through ``Trainer.fit``
+    to rtol 1e-4."""
+    phase("check: reduced jamba-1.5-large training, card vs CPU plain path, "
+          "fp32")
+    cfg = dataclasses.replace(get_config(JAMBA).reduced(), dtype="float32",
+                              kv_cache_dtype="float32", grad_dtype="float32",
+                              moment_dtype="float32")
+    tree = lm.perturb_norms(reference_layout(
+        lm.init_lm(cfg, 1, device="cpu", dtype=torch.float32), cfg), 1)
+    toks = torch.randint(0, cfg.vocab, (4, 40),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    mk.reset_launches()
+    for dev in ("cpu", "cuda"):
+        params = lm.params_from_numpy(tree, cfg, device=dev,
+                                      dtype=torch.float32)
+        leaves = tree_leaves(params)
+        for w in leaves:
+            w.requires_grad_(True)
+        loss, _ = lm.loss_fn(params, cfg, {"tokens": toks.to(dev)})
+        out[dev] = (loss.item(), [g.cpu() for g in
+                                  torch.autograd.grad(loss, leaves)])
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.block_pattern)
+    got = (mk.mamba_scan_cuda.launches, mk.mamba_scan_bwd_cuda.launches)
+    if got != (n_mamba, n_mamba):
+        raise AssertionError(f"reduced jamba's card step launched mamba_scan "
+                             f"forward, backward {got}, not {n_mamba} each")
+    (lc, gc_), (lg, gg) = out["cpu"], out["cuda"]
+    err = max(((a - b).abs().max() / max(a.abs().max().item(), 1e-12)).item()
+              for a, b in zip(gc_, gg))
+    print(f"  loss cpu {lc:.6f} card {lg:.6f}; gradients max |card-cpu| / "
+          f"max|cpu| {err:.2e} over {len(gc_)} leaves (tol 1e-3); mamba_scan "
+          f"launches forward {got[0]}, backward {got[1]}", flush=True)
+    if abs(lc - lg) > 1e-4 * abs(lc) or err > 1e-3:
+        raise AssertionError(f"reduced jamba training differs card vs CPU: "
+                             f"loss {lc} vs {lg}, gradient {err}")
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        params = lm.params_from_numpy(tree, cfg, device=dev,
+                                      dtype=torch.float32)
+        tr = Trainer(cfg, TrainerConfig(total_steps=3, log_every=0),
+                     device=dev, params=params)
+        hist = tr.fit(synthetic_lm_batches(cfg, batch=4, seq=40, steps=3))
+        losses[dev] = [r["loss"] for r in hist]
+    print(f"  3 Adam steps: losses cpu {losses['cpu']}, card "
+          f"{losses['cuda']}", flush=True)
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0):
+        raise AssertionError(f"reduced jamba train losses differ card vs "
+                             f"CPU: {losses}")
+
+
 def reduced_quant_vs_cpu():
     """Reduced gemma-7b in fp32 from int8 and int4 pools, with the prefix
     cache and n-gram speculative decoding, on a shared-prefix server
@@ -2086,12 +2350,12 @@ def full_train_config():
                                n_layers=TRAIN_LAYERS)
 
 
-def run_trainer(cfg, steps):
+def run_trainer(cfg, steps, batch=TRAIN_BATCH):
     """A fresh trainer (weights from seed 0) fitted for ``steps`` steps of
     ``synthetic_lm_batches(seed=0)``; returns (trainer, history)."""
     tr = Trainer(cfg, TrainerConfig(total_steps=steps, log_every=1),
                  device="cuda")
-    hist = tr.fit(synthetic_lm_batches(cfg, batch=TRAIN_BATCH,
+    hist = tr.fit(synthetic_lm_batches(cfg, batch=batch,
                                        seq=TRAIN_SEQ, steps=steps, seed=0),
                   hooks=tr.default_hooks() + [SyncEveryStep()])
     return tr, hist
@@ -3395,13 +3659,139 @@ def train_archs():
     return launches
 
 
+# What one parameter of the jamba train cut holds on the card: an fp32
+# master, a bf16 compute copy, a bf16 gradient sum and two bf16 moments.
+JAMBA_STATE_BYTES = 12
+# Room for the activations of one remat'ed layer at 1 x 2048 and the
+# allocator's slack.
+JAMBA_ACT_BYTES = 4 << 30
+
+
+def jamba_train_config(free):
+    """The train cut of jamba-1.5-large at every published width:
+    ``jamba_cut()``'s three layers with 4 of 16 experts when the reckoned
+    peak fits in ``free`` bytes; else without its attention + dense layer;
+    else that with 2 experts. The peak is the backward's: 12 B a parameter
+    plus ``JAMBA_ACT_BYTES`` (Adam's, after it, holds 10 B a parameter and
+    the temporaries of one ``optim.adam.SLICE``). Prints the reckoning;
+    returns (cfg, what was cut)."""
+    base = jamba_cut()
+    pat = base.block_pattern
+    two = dataclasses.replace(base, n_layers=2, block_pattern=pat[:2])
+
+    def experts(cfg, E):
+        return dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=E))
+
+    for cut, cfg in (("3 layers, 4 of 16 experts", experts(base, 4)),
+                     ("2 layers (attention + dense dropped), 4 of 16 "
+                      "experts", experts(two, 4)),
+                     ("2 layers (attention + dense dropped), 2 of 16 "
+                      "experts", experts(two, 2))):
+        n = cfg.param_count()
+        peak = JAMBA_STATE_BYTES * n + JAMBA_ACT_BYTES
+        fits = peak <= free
+        print(f"  reckoning {cut}: {n / 1e9:.3f} B params x "
+              f"{JAMBA_STATE_BYTES} B = {JAMBA_STATE_BYTES * n / 2**30:.1f} "
+              f"GiB of state; peak ~{peak / 2**30:.1f} GiB against "
+              f"{free / 2**30:.1f} GiB free: {'fits' if fits else 'no'}",
+              flush=True)
+        if fits:
+            return cfg, cut
+    raise AssertionError("no jamba train cut fits on this card")
+
+
+def train_jamba():
+    """Full-width jamba-1.5-large cut by ``jamba_train_config`` takes 4
+    steps of batch 8 x 2048 (its 8 microbatches of 1 x 2048, bf16
+    gradient sums and moments, fp32 masters, remat) through
+    ``Trainer.fit``. The counters, zeroed just before, must show per step
+    and Mamba layer mamba_scan forward 2 x 8 (with the remat recompute)
+    and backward 8, per attention layer flash forward 2 x 8 and backward
+    8; a second run from the same seed must repeat the losses bitwise.
+    Returns the launches (mamba forward, mamba backward, flash forward,
+    flash backward)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("train: jamba-1.5-large full width, reckoning the cut")
+    free = torch.cuda.mem_get_info()[0]
+    cfg, cut = jamba_train_config(free)
+    M = cfg.microbatches
+    phase(f"train: jamba-1.5-large full width, {cut} (memory), batch "
+          f"{TRAIN_BATCH_JAMBA} x {TRAIN_SEQ}, {M} microbatches, fp32 "
+          f"masters, {cfg.grad_dtype} gradients, {cfg.moment_dtype} moments, "
+          f"bf16 compute, remat")
+    if not cfg.remat or TRAIN_BATCH_JAMBA // M != 1:
+        raise AssertionError("the full config trains with remat, one row a "
+                             "microbatch")
+    torch.cuda.reset_peak_memory_stats()
+    mk.reset_launches()
+    fa.flash_attention_fwd_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.launches = 0
+    t0 = time.perf_counter()
+    tr, hist = run_trainer(cfg, TRAIN_STEPS, batch=TRAIN_BATCH_JAMBA)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (mk.mamba_scan_cuda.launches, mk.mamba_scan_bwd_cuda.launches,
+                fa.flash_attention_fwd_cuda.launches,
+                fa.flash_attention_bwd_cuda.launches)
+    n_params = sum(p.numel() for p in tree_leaves(tr.state["params"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in hist]
+    nlls = [r["nll"] for r in hist]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_mamba = sum(s.mixer == "mamba" for s in cfg.block_pattern)
+    n_attn = cfg.n_layers - n_mamba
+    per_step = (2 * n_mamba * M, n_mamba * M, 2 * n_attn * M, n_attn * M)
+    want = tuple(TRAIN_STEPS * n for n in per_step)
+    step_ms = float(np.median([r["step_ms"] for r in hist[1:]]))
+    tok_s = TRAIN_BATCH_JAMBA * TRAIN_SEQ / (step_ms / 1e3)
+    aux = [a - b for a, b in zip(losses, nlls)]
+    print(f"  {n_params / 1e9:.3f} B params; {TRAIN_STEPS} steps in "
+          f"{wall:.1f} s; losses {losses}; aux term (loss - nll = "
+          f"{cfg.moe.aux_loss_weight} x aux) {aux}; step {step_ms:.1f} ms "
+          f"(median of steps 2-{TRAIN_STEPS}: "
+          f"{[round(r['step_ms'], 1) for r in hist]}), {tok_s:.0f} tokens/s; "
+          f"peak memory {peak:.2f} GiB; launches mamba_scan forward "
+          f"{launches[0]}, backward {launches[1]}, flash forward "
+          f"{launches[2]}, backward {launches[3]} (expected {want}: per step "
+          f"{per_step})", flush=True)
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"jamba: non-finite or missing losses {hist}")
+    if launches != want:
+        raise AssertionError(f"jamba: launches {launches} != {want}")
+    tr, again = run_trainer(cfg, 2, batch=TRAIN_BATCH_JAMBA)
+    again = [r["loss"] for r in again]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  second run, 2 steps: losses {again}", flush=True)
+    if again != losses[:2]:
+        raise AssertionError(f"jamba: a second run's losses differ: {again} "
+                             f"vs {losses[:2]}")
+    print("  bitwise equal to the first run's", flush=True)
+    summary = dict(arch=JAMBA, cut=cut, n_layers=cfg.n_layers,
+                   n_experts=cfg.moe.n_experts, n_params=n_params,
+                   step_ms=step_ms, tokens_per_s=tok_s, peak_mem_gib=peak,
+                   losses=losses, aux_term=aux, launches=launches,
+                   wall_s=wall)
+    print(f"  train summary {json.dumps(summary)}", flush=True)
+    return launches
+
+
 PHASES = {  # --only names: the phases a short run may pick
     "paged": lambda: (check_kernel(), check_paged_archs()),
     "flash": lambda: (check_flash(), check_flash_archs()),
     "lstm": check_lstm,
-    "lars": check_lars, "mamba": check_mamba,
-    "flash-jamba": check_flash_jamba, "check-jamba": reduced_jamba_vs_cpu,
-    "serve-jamba": serve_jamba_full, "train-gnmt": train_gnmt_full,
+    "lars": check_lars,
+    "mamba": lambda: (check_mamba(), check_mamba_train()),
+    "flash-jamba": check_flash_jamba,
+    "check-jamba": lambda: (reduced_jamba_vs_cpu(),
+                            reduced_jamba_train_vs_cpu()),
+    "serve-jamba": serve_jamba_full, "train-jamba": train_jamba,
+    "train-gnmt": train_gnmt_full,
     "train-resnet": train_resnet_full,
     "serve-sample": lambda: serve_sample(full_serve_params()),
     "train-resume": train_resume,
@@ -3451,10 +3841,12 @@ def main(argv=None) -> int:
     lstm_fwd, lstm_bwd = check_lstm()
     lars_norms, lars_update = check_lars()
     mamba = check_mamba()
-    flash_jamba = check_flash_jamba()
+    mamba_train, mamba_bwd = check_mamba_train()
+    flash_jamba, flash_jamba_fwd, flash_jamba_bwd = check_flash_jamba()
     reduced_vs_cpu()
     reduced_quant_vs_cpu()
     reduced_jamba_vs_cpu()
+    reduced_jamba_train_vs_cpu()
     reduced_train_vs_cpu()
     reduced_gnmt_vs_cpu()
     reduced_resnet_vs_cpu()
@@ -3476,10 +3868,13 @@ def main(argv=None) -> int:
         if arch in flash_archs:
             flash_archs[arch][0]["launches"] = fwd
             flash_archs[arch][1]["launches"] = bwd
+    (mamba_train["launches"], mamba_bwd["launches"],
+     flash_jamba_fwd["launches"], flash_jamba_bwd["launches"]) = train_jamba()
     recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,
-            lstm_fwd, lstm_bwd, lars_norms, lars_update,
-            *paged_archs.values(),
-            *(r for pair in flash_archs.values() for r in pair)]
+            mamba_train, mamba_bwd, lstm_fwd, lstm_bwd, lars_norms,
+            lars_update, *paged_archs.values(),
+            *(r for pair in flash_archs.values() for r in pair),
+            flash_jamba_fwd, flash_jamba_bwd]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"  whole smoke wall {time.perf_counter() - t0:.1f} s", flush=True)

@@ -12,7 +12,8 @@ slices serve from int8/int4 pools (the paged kernel's quantized
 branches), train GNMT through the LSTM cell kernels, train ResNet-50
 v1.5 with LARS through the ``lars_update`` kernels, and serve
 ``jamba-1.5-large`` (Mamba, MoE and attention layers) through the
-slot-slab layout, its Mamba prefill through the ``mamba_scan`` kernel.
+slot-slab layout, its Mamba prefill through the ``mamba_scan`` kernel,
+and train it through that kernel and its backward kernel.
 The serving engine samples at a temperature with counter-based keys bit
 for bit those of ``jax.random`` (:mod:`repro_torch.random`); the trainer
 saves and resumes checkpoints in the reference's format and reads the

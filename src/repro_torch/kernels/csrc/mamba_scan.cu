@@ -56,6 +56,17 @@
 // each SM's special-function units, about 0.016 ms at 1.98 GHz: the
 // exponentials bound it. No atomics (a rerun is bitwise equal), no host
 // synchronisation.
+//
+// Training. With an hs pointer the forward also writes the state entering
+// every K-step chunk but the first (K a multiple of kT); the same kernel
+// runs either way, so y and h do not move. mamba_scan_bwd_kernel, the
+// port's own (the reference differentiates a chunked lax.scan with
+// jax.grad), rebuilds each chunk from its boundary state and runs the
+// reverse recurrence; see its comment. At Jamba's train shape (Bt 1, S
+// 2048, Di 16384, N 16, bf16 u, K 16) it must move ~607 MB (0.181 ms)
+// against 536,870,912 exponentials (0.128 ms): bytes bound it. This first
+// version loads each 16-step tile synchronously and takes two exponentials
+// an element (the rebuild and the reverse step).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -110,6 +121,21 @@ __device__ __forceinline__ void load_vec(const float* p, float (&v)[K]) {
   }
 }
 
+// A lane's kP states of channel d into entry j of a (Bt, nj, Di, N) fp32
+// array of states (the final h: nj = 1; the boundary states: one entry a
+// K-step chunk boundary inside the sequence).
+template <int kP>
+__device__ __forceinline__ void store_state(float* out, const float (&h)[kP],
+                                            int b, int j, int nj, int d,
+                                            int Di, int N, int lane) {
+  float* hd = out + ((static_cast<long long>(b) * nj + j) * Di + d) * N;
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const int n = lane * kP + p;
+    if (n < N) hd[n] = h[p];
+  }
+}
+
 // A channel belongs to kLanes neighbouring threads; lane l holds its states
 // l * kP .. l * kP + kP - 1.
 template <typename TU, int kLanes, int kP>
@@ -117,9 +143,10 @@ __global__ void __launch_bounds__(kThreads)
 mamba_scan_kernel(const TU* __restrict__ u, const float* __restrict__ dt,
                   const float* __restrict__ A, const float* __restrict__ Bm,
                   const float* __restrict__ Cm, const float* __restrict__ Dv,
-                  TU* __restrict__ y, float* __restrict__ h_out, int S,
-                  int Di, int N, long long sB_b, long long sB_t,
-                  long long sC_b, long long sC_t) {
+                  TU* __restrict__ y, float* __restrict__ h_out,
+                  float* __restrict__ hs, int S, int Di, int N, int K,
+                  long long sB_b, long long sB_t, long long sC_b,
+                  long long sC_t) {
   constexpr int kNP = kLanes * kP;                      // padded states
   constexpr int kCh = kThreads / kLanes;                // channels a block
   constexpr int kUD = kT * kCh / kThreads;              // u, dt a thread stages
@@ -250,45 +277,302 @@ mamba_scan_kernel(const TU* __restrict__ u, const float* __restrict__ dt,
       const int tt = w * kLanes + lane;
       if (tt < nt) y_s[tt][cl] = fmaf(dd, ud_s[tt][cl].x, part[0]);
     }
+    // The state entering step t0 + kT, when that is a boundary of the
+    // K-step chunks strictly inside the sequence (K a multiple of kT).
+    if (hs != nullptr && (t0 + kT) % K == 0 && t0 + kT < S && d < Di)
+      store_state(hs, h, b, (t0 + kT) / K - 1, (S - 1) / K, d, Di, N, lane);
   }
   if (n_chunks > 0) {
     __syncthreads();
     const int t0 = (n_chunks - 1) * kT;
     write_y(t0, S - t0);
   }
-  if (d < Di) {
-    float* hd = h_out + (static_cast<long long>(b) * Di + d) * N;
+  if (d < Di) store_state(h_out, h, b, 0, 1, d, Di, N, lane);
+}
+
+
+// ---------------------------------------------------------------------------
+// Backward: the port's own kernel (the reference differentiates its scan with
+// jax.grad of ops._mamba_scan_jnp, a chunked, checkpointed lax.scan).
+// ---------------------------------------------------------------------------
+constexpr int kWarps = kThreads / 32;
+
+// Sum over the kLanes lanes of a channel (xor butterfly: every lane ends
+// with the same sum, in a fixed order).
+template <int kLanes>
+__device__ __forceinline__ float lane_sum(float v) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Sum over the 32 / kLanes channels of a warp, lane by lane (the same
+// butterfly over the offsets kLanes .. 16).
+template <int kLanes>
+__device__ __forceinline__ float warp_channel_sum(float v) {
+#pragma unroll
+  for (int o = kLanes; o < 32; o <<= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// A block owns kCh channels, every batch row in turn, and walks the K-step
+// chunks from last to first, each in kT-step tiles from last to first. For a
+// tile it rebuilds the state entering it from the chunk's boundary state
+// (hs; zero for the first chunk), walking the chunk's earlier tiles forward,
+// then keeps the tile's kT + 1 states in registers (hist, fully unrolled)
+// and runs the reverse recurrence over it, with g = dL/dh:
+//   g += C_t dy_t;               a = exp(dt_t A)
+//   du_t = D dy_t + dt_t sum_n g B_t;   ddt_t = sum_n g (A a h_{t-1} + B_t u_t)
+//   dA += g dt_t a h_{t-1};      dD += dy_t u_t      (in registers, all rows)
+//   dB_t += g dt_t u_t;          dC_t += h_t dy_t    (summed over channels)
+//   g *= a
+// starting from the final state's cotangent dh (zero when null). The decay is
+// the forward's own ex2(dt * A * log2 e), so the rebuilt states are bitwise
+// the forward's. dB and dC are summed over a warp's channels by shuffles,
+// over the block's warps in order through shared memory, and written as this
+// block's partial; mamba_bc_reduce_kernel sums the partials in block order.
+// No atomics: a rerun is bitwise equal.
+template <typename TU, int kLanes, int kP>
+__global__ void __launch_bounds__(kThreads)
+mamba_scan_bwd_kernel(const TU* __restrict__ u, const float* __restrict__ dt,
+                      const float* __restrict__ A,
+                      const float* __restrict__ Bm,
+                      const float* __restrict__ Cm,
+                      const float* __restrict__ Dv,
+                      const float* __restrict__ hs, const TU* __restrict__ dy,
+                      const float* __restrict__ dh, TU* __restrict__ du,
+                      float* __restrict__ ddt, float* __restrict__ dA,
+                      float* __restrict__ dD, float* __restrict__ part,
+                      int Bt, int S, int Di, int N, int K, long long sB_b,
+                      long long sB_t, long long sC_b, long long sC_t) {
+  constexpr int kNP = kLanes * kP;
+  constexpr int kCh = kThreads / kLanes;
+  __shared__ float2 ud_s[kT][kCh];                      // (u, dt)
+  __shared__ float dy_s[kT][kCh];
+  __shared__ __align__(16) float B_s[kT][kNP];
+  __shared__ __align__(16) float C_s[kT][kNP];
+  __shared__ float2 out_s[kT][kCh];                     // (du, ddt)
+  __shared__ float red_s[2][kT][kWarps][kNP];           // dB, dC a warp
+
+  const int c0 = blockIdx.x * kCh;
+  const int tid = threadIdx.x;
+  const int cl = tid / kLanes;
+  const int lane = tid % kLanes;
+  const int warp = tid / 32;
+  const int d = c0 + cl;
+  const int n_blk = gridDim.x;
+
+  float a2[kP], av[kP], dA_acc[kP];
+#pragma unroll
+  for (int p = 0; p < kP; ++p) {
+    const int n = lane * kP + p;
+    av[p] = (d < Di && n < N) ? A[static_cast<long long>(d) * N + n] : 0.f;
+    a2[p] = av[p] * kLog2e;
+    dA_acc[p] = 0.f;
+  }
+  const float dd = d < Di ? Dv[d] : 0.f;
+  float dD_acc = 0.f;
+  const int n_chunks = (S + K - 1) / K;
+  const int n_saved = S > 0 ? (S - 1) / K : 0;
+  const long long SN = static_cast<long long>(S) * N;
+
+  // The kT steps from t0 of row b into shared memory; zero past S, Di, N.
+  auto stage = [&](int b, int t0) {
+    __syncthreads();  // every read of the previous tiles is done
+    for (int e = tid; e < kT * kCh; e += kThreads) {
+      const int tt = e / kCh, c = e % kCh;
+      float uv = 0.f, dv = 0.f, gv = 0.f;
+      if (t0 + tt < S && c0 + c < Di) {
+        const long long at =
+            (static_cast<long long>(b) * S + t0 + tt) * Di + c0 + c;
+        uv = to_float(u[at]);
+        dv = dt[at];
+        gv = to_float(dy[at]);
+      }
+      ud_s[tt][c] = make_float2(uv, dv);
+      dy_s[tt][c] = gv;
+    }
+    for (int e = tid; e < kT * kNP; e += kThreads) {
+      const int tt = e / kNP, n = e % kNP;
+      const long long t = t0 + tt;
+      float bv = 0.f, cv = 0.f;
+      if (t < S && n < N) {
+        bv = Bm[b * sB_b + t * sB_t + n];
+        cv = Cm[b * sC_b + t * sC_t + n];
+      }
+      B_s[tt][n] = bv;
+      C_s[tt][n] = cv;
+    }
+    __syncthreads();
+  };
+
+  for (int b = 0; b < Bt; ++b) {
+    float g[kP];
 #pragma unroll
     for (int p = 0; p < kP; ++p) {
       const int n = lane * kP + p;
-      if (n < N) hd[n] = h[p];
+      g[p] = (dh != nullptr && d < Di && n < N)
+                 ? dh[(static_cast<long long>(b) * Di + d) * N + n]
+                 : 0.f;
+    }
+    for (int j = n_chunks - 1; j >= 0; --j) {
+      const int cs = j * K;
+      const int ce = S < cs + K ? S : cs + K;
+      for (int t0 = cs + (ce - cs - 1) / kT * kT; t0 >= cs; t0 -= kT) {
+        float hist[kT + 1][kP];
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          const int n = lane * kP + p;
+          hist[0][p] =
+              (j > 0 && d < Di && n < N)
+                  ? hs[((static_cast<long long>(b) * n_saved + j - 1) * Di +
+                        d) * N + n]
+                  : 0.f;
+        }
+        // walk the chunk's earlier tiles to the state entering t0
+        for (int t = cs; t < t0; t += kT) {
+          stage(b, t);
+#pragma unroll
+          for (int i = 0; i < kT; ++i) {
+            const float2 ud = ud_s[i][cl];
+            const float dtu = ud.y * ud.x;
+            float bv[kP];
+            load_vec<kP>(&B_s[i][lane * kP], bv);
+#pragma unroll
+            for (int p = 0; p < kP; ++p)
+              hist[0][p] = fmaf(ex2(ud.y * a2[p]), hist[0][p], dtu * bv[p]);
+          }
+        }
+        stage(b, t0);
+#pragma unroll
+        for (int i = 0; i < kT; ++i) {
+          const float2 ud = ud_s[i][cl];
+          const float dtu = ud.y * ud.x;
+          float bv[kP];
+          load_vec<kP>(&B_s[i][lane * kP], bv);
+#pragma unroll
+          for (int p = 0; p < kP; ++p)
+            hist[i + 1][p] = fmaf(ex2(ud.y * a2[p]), hist[i][p], dtu * bv[p]);
+        }
+        // the reverse recurrence over the tile (steps past S read zeros:
+        // dy = dt = 0, so g, dA and dD do not move and nothing is written)
+#pragma unroll
+        for (int i = kT - 1; i >= 0; --i) {
+          const float2 ud = ud_s[i][cl];
+          const float u_t = ud.x, dt_t = ud.y, dy_t = dy_s[i][cl];
+          float bv[kP], cv[kP], dbv[kP], dcv[kP];
+          load_vec<kP>(&B_s[i][lane * kP], bv);
+          load_vec<kP>(&C_s[i][lane * kP], cv);
+          float sdu = 0.f, sdt = 0.f;
+#pragma unroll
+          for (int p = 0; p < kP; ++p) {
+            g[p] = fmaf(cv[p], dy_t, g[p]);
+            const float a = ex2(dt_t * a2[p]);
+            const float ah = a * hist[i][p];
+            sdu = fmaf(g[p], bv[p], sdu);
+            sdt = fmaf(g[p], fmaf(av[p], ah, bv[p] * u_t), sdt);
+            const float gdt = g[p] * dt_t;
+            dA_acc[p] = fmaf(gdt, ah, dA_acc[p]);
+            dbv[p] = gdt * u_t;
+            dcv[p] = hist[i + 1][p] * dy_t;
+            g[p] *= a;
+          }
+          sdu = lane_sum<kLanes>(sdu);
+          sdt = lane_sum<kLanes>(sdt);
+          if (lane == 0)
+            out_s[i][cl] = make_float2(fmaf(dd, dy_t, dt_t * sdu), sdt);
+          dD_acc = fmaf(dy_t, u_t, dD_acc);
+#pragma unroll
+          for (int p = 0; p < kP; ++p) {
+            dbv[p] = warp_channel_sum<kLanes>(dbv[p]);
+            dcv[p] = warp_channel_sum<kLanes>(dcv[p]);
+          }
+          if (tid % 32 < kLanes) {
+#pragma unroll
+            for (int p = 0; p < kP; ++p) {
+              red_s[0][i][warp][lane * kP + p] = dbv[p];
+              red_s[1][i][warp][lane * kP + p] = dcv[p];
+            }
+          }
+        }
+        __syncthreads();
+        const int nt = S - t0 < kT ? S - t0 : kT;
+        for (int e = tid; e < nt * kCh; e += kThreads) {
+          const int tt = e / kCh, c = e % kCh;
+          if (c0 + c < Di) {
+            const long long at =
+                (static_cast<long long>(b) * S + t0 + tt) * Di + c0 + c;
+            store(du + at, out_s[tt][c].x);
+            ddt[at] = out_s[tt][c].y;
+          }
+        }
+        for (int e = tid; e < 2 * nt * kNP; e += kThreads) {
+          const int q = e / (nt * kNP), r = e % (nt * kNP);
+          const int tt = r / kNP, n = r % kNP;
+          if (n < N) {
+            float s = red_s[q][tt][0][n];
+#pragma unroll
+            for (int w = 1; w < kWarps; ++w) s += red_s[q][tt][w][n];
+            part[((static_cast<long long>(q) * n_blk + blockIdx.x) * Bt + b) *
+                     SN + static_cast<long long>(t0 + tt) * N + n] = s;
+          }
+        }
+        // the next stage() starts with __syncthreads: these reads of out_s
+        // and red_s end before the next tile writes them
+      }
     }
   }
+  if (d < Di) {
+#pragma unroll
+    for (int p = 0; p < kP; ++p) {
+      const int n = lane * kP + p;
+      if (n < N) dA[static_cast<long long>(d) * N + n] = dA_acc[p];
+    }
+    if (lane == 0) dD[d] = dD_acc;
+  }
+}
+
+// out[q][e] = sum over the n_blk blocks' partials part[q][k][e], in block
+// order (q = 0: dB, 1: dC; e over Bt * S * N).
+__global__ void mamba_bc_reduce_kernel(const float* __restrict__ part,
+                                       float* __restrict__ out, int n_blk,
+                                       long long M) {
+  const long long e = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  if (e >= 2 * M) return;
+  const long long q = e / M, r = e % M;
+  const float* p = part + q * n_blk * M + r;
+  float s = p[0];
+  for (int k = 1; k < n_blk; ++k) s += p[k * M];
+  out[e] = s;
 }
 
 template <typename TU, int kLanes, int kP>
 void launch(const void* u, const void* dt, const void* A, const void* B,
-            const void* C, const void* D, void* y, void* h, int Bt, int S,
-            int Di, int N, long long sB_b, long long sB_t, long long sC_b,
-            long long sC_t, cudaStream_t s) {
+            const void* C, const void* D, void* y, void* h, void* hs, int Bt,
+            int S, int Di, int N, int K, long long sB_b, long long sB_t,
+            long long sC_b, long long sC_t, cudaStream_t s) {
   constexpr int kCh = kThreads / kLanes;
   const dim3 grid((Di + kCh - 1) / kCh, Bt);
   mamba_scan_kernel<TU, kLanes, kP><<<grid, kThreads, 0, s>>>(
       static_cast<const TU*>(u), static_cast<const float*>(dt),
       static_cast<const float*>(A), static_cast<const float*>(B),
       static_cast<const float*>(C), static_cast<const float*>(D),
-      static_cast<TU*>(y), static_cast<float*>(h), S, Di, N, sB_b, sB_t,
-      sC_b, sC_t);
+      static_cast<TU*>(y), static_cast<float*>(h), static_cast<float*>(hs),
+      S, Di, N, K, sB_b, sB_t, sC_b, sC_t);
 }
 
 template <typename TU>
 void launch_n(const void* u, const void* dt, const void* A, const void* B,
-              const void* C, const void* D, void* y, void* h, int Bt, int S,
-              int Di, int N, long long sB_b, long long sB_t, long long sC_b,
-              long long sC_t, cudaStream_t s) {
-#define MAMBA_LAUNCH(L, P)                                                   \
-  launch<TU, L, P>(u, dt, A, B, C, D, y, h, Bt, S, Di, N, sB_b, sB_t, sC_b, \
-                   sC_t, s)
+              const void* C, const void* D, void* y, void* h, void* hs,
+              int Bt, int S, int Di, int N, int K, long long sB_b,
+              long long sB_t, long long sC_b, long long sC_t,
+              cudaStream_t s) {
+#define MAMBA_LAUNCH(L, P)                                                \
+  launch<TU, L, P>(u, dt, A, B, C, D, y, h, hs, Bt, S, Di, N, K, sB_b,    \
+                   sB_t, sC_b, sC_t, s)
   if (N <= 4)
     MAMBA_LAUNCH(4, 1);
   else if (N <= 8)
@@ -302,25 +586,125 @@ void launch_n(const void* u, const void* dt, const void* A, const void* B,
 #undef MAMBA_LAUNCH
 }
 
+// The backward's lanes a channel: at most 4 states a lane, so the tile's
+// kT + 1 states of a lane fit in registers.
+int bwd_lanes(int N) { return N <= 16 ? 4 : N <= 32 ? 8 : 16; }
+
+template <typename TU, int kLanes, int kP>
+void launch_bwd(const void* u, const void* dt, const void* A, const void* B,
+                const void* C, const void* D, const void* hs, const void* dy,
+                const void* dh, void* du, void* ddt, void* dA, void* dD,
+                void* part, int Bt, int S, int Di, int N, int K,
+                long long sB_b, long long sB_t, long long sC_b,
+                long long sC_t, cudaStream_t s) {
+  constexpr int kCh = kThreads / kLanes;
+  mamba_scan_bwd_kernel<TU, kLanes, kP>
+      <<<(Di + kCh - 1) / kCh, kThreads, 0, s>>>(
+          static_cast<const TU*>(u), static_cast<const float*>(dt),
+          static_cast<const float*>(A), static_cast<const float*>(B),
+          static_cast<const float*>(C), static_cast<const float*>(D),
+          static_cast<const float*>(hs), static_cast<const TU*>(dy),
+          static_cast<const float*>(dh), static_cast<TU*>(du),
+          static_cast<float*>(ddt), static_cast<float*>(dA),
+          static_cast<float*>(dD), static_cast<float*>(part), Bt, S, Di, N,
+          K, sB_b, sB_t, sC_b, sC_t);
+}
+
+template <typename TU>
+void launch_bwd_n(const void* u, const void* dt, const void* A,
+                  const void* B, const void* C, const void* D,
+                  const void* hs, const void* dy, const void* dh, void* du,
+                  void* ddt, void* dA, void* dD, void* part, int Bt, int S,
+                  int Di, int N, int K, long long sB_b, long long sB_t,
+                  long long sC_b, long long sC_t, cudaStream_t s) {
+#define MAMBA_BWD(L, P)                                                    \
+  launch_bwd<TU, L, P>(u, dt, A, B, C, D, hs, dy, dh, du, ddt, dA, dD,     \
+                       part, Bt, S, Di, N, K, sB_b, sB_t, sC_b, sC_t, s)
+  if (N <= 4)
+    MAMBA_BWD(4, 1);
+  else if (N <= 8)
+    MAMBA_BWD(4, 2);
+  else if (N <= 16)
+    MAMBA_BWD(4, 4);
+  else if (N <= 32)
+    MAMBA_BWD(8, 4);
+  else
+    MAMBA_BWD(16, 4);
+#undef MAMBA_BWD
+}
+
 }  // namespace
 
 // u, y: (Bt, S, Di) contiguous, bf16 (u_bf16 = 1) or fp32; dt: (Bt, S, Di)
 // contiguous fp32; A: (Di, N) contiguous fp32; B, C: fp32 with element
 // (b, t, n) at b * s*_b + t * s*_t + n; D: (Di,) fp32; h: (Bt, Di, N) fp32
-// out. 1 <= N <= 64.
+// out. hs: null, or (Bt, (S - 1) / K, Di, N) fp32 out, the state after
+// steps K - 1, 2K - 1, ... (the boundaries of the K-step chunks inside the
+// sequence), K a positive multiple of 16; without hs the launch is the
+// same kernel and y and h are bitwise the same. 1 <= N <= 64.
 extern "C" int mamba_scan(const void* u, const void* dt, const void* A,
                           const void* B, const void* C, const void* D,
-                          void* y, void* h, int Bt, int S, int Di, int N,
-                          long long sB_b, long long sB_t, long long sC_b,
-                          long long sC_t, int u_bf16, void* stream) {
-  if (Bt <= 0 || S < 0 || Di <= 0 || N <= 0 || N > kMaxN || Bt > 65535)
+                          void* y, void* h, void* hs, int Bt, int S, int Di,
+                          int N, int K, long long sB_b, long long sB_t,
+                          long long sC_b, long long sC_t, int u_bf16,
+                          void* stream) {
+  if (Bt <= 0 || S < 0 || Di <= 0 || N <= 0 || N > kMaxN || Bt > 65535 ||
+      (hs != nullptr && (K <= 0 || K % kT != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (hs == nullptr) K = kT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (u_bf16)
+    launch_n<bf16>(u, dt, A, B, C, D, y, h, hs, Bt, S, Di, N, K, sB_b, sB_t,
+                   sC_b, sC_t, s);
+  else
+    launch_n<float>(u, dt, A, B, C, D, y, h, hs, Bt, S, Di, N, K, sB_b, sB_t,
+                    sC_b, sC_t, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Channels a block of the backward owns at N states: the partials' count is
+// ceil(Di / this).
+extern "C" int mamba_scan_bwd_channels(int N) {
+  return kThreads / bwd_lanes(N);
+}
+
+// The backward from the forward's boundary states. Inputs as mamba_scan's,
+// plus hs ((Bt, (S - 1) / K, Di, N) fp32, from the forward with the same K),
+// dy ((Bt, S, Di) contiguous, u's dtype) and dh (null, or (Bt, Di, N) fp32:
+// the final state's cotangent). Out: du (u's dtype) and ddt ((Bt, S, Di)
+// fp32), dA ((Di, N)), dD ((Di,)), dBC ((2, Bt, S, N): dB then dC), all
+// fp32; part is scratch of 2 * ceil(Di / mamba_scan_bwd_channels(N)) * Bt *
+// S * N floats. Two launches (the scan, then the partials' sum).
+extern "C" int mamba_scan_bwd(const void* u, const void* dt, const void* A,
+                              const void* B, const void* C, const void* D,
+                              const void* hs, const void* dy, const void* dh,
+                              void* du, void* ddt, void* dA, void* dBC,
+                              void* dD, void* part, int Bt, int S, int Di,
+                              int N, int K, long long sB_b, long long sB_t,
+                              long long sC_b, long long sC_t, int u_bf16,
+                              void* stream) {
+  if (Bt <= 0 || S < 0 || Di <= 0 || N <= 0 || N > kMaxN || K <= 0 ||
+      K % kT != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (u_bf16)
-    launch_n<bf16>(u, dt, A, B, C, D, y, h, Bt, S, Di, N, sB_b, sB_t, sC_b,
-                   sC_t, s);
+    launch_bwd_n<bf16>(u, dt, A, B, C, D, hs, dy, dh, du, ddt, dA, dD, part,
+                       Bt, S, Di, N, K, sB_b, sB_t, sC_b, sC_t, s);
   else
-    launch_n<float>(u, dt, A, B, C, D, y, h, Bt, S, Di, N, sB_b, sB_t, sC_b,
-                    sC_t, s);
+    launch_bwd_n<float>(u, dt, A, B, C, D, hs, dy, dh, du, ddt, dA, dD,
+                        part, Bt, S, Di, N, K, sB_b, sB_t, sC_b, sC_t, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long M = static_cast<long long>(Bt) * S * N;
+  if (M > 0) {
+    const int n_blk = (Di + mamba_scan_bwd_channels(N) - 1) /
+                      mamba_scan_bwd_channels(N);
+    const int threads = 256;
+    mamba_bc_reduce_kernel<<<static_cast<unsigned>((2 * M + threads - 1) /
+                                                   threads),
+                             threads, 0, s>>>(static_cast<const float*>(part),
+                                              static_cast<float*>(dBC), n_blk,
+                                              M);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -130,17 +130,23 @@ def lars_update_leaves(ws, gs, ms, *, lr, weight_decay, momentum, eta,
     return out
 
 
-def mamba_scan(u, dt, A, B, C, D):
-    """Mamba S6 selective scan from h = 0 (``repro.kernels.ops.mamba_scan``).
+def mamba_scan(u, dt, A, B, C, D, *, state_every=_mamba.STATE_EVERY):
+    """Mamba S6 selective scan from h = 0 (``repro.kernels.ops.mamba_scan``),
+    differentiable.
 
     u, dt: (Bt, S, Di); A: (Di, N); B, C: (Bt, S, N); D: (Di,). Returns
-    (y (Bt, S, Di) in u's dtype, final h (Bt, Di, N) fp32). CUDA tensors
-    go through the ``mamba_scan`` kernel, CPU tensors through its plain
-    version. Forward only: the reference has no backward kernel.
+    (y (Bt, S, Di) in u's dtype, final h (Bt, Di, N) fp32). Where
+    autograd records, through ``MambaScan``: the forward saves the state
+    every ``state_every`` steps and the backward rebuilds each chunk from
+    it; otherwise (serving) the forward alone. CUDA tensors go through
+    the ``mamba_scan`` kernels, CPU tensors through their plain versions.
     """
-    impl = (_mamba.mamba_scan_cuda if u.device.type == "cuda"
-            else _mamba.mamba_scan_torch)
-    return impl(u, dt, A, B, C, D)
+    args = (u, dt, A, B, C, D)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return _mamba.MambaScan.apply(*args, state_every)
+    if u.device.type == "cuda":
+        return _mamba.mamba_scan_cuda(*args)
+    return _mamba.mamba_scan_torch(*args)
 
 
 def mamba_step(h, u_t, dt_t, A, B_t, C_t, D):

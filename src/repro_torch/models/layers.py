@@ -445,12 +445,16 @@ def _mamba_ssm_inputs(params, u, cfg: ModelConfig):
     """(dt, A, B, C, D) of the scan from the post-conv activations u, in
     fp32: ``x_dbl = u @ x_proj`` split into (dt_in, B, C) column slices
     (B and C stay views), ``dt = softplus(dt_in @ dt_w + dt_bias)``,
-    ``A = -exp(A_log)``."""
+    ``A = -exp(A_log)`` formed in ``A_log``'s own dtype and then widened,
+    as the reference forms it (``layers.py:663``): fp32 when serving, bf16
+    under the train step's cast. ``D`` is widened too (the kernel takes
+    fp32; the train step's cast makes it bf16)."""
     m, _, R = _mamba_dims(cfg)
     x_dbl = u.float() @ params["x_proj"].float()
     dt_in, Bc, Cc = torch.split(x_dbl, [R, m.d_state, m.d_state], dim=-1)
     dt = _softplus(dt_in @ params["dt_w"].float() + params["dt_bias"].float())
-    return dt, -torch.exp(params["A_log"].float()), Bc, Cc, params["D"]
+    A = -torch.exp(params["A_log"])
+    return dt, A.float(), Bc, Cc, params["D"].float()
 
 
 def apply_mamba(params, x, cfg: ModelConfig, *, cache=None):

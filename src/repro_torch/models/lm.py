@@ -45,14 +45,6 @@ def _check_supported(cfg: ModelConfig) -> None:
                 f"ROADMAP.md item 3)")
 
 
-def _check_trainable(cfg: ModelConfig) -> None:
-    if any(s.mixer != "attn" for s in cfg.block_pattern):
-        raise NotImplementedError(
-            f"{cfg.name}: training a Mamba stack is not ported yet (the "
-            f"mamba_scan backward kernel is ROADMAP.md item 3.2, jamba "
-            f"training)")
-
-
 def _spec_of(cfg: ModelConfig, i: int) -> LayerSpec:
     """The pattern entry of layer i."""
     return cfg.block_pattern[i % len(cfg.block_pattern)]
@@ -263,10 +255,10 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, window=None):
 
     tokens: (B, S). Returns (hidden (B, S, d), the MoE aux loss summed
     over layers, 0.0 for a stack without MoE). With ``cfg.remat`` each
-    layer runs under ``torch.utils.checkpoint`` (non-reentrant): only
-    its input is kept, and the backward recomputes the layer, router and
-    aux loss included, as the reference's ``jax.checkpoint`` over the
-    scanned block does.
+    layer, attention or Mamba, runs under ``torch.utils.checkpoint``
+    (non-reentrant): only its input is kept, and the backward recomputes
+    the layer (its scan, router and aux loss included), as the
+    reference's ``jax.checkpoint`` over the scanned block does.
     """
     x = _embed(params, tokens)
     B, S, _ = x.shape
@@ -322,10 +314,7 @@ def _chunked_ce(params, cfg: ModelConfig, hidden, targets):
 
 def per_example_nll(params, cfg: ModelConfig, batch):
     """(mean next-token nll per example (B,), the MoE aux loss summed
-    over layers (0.0 without MoE)) for masked distributed eval (C4).
-    Attention stacks only: a Mamba stack raises
-    ``NotImplementedError``."""
-    _check_trainable(cfg)
+    over layers (0.0 without MoE)) for masked distributed eval (C4)."""
     tokens = batch["tokens"]
     hidden, aux = forward_hidden(params, cfg, tokens)
     tgt = tokens[:, 1:]

@@ -4,13 +4,13 @@ for one device.
 The reference's steps are pure functions that XLA compiles and shards;
 here they run eagerly. ``train_step(state, batch)`` computes the loss
 of the bf16 compute copy of the fp32 masters (C7), its gradient through
-autograd (the attention gradient through the flash backward kernel on
-the card), casts the gradient to ``grad_dtype``, and applies the
-optimizer, which updates ``state`` in place and returns it.
+autograd (the attention and Mamba scan gradients through their backward
+kernels on the card) in ``grad_dtype``, and applies the optimizer, which
+updates ``state`` in place and returns it.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 
@@ -50,19 +50,46 @@ def _global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(g.float().square().sum() for g in leaves))
 
 
-def _value_and_grad(cfg: ModelConfig, params, batch):
-    """(loss, metrics, gradient leaves in ``grad_dtype``) of
-    ``lm.loss_fn`` at the compute copy of ``params``."""
-    leaves = tree_leaves(params)
-    with torch.enable_grad():
-        for w in leaves:
-            w.requires_grad_(True)
-        loss, metrics = lm.loss_fn(compute_cast(params, cfg.dtype), cfg,
-                                   batch)
-        grads = torch.autograd.grad(loss, leaves)
+def _value_and_grad(cfg: ModelConfig, params, batch, acc):
+    """(loss, nll) of ``lm.loss_fn`` at the compute copy of ``params``;
+    its gradient, in ``grad_dtype``, is added into ``acc`` (one entry a
+    leaf; None: set) leaf by leaf as the backward pass finishes each.
+
+    The gradient is taken at the compute copy's leaves. A master reaches
+    the loss only through its cast, whose gradient is the copy's widened
+    exactly, so the result in ``grad_dtype`` is bitwise the master's; but
+    no fp32 gradient of the model, and no second gradient of it beside
+    ``acc``, is ever held: each leaf's is folded into ``acc`` and freed."""
     gdt = getattr(torch, cfg.grad_dtype)
-    return (loss.detach(), metrics["nll"].detach(),
-            [g.to(gdt) for g in grads])
+    with torch.no_grad():
+        compute = compute_cast(params, cfg.dtype)
+    leaves = tree_leaves(compute)
+
+    def fold(i):
+        def hook(w):
+            g, w.grad = w.grad.to(gdt), None
+            if acc[i] is None:
+                acc[i] = g
+            else:
+                acc[i].add_(g)
+        return hook
+
+    handles = []
+    try:
+        for i, w in enumerate(leaves):
+            w.requires_grad_(True)
+            handles.append(w.register_post_accumulate_grad_hook(fold(i)))
+        with torch.enable_grad():
+            loss, metrics = lm.loss_fn(compute, cfg, batch)
+            loss.backward()
+    finally:
+        for h in handles:
+            h.remove()
+    missing = [i for i, g in enumerate(acc) if g is None]
+    if missing:
+        raise RuntimeError(f"leaves {missing} got no gradient: every "
+                           f"parameter must reach the loss")
+    return loss.detach(), metrics["nll"].detach()
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
@@ -80,6 +107,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
 
     def train_step(state, batch):
         params, opt_state = state["params"], state["opt"]
+        grads: List[Optional[torch.Tensor]] = [None] * len(
+            tree_leaves(params))
         if M > 1:
             B = batch["tokens"].shape[0]
             if B % M:
@@ -87,16 +116,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
                     f"batch of {B} rows does not split into {M} "
                     f"microbatches")
             b = B // M
-            grads: List[torch.Tensor] = []
             losses, nlls = [], []
             for i in range(M):
                 mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-                mb_loss, nll, g = _value_and_grad(cfg, params, mb)
-                if grads:
-                    for acc, x in zip(grads, g):
-                        acc.add_(x)
-                else:
-                    grads = g
+                mb_loss, nll = _value_and_grad(cfg, params, mb, grads)
                 losses.append(mb_loss)
                 nlls.append(nll)
             for g in grads:
@@ -104,7 +127,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
             loss = sum(losses) / M  # summed in order, as the reference
             nll = torch.stack(nlls).mean()
         else:
-            loss, nll, grads = _value_and_grad(cfg, params, batch)
+            loss, nll = _value_and_grad(cfg, params, batch, grads)
         metrics = {"loss": loss, "nll": nll}
         if "grad_norm" in extra_metrics:
             metrics["grad_norm"] = _global_norm(grads)

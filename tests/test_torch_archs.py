@@ -73,12 +73,14 @@ def ref_tree(jcfg, seed=0):
 
 def flat_jax_grads(g, n_layers):
     """The reference's gradient tree in the port's layout: one dict per
-    layer instead of leaves stacked over layers."""
-    (stacked,) = g["blocks"]
+    layer instead of leaves stacked over blocks (layer i is pattern
+    position i % P of block i // P)."""
+    blocks = g["blocks"]
+    P = len(blocks)
     out = {k: v for k, v in g.items() if k != "blocks"}
-    out["layers"] = [jax.tree_util.tree_map(lambda a, i=i: np.asarray(a)[i],
-                                            stacked)
-                     for i in range(n_layers)]
+    out["layers"] = [jax.tree_util.tree_map(
+        lambda a, i=i: np.asarray(a)[i // P], blocks[i % P])
+        for i in range(n_layers)]
     return out
 
 
@@ -420,17 +422,20 @@ def test_mixtral_serves_past_its_window_without_one():
 
 
 # ---- what the train step and eval read at a bf16 compute dtype ------------- #
-@pytest.mark.parametrize("arch", ["command-r-35b", "mixtral-8x7b"])
+@pytest.mark.parametrize("arch", ["command-r-35b", "mixtral-8x7b",
+                                  "jamba-1.5-large-398b"])
 def test_compute_cast_rounds_what_the_reference_rounds(arch):
     """The reference's train step casts its stacked tree, so a layer's
-    norm scales and biases ((n_blocks, d)) and its router are rounded to
-    bf16, the final norm ((d,)) is not: the port's compute copy holds
-    the same dtypes and values, leaf for leaf."""
+    norm scales and biases ((n_blocks, d)), its router and Mamba's
+    ``dt_bias``, ``A_log`` and ``D`` are rounded to bf16, the final norm
+    ((d,)) is not: the port's compute copy holds the same dtypes and
+    values, leaf for leaf (two blocks of each arch's reduced pattern)."""
     from repro.optim.precision import compute_cast as jax_compute_cast
     from repro_torch.optim import compute_cast
     from repro_torch.utils import tree_leaves
 
-    jcfg, cfg = cfgs(arch, dtype="bfloat16", n_layers=2)
+    P = len(get_config(arch).reduced().block_pattern)
+    jcfg, cfg = cfgs(arch, dtype="bfloat16", n_layers=2 * P)
     tree = ref_tree(jcfg, seed=30)
     _, axes = JT.init_params_and_axes(jcfg, jax.random.PRNGKey(0))
     rules = Rules(single_device_mesh(), jcfg.param_sharding,
