@@ -20,12 +20,14 @@ and prints no result):
    cases, the two LARS kernels in both rules at ResNet-50's largest leaf
    and at edge cases, zero norms among them, and each kernel's one
    launch over ResNet-50's 54 kernel leaves (bitwise equal to one-leaf
-   launches), the Mamba selective scan at jamba's prefill shape with
-   bf16 and fp32 inputs, at odd shapes, N = 64, odd N, S = 1 and
-   strided B/C, and at jamba's train shape (1 x 2048 x 16384 x 16) with
-   its boundary states every 16 steps, the scan's backward kernel there
-   and at edge cases (S 1, 33, 2047, N 5, 64, Bt 3, fp32 u, contiguous
-   B/C, a zero and a nonzero final-state cotangent, reruns bitwise), the
+   launches), the Mamba selective scan at jamba's prefill shape and at
+   S 2048 with bf16 and fp32 inputs (the reference's tolerance), at odd
+   shapes, N = 64, odd N, S = 1 and strided B/C, and at jamba's train
+   shape (1 x 2048 x 16384 x 16) with its boundary states every 16
+   steps, the scan's backward kernel there and at edge cases (S 1, 33,
+   2047, N 5, 64, Bt 3, fp32 u, contiguous B/C, a last block partly
+   filled, a zero and a nonzero final-state cotangent, reruns bitwise;
+   its registers, blocks an SM and waves printed), the
    flash forward at jamba's attention shape and forward and backward at
    its train step's (B 1, S 2048, 64/8 heads of 128), the paged
    kernel at the serving shapes of yi-9b, qwen1.5-32b (int8 pool),
@@ -1207,6 +1209,8 @@ MAMBA_SHAPE = (1, 256, 16384, 16)  # jamba's prefill: Bt 1, S 256, Di, N
 MAMBA_CASES = [  # name, (Bt, S, Di, N), u's dtype, B and C as views
     ("prefill", MAMBA_SHAPE, torch.bfloat16, True),
     ("prefill", MAMBA_SHAPE, torch.float32, True),
+    ("S2048", (1, 2048, 16384, 16), torch.bfloat16, True),  # a prompt of
+    ("S2048", (1, 2048, 16384, 16), torch.float32, True),   # the train length
     ("odd", (2, 17, 33, 4), torch.float32, True),
     ("odd", (2, 17, 33, 4), torch.bfloat16, False),
     ("S1", (3, 1, 100, 16), torch.float32, True),
@@ -1275,8 +1279,9 @@ def check_mamba():
     jamba's prefill shape (S 256) and at the smoke's longest prompt (S
     128) beside its bound. Returns the S 256 record."""
     phase("kernels: mamba_scan vs plain PyTorch")
-    err = 0.0
+    err, failed = 0.0, []
     for i, (name, shape, u_dtype, views) in enumerate(MAMBA_CASES):
+        n_failed = len(failed)
         args = mamba_inputs(i, *shape, u_dtype, views)
         before = mk.mamba_scan_cuda.launches
         y, h = mk.mamba_scan_cuda(*args)
@@ -1291,8 +1296,7 @@ def check_mamba():
         y_err = (y.float() - want_y.float()).abs().max().item()
         if not (torch.isfinite(y.float()).all()
                 and torch.allclose(h, want_h, rtol=1e-4, atol=1e-5)):
-            raise AssertionError(f"mamba_scan {name} {u_dtype}: h != plain, "
-                                 f"max |diff| {h_err}")
+            failed.append(f"{name} {shape} {u_dtype} h")
         if u_dtype == torch.float32:
             ok = torch.allclose(y, want_y, rtol=1e-4, atol=1e-5)
             tol = "rtol 1e-4, atol 1e-5"
@@ -1307,16 +1311,30 @@ def check_mamba():
             tol = (f"one bf16 ulp + rtol 1e-4, atol 1e-5; {int(over.sum())} "
                    f"of {diff.numel()} values beyond one ulp")
         if not ok:
-            raise AssertionError(f"mamba_scan {name} {u_dtype}: y != plain, "
-                                 f"max |diff| {y_err} ({tol})")
+            failed.append(f"{name} {shape} {u_dtype} y")
         if name == "prefill" and u_dtype == torch.bfloat16:
             err = y_err
-        print(f"  {name:10s} {str(shape):20s} u {str(u_dtype):14s} "
+        print(f"  {name:10s} {str(shape):22s} u {str(u_dtype):14s} "
               f"{'views' if views else 'contiguous'}: max|kernel-plain| y "
-              f"{y_err:.2e} ({tol}), h {h_err:.2e}; rerun bitwise equal",
+              f"{y_err:.2e} ({tol}), h {h_err:.2e} (rtol 1e-4, atol 1e-5); "
+              f"rerun bitwise equal{'; FAILS' if failed[n_failed:] else ''}",
               flush=True)
         del args, y, h, y2, h2, want_y, want_h
-    torch.cuda.empty_cache()
+        torch.cuda.empty_cache()
+    # steps with dt = 0 and u = 0 leave h bitwise as it was (decay 1)
+    args = list(mamba_inputs(40, 1, 48, 520, 16, torch.bfloat16, True))
+    args[0][:, 16:] = 0
+    args[1][:, 16:] = 0
+    _, h48 = mk.mamba_scan_cuda(*args)
+    _, h16 = mk.mamba_scan_cuda(*(t[:, :16] if t.dim() == 3 else t
+                                  for t in args))
+    torch.cuda.synchronize()
+    if not torch.equal(h48, h16):
+        failed.append("zero steps moved h")
+    print(f"  32 steps of dt = 0, u = 0 after 16: h bitwise unchanged "
+          f"{torch.equal(h48, h16)}", flush=True)
+    if failed:
+        raise AssertionError(f"mamba_scan != plain: {failed}")
 
     clock = sm_clock_hz()
     readings = []
@@ -1358,6 +1376,8 @@ MAMBA_BWD_CASES = [  # name, (Bt, S, Di, N), u's dtype, B/C views, dh, K
     ("N64", (2, 70, 1000, 64), torch.float32, True, True, 16),
     ("Bt3", (3, 100, 2048, 16), torch.bfloat16, False, False, 16),
     ("K48", (2, 150, 700, 16), torch.float32, True, True, 48),  # re-walks
+    # two rows, the last block holding 16 of its 64 channels
+    ("ragged", (2, 2048, 16400, 16), torch.bfloat16, True, True, 16),
 ]
 BWD_NAMES = ("du", "ddt", "dA", "dB", "dC", "dD")
 
@@ -1387,10 +1407,10 @@ def mamba_bound(nbytes, n_exp, clock):
 def scan_close(got, want, extra=None):
     """(ok, max |got - want|, that over max |want|): |got - want| <= 1e-4
     |want| + 1e-4 max |want| (plus ``extra``) everywhere. Both are fp32
-    and differ in the order of their sums and in the kernel's ex2.approx
-    (relative error about 2^-22) against exp, which compounds over the
-    up to 2048 decays a state carries: up to ~5e-4 of a long-lived
-    state, and of the terms a near-zero entry cancels."""
+    and differ in the order of their sums (over channels, states and
+    rows) and in FFMA against separate products and sums, which the
+    reverse recurrence carries over up to 2048 steps; a near-zero
+    gradient entry is the sum of terms that cancel."""
     g, w = got.float(), want.float()
     if g.shape != w.shape:
         return False, float("inf"), float("inf")
@@ -1422,38 +1442,12 @@ def hold_mamba_bwd(got, want, u_dtype):
     return errs, bad
 
 
-def check_mamba_train():
-    """The scan's training path on the card: the forward at the train
-    step's shape (Bt 1, S 2048, Di 16384, N 16, bf16 u) with its boundary
-    states every 16 steps, which equal the plain scan's states at those
-    steps (``scan_close``) while y and h stay bitwise those of the launch
-    without states; then the backward kernel against the plain backward
-    from the same states (``hold_mamba_bwd``) at that shape, with
-    a zero and a nonzero final-state cotangent, and at S 1, 33, 2047, N 5
-    and 64, Bt 3, fp32 u, contiguous B/C and K 48, each rerun bitwise
-    equal; then both timed beside their bounds. Returns the (forward,
-    backward) records at the train shape."""
-    phase("kernels: mamba_scan forward with boundary states and its "
-          "backward at jamba's train shape vs plain PyTorch")
-    args = mamba_inputs(50, *MAMBA_TRAIN, torch.bfloat16, True)
-    y0, h0 = mk.mamba_scan_cuda(*args)
-    y1, h1, hs = mk.mamba_scan_cuda(*args, state_every=mk.STATE_EVERY)
-    torch.cuda.synchronize()
-    if not (torch.equal(y0, y1) and torch.equal(h0, h1)):
-        raise AssertionError("mamba_scan: y or h moved with the boundary "
-                             "states on")
-    _, _, want_hs = mk.mamba_scan_torch(*args, state_every=mk.STATE_EVERY)
-    ok, hs_err, hs_rel = scan_close(hs, want_hs)
-    failed = [] if ok else ["boundary states"]
-    print(f"  forward {MAMBA_TRAIN} bf16 u, states every {mk.STATE_EVERY}: "
-          f"{tuple(hs.shape)} boundary states, max|kernel-plain| "
-          f"{hs_err:.2e} = {hs_rel:.2e} of the largest "
-          f"({'ok' if ok else 'FAILS'}: 1e-4 |plain| + 1e-4 max|plain|); y "
-          f"and h bitwise equal to the launch without states", flush=True)
-    del y0, h0, y1, h1, hs, want_hs, args
-    torch.cuda.empty_cache()
-
-    train_err = 0.0
+def check_mamba_bwd_cases():
+    """The backward kernel against the plain backward from the same
+    states (``hold_mamba_bwd``) at every ``MAMBA_BWD_CASES`` shape, each
+    rerun bitwise equal. Returns (the cases that failed, the largest
+    |kernel - plain| at the train shape)."""
+    failed, train_err = [], 0.0
     for i, (name, shape, u_dtype, views, with_dh, K) in enumerate(
             MAMBA_BWD_CASES):
         Bt, S, Di, N = shape
@@ -1486,6 +1480,51 @@ def check_mamba_train():
               flush=True)
         del args, dy, dh, hs, got, again, want
         torch.cuda.empty_cache()
+    return failed, train_err
+
+
+def bwd_info_line(Di, N, u_dtype=torch.bfloat16):
+    info = mk.bwd_kernel_info(Di, N, u_dtype)
+    return (f"{info['regs']} registers a thread, {info['threads']} threads "
+            f"and {info['smem_bytes']} B of shared memory a block, "
+            f"{info['blocks_per_sm']} blocks an SM, {info['blocks']} blocks "
+            f"(dB/dC partials) in {info['waves']} wave(s)")
+
+
+def check_mamba_train():
+    """The scan's training path on the card: the forward at the train
+    step's shape (Bt 1, S 2048, Di 16384, N 16, bf16 u) with its boundary
+    states every 16 steps, which equal the plain scan's states at those
+    steps (rtol 1e-4, atol 1e-5, as y and h) while y and h stay bitwise
+    those of the launch without states; then the backward kernel against
+    the plain backward from the same states (``check_mamba_bwd_cases``)
+    at that shape, with a zero and a nonzero final-state cotangent, and
+    at S 1, 33, 2047, N 5 and 64, Bt 3, fp32 u, contiguous B/C, K 48 and
+    a last block half filled at Bt 2; then both timed beside their
+    bounds, with the backward's registers, blocks an SM and waves.
+    Returns the (forward, backward) records at the train shape."""
+    phase("kernels: mamba_scan forward with boundary states and its "
+          "backward at jamba's train shape vs plain PyTorch")
+    args = mamba_inputs(50, *MAMBA_TRAIN, torch.bfloat16, True)
+    y0, h0 = mk.mamba_scan_cuda(*args)
+    y1, h1, hs = mk.mamba_scan_cuda(*args, state_every=mk.STATE_EVERY)
+    torch.cuda.synchronize()
+    if not (torch.equal(y0, y1) and torch.equal(h0, h1)):
+        raise AssertionError("mamba_scan: y or h moved with the boundary "
+                             "states on")
+    _, _, want_hs = mk.mamba_scan_torch(*args, state_every=mk.STATE_EVERY)
+    ok = torch.allclose(hs, want_hs, rtol=1e-4, atol=1e-5)
+    hs_err = (hs - want_hs).abs().max().item()
+    failed = [] if ok else ["boundary states"]
+    print(f"  forward {MAMBA_TRAIN} bf16 u, states every {mk.STATE_EVERY}: "
+          f"{tuple(hs.shape)} boundary states, max|kernel-plain| "
+          f"{hs_err:.2e} ({'ok' if ok else 'FAILS'}: rtol 1e-4, atol 1e-5); "
+          f"y and h bitwise equal to the launch without states", flush=True)
+    del y0, h0, y1, h1, hs, want_hs, args
+    torch.cuda.empty_cache()
+
+    bad, train_err = check_mamba_bwd_cases()
+    failed += bad
     if failed:
         raise AssertionError(f"mamba_scan training path != plain: {failed}")
 
@@ -1507,6 +1546,7 @@ def check_mamba_train():
     f_bound, f_by, f_tb, f_te = mamba_bound(fb, fe, clock)
     bb, be = mamba_bwd_work(*MAMBA_TRAIN, torch.bfloat16, K)
     b_bound, b_by, b_tb, b_te = mamba_bound(bb, be, clock)
+    info = bwd_info_line(Di, N)
     print(f"  timing {MAMBA_TRAIN} bf16 u: forward with states {fwd_ms:.4f} "
           f"ms (without {bare_ms:.4f}), plain {fwd_plain:.2f} ms; bound "
           f"{f_bound:.4f} ms ({f_by}: {fb} B = {f_tb:.4f} ms, {fe} "
@@ -1514,9 +1554,9 @@ def check_mamba_train():
           f"{100 * f_bound / fwd_ms:.1f}% of it); backward {bwd_ms:.4f} ms, "
           f"plain {bwd_plain:.2f} ms; bound {b_bound:.4f} ms ({b_by}: {bb} "
           f"B = {b_tb:.4f} ms, {be} exponentials = {b_te:.4f} ms; "
-          f"{100 * b_bound / bwd_ms:.1f}% of it); library_ms null: no "
-          f"PyTorch call computes a selective scan or its gradient",
-          flush=True)
+          f"{100 * b_bound / bwd_ms:.1f}% of it); backward kernel: {info}; "
+          f"library_ms null: no PyTorch call computes a selective scan or "
+          f"its gradient", flush=True)
     del args, hs, dy
     torch.cuda.empty_cache()
     common = dict(route="cuda",

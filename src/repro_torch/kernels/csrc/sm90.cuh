@@ -324,15 +324,24 @@ __device__ __forceinline__ void cluster_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// cp.async: a thread copies 16 bytes from global to shared memory without
-// holding registers; with src_bytes 0 it writes 16 zero bytes and reads
-// nothing. Copies join the thread's open group at commit; wait<N> returns
-// once at most N of its groups are in flight (its own copies only: a
-// __syncthreads after it makes every thread's copies visible).
+// cp.async: a thread copies 16 (or 4) bytes from global to shared memory
+// without holding registers; it reads the first src_bytes and writes zeros
+// after them (src_bytes 0: zeros, nothing read). Both addresses are aligned
+// to the copy's size. Copies join the thread's open group at commit;
+// wait<N> returns once at most N of its groups are in flight (its own
+// copies only: a __syncthreads after it makes every thread's copies
+// visible).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");

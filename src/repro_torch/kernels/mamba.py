@@ -12,8 +12,10 @@ with the (channel, N) state in registers for the whole time loop (4
 threads a channel, N / 4 states each, for N up to 16) and time streamed
 through shared memory, the next 16 steps loaded while the current ones
 run, so no (S, Di, N) tensor ever reaches device memory. The decay is
-``exp2(dt * (A * log2 e))`` on the special-function units, and h . C is
-summed over a channel's lanes once every 4 steps, in a fixed order
+CUDA's ``expf`` of the rounded ``dt * A``, bitwise what ``torch.exp``
+gives on the card, so the scan holds the reference's tolerance at S 2048
+(an ``ex2.approx`` decay drifted past it), and h . C is summed over a
+channel's lanes once every 4 steps, in a fixed order
 (``tests/test_torch_mamba.py`` writes that arithmetic out in PyTorch).
 What bounds it on an H100 at Jamba's prefill shape (Bt 1, S 256, Di
 16384, N 16) is the S * Di * N exponentials on the special-function units
@@ -24,13 +26,17 @@ K-step chunks, K = ``STATE_EVERY`` = 16 on the train path).
 The backward kernel is the port's own: the reference differentiates its
 scan with ``jax.grad`` of the chunked, checkpointed ``lax.scan``
 (``repro/kernels/ops.py:_mamba_scan_jnp``). It walks the chunks from last
-to first, rebuilds each chunk's states from its boundary state in
-registers and runs the reverse recurrence (:func:`mamba_scan_bwd_torch`
-writes it out), so the (S, Di, N) history that autograd through the
-plain scan would keep (2.1 GB a layer at S 2048) never exists. dB and dC
-are sums over every channel and dA and dD over every row, all in a fixed
-order without atomics. At Jamba's train shape (Bt 1, S 2048) it moves
-~607 MB (0.181 ms at 3.35 TB/s) against 0.128 ms of exponentials.
+to first, rebuilds each 16-step tile's states from its boundary state in
+registers with the forward's decay (bitwise the forward's states), keeps
+the decays in shared memory for the reverse recurrence
+(:func:`mamba_scan_bwd_torch` writes it out) and stages the next tile
+while one runs, so the (S, Di, N) history that autograd through the plain
+scan would keep (2.1 GB a layer at S 2048) never exists. dB and dC are
+sums over every channel (one partial a block of 64 channels, summed in
+block order by a second launch) and dA and dD over every row, all in a
+fixed order without atomics. At Jamba's train shape (Bt 1, S 2048) it
+moves ~607 MB (0.181 ms at 3.35 TB/s) against 0.128 ms of exponentials;
+:func:`bwd_kernel_info` reports its registers, blocks an SM and waves.
 
 :func:`mamba_scan_cuda` and :func:`mamba_scan_bwd_cuda` launch the
 kernels on CUDA tensors and raise on anything they do not take;
@@ -245,7 +251,8 @@ def mamba_scan_bwd_cuda(u, dt, A, B, C, D, hs, dy, dh=None, *,
     u's dtype, dh None or (Bt, Di, N) fp32. Returns (du in u's dtype,
     ddt, dA, dB, dC, dD fp32; dB and dC contiguous). Two launches (the
     scan, then the sum of its per-block dB and dC partials, in block
-    order: no atomics), counted once in ``mamba_scan_bwd_cuda.launches``."""
+    order: no atomics; the partials' count comes from the library),
+    counted once in ``mamba_scan_bwd_cuda.launches``."""
     name = "mamba_scan_bwd_cuda"
     Bt, S, Di, N = _check_scan(name, u, dt, A, B, C, D)
     _check_every(name, state_every)
@@ -258,7 +265,7 @@ def mamba_scan_bwd_cuda(u, dt, A, B, C, D, hs, dy, dh=None, *,
         dh = dh.contiguous()
     u, dt, A, D, hs, dy = (t.contiguous() for t in (u, dt, A, D, hs, dy))
     lib = _lib()
-    n_blk = -(-Di // lib.mamba_scan_bwd_channels(N))
+    n_blk = lib.mamba_scan_bwd_partials(Di, N)
     du = torch.empty_like(u)
     ddt = torch.empty((Bt, S, Di), dtype=torch.float32, device=dev)
     dA = torch.empty((Di, N), dtype=torch.float32, device=dev)
@@ -315,6 +322,26 @@ class MambaScan(torch.autograd.Function):
                      zip(grads, ctx.needs_input_grad)) + (None,)
 
 
+def bwd_kernel_info(Di: int, N: int, u_dtype=torch.bfloat16) -> dict:
+    """What sets the backward kernel's waves on the current card at Di
+    channels of N states: its registers a thread, resident blocks an SM,
+    threads and shared bytes a block, its blocks (one dB/dC partial each)
+    and the waves they take, ceil(blocks / (blocks an SM x SMs))."""
+    lib = _lib()
+    vals = [ctypes.c_int() for _ in range(4)]
+    err = lib.mamba_scan_bwd_info(N, int(u_dtype == torch.bfloat16),
+                                  *(ctypes.byref(v) for v in vals))
+    if err:
+        raise RuntimeError(f"mamba_scan_bwd_info: CUDA error {err}")
+    info = dict(zip(("regs", "blocks_per_sm", "threads", "smem_bytes"),
+                    (v.value for v in vals)))
+    info["blocks"] = lib.mamba_scan_bwd_partials(Di, N)
+    sms = torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    info["waves"] = -(-info["blocks"] // max(1, info["blocks_per_sm"] * sms))
+    return info
+
+
 def reset_launches() -> None:
     mamba_scan_cuda.launches = 0
     mamba_scan_bwd_cuda.launches = 0
@@ -328,8 +355,10 @@ def _lib() -> ctypes.CDLL:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.mamba_scan.argtypes = [p] * 9 + [i] * 5 + [ll] * 4 + [i, p]
         lib.mamba_scan.restype = i
-        lib.mamba_scan_bwd_channels.argtypes = [i]
-        lib.mamba_scan_bwd_channels.restype = i
+        lib.mamba_scan_bwd_partials.argtypes = [i, i]
+        lib.mamba_scan_bwd_partials.restype = i
+        lib.mamba_scan_bwd_info.argtypes = [i, i] + [p] * 4
+        lib.mamba_scan_bwd_info.restype = i
         lib.mamba_scan_bwd.argtypes = [p] * 15 + [i] * 5 + [ll] * 4 + [i, p]
         lib.mamba_scan_bwd.restype = i
     return lib

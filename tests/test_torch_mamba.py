@@ -73,21 +73,20 @@ def _lanes_and_states(N):
 
 def _kernel_order_scan(u, dt, A, B, C, D):
     """The CUDA kernel's arithmetic in PyTorch, fp32: the decay as
-    ``exp2(dt * (A * log2 e))``, the input as ``(dt * u) * B``, and h . C
-    summed as the kernel sums it: lanes of neighbouring states (a power of
-    two a lane, padded with zeros), each lane's states in order, then the
-    lanes pairwise, halves first (with 4 lanes: l with l + 2, then + 1).
-    Not bitwise the kernel: PyTorch's exp2 and products are not
-    ex2.approx and FFMA."""
+    ``exp(dt * A)`` of the rounded product, the input as ``(dt * u) * B``,
+    and h . C summed as the kernel sums it: lanes of neighbouring states
+    (a power of two a lane, padded with zeros), each lane's states in
+    order, then the lanes pairwise, halves first (with 4 lanes: l with
+    l + 2, then + 1). Not bitwise the kernel: the CPU's exp is not CUDA's
+    expf, and its products and sums are not FFMA."""
     Bt, S, Di = u.shape
     N = A.shape[-1]
     lanes, per = _lanes_and_states(N)
-    a2 = A * torch.tensor(np.log2(np.e), dtype=torch.float32)
     h = torch.zeros((Bt, Di, N), dtype=torch.float32)
     ys = []
     for t in range(S):
         dtu = dt[:, t] * u[:, t]
-        h = (torch.exp2(dt[:, t, :, None] * a2) * h
+        h = (torch.exp(dt[:, t, :, None] * A) * h
              + dtu[..., None] * B[:, t, None, :])
         prod = torch.nn.functional.pad(h * C[:, t, None, :],
                                        (0, lanes * per - N))
@@ -105,8 +104,8 @@ def _kernel_order_scan(u, dt, A, B, C, D):
 @pytest.mark.parametrize("shape", [(1, 256, 24, 16), (2, 45, 12, 13),
                                    (1, 33, 8, 64)], ids=str)
 def test_kernel_arithmetic_matches_reference_jnp(shape):
-    """The kernel's reordered arithmetic (exp2 of the pre-scaled A, h . C
-    summed in its lane order) stays within the scan's stated tolerance of
+    """The kernel's reordered arithmetic (h . C summed in its lane order,
+    the input as (dt * u) * B) stays within the scan's stated tolerance of
     ``ops._mamba_scan_jnp`` (rtol 1e-4, atol 1e-5 on y and h): at N 16
     and S 256 (Jamba's state at a whole number of chunks), an odd N whose
     states pad the lanes, and N 64 (8 lanes of 8 states)."""

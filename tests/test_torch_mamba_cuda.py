@@ -1,14 +1,16 @@
 """The Mamba scan's CUDA kernels on the card (all marked ``cuda``; they
-skip without one): the forward's boundary states and the backward kernel
-against their plain versions, reruns bitwise, the autograd route on the
-card against the CPU's, and the wrappers' refusals. No JAX here: this
-file runs where the card is (``pytest -m cuda``); the plain versions are
-held against the JAX reference in ``tests/test_torch_mamba_train.py``.
+skip without one): the forward at S 2048 and its boundary states, and
+the backward kernel (a last block partly filled among its cases), against
+their plain versions, reruns bitwise, the autograd route on the card
+against the CPU's, and the wrappers' refusals. No JAX here: this file
+runs where the card is (``pytest -m cuda``); the plain versions are held
+against the JAX reference in ``tests/test_torch_mamba_train.py``.
 
-Tolerances: |kernel - plain| <= 1e-4 |plain| + 1e-4 max |plain| (both
-fp32; sums in other orders, and the kernel's ex2.approx against exp,
-whose error compounds over a state's decays), du with bf16 u one bf16
-ulp beyond that (both round an fp32 du once)."""
+Tolerances: the forward's y, h and boundary states rtol 1e-4, atol 1e-5
+(the reference's, ``tests/test_kernels.py``; y with bf16 u, which both
+round once, one bf16 ulp beyond it); the gradients |kernel - plain| <=
+1e-4 |plain| + 1e-4 max |plain| (fp32 sums over channels, states and rows
+in other orders), du with bf16 u one bf16 ulp beyond that."""
 import numpy as np
 import pytest
 import torch
@@ -39,21 +41,44 @@ def _inputs(Bt, S, Di, N, u_dtype, dev, seed=0):
     return args, n(Bt, S, Di).to(u_dtype), n(Bt, Di, N)
 
 
+def _ulp(w):
+    """One bf16 ulp at each value of w."""
+    _, e = torch.frexp(w)
+    return torch.ldexp(torch.ones_like(w), e - 8)
+
+
 def _close(got, want, bf16_ulp=False):
     g, w = got.float(), want.float()
     if not w.numel():  # S 1 saves no boundary state
         return g.shape == w.shape
     tol = 1e-4 * w.abs() + 1e-4 * w.abs().max()
     if bf16_ulp:
-        _, e = torch.frexp(w)
-        tol = tol + torch.ldexp(torch.ones_like(w), e - 8)
+        tol = tol + _ulp(w)
     return bool(torch.isfinite(g).all() and ((g - w).abs() <= tol).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("u_dtype", [torch.bfloat16, torch.float32],
+                         ids=str)
+def test_forward_holds_the_reference_tolerance_at_s2048(cuda_device,
+                                                        u_dtype):
+    """The forward at a train step's length against the plain scan: h to
+    rtol 1e-4, atol 1e-5 over 2048 decays, y the same (one bf16 ulp
+    beyond it with bf16 u); B and C as column views."""
+    args, _, _ = _inputs(1, 2048, 4096, 16, u_dtype, cuda_device, seed=7)
+    y, h = mk.mamba_scan_cuda(*args)
+    want_y, want_h = mk.mamba_scan_torch(*args)
+    assert torch.allclose(h, want_h, rtol=1e-4, atol=1e-5)
+    g, w = y.float(), want_y.float()
+    extra = _ulp(w) if u_dtype == torch.bfloat16 else 0.0
+    assert bool(((g - w).abs() <= 1e-5 + 1e-4 * w.abs() + extra).all())
 
 
 CASES = [(1, 2048, 2048, 16, torch.bfloat16, 16),
          (2, 33, 520, 16, torch.float32, 16), (1, 1, 300, 16, torch.bfloat16, 16),
          (3, 50, 260, 5, torch.float32, 16), (2, 70, 1000, 64, torch.float32, 16),
-         (2, 150, 700, 16, torch.float32, 48)]
+         (2, 150, 700, 16, torch.float32, 48),
+         (2, 2048, 16400, 16, torch.bfloat16, 16)]  # last block 16 of 64
 
 
 @pytest.mark.cuda
@@ -71,7 +96,8 @@ def test_backward_kernel_matches_plain(cuda_device, case, with_dh):
     y, h, hs = mk.mamba_scan_cuda(*args, state_every=K)
     assert torch.equal(y, y0) and torch.equal(h, h0)
     _, _, want_hs = mk.mamba_scan_torch(*args, state_every=K)
-    assert hs.shape == want_hs.shape and _close(hs, want_hs)
+    assert hs.shape == want_hs.shape
+    assert torch.allclose(hs, want_hs, rtol=1e-4, atol=1e-5)
     before = mk.mamba_scan_bwd_cuda.launches
     got = mk.mamba_scan_bwd_cuda(*args, hs, dy, dh, state_every=K)
     again = mk.mamba_scan_bwd_cuda(*args, hs, dy, dh, state_every=K)
