@@ -131,7 +131,24 @@ and prints no result):
    sums and moments, fp32 masters, remat) through ``Trainer.fit``: the
    counters, zeroed just before, must show per step mamba_scan forward
    32 and backward 16, flash forward 16 and backward 8, and a second run
-   from the same seed must repeat the losses bitwise.
+   from the same seed must repeat the losses bitwise;
+11. whisper-medium, the encoder-decoder (``kernels-whisper``,
+   ``check-whisper``, ``serve-whisper``, ``train-whisper``): the flash
+   forward and backward at its encoder's (1500 x 1500 non-causal, B 1
+   and 8), cross-attention's (448 x 1500) and decoder's (448 causal)
+   shapes, 16/16 heads of 64, and the paged kernel at D 64, G 1 from
+   bf16 and int8 pools, each against its plain version and timed; the
+   reduced model card against CPU (logits, loss, every gradient, the
+   paged, int8 and slab engines' tokens); then every published width
+   and depth (24 + 24 layers, 0.81 B random bf16 parameters) serves
+   stream (a), each request with its own frames (the flash counter must
+   show the encoder once per layer per admission at B 1, the paged
+   counter once per decoder layer per chunk step), and stream (b) from
+   bf16 and int8 pools with the prefix cache and n-gram drafts, each
+   repeated with the same tokens, one chunk step traced; and trains 4
+   steps of batch 8 x (1500 frames, 448 tokens) through
+   ``Trainer.fit`` (flash forward 2 x 24 and backward 24 per step at
+   each of the three shapes), a second run's losses bitwise equal.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -172,6 +189,7 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.launch import gnmt as gnmt_cli  # noqa: E402
 from repro_torch.launch import resnet as resnet_cli  # noqa: E402
+from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import gnmt  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
@@ -510,6 +528,14 @@ FLASH_CASES = [  # name, B, Sq, Sk, H, K, D, causal, window, q_off, k_off
     ("gqa16/2", 2, 128, 128, 16, 2, 256, True, None, 0, 0),
     ("unseen", 2, 64, 256, 2, 2, 256, True, None, 0, 0),
     ("win-k90", 2, 200, 200, 2, 2, 256, True, 20, 0, 90),
+    # whisper-medium (16/16 heads of 64): the encoder at one admission
+    # and at the train batch (non-causal, 1500 frames: no tile multiple),
+    # the cross-attention (448 target tokens over 1500 frames) and the
+    # decoder's causal self-attention at the train batch
+    ("w-enc-B1", 1, 1500, 1500, 16, 16, 64, False, None, 0, 0),
+    ("w-enc", 8, 1500, 1500, 16, 16, 64, False, None, 0, 0),
+    ("w-cross", 8, 448, 1500, 16, 16, 64, False, None, 0, 0),
+    ("w-dec", 8, 448, 448, 16, 16, 64, True, None, 0, 0),
 ]
 
 
@@ -594,17 +620,19 @@ def check_flash():
     return recs
 
 
-def flash_records(q, k, v, do, suffix, errs):
+def flash_records(q, k, v, do, suffix, errs, causal=True):
     """The flash kernels' forward and backward records at (q, k, v, do),
-    causal, bf16: kernel, plain and SDPA times (SDPA flash, K/V expanded
-    to the query heads beforehand) beside the bounds; prints them with
-    SDPA forward+backward and the backward's time by kernel. ``errs``:
-    the (forward, backward) max |kernel - plain| the records carry."""
+    bf16, causal or not (q and k of any lengths): kernel, plain and SDPA
+    times (SDPA flash, K/V expanded to the query heads beforehand) beside
+    the bounds; prints them with SDPA forward+backward and the
+    backward's time by kernel. ``errs``: the (forward, backward) max
+    |kernel - plain| the records carry."""
     B, S, H, D = q.shape
-    K, dtype = k.shape[2], q.dtype
-    opts = dict(causal=True, window=None, q_offset=0, k_offset=0)
-    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
-    fwd_flops, bwd_flops = flash_work(B, S, S, H, D, opts)
+    Sk, K, dtype = k.shape[1], k.shape[2], q.dtype
+    opts = dict(causal=causal, window=None, q_offset=0, k_offset=0)
+    kw = dict(causal=causal)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    fwd_flops, bwd_flops = flash_work(B, S, Sk, H, D, opts)
     # Each input read once, each output written once. Forward: q, k, v
     # in; out and the fp32 lse out. Backward: q, k, v, out, dout and lse
     # in; dq, dk, dv out.
@@ -612,7 +640,7 @@ def flash_records(q, k, v, do, suffix, errs):
     fwd_bytes = (2 * q.numel() + 2 * k.numel()) * elt + B * H * S * 4
     bwd_bytes = (4 * q.numel() + 4 * k.numel()) * elt + B * H * S * 4
     qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
-    plain_out = fa.flash_attention_torch(qp, kp, vp)
+    plain_out = fa.flash_attention_torch(qp, kp, vp, **kw)
     qs = q.detach().transpose(1, 2).requires_grad_()
     ks, vs = (t.detach().repeat_interleave(H // K, dim=2).transpose(1, 2)
               .requires_grad_() for t in (k, v))
@@ -621,15 +649,16 @@ def flash_records(q, k, v, do, suffix, errs):
     def sdpa():
         with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
             return torch.nn.functional.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True)
+                qs, ks, vs, is_causal=causal)
 
     sdpa_out = sdpa()
     do_s = do.transpose(1, 2)
     times = dict(
-        fwd=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v)),
+        fwd=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw)),
         bwd=time_ms(lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse,
-                                                        do)),
-        plain_fwd=time_ms(lambda: fa.flash_attention_torch(q, k, v), 10),
+                                                        do, **kw)),
+        plain_fwd=time_ms(lambda: fa.flash_attention_torch(q, k, v, **kw),
+                          10),
         plain_bwd=time_ms(lambda: torch.autograd.grad(
             plain_out, (qp, kp, vp), do, retain_graph=True), 10),
         sdpa_fwd=time_ms(lambda: sdpa().detach()),
@@ -639,7 +668,8 @@ def flash_records(q, k, v, do, suffix, errs):
     times["sdpa_fwd_bwd"] = time_ms(lambda: torch.autograd.grad(
         sdpa(), (qs, ks, vs), do_s))
     bwd_parts = kernel_split_ms(
-        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do), reps=5)
+        lambda: fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw),
+        reps=5)
     fwd_b, fwd_by = bound(fwd_flops, fwd_bytes, dtype)
     bwd_b, bwd_by = bound(bwd_flops, bwd_bytes, dtype)
     common = dict(route="cuda",
@@ -653,7 +683,9 @@ def flash_records(q, k, v, do, suffix, errs):
              ms=times["bwd"], plain_ms=times["plain_bwd"], bound_ms=bwd_b,
              bound_by=bwd_by, library_ms=times["sdpa_bwd"], **common),
     ]
-    print(f"  timing B{B} S{S} H{H} K{K} D{D} {dtype} causal: forward kernel "
+    shape = f"S{S}" if S == Sk else f"Sq{S} Sk{Sk}"
+    print(f"  timing B{B} {shape} H{H} K{K} D{D} {dtype} "
+          f"{'causal' if causal else 'non-causal'}: forward kernel "
           f"{times['fwd']:.4f} ms (bound {fwd_b:.4f}, {fwd_by}: "
           f"{fwd_flops} flop, {fwd_bytes} B), plain {times['plain_fwd']:.4f}"
           f" ms, sdpa {times['sdpa_fwd']:.4f} ms, kernel/sdpa "
@@ -3479,15 +3511,18 @@ def check_flash_archs():
     return recs
 
 
-def check_flash_case(seed, arch, B, S, H, K, D, dtype, tol, suffix):
-    """One shape of ``check_flash_archs``; its (forward, backward)
-    records."""
-    q, k, v, do = flash_inputs(seed, B, S, S, H, K, D, dtype)
-    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
-    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+def check_flash_case(seed, arch, B, S, H, K, D, dtype, tol, suffix, *,
+                     Sk=None, causal=True):
+    """One shape of ``check_flash_archs`` (or of whisper's: ``Sk`` keys,
+    default S, and ``causal``); its (forward, backward) records."""
+    Sk = Sk or S
+    kw = dict(causal=causal)
+    q, k, v, do = flash_inputs(seed, B, S, Sk, H, K, D, dtype)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    dq, dk, dv = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     torch.cuda.synchronize()
     qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
-    want = fa.flash_attention_torch(qp, kp, vp)
+    want = fa.flash_attention_torch(qp, kp, vp, **kw)
     want.backward(do)
     errs = {}
     for label, got, ref in (("out", out, want), ("dq", dq, qp.grad),
@@ -3499,11 +3534,13 @@ def check_flash_case(seed, arch, B, S, H, K, D, dtype, tol, suffix):
             raise AssertionError(
                 f"flash_attention {arch} B{B} {H}/{K} {label}: kernel != "
                 f"plain, max |diff| {errs[label]} > {tol}")
-    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     if not all(torch.equal(a, b) for a, b in zip(again, (dq, dk, dv))):
         raise AssertionError(f"flash_attention {arch} B{B}: a rerun of the "
                              f"backward differs")
-    print(f"  {arch} B{B} S{S} {H}/{K} (G {H // K}) D{D} bf16 causal: "
+    shape = f"S{S}" if S == Sk else f"Sq{S} Sk{Sk}"
+    print(f"  {arch} B{B} {shape} {H}/{K} (G {H // K}) D{D} bf16 "
+          f"{'causal' if causal else 'non-causal'}: "
           f"max|kernel-plain| " + ", ".join(
               f"{n} {e:.2e}" for n, e in errs.items()) +
           f" (tol {tol:g}), backward rerun bitwise equal", flush=True)
@@ -3511,7 +3548,8 @@ def check_flash_case(seed, arch, B, S, H, K, D, dtype, tol, suffix):
     torch.cuda.empty_cache()
     recs = tuple(flash_records(
         q, k, v, do, suffix,
-        (errs["out"], max(errs["dq"], errs["dk"], errs["dv"]))))
+        (errs["out"], max(errs["dq"], errs["dk"], errs["dv"])),
+        causal=causal))
     del q, k, v, do
     torch.cuda.empty_cache()
     return recs
@@ -3821,6 +3859,440 @@ def train_jamba():
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# whisper-medium (encoder-decoder): the flash kernels at its encoder, cross
+# and decoder shapes and the paged kernel at D 64, G 1; reduced card vs CPU;
+# every published width and depth serving both streams, then training.
+# --------------------------------------------------------------------------- #
+WHISPER = "whisper-medium"
+# (record suffix, B, Sq, Sk, causal): the encoder at one admission (the
+# serving path encodes each request alone) and at the train batch, the
+# cross-attention and the decoder's self-attention at the train batch.
+WHISPER_FLASH = (("enc_B1", 1, 1500, 1500, False),
+                 ("enc", 8, 1500, 1500, False),
+                 ("cross", 8, 448, 1500, False),
+                 ("dec", 8, 448, 448, True))
+# Whisper's 30 s window (1500 frames) and text context (448 tokens).
+WHISPER_BATCH, WHISPER_SEQ = 8, 448
+
+
+def whisper_shape(suffix):
+    """The flash launch-count key (B, Sq, Sk, H, K, D, causal) of a
+    ``WHISPER_FLASH`` entry."""
+    cfg = get_config(WHISPER)
+    _, B, Sq, Sk, causal = next(c for c in WHISPER_FLASH if c[0] == suffix)
+    return (B, Sq, Sk, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, causal)
+
+
+def check_whisper_kernels():
+    """The flash forward and backward at whisper's four shapes and the
+    paged kernel at its serving chunk (B 8, C 8, page 16, 16/16 heads of
+    64, bf16 q; bf16 and int8 pools): each held against its plain
+    version, rerun bitwise, then timed beside its bound and SDPA.
+    Returns ({suffix: (forward record, backward record)}, {pool kind:
+    paged record})."""
+    phase("kernels: whisper-medium's shapes (16/16 heads of 64): flash "
+          "forward and backward (encoder 1500 x 1500 non-causal at B 1 and "
+          "8, cross 448 x 1500, decoder 448 causal) and paged_attention "
+          "(G 1, bf16 and int8 pools) vs plain PyTorch")
+    cfg = get_config(WHISPER)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    tol = TOL[torch.bfloat16]
+    flash = {}
+    for i, (suffix, B, Sq, Sk, causal) in enumerate(WHISPER_FLASH):
+        flash[suffix] = check_flash_case(
+            500 + i, WHISPER, B, Sq, H, K, D, torch.bfloat16, tol,
+            f"_whisper_{suffix}", Sk=Sk, causal=causal)
+    main = dict(B=8, C=8, H=H, K=K, D=D, page=16, npg=10,
+                lens=[160, 5, 37, 128, 64, 99, 16, 0],
+                nvs=[1, 5, 8, 1, 8, 3, 1, 1])
+    paged = {}
+    for j, kind in enumerate(("bfloat16", "int8")):
+        if kind == "int8":
+            case = quant_case(510 + j, "int8", torch.bfloat16, **main)
+        else:
+            case = paged_case(510 + j, dtype=torch.bfloat16, **main)
+        err = hold_paged(case, None, f"whisper {H}/{K} D{D} {kind}", tol)
+        nbytes, flops = work(case, None)
+        b_ms, by = bound(flops, nbytes, torch.bfloat16)
+        qs, ks, vs, mask = gqa_sdpa_inputs(case)
+        rec = dict(
+            name=f"paged_attention{'_int8' if kind == 'int8' else ''}"
+                 f"_{WHISPER}",
+            route="cuda",
+            source="src/repro_torch/kernels/csrc/paged_attention.cu",
+            replaces="src/repro/kernels/paged_attention.py:186",
+            max_abs_err=err,
+            ms=time_ms(lambda: pa.paged_attention_cuda(**case)),
+            plain_ms=time_ms(lambda: pa.paged_attention_torch(**case)),
+            bound_ms=b_ms, bound_by=by,
+            library_ms=time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qs, ks, vs, attn_mask=mask)))
+        print(f"  whisper {H}/{K} (G 1) D{D} {kind} pool: max|kernel-plain| "
+              f"{err:.3e} (tol {tol:g}), rerun bitwise equal; kernel "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, sdpa "
+              f"{rec['library_ms']:.4f} ms (K/V gathered"
+              f"{', dequantized' if kind == 'int8' else ''} beforehand), "
+              f"kernel/sdpa {rec['ms'] / rec['library_ms']:.3f}, bound "
+              f"{b_ms:.4f} ms ({by}: {nbytes} B, {flops} flop)", flush=True)
+        paged[kind] = rec
+        del case, qs, ks, vs, mask
+    torch.cuda.empty_cache()
+    return flash, paged
+
+
+def reduced_whisper_vs_cpu():
+    """Reduced whisper-medium (2 encoder layers over 64 frames, 1 decoder
+    layer, heads of 64) in fp32 from the same weights on both devices:
+    the card's path (flash and paged kernels, cuBLAS) against the CPU's
+    plain path. Forward logits to 1e-4 of their largest entry; the loss
+    to rtol 1e-4 and every gradient to 1e-3 of (its leaf's largest entry
+    + 1e-3);
+    the greedy tokens of the paged engine (bf16/fp32 and int8 pools) and
+    of the slab engine equal."""
+    phase("check: reduced whisper-medium, card vs CPU plain path, fp32")
+    cfg = dataclasses.replace(get_config(WHISPER).reduced(), dtype="float32",
+                              kv_cache_dtype="float32")
+    cpu = encdec.init_encdec(cfg, 2, device="cpu", dtype=torch.float32)
+    params = {"cpu": cpu, "cuda": tree_map(lambda t: t.to("cuda"), cpu)}
+    g = torch.Generator().manual_seed(2)
+    frames = torch.randn((2, cfg.enc_source_len, cfg.d_model), generator=g)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=g)
+    fa.reset_launches()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        leaves = tree_leaves(params[dev])
+        for w in leaves:
+            w.requires_grad_(True)
+        batch = {"media": frames.to(dev), "tokens": toks.to(dev)}
+        logits = encdec.forward(params[dev], cfg, batch["media"],
+                                batch["tokens"])
+        loss, _ = encdec.loss_fn(params[dev], cfg, batch)
+        out[dev] = (logits.detach().cpu(), loss.item(),
+                    [x.cpu() for x in torch.autograd.grad(loss, leaves)])
+        for w in leaves:
+            w.requires_grad_(False)
+    launches = (fa.flash_attention_fwd_cuda.launches,
+                fa.flash_attention_bwd_cuda.launches)
+    want = (2 * (cfg.n_enc_layers + 2 * cfg.n_layers),
+            cfg.n_enc_layers + 2 * cfg.n_layers)
+    (lc, nc, gc_), (lg, ng, gg) = out["cpu"], out["cuda"]
+    rel = ((lc - lg).abs().max() / lc.abs().max()).item()
+    # a key bias shifts every logit of a row alike: its gradient is 0 up
+    # to rounding on both devices; the 1e-3 beside the largest entry puts
+    # a floor of 1e-6 under the 1e-3 tolerance (the CPU tests' atol)
+    err = max(((a - b).abs().max() / (a.abs().max() + 1e-3)).item()
+              for a, b in zip(gc_, gg))
+    print(f"  logits max|card-cpu| {rel:.2e} of the largest (tol 1e-4); loss "
+          f"cpu {nc:.6f} card {ng:.6f}; gradients max |card-cpu| / (max|cpu|"
+          f" + 1e-3) {err:.2e} over {len(gc_)} leaves (tol 1e-3); flash "
+          f"launches forward {launches[0]}, backward {launches[1]} "
+          f"(expected {want})", flush=True)
+    if rel > 1e-4 or abs(nc - ng) > 1e-4 * abs(nc) or err > 1e-3:
+        raise AssertionError(f"reduced whisper differs card vs CPU: logits "
+                             f"{rel}, loss {nc} vs {ng}, gradient {err}")
+    if launches != want:
+        raise AssertionError(f"reduced whisper flash launches {launches} != "
+                             f"{want}")
+    paged = dict(max_batch=3, max_len=40, page_size=4, prefill_chunk=8)
+    toks = {}
+    for name, knobs in (("paged", paged),
+                        ("paged int8", dict(paged, kv_dtype="int8")),
+                        ("slab", dict(max_batch=3, max_len=40,
+                                      prefill_len=24, kv_layout="slab"))):
+        pa.reset_launches()
+        for dev in ("cpu", "cuda"):
+            reqs = synthetic_requests(cfg, n=5, tokens=6, prompt_len=24,
+                                      seed=7, prompt_lens=(3, 17, 24, 5, 11))
+            toks[name, dev] = tokens_of(run_offline(
+                Engine(cfg, params[dev], ServeConfig(**knobs), device=dev),
+                reqs))
+        n = pa.paged_attention_cuda.launches
+        if toks[name, "cpu"] != toks[name, "cuda"]:
+            raise AssertionError(f"reduced whisper {name}: greedy tokens "
+                                 f"differ card vs CPU")
+        if (n == 0) == (name != "slab"):
+            raise AssertionError(f"reduced whisper {name}: {n} paged "
+                                 f"kernel launches")
+        print(f"  {name}: greedy tokens identical card vs CPU (5 ragged "
+              f"requests, {n} paged kernel launches)", flush=True)
+    if toks["slab", "cuda"] != toks["paged", "cuda"]:
+        raise AssertionError("reduced whisper: slab and paged tokens differ")
+    print("  slab tokens equal the paged engine's", flush=True)
+
+
+def whisper_stream(engine, cfg, workload, run, label):
+    """One stream through ``engine`` (``run``: run_offline or run_server)
+    with the paged and flash counters zeroed just before: the paged
+    kernel (of the pool's branch) once per decoder layer per chunk step,
+    the flash forward once per encoder layer per admission at the
+    encoder's B 1 shape, nothing else; every request its tokens; a second
+    run the same tokens. Returns (report, summary dict)."""
+    kind = engine.cfg.kv_cache_dtype
+    reqs = workload()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launches()
+    fa.reset_launches()
+    report = run(engine, reqs)
+    paged = dict(pa.paged_attention_cuda.launches_by_kind)
+    flash = dict(fa.flash_attention_fwd_cuda.launches_by_shape)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    chunks = [st for st in report.steps if st.kind != "encode"]
+    encodes = [st.wall_s * 1e3 for st in report.steps if st.kind == "encode"]
+    s = report.summary()
+    s.update(kv=kind, chunk_steps=len(chunks), encodes=len(encodes),
+             encode_ms_p50=float(np.median(encodes)),
+             paged_launches=paged[kind],
+             flash_launches=sum(flash.values()), peak_mem_gib=peak)
+    print(f"  {label}: {report.format()}", flush=True)
+    print(f"  {label}: {len(chunks)} chunk steps, {len(encodes)} encodes "
+          f"(p50 {s['encode_ms_p50']:.2f} ms, encoder + 24 layers' cross "
+          f"K/V), paged launches {paged} (expected {cfg.n_layers} x "
+          f"{len(chunks)} {kind}), flash forward {flash} (expected "
+          f"{cfg.n_enc_layers} x {len(encodes)} at the encoder's B 1 "
+          f"shape), backward {fa.flash_attention_bwd_cuda.launches}; peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    if (paged[kind] != cfg.n_layers * len(chunks) or not chunks
+            or sum(paged.values()) != paged[kind]):
+        raise AssertionError(f"{label}: paged launches {paged} in "
+                             f"{len(chunks)} chunk steps")
+    if (flash != {whisper_shape("enc_B1"): cfg.n_enc_layers * len(encodes)}
+            or len(encodes) < len(reqs)
+            or fa.flash_attention_bwd_cuda.launches):
+        raise AssertionError(f"{label}: flash launches {flash} for "
+                             f"{len(encodes)} encodes")
+    got = tokens_of(report)
+    if len(got) != len(reqs) or any(
+            len(t) != NEW_TOKENS or not all(0 <= x < cfg.vocab for x in t)
+            for t in got):
+        raise AssertionError(f"{label}: not {len(reqs)} x {NEW_TOKENS} "
+                             f"tokens in the vocabulary")
+    if tokens_of(run(engine, workload())) != got:
+        raise AssertionError(f"{label}: a second run of the stream differs")
+    print(f"  {label}: a second run gives the same greedy tokens", flush=True)
+    return report, s
+
+
+def serve_whisper():
+    """whisper-medium at every published width and depth (24 + 24
+    layers, random bf16 weights from seed 0) serves stream (a), the 8
+    ragged requests offline, each with its own 1500 x 1024 frames, then
+    stream (b), two 96-token templates with 32-token suffixes (same
+    template, same media) in the server scenario with the prefix cache
+    and n-gram drafts of 3, from a bf16 and from an int8 pool; one chunk
+    step of 8 x 8 tokens traced. Returns the launches (encoder flash at
+    B 1 in stream (a), paged bf16 in stream (a), paged int8 in stream
+    (b))."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(WHISPER)
+    phase(f"serve: {WHISPER} every published width and depth "
+          f"({cfg.n_enc_layers} + {cfg.n_layers} layers), bf16 weights, "
+          f"stream (a): 8 ragged requests, own media each, offline")
+    t0 = time.perf_counter()
+    params = encdec.init_encdec(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = cfg.param_count()
+    print(f"  {n / 1e9:.3f} B params ({2 * n / 1e9:.2f} GB bf16), d_model "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
+          f"{cfg.enc_source_len} frames; init in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+                       page_size=16, prefill_chunk=8)
+    engine = Engine(cfg, params, scfg, device="cuda")
+    if engine.layout != "paged":
+        raise AssertionError(f"{WHISPER} served from {engine.layout}")
+    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                           seed=1))  # warm-up
+
+    def stream_a():
+        return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
+                                  prompt_len=max(PROMPT_LENS), seed=0,
+                                  prompt_lens=PROMPT_LENS)
+
+    _, sa = whisper_stream(engine, cfg, stream_a, run_offline, "stream (a)")
+    launches = (sa["flash_launches"], sa["paged_launches"])
+
+    # one mixed chunk step, 8 rows x 8 tokens, against a fresh pool whose
+    # 8 cross slots hold one request's encoder K/V
+    B, C = 8, scfg.prefill_chunk
+    cache = encdec.init_paged_cache(cfg, B, 16, 16, device="cuda")
+    with torch.inference_mode():
+        frames = torch.tensor(stream_a()[0].media)[None].cuda()
+        kv = encdec.encode_cross(params, cfg, frames)
+        for slot in range(B):
+            slab_ops.write_slot(cache["cross"], kv, slot)
+    pt = torch.full((B, 2), -1, dtype=torch.int32, device="cuda")
+    pt[:, 0] = torch.arange(B, dtype=torch.int32)
+    toks = torch.randint(0, cfg.vocab, (B, C), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(3))
+    zero = torch.zeros(B, dtype=torch.int32, device="cuda")
+    nv = torch.full((B,), C, dtype=torch.int32, device="cuda")
+
+    def chunk():
+        with torch.inference_mode():
+            return encdec.decode_chunk(params, cfg, toks, cache, pt, zero,
+                                       nv)[0]
+
+    logits = chunk()
+    if tuple(logits.shape) != (B, cfg.vocab) or \
+            not torch.isfinite(logits.float()).all():
+        raise AssertionError(f"{WHISPER}: chunk logits not finite (B, vocab)")
+    ms, busy, kernels = timed_and_traced(chunk)
+    print(f"  one chunk step (8 x 8 tokens): {ms:.2f} ms (median of 3, to "
+          f"the card's end); traced: {sum(e.count for e in kernels)} kernels,"
+          f" device busy {busy:.2f} ms = {100 * busy / ms:.1f}%; top "
+          f"kernels:", flush=True)
+    for e in kernels[:6]:
+        print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+              f"{e.count:5d}x {e.key[:100]}")
+    sa.update(chunk_ms=ms, chunk_busy_ms=busy, chunk_busy_share=busy / ms)
+    print(f"  serve stream (a) summary {json.dumps(sa)}", flush=True)
+    del engine, cache, kv, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def stream_b():
+        return synthetic_requests(
+            cfg, n=8, tokens=NEW_TOKENS, prompt_len=SHARED + SUFFIX,
+            scenario="server", seed=0, arrival_rate=RATE,
+            shared_prefix_len=SHARED, n_templates=2)
+
+    for kv_dtype in ("bfloat16", "int8"):
+        phase(f"serve: {WHISPER} stream (b): 2 templates of {SHARED} tokens "
+              f"+ {SUFFIX}-token suffixes, same-template media shared, "
+              f"server scenario, prefix cache, n-gram drafts of 3, "
+              f"{kv_dtype} pool")
+        engine = Engine(cfg, params, ServeConfig(
+            max_batch=8, max_len=SHARED + SUFFIX + NEW_TOKENS, page_size=16,
+            prefill_chunk=8, prefix_cache=True, spec_decode="ngram",
+            draft_len=3, kv_dtype=kv_dtype), device="cuda")
+        run_offline(engine, synthetic_requests(cfg, n=2, tokens=2,
+                                               prompt_len=8, seed=1))
+        report, sb = whisper_stream(engine, cfg, stream_b, run_server,
+                                    f"stream (b) {kv_dtype}")
+        print(f"  stream (b) {kv_dtype}: prefix_hit_rate "
+              f"{report.prefix_hit_rate:.4f}, pages shared "
+              f"{report.pages_shared}, draft_tokens {report.draft_tokens} "
+              f"(accepted {report.draft_accepted}, spec_accept_rate "
+              f"{report.spec_accept_rate:.4f}), preemptions "
+              f"{report.preemptions}", flush=True)
+        if not report.prefix_hit_rate or report.draft_tokens == 0:
+            raise AssertionError(f"stream (b) {kv_dtype}: prefix_hit_rate "
+                                 f"{report.prefix_hit_rate}, draft_tokens "
+                                 f"{report.draft_tokens}; both must be > 0")
+        sb.update(draft_accepted=report.draft_accepted)
+        print(f"  serve stream (b) {kv_dtype} summary {json.dumps(sb)}",
+              flush=True)
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (*launches, sb["paged_launches"])
+
+
+def run_whisper_trainer(cfg, steps):
+    """A fresh trainer (weights from seed 0) fitted for ``steps`` steps of
+    ``synthetic_lm_batches(seed=0)``: 8 examples of 1500 frames and 448
+    target tokens; returns (trainer, history)."""
+    tr = Trainer(cfg, TrainerConfig(total_steps=steps, log_every=1),
+                 device="cuda")
+    hist = tr.fit(synthetic_lm_batches(cfg, batch=WHISPER_BATCH,
+                                       seq=WHISPER_SEQ, steps=steps, seed=0),
+                  hooks=tr.default_hooks() + [SyncEveryStep()])
+    return tr, hist
+
+
+def train_whisper():
+    """whisper-medium at every published width and depth (fp32 masters,
+    gradients and Adam moments, bf16 compute, remat, one microbatch)
+    takes 4 steps of batch 8 x (1500 frames, 448 tokens) through
+    ``Trainer.fit``: the flash counters, zeroed just before, must show
+    per step forward 2 x 24 (with the remat recompute) and backward 24
+    at each of the encoder's, the cross-attention's and the decoder's
+    shapes, and a second run from the same seed must repeat the losses
+    bitwise. Returns {suffix: (forward launches, backward launches)}."""
+    cfg = get_config(WHISPER)
+    phase(f"train: {WHISPER} every published width and depth "
+          f"({cfg.n_enc_layers} + {cfg.n_layers} layers), batch "
+          f"{WHISPER_BATCH} x ({cfg.enc_source_len} frames, {WHISPER_SEQ} "
+          f"tokens), one microbatch, fp32 masters, gradients and moments, "
+          f"bf16 compute, remat")
+    if not cfg.remat or cfg.microbatches != 1:
+        raise AssertionError("the full config trains with remat, unsplit")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    tr, hist = run_whisper_trainer(cfg, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd = dict(fa.flash_attention_fwd_cuda.launches_by_shape)
+    bwd = dict(fa.flash_attention_bwd_cuda.launches_by_shape)
+    n_params = sum(p.numel() for p in tree_leaves(tr.state["params"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in hist]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = {"enc": cfg.n_enc_layers, "cross": cfg.n_layers,
+           "dec": cfg.n_layers}
+    want_f = {whisper_shape(k): 2 * n * TRAIN_STEPS for k, n in per.items()}
+    want_b = {whisper_shape(k): n * TRAIN_STEPS for k, n in per.items()}
+    step_ms = float(np.median([r["step_ms"] for r in hist[1:]]))
+    tok_s = WHISPER_BATCH * WHISPER_SEQ / (step_ms / 1e3)
+    print(f"  {n_params / 1e9:.3f} B params; {TRAIN_STEPS} steps in "
+          f"{wall:.1f} s; losses {losses}; step {step_ms:.1f} ms (median of "
+          f"steps 2-{TRAIN_STEPS}: {[round(r['step_ms'], 1) for r in hist]}),"
+          f" {tok_s:.0f} target tokens/s; peak memory {peak:.2f} GiB; flash "
+          f"launches forward {fwd}, backward {bwd}", flush=True)
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{WHISPER}: non-finite or missing losses "
+                             f"{hist}")
+    if fwd != want_f or bwd != want_b:
+        raise AssertionError(f"{WHISPER}: flash launches {fwd}, {bwd} != "
+                             f"{want_f}, {want_b}")
+    tr, again = run_whisper_trainer(cfg, 2)
+    again = [r["loss"] for r in again]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  second run, 2 steps: losses {again}", flush=True)
+    if again != losses[:2]:
+        raise AssertionError(f"{WHISPER}: a second run's losses differ: "
+                             f"{again} vs {losses[:2]}")
+    print("  bitwise equal to the first run's", flush=True)
+    summary = dict(arch=WHISPER, n_params=n_params, step_ms=step_ms,
+                   target_tokens_per_s=tok_s, peak_mem_gib=peak,
+                   losses=losses, wall_s=wall)
+    print(f"  train summary {json.dumps(summary)}", flush=True)
+    return {k: (want_f[whisper_shape(k)], want_b[whisper_shape(k)])
+            for k in per}
+
+
+def whisper_phases():
+    """The whisper phases in turn, their wall printed. Returns (the
+    kernel records, with their launches on the serve and train paths)."""
+    t0 = time.perf_counter()
+    flash, paged = check_whisper_kernels()
+    reduced_whisper_vs_cpu()
+    enc1, paged_bf16, paged_int8 = serve_whisper()
+    flash["enc_B1"][0]["launches"] = enc1
+    paged["bfloat16"]["launches"] = paged_bf16
+    paged["int8"]["launches"] = paged_int8
+    for suffix, (f, b) in train_whisper().items():
+        flash[suffix][0]["launches"], flash[suffix][1]["launches"] = f, b
+    print(f"  whisper phases wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return [paged["bfloat16"], paged["int8"], flash["enc_B1"][0],
+            *(r for k in ("enc", "cross", "dec") for r in flash[k])]
+
+
 PHASES = {  # --only names: the phases a short run may pick
     "paged": lambda: (check_kernel(), check_paged_archs()),
     "flash": lambda: (check_flash(), check_flash_archs()),
@@ -3836,6 +4308,9 @@ PHASES = {  # --only names: the phases a short run may pick
     "serve-sample": lambda: serve_sample(full_serve_params()),
     "train-resume": train_resume,
     "serve-archs": serve_archs, "train-archs": train_archs,
+    "kernels-whisper": check_whisper_kernels,
+    "check-whisper": reduced_whisper_vs_cpu,
+    "serve-whisper": serve_whisper, "train-whisper": train_whisper,
 }
 
 
@@ -3910,11 +4385,12 @@ def main(argv=None) -> int:
             flash_archs[arch][1]["launches"] = bwd
     (mamba_train["launches"], mamba_bwd["launches"],
      flash_jamba_fwd["launches"], flash_jamba_bwd["launches"]) = train_jamba()
+    whisper = whisper_phases()
     recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,
             mamba_train, mamba_bwd, lstm_fwd, lstm_bwd, lars_norms,
             lars_update, *paged_archs.values(),
             *(r for pair in flash_archs.values() for r in pair),
-            flash_jamba_fwd, flash_jamba_bwd]
+            flash_jamba_fwd, flash_jamba_bwd, *whisper]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"  whole smoke wall {time.perf_counter() - t0:.1f} s", flush=True)

@@ -1,10 +1,11 @@
 """Architecture registry of the port: ``get_config(arch_id)``.
 
 The port covers the attention-only LMs ``gemma-7b``, ``yi-9b``,
-``qwen1.5-32b``, ``command-r-35b``, ``mixtral-8x7b`` and ``grok-1-314b``
-(serving and training) and ``jamba-1.5-large-398b`` (serving through
-the slab layout); the other architectures of the JAX package are known
-by name and refused until they are ported (ROADMAP.md item 3).
+``qwen1.5-32b``, ``command-r-35b``, ``mixtral-8x7b`` and ``grok-1-314b``,
+the hybrid ``jamba-1.5-large-398b`` and the encoder-decoder
+``whisper-medium`` (serving and training); the other architectures of
+the JAX package are known by name and refused until they are ported
+(ROADMAP.md item 3).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from repro_torch.configs import (
     jamba_1_5_large_398b,
     mixtral_8x7b,
     qwen1_5_32b,
+    whisper_medium,
     yi_9b,
 )
 from repro_torch.configs.base import (
@@ -36,12 +38,12 @@ _PORTED = {
     "grok-1-314b": ("grok_1_314b", grok_1_314b.CONFIG),
     "jamba-1.5-large-398b": ("jamba_1_5_large_398b",
                              jamba_1_5_large_398b.CONFIG),
+    "whisper-medium": ("whisper_medium", whisper_medium.CONFIG),
 }
 
 # The JAX package's other architectures (id -> module name), for the
 # error message and module-style ids.
 _NOT_PORTED = {
-    "whisper-medium": "whisper_medium",
     "rwkv6-3b": "rwkv6_3b",
     "qwen2-vl-7b": "qwen2_vl_7b",
 }

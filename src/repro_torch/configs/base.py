@@ -63,6 +63,13 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
     block_pattern: Tuple[LayerSpec, ...] = ()
+    # Encoder-decoder (audio family): encoder layer count + source length.
+    n_enc_layers: int = 0
+    enc_source_len: int = 0
+    # Modality frontend stub: 'none' | 'audio_frames' | 'vision_patches';
+    # batches carry precomputed embeddings of shape (B, n_media, d).
+    frontend: str = "none"
+    n_media_tokens: int = 0
     remat: bool = True                # recompute each layer in backward
     loss_chunk: int = 256             # CE computed in seq chunks of this size
     dtype: str = "bfloat16"           # activation / compute dtype
@@ -95,11 +102,16 @@ class ModelConfig:
     def uses_moe(self) -> bool:
         return any(s.ffn == "moe" for s in self.block_pattern)
 
+    @property
+    def is_encdec(self) -> bool:
+        return self.n_enc_layers > 0
+
     def reduced(self) -> "ModelConfig":
         """CPU smoke variant: same family and pattern, tiny dims
         (``repro.configs.base.ModelConfig.reduced``): up to 4 distinct
         (mixer, ffn) kinds kept, at most 4 experts at a no-drop capacity
-        factor, windows capped at 64."""
+        factor, windows capped at 64, at most 2 encoder layers over at
+        most 64 source frames and 16 media tokens."""
         pat = self.block_pattern[: max(1, min(2, len(self.block_pattern)))]
         kinds = {(s.mixer, s.ffn) for s in self.block_pattern}
         if len(kinds) > len(pat):
@@ -134,6 +146,9 @@ class ModelConfig:
             moe=None if self.moe is None else dataclasses.replace(
                 self.moe, n_experts=min(self.moe.n_experts, 4),
                 capacity_factor=float(min(self.moe.n_experts, 4))),
+            n_enc_layers=min(self.n_enc_layers, 2),
+            enc_source_len=min(self.enc_source_len, 64) or 0,
+            n_media_tokens=min(self.n_media_tokens, 16),
             sliding_window=None if self.sliding_window is None else 64,
             long_context_window=(None if self.long_context_window is None
                                  else 64),
@@ -143,7 +158,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (``repro.configs.base``'s rule for
-        attention and Mamba mixers, dense and MoE FFNs)."""
+        attention and Mamba mixers, dense and MoE FFNs, and an enc-dec
+        stack's encoder layers and cross-attention)."""
         d, f, v = self.d_model, self.d_ff, self.vocab
         total = v * d + (0 if self.tie_embeddings else v * d)
         for spec in self.block_pattern:
@@ -167,4 +183,11 @@ class ModelConfig:
             else:
                 ffn = 0
             total += self.n_blocks * (mixer + ffn)
+        if self.is_encdec:
+            # encoder layers: self-attention + dense FFN; each decoder
+            # layer adds a cross-attention
+            hd = self.head_dim
+            attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
+            total += self.n_enc_layers * (attn + d * f * (3 if self.glu else 2))
+            total += self.n_layers * attn
         return int(total)

@@ -2,8 +2,9 @@
 
 The LM batches are numpy with the reference's generator calls, so a seed
 gives byte-identical batches on both sides: zipfian tokens with a
-learnable bigram structure, enough for the loss to fall. Text-only: the
-port's architectures have no media frontend yet. Beside them, GNMT's
+learnable bigram structure, enough for the loss to fall, and for an
+``audio_frames`` frontend (whisper) standard-normal encoder frames drawn
+after the tokens from the same generator. Beside them, GNMT's
 round-robin multi-host distribution, the background prefetch and the
 streaming :class:`Pipeline` (source -> shard cache -> prefetch; paper
 sections 2 and 3).
@@ -36,8 +37,19 @@ def _zipf_tokens(rng: np.random.Generator, shape, vocab: int) -> np.ndarray:
 
 def make_lm_batch(cfg: ModelConfig, rng: np.random.Generator, *,
                   batch: int, seq: int) -> Dict:
-    """One synthetic batch: {"tokens": (batch, seq) int32}."""
-    return {"tokens": _zipf_tokens(rng, (batch, seq), cfg.vocab)}
+    """One synthetic batch: {"tokens": (batch, seq) int32}, plus
+    "media" (batch, enc_source_len, d_model) fp32 frames for an
+    ``audio_frames`` frontend. The vision frontend (ROADMAP.md item 3)
+    is not ported."""
+    out = {"tokens": _zipf_tokens(rng, (batch, seq), cfg.vocab)}
+    if cfg.frontend == "audio_frames":
+        out["media"] = _frames(rng, batch, cfg)
+    return out
+
+
+def _frames(rng: np.random.Generator, n: int, cfg: ModelConfig):
+    return rng.standard_normal(
+        (n, cfg.enc_source_len, cfg.d_model)).astype(np.float32)
 
 
 def synthetic_lm_batches(cfg: ModelConfig, *, batch: int, seq: int,
@@ -53,6 +65,8 @@ def synthetic_eval_set(cfg: ModelConfig, *, batch: int, seq: int,
     n = n_examples or (batch * 2 + 3)  # deliberately not a batch multiple
     rng = np.random.default_rng(seed)
     fields = {"tokens": _zipf_tokens(rng, (n, seq), cfg.vocab)}
+    if cfg.frontend == "audio_frames":
+        fields["media"] = _frames(rng, n, cfg)
     padded, mask = pad_eval_dataset(fields, batch)
     n_batches = padded["tokens"].shape[0] // batch
 

@@ -24,6 +24,7 @@ and the on-card comparison use.
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -128,7 +129,8 @@ def flash_attention_fwd_cuda(q, k, v, *, causal=True, window=None,
     Takes CUDA tensors on one device, all bf16 or all fp32, head_dim 64,
     128 or 256; copies inputs that are not contiguous. Launches on the
     current stream, does not synchronise, and counts each launch in
-    ``flash_attention_fwd_cuda.launches``.
+    ``flash_attention_fwd_cuda.launches`` and, by (B, Sq, Sk, H, K, D,
+    causal), in ``flash_attention_fwd_cuda.launches_by_shape``.
     """
     name = "flash_attention_fwd_cuda"
     B, Sq, Sk, H, K, D = _shapes(name, q, k, v)
@@ -148,10 +150,9 @@ def flash_attention_fwd_cuda(q, k, v, *, causal=True, window=None,
     if err:
         raise RuntimeError(f"flash_attention_fwd: CUDA error {err}")
     flash_attention_fwd_cuda.launches += 1
+    flash_attention_fwd_cuda.launches_by_shape[
+        (B, Sq, Sk, H, K, D, bool(causal))] += 1
     return out, lse
-
-
-flash_attention_fwd_cuda.launches = 0
 
 
 def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
@@ -161,7 +162,7 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
     the gradient of ``out``. Returns (dq, dk, dv) in the inputs' dtype.
 
     Same inputs as :func:`flash_attention_fwd_cuda`; counts each launch
-    in ``flash_attention_bwd_cuda.launches``.
+    in ``flash_attention_bwd_cuda.launches`` and ``.launches_by_shape``.
     """
     name = "flash_attention_bwd_cuda"
     B, Sq, Sk, H, K, D = _shapes(name, q, k, v)
@@ -191,10 +192,19 @@ def flash_attention_bwd_cuda(q, k, v, out, lse, dout, *, causal=True,
     if err:
         raise RuntimeError(f"flash_attention_bwd: CUDA error {err}")
     flash_attention_bwd_cuda.launches += 1
+    flash_attention_bwd_cuda.launches_by_shape[
+        (B, Sq, Sk, H, K, D, bool(causal))] += 1
     return dq, dk, dv
 
 
-flash_attention_bwd_cuda.launches = 0
+def reset_launches() -> None:
+    """Zero both wrappers' launch counts, in total and by shape."""
+    for fn in (flash_attention_fwd_cuda, flash_attention_bwd_cuda):
+        fn.launches = 0
+        fn.launches_by_shape = collections.Counter()
+
+
+reset_launches()
 
 
 class FlashAttention(torch.autograd.Function):

@@ -26,6 +26,9 @@ dtype of their config unless ``--kv-dtype`` (qwen1.5-32b: int8), which
 the summary line names (``kv=paged/int8``) when it is not the compute
 dtype; jamba-1.5-large-398b, whose Mamba layers carry prompt state,
 serves from the slab only, each prompt prefilled at its exact length.
+whisper-medium (encoder-decoder) serves paged by default, each request
+with its own encoder frames (one array per template with
+``--shared-prefix-len``), encoded once at admission.
 The model is ``reduced()`` unless ``--full`` (the published widths and
 depth, which one card cannot hold for the larger models); weights are
 random from ``--seed``. Runs on the card by default
@@ -119,9 +122,9 @@ def main(argv=None) -> int:
                 f"bench')")
 
     from repro_torch import resolve_device
-    from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, ServeConfig, synthetic_requests
     from repro_torch.serve.scenarios import make_trace, scenario_driver
+    from repro_torch.train.steps import ModelAPI
 
     scfg = ServeConfig(
         max_batch=args.batch if args.max_batch is None else args.max_batch,
@@ -142,7 +145,7 @@ def main(argv=None) -> int:
     cfg = get_config(args.arch)
     if not args.full:
         cfg = cfg.reduced()
-    params = lm.init_lm(cfg, args.seed, device=device)
+    params = ModelAPI(cfg).init(cfg, args.seed, device=device)
     slo_classes = tuple(c.strip() for c in args.slo_classes.split(",")
                         if c.strip())
     reqs = make_trace(

@@ -2,7 +2,8 @@
 ``python -m repro_torch.launch.train --arch gemma-7b ...``.
 
 Runs the reduced config by default (``--full`` for the published
-widths) on the card; ``--device cpu`` runs the plain PyTorch path. The
+widths) on the card; an enc-dec arch (whisper-medium) trains on
+``--seq`` target tokens beside its config's encoder frames; ``--device cpu`` runs the plain PyTorch path. The
 flags and console output are those of ``python -m repro.launch.train``:
 a ``step N: loss=... nll=...`` line every ``max(1, steps // 10)``
 steps, eval lines with ``--eval-every``, then ``done {last record}``.

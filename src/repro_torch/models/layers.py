@@ -1,8 +1,9 @@
 """Layers of the port's serving and training paths
 (``repro.models.layers``): RMSNorm and LayerNorm, half-split RoPE, GQA
 projections (with optional q/k/v biases), the dense GLU FFN, the MoE
-FFN, the Mamba (S6) mixer, full-sequence attention, slab-KV decode
-attention and paged-KV attention.
+FFN, the Mamba (S6) mixer, full-sequence attention (self and cross),
+slab-KV decode attention (self and cross), paged-KV attention and the
+chunk program's cross-attention.
 
 Norms, RoPE, softmax and the SSM recurrence run in fp32 and cast back,
 as the reference does; projections run in the config's compute dtype.
@@ -228,17 +229,20 @@ def paged_copy_pages(cache, src, dst):
 
 
 def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
-                   causal=True):
-    """Full-sequence self-attention (train / prefill).
+                   causal=True, kv_x=None):
+    """Full-sequence attention (train / prefill / encoder / cross).
 
     x: (B, S, d); positions: (B, S) RoPE positions (unused when
-    ``cfg.rope == "none"``). Returns (out (B, S,
-    d), (k, v)), k/v (B, S, K, hd) in the compute dtype, as the
+    ``cfg.rope == "none"``); ``kv_x`` (B, T, d), the source sequence of
+    a cross-attention (default x), whose keys take no RoPE. Returns (out
+    (B, S, d), (k, v)), k/v (B, T, K, hd) in the compute dtype, as the
     reference returns them for cache construction.
     """
     B, S, _ = x.shape
-    q, k, v = (_qkv(params, x, w) for w in "qkv")
-    if cfg.rope != "none":
+    src = x if kv_x is None else kv_x
+    q = _qkv(params, x, "q")
+    k, v = _qkv(params, src, "k"), _qkv(params, src, "v")
+    if cfg.rope != "none" and kv_x is None:
         q = apply_rope(q, positions, theta=cfg.rope_theta)
         k = apply_rope(k, positions, theta=cfg.rope_theta)
     out = ops.attention(q, k, v, causal=causal, window=window)
@@ -349,19 +353,23 @@ def cache_from_prefill(cfg: ModelConfig, k, v, length: int):
 
 
 def attention_decode(params, x, cfg: ModelConfig, cache, *, pos,
-                     window=None):
+                     window=None, cross=False):
     """One-token attention against one layer's slab cache. x: (B, 1, d);
     ``pos`` an int or (B,) absolute positions (each row decodes at its
     own offset). The new K/V go into the cache first (in place), then
-    ``ops.decode_attention`` reads it. Returns (out (B, 1, d), cache)."""
+    ``ops.decode_attention`` reads it. A cross-attention (``cross``)
+    reads its static encoder cache as it is: no insert, no RoPE.
+    Returns (out (B, 1, d), cache)."""
     B = x.shape[0]
-    q, k_new, v_new = (_qkv(params, x, w) for w in "qkv")
-    if cfg.rope != "none":
-        posv = torch.as_tensor(pos, device=x.device).long().reshape(-1, 1)
-        posv = posv.expand(B, 1)
-        q = apply_rope(q, posv, theta=cfg.rope_theta)
-        k_new = apply_rope(k_new, posv, theta=cfg.rope_theta)
-    cache_insert(cache, k_new[:, 0], v_new[:, 0], pos)
+    q = _qkv(params, x, "q")
+    if not cross:
+        k_new, v_new = _qkv(params, x, "k"), _qkv(params, x, "v")
+        if cfg.rope != "none":
+            posv = torch.as_tensor(pos, device=x.device).long()
+            posv = posv.reshape(-1, 1).expand(B, 1)
+            q = apply_rope(q, posv, theta=cfg.rope_theta)
+            k_new = apply_rope(k_new, posv, theta=cfg.rope_theta)
+        cache_insert(cache, k_new[:, 0], v_new[:, 0], pos)
     out = ops.decode_attention(q, cache["k"], cache["v"], cache["slot_pos"],
                                pos=pos, window=window,
                                k_scale=cache.get("k_scale"),
@@ -369,6 +377,35 @@ def attention_decode(params, x, cfg: ModelConfig, cache, *, pos,
     wo = params["wo"]
     H, hd, d = wo.shape
     return out.reshape(B, 1, H * hd) @ wo.reshape(H * hd, d), cache
+
+
+def attention_cross_chunk(params, x, cfg: ModelConfig, cache):
+    """C-query cross-attention against one layer's static (encoder) slab
+    cache (``layers.py:451-476``), plain PyTorch on both devices: the
+    reference has no Pallas kernel for it.
+
+    x: (B, C, d); cache: {"k", "v", "slot_pos"} (+ ``k_scale``/
+    ``v_scale`` for int8) of the encoder K/V, (B, T, K, hd). Every query
+    sees every slot whose ``slot_pos`` is >= 0 (no causality); logits
+    and softmax in fp32 with a finite -1e30 mask, so the rows of a slot
+    that never admitted (``slot_pos`` -1 throughout) are a uniform mean
+    of V, not NaN. Returns (B, C, d)."""
+    B, C, _ = x.shape
+    q = _qkv(params, x, "q")
+    H, D = q.shape[2], q.shape[3]
+    K = cache["k"].shape[2]
+    kf, vf = cache["k"].float(), cache["v"].float()
+    if "k_scale" in cache:
+        kf = kf * cache["k_scale"][..., None].float()
+        vf = vf * cache["v_scale"][..., None].float()
+    qf = (q.float() * D ** -0.5).reshape(B, C, K, H // K, D)
+    logits = torch.einsum("bckgd,bskd->bckgs", qf, kf)
+    valid = cache["slot_pos"] >= 0
+    logits = logits.masked_fill(~valid[:, None, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bckgs,bskd->bckgd", probs, vf).reshape(B, C, H * D)
+    wo = params["wo"]
+    return out.to(x.dtype) @ wo.reshape(H * D, wo.shape[-1])
 
 
 # ---- Mixture-of-Experts FFN (``layers.py:544-603``) ----------------------- #

@@ -2,10 +2,12 @@
 dense slot slab and the paged pool.
 
 **Slot slab** (recurrent and hybrid stacks, or ``kv_layout="slab"``):
-the model's decode cache (``lm.init_cache``) with batch = ``max_batch``,
-one dict per layer with the batch on axis 0. A *slot* is one index of
-that axis: admission writes a freshly prefilled single-request cache
-into it (:func:`write_slot`), retirement abandons it.
+the model's decode cache (``lm.init_cache``, or ``encdec.init_cache``'s
+{"self", "cross"} pair of such lists) with batch = ``max_batch``, one
+dict per layer with the batch on axis 0. A *slot* is one index of that
+axis: admission writes a freshly prefilled single-request cache into it
+(:func:`write_slot`), retirement abandons it. An enc-dec model's paged
+cache keeps such a dense per-slot ``cross`` slab beside its pools.
 
 **Paged pool** (attention-only stacks):
 
@@ -19,7 +21,8 @@ cross-request prefix cache, ``serve.prefix.PrefixIndex``), may be
 pinned by the index with no slot referencing it (``cache``/``uncache``),
 and is copy-on-written (``cow``) before a slot writes into a page
 another holder can see. :func:`copy_pages` and :func:`apply_defrag` are
-the device halves of ``cow`` and ``defrag``.
+the device halves of ``cow`` and ``defrag``; they leave an enc-dec
+``cross`` slab as it is.
 """
 from __future__ import annotations
 
@@ -28,19 +31,25 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from repro_torch.models import lm
 from repro_torch.models.layers import paged_copy_pages
+from repro_torch.train.steps import ModelAPI
 
 
 def init_slab(cfg, max_batch: int, max_len: int, window=None, *,
               device="cuda"):
     """Batched decode cache with one slot per concurrent request."""
-    return lm.init_cache(cfg, max_batch, max_len, window, device=device)
+    return ModelAPI(cfg).init_cache(max_batch, max_len, window,
+                                    device=device)
 
 
 def write_slot(slab, cache, slot: int):
     """Write a prefilled single-request cache (batch 1) into ``slot`` of
-    the slab, in place; returns the slab."""
+    the slab (a list of per-layer dicts, or a dict of such lists), in
+    place; returns the slab."""
+    if isinstance(slab, dict):
+        for key, part in slab.items():
+            write_slot(part, cache[key], slot)
+        return slab
     for dst, src in zip(slab, cache):
         for name, t in dst.items():
             t[slot:slot + 1] = src[name].to(t.dtype)
@@ -57,7 +66,12 @@ def invalidate_beyond(cache, true_len):
     """Mark an attention cache's slots at index >= ``true_len`` empty
     (``slot_pos`` -1), in place, so that a prompt right-padded to one
     prefill length decodes as an unpadded one would. true_len: (B,)
-    per-row true lengths. Recurrent entries are left as they are."""
+    per-row true lengths. Recurrent entries, and an enc-dec cache's
+    ``cross`` caches (the whole encoder output), are left as they
+    are."""
+    if isinstance(cache, dict):
+        invalidate_beyond(cache["self"], true_len)
+        return cache
     for layer in cache:
         if "slot_pos" in layer and "k" in layer:
             sp = layer["slot_pos"]
@@ -275,11 +289,17 @@ class PagePool:
         return {int(old): new for new, old in enumerate(perm[:-1])}
 
 
+def _pools(cache):
+    """The layer-stacked page pools of a paged cache: the cache itself,
+    or an enc-dec cache's ``self`` entry (its ``cross`` slab is dense)."""
+    return cache["self"] if "self" in cache else cache
+
+
 def apply_defrag(cache, perm):
     """Gather the layer-stacked pools ``(n_layers, n_pages + 1, ...)``,
     values and any dequant scales, into the post-``defrag`` page order,
     in place."""
-    for pool in cache.values():
+    for pool in _pools(cache).values():
         idx = torch.as_tensor(perm, dtype=torch.long, device=pool.device)
         pool.copy_(pool.index_select(1, idx))
     return cache
@@ -290,5 +310,5 @@ def copy_pages(cache, src: List[int], dst: List[int]):
     the layer-stacked cache (the device half of :meth:`PagePool.cow`),
     in place."""
     if src:
-        paged_copy_pages(cache, src, dst)
+        paged_copy_pages(_pools(cache), src, dst)
     return cache

@@ -39,6 +39,14 @@ length; attention-only stacks pad prompts to ``prefill_len`` and mask
 the padding (``serve.cache.invalidate_beyond``). Greedy tokens are the
 same in both layouts.
 
+An enc-dec model (whisper) serves paged, as in the reference: each
+request carries ``media``, its encoder frames. Admission runs the
+encoder and every decoder layer's cross K/V once (``encode_cross``),
+written into the slot's dense cross slab beside the pools; the chunk
+program reads it, preemption and defrag leave it as it is, and the
+prefix index keys its pages by a digest of the media as well as the
+tokens. On the slab layout the prefill takes the media too.
+
 With ``temperature > 0`` every token is drawn from its own key,
 ``fold_in(fold_in(prng_key(seed), request id), position)``
 (:mod:`repro_torch.random`, bit for bit the reference's ``jax.random``
@@ -49,6 +57,7 @@ Speculative decoding stays greedy-only.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import heapq
 import itertools
 import time
@@ -59,7 +68,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
 from repro_torch.random import fold_in, prng_key, sample
 from repro_torch.serve import cache as pool_ops
 from repro_torch.serve import slo
@@ -69,6 +77,7 @@ from repro_torch.serve.request import Request
 from repro_torch.serve.scheduler import PagedScheduler, Scheduler
 from repro_torch.serve.speculative import get_drafter
 from repro_torch.train.steps import (
+    ModelAPI,
     make_serve_decode_step,
     make_serve_prefill_step,
 )
@@ -139,7 +148,8 @@ class ServeConfig:
 
 class Engine:
     """Continuous-batching engine on ``device`` (default CUDA), with
-    ``params`` from ``lm.init_lm`` or ``lm.params_from_numpy``;
+    ``params`` from the family's init or weight bridge (``lm.init_lm``,
+    ``lm.params_from_numpy``, ``encdec.init_encdec``, ...);
     ``drafter`` (optional, paged only) is any object with
     ``propose(context, k)``. ``layout`` is the KV layout in use."""
 
@@ -196,6 +206,7 @@ class Engine:
             raise ValueError("prefill_len exceeds max_len")
         self.layout = layout
         self.cfg = cfg
+        self.api = ModelAPI(cfg)
         self.params = params
         self.device = resolve_device(device)
         self._key = prng_key(self.scfg.seed, self.device)
@@ -219,6 +230,7 @@ class Engine:
         self._preempted = 0
         # Prefix-cache state (None / zeros when the cache is off).
         self._prefix: Optional[PrefixIndex] = None
+        self._ns: dict = {}                         # slot -> trie namespace
         self._start: dict = {}                      # slot -> prefill offset
         self._n_indexed = np.zeros((B,), np.int32)  # full pages registered
         self._prefill_total = 0
@@ -243,9 +255,8 @@ class Engine:
             self.sched = PagedScheduler(
                 B, self._pool, self._admission_pages,
                 on_shortfall=self._admission_preempt)
-        self._cache = lm.init_paged_cache(
-            self.cfg, self.scfg.pool_pages, self.scfg.page_size,
-            device=self.device)
+        self._cache = self.api.init_paged_cache(
+            B, self.scfg.pool_pages, self.scfg.page_size, device=self.device)
         self._ptab = np.full((B, self.scfg.max_pages), -1, np.int32)
         self._stream = {}
         self._admit_seq = np.zeros((B,), np.int64)
@@ -256,6 +267,16 @@ class Engine:
         """Pages the pending prefill stream needs (prompt + any tokens
         generated before a preemption)."""
         return self._pool.pages_for(len(req.prompt) + len(req.tokens))
+
+    def _media_ns(self, req: Request):
+        """Prefix-index namespace: an enc-dec request's decoder K/V
+        depend on its encoder input, so only requests with bitwise
+        identical media share pages (the sha1 of the media bytes; None
+        for token-only requests)."""
+        if req.media is None:
+            return None
+        return hashlib.sha1(np.ascontiguousarray(
+            np.asarray(req.media)).tobytes()).digest()
 
     def _acquire_paged(self, slot: int, req: Request) -> bool:
         """Prefix-cache admission: map the stream's longest cached
@@ -271,7 +292,7 @@ class Engine:
         S = len(stream)
         ps = self.scfg.page_size
         need_total = self._pool.pages_for(S)
-        cached = self._prefix.lookup(stream)
+        cached = self._prefix.lookup(stream, self._media_ns(req))
         k = len(cached)
         full_match = k > 0 and k * ps == S
         need_new = 1 if full_match else need_total - k
@@ -306,27 +327,46 @@ class Engine:
         if full <= int(self._n_indexed[slot]):
             return
         seq = (list(req.prompt) + list(req.tokens))[:full * ps]
-        self._prefix.insert(seq, self._pool.slot_pages(slot)[:full])
+        self._prefix.insert(seq, self._pool.slot_pages(slot)[:full],
+                            self._ns.get(slot))
         self._n_indexed[slot] = full
 
     def submit(self, req: Request) -> None:
-        """Register a request; it enters the queue at ``req.arrival_step``."""
-        if req.prompt_len + req.max_new_tokens > self.scfg.max_len:
+        """Register a request; it enters the queue at ``req.arrival_step``.
+        An enc-dec arch requires ``media``; the paged layout refuses
+        decoder-side media (a token-only stack's)."""
+        if self.cfg.is_encdec and req.media is None:
             raise ValueError(
-                f"request {req.id}: prompt+generation "
-                f"({req.prompt_len}+{req.max_new_tokens}) "
+                f"request {req.id}: enc-dec arch {self.cfg.name} requires "
+                f"media (encoder frames of shape (enc_source_len, d_model))")
+        n_media = self._n_media(req)
+        if n_media + req.prompt_len + req.max_new_tokens > self.scfg.max_len:
+            raise ValueError(
+                f"request {req.id}: media+prompt+generation "
+                f"({n_media}+{req.prompt_len}+{req.max_new_tokens}) "
                 f"exceeds max_len={self.scfg.max_len}")
         if self.layout == "paged":
+            if req.media is not None and not self.cfg.is_encdec:
+                raise ValueError(
+                    f"request {req.id}: the paged layout feeds token ids "
+                    f"only; decoder-side media needs kv_layout='slab'")
             need = self._pool.pages_for(req.prompt_len + req.max_new_tokens)
             if need > self.scfg.pool_pages:
                 raise ValueError(
                     f"request {req.id}: needs {need} pages but the pool has "
                     f"{self.scfg.pool_pages}; raise n_pages or shrink the "
                     f"request")
-        elif not self._exact and req.prompt_len > self.scfg.prefill_len:
-            raise ValueError(
-                f"request {req.id}: prompt_len {req.prompt_len} exceeds "
-                f"prefill_len={self.scfg.prefill_len}")
+        else:
+            if not self._exact and req.prompt_len > self.scfg.prefill_len:
+                raise ValueError(
+                    f"request {req.id}: prompt_len {req.prompt_len} exceeds "
+                    f"prefill_len={self.scfg.prefill_len}")
+            pad_to = req.prompt_len if self._exact else self.scfg.prefill_len
+            if n_media + pad_to > self.scfg.max_len:
+                raise ValueError(
+                    f"request {req.id}: media+padded prompt "
+                    f"({n_media}+{pad_to}) exceeds "
+                    f"max_len={self.scfg.max_len}")
         heapq.heappush(
             self._arrivals, (req.arrival_step, next(self._arrival_seq), req))
 
@@ -400,6 +440,13 @@ class Engine:
             self._ptab[slot] = self._pool.table_row(slot, self.scfg.max_pages)
 
     # ------------------------------------------------------------------ #
+    def _n_media(self, req: Request) -> int:
+        """Positions the media occupy in the decoder stream: none for an
+        enc-dec arch, whose media feed the encoder."""
+        if req.media is None or self.cfg.is_encdec:
+            return 0
+        return int(np.asarray(req.media).shape[0])
+
     def _preempt_slot(self, victim: int) -> None:
         """Evict ``victim`` to its band's queue front; the scheduler frees
         its pages. With the prefix cache on, the victim later resumes
@@ -407,6 +454,7 @@ class Engine:
         self.sched.preempt(victim)
         self._ptab[victim] = -1
         self._stream.pop(victim, None)
+        self._ns.pop(victim, None)
         self._n_indexed[victim] = 0
         self._preempted += 1
 
@@ -425,7 +473,9 @@ class Engine:
 
     def _admit_paged(self, slot: int, req: Request) -> None:
         """Stage the prefill stream from its first uncached token; the
-        scheduler reserved (or shared) its pages."""
+        scheduler reserved (or shared) its pages. An enc-dec request's
+        encoder and cross K/V run here, into the slot's cross slab,
+        traced as an ``"encode"`` step."""
         stream = list(req.prompt) + list(req.tokens)
         start = self._start.pop(slot, 0)
         self._stream[slot] = stream[start:]
@@ -434,7 +484,20 @@ class Engine:
         self._admit_seq[slot] = next(self._admit_counter)
         self._ptab[slot] = self._pool.table_row(slot, self.scfg.max_pages)
         if self._prefix is not None:
+            self._ns[slot] = self._media_ns(req)
             self._n_indexed[slot] = start // self.scfg.page_size
+        if self.cfg.is_encdec:
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                frames = torch.tensor(np.asarray(req.media))[None]
+                kv = self.api.encode_cross(self.params,
+                                           frames.to(self.device))
+                pool_ops.write_slot(self._cache["cross"], kv, slot)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+            self._trace.append(StepTrace(
+                "encode", time.perf_counter() - t0, 0,
+                pool_util=self._pool.utilization()))
 
     def _draft(self, active) -> dict:
         """Up to ``draft_len`` proposed tokens for each decode row, capped
@@ -526,8 +589,8 @@ class Engine:
             pos_d = torch.from_numpy(posb).to(dev)
             nv_d = torch.from_numpy(nv).to(dev)
             rid_d = self._rows(self._rid)
-            logits, self._cache = lm.decode_chunk(
-                self.params, self.cfg, torch.from_numpy(toks).to(dev),
+            logits, self._cache = self.api.decode_chunk(
+                self.params, torch.from_numpy(toks).to(dev),
                 self._cache, torch.from_numpy(self._ptab).to(dev),
                 pos_d, nv_d, full_logits=spec)
             # spec: (B, C) greedy targets, the model's next token after
@@ -590,6 +653,7 @@ class Engine:
         self.sched.retire(slot)  # frees the slot's pages too
         self._ptab[slot] = -1
         self._stream.pop(slot, None)
+        self._ns.pop(slot, None)
         self._n_indexed[slot] = 0
         req.t_done = time.perf_counter()
         req.s_done = self._step_idx
@@ -598,20 +662,26 @@ class Engine:
     # ---- slab layout --------------------------------------------------- #
     def _admit_slab(self, slot: int, req: Request) -> None:
         """Prefill ``req`` (padded to ``prefill_len`` unless the stack is
-        recurrent) into ``slot``; samples its first token."""
+        recurrent; an enc-dec request's media encoded) into ``slot``;
+        samples its first token."""
         P = req.prompt_len
+        end = self._n_media(req) + P
         pad_to = P if self._exact else self.scfg.prefill_len
         toks = np.zeros((1, pad_to), np.int64)
         toks[0, :P] = req.prompt
         dev = self.device
+        batch = {"tokens": torch.from_numpy(toks).to(dev)}
+        if req.media is not None:
+            batch["media"] = torch.tensor(np.asarray(req.media))[None].to(dev)
         t0 = time.perf_counter()
         with torch.inference_mode():
             logits, cache = self._prefill(
-                self.params, {"tokens": torch.from_numpy(toks).to(dev)},
-                torch.full((1,), P - 1, dtype=torch.long, device=dev))
-            pool_ops.invalidate_beyond(cache, torch.full((1,), P, device=dev))
+                self.params, batch,
+                torch.full((1,), end - 1, dtype=torch.long, device=dev))
+            pool_ops.invalidate_beyond(cache,
+                                       torch.full((1,), end, device=dev))
             pool_ops.write_slot(self._slab, cache, slot)
-            tok = int(self._sample(logits, req.id, P)[0])
+            tok = int(self._sample(logits, req.id, end)[0])
         dt = time.perf_counter() - t0
 
         req.tokens.append(tok)
@@ -622,7 +692,7 @@ class Engine:
             self._retire_slab(slot, req)
         else:
             self._tok[slot] = tok
-            self._pos[slot] = P
+            self._pos[slot] = end
             self._rid[slot] = req.id
 
     def _decode_once(self) -> None:
@@ -694,7 +764,14 @@ def synthetic_requests(cfg, *, n: int, tokens: int, prompt_len: int,
                        ) -> List[Request]:
     """Synthetic workload, byte-identical to the reference's
     ``synthetic_requests`` for a token-only arch, ids from
-    ``np.random.RandomState(seed)``.
+    ``np.random.RandomState(seed)``. An enc-dec arch's requests carry
+    media, (enc_source_len, d_model) fp32 standard-normal frames a
+    request, one array per template when ``shared_prefix_len > 0``
+    (same-template requests share it, so the prefix cache can match
+    them). The reference draws them with ``jax.random.normal`` from key
+    ``seed + i``; here they come from ``np.random.default_rng((seed,
+    i))``, so the values differ (parity tests give both engines the
+    reference's media).
 
     ``prompt_lens`` cycles explicit lengths, else each length is drawn
     from ``[prompt_len // 2, prompt_len]``. ``shared_prefix_len > 0``
@@ -728,8 +805,13 @@ def synthetic_requests(cfg, *, n: int, tokens: int, prompt_len: int,
                 lo = max(1, min(prompt_len // 2, prompt_len))
                 p_len = int(rng.randint(lo, max(lo + 1, prompt_len + 1)))
             prompt = rng.randint(0, cfg.vocab, size=p_len).tolist()
-        reqs.append(Request(prompt=prompt, max_new_tokens=tokens,
-                            template=template))
+        req = Request(prompt=prompt, max_new_tokens=tokens,
+                      template=template)
+        if cfg.is_encdec:
+            media_key = i % n_templates if shared_prefix_len else i
+            req.media = np.random.default_rng((seed, media_key)).standard_normal(
+                (cfg.enc_source_len, cfg.d_model)).astype(np.float32)
+        reqs.append(req)
     if scenario != "offline":
         from repro_torch.serve.scenarios import poisson_arrivals
 

@@ -25,14 +25,18 @@ class RequestState(enum.Enum):
 
 @dataclasses.dataclass(eq=False)  # identity semantics
 class Request:
-    """One generation request: prompt token ids, generation budget and
-    the engine step it becomes visible at (0 = offline). ``slo`` holds
+    """One generation request: prompt token ids, generation budget,
+    ``media`` (an enc-dec arch's encoder frames, (enc_source_len,
+    d_model); None for token-only traffic) and the engine step it
+    becomes visible at (0 = offline). Equality is identity: media
+    arrays make a field-wise ``__eq__`` ill-defined. ``slo`` holds
     the request's latency class (``serve.slo.SLOClass``), None for
     best-effort traffic; ``template`` is any hashable naming the shared
     prompt template the request opens with (None = untemplated)."""
 
     prompt: List[int]
     max_new_tokens: int = 16
+    media: Optional[Any] = None
     arrival_step: int = 0
     id: int = dataclasses.field(default_factory=lambda: next(_ids))
     slo: Optional[Any] = None

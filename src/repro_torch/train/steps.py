@@ -1,5 +1,7 @@
 """Train, eval and slab serving step factories (``repro.train.steps``)
-for one device.
+for one device, and :class:`ModelAPI`, the family dispatch over the
+decoder-only (``models.lm``) and encoder-decoder (``models.encdec``)
+modules.
 
 The reference's steps are pure functions that XLA compiles and shards;
 here they run eagerly. ``train_step(state, batch)`` computes the loss
@@ -15,9 +17,69 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
+from repro_torch.models import encdec, lm
 from repro_torch.optim import Optimizer, adam, compute_cast, cosine_warmup
 from repro_torch.utils import tree_leaves
+
+class ModelAPI:
+    """One surface over the model families (the reference's
+    ``ModelAPI``): ``models.encdec`` for an enc-dec config, else
+    ``models.lm``. Enc-dec batches carry ``media`` (the encoder's
+    frames) beside ``tokens``."""
+
+    def __init__(self, cfg: ModelConfig):
+        self.cfg = cfg
+        self._m = encdec if cfg.is_encdec else lm
+        self.init = encdec.init_encdec if cfg.is_encdec else lm.init_lm
+
+    def use_cast(self, params):
+        """``lm.use_cast``: its rule walks either family's tree."""
+        return lm.use_cast(params, self.cfg)
+
+    def reference_tree(self, params):
+        return self._m.reference_tree(params, self.cfg)
+
+    def loss(self, params, batch):
+        return self._m.loss_fn(params, self.cfg, batch)
+
+    def per_example_nll(self, params, batch):
+        return self._m.per_example_nll(params, self.cfg, batch)
+
+    def prefill(self, params, batch, *, cache_len=None, window=None,
+                last_pos=None):
+        if self.cfg.is_encdec:
+            return encdec.prefill(params, self.cfg, batch["media"],
+                                  batch["tokens"], cache_len=cache_len,
+                                  window=window, last_pos=last_pos)
+        return lm.prefill(params, self.cfg, batch["tokens"],
+                          cache_len=cache_len, window=window,
+                          last_pos=last_pos)
+
+    def decode(self, params, token, cache, pos, *, window=None):
+        return self._m.decode_step(params, self.cfg, token, cache, pos,
+                                   window=window)
+
+    def init_cache(self, B, seq_len, window=None, *, device="cuda"):
+        return self._m.init_cache(self.cfg, B, seq_len, window,
+                                  device=device)
+
+    # ---- paged serving (attention-only stacks) -------------------------- #
+    def init_paged_cache(self, B, n_pages, page, *, device="cuda"):
+        if self.cfg.is_encdec:
+            return encdec.init_paged_cache(self.cfg, B, n_pages, page,
+                                           device=device)
+        return lm.init_paged_cache(self.cfg, n_pages, page, device=device)
+
+    def decode_chunk(self, params, tokens, cache, page_table, pos, n_valid,
+                     *, window=None, full_logits=False):
+        return self._m.decode_chunk(params, self.cfg, tokens, cache,
+                                    page_table, pos, n_valid, window=window,
+                                    full_logits=full_logits)
+
+    def encode_cross(self, params, frames):
+        """Enc-dec only: the encoder and every layer's cross K/V."""
+        return encdec.encode_cross(params, self.cfg, frames)
+
 
 # Metric names make_train_step can add to its metrics dict
 # (TrainerConfig.metrics).
@@ -38,10 +100,11 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *, seed=0,
                      device="cuda", params=None) -> Dict:
     """{"params": fp32 masters, "opt": optimizer state}. ``params``
     takes a tree already on the device (e.g. the weight bridge's);
-    otherwise :func:`lm.init_lm` draws it from a seeded generator."""
+    otherwise the family's init (:class:`ModelAPI`) draws it from a
+    seeded generator."""
     if params is None:
-        params = lm.init_lm(cfg, seed, device=device,
-                            dtype=getattr(torch, cfg.param_dtype))
+        params = ModelAPI(cfg).init(cfg, seed, device=device,
+                                    dtype=getattr(torch, cfg.param_dtype))
     return {"params": params, "opt": optimizer.init(params)}
 
 
@@ -51,7 +114,7 @@ def _global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def _value_and_grad(cfg: ModelConfig, params, batch, acc):
-    """(loss, nll) of ``lm.loss_fn`` at the compute copy of ``params``;
+    """(loss, nll) of the family's loss at the compute copy of ``params``;
     its gradient, in ``grad_dtype``, is added into ``acc`` (one entry a
     leaf; None: set) leaf by leaf as the backward pass finishes each.
 
@@ -80,7 +143,7 @@ def _value_and_grad(cfg: ModelConfig, params, batch, acc):
             w.requires_grad_(True)
             handles.append(w.register_post_accumulate_grad_hook(fold(i)))
         with torch.enable_grad():
-            loss, metrics = lm.loss_fn(compute, cfg, batch)
+            loss, metrics = ModelAPI(cfg).loss(compute, batch)
             loss.backward()
     finally:
         for h in handles:
@@ -144,10 +207,11 @@ def make_eval_step(cfg: ModelConfig) -> Callable:
     (sum of per-example nll over real examples, their count). As in the
     reference, whose eval step runs no ``compute_cast``, the fp32 leaves
     the layers read in fp32 stay unrounded (``lm.use_cast``)."""
+    api = ModelAPI(cfg)
 
     @torch.no_grad()
     def eval_step(params, batch, mask):
-        nll_ex, _ = lm.per_example_nll(lm.use_cast(params, cfg), cfg, batch)
+        nll_ex, _ = api.per_example_nll(api.use_cast(params), batch)
         mask = mask.to(nll_ex.device)
         return (nll_ex * mask).sum(), mask.sum()
 
@@ -158,12 +222,14 @@ def make_serve_prefill_step(cfg: ModelConfig, *, cache_len: int,
                             window=None) -> Callable:
     """``prefill_step(params, batch, last_pos)``: (logits at each row's
     true last prompt position ``last_pos`` (B,), slab cache of
-    ``cache_len`` slots). Padded positions' K/V stay in the cache; the
+    ``cache_len`` slots; an enc-dec batch's ``media`` is encoded into
+    the cross caches). Padded positions' K/V stay in the cache; the
     engine masks them with ``serve.cache.invalidate_beyond``."""
+    api = ModelAPI(cfg)
 
     def prefill_step(params, batch, last_pos):
-        return lm.prefill(params, cfg, batch["tokens"], cache_len=cache_len,
-                          window=window, last_pos=last_pos)
+        return api.prefill(params, batch, cache_len=cache_len, window=window,
+                           last_pos=last_pos)
 
     return prefill_step
 
@@ -171,8 +237,9 @@ def make_serve_prefill_step(cfg: ModelConfig, *, cache_len: int,
 def make_serve_decode_step(cfg: ModelConfig, *, window=None) -> Callable:
     """``decode_step(params, token, cache, pos)``: one token for every
     slot, ``pos`` (B,) one absolute offset per slot."""
+    api = ModelAPI(cfg)
 
     def decode_step(params, token, cache, pos):
-        return lm.decode_step(params, cfg, token, cache, pos, window=window)
+        return api.decode(params, token, cache, pos, window=window)
 
     return decode_step

@@ -20,7 +20,6 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import lm
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import steps as T
 from repro_torch.train.hooks import (
@@ -56,7 +55,9 @@ class Trainer:
     weights and optimizer state on ``device`` (default ``"cuda"``,
     which raises where CUDA is absent). ``params`` starts from a given
     tree (e.g. ``lm.params_from_numpy(..., dtype=torch.float32)``),
-    otherwise ``lm.init_lm`` draws it from ``tcfg.seed``."""
+    otherwise the family's init (``lm.init_lm``, ``encdec.init_encdec``)
+    draws it from ``tcfg.seed``. An enc-dec model's batches carry
+    ``media`` beside ``tokens``."""
 
     def __init__(self, cfg: ModelConfig, tcfg: Optional[TrainerConfig] = None,
                  optimizer=None, *, device="cuda", params=None):
@@ -103,11 +104,15 @@ class Trainer:
 
     def checkpoint_tree(self):
         """The train state in the reference's names and layouts (each
-        parameter-shaped tree through ``lm.reference_tree``), as views of
-        the live tensors: what checkpoints write and resume restores."""
+        parameter-shaped tree through the family's ``reference_tree``),
+        as views of the live tensors: what checkpoints write and resume
+        restores."""
+        api = T.ModelAPI(self.cfg)
+
         def ref(tree):
-            if isinstance(tree, dict) and "layers" in tree:
-                return lm.reference_tree(tree, self.cfg)
+            if isinstance(tree, dict) and ("layers" in tree
+                                           or "dec_blocks" in tree):
+                return api.reference_tree(tree)
             return tree
 
         opt = {k: ref(v) for k, v in self.state["opt"].items()}

@@ -58,8 +58,8 @@ def test_config_copy_matches_reference(reduced, arch):
 
 
 def test_other_archs_refused_by_name():
-    with pytest.raises(NotImplementedError, match="whisper-medium.*not ported"):
-        get_config("whisper-medium")
+    with pytest.raises(NotImplementedError, match="qwen2-vl-7b.*not ported"):
+        get_config("qwen2-vl-7b")
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 3"):
         get_config("rwkv6_3b")
     with pytest.raises(KeyError):

@@ -88,7 +88,7 @@ def test_microbatches_that_do_not_divide_the_batch_raise():
 def test_not_ported_messages_name_roadmap_items():
     assert ServeConfig(temperature=0.5, seed=1).temperature == 0.5  # ported
     with pytest.raises(NotImplementedError, match="ROADMAP.md item 3"):
-        get_config("whisper-medium")
+        get_config("qwen2-vl-7b")
     with pytest.raises(NotImplementedError,
                        match="distribution, fleet and bench"):
         serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",

@@ -103,7 +103,7 @@ def test_engine_rejects_unported_and_oversized(models):
     _, _, cfg, params = models
     assert ServeConfig(temperature=0.8).temperature == 0.8  # ported
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-medium")
+        get_config("rwkv6-3b")
     eng = Engine(cfg, params, ServeConfig(max_batch=1, max_len=16,
                                           page_size=4, n_pages=3),
                  device="cpu")
