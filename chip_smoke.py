@@ -148,7 +148,23 @@ and prints no result):
    repeated with the same tokens, one chunk step traced; and trains 4
    steps of batch 8 x (1500 frames, 448 tokens) through
    ``Trainer.fit`` (flash forward 2 x 24 and backward 24 per step at
-   each of the three shapes), a second run's losses bitwise equal.
+   each of the three shapes), a second run's losses bitwise equal;
+12. qwen2-vl-7b, the VLM, and rwkv6-3b, RWKV-6 (``kernels-vlm``,
+   ``check-vlm``, ``check-rwkv``, ``serve-vlm``, ``serve-rwkv``,
+   ``train-vlm``, ``train-rwkv``): the flash forward and backward at the
+   VLM's 28/4 heads of 128 (G 7), causal, at its prefill (B 1, 1024
+   media + 128 prompt positions) and train step (B 4 x 2048, half of it
+   media) in bf16, and at B 2, S 200 in fp32, each against its plain
+   version and timed; both reduced models card against CPU (prefill
+   logits with media, loss, every gradient, the slab engine's tokens, 3
+   Adam steps); then every published width and depth serving stream (a)
+   from the slab, each VLM request with its own 1024 x 3584 media (the
+   flash forward 28 times an admission asserted), a second run equal,
+   one prefill and one decode step traced; and training 4 steps of
+   batch 4 x 2048 through ``Trainer.fit``, the VLM cut to 8 layers (2
+   flash forwards and 1 backward a layer a step asserted), rwkv6 to 4
+   (its wkv loop is plain PyTorch, host-bound), a second run's losses
+   bitwise equal (2 steps; rwkv6's 1).
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -4293,6 +4309,428 @@ def whisper_phases():
             *(r for k in ("enc", "cross", "dec") for r in flash[k])]
 
 
+# --------------------------------------------------------------------------- #
+# qwen2-vl-7b (M-RoPE over a 1024-token media prefix, 28/4 heads of 128: G 7)
+# and rwkv6-3b (the RWKV-6 time mix, plain PyTorch on both devices: the
+# reference has no kernel for it): the flash kernels at the VLM's prefill and
+# train shapes; both reduced, card vs CPU; every published width serving
+# from the slab; training cut in depth.
+# --------------------------------------------------------------------------- #
+VLM, RWKV = "qwen2-vl-7b", "rwkv6-3b"
+VLM_PREFILL_LEN = max(PROMPT_LENS)  # each prompt padded to it after the media
+# Train cuts in depth at full width: qwen2-vl as yi-9b (train_depth checks
+# that free memory holds it); rwkv6 as deep as keeps its phase near two
+# minutes: its wkv loop launches several kernels a token a layer, with
+# the remat and chunk recomputes ~75,000 a layer a step, host-bound (8
+# layers took 38.5 s a step on an H100 host).
+VLM_TRAIN_LAYERS, RWKV_TRAIN_LAYERS = 8, 4
+# What one parameter of a train cut holds on the card (fp32 master,
+# gradient and Adam moments, a bf16 compute copy, slack), and the room for
+# one remat'ed layer's activations at 4 x 2048 and the allocator.
+TRAIN_PARAM_BYTES, TRAIN_ACT_BYTES = 18, 10 << 30
+
+
+def vlm_flash_shape(kind):
+    """The flash launch-count key (B, Sq, Sk, H, K, D, causal) of the
+    VLM's prefill at admission (B 1, the media and ``VLM_PREFILL_LEN``
+    prompt positions) or of its train step (``TRAIN_BATCH`` x
+    ``TRAIN_SEQ``, half of it media)."""
+    cfg = get_config(VLM)
+    B, S = ((1, cfg.n_media_tokens + VLM_PREFILL_LEN) if kind == "prefill"
+            else (TRAIN_BATCH, TRAIN_SEQ))
+    return (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True)
+
+
+def hold_flash_fp32(seed, B, S, H, K, D):
+    """The fp32 flash kernels, causal forward and backward, against the
+    plain version at (B, S, H, K, D) within 1e-4; the backward rerun
+    bitwise. Returns the max |kernel - plain|."""
+    tol = TOL[torch.float32]
+    q, k, v, do = flash_inputs(seed, B, S, S, H, K, D, torch.float32)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
+    want = fa.flash_attention_torch(qp, kp, vp)
+    want.backward(do)
+    err = 0.0
+    for got, ref in zip((out, *grads), (want, qp.grad, kp.grad, vp.grad)):
+        err = max(err, (got - ref).abs().max().item())
+        if not (torch.isfinite(got).all()
+                and torch.allclose(got, ref, rtol=tol, atol=tol)):
+            raise AssertionError(f"flash_attention fp32 B{B} S{S} {H}/{K}: "
+                                 f"kernel != plain, max |diff| {err}")
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    if not all(torch.equal(a, b) for a, b in zip(again, grads)):
+        raise AssertionError("flash_attention fp32: a rerun of the backward "
+                             "differs")
+    return err
+
+
+def check_vlm_kernels():
+    """The flash forward and backward at qwen2-vl-7b's 28/4 heads of 128
+    (G 7), causal, bf16, at its prefill (B 1, 1024 media + 128 prompt
+    positions) and its train step (B 4, S 2048, 1024 of them media):
+    held against the plain version, the backward rerun bitwise, timed
+    beside the bounds and SDPA on K/V expanded to 28 heads; then fp32 at
+    B 2, S 200. Returns (the prefill's forward record, the train step's
+    (forward, backward) records)."""
+    cfg = get_config(VLM)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S_pre = vlm_flash_shape("prefill")[1]
+    phase(f"kernels: {VLM}'s shapes ({H}/{K} heads of {D}, G {H // K}, "
+          f"causal): flash forward and backward at its prefill (B 1, S "
+          f"{S_pre}) and train step (B {TRAIN_BATCH}, S {TRAIN_SEQ}) in "
+          f"bf16, and in fp32 at B 2, S 200, vs plain PyTorch")
+    t0 = time.perf_counter()
+    tol = TOL[torch.bfloat16]
+    pre = check_flash_case(600, VLM, 1, S_pre, H, K, D, torch.bfloat16, tol,
+                           f"_{VLM}_prefill")
+    train = check_flash_case(601, VLM, TRAIN_BATCH, TRAIN_SEQ, H, K, D,
+                             torch.bfloat16, tol, f"_{VLM}")
+    err = hold_flash_fp32(602, 2, 200, H, K, D)
+    print(f"  {VLM} B2 S200 {H}/{K} (G {H // K}) D{D} fp32 causal: max"
+          f"|kernel-plain| {err:.2e} (tol {TOL[torch.float32]:g}), backward "
+          f"rerun bitwise equal", flush=True)
+    print(f"  kernels-vlm wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return pre[0], train
+
+
+def n_attn_layers(cfg):
+    return sum(s.mixer == "attn" for s in cfg.block_pattern) * cfg.n_blocks
+
+
+def reduced_slab_vs_cpu(arch, seed):
+    """Reduced ``arch`` (qwen2-vl-7b with its 16 media tokens, or
+    rwkv6-3b) in fp32, fp32 gradients and Adam moments, from the same
+    ``params_from_numpy`` weights, norms perturbed: the card's path (the
+    flash kernels for the VLM's attention, cuBLAS; RWKV-6's plain wkv
+    loop) against the CPU's plain path. Prefill logits (media prepended)
+    to 1e-4 of their largest entry; the loss to rtol 1e-4 and every
+    gradient to 1e-3 of (its leaf's largest entry + 1e-3); the slab
+    engine's greedy tokens (4 ragged requests, each with its own media
+    for the VLM) equal; the losses of 3 Adam steps through
+    ``Trainer.fit`` to rtol 1e-4."""
+    phase(f"check: reduced {arch}, card vs CPU plain path, fp32: prefill "
+          f"logits, loss, gradients, slab engine tokens, 3 Adam steps")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32",
+                              kv_cache_dtype="float32", grad_dtype="float32",
+                              moment_dtype="float32")
+    tree = lm.perturb_norms(reference_layout(
+        lm.init_lm(cfg, seed, device="cpu", dtype=torch.float32), cfg), seed)
+    n_media = (cfg.n_media_tokens if cfg.frontend == "vision_patches"
+               else 0)
+    g = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab, (2, 24), generator=g)
+    media = (torch.randn((2, n_media, cfg.d_model), generator=g)
+             if n_media else None)
+    fa.reset_launches()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        batch = {"tokens": toks.to(dev)}
+        if media is not None:
+            batch["media"] = media.to(dev)
+        params = lm.params_from_numpy(tree, cfg, device=dev)
+        with torch.inference_mode():
+            logits, _ = lm.prefill(params, cfg, batch["tokens"],
+                                   media=batch.get("media"))
+        leaves = tree_leaves(params)
+        for w in leaves:
+            w.requires_grad_(True)
+        loss, _ = lm.loss_fn(params, cfg, batch)
+        out[dev] = (logits.float().cpu(), loss.item(),
+                    [x.cpu() for x in torch.autograd.grad(loss, leaves)])
+    launches = (fa.flash_attention_fwd_cuda.launches,
+                fa.flash_attention_bwd_cuda.launches)
+    n_attn = n_attn_layers(cfg)
+    want = (2 * n_attn, n_attn)  # prefill and loss forward, loss backward
+    (lc, nc, gc_), (lg, ng, gg) = out["cpu"], out["cuda"]
+    rel = ((lc - lg).abs().max() / lc.abs().max()).item()
+    err = max(((a - b).abs().max() / (a.abs().max() + 1e-3)).item()
+              for a, b in zip(gc_, gg))
+    print(f"  prefill logits max|card-cpu| {rel:.2e} of the largest (tol "
+          f"1e-4); loss cpu {nc:.6f} card {ng:.6f}; gradients max "
+          f"|card-cpu| / (max|cpu| + 1e-3) {err:.2e} over {len(gc_)} leaves "
+          f"(tol 1e-3); flash launches forward {launches[0]}, backward "
+          f"{launches[1]} (expected {want})", flush=True)
+    if rel > 1e-4 or abs(nc - ng) > 1e-4 * abs(nc) or err > 1e-3:
+        raise AssertionError(f"reduced {arch} differs card vs CPU: logits "
+                             f"{rel}, loss {nc} vs {ng}, gradient {err}")
+    if launches != want:
+        raise AssertionError(f"reduced {arch}: flash launches {launches} != "
+                             f"{want}")
+    scfg = ServeConfig(max_batch=4, max_len=n_media + 24 + 8, prefill_len=24)
+    toks = {}
+    for dev in ("cpu", "cuda"):
+        reqs = synthetic_requests(cfg, n=4, tokens=8, prompt_len=24, seed=3,
+                                  prompt_lens=(5, 24, 11, 17))
+        eng = Engine(cfg, lm.params_from_numpy(tree, cfg, device=dev), scfg,
+                     device=dev)
+        if eng.layout != "slab":
+            raise AssertionError(f"reduced {arch} served from {eng.layout}")
+        toks[dev] = tokens_of(run_offline(eng, reqs))
+    if toks["cpu"] != toks["cuda"]:
+        raise AssertionError(f"reduced {arch}: greedy tokens differ card vs "
+                             f"CPU")
+    print(f"  greedy tokens identical card vs CPU (4 ragged requests, slab "
+          f"engine{', own media each' if n_media else ''})", flush=True)
+    losses = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, TrainerConfig(total_steps=3, log_every=0),
+                     device=dev, params=lm.params_from_numpy(
+                         tree, cfg, device=dev, dtype=torch.float32))
+        hist = tr.fit(synthetic_lm_batches(cfg, batch=4, seq=40, steps=3))
+        losses[dev] = [r["loss"] for r in hist]
+    print(f"  3 Adam steps: losses cpu {losses['cpu']}, card "
+          f"{losses['cuda']}", flush=True)
+    if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4, atol=0):
+        raise AssertionError(f"reduced {arch} train losses differ card vs "
+                             f"CPU: {losses}")
+    print(f"  check-{'vlm' if n_media else 'rwkv'} wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def serve_slab_full(arch):
+    """``arch`` at every published width and depth (random bf16 weights
+    from seed 0; rwkv6's time-mix leaves fp32, as the reference reads
+    them) serves stream (a), the 8 ragged requests with 32 new tokens,
+    offline from the slab, each VLM request with its own 1024 x 3584
+    media: the flash counter, zeroed just before, must show one forward
+    per attention layer per admission at the prefill's shape (the VLM's
+    28; none for rwkv6), and no backward; every request its tokens; a
+    second run the same tokens. Then one prefill of the longest prompt
+    and one decode step over 8 slots that hold it are timed and traced.
+    Returns the flash forward launches."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(arch)
+    n_media = (cfg.n_media_tokens if cfg.frontend == "vision_patches"
+               else 0)
+    P = max(PROMPT_LENS)
+    phase(f"serve: {arch} every published width and depth ({cfg.n_layers} "
+          f"layers), bf16 weights, slab, stream (a): 8 ragged requests"
+          + (f", own {n_media} x {cfg.d_model} media each" if n_media
+             else "") + ", offline")
+    t0 = time.perf_counter()
+    params = lm.init_lm(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n = cfg.param_count()
+    held = torch.cuda.memory_allocated()
+    print(f"  {n / 1e9:.3f} B params (the reference's count), "
+          f"{held / 2**30:.2f} GiB of weights on the card, d_model "
+          f"{cfg.d_model}, "
+          + (f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, "
+             f"M-RoPE, " if cfg.n_heads else
+             f"RWKV-6 heads of {cfg.rwkv6.head_dim}, decay rank "
+             f"{cfg.rwkv6.decay_lora_dim}, ")
+          + f"d_ff {cfg.d_ff}, vocab {cfg.vocab}; init in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    scfg = ServeConfig(max_batch=8, max_len=n_media + P + NEW_TOKENS,
+                       prefill_len=P)
+    engine = Engine(cfg, params, scfg, device="cuda")
+    if engine.layout != "slab":
+        raise AssertionError(f"{arch} served from {engine.layout}")
+    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                           seed=1))  # warm-up
+
+    def workload():
+        return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS, prompt_len=P,
+                                  seed=0, prompt_lens=PROMPT_LENS)
+
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    report = run_offline(engine, workload())
+    flash = dict(fa.flash_attention_fwd_cuda.launches_by_shape)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prefills = sum(st.kind == "prefill" for st in report.steps)
+    n_attn = n_attn_layers(cfg)
+    want = ({vlm_flash_shape("prefill"): n_attn * prefills} if n_attn
+            else {})
+    s = report.summary()
+    print(f"  {report.format()}", flush=True)
+    print(f"  {prefills} prefills, "
+          f"{sum(st.kind == 'decode' for st in report.steps)} decode steps; "
+          f"flash forward {flash} (expected {want}: {n_attn} a prefill), "
+          f"backward {fa.flash_attention_bwd_cuda.launches}; peak memory "
+          f"{peak:.2f} GiB", flush=True)
+    if flash != want or prefills != 8 or fa.flash_attention_bwd_cuda.launches:
+        raise AssertionError(f"{arch}: flash launches {flash} in {prefills} "
+                             f"prefills; expected {want}")
+    got = tokens_of(report)
+    if len(got) != 8 or any(len(t) != NEW_TOKENS or not all(
+            0 <= x < cfg.vocab for x in t) for t in got):
+        raise AssertionError(f"{arch}: not 8 x {NEW_TOKENS} tokens in the "
+                             f"vocabulary")
+    if tokens_of(run_offline(engine, workload())) != got:
+        raise AssertionError(f"{arch}: a second run of the stream differs")
+    print("  a second run gives the same greedy tokens", flush=True)
+
+    # One prefill of the longest prompt (after its media), and one decode
+    # step over 8 slots that each hold it, timed and traced.
+    B = scfg.max_batch
+    gen = torch.Generator("cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab, (1, P), device="cuda", generator=gen)
+    media = (torch.randn((1, n_media, cfg.d_model), device="cuda",
+                         generator=gen) if n_media else None)
+    last = torch.full((1,), n_media + P - 1, dtype=torch.long, device="cuda")
+    slab = slab_ops.init_slab(cfg, B, scfg.max_len, device="cuda")
+    with torch.inference_mode():
+        _, cache = lm.prefill(params, cfg, prompt, media=media,
+                              cache_len=scfg.max_len, last_pos=last)
+        for slot in range(B):
+            slab_ops.write_slot(slab, cache, slot)
+    tok = torch.zeros((B, 1), dtype=torch.long, device="cuda")
+    pos = torch.full((B,), n_media + P, dtype=torch.long, device="cuda")
+
+    def decode():
+        with torch.inference_mode():
+            lm.decode_step(params, cfg, tok, slab, pos)
+
+    def prefill():
+        with torch.inference_mode():
+            lm.prefill(params, cfg, prompt, media=media,
+                       cache_len=scfg.max_len, last_pos=last)
+
+    readings = {}
+    for name, fn in (("decode step", decode), ("prefill", prefill)):
+        ms, busy, kernels = timed_and_traced(fn)
+        n_kernels = sum(e.count for e in kernels)
+        flash_ms = sum(e.self_device_time_total for e in kernels
+                       if "flash_" in e.key) / 1e3
+        readings[name] = dict(ms=ms, busy_ms=busy, kernels=n_kernels,
+                              flash_ms=flash_ms)
+        print(f"  {name} (8 slots)" if name == "decode step" else
+              f"  {name} ({n_media} media + {P} prompt positions)", end="")
+        print(f": {ms:.2f} ms (median of 3, to the card's end); traced: "
+              f"{n_kernels} kernel launches, device busy {busy:.2f} ms = "
+              f"{100 * busy / ms:.1f}%, flash {flash_ms:.3f} ms; top "
+              f"kernels:", flush=True)
+        for e in kernels[:6]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:6d}x {e.key[:100]}")
+    s.update(arch=arch, n_params=n, weights_gib=held / 2**30,
+             peak_mem_gib=peak, flash_launches=sum(flash.values()),
+             readings=readings, wall_s=time.perf_counter() - t0)
+    print(f"  serve summary {json.dumps(s)}", flush=True)
+    del engine, params, slab, cache, report
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum(flash.values())
+
+
+def train_depth(cfg, want, free):
+    """``want`` layers of full-width ``cfg``, or as many as ``free`` bytes
+    hold at ``TRAIN_PARAM_BYTES`` a parameter beside
+    ``TRAIN_ACT_BYTES`` (printed)."""
+    per_layer, fixed = layer_bytes(cfg)  # bf16 bytes: 2 a parameter
+    fits = int((free - TRAIN_ACT_BYTES - fixed // 2 * TRAIN_PARAM_BYTES)
+               // (per_layer // 2 * TRAIN_PARAM_BYTES))
+    depth = max(1, min(want, fits))
+    print(f"  depth: {free / 2**30:.1f} GiB free hold {fits} layers of "
+          f"{per_layer / 2 / 1e6:.0f} M params at {TRAIN_PARAM_BYTES} B a "
+          f"parameter beside the embedding and head ({fixed / 2 / 1e9:.2f} "
+          f"B params) and {TRAIN_ACT_BYTES >> 30} GiB of activations; "
+          f"training {depth} of {cfg.n_layers}", flush=True)
+    return depth
+
+
+def train_cut(arch, want_layers, again=2):
+    """Full-width ``arch`` cut to ``want_layers`` (fewer when free memory
+    holds fewer, for the VLM) takes 4 steps of batch 4 x 2048 (for the
+    VLM 1024 media + 1024 text positions a row) through ``Trainer.fit``
+    (fp32 masters, gradients and moments, bf16 compute, remat): the
+    flash counters, zeroed just before, must show per attention layer
+    per step 2 forward launches (with the remat recompute) and 1
+    backward at the train shape (none for rwkv6), and a second run from
+    the same seed must repeat the first ``again`` losses bitwise.
+    Returns the flash launches (forward, backward)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    full = get_config(arch)
+    vlm = full.frontend == "vision_patches"
+    phase(f"train: {arch} full width, batch {TRAIN_BATCH} x {TRAIN_SEQ}"
+          + (f" ({full.n_media_tokens} media + "
+             f"{TRAIN_SEQ - full.n_media_tokens} text positions a row)"
+             if vlm else "")
+          + ", fp32 masters, gradients and moments, bf16 compute, remat")
+    depth = (train_depth(full, want_layers, torch.cuda.mem_get_info()[0])
+             if vlm else want_layers)
+    cfg = dataclasses.replace(full, n_layers=depth)
+    if not vlm:
+        print(f"  depth: {depth} of {full.n_layers} layers (the plain wkv "
+              f"loop sets the phase's time)", flush=True)
+    if not cfg.remat or cfg.microbatches != 1:
+        raise AssertionError("the full config trains with remat, unsplit")
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    tr, hist = run_trainer(cfg, TRAIN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd = dict(fa.flash_attention_fwd_cuda.launches_by_shape)
+    bwd = dict(fa.flash_attention_bwd_cuda.launches_by_shape)
+    n_params = sum(p.numel() for p in tree_leaves(tr.state["params"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [r["loss"] for r in hist]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_attn = n_attn_layers(cfg)
+    shape = vlm_flash_shape("train")
+    want_f = {shape: 2 * n_attn * TRAIN_STEPS} if n_attn else {}
+    want_b = {shape: n_attn * TRAIN_STEPS} if n_attn else {}
+    step_ms = float(np.median([r["step_ms"] for r in hist[1:]]))
+    pos_s = TRAIN_BATCH * TRAIN_SEQ / (step_ms / 1e3)
+    text = TRAIN_SEQ - (min(full.n_media_tokens, TRAIN_SEQ // 2) if vlm
+                        else 0)
+    print(f"  {depth} layers, {n_params / 1e9:.3f} B params; {TRAIN_STEPS} "
+          f"steps in {wall:.1f} s; losses {losses}; step {step_ms:.1f} ms "
+          f"(median of steps 2-{TRAIN_STEPS}: "
+          f"{[round(r['step_ms'], 1) for r in hist]}), {pos_s:.0f} positions"
+          f"/s ({TRAIN_BATCH * text / (step_ms / 1e3):.0f} text tokens/s); "
+          f"peak memory {peak:.2f} GiB; flash launches forward {fwd}, "
+          f"backward {bwd} (expected {want_f}, {want_b})", flush=True)
+    if len(hist) != TRAIN_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch}: non-finite or missing losses {hist}")
+    if fwd != want_f or bwd != want_b:
+        raise AssertionError(f"{arch}: flash launches {fwd}, {bwd} != "
+                             f"{want_f}, {want_b}")
+    tr, hist2 = run_trainer(cfg, again)
+    losses2 = [r["loss"] for r in hist2]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  second run, {again} step(s): losses {losses2}", flush=True)
+    if losses2 != losses[:again]:
+        raise AssertionError(f"{arch}: a second run's losses differ: "
+                             f"{losses2} vs {losses[:again]}")
+    print("  bitwise equal to the first run's", flush=True)
+    summary = dict(arch=arch, n_layers=depth, n_params=n_params,
+                   step_ms=step_ms, positions_per_s=pos_s,
+                   text_tokens_per_s=TRAIN_BATCH * text / (step_ms / 1e3),
+                   peak_mem_gib=peak, losses=losses, wall_s=wall,
+                   phase_wall_s=time.perf_counter() - t0)
+    print(f"  train summary {json.dumps(summary)}", flush=True)
+    return sum(fwd.values()), sum(bwd.values())
+
+
+def vlm_rwkv_phases():
+    """The qwen2-vl-7b and rwkv6-3b phases in turn, their wall printed.
+    Returns the VLM's flash records with their launches on the serve and
+    train paths."""
+    t0 = time.perf_counter()
+    pre, (fwd, bwd) = check_vlm_kernels()
+    reduced_slab_vs_cpu(VLM, 3)
+    reduced_slab_vs_cpu(RWKV, 4)
+    pre["launches"] = serve_slab_full(VLM)
+    serve_slab_full(RWKV)
+    fwd["launches"], bwd["launches"] = train_cut(VLM, VLM_TRAIN_LAYERS)
+    train_cut(RWKV, RWKV_TRAIN_LAYERS, again=1)
+    print(f"  qwen2-vl and rwkv6 phases wall {time.perf_counter() - t0:.1f} "
+          f"s", flush=True)
+    return [pre, fwd, bwd]
+
+
 PHASES = {  # --only names: the phases a short run may pick
     "paged": lambda: (check_kernel(), check_paged_archs()),
     "flash": lambda: (check_flash(), check_flash_archs()),
@@ -4311,6 +4749,13 @@ PHASES = {  # --only names: the phases a short run may pick
     "kernels-whisper": check_whisper_kernels,
     "check-whisper": reduced_whisper_vs_cpu,
     "serve-whisper": serve_whisper, "train-whisper": train_whisper,
+    "kernels-vlm": check_vlm_kernels,
+    "check-vlm": lambda: reduced_slab_vs_cpu(VLM, 3),
+    "check-rwkv": lambda: reduced_slab_vs_cpu(RWKV, 4),
+    "serve-vlm": lambda: serve_slab_full(VLM),
+    "serve-rwkv": lambda: serve_slab_full(RWKV),
+    "train-vlm": lambda: train_cut(VLM, VLM_TRAIN_LAYERS),
+    "train-rwkv": lambda: train_cut(RWKV, RWKV_TRAIN_LAYERS, again=1),
 }
 
 
@@ -4386,11 +4831,12 @@ def main(argv=None) -> int:
     (mamba_train["launches"], mamba_bwd["launches"],
      flash_jamba_fwd["launches"], flash_jamba_bwd["launches"]) = train_jamba()
     whisper = whisper_phases()
+    vlm = vlm_rwkv_phases()
     recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,
             mamba_train, mamba_bwd, lstm_fwd, lstm_bwd, lars_norms,
             lars_update, *paged_archs.values(),
             *(r for pair in flash_archs.values() for r in pair),
-            flash_jamba_fwd, flash_jamba_bwd, *whisper]
+            flash_jamba_fwd, flash_jamba_bwd, *whisper, *vlm]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"  whole smoke wall {time.perf_counter() - t0:.1f} s", flush=True)

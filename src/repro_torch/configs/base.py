@@ -28,11 +28,17 @@ class MambaConfig:
 
 
 @dataclass(frozen=True)
+class RWKV6Config:
+    """RWKV-6 "Finch" mixer [arXiv:2404.05892]."""
+    head_dim: int = 64
+    decay_lora_dim: int = 64  # low-rank dim of the data-dependent decay
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """One layer of a (possibly heterogeneous) stack.
 
-    mixer: 'attn' | 'mamba' (the reference's 'rwkv6' is not ported);
-    ffn: 'dense' | 'moe' | 'none'.
+    mixer: 'attn' | 'mamba' | 'rwkv6'; ffn: 'dense' | 'moe' | 'none'.
     """
     mixer: str = "attn"
     ffn: str = "dense"
@@ -50,10 +56,12 @@ class ModelConfig:
     n_kv_heads: int = 0
     head_dim: int = 0         # 0 -> d_model // n_heads
     qkv_bias: bool = False    # biases on the q, k and v projections
-    rope: str = "rope"        # 'rope' | 'none' (no positional encoding)
+    rope: str = "rope"        # 'rope' | 'mrope' (multimodal, 3 position
+    #                           streams) | 'none' (no positional encoding)
     rope_theta: float = 10000.0
     norm: str = "rmsnorm"     # 'rmsnorm' | 'layernorm'
     activation: str = "silu"  # 'silu' (SwiGLU) | 'gelu' (GeGLU, tanh form)
+    #                           | 'relu2' (squared ReLU)
     glu: bool = True
     tie_embeddings: bool = False
     sliding_window: Optional[int] = None   # native sliding-window attention
@@ -62,6 +70,7 @@ class ModelConfig:
     long_context_window: Optional[int] = None
     moe: Optional[MoEConfig] = None
     mamba: Optional[MambaConfig] = None
+    rwkv6: Optional[RWKV6Config] = None
     block_pattern: Tuple[LayerSpec, ...] = ()
     # Encoder-decoder (audio family): encoder layer count + source length.
     n_enc_layers: int = 0
@@ -86,7 +95,10 @@ class ModelConfig:
             object.__setattr__(
                 self, "head_dim", self.head_dim or self.d_model // self.n_heads)
         if not self.block_pattern:
-            mixer = "mamba" if self.family == "ssm" else "attn"
+            if self.family == "ssm":
+                mixer = "rwkv6" if self.rwkv6 is not None else "mamba"
+            else:
+                mixer = "attn"
             ffn = "moe" if self.moe is not None else "dense"
             object.__setattr__(self, "block_pattern", (LayerSpec(mixer, ffn),))
         if self.n_layers % len(self.block_pattern) != 0:
@@ -111,7 +123,8 @@ class ModelConfig:
         (``repro.configs.base.ModelConfig.reduced``): up to 4 distinct
         (mixer, ffn) kinds kept, at most 4 experts at a no-drop capacity
         factor, windows capped at 64, at most 2 encoder layers over at
-        most 64 source frames and 16 media tokens."""
+        most 64 source frames and 16 media tokens, RWKV-6 heads of 32
+        with a decay rank of 16."""
         pat = self.block_pattern[: max(1, min(2, len(self.block_pattern)))]
         kinds = {(s.mixer, s.ffn) for s in self.block_pattern}
         if len(kinds) > len(pat):
@@ -146,6 +159,8 @@ class ModelConfig:
             moe=None if self.moe is None else dataclasses.replace(
                 self.moe, n_experts=min(self.moe.n_experts, 4),
                 capacity_factor=float(min(self.moe.n_experts, 4))),
+            rwkv6=None if self.rwkv6 is None else dataclasses.replace(
+                self.rwkv6, head_dim=32, decay_lora_dim=16),
             n_enc_layers=min(self.n_enc_layers, 2),
             enc_source_len=min(self.enc_source_len, 64) or 0,
             n_media_tokens=min(self.n_media_tokens, 16),
@@ -158,8 +173,8 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (``repro.configs.base``'s rule for
-        attention and Mamba mixers, dense and MoE FFNs, and an enc-dec
-        stack's encoder layers and cross-attention)."""
+        attention, Mamba and RWKV-6 mixers, dense and MoE FFNs, and an
+        enc-dec stack's encoder layers and cross-attention)."""
         d, f, v = self.d_model, self.d_ff, self.vocab
         total = v * d + (0 if self.tie_embeddings else v * d)
         for spec in self.block_pattern:
@@ -175,6 +190,9 @@ class ModelConfig:
                 mixer = (d * di * 2 + di * m.d_conv
                          + di * (dt_rank + 2 * m.d_state) + dt_rank * di
                          + di * m.d_state + di + di * d)
+            elif spec.mixer == "rwkv6":
+                r = self.rwkv6 or RWKV6Config()
+                mixer = d * d * 4 + 2 * d * r.decay_lora_dim + d * 6
             if spec.ffn == "dense":
                 ffn = d * f * (3 if self.glu else 2)
             elif spec.ffn == "moe":

@@ -3,9 +3,10 @@
 The LM batches are numpy with the reference's generator calls, so a seed
 gives byte-identical batches on both sides: zipfian tokens with a
 learnable bigram structure, enough for the loss to fall, and for an
-``audio_frames`` frontend (whisper) standard-normal encoder frames drawn
-after the tokens from the same generator. Beside them, GNMT's
-round-robin multi-host distribution, the background prefetch and the
+``audio_frames`` frontend (whisper) standard-normal encoder frames, for
+a ``vision_patches`` frontend (qwen2-vl) standard-normal patch
+embeddings, drawn after the tokens from the same generator. Beside
+them, GNMT's round-robin multi-host distribution, the background prefetch and the
 streaming :class:`Pipeline` (source -> shard cache -> prefetch; paper
 sections 2 and 3).
 """
@@ -39,17 +40,29 @@ def make_lm_batch(cfg: ModelConfig, rng: np.random.Generator, *,
                   batch: int, seq: int) -> Dict:
     """One synthetic batch: {"tokens": (batch, seq) int32}, plus
     "media" (batch, enc_source_len, d_model) fp32 frames for an
-    ``audio_frames`` frontend. The vision frontend (ROADMAP.md item 3)
-    is not ported."""
-    out = {"tokens": _zipf_tokens(rng, (batch, seq), cfg.vocab)}
-    if cfg.frontend == "audio_frames":
-        out["media"] = _frames(rng, batch, cfg)
+    ``audio_frames`` frontend. A ``vision_patches`` frontend's batch
+    holds ``seq`` positions in all: n = min(n_media_tokens, seq // 2)
+    media (batch, n, d_model) and tokens (batch, seq - n)."""
+    n_media = _n_media(cfg, seq)
+    out = {"tokens": _zipf_tokens(rng, (batch, seq - n_media), cfg.vocab)}
+    if cfg.frontend in ("audio_frames", "vision_patches"):
+        out["media"] = _media(rng, batch, cfg, seq)
     return out
 
 
-def _frames(rng: np.random.Generator, n: int, cfg: ModelConfig):
-    return rng.standard_normal(
-        (n, cfg.enc_source_len, cfg.d_model)).astype(np.float32)
+def _n_media(cfg: ModelConfig, seq: int) -> int:
+    """Media positions a vision batch of ``seq`` positions gives over."""
+    if cfg.frontend != "vision_patches":
+        return 0
+    return min(cfg.n_media_tokens, seq // 2)
+
+
+def _media(rng: np.random.Generator, n: int, cfg: ModelConfig, seq: int):
+    """Standard-normal fp32 media for n examples: (n, enc_source_len,
+    d_model) frames, or (n, n_media, d_model) patch embeddings."""
+    m = cfg.enc_source_len if cfg.frontend == "audio_frames" else \
+        _n_media(cfg, seq)
+    return rng.standard_normal((n, m, cfg.d_model)).astype(np.float32)
 
 
 def synthetic_lm_batches(cfg: ModelConfig, *, batch: int, seq: int,
@@ -64,9 +77,11 @@ def synthetic_eval_set(cfg: ModelConfig, *, batch: int, seq: int,
     """Padded eval set (C4): returns a callable yielding (batch, mask)."""
     n = n_examples or (batch * 2 + 3)  # deliberately not a batch multiple
     rng = np.random.default_rng(seed)
-    fields = {"tokens": _zipf_tokens(rng, (n, seq), cfg.vocab)}
-    if cfg.frontend == "audio_frames":
-        fields["media"] = _frames(rng, n, cfg)
+    # the tokens are drawn at full length and cut, as the reference does
+    fields = {"tokens": _zipf_tokens(rng, (n, seq), cfg.vocab)
+              [:, :seq - _n_media(cfg, seq)]}
+    if cfg.frontend in ("audio_frames", "vision_patches"):
+        fields["media"] = _media(rng, n, cfg, seq)
     padded, mask = pad_eval_dataset(fields, batch)
     n_batches = padded["tokens"].shape[0] // batch
 

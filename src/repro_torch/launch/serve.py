@@ -126,9 +126,14 @@ def main(argv=None) -> int:
     from repro_torch.serve.scenarios import make_trace, scenario_driver
     from repro_torch.train.steps import ModelAPI
 
+    cfg = get_config(args.arch)
+    if not args.full:
+        cfg = cfg.reduced()
+    # a vision frontend's media take positions ahead of each prompt
+    n_media = cfg.n_media_tokens if cfg.frontend == "vision_patches" else 0
     scfg = ServeConfig(
         max_batch=args.batch if args.max_batch is None else args.max_batch,
-        max_len=args.prompt_len + args.tokens,
+        max_len=n_media + args.prompt_len + args.tokens,
         prefill_len=args.prompt_len,
         temperature=args.temperature,
         seed=args.seed,
@@ -142,9 +147,6 @@ def main(argv=None) -> int:
         draft_len=args.draft_len,
     )
     device = resolve_device(args.device)
-    cfg = get_config(args.arch)
-    if not args.full:
-        cfg = cfg.reduced()
     params = ModelAPI(cfg).init(cfg, args.seed, device=device)
     slo_classes = tuple(c.strip() for c in args.slo_classes.split(",")
                         if c.strip())

@@ -1,23 +1,27 @@
 """Layers of the port's serving and training paths
-(``repro.models.layers``): RMSNorm and LayerNorm, half-split RoPE, GQA
-projections (with optional q/k/v biases), the dense GLU FFN, the MoE
-FFN, the Mamba (S6) mixer, full-sequence attention (self and cross),
-slab-KV decode attention (self and cross), paged-KV attention and the
-chunk program's cross-attention.
+(``repro.models.layers``): RMSNorm and LayerNorm, half-split RoPE and
+M-RoPE, GQA projections (with optional q/k/v biases), the dense GLU
+FFN, the MoE FFN, the Mamba (S6) mixer, the RWKV-6 time mix,
+full-sequence attention (self and cross), slab-KV decode attention
+(self and cross), paged-KV attention and the chunk program's
+cross-attention.
 
-Norms, RoPE, softmax and the SSM recurrence run in fp32 and cast back,
+Norms, RoPE, softmax and the SSM recurrences run in fp32 and cast back,
 as the reference does; projections run in the config's compute dtype.
 Parameters arrive already in that dtype (see ``lm.init_lm``), except
 the leaves the reference uses in fp32 (:data:`FP32_LEAVES`: the norms'
 ``scale`` and ``bias``, Mamba's ``x_proj``, ``dt_w``, ``dt_bias``,
-``A_log`` and ``D``, and the MoE ``router``), which stay fp32.
+``A_log`` and ``D``, and the MoE ``router``; and every leaf of an
+RWKV-6 time mix, which runs wholly in fp32), which stay fp32.
 Parameter layouts are the reference's: norm ``scale`` (and LayerNorm
 ``bias``) (d,), ``wq`` (d, H, hd), ``bq`` (H, hd), ``wk``/``wv`` (d, K,
 hd), ``bk``/``bv`` (K, hd), ``wo`` (H, hd, d),
 ``wu``/``wg`` (d, f), ``wd`` (f, d); MoE ``router`` (d, E), ``wu``/``wg``
 (E, d, f), ``wd`` (E, f, d); Mamba ``wx``/``wz`` (d, Di), ``conv_w``
 (d_conv, Di), ``conv_b`` (Di,), ``x_proj`` (Di, R + 2N), ``dt_w`` (R,
-Di), ``dt_bias``/``D`` (Di,), ``A_log`` (Di, N), ``out_proj`` (Di, d).
+Di), ``dt_bias``/``D`` (Di,), ``A_log`` (Di, N), ``out_proj`` (Di, d);
+RWKV-6 ``wr``/``wk``/``wv``/``wg``/``wo`` (d, d), ``w0``/``u``/
+``ln_scale`` (d,), ``w1`` (d, Dw), ``w2`` (Dw, d), ``mu`` (5, d).
 """
 from __future__ import annotations
 
@@ -27,13 +31,15 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.configs.base import MambaConfig, ModelConfig
+from repro_torch.configs.base import MambaConfig, ModelConfig, RWKV6Config
 from repro_torch.kernels import ops, quant
+from repro_torch.models.scan_utils import chunked_scan
 
 # jax.nn.gelu defaults to the tanh approximation; torch's default is erf.
 _ACT = {
     "gelu": functools.partial(F.gelu, approximate="tanh"),
     "silu": F.silu,
+    "relu2": lambda x: torch.square(F.relu(x)),
 }
 
 # int8 and int4 name quantized paged pools: int8 bytes (int4 packs two
@@ -46,12 +52,21 @@ QUANTIZED = ("int8", "int4")
 # router, ``layers.py:655-664``, ``ref.py:151``); they are stored in fp32.
 FP32_LEAVES = ("scale", "bias", "x_proj", "dt_w", "dt_bias", "A_log", "D",
                "router")
+# Mixers whose every leaf the reference reads in fp32 (the RWKV-6 time
+# mix, ``layers.py:752-811``). Their ``wk``, ``wv`` and ``wo`` share
+# attention's names, so the rule goes by the mixer, not the name.
+FP32_MIXERS = ("rwkv6",)
 
 
-def stored_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
-    """The dtype the leaf ``name`` is kept in when the others are in
-    ``dtype``: fp32 for :data:`FP32_LEAVES`."""
-    return torch.float32 if name in FP32_LEAVES else dtype
+def stored_dtype(name: str, dtype: torch.dtype,
+                 mixer: str = "") -> torch.dtype:
+    """The dtype the leaf ``name`` (of a ``mixer`` layer's mixer, when
+    given) is kept in when the others are in ``dtype``: fp32 for
+    :data:`FP32_LEAVES` and for every leaf of a :data:`FP32_MIXERS`
+    mixer."""
+    if name in FP32_LEAVES or mixer in FP32_MIXERS:
+        return torch.float32
+    return dtype
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -87,12 +102,47 @@ def apply_norm(params, x, eps: float = 1e-6):
     return y.to(x.dtype)
 
 
+def mrope_sections(half: int, device=None):
+    """(half,) stream index of each rotary frequency for M-RoPE: the
+    first ``half // 4`` frequencies read the temporal position (0), the
+    next ``(half - half // 4) // 2`` the height (1), the rest the width
+    (2) (``layers.py:55-75``)."""
+    s1 = half // 4
+    s2 = (half - s1) // 2
+    j = torch.arange(half, device=device)
+    return (j >= s1).long() + (j >= s1 + s2).long()
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_tables(half: int, theta: float, device: torch.device):
+    """(frequencies (half,) fp32, M-RoPE stream indices (half,)) on
+    ``device``, made once a shape (normal tensors even when first asked
+    for under ``inference_mode``). The frequencies ``theta ** (-j /
+    half)`` are XLA's correctly rounded fp32 power: formed in fp64 and
+    rounded (``torch.pow`` in fp32 is an ulp off in some entries, which
+    moves an angle of thousands of radians by ~1e-4)."""
+    with torch.inference_mode(False):
+        expo = -torch.arange(half, dtype=torch.float32, device=device) / half
+        freqs = torch.pow(float(theta), expo.double()).float()
+        return freqs, mrope_sections(half, device)
+
+
+def rope_angles(positions, half: int, theta: float, *, device):
+    """Angles (B, S, half) fp32 of positions (B, S), or (B, S, 3) for
+    M-RoPE, where frequency j takes the position of its stream
+    (:func:`mrope_sections`), gathered in fp32."""
+    freqs, sec = _rope_tables(half, float(theta), torch.device(device))
+    pos = positions.to(device).float()
+    if pos.dim() == 2:
+        return pos[..., None] * freqs
+    return pos[..., sec] * freqs
+
+
 def apply_rope(x, positions, *, theta: float):
-    """Half-split rotary embedding. x: (B, S, H, D); positions: (B, S)."""
+    """Half-split rotary embedding. x: (B, S, H, D); positions: (B, S),
+    or (B, S, 3) (temporal, height, width) for M-RoPE."""
     half = x.shape[-1] // 2
-    freqs = theta ** (-torch.arange(half, dtype=torch.float32,
-                                    device=x.device) / half)
-    ang = positions.float()[..., None] * freqs           # (B, S, half)
+    ang = rope_angles(positions, half, theta, device=x.device)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x32 = x.float()
@@ -232,9 +282,10 @@ def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
                    causal=True, kv_x=None):
     """Full-sequence attention (train / prefill / encoder / cross).
 
-    x: (B, S, d); positions: (B, S) RoPE positions (unused when
-    ``cfg.rope == "none"``); ``kv_x`` (B, T, d), the source sequence of
-    a cross-attention (default x), whose keys take no RoPE. Returns (out
+    x: (B, S, d); positions: (B, S) RoPE positions, (B, S, 3) for
+    M-RoPE (unused when ``cfg.rope == "none"``); ``kv_x`` (B, T, d), the
+    source sequence of a cross-attention (default x), whose keys take no
+    RoPE. Returns (out
     (B, S, d), (k, v)), k/v (B, T, K, hd) in the compute dtype, as the
     reference returns them for cache construction.
     """
@@ -367,6 +418,8 @@ def attention_decode(params, x, cfg: ModelConfig, cache, *, pos,
         if cfg.rope != "none":
             posv = torch.as_tensor(pos, device=x.device).long()
             posv = posv.reshape(-1, 1).expand(B, 1)
+            if cfg.rope == "mrope":  # the absolute position on all 3 streams
+                posv = posv[..., None].expand(B, 1, 3)
             q = apply_rope(q, posv, theta=cfg.rope_theta)
             k_new = apply_rope(k_new, posv, theta=cfg.rope_theta)
         cache_insert(cache, k_new[:, 0], v_new[:, 0], pos)
@@ -600,3 +653,124 @@ def init_mamba(cfg: ModelConfig, normal, *, dtype, device):
         "D": torch.ones(di, dtype=f32, device=dev),
         "out_proj": normal((di, d), di ** -0.5),
     }
+
+
+# ---- RWKV-6 ("Finch") time mix (``layers.py:715-835``) -------------------- #
+def _rwkv6_dims(cfg: ModelConfig):
+    """(heads H = d_model // head_dim, head_dim)."""
+    r = cfg.rwkv6 or RWKV6Config()
+    return cfg.d_model // r.head_dim, r.head_dim
+
+
+def init_rwkv6(cfg: ModelConfig, normal, *, device):
+    """``layers.init_rwkv6``'s shapes, scales and constants, every leaf
+    fp32: ``wr``/``wk``/``wv``/``wg``/``wo`` (d, d) at d^-0.5, ``w1`` (d,
+    Dw) at d^-0.5, ``w2`` (Dw, d) at Dw^-0.5, ``u`` (d,) normal x 0.5,
+    ``w0`` -5, ``mu`` (5, d) 0.5 and ``ln_scale`` ones."""
+    d = cfg.d_model
+    Dw = (cfg.rwkv6 or RWKV6Config()).decay_lora_dim
+    f32 = torch.float32
+    prm = {n: normal((d, d), d ** -0.5, f32)
+           for n in ("wr", "wk", "wv", "wg", "wo")}
+    prm.update(
+        w0=torch.full((d,), -5.0, dtype=f32, device=device),
+        w1=normal((d, Dw), d ** -0.5, f32),
+        w2=normal((Dw, d), Dw ** -0.5, f32),
+        u=normal((d,), 0.5, f32),
+        mu=torch.full((5, d), 0.5, dtype=f32, device=device),
+        ln_scale=torch.ones(d, dtype=f32, device=device))
+    return prm
+
+
+def _rwkv6_step(u):
+    """The wkv recurrence's step over x_t = (r, k, v, w) stacked, each
+    (B, H, dh): y_j = sum_i (S + u kv)_ij r_i, S' = w_i S_ij + kv_ij with
+    kv = k v^T, all fp32 (``layers.py:745-750``)."""
+    def step(S, x_t):
+        r_t, k_t, v_t, w_t = x_t
+        kv = k_t[..., :, None] * v_t[..., None, :]  # (B, H, dh, dh)
+        y = torch.einsum("bhij,bhi->bhj", S + u[None, :, :, None] * kv, r_t)
+        return w_t[..., :, None] * S + kv, y
+    return step
+
+
+def _rwkv_wkv_scan(r, k, v, w, u, H: int, dh: int):
+    """The wkv recurrence over time from a zero state. r, k, v, w: (B,
+    S, d) fp32; u: (d,). Runs through ``scan_utils.chunked_scan`` in
+    chunks of 64 steps, each checkpointed, so a backward keeps S / 64
+    states of (B, H, dh, dh) instead of S. Plain PyTorch on both
+    devices: the reference has no kernel for it. Returns (y (B, S, d),
+    the final state (B, H, dh, dh))."""
+    B, S, d = r.shape
+    xs = torch.stack([a.reshape(B, S, H, dh) for a in (r, k, v, w)])
+    xs = xs.permute(2, 0, 1, 3, 4)  # (S, 4, B, H, dh)
+    S0 = torch.zeros((B, H, dh, dh), dtype=torch.float32, device=r.device)
+    Sf, ys = chunked_scan(_rwkv6_step(u.reshape(H, dh)), S0, xs, chunk=64)
+    return ys.permute(1, 0, 2, 3).reshape(B, S, d), Sf
+
+
+def _rwkv6_streams(params, x32, prev):
+    """The token-shifted r, k, v, w (decay) and g streams of the time
+    mix, fp32: stream i mixes x with the previous token by ``mu[i]``;
+    ``w = exp(-exp(w0 + tanh(x_w w1) w2))``, ``g = silu(x_g wg)``. Each
+    weight is widened before its product (the train step's cast makes
+    them bf16)."""
+    xx = prev - x32
+    mu = params["mu"].float()
+    xr, xk, xv, xw, xg = (x32 + xx * mu[i] for i in range(5))
+    r = xr @ params["wr"].float()
+    k = xk @ params["wk"].float()
+    v = xv @ params["wv"].float()
+    g = F.silu(xg @ params["wg"].float())
+    wlog = params["w0"].float() + (torch.tanh(xw @ params["w1"].float())
+                                   @ params["w2"].float())
+    return r, k, v, torch.exp(-torch.exp(wlog)), g
+
+
+def _rwkv6_out(params, y, g, H: int, dh: int):
+    """Per-head RMS norm of the wkv output (eps 1e-6), ``ln_scale``, the
+    gate and ``wo``, fp32."""
+    yh = y.reshape(*y.shape[:-1], H, dh)
+    yh = yh * torch.rsqrt(yh.square().mean(-1, keepdim=True) + 1e-6)
+    y = yh.reshape(y.shape) * params["ln_scale"].float()
+    return (y * g) @ params["wo"].float()
+
+
+def apply_rwkv6(params, x, cfg: ModelConfig, *, cache=None):
+    """Full-sequence RWKV-6 time mix, in fp32 throughout, cast back to
+    x's dtype. x: (B, S, d); ``cache`` {"shift"} gives the token before
+    x (None: zeros). Returns (out (B, S, d), {"shift": x's last token in
+    x's dtype, "wkv": the final state (B, H, dh, dh) fp32})."""
+    H, dh = _rwkv6_dims(cfg)
+    x32 = x.float()
+    if cache is None:
+        prev = F.pad(x32[:, :-1], (0, 0, 1, 0))
+    else:
+        prev = torch.cat([cache["shift"].float()[:, None], x32[:, :-1]], 1)
+    r, k, v, w, g = _rwkv6_streams(params, x32, prev)
+    y, Sf = _rwkv_wkv_scan(r, k, v, w, params["u"].float(), H, dh)
+    out = _rwkv6_out(params, y, g, H, dh)
+    return out.to(x.dtype), {"shift": x[:, -1], "wkv": Sf}
+
+
+def apply_rwkv6_step(params, x, cfg: ModelConfig, cache):
+    """One-token RWKV-6 decode. x: (B, 1, d); cache {"shift" (B, d),
+    "wkv" (B, H, dh, dh) fp32}. Returns (out (B, 1, d), new cache)."""
+    H, dh = _rwkv6_dims(cfg)
+    B = x.shape[0]
+    x32 = x[:, 0].float()
+    r, k, v, w, g = _rwkv6_streams(params, x32, cache["shift"].float())
+    S, y = _rwkv6_step(params["u"].float().reshape(H, dh))(
+        cache["wkv"], [a.reshape(B, H, dh) for a in (r, k, v, w)])
+    out = _rwkv6_out(params, y.reshape(B, H * dh), g, H, dh)
+    return out[:, None].to(x.dtype), {"shift": x[:, 0], "wkv": S}
+
+
+def init_rwkv6_cache(cfg: ModelConfig, B: int, *, device):
+    """Decode state of one RWKV-6 layer: ``shift`` (B, d) in the compute
+    dtype and ``wkv`` (B, H, dh, dh) fp32, both zero."""
+    H, dh = _rwkv6_dims(cfg)
+    return {"shift": torch.zeros((B, cfg.d_model),
+                                 dtype=dtype_of(cfg.dtype), device=device),
+            "wkv": torch.zeros((B, H, dh, dh), dtype=torch.float32,
+                               device=device)}

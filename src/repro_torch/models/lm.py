@@ -4,10 +4,13 @@ step, the slab cache with its prefill and decode step, the paged cache
 and the serving chunk program.
 
 The stack follows ``cfg.block_pattern``: layer i runs the pattern's
-entry ``i % len(pattern)``, an attention or Mamba mixer, then a dense,
-MoE or no FFN. The reference stacks each pattern position's weights
-over blocks and scans over them; here ``params["layers"]`` is a list
-walked by a Python loop, and so are the caches.
+entry ``i % len(pattern)``, an attention, Mamba or RWKV-6 mixer, then a
+dense, MoE or no FFN. A vision frontend's media (precomputed patch
+embeddings, (B, n_media, d)) are prepended to the token embeddings, with
+M-RoPE grid positions (:func:`_positions`). The reference stacks each
+pattern position's weights over blocks and scans over them; here
+``params["layers"]`` is a list walked by a Python loop, and so are the
+caches.
 
 Stored dtype: the reference keeps fp32 master weights and casts them to
 the compute dtype (bf16) at every use. Serving never updates weights,
@@ -16,7 +19,9 @@ masters (``init_lm(dtype=torch.float32)``) and casts them once per step
 (``optim.precision.compute_cast``). Either way the layers receive
 weights already in the compute dtype, and the values the matrix
 products see are the reference's. The leaves the reference reads in
-fp32 (``layers.FP32_LEAVES``) stay fp32 in every case.
+fp32 (``layers.FP32_LEAVES``, and every leaf of an RWKV-6 mixer,
+``layers.FP32_MIXERS``) stay fp32 in every case but under the train
+step's cast, which rounds them as the reference's does.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.utils import Stacked, tree_map
 
-_MIXERS = ("attn", "mamba")
+_MIXERS = ("attn", "mamba", "rwkv6")
 _FFNS = ("dense", "moe", "none")
 
 
@@ -41,8 +46,7 @@ def _check_supported(cfg: ModelConfig) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: a ({s.mixer}, {s.ffn}) layer is not ported; "
                 f"the port runs {'/'.join(_MIXERS)} mixers with "
-                f"{'/'.join(_FFNS)} FFNs (the other families are "
-                f"ROADMAP.md item 3)")
+                f"{'/'.join(_FFNS)} FFNs")
 
 
 def _spec_of(cfg: ModelConfig, i: int) -> LayerSpec:
@@ -58,11 +62,12 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     normal(0, 1) times d^-0.5 for the embedding, the untied head and the
     projections out of d, (H*hd)^-0.5 for ``wo``, the input width^-0.5
     for the others; norm scales are ones, LayerNorm and q/k/v biases
-    zeros; Mamba's ``A_log``, ``dt_bias``, ``D`` and ``conv_b`` are the
-    reference's constants. Leaves are in ``dtype`` (default: the compute
-    dtype), ``layers.FP32_LEAVES`` (the norms' among them) in fp32. The
-    numbers differ from ``jax.random``'s; parity tests copy JAX weights
-    in with :func:`params_from_numpy` instead."""
+    zeros; Mamba's ``A_log``, ``dt_bias``, ``D`` and ``conv_b`` and
+    RWKV-6's ``w0``, ``mu`` and ``ln_scale`` are the reference's
+    constants. Leaves are in ``dtype`` (default: the compute dtype),
+    ``layers.FP32_LEAVES`` (the norms' among them) and an RWKV-6 mixer's
+    in fp32. The numbers differ from ``jax.random``'s; parity tests copy
+    JAX weights in with :func:`params_from_numpy` instead."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or L.dtype_of(cfg.dtype)
@@ -91,9 +96,13 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     params = {"embed": normal((cfg.vocab, d), d ** -0.5), "layers": []}
     for i in range(cfg.n_layers):
         spec = _spec_of(cfg, i)
-        layer = {"norm1": norm(), "mixer": (
-            L.init_attention(cfg, normal, zeros) if spec.mixer == "attn"
-            else L.init_mamba(cfg, normal, dtype=dt, device=dev))}
+        if spec.mixer == "attn":
+            mixer = L.init_attention(cfg, normal, zeros)
+        elif spec.mixer == "mamba":
+            mixer = L.init_mamba(cfg, normal, dtype=dt, device=dev)
+        else:
+            mixer = L.init_rwkv6(cfg, normal, device=dev)
+        layer = {"norm1": norm(), "mixer": mixer}
         if spec.ffn != "none":
             layer["norm2"] = norm()
             layer["ffn"] = (L.init_moe(cfg, normal) if spec.ffn == "moe"
@@ -110,7 +119,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     """The weight bridge: the reference's parameter tree, as numpy
     arrays (``split_tree(ModelAPI(cfg).init(cfg, key))[0]``), to the
     port's parameters on ``device`` in ``dtype`` (default: the config's
-    compute dtype; ``layers.FP32_LEAVES`` stay fp32).
+    compute dtype; ``layers.FP32_LEAVES`` and an RWKV-6 mixer's leaves
+    stay fp32).
 
     The tree keeps the reference's names and layouts: ``embed`` (V, d);
     ``blocks``, one tree per pattern position, each leaf stacked over
@@ -124,21 +134,24 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
     dev = resolve_device(device)
     dt = dtype or L.dtype_of(cfg.dtype)
 
-    def conv(a, name=""):
+    def conv(a, name="", mixer=""):
         t = torch.tensor(np.asarray(a, np.float32))
-        return t.to(dev, L.stored_dtype(name, dt))
+        return t.to(dev, L.stored_dtype(name, dt, mixer))
 
-    def named(tree, b=None):
+    def named(tree, b=None, mixer=""):
         if isinstance(tree, dict):
-            return {k: (named(v, b) if isinstance(v, dict)
-                        else conv(v if b is None else np.asarray(v)[b], k))
+            return {k: (named(v, b, mixer if k == "mixer" else "")
+                        if isinstance(v, dict)
+                        else conv(v if b is None else np.asarray(v)[b], k,
+                                  mixer))
                     for k, v in tree.items()}
         return conv(tree if b is None else np.asarray(tree)[b])
 
     P = len(cfg.block_pattern)
     params = {
         "embed": conv(tree["embed"]),
-        "layers": [named(tree["blocks"][i % P], i // P)
+        "layers": [named(tree["blocks"][i % P], i // P,
+                         _spec_of(cfg, i).mixer)
                    for i in range(cfg.n_layers)],
         "final_norm": named(tree["final_norm"]),
     }
@@ -151,16 +164,24 @@ def use_cast(params, cfg: ModelConfig) -> Dict[str, Any]:
     """The values the reference's layers read from fp32 masters outside
     its train step (eval, serving), which casts no tree but each weight
     at use: every fp32 leaf in the compute dtype, ``layers.FP32_LEAVES``
-    (norm leaves, the router, Mamba's) kept fp32, as
+    (norm leaves, the router, Mamba's) and every leaf of an RWKV-6
+    mixer (``layers.FP32_MIXERS``, whatever its name) kept fp32, as
     :func:`params_from_numpy` stores them."""
     dt = L.dtype_of(cfg.dtype)
 
-    def walk(tree):
-        return {k: (walk(v) if isinstance(v, dict)
-                    else [walk(x) for x in v] if isinstance(v, list)
+    def walk(tree, mixer=""):
+        # ``mixer``: the kind of the mixer whose leaves ``tree`` holds
+        return {k: (walk(v, mixer) if isinstance(v, dict)
+                    else [layer(x, i) if k == "layers" else walk(x)
+                          for i, x in enumerate(v)]
+                    if isinstance(v, list)
                     else v if v.dtype != torch.float32
-                    else v.to(L.stored_dtype(k, dt)))
+                    else v.to(L.stored_dtype(k, dt, mixer)))
                 for k, v in tree.items()}
+
+    def layer(lp, i):
+        return {k: walk(v, _spec_of(cfg, i).mixer if k == "mixer" else "")
+                for k, v in lp.items()}
 
     return walk(params)
 
@@ -223,23 +244,52 @@ def _head(params, x):
     return x @ params["embed"].T
 
 
-def _positions(B: int, S: int, device):
-    """RoPE positions 0..S-1 for every row, (B, S)."""
-    return torch.arange(S, device=device).expand(B, S)
+def _positions(cfg: ModelConfig, B: int, S: int, device, n_media: int = 0):
+    """RoPE positions 0..S-1 for every row, (B, S); for M-RoPE (B, S, 3)
+    (temporal, height, width), where the first ``n_media`` positions,
+    the media, take the grid coordinates (0, idx // side, idx % side)
+    with ``side = max(1, int(n_media ** 0.5))`` (not exact for a count
+    that is not a square), and the text takes its absolute index on all
+    three streams, so that decode, which knows only that index, agrees
+    with the full forward (``lm.py:113-131``)."""
+    idx = torch.arange(S, device=device)
+    if cfg.rope != "mrope":
+        return idx.expand(B, S)
+    if n_media == 0:
+        return idx[:, None].expand(B, S, 3)
+    side = max(1, int(n_media ** 0.5))
+    media = idx < n_media
+    p3 = torch.stack([torch.where(media, 0, idx),
+                      torch.where(media, idx // side, idx),
+                      torch.where(media, idx % side, idx)], dim=-1)
+    return p3.expand(B, S, 3)
+
+
+def _embed_inputs(params, tokens, media):
+    """(the token embeddings with ``media`` (B, n, d), if any, cast to
+    the compute dtype and prepended, n)."""
+    x = _embed(params, tokens)
+    if media is None:
+        return x, 0
+    media = media.to(x.device, x.dtype)
+    return torch.cat([media, x], dim=1), media.shape[1]
 
 
 def _apply_block_full(cfg: ModelConfig, spec: LayerSpec, lp, x, positions,
                       window=None):
-    """One layer over the full sequence: pre-norm attention or Mamba
-    mixer, then the pre-norm dense or MoE FFN (if any), each added to
-    the residual stream. Returns (x, MoE aux loss or 0.0, the mixer's
-    state: (k, v) for attention, {"conv", "ssm"} for Mamba)."""
+    """One layer over the full sequence: pre-norm attention, Mamba or
+    RWKV-6 mixer, then the pre-norm dense or MoE FFN (if any), each
+    added to the residual stream. Returns (x, MoE aux loss or 0.0, the
+    mixer's state: (k, v) for attention, {"conv", "ssm"} for Mamba,
+    {"shift", "wkv"} for RWKV-6)."""
     h = L.apply_norm(lp["norm1"], x)
     if spec.mixer == "attn":
         y, state = L.attention_full(lp["mixer"], h, cfg, positions=positions,
                                     window=window)
-    else:
+    elif spec.mixer == "mamba":
         y, state = L.apply_mamba(lp["mixer"], h, cfg)
+    else:
+        y, state = L.apply_rwkv6(lp["mixer"], h, cfg)
     x, aux = _ffn(cfg, spec, lp, x + y)
     return x, aux, state
 
@@ -250,19 +300,22 @@ def _layer_out(cfg, spec, lp, x, positions, window):
     return _apply_block_full(cfg, spec, lp, x, positions, window)[:2]
 
 
-def forward_hidden(params, cfg: ModelConfig, tokens, *, window=None):
+def forward_hidden(params, cfg: ModelConfig, tokens, *, media=None,
+                   window=None):
     """Full-sequence forward up to the final norm (no output projection).
 
-    tokens: (B, S). Returns (hidden (B, S, d), the MoE aux loss summed
-    over layers, 0.0 for a stack without MoE). With ``cfg.remat`` each
-    layer, attention or Mamba, runs under ``torch.utils.checkpoint``
-    (non-reentrant): only its input is kept, and the backward recomputes
-    the layer (its scan, router and aux loss included), as the
-    reference's ``jax.checkpoint`` over the scanned block does.
+    tokens: (B, S); ``media`` (B, n, d), a vision frontend's patch
+    embeddings, cast to the compute dtype and prepended. Returns (hidden
+    (B, n + S, d), the MoE aux loss summed over layers, 0.0 for a stack
+    without MoE). With ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant): only its input is kept,
+    and the backward recomputes the layer (its scan, router and aux loss
+    included), as the reference's ``jax.checkpoint`` over the scanned
+    block does.
     """
-    x = _embed(params, tokens)
+    x, n_media = _embed_inputs(params, tokens, media)
     B, S, _ = x.shape
-    positions = _positions(B, S, x.device)
+    positions = _positions(cfg, B, S, x.device, n_media)
     aux = 0.0
     for i, lp in enumerate(params["layers"]):
         spec = _spec_of(cfg, i)
@@ -277,11 +330,11 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, window=None):
     return L.apply_norm(params["final_norm"], x), aux
 
 
-def forward(params, cfg: ModelConfig, tokens, *, window=None):
-    """Full-sequence forward. Returns logits (B, S, vocab); the MoE aux
-    loss, which the reference's ``forward`` also returns, is dropped
-    (:func:`forward_hidden` keeps it)."""
-    return _head(params, forward_hidden(params, cfg, tokens,
+def forward(params, cfg: ModelConfig, tokens, *, media=None, window=None):
+    """Full-sequence forward. Returns logits (B, n_media + S, vocab);
+    the MoE aux loss, which the reference's ``forward`` also returns, is
+    dropped (:func:`forward_hidden` keeps it)."""
+    return _head(params, forward_hidden(params, cfg, tokens, media=media,
                                         window=window)[0])
 
 
@@ -314,19 +367,23 @@ def _chunked_ce(params, cfg: ModelConfig, hidden, targets):
 
 def per_example_nll(params, cfg: ModelConfig, batch):
     """(mean next-token nll per example (B,), the MoE aux loss summed
-    over layers (0.0 without MoE)) for masked distributed eval (C4)."""
+    over layers (0.0 without MoE)) for masked distributed eval (C4).
+    Only text positions count: with ``batch["media"]`` (B, n, d) the
+    hidden states from n on predict the next token."""
     tokens = batch["tokens"]
-    hidden, aux = forward_hidden(params, cfg, tokens)
+    media = batch.get("media")
+    hidden, aux = forward_hidden(params, cfg, tokens, media=media)
+    n_media = 0 if media is None else media.shape[1]
     tgt = tokens[:, 1:]
-    nll_sum = _chunked_ce(params, cfg, hidden[:, :-1], tgt)
+    nll_sum = _chunked_ce(params, cfg, hidden[:, n_media:-1], tgt)
     return nll_sum / tgt.shape[1], aux
 
 
 def loss_fn(params, cfg: ModelConfig, batch):
     """Next-token cross entropy in fp32, plus ``cfg.moe.aux_loss_weight``
     times the MoE aux loss for a stack with MoE layers (``lm.py:281-
-    290``). batch: {"tokens": (B, S) int}. Returns (loss, {"nll",
-    "aux"})."""
+    290``). batch: {"tokens": (B, S) int, optional "media" (B, n, d)
+    prepended}. Returns (loss, {"nll", "aux"})."""
     nll_ex, aux = per_example_nll(params, cfg, batch)
     nll = nll_ex.mean()
     total = nll + (cfg.moe.aux_loss_weight * aux if cfg.uses_moe else 0.0)
@@ -398,34 +455,37 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int, window=None, *,
     """The slab decode cache: one dict per layer, batch on axis 0: an
     attention layer's K/V slab of ``min(seq_len, window)`` slots
     (``layers.init_kv_cache``), a Mamba layer's conv and SSM state
-    (``layers.init_mamba_cache``)."""
+    (``layers.init_mamba_cache``), an RWKV-6 layer's token shift and wkv
+    state (``layers.init_rwkv6_cache``)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     L_attn = _attn_cache_len(seq_len, window)
-    return [L.init_kv_cache(cfg, B, L_attn, device=dev)
-            if _spec_of(cfg, i).mixer == "attn"
-            else L.init_mamba_cache(cfg, B, device=dev)
-            for i in range(cfg.n_layers)]
+    init = {"attn": lambda: L.init_kv_cache(cfg, B, L_attn, device=dev),
+            "mamba": lambda: L.init_mamba_cache(cfg, B, device=dev),
+            "rwkv6": lambda: L.init_rwkv6_cache(cfg, B, device=dev)}
+    return [init[_spec_of(cfg, i).mixer]() for i in range(cfg.n_layers)]
 
 
-def prefill(params, cfg: ModelConfig, tokens, *, cache_len=None, window=None,
-            last_pos=None):
+def prefill(params, cfg: ModelConfig, tokens, *, media=None, cache_len=None,
+            window=None, last_pos=None):
     """Forward over the prompt, building the slab decode cache.
 
-    tokens: (B, S). Returns (logits (B, vocab) at ``last_pos`` (B,) per
-    row, or at S - 1 when None; the cache, one dict per layer). An
-    attention layer's cache holds ``min(cache_len, window)`` slots
-    (default S) with the last that many prompt positions' K/V; a Mamba
-    layer's holds its final conv inputs and SSM state. Serving right-pads
-    prompts of attention-only stacks to one length and reads each
-    prompt's true last position (causality makes the positions up to it
-    those of an unpadded prefill).
+    tokens: (B, S); ``media`` (B, n, d) prepended (a vision frontend).
+    Returns (logits (B, vocab) at ``last_pos`` (B,) per row, an absolute
+    position counting the media, or at n + S - 1 when None; the cache,
+    one dict per layer). An attention layer's cache holds
+    ``min(cache_len, window)`` slots (default n + S) with the last that
+    many positions' K/V; a Mamba layer's holds its final conv inputs and
+    SSM state, an RWKV-6 layer's its last token (in the compute dtype)
+    and wkv state. Serving right-pads prompts of attention-only stacks
+    to one length and reads each prompt's true last position (causality
+    makes the positions up to it those of an unpadded prefill).
     """
     _check_supported(cfg)
-    x = _embed(params, tokens)
+    x, n_media = _embed_inputs(params, tokens, media)
     B, S, _ = x.shape
     L_attn = _attn_cache_len(cache_len or S, window)
-    positions = _positions(B, S, x.device)
+    positions = _positions(cfg, B, S, x.device, n_media)
     caches = []
     for i, lp in enumerate(params["layers"]):
         spec = _spec_of(cfg, i)
@@ -434,8 +494,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, cache_len=None, window=None,
             k, v = state
             caches.append(L.cache_from_prefill(cfg, k[:, -L_attn:],
                                                v[:, -L_attn:], L_attn))
-        else:  # a Mamba layer's state is its decode cache entry
+        elif spec.mixer == "mamba":  # its state is its decode cache entry
             caches.append(state)
+        else:
+            caches.append({"shift": state["shift"].to(L.dtype_of(cfg.dtype)),
+                           "wkv": state["wkv"]})
     x = L.apply_norm(params["final_norm"], x)
     return _head(params, L.gather_last(x, last_pos))[:, 0], caches
 
@@ -444,8 +507,8 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, *, window=None):
     """One decode step for every row. token: (B, 1) ids; ``pos`` an int
     or (B,) absolute positions (each row an independent sequence at its
     own offset, continuous batching); cache: :func:`init_cache`'s list.
-    Attention K/V are written into the cache in place; Mamba states are
-    replaced. Returns (logits (B, vocab), the cache)."""
+    Attention K/V are written into the cache in place; Mamba and RWKV-6
+    states are replaced. Returns (logits (B, vocab), the cache)."""
     x = _embed(params, token)
     for i, lp in enumerate(params["layers"]):
         spec = _spec_of(cfg, i)
@@ -453,8 +516,10 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, *, window=None):
         if spec.mixer == "attn":
             y, cache[i] = L.attention_decode(lp["mixer"], h, cfg, cache[i],
                                              pos=pos, window=window)
-        else:
+        elif spec.mixer == "mamba":
             y, cache[i] = L.apply_mamba_step(lp["mixer"], h, cfg, cache[i])
+        else:
+            y, cache[i] = L.apply_rwkv6_step(lp["mixer"], h, cfg, cache[i])
         x, _ = _ffn(cfg, spec, lp, x + y)  # decode drops the aux loss
     x = L.apply_norm(params["final_norm"], x)
     return _head(params, x)[:, 0], cache

@@ -27,8 +27,10 @@ position verifies the drafts in the same chunk step. Under pool
 pressure the engine sheds drafts first, then evicts LRU index entries,
 then preempts. Greedy outputs equal those of the plain engine.
 
-**slab** (stacks with a recurrent mixer, such as jamba's Mamba layers,
-or ``kv_layout="slab"``): the dense per-slot decode cache
+**slab** (stacks with a recurrent mixer, such as jamba's Mamba or
+rwkv6's RWKV-6 layers, a vision frontend, whose media the decoder reads
+ahead of each prompt (qwen2-vl), or ``kv_layout="slab"``): the dense
+per-slot decode cache
 (``serve.cache.init_slab``) and two programs: ``prefill`` of one
 admitted request (``lm.prefill``, written into its slot by
 ``serve.cache.write_slot``) and ``decode`` of one token for every slot
@@ -160,14 +162,18 @@ class Engine:
         if self.scfg.kv_dtype:
             cfg = dataclasses.replace(cfg, kv_cache_dtype=self.scfg.kv_dtype)
         # Recurrent mixers carry prompt state: exact-length prefill, slab.
+        # A vision frontend's media feed the decoder: slab too.
         self._exact = any(s.mixer != "attn" for s in cfg.block_pattern)
+        paged_ok = not self._exact and cfg.frontend != "vision_patches"
         layout = self.scfg.kv_layout
         if layout == "auto":
-            layout = "slab" if self._exact else "paged"
-        elif layout == "paged" and self._exact:
+            layout = "paged" if paged_ok else "slab"
+        elif layout == "paged" and not paged_ok:
             raise ValueError(
-                f"kv_layout='paged' needs an attention-only stack; "
-                f"{cfg.name} has a recurrent mixer — use kv_layout='slab'")
+                f"kv_layout='paged' needs an attention-only, token-frontend "
+                f"stack; {cfg.name} has "
+                f"{'a recurrent mixer' if self._exact else 'a vision frontend'}"
+                f" — use kv_layout='slab'")
         if self.scfg.prefix_cache and layout != "paged":
             raise ValueError(
                 "prefix_cache shares pages of the paged KV pool; the slab "
@@ -766,7 +772,8 @@ def synthetic_requests(cfg, *, n: int, tokens: int, prompt_len: int,
     ``synthetic_requests`` for a token-only arch, ids from
     ``np.random.RandomState(seed)``. An enc-dec arch's requests carry
     media, (enc_source_len, d_model) fp32 standard-normal frames a
-    request, one array per template when ``shared_prefix_len > 0``
+    request, a vision arch's (n_media_tokens, d_model) patch embeddings;
+    one array per template when ``shared_prefix_len > 0``
     (same-template requests share it, so the prefix cache can match
     them). The reference draws them with ``jax.random.normal`` from key
     ``seed + i``; here they come from ``np.random.default_rng((seed,
@@ -807,10 +814,13 @@ def synthetic_requests(cfg, *, n: int, tokens: int, prompt_len: int,
             prompt = rng.randint(0, cfg.vocab, size=p_len).tolist()
         req = Request(prompt=prompt, max_new_tokens=tokens,
                       template=template)
-        if cfg.is_encdec:
+        n_media = (cfg.enc_source_len if cfg.is_encdec else
+                   cfg.n_media_tokens if cfg.frontend == "vision_patches"
+                   else 0)
+        if n_media:
             media_key = i % n_templates if shared_prefix_len else i
             req.media = np.random.default_rng((seed, media_key)).standard_normal(
-                (cfg.enc_source_len, cfg.d_model)).astype(np.float32)
+                (n_media, cfg.d_model)).astype(np.float32)
         reqs.append(req)
     if scenario != "offline":
         from repro_torch.serve.scenarios import poisson_arrivals

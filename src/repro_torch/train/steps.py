@@ -25,7 +25,8 @@ class ModelAPI:
     """One surface over the model families (the reference's
     ``ModelAPI``): ``models.encdec`` for an enc-dec config, else
     ``models.lm``. Enc-dec batches carry ``media`` (the encoder's
-    frames) beside ``tokens``."""
+    frames) beside ``tokens``, a vision frontend's batches the patch
+    embeddings that ``models.lm`` prepends to the text."""
 
     def __init__(self, cfg: ModelConfig):
         self.cfg = cfg
@@ -52,8 +53,8 @@ class ModelAPI:
                                   batch["tokens"], cache_len=cache_len,
                                   window=window, last_pos=last_pos)
         return lm.prefill(params, self.cfg, batch["tokens"],
-                          cache_len=cache_len, window=window,
-                          last_pos=last_pos)
+                          media=batch.get("media"), cache_len=cache_len,
+                          window=window, last_pos=last_pos)
 
     def decode(self, params, token, cache, pos, *, window=None):
         return self._m.decode_step(params, self.cfg, token, cache, pos,

@@ -18,6 +18,8 @@ PORT_MODULES = [
     "repro_torch.configs.base",
     "repro_torch.configs.gemma_7b",
     "repro_torch.configs.jamba_1_5_large_398b",
+    "repro_torch.configs.qwen2_vl_7b",
+    "repro_torch.configs.rwkv6_3b",
     "repro_torch.core.distributed_eval",
     "repro_torch.core.distributed_norm",
     "repro_torch.data.bucketization",

@@ -58,12 +58,22 @@ def test_config_copy_matches_reference(reduced, arch):
 
 
 def test_other_archs_refused_by_name():
-    with pytest.raises(NotImplementedError, match="qwen2-vl-7b.*not ported"):
-        get_config("qwen2-vl-7b")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3"):
-        get_config("rwkv6_3b")
-    with pytest.raises(KeyError):
+    """Every arch of the JAX package is ported, in its registry's order
+    (module-style ids too); an unknown id raises ``KeyError`` naming it,
+    and a layer kind the port does not know ``NotImplementedError``."""
+    from repro.configs import list_archs as jax_list_archs
+    from repro_torch.configs import list_archs
+    from repro_torch.configs.base import LayerSpec
+
+    assert list_archs() == jax_list_archs()
+    assert get_config("rwkv6_3b") is get_config("rwkv6-3b")
+    assert get_config("qwen2_vl_7b") is get_config("qwen2-vl-7b")
+    with pytest.raises(KeyError, match="no-such-arch"):
         get_config("no-such-arch")
+    cfg = ModelConfig("t", 1, 8, 8, 8, block_pattern=(LayerSpec("conv"),))
+    with pytest.raises(NotImplementedError, match=r"\(conv, dense\) layer "
+                       r"is not ported.*attn/mamba/rwkv6"):
+        lm.init_lm(cfg, device="cpu")
 
 
 def test_gelu_is_the_tanh_form():

@@ -87,8 +87,14 @@ def test_microbatches_that_do_not_divide_the_batch_raise():
 
 def test_not_ported_messages_name_roadmap_items():
     assert ServeConfig(temperature=0.5, seed=1).temperature == 0.5  # ported
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 3"):
-        get_config("qwen2-vl-7b")
+    assert get_config("qwen2-vl-7b").frontend == "vision_patches"  # ported
+    from repro_torch.models import resnet
+
+    cfg = dataclasses.replace(resnet.RESNET_TINY, bn_group_size=2)
+    with pytest.raises(NotImplementedError,
+                       match="distribution, fleet and bench"):
+        resnet.forward(resnet.init_resnet(cfg, device="cpu"), cfg,
+                       torch.zeros((1, 16, 16, 3)))
     with pytest.raises(NotImplementedError,
                        match="distribution, fleet and bench"):
         serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",

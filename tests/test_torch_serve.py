@@ -102,8 +102,11 @@ def test_defrag_mid_run_keeps_tokens(models):
 def test_engine_rejects_unported_and_oversized(models):
     _, _, cfg, params = models
     assert ServeConfig(temperature=0.8).temperature == 0.8  # ported
+    assert get_config("rwkv6-3b").block_pattern[0].mixer == "rwkv6"  # ported
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("rwkv6-3b")
+        Engine(dataclasses.replace(cfg, block_pattern=(
+            dataclasses.replace(cfg.block_pattern[0], mixer="conv"),)),
+            params, device="cpu")
     eng = Engine(cfg, params, ServeConfig(max_batch=1, max_len=16,
                                           page_size=4, n_pages=3),
                  device="cpu")
