@@ -164,7 +164,23 @@ and prints no result):
    batch 4 x 2048 through ``Trainer.fit``, the VLM cut to 8 layers (2
    flash forwards and 1 backward a layer a step asserted), rwkv6 to 4
    (its wkv loop is plain PyTorch, host-bound), a second run's losses
-   bitwise equal (2 steps; rwkv6's 1).
+   bitwise equal (2 steps; rwkv6's 1);
+13. the MLPerf Transformer, SSD and Mask R-CNN (``kernels-transformer``,
+   ``check-mlperf``, ``train-transformer``, ``train-ssd``,
+   ``train-maskrcnn``), through ``repro_torch.launch.mlperf`` (fig9's
+   step: the gradient, then Adam at 1e-3): the flash forward and
+   backward at the Transformer's 16/16 heads of 64, B 32, bf16, at S 97
+   (the paper's truncation) and 256, the encoder's and cross-attention's
+   non-causal shape and the decoder's causal one, each against its plain
+   version and timed; the cross-attention over a shorter source and fp32
+   at S 97 held; the three tiny configs in fp32 card against CPU (loss,
+   every gradient, 3 Adam steps; TF32 off); then each published config
+   uncut (fp32 masters and moments, bf16 compute): the Transformer 4
+   steps of batch 32 at S 97 and at 256 (flash forward 2 x 6 and
+   backward 6 a step at each attention's shape asserted), SSD at 300 x
+   300, batch 32, Mask R-CNN at 128 x 128, batch 16, each 4 steps with
+   cuDNN deterministic, one step traced, a second run's losses bitwise
+   equal.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -204,6 +220,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.launch import gnmt as gnmt_cli  # noqa: E402
+from repro_torch.launch import mlperf as mlperf_cli  # noqa: E402
 from repro_torch.launch import resnet as resnet_cli  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import gnmt  # noqa: E402
@@ -3527,10 +3544,12 @@ def check_flash_archs():
     return recs
 
 
-def check_flash_case(seed, arch, B, S, H, K, D, dtype, tol, suffix, *,
-                     Sk=None, causal=True):
-    """One shape of ``check_flash_archs`` (or of whisper's: ``Sk`` keys,
-    default S, and ``causal``); its (forward, backward) records."""
+def hold_flash_case(seed, arch, B, S, H, K, D, dtype, tol, *, Sk=None,
+                    causal=True):
+    """The flash forward and backward at one shape against the plain
+    version within ``tol``, the backward rerun bitwise; prints the
+    errors. Returns (q, k, v, do, {"out", "dq", "dk", "dv": max
+    |kernel - plain|})."""
     Sk = Sk or S
     kw = dict(causal=causal)
     q, k, v, do = flash_inputs(seed, B, S, Sk, H, K, D, dtype)
@@ -3555,13 +3574,24 @@ def check_flash_case(seed, arch, B, S, H, K, D, dtype, tol, suffix, *,
         raise AssertionError(f"flash_attention {arch} B{B}: a rerun of the "
                              f"backward differs")
     shape = f"S{S}" if S == Sk else f"Sq{S} Sk{Sk}"
-    print(f"  {arch} B{B} {shape} {H}/{K} (G {H // K}) D{D} bf16 "
+    print(f"  {arch} B{B} {shape} {H}/{K} (G {H // K}) D{D} "
+          f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} "
           f"{'causal' if causal else 'non-causal'}: "
           f"max|kernel-plain| " + ", ".join(
               f"{n} {e:.2e}" for n, e in errs.items()) +
           f" (tol {tol:g}), backward rerun bitwise equal", flush=True)
     del again, want, out, lse, dq, dk, dv, qp, kp, vp
     torch.cuda.empty_cache()
+    return q, k, v, do, errs
+
+
+def check_flash_case(seed, arch, B, S, H, K, D, dtype, tol, suffix, *,
+                     Sk=None, causal=True):
+    """One shape of ``check_flash_archs`` (or of whisper's: ``Sk`` keys,
+    default S, and ``causal``): held (:func:`hold_flash_case`), then
+    timed; its (forward, backward) records."""
+    q, k, v, do, errs = hold_flash_case(seed, arch, B, S, H, K, D, dtype,
+                                        tol, Sk=Sk, causal=causal)
     recs = tuple(flash_records(
         q, k, v, do, suffix,
         (errs["out"], max(errs["dq"], errs["dk"], errs["dv"])),
@@ -4341,16 +4371,18 @@ def vlm_flash_shape(kind):
     return (B, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, True)
 
 
-def hold_flash_fp32(seed, B, S, H, K, D):
-    """The fp32 flash kernels, causal forward and backward, against the
-    plain version at (B, S, H, K, D) within 1e-4; the backward rerun
-    bitwise. Returns the max |kernel - plain|."""
+def hold_flash_fp32(seed, B, S, H, K, D, *, Sk=None, causal=True):
+    """The fp32 flash kernels, forward and backward (causal unless told;
+    ``Sk`` keys, default S), against the plain version at (B, S, H, K, D)
+    within 1e-4; the backward rerun bitwise. Returns the max |kernel -
+    plain|."""
     tol = TOL[torch.float32]
-    q, k, v, do = flash_inputs(seed, B, S, S, H, K, D, torch.float32)
-    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
-    grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    kw = dict(causal=causal)
+    q, k, v, do = flash_inputs(seed, B, S, Sk or S, H, K, D, torch.float32)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     qp, kp, vp = (t.clone().requires_grad_() for t in (q, k, v))
-    want = fa.flash_attention_torch(qp, kp, vp)
+    want = fa.flash_attention_torch(qp, kp, vp, **kw)
     want.backward(do)
     err = 0.0
     for got, ref in zip((out, *grads), (want, qp.grad, kp.grad, vp.grad)):
@@ -4359,7 +4391,7 @@ def hold_flash_fp32(seed, B, S, H, K, D):
                 and torch.allclose(got, ref, rtol=tol, atol=tol)):
             raise AssertionError(f"flash_attention fp32 B{B} S{S} {H}/{K}: "
                                  f"kernel != plain, max |diff| {err}")
-    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do)
+    again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, do, **kw)
     if not all(torch.equal(a, b) for a, b in zip(again, grads)):
         raise AssertionError("flash_attention fp32: a rerun of the backward "
                              "differs")
@@ -4731,6 +4763,306 @@ def vlm_rwkv_phases():
     return [pre, fwd, bwd]
 
 
+# --------------------------------------------------------------------------- #
+# The other MLPerf-0.6 models (launch/mlperf.py, fig9's step): the
+# Transformer through the flash kernels at 16/16 heads of 64, at the
+# paper's 97 and at 256; SSD and Mask R-CNN (plain convolutions, as
+# ResNet-50's; roi_align and the resizes plain). The tiny configs card vs
+# CPU; the published configs uncut.
+# --------------------------------------------------------------------------- #
+MLPERF_SEQS = (97, 256)  # the paper's truncation to the longest eval sentence
+TRANSFORMER_BATCH, SSD_BATCH, MASKRCNN_BATCH = 32, 32, 16
+MLPERF_STEPS = 4
+
+
+def transformer_shapes(S):
+    """{role: the flash launch-count key (B, Sq, Sk, H, K, D, causal)} of
+    the full Transformer's train step at length S (source and target both
+    S, as fig9 draws them: the cross-attention shares the encoder's
+    key)."""
+    cfg = mlperf_cli.configs("transformer", True)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B = TRANSFORMER_BATCH
+    return {"enc": (B, S, S, H, K, D, False), "dec": (B, S, S, H, K, D, True),
+            "cross": (B, S, S, H, K, D, False)}
+
+
+def check_transformer_kernels():
+    """The flash forward and backward at the full Transformer's train
+    shapes (B 32, 16/16 heads of 64, bf16) at S 97 and 256: the encoder's
+    (non-causal; the cross-attention's too, the source being as long as
+    the target) and the decoder's (causal), each held against the plain
+    version, rerun bitwise and timed beside its bound and SDPA; the
+    cross-attention over a shorter source (Sq 97, Sk 71; Sq 256, Sk 200)
+    held; fp32 at B 2, S 97 (off every tile), causal and a cross shape,
+    held. Returns {(S, "enc" | "dec"): (forward record, backward
+    record)}."""
+    cfg = mlperf_cli.configs("transformer", True)
+    H, K, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B = TRANSFORMER_BATCH
+    phase(f"kernels: the MLPerf Transformer's shapes ({H}/{K} heads of {D}):"
+          f" flash forward and backward at B {B}, S {MLPERF_SEQS} (encoder "
+          f"and cross non-causal, decoder causal) vs plain PyTorch")
+    t0 = time.perf_counter()
+    tol = TOL[torch.bfloat16]
+    recs = {}
+    for i, S in enumerate(MLPERF_SEQS):
+        for j, (role, causal) in enumerate((("enc", False), ("dec", True))):
+            recs[(S, role)] = check_flash_case(
+                700 + 2 * i + j, "transformer", B, S, H, K, D,
+                torch.bfloat16, tol, f"_transformer_{role}{S}",
+                causal=causal)
+    for i, (Sq, Sk) in enumerate(((97, 71), (256, 200))):
+        hold_flash_case(710 + i, "transformer", B, Sq, H, K, D,
+                        torch.bfloat16, tol, Sk=Sk, causal=False)
+    for i, (Sk, causal) in enumerate(((97, True), (71, False))):
+        err = hold_flash_fp32(720 + i, 2, 97, H, K, D, Sk=Sk, causal=causal)
+        print(f"  transformer B2 Sq97 Sk{Sk} {H}/{K} D{D} fp32 "
+              f"{'causal' if causal else 'non-causal'}: max|kernel-plain| "
+              f"{err:.2e} (tol {TOL[torch.float32]:g}), backward rerun "
+              f"bitwise equal", flush=True)
+    print(f"  kernels-transformer wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return recs
+
+
+def mlperf_tiny_fp32(model):
+    cfg = mlperf_cli.configs(model)
+    if model == "transformer":
+        return dataclasses.replace(cfg, dtype="float32")
+    return dataclasses.replace(cfg, dtype="float32", backbone=dataclasses.
+                               replace(cfg.backbone, dtype="float32"))
+
+
+def mlperf_grads(model, cfg, params, batch):
+    leaves = tree_leaves(params)
+    for w in leaves:
+        w.requires_grad_(True)
+    loss, _ = mlperf_cli.loss_of(model, cfg)(params, batch)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.item(), [torch.zeros_like(w).cpu() if g is None else g.cpu()
+                         for w, g in zip(leaves, grads)]
+
+
+def reduced_mlperf_vs_cpu():
+    """The three tiny configs in fp32 from the same weights (the port's
+    init, seed 0) on both devices: the card's path (the flash kernels for
+    the Transformer's attention, cuDNN and cuBLAS with TF32 off) against
+    the CPU's plain path. The loss within rtol 1e-5, every gradient within
+    1e-3 of its leaf's largest entry, then 3 steps of adam(1e-3) through
+    ``launch/mlperf.train``, losses within rtol 1e-4; the Transformer's
+    flash counters must show every attention of every step through the
+    kernels (6 forward and 6 backward: 2 encoder, 2 x 2 decoder)."""
+    phase("check: the tiny MLPerf Transformer, SSD and Mask R-CNN, card vs "
+          "CPU plain path, fp32: loss, gradients, 3 Adam steps")
+    t0 = time.perf_counter()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for model in mlperf_cli.MODELS:
+            cfg = mlperf_tiny_fp32(model)
+            init = mlperf_cli.init_params(model, cfg, 0, device="cpu")
+            batch = mlperf_cli.synthetic_batch(
+                model, cfg, mlperf_cli.DEFAULT_BATCH[model],
+                np.random.default_rng(0))
+            out, losses = {}, {}
+            fa.reset_launches()
+            for dev in ("cpu", "cuda"):
+                params = tree_map(lambda w: w.to(dev, copy=True), init)
+                b = mlperf_cli.to_device(batch, dev)
+                out[dev] = mlperf_grads(model, cfg, params, b)
+                params = tree_map(lambda w: w.to(dev, copy=True), init)
+                hist = mlperf_cli.train(mlperf_cli.loss_of(model, cfg),
+                                        params, b, steps=3, device=dev,
+                                        log=lambda _: None)
+                losses[dev] = [r["loss"] for r in hist]
+            launches = [(r["flash_fwd"], r["flash_bwd"]) for r in hist]
+            (lc, gc_), (lg, gg) = out["cpu"], out["cuda"]
+            err = max(((a - b).abs().max() / (a.abs().max() + 1e-12)).item()
+                      for a, b in zip(gc_, gg))
+            n_attn = (cfg.n_enc_layers + 2 * cfg.n_layers
+                      if model == "transformer" else 0)
+            print(f"  {model}: loss cpu {lc:.7f} card {lg:.7f}; gradients "
+                  f"max|card-cpu| / max|cpu| {err:.2e} over {len(gc_)} "
+                  f"leaves (tol 1e-3); 3 Adam steps: losses cpu "
+                  f"{losses['cpu']}, card {losses['cuda']}; flash launches a "
+                  f"step {launches} (expected {n_attn} each)", flush=True)
+            if abs(lc - lg) > 1e-5 * abs(lc) or err > 1e-3:
+                raise AssertionError(f"tiny {model} differs card vs CPU: loss "
+                                     f"{lc} vs {lg}, gradient {err}")
+            if not np.allclose(losses["cuda"], losses["cpu"], rtol=1e-4,
+                               atol=0):
+                raise AssertionError(f"tiny {model}: Adam losses differ card "
+                                     f"vs CPU: {losses}")
+            if launches != [(n_attn, n_attn)] * 3:
+                raise AssertionError(f"tiny {model}: flash launches "
+                                     f"{launches}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    print(f"  check-mlperf wall {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def mlperf_run(model, cfg, batch, steps):
+    """Weights from seed 0, then ``steps`` steps of adam(1e-3) on
+    ``batch`` through ``launch/mlperf.train``, each timed to the loss on
+    the host. Returns (params, history)."""
+    params = mlperf_cli.init_params(model, cfg, 0, device="cuda")
+    hist = mlperf_cli.train(mlperf_cli.loss_of(model, cfg), params, batch,
+                            steps=steps, device="cuda", log=lambda _: None)
+    return params, hist
+
+
+def train_mlperf_full(model, B, *, seq=None):
+    """``model`` at its published config, uncut (fp32 masters and Adam
+    moments, bf16 compute), takes ``MLPERF_STEPS`` steps of batch ``B``
+    (the Transformer at source and target length ``seq``) through
+    ``launch/mlperf.train``, cuDNN held to its deterministic algorithms:
+    finite losses; the Transformer's flash counters, zeroed just before,
+    must show in every step 2 x 6 forward (with the remat recompute) and
+    6 backward launches at each of its three attentions' shapes; a second
+    run's losses bitwise equal; one more step traced (busy share). Prints
+    step ms, throughput and peak memory. Returns (summary, the flash
+    launches by shape in the first run)."""
+    cfg = mlperf_cli.configs(model, True)
+    what = (f"S {seq} (source and target), {B * seq} target tokens a step"
+            if model == "transformer" else
+            f"{cfg.image_size} x {cfg.image_size} images")
+    phase(f"train: {cfg.name} published config, uncut, batch {B}, {what}, "
+          f"fp32 masters and Adam moments, bf16 compute")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    batch = mlperf_cli.to_device(mlperf_cli.synthetic_batch(
+        model, cfg, B, np.random.default_rng(0), seq=seq or 97), "cuda")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        params, hist = mlperf_run(model, cfg, batch, MLPERF_STEPS)
+        torch.cuda.synchronize()
+        fwd = dict(fa.flash_attention_fwd_cuda.launches_by_shape)
+        bwd = dict(fa.flash_attention_bwd_cuda.launches_by_shape)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        leaves = tree_leaves(params)
+        n_params = sum(w.numel() for w in leaves)
+        losses = [r["loss"] for r in hist]
+        want_f, want_b = {}, {}
+        if model == "transformer":
+            n = {"enc": cfg.n_enc_layers, "dec": cfg.n_layers,
+                 "cross": cfg.n_layers}
+            for role, key in transformer_shapes(seq).items():
+                want_f[key] = want_f.get(key, 0) + 2 * n[role] * MLPERF_STEPS
+                want_b[key] = want_b.get(key, 0) + n[role] * MLPERF_STEPS
+        per_step = [(r["flash_fwd"], r["flash_bwd"]) for r in hist]
+        step_ms = float(np.median([r["step_ms"] for r in hist[1:]]))
+        unit = "target tokens" if model == "transformer" else "images"
+        per_s = (B * seq if model == "transformer" else B) / (step_ms / 1e3)
+        print(f"  {n_params} params ({n_params / 1e6:.2f} M); losses "
+              f"{losses}; step ms {[round(r['step_ms'], 2) for r in hist]}, "
+              f"median of steps 2-{MLPERF_STEPS} {step_ms:.2f} ms, "
+              f"{per_s:.0f} {unit}/s; peak memory {peak:.2f} GiB; flash "
+              f"launches a step {per_step}, forward {fwd}, backward {bwd}",
+              flush=True)
+        if len(hist) != MLPERF_STEPS or not all(np.isfinite(losses)):
+            raise AssertionError(f"{model}: non-finite or missing losses "
+                                 f"{hist}")
+        if fwd != want_f or bwd != want_b:
+            raise AssertionError(f"{model}: flash launches {fwd}, {bwd} != "
+                                 f"{want_f}, {want_b}")
+
+        # One more step, untimed, timed, then traced.
+        opt = adam(constant(mlperf_cli.LR))
+        st = opt.init(params)
+        step = mlperf_cli.make_train_step(mlperf_cli.loss_of(model, cfg), opt)
+        step(params, st, batch)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(params, st, batch)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t1) * 1e3
+        _, busy_ms, kernels = trace_busy(lambda: step(params, st, batch))
+        n_k = sum(e.count for e in kernels)
+        flash_ms = sum(e.self_device_time_total for e in kernels
+                       if "flash_" in e.key) / 1e3
+        by_kind = {}
+        for e in kernels:
+            kind = kernel_kind(e.key)
+            by_kind[kind] = (by_kind.get(kind, 0.0)
+                             + e.self_device_time_total / 1e3)
+        print(f"  traced step: {n_k} kernels, device busy {busy_ms:.2f} ms = "
+              f"{100 * busy_ms / one_ms:.1f}% of the same step untraced "
+              f"({one_ms:.2f} ms); flash {flash_ms:.3f} ms; by kind: "
+              + ", ".join(f"{k} {v:.2f} ms ({100 * v / busy_ms:.1f}%)"
+                          for k, v in sorted(by_kind.items(),
+                                             key=lambda kv: -kv[1])),
+              flush=True)
+        for e in kernels[:8]:
+            print(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"{e.count:6d}x {e.key[:100]}")
+        del params, leaves, st, step, kernels
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        _, again = mlperf_run(model, cfg, batch, 2)
+        again = [r["loss"] for r in again]
+        print(f"  second run, 2 steps: losses {again} ("
+              f"{'bitwise equal' if again == losses[:2] else 'DIFFERENT'})",
+              flush=True)
+        if again != losses[:2]:
+            raise AssertionError(f"{model}: a second run's losses differ: "
+                                 f"{again} vs {losses[:2]}")
+    finally:
+        torch.backends.cudnn.deterministic = det
+    gc.collect()
+    torch.cuda.empty_cache()
+    summary = dict(model=cfg.name, batch=B, seq=seq, n_params=n_params,
+                   step_ms=step_ms, per_s=per_s, unit=unit,
+                   peak_mem_gib=peak, losses=losses, traced_step_ms=one_ms,
+                   device_busy_ms=busy_ms, busy_share=busy_ms / one_ms,
+                   kernels_per_step=n_k, flash_device_ms=flash_ms,
+                   by_kind_ms=by_kind,
+                   phase_wall_s=time.perf_counter() - t0)
+    print(f"  train summary {json.dumps(summary)}", flush=True)
+    return summary, fwd, bwd
+
+
+def train_transformer():
+    """``train_mlperf_full`` for the Transformer at each of
+    ``MLPERF_SEQS``: fig9's 256-against-97 comparison on the card.
+    Returns {(S, "enc" | "dec"): (forward, backward launches)}."""
+    out, ms = {}, {}
+    for S in MLPERF_SEQS:
+        summary, fwd, bwd = train_mlperf_full("transformer", TRANSFORMER_BATCH,
+                                              seq=S)
+        ms[S] = summary["step_ms"]
+        shapes = transformer_shapes(S)
+        for role in ("enc", "dec"):
+            key = shapes[role]
+            out[(S, role)] = (fwd[key], bwd[key])
+    print(f"  step at S {MLPERF_SEQS[1]} / step at S {MLPERF_SEQS[0]}: "
+          f"{ms[MLPERF_SEQS[1]] / ms[MLPERF_SEQS[0]]:.3f} (tokens "
+          f"{MLPERF_SEQS[1] / MLPERF_SEQS[0]:.3f}x)", flush=True)
+    return out
+
+
+def mlperf_phases():
+    """The MLPerf Transformer, SSD and Mask R-CNN phases in turn, their
+    wall printed. Returns the Transformer's flash records with their
+    launches on the train path."""
+    t0 = time.perf_counter()
+    recs = check_transformer_kernels()
+    reduced_mlperf_vs_cpu()
+    for key, (f, b) in train_transformer().items():
+        recs[key][0]["launches"], recs[key][1]["launches"] = f, b
+    train_mlperf_full("ssd", SSD_BATCH)
+    train_mlperf_full("maskrcnn", MASKRCNN_BATCH)
+    print(f"  mlperf phases wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return [r for key in sorted(recs) for r in recs[key]]
+
+
+
 PHASES = {  # --only names: the phases a short run may pick
     "paged": lambda: (check_kernel(), check_paged_archs()),
     "flash": lambda: (check_flash(), check_flash_archs()),
@@ -4756,6 +5088,11 @@ PHASES = {  # --only names: the phases a short run may pick
     "serve-rwkv": lambda: serve_slab_full(RWKV),
     "train-vlm": lambda: train_cut(VLM, VLM_TRAIN_LAYERS),
     "train-rwkv": lambda: train_cut(RWKV, RWKV_TRAIN_LAYERS, again=1),
+    "kernels-transformer": check_transformer_kernels,
+    "check-mlperf": reduced_mlperf_vs_cpu,
+    "train-transformer": train_transformer,
+    "train-ssd": lambda: train_mlperf_full("ssd", SSD_BATCH),
+    "train-maskrcnn": lambda: train_mlperf_full("maskrcnn", MASKRCNN_BATCH),
 }
 
 
@@ -4832,11 +5169,12 @@ def main(argv=None) -> int:
      flash_jamba_fwd["launches"], flash_jamba_bwd["launches"]) = train_jamba()
     whisper = whisper_phases()
     vlm = vlm_rwkv_phases()
+    mlperf = mlperf_phases()
     recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,
             mamba_train, mamba_bwd, lstm_fwd, lstm_bwd, lars_norms,
             lars_update, *paged_archs.values(),
             *(r for pair in flash_archs.values() for r in pair),
-            flash_jamba_fwd, flash_jamba_bwd, *whisper, *vlm]
+            flash_jamba_fwd, flash_jamba_bwd, *whisper, *vlm, *mlperf]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"  whole smoke wall {time.perf_counter() - t0:.1f} s", flush=True)

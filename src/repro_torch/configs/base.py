@@ -61,7 +61,7 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm: str = "rmsnorm"     # 'rmsnorm' | 'layernorm'
     activation: str = "silu"  # 'silu' (SwiGLU) | 'gelu' (GeGLU, tanh form)
-    #                           | 'relu2' (squared ReLU)
+    #                           | 'relu' | 'relu2' (squared ReLU)
     glu: bool = True
     tie_embeddings: bool = False
     sliding_window: Optional[int] = None   # native sliding-window attention

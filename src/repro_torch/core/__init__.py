@@ -1,3 +1,3 @@
 """Distribution techniques of the paper, as far as the port's one
-device needs them: the padded, masked eval (C4) and batch norm in its
-one-device form."""
+device needs them: the padded, masked eval (C4), batch norm and graph
+partitioning (C10) in their one-device forms."""

@@ -1,2 +1,3 @@
 """Model code of the port: the decoder layers and the paged-serving LM,
-GNMT, and ResNet v1.5."""
+the encoder-decoder, GNMT, ResNet v1.5, and the other MLPerf-0.6 models
+(the Transformer, SSD and Mask R-CNN)."""

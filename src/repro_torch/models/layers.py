@@ -39,6 +39,7 @@ from repro_torch.models.scan_utils import chunked_scan
 _ACT = {
     "gelu": functools.partial(F.gelu, approximate="tanh"),
     "silu": F.silu,
+    "relu": F.relu,
     "relu2": lambda x: torch.square(F.relu(x)),
 }
 
@@ -508,8 +509,21 @@ def _mamba_dims(cfg: ModelConfig):
 def _softplus(x):
     """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)``:
     ``max(x, 0) + log1p(exp(-|x|))`` (``F.softplus`` switches to x above
-    its threshold of 20 instead)."""
-    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+    its threshold of 20 instead). The maximum is ``torch.maximum``, which
+    passes half the gradient at x = 0, so the gradient there is
+    ``logaddexp``'s 0.5 (``clamp_min`` passes all of it: 1)."""
+    return torch.maximum(x, x.new_zeros(())) + torch.log1p(torch.exp(-x.abs()))
+
+
+def jnp_abs(x):
+    """``jnp.abs``, whose gradient at 0 is 1 (``torch.abs``'s is 0)."""
+    return torch.where(x >= 0, x, -x)
+
+
+def jnp_clip(x, lo: float, hi: float):
+    """``jnp.clip``: a maximum, then a minimum, each passing half the
+    gradient at a tie (``torch.clamp`` passes all of it at a bound)."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(lo)), x.new_tensor(hi))
 
 
 def _mamba_conv(u, conv_w, conv_b, state=None):

@@ -198,12 +198,16 @@ def _pad_nchw(x, k: int, stride: int, value: float = 0.0):
     return F.pad(x, (wl, wh, hl, hh), value=value)
 
 
-def conv(x, w, stride: int, cfg: ResNetConfig):
+def same_conv(x, w, stride: int, dtype: torch.dtype):
     """SAME conv of NHWC ``x`` with w (out, in, kh, kw), both cast to
-    ``cfg.dtype``; returns NHWC."""
-    dt = _dt(cfg)
-    xn = _pad_nchw(x.to(dt).permute(0, 3, 1, 2), w.shape[2], stride)
-    return F.conv2d(xn, w.to(dt), stride=stride).permute(0, 2, 3, 1)
+    ``dtype``; returns NHWC (a channels-last view)."""
+    xn = _pad_nchw(x.to(dtype).permute(0, 3, 1, 2), w.shape[2], stride)
+    return F.conv2d(xn, w.to(dtype), stride=stride).permute(0, 2, 3, 1)
+
+
+def conv(x, w, stride: int, cfg: ResNetConfig):
+    """:func:`same_conv` in ``cfg.dtype``."""
+    return same_conv(x, w, stride, _dt(cfg))
 
 
 def max_pool(x):

@@ -44,3 +44,13 @@ class Stacked:
     @property
     def dtype(self):
         return self.parts[0].dtype
+
+
+def count_params(init: Callable[[], Any]) -> int:
+    """Parameters of the tree ``init()`` builds, reckoned from shapes:
+    ``init`` runs under ``FakeTensorMode``, so no weight is allocated
+    (the reference's ``jax.eval_shape`` count)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        return sum(w.numel() for w in tree_leaves(init()))

@@ -22,6 +22,7 @@ PORT_MODULES = [
     "repro_torch.configs.rwkv6_3b",
     "repro_torch.core.distributed_eval",
     "repro_torch.core.distributed_norm",
+    "repro_torch.core.graph_partitioning",
     "repro_torch.data.bucketization",
     "repro_torch.data.pipeline",
     "repro_torch.kernels.build",
@@ -35,8 +36,11 @@ PORT_MODULES = [
     "repro_torch.models.gnmt",
     "repro_torch.models.layers",
     "repro_torch.models.lm",
+    "repro_torch.models.maskrcnn",
     "repro_torch.models.resnet",
     "repro_torch.models.scan_utils",
+    "repro_torch.models.ssd",
+    "repro_torch.models.transformer_mlperf",
     "repro_torch.optim",
     "repro_torch.optim.adam",
     "repro_torch.optim.lars",
@@ -53,6 +57,7 @@ PORT_MODULES = [
     "repro_torch.serve.slo",
     "repro_torch.serve.speculative",
     "repro_torch.launch.gnmt",
+    "repro_torch.launch.mlperf",
     "repro_torch.launch.resnet",
     "repro_torch.launch.serve",
     "repro_torch.launch.train",
@@ -96,7 +101,7 @@ def test_sources_name_no_jax_or_repro_import():
 
 def test_default_device_refuses_without_cuda(monkeypatch):
     from repro_torch.configs import get_config
-    from repro_torch.launch import resnet, serve
+    from repro_torch.launch import mlperf, resnet, serve
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine
 
@@ -111,6 +116,8 @@ def test_default_device_refuses_without_cuda(monkeypatch):
         serve.main(["--arch", "gemma-7b", "--tokens", "1", "--batch", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resnet.main(["--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mlperf.main(["--model", "maskrcnn", "--steps", "1"])
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

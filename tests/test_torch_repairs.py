@@ -3,8 +3,9 @@ into an integer KV pool without its scales raises ``TypeError`` before
 anything is written (as ``tests/test_cache.py::
 test_insert_refuses_silent_upcast_into_integer_pool`` pins for the
 reference); a batch that does not split into the microbatches raises
-``ValueError`` instead of training on a subset of its rows; and the
-messages of what is not ported name ROADMAP items, not queue numbers."""
+``ValueError`` instead of training on a subset of its rows; the
+messages of what is not ported name ROADMAP items, not queue numbers;
+and Mamba's softplus passes ``jax.nn.softplus``'s gradient at 0."""
 import dataclasses
 
 import numpy as np
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 pytest.importorskip("jax")
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import get_config as jax_get_config  # noqa: E402
@@ -103,3 +105,18 @@ def test_not_ported_messages_name_roadmap_items():
         serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",
                         "--n-replicas", "2"])
     assert "queue" not in str(err.value)
+
+
+def test_softplus_gradient_at_zero_is_the_references():
+    """``jax.nn.softplus`` is ``logaddexp(x, 0)``, whose gradient at x = 0
+    is 0.5; the port's written-out softplus (Mamba's dt) passed 1 there
+    (``clamp_min``). Values and gradients at and around 0 now match."""
+    x = np.asarray([-30., -2., -1e-3, 0., 1e-3, 0.5, 30.], np.float32)
+    want = np.asarray(jax.vmap(jax.grad(jax.nn.softplus))(x))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    got = L._softplus(xt)
+    got.sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(),
+                               np.asarray(jax.nn.softplus(x)), rtol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-6, atol=1e-7)
+    assert xt.grad[3].item() == 0.5
