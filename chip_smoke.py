@@ -180,7 +180,26 @@ and prints no result):
    backward 6 a step at each attention's shape asserted), SSD at 300 x
    300, batch 32, Mask R-CNN at 128 x 128, batch 16, each 4 steps with
    cuDNN deterministic, one step traced, a second run's losses bitwise
-   equal.
+   equal;
+14. the paper's distribution techniques (``dist``) on a 1 x 1
+   ("data", "model") mesh over a one-rank NCCL group, full width:
+   ResNet-50 with ``bn_group_size=2`` and ``spatial_partition=True``
+   (224 x 224, batch 128) through ``loss_fn(mesh=...)``, its gradient, the
+   2-D gradient summation (bitwise its input) and
+   ``lars_sharded_update`` (one norms and one update launch, counters and
+   profiler; bitwise ``optim.lars`` on the same gradients), against the
+   one-device step (the loss, the gradient to twice the floor of a 1e-3
+   perturbation of the images, the weights after the step), and the two
+   LARS kernels over the leaves the rank owns held against their plain
+   versions and timed; SSD 300 x 300 batch
+   32 spatially partitioned and Mask R-CNN 128 x 128 batch 16 (stage 2
+   through ``run_partitioned``) against ``mesh=None``; weight-update-
+   sharded Adam over the MLPerf Transformer's 210.7 M parameters, 2
+   steps, against ``optim.adam``; ``seq_parallel_swa`` at mixtral-8x7b's
+   attention (S 8192, 32/8 heads of 128, window 4096: one flash forward
+   launch at k_offset -4096 over a zero halo) against ``ops.attention``
+   without the halo, the kernel against its plain version at the halo'd
+   shape, timed beside SDPA's memory-efficient backend.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -209,6 +228,9 @@ from repro_torch.data.pipeline import (  # noqa: E402
     synthetic_lm_batches,
 )
 from repro_torch.data import Pipeline, SyntheticShardSource  # noqa: E402
+from repro_torch.core import gradient_summation as GS  # noqa: E402
+from repro_torch.core import spatial_partitioning as SP  # noqa: E402
+from repro_torch.core import weight_update_sharding as WUS  # noqa: E402
 from repro_torch.data.bucketization import bucketized_batches  # noqa: E402
 from repro_torch.data.pipeline import prefetch  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
@@ -222,10 +244,13 @@ from repro_torch.kernels import quant  # noqa: E402
 from repro_torch.launch import gnmt as gnmt_cli  # noqa: E402
 from repro_torch.launch import mlperf as mlperf_cli  # noqa: E402
 from repro_torch.launch import resnet as resnet_cli  # noqa: E402
+from repro_torch.launch.mesh import single_device_mesh  # noqa: E402
 from repro_torch.models import encdec  # noqa: E402
 from repro_torch.models import gnmt  # noqa: E402
 from repro_torch.models import lm  # noqa: E402
+from repro_torch.models import maskrcnn as maskrcnn_model  # noqa: E402
 from repro_torch.models import resnet  # noqa: E402
+from repro_torch.models import ssd as ssd_model  # noqa: E402
 from repro_torch.models.scan_utils import _largest_divisor_leq  # noqa: E402
 from repro_torch.optim import adam, constant, lars, polynomial_warmup  # noqa: E402
 from repro_torch import random as rnd  # noqa: E402
@@ -240,7 +265,12 @@ from repro_torch.serve.speculative import DraftModelDrafter  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.hooks import Hook  # noqa: E402
-from repro_torch.utils import Stacked, tree_leaves, tree_map  # noqa: E402
+from repro_torch.utils import (  # noqa: E402
+    Stacked,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 # H100 SXM data sheet: HBM rate and dense peaks by operand type.
 HBM_BYTES_PER_S = 3.35e12
@@ -1135,6 +1165,68 @@ def check_update_multi(name, ws, gs, ms, launches, lr, scaled=True):
     return err
 
 
+def lars_timings(ws, gs, ms, lr, label):
+    """Both multi-leaf kernels over ``ws``/``gs``/``ms`` (updated in place
+    while timed) in turns against a library call over the same tensors:
+    the norms against the multi-tensor ``_foreach_norm`` over the w and g
+    tensors, the update against ``_fused_sgd_`` over the leaves (the same
+    bytes and per-element arithmetic at one lr: no PyTorch call takes a
+    trust a leaf); beside the plain versions, with the update's host
+    enqueue time. Prints them; returns (ms by key, bounds by kernel)."""
+    n = sum(w.numel() for w in ws)
+    _, parts = lk_lars.lars_norms_multi_cuda(ws, gs)
+    trusts = [lk_lars.lars_trust_torch(w, g, **TRUST_KW)
+              for w, g in zip(ws, gs)]
+
+    def norms():
+        lk_lars.lars_norms_multi_cuda(ws, gs)
+
+    def update():
+        lk_lars.lars_apply_multi_cuda(ws, gs, ms, parts, lr=lr, **LARS_HYPER)
+
+    def plain_norms():
+        for w, g in zip(ws, gs):
+            lk_lars.lars_partials_torch(w, g)
+
+    def plain_update():
+        for w, g, m, t in zip(ws, gs, ms, trusts):
+            lk_lars.lars_apply_torch(w, g, m, t, lr=lr, **APPLY_KW)
+
+    flat = [t for w, g in zip(ws, gs) for t in (w, g)]
+    turns = {}
+    order = [("norms", norms), ("lib_norms", lambda: torch._foreach_norm(flat)),
+             ("update", update), ("lib_update",
+                                  lambda: fused_sgd(ws, gs, ms, lr))]
+    for key, fn in order + order[::-1]:  # kernel, library, library, kernel
+        turns.setdefault(key, []).append(time_ms(fn, 10))
+    t = {k: float(np.mean(v)) for k, v in turns.items()}
+    t.update({k: time_ms(f, 10) for k, f in (
+        ("plain_norms", plain_norms), ("plain_update", plain_update))})
+    update_enqueue_us = enqueue_us(update, 200)
+    work = dict(norms=(8 * n + 8 * len(ws), 4 * n),  # w and g read, a pair out
+                update=(20 * n + 8 * sum(p.shape[0] for p in parts) + 4,
+                        6 * n))  # w, g, m read, w, m written; pairs, lr
+    bounds = {k: bound(f, b, torch.float32) for k, (b, f) in work.items()}
+    for key, lib in (("norms", f"_foreach_norm over {len(flat)} tensors"),
+                     ("update", f"_fused_sgd_ over {len(ws)} leaves, one "
+                                f"lr")):
+        b, by = bounds[key]
+        print(f"  {label} over {len(ws)} kernel leaves ({n} "
+              f"elements): {key}, one launch, in turns with {lib}: "
+              f"{' / '.join(f'{x:.4f}' for x in turns[key])} (kernel) and "
+              f"{' / '.join(f'{x:.4f}' for x in turns['lib_' + key])} "
+              f"(library) ms; kernel {t[key]:.4f} ms (bound {b:.4f}, {by}: "
+              f"{work[key][0]} B, {100 * b / t[key]:.1f}% of it; "
+              f"kernel/library {t[key] / t['lib_' + key]:.3f}; plain "
+              f"{t['plain_' + key]:.4f})", flush=True)
+    print(f"  update launch host enqueue {update_enqueue_us:.1f} us for the "
+          f"{len(ws)} leaves", flush=True)
+    print(f"  lars {label} " + json.dumps(dict(n=n, leaves=len(ws), **{
+        f"{k}_ms": v for k, v in t.items()}, turns_ms=turns,
+        update_enqueue_us=update_enqueue_us)), flush=True)
+    return t, bounds
+
+
 def lars_sweep(src):
     """Both kernels as the optimizer runs them: one launch each over all 54
     kernel leaves of ResNet-50, held bitwise against the one-leaf launches
@@ -1149,7 +1241,6 @@ def lars_sweep(src):
     the plain versions. Returns the two kernels' records."""
     leaves = resnet50_lars_leaves()
     ws, gs, ms = ([x[i] for x in leaves] for i in range(3))
-    n = sum(w.numel() for w in ws)
     lr = torch.full((), LARS_LR, device="cuda")
     err = check_norms_multi("resnet50", ws, gs, 1)
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1203,57 +1294,8 @@ def lars_sweep(src):
               f"{worst:.2e} (rtol 1e-5, atol 1e-6) ok", flush=True)
         del wk, mk
 
-    _, parts = lk_lars.lars_norms_multi_cuda(ws, gs)
-    trusts = [lk_lars.lars_trust_torch(w, g, **TRUST_KW)
-              for w, g in zip(ws, gs)]
-
-    def norms():
-        lk_lars.lars_norms_multi_cuda(ws, gs)
-
-    def update():
-        lk_lars.lars_apply_multi_cuda(ws, gs, ms, parts, lr=lr, **LARS_HYPER)
-
-    def plain_norms():
-        for w, g in zip(ws, gs):
-            lk_lars.lars_partials_torch(w, g)
-
-    def plain_update():
-        for w, g, m, t in zip(ws, gs, ms, trusts):
-            lk_lars.lars_apply_torch(w, g, m, t, lr=lr, **APPLY_KW)
-
-    flat = [t for w, g in zip(ws, gs) for t in (w, g)]
-    turns = {}
-    order = [("norms", norms), ("lib_norms", lambda: torch._foreach_norm(flat)),
-             ("update", update), ("lib_update",
-                                  lambda: fused_sgd(ws, gs, ms, lr))]
-    for key, fn in order + order[::-1]:  # kernel, library, library, kernel
-        turns.setdefault(key, []).append(time_ms(fn, 10))
-    t = {k: float(np.mean(v)) for k, v in turns.items()}
-    t.update({k: time_ms(f, 10) for k, f in (
-        ("plain_norms", plain_norms), ("plain_update", plain_update))})
-    update_enqueue_us = enqueue_us(update, 200)
-    work = dict(norms=(8 * n + 8 * len(ws), 4 * n),  # w and g read, a pair out
-                update=(20 * n + 8 * sum(p.shape[0] for p in parts) + 4,
-                        6 * n))  # w, g, m read, w, m written; pairs, lr
-    bounds = {k: bound(f, b, torch.float32) for k, (b, f) in work.items()}
-    for key, lib in (("norms", f"_foreach_norm over {len(flat)} tensors"),
-                     ("update", f"_fused_sgd_ over {len(ws)} leaves, one "
-                                f"lr")):
-        b, by = bounds[key]
-        print(f"  sweep over ResNet-50's {len(ws)} kernel leaves ({n} "
-              f"elements): {key}, one launch, in turns with {lib}: "
-              f"{' / '.join(f'{x:.4f}' for x in turns[key])} (kernel) and "
-              f"{' / '.join(f'{x:.4f}' for x in turns['lib_' + key])} "
-              f"(library) ms; kernel {t[key]:.4f} ms (bound {b:.4f}, {by}: "
-              f"{work[key][0]} B, {100 * b / t[key]:.1f}% of it; "
-              f"kernel/library {t[key] / t['lib_' + key]:.3f}; plain "
-              f"{t['plain_' + key]:.4f})", flush=True)
-    print(f"  update launch host enqueue {update_enqueue_us:.1f} us for the "
-          f"{len(ws)} leaves", flush=True)
-    print("  lars sweep " + json.dumps(dict(n=n, leaves=len(ws), **{
-        f"{k}_ms": v for k, v in t.items()}, turns_ms=turns,
-        update_enqueue_us=update_enqueue_us)), flush=True)
-    del leaves, ws, gs, ms, parts, flat, extra, extra_g, extra_m
+    t, bounds = lars_timings(ws, gs, ms, lr, "sweep")
+    del leaves, ws, gs, ms, extra, extra_g, extra_m
     torch.cuda.empty_cache()
     recs = {}
     for key, name, line, e in (("norms", "lars_norms", 62, err),
@@ -5062,6 +5104,489 @@ def mlperf_phases():
     return [r for key in sorted(recs) for r in recs[key]]
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: the paper's distribution techniques on a 1 x 1 NCCL mesh.
+# --------------------------------------------------------------------------- #
+# mixtral-8x7b's attention (configs/mixtral_8x7b.py: 32/8 heads of 128,
+# sliding window 4096) over one rank's 8192-token shard.
+SWA_B, SWA_S, SWA_H, SWA_K, SWA_D, SWA_WINDOW = 1, 8192, 32, 8, 128, 4096
+# The kernel rounds P to bf16 before its P @ V products, so on the first
+# rows, where a few keys carry the weight, its error follows |v| (~1), not
+# the output, which may cancel to ~0: no elementwise atol both holds those
+# rows and binds the bulk (this phase's readings on an NVIDIA H100 80GB
+# HBM3 at 700 W: rtol 2e-2 with atol 1e-3 fails the sound kernel). The
+# kernel is held by its largest |error| over the output's RMS and by its
+# relative L2 error, each set between the readings of the sound kernel
+# (0.300, 2.17e-3) and of a plain output whose window is one key short
+# (1.008, 5.58e-3), which each run prints and which must fail either.
+SWA_MAX_TOL, SWA_L2_TOL = 0.6, 3.5e-3
+# ResNet-50's mesh step is held in fp32 (TF32 off) against a one-device
+# step that computes the same function: the plain model with the
+# distributed batch norm's one-pass variance (the reference's formula).
+# At random init the first step's gradient is fixed only to a few percent
+# by fp32 arithmetic: the same one-device step on the batch in another
+# order (the same function, its sums in another order) moves a leaf by
+# up to ~7e-2 of the leaf's largest magnitude, with the one-pass variance
+# or the two-pass one alike, while a planted fault moves some leaf by 1.0
+# or more (this phase's readings on an NVIDIA H100 80GB HBM3 at 700 W).
+# So each leaf's gradient, and each leaf's LARS step, is held within
+# DIST_GRAD_TOL of the leaf's largest magnitude, between those readings;
+# this run's sound readings (the batch reordered) must pass it, and its
+# planted faults (a zero gradient, the previous batch's gradient) must
+# fail it. The mesh
+# gradient's semantics are held to 2e-5 over 8 ranks on the CPU
+# (tests/test_torch_dist.py). The loss also against launch/resnet.py's
+# one-device bf16 step, within the smoke's bf16 tolerance.
+DIST_LOSS_RTOL = 2e-2
+DIST_LOSS32_RTOL = 1e-5
+DIST_GRAD_TOL = 0.25
+
+
+def leaf_err(a, b):
+    """max |a - b| / max |b| (0 when both are 0)."""
+    scale = b.abs().max().item()
+    diff = (a - b).abs().max().item()
+    return diff / scale if scale else diff
+
+
+def leaf_names(tree, prefix=""):
+    """Dotted key paths of a tree of dicts, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in leaf_names(tree[k], f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def one_pass_batch_norm(x, scale, bias, *, eps: float = 1e-5):
+    """``batch_norm`` with ``distributed_batch_norm``'s one-pass variance
+    over this device's batch: the one-device reference of the mesh path."""
+    red = tuple(range(x.dim() - 1))
+    x32 = x.float()
+    cnt = x32.numel() // x32.shape[-1]
+    sums = torch.stack([x32.sum(red), (x32 ** 2).sum(red)])
+    mu = sums[0] / cnt
+    var = sums[1] / cnt - mu ** 2
+    return ((x32 - mu) * torch.rsqrt(var + eps) * scale + bias).to(x.dtype), \
+        mu, var
+
+
+def dist_resnet(mesh):
+    """ResNet-50 v1.5 at full width (224 x 224, batch 128) with
+    ``bn_group_size=2`` and ``spatial_partition=True`` on the mesh, in
+    fp32 with TF32 off: ``loss_fn(mesh=...)``, its gradient, the 2-D
+    gradient summation (bitwise its input on one rank), then
+    ``lars_sharded_update`` under the profiler (each LARS kernel launched
+    once, the counters zeroed before the step agree), held bitwise
+    against ``optim.lars`` on the same gradients. Against the one-device
+    step with the one-pass variance (cuDNN deterministic): the loss, every
+    leaf's gradient and every leaf's step, each within DIST_GRAD_TOL; the
+    one-device step on the reordered batch must pass it, the planted
+    faults must fail it. The loss also against
+    ``launch/resnet.py``'s bf16 one-device step. Then the two kernels over
+    the 54 leaves the rank owns, with this step's gradients and momenta:
+    held against their plain versions (and bitwise against one-leaf
+    launches) and timed. Returns the records 4a-w and 4b-w."""
+    phase(f"dist: ResNet-50 v1.5 on the mesh, bn_group_size 2, spatial "
+          f"partition, {RESNET_SIZE} x {RESNET_SIZE}, batch {RESNET_BATCH}, "
+          f"fp32, then lars_sharded_update")
+    plain = dataclasses.replace(resnet.RESNET50, dtype="float32")
+    cfg = dataclasses.replace(plain, bn_group_size=2, spatial_partition=True)
+    rng = np.random.default_rng(0)
+
+    def make_batch():
+        imgs, labels = resnet_cli.synthetic_images(
+            RESNET_BATCH, RESNET_SIZE, cfg.num_classes, rng)
+        return {"images": torch.from_numpy(imgs).cuda(),
+                "labels": torch.from_numpy(labels).cuda()}
+
+    other, batch = make_batch(), make_batch()  # the previous batch first
+    order = torch.from_numpy(np.random.default_rng(7).permutation(
+        RESNET_BATCH)).cuda()
+    schedule = polynomial_warmup(resnet_cli.BASE_LR, 2, 8)
+    params = resnet.init_resnet(cfg, seed=0, device="cuda")
+    w0 = tree_map(torch.clone, params)
+    one = tree_map(torch.clone, params)
+    opt = lars(schedule)
+    _, _, met = resnet_cli.make_train_step(resnet.RESNET50, opt)(
+        one, opt.init(one), batch)
+    loss_bf16 = met["loss"].item()
+    del one
+
+    def grads(p, c, b, m=None):
+        leaves = tree_leaves(p)
+        for w in leaves:
+            w.requires_grad_(True)
+        loss, _ = resnet.loss_fn(p, c, b, mesh=m)
+        g = torch.autograd.grad(loss, leaves)
+        for w in leaves:
+            w.requires_grad_(False)
+        return loss.item(), tree_unflatten(p, g)
+
+    def one_pass(fn):
+        real = resnet.batch_norm
+        resnet.batch_norm = one_pass_batch_norm
+        try:
+            return fn()
+        finally:
+            resnet.batch_norm = real
+
+    def worst(a, b):
+        """(largest leaf error, its leaf's index, smallest leaf error)."""
+        errs = [leaf_err(x, y) for x, y in zip(tree_leaves(a),
+                                               tree_leaves(b))]
+        i = int(np.argmax(errs))
+        return errs[i], i, min(errs)
+
+    names = leaf_names(w0)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        loss_ref, g_ref = one_pass(lambda: grads(w0, plain, batch))
+        reordered = {k: v[order] for k, v in batch.items()}
+        sound = {"one-pass": (one_pass(
+            lambda: grads(w0, plain, reordered))[1], g_ref),
+            "two-pass": (grads(w0, plain, reordered)[1],
+                         grads(w0, plain, batch)[1])}
+        faults = {"zero": tree_map(torch.zeros_like, g_ref),
+                  "the previous batch's": one_pass(
+                      lambda: grads(w0, plain, other))[1]}
+        lk_lars.reset_launches()
+        marks = [time.perf_counter()]
+        loss_mesh, grads_mesh = grads(params, cfg, batch, mesh)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        summed = GS.gradient_allreduce_2d(grads_mesh, mesh)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        init, update = WUS.lars_sharded_update(schedule, mesh)
+        st = init(params)
+        _, _, kernels = trace_busy(lambda: update(summed, st, params))
+        marks.append(time.perf_counter())
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = flags
+    step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    launches = (lk_lars.lars_norms_multi_cuda.launches,
+                lk_lars.lars_apply_multi_cuda.launches)
+    traced = {kernel_name(e.key): e.count for e in kernels
+              if "lars_" in e.key}
+    bitwise_sum = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(summed), tree_leaves(grads_mesh)))
+    grad_err, grad_at, _ = worst(grads_mesh, g_ref)
+    readings = {k: worst(g, g_ref) for k, g in faults.items()}
+    sound = {k: worst(a, b) for k, (a, b) in sound.items()}
+    sound_err = max(r[0] for r in sound.values())
+    del faults
+
+    ref = tree_map(torch.clone, w0)
+    lars(schedule).update(g_ref, lars(schedule).init(ref), ref)
+    same = tree_map(torch.clone, w0)
+    lars(schedule).update(summed, lars(schedule).init(same), same)
+    bitwise_opt = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves(params), tree_leaves(same)))
+    opt_err = max(leaf_err(a, b) for a, b in zip(tree_leaves(params),
+                                                 tree_leaves(same)))
+    step_err, step_at, _ = worst(
+        [a - w for a, w in zip(tree_leaves(params), tree_leaves(w0))],
+        [b - w for b, w in zip(tree_leaves(ref), tree_leaves(w0))])
+    print(f"  loss on the mesh {loss_mesh:.7f}, one-device one-pass "
+          f"{loss_ref:.7f} (rtol {DIST_LOSS32_RTOL:g}), launch/resnet.py's "
+          f"bf16 step {loss_bf16:.6f} (rtol {DIST_LOSS_RTOL:g}); mesh "
+          f"forward + backward {step_ms[0]:.1f} ms, 2-D summation "
+          f"{step_ms[1]:.1f} ms, profiled update {step_ms[2]:.1f} ms (first "
+          f"calls)", flush=True)
+    print(f"  gradient vs the one-device one-pass one, worst leaf "
+          f"{grad_err:.3e} ({names[grad_at]}; tol {DIST_GRAD_TOL:g} of each "
+          f"leaf's largest |g|); LARS step vs its step: worst leaf "
+          f"{step_err:.3e} ({names[step_at]}); planted faults, worst / best "
+          f"leaf: " + "; ".join(f"{k} {a:.3e} ({names[i]}) / {c:.3e}"
+                                for k, (a, i, c) in readings.items())
+          + "; sound, the one-device step on the batch reordered, worst / "
+          "best leaf: " + "; ".join(f"{k} {a:.3e} ({names[i]}) / {c:.3e}"
+                                   for k, (a, i, c) in sound.items()),
+          flush=True)
+    print(f"  2-D gradient summation "
+          f"{'bitwise equal to' if bitwise_sum else 'DIFFERS from'} its "
+          f"input; lars_sharded_update vs optim.lars on the same gradients: "
+          f"{'bitwise equal' if bitwise_opt else f'max rel {opt_err:.2e}'};"
+          f" lars launches (counters) norms {launches[0]}, update "
+          f"{launches[1]}; profiler {traced}", flush=True)
+    if not np.isfinite(loss_mesh) or abs(loss_mesh - loss_ref) > \
+            DIST_LOSS32_RTOL * abs(loss_ref) or abs(
+                loss_mesh - loss_bf16) > DIST_LOSS_RTOL * abs(loss_bf16):
+        raise AssertionError(f"ResNet-50 loss on the mesh {loss_mesh} vs "
+                             f"one device {loss_ref} (bf16 {loss_bf16})")
+    if (not bitwise_sum or opt_err > 1e-6 or grad_err > DIST_GRAD_TOL
+            or step_err > DIST_GRAD_TOL):
+        raise AssertionError(f"ResNet-50 on the mesh: summation bitwise "
+                             f"{bitwise_sum}, optimizer {opt_err}, gradient "
+                             f"{grad_err}, step {step_err}")
+    caught = {k: r[0] > DIST_GRAD_TOL for k, r in readings.items()}
+    if not all(caught.values()) or sound_err > DIST_GRAD_TOL:
+        raise AssertionError(f"the gradient check does not separate: "
+                             f"planted faults caught {caught}, sound "
+                             f"reading {sound_err}")
+    if launches != (1, 1) or sorted(traced.values()) != [1, 1]:
+        raise AssertionError(f"lars_sharded_update launches {launches}, "
+                             f"profiler {traced}; expected 1 norms and 1 "
+                             f"update")
+
+    lr = schedule(st["step"].cpu()).cuda()
+    triples = [(w.clone(), g.clone(), m.clone()) for w, g, m in zip(
+        tree_leaves(params), tree_leaves(summed), tree_leaves(st["m"]))
+        if w.dim() > 1]
+    ws, gs, ms = map(list, zip(*triples))
+    errs = (check_norms_multi("wus owned leaves", ws, gs, 1),
+            check_update_multi("wus owned leaves", ws, gs, ms, 1, lr))
+    t, bounds = lars_timings(ws, gs, ms, lr, "wus owned leaves")
+    del triples, ws, gs, ms, params, w0, ref, same, grads_mesh, g_ref
+    del summed, st, batch, other
+    gc.collect()
+    torch.cuda.empty_cache()
+    src = "src/repro_torch/kernels/csrc/lars.cu"
+    recs = []
+    for key, name, line, n, err in (
+            ("norms", "lars_norms_wus", 62, launches[0], errs[0]),
+            ("update", "lars_update_wus", 80, launches[1], errs[1])):
+        b, by = bounds[key]
+        recs.append(dict(name=name, route="cuda", source=src,
+                         replaces=f"src/repro/kernels/lars.py:{line}",
+                         launches=n, max_abs_err=err, ms=t[key],
+                         plain_ms=t["plain_" + key], bound_ms=b, bound_by=by,
+                         library_ms=t["lib_" + key]))
+    return recs
+
+
+def dist_detectors(mesh):
+    """SSD (300 x 300, batch 32) with ``spatial_partition=True``: its loss
+    on the mesh against ``mesh=None``; Mask R-CNN (128 x 128, batch 16):
+    stage 2's branches through ``run_partitioned`` on the mesh against
+    them in order (outputs and loss), both bf16 compute, no gradient."""
+    phase("dist: SSD with spatial partitioning and Mask R-CNN's "
+          "partitioned stage 2 on the mesh")
+    for model, B in (("ssd", SSD_BATCH), ("maskrcnn", MASKRCNN_BATCH)):
+        cfg = mlperf_cli.configs(model, True)
+        if model == "ssd":
+            cfg = dataclasses.replace(cfg, spatial_partition=True)
+        params = mlperf_cli.init_params(model, cfg, 0, device="cuda")
+        batch = mlperf_cli.to_device(mlperf_cli.synthetic_batch(
+            model, cfg, B, np.random.default_rng(0)), "cuda")
+        mod = ssd_model if model == "ssd" else maskrcnn_model
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            got = mod.loss_fn(params, cfg, batch, mesh=mesh)[0].item()
+            torch.cuda.synchronize()
+            mesh_ms = (time.perf_counter() - t0) * 1e3
+            want = mod.loss_fn(params, cfg, batch)[0].item()
+            line = ""
+            if model == "maskrcnn":
+                im = batch["images"]
+                a = maskrcnn_model.forward(params, cfg, im, mesh=mesh)
+                b = maskrcnn_model.forward(params, cfg, im)
+                same = all(torch.equal(a[k], b[k]) for k in
+                           ("cls_logits", "box_preds", "masks"))
+                line = (f"; stage 2 outputs "
+                        f"{'bitwise equal' if same else 'DIFFER'}")
+                if not same:
+                    raise AssertionError("Mask R-CNN stage 2 on the mesh "
+                                         "differs from its branches in order")
+        print(f"  {cfg.name} batch {B}: loss on the mesh {got:.6f} "
+              f"({mesh_ms:.1f} ms), without {want:.6f}"
+              f"{' (bitwise equal)' if got == want else ''}{line}",
+              flush=True)
+        if not np.isfinite(got) or abs(got - want) > DIST_LOSS_RTOL * abs(
+                want):
+            raise AssertionError(f"{model}: loss on the mesh {got} vs "
+                                 f"{want}")
+        del params, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def dist_wus_adam(mesh):
+    """Weight-update-sharded Adam (``sharded_update``) over the MLPerf
+    Transformer's 210.7 M fp32 parameters, two steps of random gradients
+    (N(0, 1e-3) from a seed), against ``optim.adam`` on the same
+    gradients: weights within rtol 1e-6 (the same elementwise arithmetic
+    on the flat shard; bitwise expected)."""
+    cfg = mlperf_cli.configs("transformer", True)
+    phase(f"dist: weight-update-sharded Adam over {cfg.name}'s parameters")
+    params = mlperf_cli.init_params("transformer", cfg, 0, device="cuda")
+    n = sum(w.numel() for w in tree_leaves(params))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    grads = tree_map(lambda w: torch.randn(w.shape, generator=gen,
+                                           device="cuda") * 1e-3, params)
+    opt = adam(constant(mlperf_cli.LR))
+    ref = tree_map(torch.clone, params)
+    ref_st = opt.init(ref)
+    init, update = WUS.sharded_update(opt, constant(mlperf_cli.LR), mesh)
+    st, mine = init(params), params
+    ms = []
+    for _ in range(2):
+        _, ref_st = opt.update(grads, ref_st, ref)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mine, st = update(grads, st, mine)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    err = max(leaf_err(a, b) for a, b in zip(tree_leaves(mine),
+                                             tree_leaves(ref)))
+    bitwise = all(torch.equal(a, b) for a, b in zip(tree_leaves(mine),
+                                                    tree_leaves(ref)))
+    print(f"  {n} params ({n / 1e6:.1f} M), moment shards {st['m'].numel()} "
+          f"+ {st['v'].numel()}; 2 steps: "
+          f"{'bitwise equal to' if bitwise else f'max rel {err:.2e} from'} "
+          f"optim.adam; sharded update {ms[0]:.1f} / {ms[1]:.1f} ms "
+          f"(host clock)", flush=True)
+    if not (200e6 < n < 220e6) or err > 1e-6:
+        raise AssertionError(f"WUS Adam over {n} params: max rel {err}")
+    del params, grads, ref, ref_st, mine, st
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dist_swa(mesh):
+    """``seq_parallel_swa`` at mixtral-8x7b's attention (B 1, 8192 positions
+    on the rank, 32/8 heads of 128, window 4096, bf16): one flash forward
+    launch (counter zeroed just before) at k_offset -4096 over K/V with a
+    4096-row zero halo, within the bf16 tolerance of ``ops.attention(...,
+    window=4096)`` without the halo (the flash kernel too); the kernel at
+    the halo'd shape against its plain version (in groups of 4 query heads
+    over their KV head, so the fp32 scores stay 1.6 GB), then timed (the
+    first timing after the build dropped) beside the plain version and
+    SDPA's memory-efficient backend with the boolean window mask on K/V
+    expanded to 32 heads. Held to SWA_MAX_TOL and SWA_L2_TOL; a plain
+    output whose window is one key short must fail that. Returns the
+    record 2f-s."""
+    phase(f"dist: seq_parallel_swa, B {SWA_B}, S {SWA_S}, {SWA_H}/{SWA_K} "
+          f"heads of {SWA_D}, window {SWA_WINDOW}, bf16")
+    dtype = torch.bfloat16
+
+    def diff(a, b):
+        """(passes, max |a - b|, that over b's RMS, relative L2 error)."""
+        a, b = a.float(), b.float()
+        d = (a - b).abs().max().item()
+        rms = b.square().mean().sqrt().item()
+        l2 = ((a - b).norm() / b.norm()).item()
+        return d / rms <= SWA_MAX_TOL and l2 <= SWA_L2_TOL, d, d / rms, l2
+    q, k, v, _ = flash_inputs(41, SWA_B, SWA_S, SWA_S, SWA_H, SWA_K, SWA_D,
+                              dtype)
+    fa.reset_launches()
+    with torch.no_grad():
+        out = SP.seq_parallel_swa(q, k, v, window=SWA_WINDOW, mesh=mesh)
+        torch.cuda.synchronize()
+        launches = fa.flash_attention_fwd_cuda.launches
+        want = ops.attention(q, k, v, causal=True, window=SWA_WINDOW)
+    swa_ok, swa_err, swa_rel, swa_l2 = diff(out, want)
+    halo = torch.zeros((SWA_B, SWA_WINDOW, SWA_K, SWA_D), dtype=dtype,
+                       device="cuda")
+    kx, vx = torch.cat([halo, k], 1), torch.cat([halo, v], 1)
+    opts = dict(causal=True, window=SWA_WINDOW, q_offset=0,
+                k_offset=-SWA_WINDOW)
+    got, _ = fa.flash_attention_fwd_cuda(q, kx, vx, **opts)
+    G = SWA_H // SWA_K
+
+    def plain(window=SWA_WINDOW):
+        return torch.cat([fa.flash_attention_torch(
+            q[:, :, G * j:G * (j + 1)], kx[:, :, j:j + 1],
+            vx[:, :, j:j + 1], **dict(opts, window=window))
+            for j in range(SWA_K)], 2)
+
+    with torch.no_grad():
+        ref = plain()
+        short = diff(plain(SWA_WINDOW - 1), ref)
+    ok, err, rel_err, l2 = diff(got, ref)
+    print(f"  one flash forward launch: {launches} (expected 1); "
+          f"seq_parallel_swa vs ops.attention without the halo: max |diff| "
+          f"{swa_err:.3e} ({swa_rel:.3e} of its RMS, rel L2 {swa_l2:.3e}); "
+          f"kernel vs plain at Sk {SWA_S + SWA_WINDOW}, k_offset "
+          f"{-SWA_WINDOW}: max |diff| {err:.3e} ({rel_err:.3e} of its RMS, "
+          f"tol {SWA_MAX_TOL:g}; rel L2 {l2:.3e}, tol {SWA_L2_TOL:g}); "
+          f"planted: the plain version with the window one key short "
+          f"{short[1]:.3e} ({short[2]:.3e} of its RMS, rel L2 "
+          f"{short[3]:.3e}), {'passes' if short[0] else 'fails'}",
+          flush=True)
+    if launches != 1 or not (torch.isfinite(out).all() and swa_ok and ok):
+        raise AssertionError(f"seq_parallel_swa: launches {launches}, vs "
+                             f"unsharded {swa_err}, kernel vs plain {err}")
+    if short[2] <= SWA_MAX_TOL or short[3] <= SWA_L2_TOL:
+        raise AssertionError("a window one key short passes a check")
+    del ref, want
+    mask = fa.visible_mask(SWA_S, SWA_S + SWA_WINDOW, device="cuda", **opts)
+    pairs = int(mask.sum())
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qs = q.transpose(1, 2)
+    ks, vs = (t.repeat_interleave(G, dim=2).transpose(1, 2)
+              for t in (kx, vx))
+
+    def sdpa():
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask)
+
+    lib_err = (sdpa().transpose(1, 2).float() - got.float()).abs().max(
+    ).item()
+
+    def kernel():
+        return fa.flash_attention_fwd_cuda(q, kx, vx, **opts)
+
+    first = time_ms(kernel)
+    turns = {"kernel": [], "sdpa": []}
+    for key, fn in (("kernel", kernel), ("sdpa", sdpa), ("sdpa", sdpa),
+                    ("kernel", kernel)):
+        turns[key].append(time_ms(fn))
+    t_k, t_lib = float(np.mean(turns["kernel"])), float(np.mean(turns["sdpa"]))
+    t_plain = time_ms(plain, 3)
+    t_swa = time_ms(lambda: SP.seq_parallel_swa(q, k, v, window=SWA_WINDOW,
+                                                mesh=mesh))
+    flops = 4 * SWA_D * pairs * SWA_B * SWA_H
+    elt = q.element_size()
+    nbytes = ((2 * q.numel() + 2 * kx.numel()) * elt
+              + SWA_B * SWA_H * SWA_S * 4)
+    b, by = bound(flops, nbytes, dtype)
+    print(f"  timing: kernel {t_k:.4f} ms (turns {turns['kernel']}, the "
+          f"first after the build {first:.4f} dropped; bound {b:.4f}, {by}: "
+          f"{pairs} visible pairs, {flops} flop, {nbytes} B; "
+          f"{100 * b / t_k:.1f}% of it), SDPA efficient backend "
+          f"{t_lib:.4f} ms (turns {turns['sdpa']}, kernel/sdpa "
+          f"{t_k / t_lib:.3f}, max |sdpa - kernel| {lib_err:.2e}), plain "
+          f"(8 head groups) {t_plain:.4f} ms; seq_parallel_swa with its "
+          f"halo {t_swa:.4f} ms", flush=True)
+    del q, k, v, kx, vx, ks, vs, qs, out, got, mask, halo
+    torch.cuda.empty_cache()
+    return dict(name="flash_attention_fwd_swa", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:102",
+                launches=launches, max_abs_err=err, ms=t_k,
+                plain_ms=t_plain, bound_ms=b, bound_by=by, library_ms=t_lib)
+
+
+def dist_phase():
+    """The paper's distribution techniques through the port's mesh path on
+    one card: world 1, NCCL, a 1 x 1 ("data", "model") mesh, full width.
+    Returns the records 4a-w, 4b-w and 2f-s."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    mesh = single_device_mesh("cuda")
+    print(f"  mesh {mesh.shape} over {dist.get_world_size()} rank(s), "
+          f"backend {dist.get_backend()}", flush=True)
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        recs = dist_resnet(mesh)
+        dist_detectors(mesh)
+        dist_wus_adam(mesh)
+        recs.append(dist_swa(mesh))
+    finally:
+        torch.backends.cudnn.deterministic = det
+        dist.destroy_process_group()
+    print(f"  dist phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return recs
+
 
 PHASES = {  # --only names: the phases a short run may pick
     "paged": lambda: (check_kernel(), check_paged_archs()),
@@ -5093,6 +5618,7 @@ PHASES = {  # --only names: the phases a short run may pick
     "train-transformer": train_transformer,
     "train-ssd": lambda: train_mlperf_full("ssd", SSD_BATCH),
     "train-maskrcnn": lambda: train_mlperf_full("maskrcnn", MASKRCNN_BATCH),
+    "dist": dist_phase,
 }
 
 
@@ -5170,11 +5696,13 @@ def main(argv=None) -> int:
     whisper = whisper_phases()
     vlm = vlm_rwkv_phases()
     mlperf = mlperf_phases()
+    dist_recs = dist_phase()
     recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,
             mamba_train, mamba_bwd, lstm_fwd, lstm_bwd, lars_norms,
             lars_update, *paged_archs.values(),
             *(r for pair in flash_archs.values() for r in pair),
-            flash_jamba_fwd, flash_jamba_bwd, *whisper, *vlm, *mlperf]
+            flash_jamba_fwd, flash_jamba_bwd, *whisper, *vlm, *mlperf,
+            *dist_recs]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"  whole smoke wall {time.perf_counter() - t0:.1f} s", flush=True)

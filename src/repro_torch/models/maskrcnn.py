@@ -17,8 +17,9 @@ parameter dict.
   branches, the class and box products in fp32 and the mask branch
   (bilinear resize from ``roi_size`` to ``mask_size``, a ReLU 3 x 3 conv
   and a 1 x 1 conv, in fp32), run through
-  ``core.graph_partitioning.run_partitioned`` (C10), which on one device
-  runs them in order.
+  ``core.graph_partitioning.run_partitioned`` (C10): on a mesh with a
+  ``model`` axis, each on its own ranks of that axis
+  (``maskrcnn.py:190-199``); without one, in order on one device.
 
 The reference's resizes and clips, matched:
 
@@ -51,7 +52,9 @@ scatter-add backward writes each gradient element once.
 
 Conv weights are stored (out, in, kh, kw); ``head_cls`` and ``head_box``
 are dense (in, out) matrices. :func:`params_from_numpy` converts the
-reference's tree. Spatial partitioning needs a mesh and raises.
+reference's tree. ``fpn_features``, ``forward`` and ``loss_fn`` take the
+reference's ``mesh``: the backbone gets it with ``spatial_partition`` (C3
+on a mesh, inert without one), and stage 2 partitions its branches.
 """
 from __future__ import annotations
 
@@ -227,11 +230,13 @@ def _backbone_cfg(cfg: MaskRCNNConfig) -> R.ResNetConfig:
                                spatial_partition=cfg.spatial_partition)
 
 
-def fpn_features(params, cfg: MaskRCNNConfig, images) -> List[torch.Tensor]:
+def fpn_features(params, cfg: MaskRCNNConfig, images, *,
+                 mesh=None) -> List[torch.Tensor]:
     """Stage 1's trunk: the backbone and the FPN's top-down pathway, one
     NHWC map of ``fpn_channels`` a backbone stage, finest first."""
     dt = R._dt(cfg)
-    feats = R.features(params["backbone"], _backbone_cfg(cfg), images)
+    feats = R.features(params["backbone"], _backbone_cfg(cfg), images,
+                       mesh=mesh)
     laterals = [R.same_conv(f, params[f"fpn_lat{s}"], 1, dt)
                 for s, f in enumerate(feats)]
     out = [laterals[-1]]
@@ -313,36 +318,43 @@ def roi_align(feat, rois, out_size: int):
 def stage2_heads(params, cfg: MaskRCNNConfig, fpn_feats, rois, *, mesh=None):
     """The independent head branches over each proposal's crop: class
     logits (B, P, classes), boxes (B, P, 4) and masks (B, P, ms, ms,
-    classes), through ``run_partitioned`` (C10; in order on one
-    device)."""
+    classes), through ``run_partitioned`` (C10): over the mesh's
+    ``model`` axis when it has one, else in order on one device."""
     roi_feat = roi_align(fpn_feats[0], rois, cfg.roi_size)  # (B, P, s, s, C)
     B, P = roi_feat.shape[:2]
     flat = roi_feat.reshape(B, P, -1)
 
-    def branch_cls():
-        return flat @ params["head_cls"].float()
+    # each branch reads (flat, roi_feat, head_cls, head_box, mask_conv,
+    # mask_out) as arguments, so that on a mesh their gradients are whole
+    def branch_cls(flat, _, head_cls, *__):
+        return flat @ head_cls.float()
 
-    def branch_box():
-        return flat @ params["head_box"].float()
+    def branch_box(flat, _, __, head_box, *___):
+        return flat @ head_box.float()
 
-    def branch_mask():
+    def branch_mask(_, roi_feat, __, ___, mask_conv, mask_out):
         m = roi_feat.reshape(B * P, cfg.roi_size, cfg.roi_size, -1)
         m = resize_bilinear(m, cfg.mask_size)
-        m = F.relu(R.same_conv(m, params["mask_conv"], 1, torch.float32))
-        m = R.same_conv(m, params["mask_out"], 1, torch.float32)
+        m = F.relu(R.same_conv(m, mask_conv, 1, torch.float32))
+        m = R.same_conv(m, mask_out, 1, torch.float32)
         return m.reshape(B, P, cfg.mask_size, cfg.mask_size, -1)
 
+    if mesh is not None and "model" not in mesh.axis_names:
+        mesh = None
     cls_logits, box_preds, masks = run_partitioned(
-        [branch_cls, branch_box, branch_mask], mesh=mesh)
+        [branch_cls, branch_box, branch_mask], mesh=mesh,
+        inputs=(flat, roi_feat, params["head_cls"], params["head_box"],
+                params["mask_conv"], params["mask_out"]))
     return cls_logits, box_preds, masks
 
 
-def forward(params, cfg: MaskRCNNConfig, images):
+def forward(params, cfg: MaskRCNNConfig, images, *, mesh=None):
     """images (B, H, W, 3) -> {"rpn_scores", "rpn_boxes", "rois",
     "cls_logits", "box_preds", "masks"}."""
-    fpn_feats = fpn_features(params, cfg, images)
+    fpn_feats = fpn_features(params, cfg, images, mesh=mesh)
     _, rois, rpn_s, rpn_b = rpn(params, cfg, fpn_feats)
-    cls_logits, box_preds, masks = stage2_heads(params, cfg, fpn_feats, rois)
+    cls_logits, box_preds, masks = stage2_heads(params, cfg, fpn_feats, rois,
+                                                mesh=mesh)
     return {"rpn_scores": rpn_s, "rpn_boxes": rpn_b, "rois": rois,
             "cls_logits": cls_logits, "box_preds": box_preds,
             "masks": masks}
@@ -356,13 +368,13 @@ def _bce(logits, labels):
             + torch.log1p(torch.exp(-L.jnp_abs(z))))
 
 
-def loss_fn(params, cfg: MaskRCNNConfig, batch):
+def loss_fn(params, cfg: MaskRCNNConfig, batch, *, mesh=None):
     """batch: images (B, H, W, 3), rpn_labels (B, A) in {0, 1},
     cls_targets (B, P), box_targets (B, P, 4), mask_targets (B, P, ms, ms)
     in {0, 1}. RPN BCE + class CE + box L1 + BCE of each proposal's mask
     for its target class. Returns (loss, {"nll", "rpn", "cls", "box",
     "mask"})."""
-    out = forward(params, cfg, batch["images"])
+    out = forward(params, cfg, batch["images"], mesh=mesh)
     rpn_l = torch.mean(_bce(out["rpn_scores"], batch["rpn_labels"].float()))
     cls_t = batch["cls_targets"].long()
     logp = torch.log_softmax(out["cls_logits"], -1)

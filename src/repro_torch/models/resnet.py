@@ -23,8 +23,24 @@ Parameters are fp32 masters with the reference's names (``stem_conv``,
 ``stem_bn``, ``s{s}b{b}`` with ``conv1..3``, ``bn1..3``, ``proj``,
 ``proj_bn``, then ``head``, ``head_bias``). Conv weights are stored
 (out, in, kh, kw), the layout ``F.conv2d`` takes; :func:`params_from_numpy`
-converts the reference's HWIO. Distributed batch norm and spatial
-partitioning need a device mesh and raise here.
+converts the reference's HWIO.
+
+On a mesh (``launch.mesh.Mesh`` over ``("data", "model")``) the model
+routes as the reference does (``resnet.py:120-138``): with
+``bn_group_size > 1`` every batch norm is ``distributed_batch_norm`` over
+groups of that many ``data`` ranks (C5), and with ``spatial_partition``
+every conv wider than 1 x 1 is ``spatial_conv2d`` over ``model`` (C3).
+Each rank runs with its ``data`` batch shard at full H: a spatial conv
+takes this rank's H block along ``model`` and all-gathers its output back
+over ``model``, the dataflow of the reference's ``shard_map`` in/out
+specs inside ``jit``. Each rank's loss is the mean over its shard. The
+``model`` ranks replicate everything outside the spatial convs, and the
+crossings (``compat.shard``, ``compat.pvary`` on the weight,
+``compat.all_gather_invariant``) give every one of them the whole
+gradient over ``model``; over ``data`` a rank's gradient is its share,
+which gradient summation (or ``lars_sharded_update``'s psum) adds up.
+With ``mesh=None`` both options are inert and the model is the plain one,
+as in the reference.
 """
 from __future__ import annotations
 
@@ -36,11 +52,14 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.core.distributed_norm import batch_norm
+from repro_torch.core import spatial_partitioning as SP
+from repro_torch.core.distributed_norm import (
+    batch_norm,
+    distributed_batch_norm,
+)
+from repro_torch.dist import compat
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-_MESH_ONLY = ("needs a device mesh; it waits on the ROADMAP.md item "
-              "'distribution, fleet and bench'")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,17 +93,6 @@ def _dt(cfg: ResNetConfig) -> torch.dtype:
         raise ValueError(f"unknown dtype {cfg.dtype!r}; known: "
                          f"{sorted(_DTYPES)}")
     return _DTYPES[cfg.dtype]
-
-
-def _check(cfg: ResNetConfig) -> None:
-    if cfg.bn_group_size > 1:
-        raise NotImplementedError(
-            f"bn_group_size={cfg.bn_group_size}: distributed batch norm "
-            f"{_MESH_ONLY}")
-    if cfg.spatial_partition:
-        raise NotImplementedError(
-            f"spatial_partition=True: the spatially partitioned conv "
-            f"{_MESH_ONLY}")
 
 
 def _block_channels(cfg: ResNetConfig, stage: int):
@@ -205,9 +213,17 @@ def same_conv(x, w, stride: int, dtype: torch.dtype):
     return F.conv2d(xn, w.to(dtype), stride=stride).permute(0, 2, 3, 1)
 
 
-def conv(x, w, stride: int, cfg: ResNetConfig):
-    """:func:`same_conv` in ``cfg.dtype``."""
-    return same_conv(x, w, stride, _dt(cfg))
+def conv(x, w, stride: int, cfg: ResNetConfig, mesh=None):
+    """:func:`same_conv` in ``cfg.dtype``; on a mesh with
+    ``spatial_partition``, a conv wider than 1 x 1 is spatially
+    partitioned over ``model``: this rank's H block through
+    ``spatial_conv2d``, the output blocks all-gathered."""
+    dt = _dt(cfg)
+    if cfg.spatial_partition and mesh is not None and w.shape[2] > 1:
+        y = SP.spatial_conv2d(compat.shard(x.to(dt), mesh, "model", dim=1),
+                              w.to(dt), stride=stride, mesh=mesh)
+        return compat.all_gather_invariant(y, mesh, "model", dim=1)
+    return same_conv(x, w, stride, dt)
 
 
 def max_pool(x):
@@ -216,58 +232,66 @@ def max_pool(x):
     return F.max_pool2d(xn, 3, 2).permute(0, 2, 3, 1)
 
 
-def _bn(x, bnp):
+def _bn(x, bnp, cfg, mesh):
+    if cfg.bn_group_size > 1 and mesh is not None:
+        return distributed_batch_norm(x, bnp["scale"], bnp["bias"],
+                                      mesh=mesh,
+                                      group_size=cfg.bn_group_size)
     return batch_norm(x, bnp["scale"], bnp["bias"])[0]
 
 
-def _stem(params, cfg, images):
-    x = conv(images, params["stem_conv"], cfg.stem_stride, cfg)
-    x = torch.relu(_bn(x, params["stem_bn"]))
+def _stem(params, cfg, images, mesh):
+    x = conv(images, params["stem_conv"], cfg.stem_stride, cfg, mesh)
+    x = torch.relu(_bn(x, params["stem_bn"], cfg, mesh))
     return max_pool(x) if cfg.stem_pool else x
 
 
-def _block(blk, cfg, x, stride):
+def _block(blk, cfg, x, stride, mesh):
+    def cbn(x, conv_name, bn_name, stride):
+        return _bn(conv(x, blk[conv_name], stride, cfg, mesh), blk[bn_name],
+                   cfg, mesh)
+
     sc = x
     if "proj" in blk:
-        sc = _bn(conv(x, blk["proj"], stride, cfg), blk["proj_bn"])
+        sc = cbn(x, "proj", "proj_bn", stride)
     if cfg.block == "bottleneck":  # v1.5: stride on the 3x3 conv
-        y = torch.relu(_bn(conv(x, blk["conv1"], 1, cfg), blk["bn1"]))
-        y = torch.relu(_bn(conv(y, blk["conv2"], stride, cfg), blk["bn2"]))
-        y = _bn(conv(y, blk["conv3"], 1, cfg), blk["bn3"])
+        y = torch.relu(cbn(x, "conv1", "bn1", 1))
+        y = torch.relu(cbn(y, "conv2", "bn2", stride))
+        y = cbn(y, "conv3", "bn3", 1)
     else:
-        y = torch.relu(_bn(conv(x, blk["conv1"], stride, cfg), blk["bn1"]))
-        y = _bn(conv(y, blk["conv2"], 1, cfg), blk["bn2"])
+        y = torch.relu(cbn(x, "conv1", "bn1", stride))
+        y = cbn(y, "conv2", "bn2", 1)
     return torch.relu(sc + y)
 
 
-def features(params, cfg: ResNetConfig, images, *,
+def features(params, cfg: ResNetConfig, images, *, mesh=None,
              n_stages=None) -> List[torch.Tensor]:
     """Backbone feature maps, NHWC, one per stage (for SSD)."""
-    _check(cfg)
-    x = _stem(params, cfg, images)
+    x = _stem(params, cfg, images, mesh)
     feats = []
     for s, b, name, stride in _blocks(cfg, n_stages):
-        x = _block(params[name], cfg, x, stride)
+        x = _block(params[name], cfg, x, stride, mesh)
         if b == cfg.stage_sizes[s] - 1:  # the stage's last block
             feats.append(x)
     return feats
 
 
-def forward(params, cfg: ResNetConfig, images):
-    """images: (B, H, W, 3) -> logits (B, num_classes), fp32."""
-    _check(cfg)
-    x = _stem(params, cfg, images)
+def forward(params, cfg: ResNetConfig, images, *, mesh=None):
+    """images: (B, H, W, 3) -> logits (B, num_classes), fp32; on a mesh,
+    this rank's batch shard of them."""
+    x = _stem(params, cfg, images, mesh)
     for _, _, name, stride in _blocks(cfg):
-        x = _block(params[name], cfg, x, stride)
+        x = _block(params[name], cfg, x, stride, mesh)
     x = x.mean(dim=(1, 2)).float()  # global average pool
     return x @ params["head"] + params["head_bias"]
 
 
-def loss_fn(params, cfg: ResNetConfig, batch, *,
+def loss_fn(params, cfg: ResNetConfig, batch, *, mesh=None,
             label_smoothing: float = 0.1):
     """batch: {"images": (B, H, W, 3), "labels": (B,)}; cross entropy
-    with label smoothing (MLPerf uses 0.1). Returns (loss, {"nll", "acc"})."""
-    logits = forward(params, cfg, batch["images"])
+    with label smoothing (MLPerf uses 0.1). Returns (loss, {"nll", "acc"}).
+    On a mesh, the batch is this rank's shard and the loss its mean."""
+    logits = forward(params, cfg, batch["images"], mesh=mesh)
     n = cfg.num_classes
     labels = batch["labels"].long()
     onehot = F.one_hot(labels, n).float()

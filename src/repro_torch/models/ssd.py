@@ -22,8 +22,10 @@ the positives, each divided by the example's positive count (at least
 at 0, as ``jnp.abs`` does.
 
 Conv weights are stored (out, in, kh, kw); :func:`params_from_numpy`
-converts the reference's HWIO. Spatial partitioning needs a mesh and
-raises.
+converts the reference's HWIO. ``forward`` and ``loss_fn`` take the
+reference's ``mesh`` and hand it, with ``spatial_partition``, to the
+backbone (``ssd.py:84-91,133-140``): on a mesh its convs are spatially
+partitioned over ``model`` (C3); with ``mesh=None`` the option is inert.
 """
 from __future__ import annotations
 
@@ -131,12 +133,12 @@ def _backbone_cfg(cfg: SSDConfig) -> R.ResNetConfig:
                                spatial_partition=cfg.spatial_partition)
 
 
-def forward(params, cfg: SSDConfig, images):
+def forward(params, cfg: SSDConfig, images, *, mesh=None):
     """images (B, H, W, 3) -> (cls_logits (B, A, num_classes), box_preds
     (B, A, 4)), both fp32."""
     dt = R._dt(cfg)
     feats = R.features(params["backbone"], _backbone_cfg(cfg), images,
-                       n_stages=_n_stages(cfg))
+                       mesh=mesh, n_stages=_n_stages(cfg))
     x = feats[-1]
     pyramid = [x]
     for i in range(len(cfg.extra_channels)):
@@ -176,11 +178,11 @@ def num_anchors(cfg: SSDConfig) -> int:
     return cfg.anchors_per_loc * sum(n * n for n in level_sizes(cfg))
 
 
-def loss_fn(params, cfg: SSDConfig, batch):
+def loss_fn(params, cfg: SSDConfig, batch, *, mesh=None):
     """batch: images (B, H, W, 3), cls_targets (B, A) ints (0 =
     background), box_targets (B, A, 4) fp32 (counted where the class is
     not 0). Returns (loss, {"nll", "cls", "box"})."""
-    cls_logits, box_preds = forward(params, cfg, batch["images"])
+    cls_logits, box_preds = forward(params, cfg, batch["images"], mesh=mesh)
     cls_t = batch["cls_targets"].to(cls_logits.device, torch.long)
     box_t = batch["box_targets"]
     pos = (cls_t > 0).float()

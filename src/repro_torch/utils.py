@@ -25,6 +25,21 @@ def tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
+def tree_unflatten(template, leaves) -> Any:
+    """A tree of ``template``'s structure whose leaves are ``leaves``, in
+    :func:`tree_leaves` order (the inverse of ``tree_leaves``)."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, (list, tuple)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(template)
+
+
 class Stacked:
     """One array of the reference's layout that the port holds as
     ``parts``, one tensor per layer: the reference stacks the layers of

@@ -22,9 +22,16 @@ PORT_MODULES = [
     "repro_torch.configs.rwkv6_3b",
     "repro_torch.core.distributed_eval",
     "repro_torch.core.distributed_norm",
+    "repro_torch.core.gradient_summation",
     "repro_torch.core.graph_partitioning",
+    "repro_torch.core.spatial_partitioning",
+    "repro_torch.core.weight_update_sharding",
     "repro_torch.data.bucketization",
     "repro_torch.data.pipeline",
+    "repro_torch.dist",
+    "repro_torch.dist.compat",
+    "repro_torch.dist.rules",
+    "repro_torch.dist.sharding",
     "repro_torch.kernels.build",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.lars",
@@ -57,6 +64,7 @@ PORT_MODULES = [
     "repro_torch.serve.slo",
     "repro_torch.serve.speculative",
     "repro_torch.launch.gnmt",
+    "repro_torch.launch.mesh",
     "repro_torch.launch.mlperf",
     "repro_torch.launch.resnet",
     "repro_torch.launch.serve",

@@ -306,17 +306,25 @@ def test_clip_abs_and_bce_gradients_at_their_bounds():
 
 def test_run_partitioned_equals_branches_in_order():
     """C10 on one device: each output is its branch's, through fp32 and
-    back to its dtype; a mesh waits on item 6."""
+    back to its dtype, each branch run once, in order; ``mesh=None`` is
+    that one-device path (``tests/test_torch_dist.py`` holds the mesh)."""
     a = torch.randn(3, 4)
     b = torch.randn(5).to(torch.bfloat16)
-    branches = [lambda: a @ a.T, lambda: b * 2, lambda: a.sum(0)]
+    calls = []
+
+    def branch(i, fn):
+        return lambda: calls.append(i) or fn()
+
+    branches = [branch(0, lambda: a @ a.T), branch(1, lambda: b * 2),
+                branch(2, lambda: a.sum(0))]
     got = GP.run_partitioned(branches)
+    assert calls == [0, 1, 2]
     want = [f() for f in branches]
     assert [g.dtype for g in got] == [torch.float32, torch.bfloat16,
                                       torch.float32]
     assert all(torch.equal(g, w) for g, w in zip(got, want))
-    with pytest.raises(NotImplementedError, match="distribution, fleet"):
-        GP.run_partitioned(branches, mesh=object())
+    again = GP.run_partitioned(branches, mesh=None)
+    assert all(torch.equal(g, w) for g, w in zip(again, want))
 
 
 def test_stage2_runs_its_branches_through_run_partitioned(tree, monkeypatch):
@@ -334,11 +342,25 @@ def test_stage2_runs_its_branches_through_run_partitioned(tree, monkeypatch):
     assert calls == [3]
 
 
-def test_spatial_partition_refused(tree):
+def test_spatial_partition_refused(tree, reference):
+    """``spatial_partition=True`` without a mesh: as in the reference
+    (``maskrcnn.py:98-103,190``), the option is inert and stage 2 runs its
+    branches on one device; the outputs are the reference's."""
+    b, want, *_ = reference
     params = M.params_from_numpy(tree, device="cpu")
     cfg = dataclasses.replace(CFG, spatial_partition=True)
-    with pytest.raises(NotImplementedError, match="distribution, fleet"):
-        M.forward(params, cfg, torch.zeros(1, 32, 32, 3))
+    jcfg = dataclasses.replace(JCFG, spatial_partition=True)
+    with torch.no_grad():
+        got = M.forward(params, cfg, torch.from_numpy(b["images"]),
+                        mesh=None)
+    assert sorted(got) == sorted(want)
+    again = jax.jit(lambda p, im: JM.forward(p, jcfg, im, mesh=None))(
+        tree, b["images"])
+    for k in want:
+        np.testing.assert_array_equal(np.asarray(again[k]), want[k])
+        atol = MASK_TOL * np.abs(want[k]).max() if k == "masks" else 1e-5
+        np.testing.assert_allclose(got[k].numpy(), want[k], rtol=1e-4,
+                                   atol=atol, err_msg=k)
 
 
 def test_cli_on_cpu_repeats(capsys):

@@ -92,11 +92,16 @@ def test_not_ported_messages_name_roadmap_items():
     assert get_config("qwen2-vl-7b").frontend == "vision_patches"  # ported
     from repro_torch.models import resnet
 
-    cfg = dataclasses.replace(resnet.RESNET_TINY, bn_group_size=2)
-    with pytest.raises(NotImplementedError,
-                       match="distribution, fleet and bench"):
-        resnet.forward(resnet.init_resnet(cfg, device="cpu"), cfg,
-                       torch.zeros((1, 16, 16, 3)))
+    # ported: without a mesh, bn_group_size is inert, as in the reference
+    cfg = dataclasses.replace(resnet.RESNET_TINY, bn_group_size=2,
+                              dtype="float32")
+    params = resnet.init_resnet(cfg, device="cpu")
+    x = torch.randn((2, 16, 16, 3), generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        assert torch.equal(
+            resnet.forward(params, cfg, x),
+            resnet.forward(params, dataclasses.replace(cfg, bn_group_size=1),
+                           x))
     with pytest.raises(NotImplementedError,
                        match="distribution, fleet and bench"):
         serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",

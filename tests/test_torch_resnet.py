@@ -433,13 +433,33 @@ def test_cli_and_init_refuse_without_cuda(monkeypatch):
 @pytest.mark.parametrize("kw", [dict(bn_group_size=2),
                                 dict(spatial_partition=True)], ids=str)
 def test_mesh_only_options_raise(kw):
-    cfg = dataclasses.replace(R.RESNET_TINY, **kw)
-    params = R.init_resnet(R.RESNET_TINY, seed=0, device="cpu")
-    x = torch.zeros(1, 16, 16, 3)
-    for fn in (R.forward, R.features):
-        with pytest.raises(NotImplementedError,
-                           match="distribution, fleet and bench"):
-            fn(params, cfg, x)
+    """The mesh-only options without a mesh: as in the reference
+    (``resnet.py:122,134``), ``mesh=None`` leaves them inert, and forward
+    and features give the reference's logits and maps on that config."""
+    jcfg, cfg, size = _cfgs("pool32")
+    jcfg, cfg = (dataclasses.replace(c, **kw) for c in (jcfg, cfg))
+    rng = np.random.default_rng(7)  # He-normal weights in the tree's shapes
+    tree = jax.tree_util.tree_map(
+        lambda a: (rng.standard_normal(a.shape) * (
+            2 / np.prod(a.shape[:-1])) ** 0.5).astype(np.float32),
+        jax.eval_shape(lambda k: split_tree(JR.init_resnet(jcfg, k))[0],
+                       KEY))
+    x = _images(2, size, seed=7)
+    params = R.params_from_numpy(tree, device="cpu")
+    with torch.no_grad():
+        got = R.forward(params, cfg, torch.from_numpy(x), mesh=None)
+        feats = R.features(params, cfg, torch.from_numpy(x), mesh=None)
+    want, wfeats = jax.jit(lambda p, im: (
+        JR.forward(p, jcfg, im, mesh=None),
+        JR.features(p, jcfg, im, mesh=None)))(tree, jnp.asarray(x))
+    want = np.asarray(want)
+    scale = np.abs(want).max()
+    np.testing.assert_allclose(got.numpy() / scale, want / scale, rtol=0,
+                               atol=FWD_TOL["float32"])
+    assert len(feats) == len(wfeats) == len(cfg.stage_sizes)
+    for a, b in zip(feats, wfeats):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4)
 
 
 # --------------------------------------------------------------------------- #

@@ -268,10 +268,27 @@ def _tied_negatives(tree, b):
 
 
 def test_spatial_partition_refused(tree):
+    """``spatial_partition=True`` without a mesh: as in the reference
+    (``ssd.py:84-91``), the backbone gets ``mesh=None`` and the option is
+    inert; the outputs and the loss are the reference's on that config."""
     params = S.params_from_numpy(tree, device="cpu")
     cfg = dataclasses.replace(CFG, spatial_partition=True)
-    with pytest.raises(NotImplementedError, match="distribution, fleet"):
-        S.forward(params, cfg, torch.zeros(1, 64, 64, 3))
+    jcfg = dataclasses.replace(JCFG, spatial_partition=True)
+    b = batch_of(5)
+    (want_c, want_b), want_l = jax.jit(lambda p, bb: (
+        JS.forward(p, jcfg, bb["images"], mesh=None),
+        JS.loss_fn(p, jcfg, bb, mesh=None)[0]))(tree, b)
+    want_l = float(want_l)
+    with torch.no_grad():
+        got_c, got_b = S.forward(params, cfg, torch.from_numpy(b["images"]),
+                                 mesh=None)
+        got_l = S.loss_fn(params, cfg, {k: torch.from_numpy(v)
+                                        for k, v in b.items()}, mesh=None)[0]
+    np.testing.assert_allclose(got_c.numpy(), np.asarray(want_c), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got_b.numpy(), np.asarray(want_b), rtol=1e-4,
+                               atol=1e-5)
+    np.testing.assert_allclose(got_l.item(), want_l, rtol=1e-5)
 
 
 def test_cli_on_cpu_repeats(capsys):
