@@ -199,7 +199,19 @@ and prints no result):
    attention (S 8192, 32/8 heads of 128, window 4096: one flash forward
    launch at k_offset -4096 over a zero halo) against ``ops.attention``
    without the halo, the kernel against its plain version at the halo'd
-   shape, timed beside SDPA's memory-efficient backend.
+   shape, timed beside SDPA's memory-efficient backend;
+15. the sharded trainer (``dist-train``): yi-9b at full width cut to 8
+   layers (1.9 B parameters) in its own mode (``wus``, ``seq_parallel``
+   on), batch 4 x 2048, 3 steps, first through the one-device
+   ``Trainer`` (losses, grad norms and a few leaves kept on the host, the
+   trainer freed), then through ``Trainer(..., mesh=)`` on a 1 x 1
+   ("data", "model") mesh over its own one-rank NCCL group, from the same
+   seed's weights and the same batches: the losses and leaves bitwise
+   equal, the grad norms within 1e-6 relative (summed in another order),
+   the flash counters, zeroed just before, at forward twice and backward
+   once a layer a step; each trainer's step time, the mesh path's
+   overhead and both peak memories printed. The group is destroyed in a
+   ``finally``.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -5588,6 +5600,100 @@ def dist_phase():
     return recs
 
 
+DIST_TRAIN_LAYERS, DIST_TRAIN_STEPS = 8, 3
+DIST_TRAIN_LEAVES = (("embed", 0), ("layers", 0, "mixer", "wq"),
+                     ("layers", 7, "ffn", "wd"), ("final_norm", "scale"))
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def dist_train_run(cfg, batches, mesh):
+    """One trainer (``mesh`` None: one device) from seed 0's weights over
+    ``batches``: (losses, grad norms, step ms, peak GiB, flash launches,
+    the leaves of ``DIST_TRAIN_LEAVES`` on the host)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, TrainerConfig(total_steps=DIST_TRAIN_STEPS,
+                                    log_every=0, metrics=("grad_norm",)),
+                 device="cuda", mesh=mesh)
+    fa.flash_attention_fwd_cuda.launches = 0
+    fa.flash_attention_bwd_cuda.launches = 0
+    hist = tr.fit(iter(batches), hooks=[SyncEveryStep()])
+    torch.cuda.synchronize()
+    launches = (fa.flash_attention_fwd_cuda.launches,
+                fa.flash_attention_bwd_cuda.launches)
+    leaves = [_at(tr.state["params"], p).detach().cpu().clone()
+              for p in DIST_TRAIN_LEAVES]
+    out = ([r["loss"] for r in hist], [r["grad_norm"] for r in hist],
+           [r["step_ms"] for r in hist],
+           torch.cuda.max_memory_allocated() / 2**30, launches, leaves)
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_train():
+    """The sharded trainer at full width on a 1 x 1 NCCL mesh against the
+    one-device trainer (phase 15). With one rank every collective is a
+    copy and the mesh path runs the same arithmetic in the same order,
+    so the losses and weights must be bitwise the one-device ones."""
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("yi-9b"),
+                              n_layers=DIST_TRAIN_LAYERS)
+    if (cfg.param_sharding, cfg.seq_parallel) != ("wus", True):
+        raise AssertionError(f"yi-9b's mode {cfg.param_sharding}, "
+                             f"seq_parallel {cfg.seq_parallel}")
+    phase(f"dist-train: yi-9b full width, {DIST_TRAIN_LAYERS} of 48 layers, "
+          f"batch {TRAIN_BATCH} x {TRAIN_SEQ}, {DIST_TRAIN_STEPS} steps, "
+          f"one device, then the sharded trainer ({cfg.param_sharding}, "
+          f"seq_parallel) on a 1 x 1 NCCL mesh")
+    batches = list(synthetic_lm_batches(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                                        steps=DIST_TRAIN_STEPS, seed=0))
+    one = dist_train_run(cfg, batches, None)
+    mesh = single_device_mesh("cuda")
+    try:
+        print(f"  mesh {mesh.shape} over {dist.get_world_size()} rank(s), "
+              f"backend {dist.get_backend()}", flush=True)
+        sharded = dist_train_run(cfg, batches, mesh)
+    finally:
+        dist.destroy_process_group()
+    names = ("one device", "mesh")
+    for name, (loss, gn, ms, peak, launches, _) in zip(names, (one, sharded)):
+        print(f"  {name}: losses {loss}; grad norms {gn}; step ms "
+              f"{[round(m, 1) for m in ms]} (median of steps 2-"
+              f"{DIST_TRAIN_STEPS}: {float(np.median(ms[1:])):.1f}); peak "
+              f"memory {peak:.2f} GiB; flash launches forward {launches[0]}, "
+              f"backward {launches[1]}", flush=True)
+    step = [float(np.median(r[2][1:])) for r in (one, sharded)]
+    gn_err = max(abs(a - b) / abs(b) for a, b in zip(sharded[1], one[1]))
+    leaf_eq = [torch.equal(a, b) for a, b in zip(sharded[5], one[5])]
+    print(f"  mesh path overhead {step[1] - step[0]:.1f} ms a step "
+          f"({(step[1] / step[0] - 1) * 100:.2f}%); losses "
+          f"{'bitwise equal' if sharded[0] == one[0] else 'DIFFER'}; grad "
+          f"norm max rel {gn_err:.2e}; leaves {list(DIST_TRAIN_LEAVES)} "
+          f"bitwise {leaf_eq}", flush=True)
+    want = (2 * cfg.n_layers * DIST_TRAIN_STEPS,
+            cfg.n_layers * DIST_TRAIN_STEPS)
+    if sharded[4] != want:
+        raise AssertionError(f"mesh trainer flash launches {sharded[4]} "
+                             f"!= {want}")
+    if sharded[0] != one[0] or not all(leaf_eq) or gn_err > 1e-6:
+        raise AssertionError("the mesh trainer on one rank differs from "
+                             "the one-device trainer")
+    if not all(np.isfinite(one[0])):
+        raise AssertionError(f"non-finite losses {one[0]}")
+    print(f"  dist-train phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 PHASES = {  # --only names: the phases a short run may pick
     "paged": lambda: (check_kernel(), check_paged_archs()),
     "flash": lambda: (check_flash(), check_flash_archs()),
@@ -5619,6 +5725,7 @@ PHASES = {  # --only names: the phases a short run may pick
     "train-ssd": lambda: train_mlperf_full("ssd", SSD_BATCH),
     "train-maskrcnn": lambda: train_mlperf_full("maskrcnn", MASKRCNN_BATCH),
     "dist": dist_phase,
+    "dist-train": dist_train,
 }
 
 
@@ -5697,6 +5804,7 @@ def main(argv=None) -> int:
     vlm = vlm_rwkv_phases()
     mlperf = mlperf_phases()
     dist_recs = dist_phase()
+    dist_train()
     recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,
             mamba_train, mamba_bwd, lstm_fwd, lstm_bwd, lars_norms,
             lars_update, *paged_archs.values(),

@@ -79,7 +79,11 @@ class ModelConfig:
     # batches carry precomputed embeddings of shape (B, n_media, d).
     frontend: str = "none"
     n_media_tokens: int = 0
+    # Distribution defaults (the sharded trainer, ``dist.spmd``).
+    param_sharding: str = "fsdp"      # 'replicated' | 'wus' | 'fsdp'
     remat: bool = True                # recompute each layer in backward
+    seq_parallel: bool = True         # residual stream's sequence over
+    #                                   the model axis between blocks
     loss_chunk: int = 256             # CE computed in seq chunks of this size
     dtype: str = "bfloat16"           # activation / compute dtype
     param_dtype: str = "float32"      # master weights
@@ -167,6 +171,7 @@ class ModelConfig:
             sliding_window=None if self.sliding_window is None else 64,
             long_context_window=(None if self.long_context_window is None
                                  else 64),
+            param_sharding="replicated",
             remat=False,
             microbatches=1,
         )

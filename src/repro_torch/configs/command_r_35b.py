@@ -2,8 +2,7 @@
 
 40L d_model=8192 64H (GQA kv=8) d_ff=22528 vocab=256000, no biases,
 layernorm, tied embeddings. The port's copy of
-``repro/configs/command_r_35b.py`` without ``param_sharding``, which the
-port's config does not have (one device).
+``repro/configs/command_r_35b.py``.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -20,4 +19,5 @@ CONFIG = ModelConfig(
     tie_embeddings=True,
     rope_theta=4e6,
     long_context_window=4096,  # sliding-window decode for long contexts
+    param_sharding="fsdp",
 )

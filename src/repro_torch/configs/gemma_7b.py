@@ -19,4 +19,5 @@ CONFIG = ModelConfig(
     glu=True,  # GeGLU
     tie_embeddings=True,
     long_context_window=4096,  # sliding-window decode for long contexts
+    param_sharding="wus",
 )

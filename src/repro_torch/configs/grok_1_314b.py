@@ -2,8 +2,7 @@
 
 64L d_model=6144 48H (GQA kv=8) d_ff=32768 vocab=131072, MoE 8 experts
 top-2; bf16 gradient sums and Adam moments, 4 microbatches. The port's
-copy of ``repro/configs/grok_1_314b.py`` without ``param_sharding``,
-which the port's config does not have (one device).
+copy of ``repro/configs/grok_1_314b.py``.
 """
 from repro_torch.configs.base import ModelConfig, MoEConfig
 
@@ -21,4 +20,5 @@ CONFIG = ModelConfig(
     grad_dtype="bfloat16",
     moment_dtype="bfloat16",
     microbatches=4,
+    param_sharding="fsdp",
 )

@@ -37,4 +37,5 @@ CONFIG = ModelConfig(
     grad_dtype="bfloat16",
     moment_dtype="bfloat16",
     microbatches=8,
+    param_sharding="fsdp",
 )

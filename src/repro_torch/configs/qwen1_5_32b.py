@@ -1,8 +1,7 @@
 """qwen1.5-32b [dense] — Alibaba Qwen1.5-32B [hf:Qwen/Qwen1.5-0.5B family].
 
 64L d_model=5120 40H (kv=40) d_ff=27392 vocab=152064, QKV bias. The
-port's copy of ``repro/configs/qwen1_5_32b.py`` without
-``param_sharding``, which the port's config does not have (one device).
+port's copy of ``repro/configs/qwen1_5_32b.py``.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -20,4 +19,5 @@ CONFIG = ModelConfig(
     long_context_window=8192,  # sliding-window decode for long contexts
     # Full MHA (kv=40): an int8 KV cache halves the bf16 one.
     kv_cache_dtype="int8",
+    param_sharding="fsdp",
 )

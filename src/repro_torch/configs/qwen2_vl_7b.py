@@ -2,8 +2,7 @@
 
 28L d_model=3584 28H (GQA kv=4) d_ff=18944 vocab=152064, M-RoPE
 (multimodal rotary: temporal/height/width sections). The port's copy of
-``repro/configs/qwen2_vl_7b.py`` without ``param_sharding``, which the
-port's config does not have (one device).
+``repro/configs/qwen2_vl_7b.py``.
 
 The ViT vision encoder and projector are a stub: batches and requests
 carry precomputed patch embeddings of shape (n_patches, 3584), at most
@@ -26,4 +25,5 @@ CONFIG = ModelConfig(
     frontend="vision_patches",
     n_media_tokens=1024,
     long_context_window=4096,  # sliding-window decode for long contexts
+    param_sharding="wus",
 )

@@ -2,8 +2,7 @@
 
 32L d_model=2560 (attention-free) d_ff=8960 vocab=65536, data-dependent
 decay through a low-rank projection, squared-ReLU channel mix. The
-port's copy of ``repro/configs/rwkv6_3b.py`` without
-``param_sharding``, which the port's config does not have (one device).
+port's copy of ``repro/configs/rwkv6_3b.py``.
 """
 from repro_torch.configs.base import ModelConfig, RWKV6Config
 
@@ -20,4 +19,5 @@ CONFIG = ModelConfig(
     rope="none",
     activation="relu2",  # the channel mix's squared ReLU
     glu=False,
+    param_sharding="wus",
 )

@@ -3,8 +3,7 @@
 24L d_model=1024 16H (kv=16) d_ff=4096 vocab=51865. Encoder-decoder;
 the mel-spectrogram + conv frontend is a stub: batches carry
 precomputed frame embeddings of shape (B, 1500, 1024). The port's copy
-of ``repro/configs/whisper_medium.py`` without ``param_sharding``,
-which the port's config does not have (one device).
+of ``repro/configs/whisper_medium.py``.
 """
 from repro_torch.configs.base import ModelConfig
 
@@ -26,4 +25,5 @@ CONFIG = ModelConfig(
     enc_source_len=1500,
     frontend="audio_frames",
     n_media_tokens=1500,
+    param_sharding="wus",
 )

@@ -18,8 +18,8 @@ and their backward is the adjoint collective (psum's is psum, all-gather's
 reduce-scatter, ppermute's the inverse permutation): autograd on every
 rank gives that rank's share of the gradient of the sum of all ranks'
 losses. That is the data axis, whose shares gradient summation adds up
-afterwards. ``pvary``, ``shard`` and ``all_gather_invariant`` cross between
-replicated and per-rank values, as a ``shard_map``'s ``P()`` in and out
+afterwards. ``pvary``, ``shard``, ``all_gather_invariant`` and ``psum_invariant``
+cross between replicated and per-rank values, as a ``shard_map``'s ``P()`` in and out
 specs do: across them a replicated value gets its whole gradient on every
 rank, the same on each, as ``jax.grad`` gives it through ``shard_map``.
 That is the model axis, whose ranks replicate everything outside the
@@ -173,6 +173,16 @@ class _AllGatherInvariant(torch.autograd.Function):
         return dy[i * h:(i + 1) * h], None, None, None
 
 
+class _PsumInvariant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy, None
+
+
 def psum(x, mesh, axis: str):
     """``lax.psum(x, axis)``: the sum over the ranks of this rank's line
     along ``axis``, on every one of them."""
@@ -224,6 +234,16 @@ def all_gather_invariant(x, mesh, axis: str, *, dim: int = 0):
                                   axis_size(mesh, axis),
                                   axis_index(mesh, axis))
     return y.movedim(0, dim)
+
+
+def psum_invariant(x, mesh, axis: str):
+    """The sum over the line along ``axis`` as a replicated result that
+    every rank of the line then uses alike (the row-parallel product's
+    partial sums, Megatron's "g"): the forward all-reduces, the backward
+    is the identity, since each rank's cotangent of the sum is already
+    the whole one. :func:`psum`'s all-reduce backward would count it
+    once a rank."""
+    return _PsumInvariant.apply(x, mesh.group(axis))
 
 
 def ppermute(x, mesh, axis: str, perm: Sequence[Tuple[int, int]]):

@@ -16,14 +16,18 @@ names that dimension is split over, or None (replicated). The reference's
 ``PartitionSpec`` writes a single axis as its bare name; the port always
 writes a tuple.
 
-The tree-level ``param_specs`` / ``opt_state_specs`` read the reference's
-``Axes`` tags and wait for the DTensor trainer (ROADMAP.md item 6).
+The tree-level :func:`param_specs` / :func:`opt_state_specs` lift the
+per-tensor derivation to (axes, shapes) trees (``sharding.py:139-155``):
+the sharded trainer (:mod:`repro_torch.dist.spmd`) places each rank's
+blocks of the weights and of the optimizer moments by them.
 """
 from __future__ import annotations
 
-from typing import Iterable, Optional, Sequence, Tuple, Union
+from typing import Any, Iterable, Optional, Sequence, Tuple, Union
 
 from repro_torch.dist.rules import LAYER_AXIS, build_table, lookup
+from repro_torch.dist.tagging import Axes
+from repro_torch.utils import tree_map
 
 Spec = Tuple[Optional[Tuple[str, ...]], ...]
 
@@ -121,3 +125,24 @@ class Rules:
         entries = list(spec)
         entries[best] = ("data",)
         return tuple(entries)
+
+
+# --------------------------------------------------------------------------- #
+# Tree-level derivation.
+# --------------------------------------------------------------------------- #
+def _tree_specs(fn, axes: Any, shapes: Any) -> Any:
+    """``fn(names, shape)`` over an axes tree and a tree of one structure
+    whose leaves have a ``shape`` (tensors, fake tensors, or anything
+    with ``.shape``)."""
+    return tree_map(lambda a, s: fn(a.names, tuple(s.shape)), axes, shapes,
+                    is_leaf=lambda x: isinstance(x, Axes))
+
+
+def param_specs(axes: Any, shapes: Any, rules: Rules) -> Any:
+    """Spec tree of the master weights."""
+    return _tree_specs(rules.param_spec, axes, shapes)
+
+
+def opt_state_specs(axes: Any, shapes: Any, rules: Rules) -> Any:
+    """Spec tree of the optimizer moments (the C1 upgrade in wus mode)."""
+    return _tree_specs(rules.opt_spec, axes, shapes)

@@ -162,7 +162,7 @@ def mamba_step(h, u_t, dt_t, A, B_t, C_t, D):
     return h, y.to(u_t.dtype)
 
 
-def moe_gating(x, router_w, *, top_k, capacity):
+def moe_gating(x, router_w, *, top_k, capacity, mean=None):
     """Top-k gating with capacity dispatch (``repro.kernels.ref.
     moe_gating``, ``ref.py:143-180``), plain PyTorch on both devices: the
     reference has no Pallas kernel for it.
@@ -172,7 +172,10 @@ def moe_gating(x, router_w, *, top_k, capacity):
     the next free position of that expert's ``capacity`` slots in the
     group, or nowhere once they are full. Returns (dispatch (G, S, E,
     capacity) fp32 0/1, combine (same) fp32 gate weights, aux scalar: the
-    Switch load-balance loss ``E * sum_e f_e * p_e``)."""
+    Switch load-balance loss ``E * sum_e f_e * p_e``). ``mean``, when
+    given, takes each rank's (E,) token means to the means over the
+    global batch (``dist.spmd.Placement.batch_mean``), so a rank of a
+    mesh forms the aux loss of the whole batch."""
     G, S, _ = x.shape
     E = router_w.shape[-1]
     gates = torch.softmax(x.float() @ router_w.float(), dim=-1)  # (G, S, E)
@@ -197,7 +200,10 @@ def moe_gating(x, router_w, *, top_k, capacity):
         fill = fill + (onehot * keep[..., None]).sum(1).long()
         remaining = remaining * (1.0 - onehot)
     top1 = F.one_hot(torch.argmax(gates, dim=-1), E).float()
-    aux = E * torch.sum(top1.mean(dim=(0, 1)) * gates.mean(dim=(0, 1)))
+    f, p = top1.mean(dim=(0, 1)), gates.mean(dim=(0, 1))
+    if mean is not None:
+        f, p = mean(f), mean(p)
+    aux = E * torch.sum(f * p)
     return dispatch, combine, aux
 
 

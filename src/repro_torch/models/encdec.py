@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.tagging import Axes
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.utils import Stacked, tree_map
@@ -141,6 +142,30 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     if not cfg.tie_embeddings:
         params["head"] = normal((d, cfg.vocab), d ** -0.5)
     return params
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`init_encdec`'s tree, as the reference
+    tags it (``encdec.py:33-82``), each layer of the two lists untagged
+    by a ``layer`` entry."""
+    def attn():
+        return L.attention_axes(cfg)
+
+    axes = {"embed": Axes(("vocab", "fsdp")),
+            "enc_blocks": [{"norm1": L.norm_axes(cfg), "attn": attn(),
+                            "norm2": L.norm_axes(cfg),
+                            "ffn": L.ffn_axes(cfg)}
+                           for _ in range(cfg.n_enc_layers)],
+            "enc_norm": L.norm_axes(cfg),
+            "dec_blocks": [{"norm1": L.norm_axes(cfg), "self_attn": attn(),
+                            "norm_x": L.norm_axes(cfg), "cross_attn": attn(),
+                            "norm2": L.norm_axes(cfg),
+                            "ffn": L.ffn_axes(cfg)}
+                           for _ in range(cfg.n_layers)],
+            "dec_norm": L.norm_axes(cfg)}
+    if not cfg.tie_embeddings:
+        axes["head"] = Axes(("fsdp", "vocab"))
+    return axes
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda",

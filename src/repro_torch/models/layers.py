@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MambaConfig, ModelConfig, RWKV6Config
+from repro_torch.dist.tagging import Axes
 from repro_torch.kernels import ops, quant
 from repro_torch.models.scan_utils import chunked_scan
 
@@ -163,13 +164,21 @@ def _qkv(params, x, which: str):
     return y if b is None else y + b.to(y.dtype)
 
 
-def apply_ffn(params, x, cfg: ModelConfig):
+def apply_ffn(params, x, cfg: ModelConfig, *, place=None):
+    """The dense or GLU FFN. On a mesh (``place``, a
+    ``dist.spmd.Placement``) ``wu``/``wg``/``wd`` hold the rank's block of
+    the hidden dim when ``model`` splits it: the layer enters and leaves
+    the residual stream through ``place``."""
+    split = place is not None and params["wu"].shape[1] < cfg.d_ff
+    if place is not None:
+        x = place.enter(x, split)
     h = x @ params["wu"]
     if cfg.glu:
         h = _ACT[cfg.activation](x @ params["wg"]) * h
     else:
         h = _ACT[cfg.activation](h)
-    return h @ params["wd"]
+    y = h @ params["wd"]
+    return y if place is None else place.exit(y, split)
 
 
 def gather_last(x, last_pos):
@@ -279,8 +288,26 @@ def paged_copy_pages(cache, src, dst):
     return cache
 
 
+def _rank_kv(params, cfg: ModelConfig, index: int):
+    """The KV leaves of the heads that a rank's queries read, where
+    ``model`` splits the query heads but not the KV heads: query heads
+    ``index * Hl ..`` read KV heads ``h // G``; the rank keeps them once
+    each (``Hl`` a multiple of G: a run of KV heads, group G; a divisor:
+    one head, group ``Hl``; else one a query head, group 1)."""
+    Hl = params["wq"].shape[1]
+    G = cfg.n_heads // cfg.n_kv_heads
+    kv = [h // G for h in range(index * Hl, (index + 1) * Hl)]
+    sel = kv[::G] if Hl % G == 0 else kv[:1] if G % Hl == 0 else kv
+    idx = torch.tensor(sel, device=params["wk"].device)
+    out = dict(params)
+    for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
+        if name in params:
+            out[name] = params[name].index_select(dim, idx)
+    return out
+
+
 def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
-                   causal=True, kv_x=None):
+                   causal=True, kv_x=None, place=None):
     """Full-sequence attention (train / prefill / encoder / cross).
 
     x: (B, S, d); positions: (B, S) RoPE positions, (B, S, 3) for
@@ -289,7 +316,18 @@ def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
     RoPE. Returns (out
     (B, S, d), (k, v)), k/v (B, T, K, hd) in the compute dtype, as the
     reference returns them for cache construction.
+
+    On a mesh (``place``, a ``dist.spmd.Placement``) the weights hold the
+    rank's query and KV heads when ``model`` splits them (the KV heads
+    its queries read when it splits only the queries), and the layer
+    enters and leaves the residual stream through ``place``; positions
+    are the whole sequence's.
     """
+    split = place is not None and params["wq"].shape[1] < cfg.n_heads
+    if place is not None:
+        x = place.enter(x, split)
+        if split and params["wk"].shape[1] == cfg.n_kv_heads:
+            params = _rank_kv(params, cfg, place.index)
     B, S, _ = x.shape
     src = x if kv_x is None else kv_x
     q = _qkv(params, x, "q")
@@ -300,7 +338,8 @@ def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
     out = ops.attention(q, k, v, causal=causal, window=window)
     wo = params["wo"]
     H, hd, d = wo.shape
-    return out.reshape(B, S, H * hd) @ wo.reshape(H * hd, d), (k, v)
+    y = out.reshape(B, S, H * hd) @ wo.reshape(H * hd, d)
+    return (y if place is None else place.exit(y, split)), (k, v)
 
 
 def attention_decode_paged(params, x, cfg: ModelConfig, cache, page_table,
@@ -466,7 +505,7 @@ def attention_cross_chunk(params, x, cfg: ModelConfig, cache):
 MOE_GROUP = 256  # tokens per dispatch group
 
 
-def apply_moe(params, x, cfg: ModelConfig):
+def apply_moe(params, x, cfg: ModelConfig, *, batch_mean=None):
     """GShard-style top-k capacity dispatch. x: (B, S, d) -> (y (B, S, d)
     in x's dtype, aux loss). Tokens are grouped ``Sg = min(256, S)`` at a
     time, ``B * S // Sg`` groups, each expert taking at most
@@ -474,7 +513,9 @@ def apply_moe(params, x, cfg: ModelConfig):
     are dropped, as in the reference). Dispatch and combine are dense
     einsums, the combine in fp32. A token count that ``Sg`` does not
     divide (a prompt longer than 256 and not a multiple of it) raises
-    ``ValueError``, where the reference fails to reshape."""
+    ``ValueError``, where the reference fails to reshape. On a mesh's
+    batch axes ``batch_mean`` (``Placement.batch_mean``) forms the aux
+    loss from the global batch's token means (``ops.moe_gating``)."""
     B, S, d = x.shape
     E, k = cfg.moe.n_experts, cfg.moe.top_k
     Sg = min(MOE_GROUP, S)
@@ -486,7 +527,7 @@ def apply_moe(params, x, cfg: ModelConfig):
     xg = x.reshape(B * S // Sg, Sg, d)
     cap = max(1, int(math.ceil(Sg * k * cfg.moe.capacity_factor / E)))
     dispatch, combine, aux = ops.moe_gating(xg, params["router"], top_k=k,
-                                            capacity=cap)
+                                            capacity=cap, mean=batch_mean)
     xin = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xg)
     h = torch.einsum("egcd,edf->egcf", xin, params["wu"])
     if cfg.glu:
@@ -608,6 +649,66 @@ def init_mamba_cache(cfg: ModelConfig, B: int, *, device):
 
 
 # ---- parameters ------------------------------------------------------------ #
+# Logical axes of each layer's leaves (``dist.tagging.Axes``), one name a
+# dimension, as the reference's ``p(...)`` calls tag them at creation
+# (``layers.py:34-36,106-115,520-524,562-567,622-632,720-732``); the
+# port's layers are unstacked, so no ``layer`` entry leads.
+def norm_axes(cfg: ModelConfig):
+    ax = {"scale": Axes((None,))}
+    if cfg.norm == "layernorm":
+        ax["bias"] = Axes((None,))
+    return ax
+
+
+def attention_axes(cfg: ModelConfig):
+    ax = {"wq": Axes(("fsdp", "heads", None)),
+          "wk": Axes(("fsdp", "kv_heads", None)),
+          "wv": Axes(("fsdp", "kv_heads", None)),
+          "wo": Axes(("heads", None, "fsdp"))}
+    if cfg.qkv_bias:
+        ax.update(bq=Axes(("heads", None)), bk=Axes(("kv_heads", None)),
+                  bv=Axes(("kv_heads", None)))
+    return ax
+
+
+def ffn_axes(cfg: ModelConfig):
+    ax = {"wu": Axes(("fsdp", "mlp")), "wd": Axes(("mlp", "fsdp"))}
+    if cfg.glu:
+        ax["wg"] = Axes(("fsdp", "mlp"))
+    return ax
+
+
+def moe_axes(cfg: ModelConfig):
+    """``wd``'s data shard goes on its contraction dim f when the expert
+    dim divides the production model axis of 16, else on d (the
+    reference's choice, ``layers.py:550-560``)."""
+    E = cfg.moe.n_experts
+    wd = (("expert", "fsdp", "mlp") if E % 16 == 0
+          else ("expert", "mlp", "fsdp"))
+    ax = {"router": Axes((None, None)),
+          "wu": Axes(("expert", "fsdp", "mlp")), "wd": Axes(wd)}
+    if cfg.glu:
+        ax["wg"] = Axes(("expert", "fsdp", "mlp"))
+    return ax
+
+
+def mamba_axes(cfg: ModelConfig):
+    return {"wx": Axes(("fsdp", "mlp")), "wz": Axes(("fsdp", "mlp")),
+            "conv_w": Axes((None, "mlp")), "conv_b": Axes(("mlp",)),
+            "x_proj": Axes(("mlp", None)), "dt_w": Axes((None, "mlp")),
+            "dt_bias": Axes(("mlp",)), "A_log": Axes(("mlp", None)),
+            "D": Axes(("mlp",)), "out_proj": Axes(("mlp", "fsdp"))}
+
+
+def rwkv6_axes(cfg: ModelConfig):
+    ax = {n: Axes(("fsdp", "mlp")) for n in ("wr", "wk", "wv", "wg")}
+    ax.update(wo=Axes(("mlp", "fsdp")), w0=Axes((None,)),
+              w1=Axes(("fsdp", None)), w2=Axes((None, "mlp")),
+              u=Axes((None,)), mu=Axes((None, None)),
+              ln_scale=Axes((None,)))
+    return ax
+
+
 def init_attention(cfg: ModelConfig, normal, zeros):
     """``layers.init_attention``'s shapes and scales; ``normal(shape,
     scale)`` draws N(0, 1) * scale and ``zeros(shape)`` makes the q/k/v

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.dist.tagging import Axes
 from repro_torch.models import layers as L
 from repro_torch.utils import Stacked, tree_map
 
@@ -112,6 +113,31 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *, device="cuda",
     if not cfg.tie_embeddings:
         params["head"] = normal((d, cfg.vocab), d ** -0.5)
     return params
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of :func:`init_lm`'s tree, one
+    :class:`~repro_torch.dist.tagging.Axes` a leaf, as the reference tags
+    its leaves (``lm.py:62-81``; the ``layers.*_axes``): ``embed``
+    ("vocab", "fsdp"), ``head`` ("fsdp", "vocab"), and each layer of the
+    list untagged by a ``layer`` entry."""
+    _check_supported(cfg)
+    mixers = {"attn": L.attention_axes, "mamba": L.mamba_axes,
+              "rwkv6": L.rwkv6_axes}
+    layers = []
+    for i in range(cfg.n_layers):
+        spec = _spec_of(cfg, i)
+        layer = {"norm1": L.norm_axes(cfg), "mixer": mixers[spec.mixer](cfg)}
+        if spec.ffn != "none":
+            layer["norm2"] = L.norm_axes(cfg)
+            layer["ffn"] = (L.moe_axes(cfg) if spec.ffn == "moe"
+                            else L.ffn_axes(cfg))
+        layers.append(layer)
+    axes = {"embed": Axes(("vocab", "fsdp")), "layers": layers,
+            "final_norm": L.norm_axes(cfg)}
+    if not cfg.tie_embeddings:
+        axes["head"] = Axes(("fsdp", "vocab"))
+    return axes
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cuda",
@@ -276,32 +302,37 @@ def _embed_inputs(params, tokens, media):
 
 
 def _apply_block_full(cfg: ModelConfig, spec: LayerSpec, lp, x, positions,
-                      window=None):
+                      window=None, place=None):
     """One layer over the full sequence: pre-norm attention, Mamba or
     RWKV-6 mixer, then the pre-norm dense or MoE FFN (if any), each
     added to the residual stream. Returns (x, MoE aux loss or 0.0, the
     mixer's state: (k, v) for attention, {"conv", "ssm"} for Mamba,
-    {"shift", "wkv"} for RWKV-6)."""
+    {"shift", "wkv"} for RWKV-6). On a mesh (``place``) x is the rank's
+    stream and ``lp`` the layer's weights as ``place.layer`` gives them."""
     h = L.apply_norm(lp["norm1"], x)
     if spec.mixer == "attn":
         y, state = L.attention_full(lp["mixer"], h, cfg, positions=positions,
-                                    window=window)
+                                    window=window, place=place)
     elif spec.mixer == "mamba":
         y, state = L.apply_mamba(lp["mixer"], h, cfg)
     else:
         y, state = L.apply_rwkv6(lp["mixer"], h, cfg)
-    x, aux = _ffn(cfg, spec, lp, x + y)
+    x, aux = _ffn(cfg, spec, lp, x + y, place)
     return x, aux, state
 
 
-def _layer_out(cfg, spec, lp, x, positions, window):
+def _layer_out(cfg, spec, lp, x, positions, window, place=None, i=0):
     """:func:`_apply_block_full`'s residual stream and MoE aux loss (what
-    a checkpointed layer returns)."""
-    return _apply_block_full(cfg, spec, lp, x, positions, window)[:2]
+    a checkpointed layer returns); on a mesh layer ``i``'s blocks are
+    gathered here, inside the checkpoint, so the backward gathers them
+    again instead of keeping them."""
+    if place is not None:
+        lp = place.layer(lp, i)
+    return _apply_block_full(cfg, spec, lp, x, positions, window, place)[:2]
 
 
 def forward_hidden(params, cfg: ModelConfig, tokens, *, media=None,
-                   window=None):
+                   window=None, place=None):
     """Full-sequence forward up to the final norm (no output projection).
 
     tokens: (B, S); ``media`` (B, n, d), a vision frontend's patch
@@ -312,22 +343,34 @@ def forward_hidden(params, cfg: ModelConfig, tokens, *, media=None,
     and the backward recomputes the layer (its scan, router and aux loss
     included), as the reference's ``jax.checkpoint`` over the scanned
     block does.
+
+    On a mesh (``place``, a ``dist.spmd.Placement``) ``params`` are the
+    rank's blocks and the rows its own; the hidden states are the rank's
+    sequence block (``place.positions()``) under ``seq_parallel``.
     """
-    x, n_media = _embed_inputs(params, tokens, media)
+    if place is None:
+        x, n_media = _embed_inputs(params, tokens, media)
+    else:
+        x, n_media = _embed_inputs({"embed": place.leaf(params, "embed")},
+                                   tokens, media)
     B, S, _ = x.shape
     positions = _positions(cfg, B, S, x.device, n_media)
+    if place is not None:
+        x = place.seq_block(x)
     aux = 0.0
     for i, lp in enumerate(params["layers"]):
         spec = _spec_of(cfg, i)
+        args = (cfg, spec, lp, x, positions, window, place, i)
         if cfg.remat:
             # Nothing random runs inside a layer: no RNG state to stash.
-            x, a = checkpoint(_layer_out, cfg, spec, lp, x, positions,
-                              window, use_reentrant=False,
+            x, a = checkpoint(_layer_out, *args, use_reentrant=False,
                               preserve_rng_state=False)
         else:
-            x, a = _layer_out(cfg, spec, lp, x, positions, window)
+            x, a = _layer_out(*args)
         aux = aux + a
-    return L.apply_norm(params["final_norm"], x), aux
+    final = (params["final_norm"] if place is None
+             else place.leaf(params, "final_norm"))
+    return L.apply_norm(final, x), aux
 
 
 def forward(params, cfg: ModelConfig, tokens, *, media=None, window=None):
@@ -365,28 +408,62 @@ def _chunked_ce(params, cfg: ModelConfig, hidden, targets):
     return acc
 
 
-def per_example_nll(params, cfg: ModelConfig, batch):
+def _rank_ce(params, cfg: ModelConfig, hidden, tokens, n_media, place):
+    """Summed next-token NLL (B,) over the positions of the rank's
+    stream block ``hidden`` (``place.positions()``) that predict a text
+    token, summed over ``model`` (``place.loss_sum``); the head's weight
+    gathered once. A block with no such position still runs its part of
+    the graph, times 0, so every rank's backward calls the same
+    collectives."""
+    key = "embed" if "head" not in params else "head"
+    hp = {key: place.leaf(params, key)}
+    lo, hi = place.positions()
+    a, b = max(lo, n_media), min(hi, n_media + tokens.shape[1] - 1)
+    if b > a:
+        tgt = tokens[:, a - n_media + 1:b - n_media + 1]
+        nll = _chunked_ce(hp, cfg, hidden[:, a - lo:b - lo], tgt)
+    else:
+        nll = 0.0 * (_head(hp, hidden[:, :1]).float().sum((1, 2)))
+    return place.loss_sum(nll)
+
+
+def per_example_nll(params, cfg: ModelConfig, batch, place=None):
     """(mean next-token nll per example (B,), the MoE aux loss summed
     over layers (0.0 without MoE)) for masked distributed eval (C4).
     Only text positions count: with ``batch["media"]`` (B, n, d) the
-    hidden states from n on predict the next token."""
+    hidden states from n on predict the next token. On a mesh
+    (``place``): the rank's rows, every position counted."""
     tokens = batch["tokens"]
     media = batch.get("media")
-    hidden, aux = forward_hidden(params, cfg, tokens, media=media)
+    hidden, aux = forward_hidden(params, cfg, tokens, media=media,
+                                 place=place)
     n_media = 0 if media is None else media.shape[1]
     tgt = tokens[:, 1:]
-    nll_sum = _chunked_ce(params, cfg, hidden[:, n_media:-1], tgt)
+    if place is None:
+        nll_sum = _chunked_ce(params, cfg, hidden[:, n_media:-1], tgt)
+    else:
+        nll_sum = _rank_ce(params, cfg, hidden,
+                           tokens.to(hidden.device, torch.long), n_media,
+                           place)
     return nll_sum / tgt.shape[1], aux
 
 
-def loss_fn(params, cfg: ModelConfig, batch):
+def loss_fn(params, cfg: ModelConfig, batch, place=None):
     """Next-token cross entropy in fp32, plus ``cfg.moe.aux_loss_weight``
     times the MoE aux loss for a stack with MoE layers (``lm.py:281-
     290``). batch: {"tokens": (B, S) int, optional "media" (B, n, d)
-    prepended}. Returns (loss, {"nll", "aux"})."""
-    nll_ex, aux = per_example_nll(params, cfg, batch)
-    nll = nll_ex.mean()
-    total = nll + (cfg.moe.aux_loss_weight * aux if cfg.uses_moe else 0.0)
+    prepended}. Returns (loss, {"nll", "aux"}). On a mesh (``place``)
+    both are the rank's share of the global batch's: its rows' sum over
+    the global row count, and the (global) aux loss over the batch
+    ranks, so the ranks' losses and gradients sum to the global ones."""
+    nll_ex, aux = per_example_nll(params, cfg, batch, place)
+    if place is None:
+        nll, share = nll_ex.mean(), 1
+    else:
+        nll = nll_ex.sum() / (nll_ex.shape[0] * place.n_batch)
+        share = place.n_batch
+    total = nll + (cfg.moe.aux_loss_weight * aux / share if cfg.uses_moe
+                   else 0.0)
     return total, {"nll": nll, "aux": aux}
 
 
@@ -433,16 +510,17 @@ def decode_chunk(params, cfg: ModelConfig, tokens, cache, page_table, pos,
     return _head(params, L.gather_last(x, n_valid - 1))[:, 0], cache
 
 
-def _ffn(cfg: ModelConfig, spec: LayerSpec, lp, x):
+def _ffn(cfg: ModelConfig, spec: LayerSpec, lp, x, place=None):
     """The layer's pre-norm dense or MoE FFN (if any) added to the
     residual stream x. Returns (x, the MoE aux loss or 0.0)."""
     if spec.ffn == "none":
         return x, 0.0
     h = L.apply_norm(lp["norm2"], x)
     if spec.ffn == "moe":
-        y, aux = L.apply_moe(lp["ffn"], h, cfg)
+        y, aux = L.apply_moe(lp["ffn"], h, cfg, batch_mean=(
+            None if place is None else place.batch_mean))
         return x + y, aux
-    return x + L.apply_ffn(lp["ffn"], h, cfg), 0.0
+    return x + L.apply_ffn(lp["ffn"], h, cfg, place=place), 0.0
 
 
 # ---- slab serving: cache, prefill, decode (``lm.py:296-471``) -------------- #

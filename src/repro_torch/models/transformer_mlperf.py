@@ -32,10 +32,8 @@ the gather's transpose runs in fp32.
 The tree is the enc-dec tree with a tied head (``embed``,
 ``enc_blocks``, ``enc_norm``, ``dec_blocks``, ``dec_norm``; no
 ``head``): :func:`init_transformer` is ``encdec.init_encdec`` in fp32,
-and ``encdec.params_from_numpy`` is its weight bridge. The configs keep
-every field of the port's ``ModelConfig``; the reference's
-``param_sharding`` is a distribution field and waits on the ROADMAP.md
-item 'distribution, fleet and bench'.
+and ``encdec.params_from_numpy`` is its weight bridge. The configs are
+the reference's, field for field (``param_sharding`` "wus" included).
 """
 from __future__ import annotations
 
@@ -57,6 +55,7 @@ TRANSFORMER_BIG = ModelConfig(
     n_layers=6, n_enc_layers=6, d_model=1024, n_heads=16, n_kv_heads=16,
     d_ff=4096, vocab=33708, norm="layernorm", activation="relu", glu=False,
     rope="none", tie_embeddings=True, enc_source_len=97,
+    param_sharding="wus",
 )
 TRANSFORMER_TINY = dataclasses.replace(
     TRANSFORMER_BIG, name="transformer_mlperf_tiny", n_layers=2,

@@ -1,7 +1,10 @@
 """bfloat16 mixed-precision policy (``repro.optim.precision``, paper
 C7): matrix products take bf16 operands, master weights stay fp32, and
-1-D parameters stay fp32. There is no sharding here, so the cast is all
-the policy does."""
+1-D parameters stay fp32. On a mesh the cast runs on each rank's blocks
+of the masters, and the blocks are gathered after it, where a layer
+uses them (``dist.spmd.Placement.gather``), so the FSDP all-gather moves
+bf16: the reference pins the cast copy to the weights' layout for the
+same reason (``precision.py:24-47``)."""
 from __future__ import annotations
 
 import torch

@@ -1,14 +1,17 @@
-"""Train, eval and slab serving step factories (``repro.train.steps``)
-for one device, and :class:`ModelAPI`, the family dispatch over the
-decoder-only (``models.lm``) and encoder-decoder (``models.encdec``)
-modules.
+"""Train, eval and slab serving step factories (``repro.train.steps``),
+the sharding specs of the train state, batches and caches, and
+:class:`ModelAPI`, the family dispatch over the decoder-only
+(``models.lm``) and encoder-decoder (``models.encdec``) modules.
 
 The reference's steps are pure functions that XLA compiles and shards;
 here they run eagerly. ``train_step(state, batch)`` computes the loss
 of the bf16 compute copy of the fp32 masters (C7), its gradient through
 autograd (the attention and Mamba scan gradients through their backward
 kernels on the card) in ``grad_dtype``, and applies the optimizer, which
-updates ``state`` in place and returns it.
+updates ``state`` in place and returns it. Given a ``dist.spmd.Plan``
+the same step runs on a mesh: the state holds the rank's blocks, the
+batch the rank's rows, and the step adds the plan's gradient reductions
+and global metrics (:mod:`repro_torch.dist.spmd`).
 """
 from __future__ import annotations
 
@@ -17,9 +20,13 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.context import use_rules
+from repro_torch.dist.sharding import Rules, opt_state_specs, param_specs
+from repro_torch.dist.spmd import Placement
+from repro_torch.dist.tagging import Axes
 from repro_torch.models import encdec, lm
 from repro_torch.optim import Optimizer, adam, compute_cast, cosine_warmup
-from repro_torch.utils import tree_leaves
+from repro_torch.utils import tree_leaves, tree_map, tree_unflatten
 
 class ModelAPI:
     """One surface over the model families (the reference's
@@ -33,6 +40,10 @@ class ModelAPI:
         self._m = encdec if cfg.is_encdec else lm
         self.init = encdec.init_encdec if cfg.is_encdec else lm.init_lm
 
+    def param_axes(self):
+        """The logical axes of the family's parameter tree."""
+        return self._m.param_axes(self.cfg)
+
     def use_cast(self, params):
         """``lm.use_cast``: its rule walks either family's tree."""
         return lm.use_cast(params, self.cfg)
@@ -40,11 +51,15 @@ class ModelAPI:
     def reference_tree(self, params):
         return self._m.reference_tree(params, self.cfg)
 
-    def loss(self, params, batch):
-        return self._m.loss_fn(params, self.cfg, batch)
+    def loss(self, params, batch, place=None):
+        if place is None:
+            return self._m.loss_fn(params, self.cfg, batch)
+        return self._m.loss_fn(params, self.cfg, batch, place)
 
-    def per_example_nll(self, params, batch):
-        return self._m.per_example_nll(params, self.cfg, batch)
+    def per_example_nll(self, params, batch, place=None):
+        if place is None:
+            return self._m.per_example_nll(params, self.cfg, batch)
+        return self._m.per_example_nll(params, self.cfg, batch, place)
 
     def prefill(self, params, batch, *, cache_len=None, window=None,
                 last_pos=None):
@@ -109,12 +124,90 @@ def init_train_state(cfg: ModelConfig, optimizer: Optimizer, *, seed=0,
     return {"params": params, "opt": optimizer.init(params)}
 
 
+# ---- specs (``steps.py:121-194``) ----------------------------------------- #
+# A spec is a tuple with one entry a dimension: the mesh axes that dim is
+# split over, or None (``dist.sharding``). Per-layer trees carry no
+# ``layer`` entry: the reference's specs of a stacked leaf without their
+# first entry.
+def train_state_specs(cfg: ModelConfig, state_shapes, axes, rules: Rules):
+    """Spec tree matching {"params", "opt"}: the weights by
+    ``param_specs``, each moment tree by ``opt_state_specs`` (the C1
+    upgrade in wus mode), the optimizer's step replicated."""
+    ospecs = {}
+    for k, v in state_shapes["opt"].items():
+        ospecs[k] = (() if k == "step"
+                     else opt_state_specs(axes, v, rules))
+    return {"params": param_specs(axes, state_shapes["params"], rules),
+            "opt": ospecs}
+
+
+def param_specs_serving(cfg: ModelConfig, params_shapes, axes,
+                        rules: Rules):
+    """Serving weight specs: the same rules, the config's mode."""
+    return param_specs(axes, params_shapes, rules)
+
+
+def batch_pspecs(batch_shapes, rules: Rules):
+    """Each batch leaf's rows over the batch axes (``("pod", "data")``:
+    row-major, so rank (p, d) holds the block p * |data| + d), the rest
+    replicated."""
+    def one(s):
+        logical = ("batch",) + (None,) * (len(s.shape) - 1)
+        return rules.spec_for(logical, tuple(s.shape))
+
+    return tree_map(one, batch_shapes)
+
+
+def _kv_cache_axes(cfg: ModelConfig, rules: Rules) -> Dict[str, Axes]:
+    """One attention layer's slab axes: KV heads over ``model`` when it
+    divides them, else the slots (``kv_seq``)."""
+    model_size = rules.axis_size(rules.table.get("kv_heads", ()))
+    head_sharded = model_size > 1 and cfg.n_kv_heads % model_size == 0
+    seq_tag = None if head_sharded else "kv_seq"
+    kv_tag = "kv_heads" if head_sharded else None
+    ax = {"k": Axes(("batch", seq_tag, kv_tag, None)),
+          "v": Axes(("batch", seq_tag, kv_tag, None)),
+          "slot_pos": Axes(("batch", seq_tag))}
+    if cfg.kv_cache_dtype == "int8":
+        ax["k_scale"] = Axes(("batch", seq_tag, kv_tag))
+        ax["v_scale"] = Axes(("batch", seq_tag, kv_tag))
+    return ax
+
+
+def cache_axes(cfg: ModelConfig, rules: Rules):
+    """Axes tree matching the family's ``init_cache``: one tree a layer
+    (an enc-dec's ``self`` and ``cross`` lists)."""
+    if cfg.is_encdec:
+        return {"self": [_kv_cache_axes(cfg, rules)
+                         for _ in range(cfg.n_layers)],
+                "cross": [_kv_cache_axes(cfg, rules)
+                          for _ in range(cfg.n_layers)]}
+    entries = []
+    for i in range(cfg.n_layers):
+        mixer = cfg.block_pattern[i % len(cfg.block_pattern)].mixer
+        if mixer == "attn":
+            entries.append(_kv_cache_axes(cfg, rules))
+        elif mixer == "mamba":
+            entries.append({"conv": Axes(("batch", None, "act_mlp")),
+                            "ssm": Axes(("batch", "act_mlp", None))})
+        else:  # rwkv6
+            entries.append({"shift": Axes(("batch", None)),
+                            "wkv": Axes(("batch", None, None, None))})
+    return entries
+
+
+def cache_pspecs(cfg: ModelConfig, cache_shapes, rules: Rules):
+    return tree_map(lambda a, s: rules.spec_for(a.names, tuple(s.shape)),
+                    cache_axes(cfg, rules), cache_shapes,
+                    is_leaf=lambda x: isinstance(x, Axes))
+
+
 def _global_norm(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
     """L2 norm over every leaf, in fp32."""
     return torch.sqrt(sum(g.float().square().sum() for g in leaves))
 
 
-def _value_and_grad(cfg: ModelConfig, params, batch, acc):
+def _value_and_grad(cfg: ModelConfig, params, batch, acc, place=None):
     """(loss, nll) of the family's loss at the compute copy of ``params``;
     its gradient, in ``grad_dtype``, is added into ``acc`` (one entry a
     leaf; None: set) leaf by leaf as the backward pass finishes each.
@@ -123,7 +216,9 @@ def _value_and_grad(cfg: ModelConfig, params, batch, acc):
     the loss only through its cast, whose gradient is the copy's widened
     exactly, so the result in ``grad_dtype`` is bitwise the master's; but
     no fp32 gradient of the model, and no second gradient of it beside
-    ``acc``, is ever held: each leaf's is folded into ``acc`` and freed."""
+    ``acc``, is ever held: each leaf's is folded into ``acc`` and freed.
+    On a mesh (``place``) the leaves are the rank's blocks and the loss
+    its share of the global one."""
     gdt = getattr(torch, cfg.grad_dtype)
     with torch.no_grad():
         compute = compute_cast(params, cfg.dtype)
@@ -144,7 +239,7 @@ def _value_and_grad(cfg: ModelConfig, params, batch, acc):
             w.requires_grad_(True)
             handles.append(w.register_post_accumulate_grad_hook(fold(i)))
         with torch.enable_grad():
-            loss, metrics = ModelAPI(cfg).loss(compute, batch)
+            loss, metrics = ModelAPI(cfg).loss(compute, batch, place)
             loss.backward()
     finally:
         for h in handles:
@@ -156,13 +251,31 @@ def _value_and_grad(cfg: ModelConfig, params, batch, acc):
     return loss.detach(), metrics["nll"].detach()
 
 
+def _seq_len(batch) -> int:
+    """The residual stream's length: the tokens and any media."""
+    media = batch.get("media")
+    return batch["tokens"].shape[1] + (0 if media is None
+                                       else media.shape[1])
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
-                    extra_metrics=()) -> Callable:
+                    extra_metrics=(), *, plan=None) -> Callable:
     """``train_step(state, batch) -> (state, metrics)``; metrics are
     0-d device tensors {"loss", "nll"} plus any of ``EXTRA_METRICS``.
     With ``cfg.microbatches`` M > 1 the batch splits into M row blocks
     whose gradients are summed in ``grad_dtype`` and divided by M; a
-    batch whose rows M does not divide raises ``ValueError``."""
+    batch whose rows M does not divide raises ``ValueError``.
+
+    With ``plan`` (a ``dist.spmd.Plan``) the step runs on the plan's
+    mesh, under ``use_rules``: ``state`` holds the rank's blocks (the
+    moments in their own layout), ``batch`` the rank's rows, and M splits
+    those rows, so global microbatch i is every rank's block i, where the
+    reference's is rows ``i * B/M ..`` of the global batch (the same
+    gradient but for the order of sums; an MoE's aux loss groups its
+    tokens otherwise). The gradients are summed over the batch axes by
+    the plan's schedule, the optimizer updates the moments' blocks, and
+    the loss, nll and norms are the global ones, every distinct block
+    counted once."""
     M = cfg.microbatches
     unknown = [m for m in extra_metrics if m not in EXTRA_METRICS]
     if unknown:
@@ -173,48 +286,77 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         params, opt_state = state["params"], state["opt"]
         grads: List[Optional[torch.Tensor]] = [None] * len(
             tree_leaves(params))
-        if M > 1:
-            B = batch["tokens"].shape[0]
-            if B % M:
-                raise ValueError(
-                    f"batch of {B} rows does not split into {M} "
-                    f"microbatches")
-            b = B // M
-            losses, nlls = [], []
-            for i in range(M):
-                mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
-                mb_loss, nll = _value_and_grad(cfg, params, mb, grads)
-                losses.append(mb_loss)
-                nlls.append(nll)
-            for g in grads:
-                g.div_(M)
-            loss = sum(losses) / M  # summed in order, as the reference
-            nll = torch.stack(nlls).mean()
-        else:
-            loss, nll = _value_and_grad(cfg, params, batch, grads)
+        with use_rules(None if plan is None else plan.rules):
+            place = None if plan is None else Placement(plan,
+                                                        _seq_len(batch))
+            if M > 1:
+                B = batch["tokens"].shape[0]
+                if B % M:
+                    raise ValueError(
+                        f"batch of {B} rows does not split into {M} "
+                        f"microbatches")
+                b = B // M
+                losses, nlls = [], []
+                for i in range(M):
+                    mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+                    mb_loss, nll = _value_and_grad(cfg, params, mb, grads,
+                                                   place)
+                    losses.append(mb_loss)
+                    nlls.append(nll)
+                for g in grads:
+                    g.div_(M)
+                loss = sum(losses) / M  # summed in order, as the reference
+                nll = torch.stack(nlls).mean()
+            else:
+                loss, nll = _value_and_grad(cfg, params, batch, grads, place)
+        if plan is None:
+            metrics = {"loss": loss, "nll": nll}
+            if "grad_norm" in extra_metrics:
+                metrics["grad_norm"] = _global_norm(grads)
+            new_params, new_opt = optimizer.update(grads, opt_state, params)
+            if "param_norm" in extra_metrics:
+                metrics["param_norm"] = _global_norm(tree_leaves(new_params))
+            return {"params": new_params, "opt": new_opt}, metrics
+        grads = plan.reduce_grads(grads)
+        loss, nll = plan.batch_sum(torch.stack([loss, nll]).float())
         metrics = {"loss": loss, "nll": nll}
         if "grad_norm" in extra_metrics:
-            metrics["grad_norm"] = _global_norm(grads)
-        new_params, new_opt = optimizer.update(grads, opt_state, params)
+            metrics["grad_norm"] = plan.global_norm(grads, moments=True)
+        views = plan.update_views(params)
+        _, new_opt = optimizer.update(tree_unflatten(params, grads),
+                                      opt_state,
+                                      tree_unflatten(params, views))
+        plan.rebuild(params, views)
         if "param_norm" in extra_metrics:
-            metrics["param_norm"] = _global_norm(tree_leaves(new_params))
-        return {"params": new_params, "opt": new_opt}, metrics
+            metrics["param_norm"] = plan.global_norm(tree_leaves(params),
+                                                     moments=False)
+        return {"params": params, "opt": new_opt}, metrics
 
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig) -> Callable:
+def make_eval_step(cfg: ModelConfig, *, plan=None) -> Callable:
     """Distributed eval (C4): ``eval_step(params, batch, mask)`` returns
     (sum of per-example nll over real examples, their count). As in the
     reference, whose eval step runs no ``compute_cast``, the fp32 leaves
-    the layers read in fp32 stay unrounded (``lm.use_cast``)."""
+    the layers read in fp32 stay unrounded (``lm.use_cast``). With
+    ``plan`` the rank's blocks, rows and mask rows, both sums over the
+    batch axes."""
     api = ModelAPI(cfg)
 
     @torch.no_grad()
     def eval_step(params, batch, mask):
-        nll_ex, _ = api.per_example_nll(api.use_cast(params), batch)
+        with use_rules(None if plan is None else plan.rules):
+            place = None if plan is None else Placement(plan,
+                                                        _seq_len(batch))
+            nll_ex, _ = api.per_example_nll(api.use_cast(params), batch,
+                                            place)
         mask = mask.to(nll_ex.device)
-        return (nll_ex * mask).sum(), mask.sum()
+        if plan is None:
+            return (nll_ex * mask).sum(), mask.sum()
+        out = plan.batch_sum(torch.stack([(nll_ex * mask).sum(),
+                                          mask.sum().float()]))
+        return out[0], out[1]
 
     return eval_step
 

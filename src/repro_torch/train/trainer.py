@@ -1,4 +1,4 @@
-"""Training loop (``repro.train.trainer``) on one device.
+"""Training loop (``repro.train.trainer``), on one device or on a mesh.
 
 ``fit`` runs the train step and appends one record per step to the
 returned history; logging, the paper's nested train-and-eval loop (C4)
@@ -6,8 +6,11 @@ and checkpointing are hooks (:mod:`repro_torch.train.hooks`). ``resume``
 restores a checkpoint (in the reference's format, so either package's
 checkpoints resume in the other) and ``fit`` then continues at its step.
 With ``double_buffer`` the next batch's host-to-device copy runs on a
-side stream while the current step computes. The reference runs the
-same loop under a device mesh; here there is one device and no mesh.
+side stream while the current step computes. With ``mesh`` (a
+``launch.mesh.Mesh``) every rank runs the same loop over its blocks of
+the state and its rows of each batch, in the config's
+``param_sharding`` mode (:mod:`repro_torch.dist.spmd`), as the
+reference's trainer runs under its mesh.
 """
 from __future__ import annotations
 
@@ -17,9 +20,11 @@ import time
 from typing import Callable, Iterable, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.dist import spmd
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import steps as T
 from repro_torch.train.hooks import (
@@ -51,31 +56,66 @@ def _to_device(tree, device):
 
 
 class Trainer:
-    """``Trainer(cfg, tcfg, optimizer, device=, params=)``: fp32 master
-    weights and optimizer state on ``device`` (default ``"cuda"``,
-    which raises where CUDA is absent). ``params`` starts from a given
-    tree (e.g. ``lm.params_from_numpy(..., dtype=torch.float32)``),
-    otherwise the family's init (``lm.init_lm``, ``encdec.init_encdec``)
-    draws it from ``tcfg.seed``. An enc-dec model's batches carry
-    ``media`` beside ``tokens``."""
+    """``Trainer(cfg, tcfg, optimizer, device=, params=, mesh=)``: fp32
+    master weights and optimizer state on ``device`` (default
+    ``"cuda"``, which raises where CUDA is absent). ``params`` starts
+    from a given tree (e.g. ``lm.params_from_numpy(...,
+    dtype=torch.float32)``), otherwise the family's init (``lm.init_lm``,
+    ``encdec.init_encdec``) draws it from ``tcfg.seed``. An enc-dec
+    model's batches carry ``media`` beside ``tokens``.
+
+    ``mesh=None`` trains on one device. With a mesh every rank builds
+    the trainer from the same full tree (``params``, or the seed's) and
+    keeps its blocks (``plan.pspecs``; the moments by ``plan.ospecs``);
+    ``fit`` takes the global batch stream and keeps the rank's rows, and
+    its records hold the global loss and metrics. Checkpoints and
+    ``resume`` over more than one rank raise ``NotImplementedError``, as
+    do the families ``spmd.check_supported`` refuses."""
 
     def __init__(self, cfg: ModelConfig, tcfg: Optional[TrainerConfig] = None,
-                 optimizer=None, *, device="cuda", params=None):
+                 optimizer=None, *, device="cuda", params=None, mesh=None):
         self.cfg = cfg
         self.tcfg = tcfg or TrainerConfig()
         self.device = resolve_device(device)
         self.optimizer = optimizer or T.make_optimizer(
             cfg, self.tcfg.total_steps)
-        self.state = T.init_train_state(cfg, self.optimizer,
-                                        seed=self.tcfg.seed,
-                                        device=self.device, params=params)
+        self.mesh, self.plan = mesh, None
+        if mesh is None:
+            self.state = T.init_train_state(cfg, self.optimizer,
+                                            seed=self.tcfg.seed,
+                                            device=self.device,
+                                            params=params)
+        else:
+            self.state = self._sharded_state(params)
         self._train_step = T.make_train_step(
-            cfg, self.optimizer, extra_metrics=self.tcfg.metrics)
-        self._eval_step = T.make_eval_step(cfg)
+            cfg, self.optimizer, extra_metrics=self.tcfg.metrics,
+            plan=self.plan)
+        self._eval_step = T.make_eval_step(cfg, plan=self.plan)
         self.start_step = 0
         self.last_step_s = 0.0       # wall time of the latest train step
         self.batch_shape: Optional[Tuple[int, int]] = None  # (batch, seq)
         self._hooks: List[Hook] = []
+
+    def _sharded_state(self, params):
+        """This rank's blocks of the full tree and the optimizer's state
+        over the blocks it updates."""
+        api = T.ModelAPI(self.cfg)
+        spmd.check_supported(self.cfg, self.mesh)
+        self._one_rank_only("checkpoint_every", self.tcfg.checkpoint_every)
+        if params is None:
+            params = api.init(self.cfg, self.tcfg.seed, device=self.device,
+                              dtype=getattr(torch, self.cfg.param_dtype))
+        self.plan = spmd.plan_of(self.cfg, self.mesh, api.param_axes(),
+                                 params)
+        blocks = spmd.shard_tree(params, self.plan.pspecs, self.mesh)
+        return {"params": blocks,
+                "opt": self.optimizer.init(self.plan.views_tree(blocks))}
+
+    def _one_rank_only(self, what: str, on: bool = True) -> None:
+        if on and self.mesh is not None and dist.get_world_size() > 1:
+            raise NotImplementedError(
+                f"{what} on a mesh of {dist.get_world_size()} ranks: "
+                f"checkpoints are written from one rank only ({spmd.ROADMAP})")
 
     def default_hooks(self, eval_batches: Optional[Callable] = None
                       ) -> List[Hook]:
@@ -125,6 +165,7 @@ class Trainer:
         (the latest wins) or one ``step_<N>`` directory. ``fit`` then
         continues at ``start_step``, and ``total_steps`` stays the
         global budget."""
+        self._one_rank_only("resume")
         step = ckpt.latest_step(ckpt_dir)
         if step is not None:
             path = os.path.join(ckpt_dir, f"step_{step}")
@@ -144,6 +185,9 @@ class Trainer:
         mask)`` pairs; returns ``{"eval_nll": ...}``."""
         nll, cnt = 0.0, 0.0
         for ebatch, mask in eval_batches():
+            if self.plan is not None:
+                ebatch = spmd.batch_rows(ebatch, self.mesh)
+                mask = spmd.batch_rows({"mask": mask}, self.mesh)["mask"]
             s, c = self._eval_step(self.state["params"],
                                    _to_device(ebatch, self.device),
                                    _to_device(mask, self.device))
@@ -189,6 +233,14 @@ class Trainer:
         if pending is not None:
             yield ready(*pending)
 
+    def _rank_rows(self, batches: Iterable) -> Iterable:
+        """This rank's rows of each global batch; ``batch_shape`` keeps
+        the global (batch, seq)."""
+        for batch in batches:
+            toks = batch["tokens"]
+            self.batch_shape = (int(toks.shape[0]), int(toks.shape[1]))
+            yield spmd.batch_rows(batch, self.mesh)
+
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -211,6 +263,8 @@ class Trainer:
                          for h in self._hooks)
         history: List[dict] = []
         step = self.start_step
+        if self.plan is not None:
+            train_batches = self._rank_rows(train_batches)
         if self.tcfg.double_buffer:
             train_batches = self._device_stream(train_batches)
         it = iter(train_batches)
@@ -222,8 +276,9 @@ class Trainer:
                 break
             batch = _to_device(batch, self.device)
             data_wait_ms = (time.perf_counter() - t_wait) * 1e3
-            toks = batch["tokens"]
-            self.batch_shape = (int(toks.shape[0]), int(toks.shape[1]))
+            if self.plan is None:
+                toks = batch["tokens"]
+                self.batch_shape = (int(toks.shape[0]), int(toks.shape[1]))
             t0 = time.perf_counter()
             self.state, metrics = self._train_step(self.state, batch)
             if needs_sync:

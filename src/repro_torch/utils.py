@@ -5,13 +5,18 @@ from __future__ import annotations
 from typing import Any, Callable, List
 
 
-def tree_map(fn: Callable, *trees) -> Any:
-    """``fn`` over the leaves of trees of one structure."""
+def tree_map(fn: Callable, *trees, is_leaf: Callable = None) -> Any:
+    """``fn`` over the leaves of trees of one structure; ``is_leaf``
+    stops the walk at the nodes of the first tree it accepts."""
     head = trees[0]
+    if is_leaf is not None and is_leaf(head):
+        return fn(*trees)
     if isinstance(head, dict):
-        return {k: tree_map(fn, *(t[k] for t in trees)) for k in head}
+        return {k: tree_map(fn, *(t[k] for t in trees), is_leaf=is_leaf)
+                for k in head}
     if isinstance(head, (list, tuple)):
-        return type(head)(tree_map(fn, *xs) for xs in zip(*trees))
+        return type(head)(tree_map(fn, *xs, is_leaf=is_leaf)
+                          for xs in zip(*trees))
     return fn(*trees)
 
 

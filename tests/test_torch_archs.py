@@ -43,6 +43,18 @@ from repro_torch.serve.engine import (  # noqa: E402
 from repro_torch.serve.scenarios import run_offline  # noqa: E402
 from repro_torch.train import steps as T  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this file runs: the suite runs several
+    workers on the machine's cores, and oversubscribed torch threads
+    slowed these tests several-fold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ("yi-9b", "qwen1.5-32b", "command-r-35b", "mixtral-8x7b",
          "grok-1-314b")
 # The reduced models in fp32 compute on both sides; each keeps its

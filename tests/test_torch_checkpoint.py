@@ -31,6 +31,18 @@ from repro_torch.train import checkpoint as ckpt  # noqa: E402
 from repro_torch.train.hooks import CheckpointHook, Hook, MetricsLogger  # noqa: E402
 from repro_torch.utils import Stacked, tree_leaves  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this file runs: the suite runs several
+    workers on the machine's cores, and oversubscribed torch threads
+    slowed these tests several-fold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 FP32 = dict(dtype="float32", n_layers=2)
 CFG = dataclasses.replace(get_config("gemma-7b").reduced(), **FP32)
 BATCH, SEQ = 2, 16

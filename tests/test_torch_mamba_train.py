@@ -60,6 +60,18 @@ from test_torch_archs import (  # noqa: E402
 )
 from test_torch_moe_train import assert_bf16_close  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this file runs: the suite runs several
+    workers on the machine's cores, and oversubscribed torch threads
+    slowed these tests several-fold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "jamba-1.5-large-398b"
 LR = 1e-3
 NAMES = ("du", "ddt", "dA", "dB", "dC", "dD")

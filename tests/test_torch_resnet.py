@@ -32,6 +32,18 @@ from repro_torch.models import resnet as R  # noqa: E402
 from repro_torch.optim import lars, polynomial_warmup  # noqa: E402
 from repro_torch.utils import tree_leaves  # noqa: E402
 
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this file runs: the suite runs several
+    workers on the machine's cores, and oversubscribed torch threads
+    slowed these tests several-fold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 KEY = jax.random.PRNGKey(0)
 # name -> (config overrides on RESNET_TINY, image size): the example's
 # 16 x 16; the stride-2 stem and its max pool at 32 (where the stem, the

@@ -16,6 +16,7 @@ import random
 
 import numpy as np
 import pytest
+import torch
 
 jax = pytest.importorskip("jax")
 
@@ -41,6 +42,18 @@ from repro_torch.serve.speculative import (  # noqa: E402
     NgramDrafter,
     get_drafter,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread while this file runs: the suite runs several
+    workers on the machine's cores, and oversubscribed torch threads
+    slowed these tests several-fold."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 FP32 = dict(dtype="float32", kv_cache_dtype="float32", n_layers=2)
 

@@ -139,14 +139,14 @@ def reference_grads(model):
 # --------------------------------------------------------------------------- #
 def test_configs_match_reference():
     """Every field of the port's ModelConfig equals the reference's in
-    both configs; ``param_sharding`` (a distribution field) is the one
-    the port leaves out."""
+    both configs, the distribution fields ``param_sharding`` ("wus") and
+    ``seq_parallel`` among them."""
     for ref, cfg in ((JTM.TRANSFORMER_BIG, TM.TRANSFORMER_BIG),
                      (JTM.TRANSFORMER_TINY, TM.TRANSFORMER_TINY)):
         for f in dataclasses.fields(ModelConfig):
             assert getattr(cfg, f.name) == getattr(ref, f.name) or \
                 f.name == "block_pattern", f.name
-        assert not hasattr(cfg, "param_sharding")
+        assert cfg.param_sharding == "wus"
     big = TM.TRANSFORMER_BIG
     assert (big.n_enc_layers, big.n_layers, big.d_model, big.n_heads,
             big.head_dim, big.d_ff, big.vocab, big.remat) == \
