@@ -211,7 +211,26 @@ and prints no result):
    the flash counters, zeroed just before, at forward twice and backward
    once a layer a step; each trainer's step time, the mesh path's
    overhead and both peak memories printed. The group is destroyed in a
-   ``finally``.
+   ``finally``;
+16. sharded serving (``serve-tp2d``, run after phase 4's serving, on its
+   28-layer weights): stream (a) through the one-device engine, then
+   through ``Engine(..., rules=Rules(mesh, mode))`` in ``tp2d`` and in
+   ``fsdp`` on a 1 x 1 NCCL mesh (destroyed in a ``finally``): greedy
+   tokens bitwise the one-device engine's, the paged counter, zeroed
+   just before, at 28 a chunk step on every path and the profiler's
+   count of its split launches within 1% of it (one device, tp2d; a long
+   trace may lose records); tokens/s,
+   peak memory and (traced) busy share printed; the paged kernel timed
+   at the rank's 16/16 heads (row 1-m);
+17. the fleet (``serve-fleet``): two replicas on the one card, sharing
+   the weights, serve stream (b) behind the prefix router without
+   chaos, with a seeded kill at fleet step 8 and with a stall of 12
+   steps (heartbeat timeout 4), then least-loaded (both replicas
+   serving): every request id finishes once with a
+   one-engine run's greedy tokens, the paged counter shows 28 launches
+   a replica chunk step; fleet tokens/s, goodput, routing hit rate,
+   kills and evictions printed; the paged kernel timed at a replica's
+   chunk shape.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -5694,6 +5713,266 @@ def dist_train():
           flush=True)
 
 
+# --------------------------------------------------------------------------- #
+# Phase 16: sharded serving on a 1 x 1 NCCL mesh; phase 17: the fleet.
+# --------------------------------------------------------------------------- #
+SERVE_MODES = ("tp2d", "fsdp")
+FLEET_REPLICAS, FLEET_CHAOS_STEP, FLEET_STALL, FLEET_TIMEOUT = 2, 8, 12, 4
+# The paged split kernels, one a wrapper call (the merge follows each).
+PAGED_SPLITS = ("paged_split_mma_kernel", "paged_split_f32_kernel")
+
+
+def paged_site_record(name, seed, label, **shape):
+    """The paged kernel at a call site's shape (bf16 pool and q, gemma's
+    16/16 heads of 256, page 16) held against its plain version, rerun
+    bitwise, and timed beside its bound and SDPA on the gathered K/V, as
+    row 1 is."""
+    case = paged_case(seed, dtype=torch.bfloat16, H=16, K=16, D=256,
+                      page=16, **shape)
+    err = hold_paged(case, None, label, TOL[torch.bfloat16])
+    nbytes, flops = work(case, None)
+    b_ms, by = bound(flops, nbytes, torch.bfloat16)
+    qs, ks, vs, mask = sdpa_inputs(case, None)
+    rec = dict(
+        name=name, route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:186",
+        max_abs_err=err,
+        ms=time_ms(lambda: pa.paged_attention_cuda(**case)),
+        plain_ms=time_ms(lambda: pa.paged_attention_torch(**case)),
+        bound_ms=b_ms, bound_by=by,
+        library_ms=time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask)))
+    print(f"  {label}: B{shape['B']} C{shape['C']} H16 D256 page16 bf16: "
+          f"max|kernel-plain| {err:.3e}, rerun bitwise equal; kernel "
+          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, sdpa "
+          f"{rec['library_ms']:.4f} ms (K/V gathered beforehand), "
+          f"kernel/sdpa {rec['ms'] / rec['library_ms']:.3f}, bound "
+          f"{b_ms:.4f} ms ({by}: {nbytes} B, {flops} flop)", flush=True)
+    del case, qs, ks, vs, mask
+    torch.cuda.empty_cache()
+    return rec
+
+
+def paged_splits(kernels):
+    """Paged kernel calls in a profiler trace (its split launches)."""
+    return sum(e.count for e in kernels if kernel_name(e.key) in PAGED_SPLITS)
+
+
+def serve_mode_run(engine, cfg, workload, trace=True):
+    """Stream (a) through ``engine`` after a warm-up: the paged counter,
+    zeroed just before, read just after; then a second run, traced
+    (``trace``: the profiler's count of paged calls and the busy share;
+    reading a trace of the stream's ~120,000 kernels takes ~20 s)."""
+    t0 = time.perf_counter()
+    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                           seed=1))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.reset_launches()
+    t1 = time.perf_counter()
+    report = run_offline(engine, workload())
+    launches = pa.paged_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t2 = time.perf_counter()
+    if trace:
+        again, busy, kernels = trace_busy(lambda: run_offline(engine,
+                                                              workload()))
+        traced = paged_splits(kernels)
+    else:
+        again, busy, traced = run_offline(engine, workload()), None, None
+    print(f"  (warm-up {t1 - t0:.1f} s, run {t2 - t1:.1f} s, second run"
+          f"{' traced, and its reading' if trace else ''} "
+          f"{time.perf_counter() - t2:.1f} s)", flush=True)
+    return dict(report=report, launches=launches, peak=peak, busy_ms=busy,
+                traced=traced, again=again)
+
+
+def serve_tp2d(params):
+    """Full-width gemma-7b serves stream (a) on one device, then through
+    ``Engine(rules=Rules(mesh, mode))`` in ``tp2d`` and in ``fsdp`` on a
+    1 x 1 NCCL mesh (destroyed in a ``finally``). With one rank every
+    collective is a copy and the programs run the one-device arithmetic,
+    so the greedy tokens must be bitwise the one-device engine's, with
+    the same paged launches (the counter; on one device and in tp2d also
+    the profiler's count of split launches, from a traced second run, at
+    most the counter and within 1% of it: the profiler can lose records of
+    a ~120,000-kernel trace). Returns the record of row 1-m."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import Rules
+
+    phase("serve-tp2d: gemma-7b full width, 28 layers, bf16, stream (a): "
+          "one device, then tp2d and fsdp on a 1 x 1 NCCL mesh")
+    t0 = time.perf_counter()
+    cfg = get_config("gemma-7b")
+    scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+                       page_size=16, prefill_chunk=8)
+
+    def workload():
+        return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
+                                  prompt_len=max(PROMPT_LENS), seed=0,
+                                  prompt_lens=PROMPT_LENS)
+
+    one = Engine(cfg, params, scfg, device="cuda")
+    runs = {"one device": serve_mode_run(one, cfg, workload)}
+    mesh = single_device_mesh("cuda")
+    try:
+        print(f"  mesh {mesh.shape} over {dist.get_world_size()} rank(s), "
+              f"backend {dist.get_backend()}", flush=True)
+        for mode in SERVE_MODES:
+            engine = Engine(cfg, params, scfg, rules=Rules(mesh, mode))
+            runs[mode] = serve_mode_run(engine, cfg, workload,
+                                        trace=mode == "tp2d")
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    # the one-device engine again, after the mesh runs (its tokens/s
+    # beside the first run's: what the card's host drifts by)
+    again = run_offline(one, workload())
+    print(f"  one device, run again after the mesh runs: {again.format()}",
+          flush=True)
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = runs["one device"]
+    want = tokens_of(base["report"])
+    steps = len(base["report"].steps)
+    summary = {}
+    for name, r in runs.items():
+        rep, ms = r["report"], r["report"].elapsed_s * 1e3
+        busy = (f"(profiler, traced run: {r['traced']}); device busy "
+                f"{r['busy_ms']:.1f} ms = {100 * r['busy_ms'] / ms:.1f}% of "
+                f"the untraced run's {ms:.1f} ms" if r["traced"] is not None
+                else "(second run untraced)")
+        print(f"  {name}: {rep.format()}; paged_attention launches "
+              f"{r['launches']} {busy}; peak memory {r['peak']:.2f} GiB",
+              flush=True)
+        summary[name] = dict(tokens_per_s=rep.tokens_per_s,
+                             launches=r["launches"], traced=r["traced"],
+                             busy_share=(None if r["busy_ms"] is None
+                                         else r["busy_ms"] / ms),
+                             peak_gib=r["peak"])
+        if tokens_of(rep) != want or tokens_of(r["again"]) != want or \
+                tokens_of(again) != want:
+            raise AssertionError(f"serve-tp2d: {name}'s greedy tokens differ "
+                                 f"from the one-device engine's")
+        # the counter is exact; the profiler may lose a few of a long
+        # trace's records (run 1 of this phase: 1314 of 1316), but a path
+        # that left the kernel would show far fewer
+        if r["launches"] != cfg.n_layers * steps or (
+                r["traced"] is not None and not
+                0.99 * r["launches"] <= r["traced"] <= r["launches"]):
+            raise AssertionError(
+                f"serve-tp2d: {name}: paged launches {r['launches']} "
+                f"(profiler {r['traced']}); expected {cfg.n_layers} x "
+                f"{steps}")
+    print(f"  greedy tokens bitwise equal on every path, {steps} chunk "
+          f"steps each; serve-tp2d summary {json.dumps(summary)}",
+          flush=True)
+    rec = paged_site_record("paged_attention_tp2d", 310, "row 1-m (tp2d, "
+                            "one rank's 16/16 heads)", B=8, C=8, npg=10,
+                            lens=[160, 5, 37, 128, 64, 99, 16, 0],
+                            nvs=[1, 5, 8, 1, 8, 3, 1, 1])
+    rec["launches"] = runs["tp2d"]["launches"]
+    print(f"  serve-tp2d phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rec
+
+
+def serve_fleet(params):
+    """Two replicas of full-width gemma-7b on the one card, one params
+    tree between them, serve stream (b) (2 templates of 96 tokens + 32-
+    token suffixes at 0.5 a step, prefix cache, n-gram drafts of 3)
+    behind the prefix router: without chaos, with a seeded kill at fleet
+    step 8, and with a stall of 12 steps (heartbeat timeout 4); then
+    least-loaded, which spreads the requests over both replicas. In every
+    run every request id finishes exactly once, with a one-engine run's
+    greedy tokens, and the paged counter, zeroed just before, shows one
+    launch a layer of every replica's chunk step. Returns the record of
+    the fleet's row."""
+    from repro_torch.fleet import ChaosPlan, Fleet, FleetConfig
+
+    phase(f"serve-fleet: gemma-7b full width, {FLEET_REPLICAS} replicas on "
+          f"one card, stream (b), prefix routing; no chaos, kill at step "
+          f"{FLEET_CHAOS_STEP}, stall of {FLEET_STALL} (timeout "
+          f"{FLEET_TIMEOUT}); least-loaded routing")
+    t0 = time.perf_counter()
+    cfg = get_config("gemma-7b")
+    scfg = ServeConfig(max_batch=8, max_len=SHARED + SUFFIX + NEW_TOKENS,
+                       page_size=16, prefill_chunk=8, prefix_cache=True,
+                       spec_decode="ngram", draft_len=3)
+
+    def workload():
+        return synthetic_requests(
+            cfg, n=8, tokens=NEW_TOKENS, prompt_len=SHARED + SUFFIX,
+            scenario="server", seed=0, arrival_rate=RATE,
+            shared_prefix_len=SHARED, n_templates=2)
+
+    engines = [Engine(cfg, params, scfg, device="cuda")
+               for _ in range(FLEET_REPLICAS)]
+    for e in engines:  # warm-up
+        run_offline(e, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                          seed=1))
+    one = Fleet(engines[:1]).run(workload())
+    want = tokens_of(one.merged)
+    print(f"  one engine: {one.format()}", flush=True)
+    summary, launches = {}, 0
+    for routing, chaos in (("prefix", ""), ("prefix", "kill"),
+                           ("prefix", "stall"), ("least_loaded", "")):
+        plan = ChaosPlan.from_spec(chaos, chaos_step=FLEET_CHAOS_STEP,
+                                   stall_steps=FLEET_STALL, seed=0)
+        reqs = workload()
+        pa.reset_launches()
+        report = Fleet(engines, FleetConfig(
+            routing=routing, heartbeat_timeout=FLEET_TIMEOUT), plan).run(reqs)
+        n = pa.paged_attention_cuda.launches
+        steps = sum(len(r.steps) for r in report.replica_reports.values())
+        dead = sorted(i for i, s in report.replica_states.items()
+                      if s == "dead")
+        served = {i: len(r.requests) for i, r in
+                  report.replica_reports.items()}
+        name = chaos or ("none" if routing == "prefix" else routing)
+        s = report.summary()
+        s.update(evicted=dead, launches=n, chunk_steps=steps, served=served)
+        summary[name] = s
+        print(f"  {name}: {report.format()}; tokens/s "
+              f"{report.tokens_per_s:.2f}, kills {report.kills}, evicted "
+              f"{dead}, lost tokens {report.lost_tokens}, requests served a "
+              f"replica {served}, paged_attention launches {n} over {steps} "
+              f"replica chunk steps", flush=True)
+        ids = sorted(r.id for r in report.merged.requests)
+        if ids != sorted(r.id for r in reqs):
+            raise AssertionError(f"serve-fleet {name}: request ids {ids}")
+        if tokens_of(report.merged) != want:
+            raise AssertionError(f"serve-fleet {name}: greedy tokens differ "
+                                 f"from one engine's")
+        if n != cfg.n_layers * steps or steps == 0:
+            raise AssertionError(f"serve-fleet {name}: paged launches {n}; "
+                                 f"expected {cfg.n_layers} x {steps}")
+        if (report.kills, len(dead)) != ((1, 1) if chaos else (0, 0)):
+            raise AssertionError(f"serve-fleet {name}: kills {report.kills}, "
+                                 f"dead {dead}")
+        if name == "none":
+            launches = n
+    print(f"  every id once, one engine's tokens in every run; serve-fleet "
+          f"summary {json.dumps(summary)}", flush=True)
+    del engines
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec = paged_site_record("paged_attention_fleet", 320, "fleet row (one "
+                            "replica's chunk, stream (b))", B=8, C=8, npg=10,
+                            lens=[160, 136, 128, 104, 96, 150, 129, 0],
+                            nvs=[1, 4, 8, 1, 8, 1, 2, 1])
+    rec["launches"] = launches
+    print(f"  serve-fleet phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rec
+
+
 PHASES = {  # --only names: the phases a short run may pick
     "paged": lambda: (check_kernel(), check_paged_archs()),
     "flash": lambda: (check_flash(), check_flash_archs()),
@@ -5726,6 +6005,8 @@ PHASES = {  # --only names: the phases a short run may pick
     "train-maskrcnn": lambda: train_mlperf_full("maskrcnn", MASKRCNN_BATCH),
     "dist": dist_phase,
     "dist-train": dist_train,
+    "serve-tp2d": lambda: serve_tp2d(full_serve_params()),
+    "serve-fleet": lambda: serve_fleet(full_serve_params()),
 }
 
 
@@ -5785,6 +6066,7 @@ def main(argv=None) -> int:
     paged["launches"] = serve_full(params)
     int8["launches"], int4["launches"] = serve_quant(params)
     serve_sample(params)
+    serve_recs = [serve_tp2d(params), serve_fleet(params)]
     del params
     torch.cuda.empty_cache()
     mamba["launches"], flash_jamba["launches"] = serve_jamba_full()
@@ -5810,7 +6092,7 @@ def main(argv=None) -> int:
             lars_update, *paged_archs.values(),
             *(r for pair in flash_archs.values() for r in pair),
             flash_jamba_fwd, flash_jamba_bwd, *whisper, *vlm, *mlperf,
-            *dist_recs]
+            *dist_recs, *serve_recs]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"  whole smoke wall {time.perf_counter() - t0:.1f} s", flush=True)

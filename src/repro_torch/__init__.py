@@ -18,7 +18,10 @@ The serving engine samples at a temperature with counter-based keys bit
 for bit those of ``jax.random`` (:mod:`repro_torch.random`); the trainer
 saves and resumes checkpoints in the reference's format and reads the
 streaming input pipeline (:mod:`repro_torch.data`) through a
-double-buffered input stage.
+double-buffered input stage. On a ``torch.distributed`` mesh the trainer
+and the serving engine hold each rank's blocks
+(:mod:`repro_torch.dist.spmd`, :mod:`repro_torch.dist.serving`), and
+:mod:`repro_torch.fleet` serves through replicas behind a prefix router.
 
 Entry points take ``device`` (default ``"cuda"``) and refuse to fall
 back to the CPU when no card is present; tests pass ``device="cpu"``,

@@ -86,13 +86,14 @@ def dim_of(spec: Spec, axis: str) -> Optional[int]:
     return None
 
 
-def check_supported(cfg: ModelConfig, mesh) -> None:
-    """Raise ``NotImplementedError`` for what the sharded trainer does
-    not run yet: an enc-dec config on a mesh, and MoE, Mamba or RWKV-6
-    layers over a ``model`` axis larger than 1."""
+def check_supported(cfg: ModelConfig, mesh, what: str = "train") -> None:
+    """Raise ``NotImplementedError`` for what the sharded trainer (and,
+    ``what="serve"``, the sharded serving engine) does not run yet: an
+    enc-dec config on a mesh, and MoE, Mamba or RWKV-6 layers over a
+    ``model`` axis larger than 1."""
     if cfg.is_encdec:
         raise NotImplementedError(
-            f"{cfg.name}: the enc-dec family does not train on a mesh yet "
+            f"{cfg.name}: the enc-dec family does not {what} on a mesh yet "
             f"({ROADMAP})")
     if mesh.shape.get("model", 1) > 1:
         kinds = sorted({s.mixer for s in cfg.block_pattern
@@ -104,7 +105,8 @@ def check_supported(cfg: ModelConfig, mesh) -> None:
                 f"a model axis of {mesh.shape['model']} yet ({ROADMAP}); "
                 f"use a mesh whose model axis is 1")
     if "data" not in mesh.shape:
-        raise ValueError(f"a training mesh needs a 'data' axis; this one "
+        noun = {"train": "training", "serve": "serving"}[what]
+        raise ValueError(f"a {noun} mesh needs a 'data' axis; this one "
                          f"has {tuple(mesh.shape)}")
 
 
@@ -206,6 +208,10 @@ class Placement:
     than 1 and divides it (else the stream is replicated, the rules'
     divisibility fallback)."""
 
+    # The serving slab's layout where ``model`` does not divide the KV
+    # heads (``dist.serving``); training computes the rank's KV heads only.
+    kv_whole = False
+
     def __init__(self, plan: "Plan", seq_len: int):
         self.plan, self.mesh = plan, plan.mesh
         self.m = self.mesh.shape.get("model", 1)
@@ -231,6 +237,11 @@ class Placement:
         d = dim_of(spec, "data")
         if d is not None:
             w = gather_rows(w, self.mesh, "data", d)
+        return self.over_model(w, spec, whole=whole, split=split, vary=vary)
+
+    def over_model(self, w, spec: Spec, *, whole: bool, split=None,
+                   vary: bool = False):
+        """:meth:`gather`'s ``model`` half."""
         if self.m == 1:
             return w
         d = dim_of(spec, "model")
@@ -270,11 +281,28 @@ class Placement:
                                    if kv else {})),
                   "ffn": {"wu": 1, "wg": 1, "wd": 0} if mlp else {}}
         kv_whole = heads and not kv
-        return {part: {k: self.gather(
-            w, specs[part][k], whole=False,
+        return {part: {k: self.layer_leaf(
+            lp, part, k, w, specs[part][k],
             split=splits.get(part, {}).get(k),
             vary=kv_whole and part == "mixer" and k in KV_LEAVES)
             for k, w in sub.items()} for part, sub in lp.items()}
+
+    def layer_leaf(self, lp, part: str, name: str, w, spec: Spec, *, split,
+                   vary):
+        """Leaf ``name`` of ``lp[part]`` as the op reads it (:meth:`layer`)."""
+        return self.gather(w, spec, whole=False, split=split, vary=vary)
+
+    # ---- products ------------------------------------------------------- #
+    # The layers multiply through these, so that a serving placement can
+    # keep its weight blocks stationary (``dist.serving``); here the
+    # weights are whole over ``data``.
+    def proj_in(self, x, w):
+        """x @ w, w's first dim the model width."""
+        return x @ w
+
+    def proj_out(self, h, w):
+        """h @ w, w's last dim the model width."""
+        return h @ w
 
     # ---- activations ---------------------------------------------------- #
     def seq_block(self, x):

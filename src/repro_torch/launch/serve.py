@@ -10,7 +10,10 @@
         [--arrival-rate 0.5] [--arrival-pattern poisson|bursty|diurnal] \
         [--query-size 2] [--query-interval 8] \
         [--slo-classes interactive,batch] [--temperature 0.8] [--seed 0] \
-        [--device cuda|cpu]
+        [--serve-mode tp2d|fsdp|wus|replicated] [--mesh single|pod|multipod] \
+        [--n-replicas N] [--routing prefix|least_loaded] \
+        [--chaos kill|stall] [--chaos-step 8] [--stall-steps 12] \
+        [--heartbeat-timeout 4] [--device cuda|cpu]
 
 Builds ``--batch`` synthetic requests with the scenario's arrivals
 (``serve.scenarios.make_trace``; prompts and arrivals byte-identical to
@@ -33,8 +36,25 @@ The model is ``reduced()`` unless ``--full`` (the published widths and
 depth, which one card cannot hold for the larger models); weights are
 random from ``--seed``. Runs on the card by default
 and refuses to run without one unless ``--device cpu`` is given.
-``--serve-mode`` and the fleet flags are not ported and raise
-``NotImplementedError``.
+
+``--serve-mode`` serves on a mesh in that sharding mode (``tp2d``, the
+weight-stationary serving mode, or ``fsdp``, ``wus``, ``replicated``;
+:mod:`repro_torch.dist.serving`): on the 1 x 1 mesh of this process
+with ``--mesh single``, or on the 16 x 16 (``pod``) or 2 x 16 x 16
+(``multipod``) mesh, one process a rank over the default process group
+(one already up, or one started from the launcher's ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT``, as ``torchrun`` sets
+them); a world size that is not the mesh's raises, and rank 0 prints.
+``--mesh`` without ``--serve-mode`` takes the config's
+``param_sharding``. The summary line then names ``mode=``.
+
+``--n-replicas N`` serves the workload through a fleet of N engines
+behind the prefix-affinity router (:mod:`repro_torch.fleet`), with one
+seeded fault (``--chaos kill`` or ``stall`` at fleet step
+``--chaos-step``; a stall lasts ``--stall-steps``, and a replica silent
+for more than ``--heartbeat-timeout`` steps is declared dead), and
+prints the fleet's summary and each request's tokens, which equal one
+engine's.
 """
 from __future__ import annotations
 
@@ -98,30 +118,53 @@ def main(argv=None) -> int:
     ap.add_argument("--n-templates", type=int, default=1,
                     help="distinct template prefixes to cycle")
     ap.add_argument("--serve-mode", default=None,
-                    help="not ported (sharded serving, ROADMAP.md item "
-                         "'distribution, fleet and bench')")
+                    choices=["tp2d", "fsdp", "wus", "replicated"],
+                    help="serve on a mesh in this sharding mode (default "
+                         "with --mesh: the config's param_sharding)")
+    ap.add_argument("--mesh", choices=["single", "pod", "multipod"],
+                    default="single",
+                    help="the 1 x 1 mesh of this process, or the 16 x 16 / "
+                         "2 x 16 x 16 mesh (one process a rank)")
     ap.add_argument("--n-replicas", type=int, default=0,
-                    help="not ported (the fleet, ROADMAP.md item "
-                         "'distribution, fleet and bench')")
-    ap.add_argument("--routing", default=None, help="not ported (fleet)")
-    ap.add_argument("--chaos", default=None, help="not ported (fleet)")
-    ap.add_argument("--chaos-step", type=int, default=None,
-                    help="not ported (fleet)")
+                    help="fleet: engine replicas behind the prefix-affinity "
+                         "router (0 = one engine)")
+    ap.add_argument("--routing", default="prefix",
+                    choices=["prefix", "least_loaded"],
+                    help="fleet: consistent hash on the prefix-template key, "
+                         "or least-loaded")
+    ap.add_argument("--chaos", default="", choices=["", "kill", "stall"],
+                    help="fleet: one seeded fault mid-run")
+    ap.add_argument("--chaos-step", type=int, default=8,
+                    help="fleet: the fleet step the fault fires at")
+    ap.add_argument("--stall-steps", type=int, default=12,
+                    help="fleet: fleet steps a stalled replica freezes")
+    ap.add_argument("--heartbeat-timeout", type=int, default=4,
+                    help="fleet: missed beats before a replica is dead")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (plain PyTorch path)")
     args = ap.parse_args(argv)
-    for flag, value in (("--serve-mode", args.serve_mode),
-                        ("--n-replicas", args.n_replicas or None),
-                        ("--routing", args.routing), ("--chaos", args.chaos),
-                        ("--chaos-step", args.chaos_step)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{flag} is not ported yet (sharded serving and the fleet "
-                f"are the ROADMAP.md item 'distribution, fleet and "
-                f"bench')")
+    if args.n_replicas < 0:
+        ap.error("--n-replicas must be >= 0")
 
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.launch.train import mesh_for
+
+    mesh = mesh_for(args.mesh, args.device)
+    if mesh is None and args.serve_mode:
+        mesh = single_device_mesh(args.device)
+    try:
+        return _serve(args, mesh)
+    finally:
+        if mesh is not None and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _serve(args, mesh) -> int:
     from repro_torch import resolve_device
+    from repro_torch.dist.sharding import Rules
     from repro_torch.serve.engine import Engine, ServeConfig, synthetic_requests
     from repro_torch.serve.scenarios import make_trace, scenario_driver
     from repro_torch.train.steps import ModelAPI
@@ -148,6 +191,11 @@ def main(argv=None) -> int:
     )
     device = resolve_device(args.device)
     params = ModelAPI(cfg).init(cfg, args.seed, device=device)
+    rules = mode = None
+    if mesh is not None:
+        mode = args.serve_mode or cfg.param_sharding
+        rules = Rules(mesh, mode)
+    lead = mesh is None or mesh.device_mesh.get_rank() == 0
     slo_classes = tuple(c.strip() for c in args.slo_classes.split(",")
                         if c.strip())
     reqs = make_trace(
@@ -157,16 +205,24 @@ def main(argv=None) -> int:
         query_interval=args.query_interval, slo_classes=slo_classes,
         shared_prefix_len=args.shared_prefix_len,
         n_templates=args.n_templates)
-    engine = Engine(cfg, params, scfg, device=device)
-    # warm-up: builds the kernel library outside the reported metrics
-    scenario_driver("offline")(engine, synthetic_requests(
-        cfg, n=min(2, scfg.max_batch), tokens=2, prompt_len=args.prompt_len,
-        seed=args.seed + 1))
-    report = scenario_driver(args.scenario)(engine, reqs)
+    engines = [Engine(cfg, params, scfg, rules=rules, device=device)
+               for _ in range(max(1, args.n_replicas))]
+    for engine in engines:
+        # warm-up: builds the kernel library outside the reported metrics
+        scenario_driver("offline")(engine, synthetic_requests(
+            cfg, n=min(2, scfg.max_batch), tokens=2,
+            prompt_len=args.prompt_len, seed=args.seed + 1))
+    engine = engines[0]
     kv_dtype = engine.cfg.kv_cache_dtype
     kv = engine.layout + (f"/{kv_dtype}" if args.kv_dtype
                           or kv_dtype != cfg.dtype else "")
-    print(f"{args.arch} [{args.scenario}, device={device}, "
+    if args.n_replicas:
+        return _fleet(args, engines, reqs, kv, lead, bool(slo_classes))
+    report = scenario_driver(args.scenario)(engine, reqs)
+    if not lead:
+        return 0
+    on = "" if mode is None else f"mode={mode}, "
+    print(f"{args.arch} [{args.scenario}, {on}device={device}, "
           f"slots={scfg.max_batch}, kv={kv}]: {report.format()}")
     if report.prefix_hit_rate is not None:
         print(f"  prefix cache: hit_rate {report.prefix_hit_rate:.3f}, "
@@ -184,6 +240,32 @@ def main(argv=None) -> int:
                   f"ttft_p99 {m['ttft_p99_ms']:.1f}ms violations "
                   f"{m['violations']} goodput {m['goodput']:.3f}")
     for req in sorted(report.requests, key=lambda r: r.id):
+        print(f"  req {req.id}: prompt {req.prompt_len} -> "
+              f"{len(req.tokens)} tokens {req.tokens}")
+    return 0
+
+
+def _fleet(args, engines, reqs, kv: str, lead: bool, slo: bool) -> int:
+    """The workload through a fleet of ``engines`` (arrivals on the fleet
+    step clock), with the chaos of the flags; prints its summary."""
+    from repro_torch.fleet import ChaosPlan, Fleet, FleetConfig
+
+    chaos = ChaosPlan.from_spec(args.chaos, chaos_step=args.chaos_step,
+                                stall_steps=args.stall_steps, seed=args.seed)
+    fleet = Fleet(engines, FleetConfig(
+        routing=args.routing, heartbeat_timeout=args.heartbeat_timeout),
+        chaos)
+    report = fleet.run(reqs)
+    if not lead:
+        return 0
+    print(f"{args.arch} [fleet x{args.n_replicas}, routing={args.routing}"
+          f"{', chaos=' + args.chaos if args.chaos else ''}, "
+          f"slots={engines[0].scfg.max_batch}/replica, kv={kv}]: "
+          f"{report.format()}")
+    for name, m in sorted(report.per_class().items() if slo else ()):
+        print(f"    {name}: n={m['requests']} p99 {m['p99_ms']:.1f}ms "
+              f"violations {m['violations']} goodput {m['goodput']:.3f}")
+    for req in sorted(report.merged.requests, key=lambda r: r.id):
         print(f"  req {req.id}: prompt {req.prompt_len} -> "
               f"{len(req.tokens)} tokens {req.tokens}")
     return 0

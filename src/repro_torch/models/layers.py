@@ -153,15 +153,38 @@ def apply_rope(x, positions, *, theta: float):
     return out.to(x.dtype)
 
 
-def _qkv(params, x, which: str):
+def _proj_in(x, w, place=None):
+    """x @ w for a weight whose first dim is the model width (its
+    ``fsdp`` dim): on a mesh, ``place.proj_in`` (a weight-stationary rank
+    multiplies its slice of x by its block and sums over ``data``)."""
+    return x @ w if place is None else place.proj_in(x, w)
+
+
+def _proj_out(h, w, place=None):
+    """h @ w for a weight whose last dim is the model width: on a mesh,
+    ``place.proj_out`` (a weight-stationary rank's block of the outputs
+    all-gathered over ``data``)."""
+    return h @ w if place is None else place.proj_out(h, w)
+
+
+def _qkv(params, x, which: str, place=None):
     """x: (B, S, d) @ w (d, heads, hd) -> (B, S, heads, hd), plus the
     bias ``b<which>`` (heads, hd) in x's dtype after the product when
     the layer has one (``y + b.astype(dt)``)."""
     w = params["w" + which]
     d, nh, hd = w.shape
-    y = (x @ w.reshape(d, nh * hd)).reshape(*x.shape[:-1], nh, hd)
+    y = _proj_in(x, w.reshape(d, nh * hd), place).reshape(*x.shape[:-1], nh,
+                                                          hd)
     b = params.get("b" + which)
     return y if b is None else y + b.to(y.dtype)
+
+
+def _attn_out(params, out, place=None):
+    """The output projection of attention heads out (B, S, H, hd)."""
+    wo = params["wo"]
+    H, hd, d = wo.shape
+    return _proj_out(out.reshape(*out.shape[:2], H * hd),
+                     wo.reshape(H * hd, d), place)
 
 
 def apply_ffn(params, x, cfg: ModelConfig, *, place=None):
@@ -172,12 +195,12 @@ def apply_ffn(params, x, cfg: ModelConfig, *, place=None):
     split = place is not None and params["wu"].shape[1] < cfg.d_ff
     if place is not None:
         x = place.enter(x, split)
-    h = x @ params["wu"]
+    h = _proj_in(x, params["wu"], place)
     if cfg.glu:
-        h = _ACT[cfg.activation](x @ params["wg"]) * h
+        h = _ACT[cfg.activation](_proj_in(x, params["wg"], place)) * h
     else:
         h = _ACT[cfg.activation](h)
-    y = h @ params["wd"]
+    y = _proj_out(h, params["wd"], place)
     return y if place is None else place.exit(y, split)
 
 
@@ -192,7 +215,7 @@ def gather_last(x, last_pos):
 
 # ---- paged KV cache -------------------------------------------------------- #
 def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page: int, *,
-                        n_layers: int = 1, device):
+                        n_layers: int = 1, device, n_kv=None):
     """Physical page pools ``(n_layers, n_pages + 1, page, K, hd)``.
 
     The trailing page (index ``n_pages``) is the trash page that absorbs
@@ -200,8 +223,10 @@ def init_paged_kv_cache(cfg: ModelConfig, n_pages: int, page: int, *,
     conditional. An int8 pool holds int8 values, an int4 pool packed
     nibbles over ``hd // 2``; both add fp32 ``kp_scale``/``vp_scale``
     of shape ``(n_layers, n_pages + 1, page, K)``, trash page included.
+    K is ``n_kv`` when given (a rank's KV heads on a mesh), else the
+    config's.
     """
-    K, hd = cfg.n_kv_heads, cfg.head_dim
+    K, hd = n_kv or cfg.n_kv_heads, cfg.head_dim
     store_hd = hd
     if cfg.kv_cache_dtype == "int4":
         if hd % 2:
@@ -288,16 +313,20 @@ def paged_copy_pages(cache, src, dst):
     return cache
 
 
-def _rank_kv(params, cfg: ModelConfig, index: int):
-    """The KV leaves of the heads that a rank's queries read, where
+def rank_kv_heads(cfg: ModelConfig, Hl: int, index: int):
+    """The KV heads that a rank's ``Hl`` query heads read, where
     ``model`` splits the query heads but not the KV heads: query heads
     ``index * Hl ..`` read KV heads ``h // G``; the rank keeps them once
     each (``Hl`` a multiple of G: a run of KV heads, group G; a divisor:
     one head, group ``Hl``; else one a query head, group 1)."""
-    Hl = params["wq"].shape[1]
     G = cfg.n_heads // cfg.n_kv_heads
     kv = [h // G for h in range(index * Hl, (index + 1) * Hl)]
-    sel = kv[::G] if Hl % G == 0 else kv[:1] if G % Hl == 0 else kv
+    return kv[::G] if Hl % G == 0 else kv[:1] if G % Hl == 0 else kv
+
+
+def _rank_kv(params, cfg: ModelConfig, index: int):
+    """The KV leaves of :func:`rank_kv_heads`."""
+    sel = rank_kv_heads(cfg, params["wq"].shape[1], index)
     idx = torch.tensor(sel, device=params["wk"].device)
     out = dict(params)
     for name, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0)):
@@ -324,60 +353,84 @@ def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
     are the whole sequence's.
     """
     split = place is not None and params["wq"].shape[1] < cfg.n_heads
+    sel = None
     if place is not None:
         x = place.enter(x, split)
         if split and params["wk"].shape[1] == cfg.n_kv_heads:
-            params = _rank_kv(params, cfg, place.index)
-    B, S, _ = x.shape
+            if place.kv_whole:  # a serving slab keeps every KV head
+                sel = rank_kv_heads(cfg, params["wq"].shape[1], place.index)
+            else:
+                params = _rank_kv(params, cfg, place.index)
     src = x if kv_x is None else kv_x
-    q = _qkv(params, x, "q")
-    k, v = _qkv(params, src, "k"), _qkv(params, src, "v")
+    q = _qkv(params, x, "q", place)
+    k, v = _qkv(params, src, "k", place), _qkv(params, src, "v", place)
     if cfg.rope != "none" and kv_x is None:
         q = apply_rope(q, positions, theta=cfg.rope_theta)
         k = apply_rope(k, positions, theta=cfg.rope_theta)
-    out = ops.attention(q, k, v, causal=causal, window=window)
-    wo = params["wo"]
-    H, hd, d = wo.shape
-    y = out.reshape(B, S, H * hd) @ wo.reshape(H * hd, d)
+    ka, va = k, v
+    if sel is not None:
+        idx = torch.tensor(sel, device=k.device)
+        ka, va = k.index_select(2, idx), v.index_select(2, idx)
+    out = ops.attention(q, ka, va, causal=causal, window=window)
+    y = _attn_out(params, out, place)
     return (y if place is None else place.exit(y, split)), (k, v)
 
 
 def attention_decode_paged(params, x, cfg: ModelConfig, cache, page_table,
-                           pos, n_valid, *, window=None):
+                           pos, n_valid, *, window=None, place=None,
+                           ins=None):
     """C-token attention against one layer's paged pool.
 
     x: (B, C, d), the chunk program's mixed batch (decode rows feed one
     real token, chunked-prefill rows up to C). The new K/V go into the
     rows' pages first, then every query attends causally over exactly
     its row's occupied pages. Returns (B, C, d).
+
+    On a mesh (``place``, a ``dist.serving`` placement) the weights and
+    the pool hold the rank's heads (the KV heads its queries read where
+    ``model`` does not divide the KV heads), and the layer enters and
+    leaves the residual stream through ``place``. When the rank computes
+    only its rows of the batch, ``ins`` holds every row's (page_table,
+    pos, n_valid): the new K/V of every row are gathered over the batch
+    axes and written, so each rank's pool holds every row's pages.
     """
     B, C, _ = x.shape
-    q = _qkv(params, x, "q")
-    k_new = _qkv(params, x, "k")
-    v_new = _qkv(params, x, "v")
+    split = place is not None and params["wq"].shape[1] < cfg.n_heads
+    if place is not None:
+        x = place.enter(x, split)
+        if split and params["wk"].shape[1] == cfg.n_kv_heads:
+            params = _rank_kv(params, cfg, place.index)
+    q = _qkv(params, x, "q", place)
+    k_new = _qkv(params, x, "k", place)
+    v_new = _qkv(params, x, "v", place)
     if cfg.rope != "none":
         posm = (pos.to(x.device, torch.long).reshape(B, 1)
                 + torch.arange(C, device=x.device)[None, :])
         q = apply_rope(q, posm, theta=cfg.rope_theta)
         k_new = apply_rope(k_new, posm, theta=cfg.rope_theta)
-    paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid)
+    if ins is None:
+        paged_cache_insert(cache, k_new, v_new, page_table, pos, n_valid)
+    else:
+        paged_cache_insert(cache, place.all_rows(k_new),
+                           place.all_rows(v_new), *ins)
     out = ops.paged_attention(q, cache["kp"], cache["vp"], page_table,
                               pos=pos, n_valid=n_valid, window=window,
                               kp_scale=cache.get("kp_scale"),
                               vp_scale=cache.get("vp_scale"))
-    wo = params["wo"]
-    H, hd, d = wo.shape
-    return out.reshape(B, C, H * hd) @ wo.reshape(H * hd, d)
+    y = _attn_out(params, out, place)
+    return y if place is None else place.exit(y, split)
 
 
 # ---- slab KV cache (``repro.models.layers``, ``layers.py:155-320``) ------- #
-def init_kv_cache(cfg: ModelConfig, B: int, length: int, *, device):
+def init_kv_cache(cfg: ModelConfig, B: int, length: int, *, device,
+                  n_kv=None):
     """One attention layer's slab cache: ``k``/``v`` (B, length, K, hd)
     in the compute dtype (int8 with fp32 ``k_scale``/``v_scale`` (B,
     length, K) when ``kv_cache_dtype`` is int8) and ``slot_pos`` (B,
-    length) int32, the absolute position held in each slot (-1 empty).
-    An int4 slab raises ``ValueError``: int4 packs pool pages."""
-    K, hd = cfg.n_kv_heads, cfg.head_dim
+    length) int32, the absolute position held in each slot (-1 empty);
+    K is ``n_kv`` when given, else the config's. An int4 slab raises
+    ``ValueError``: int4 packs pool pages."""
+    K, hd = n_kv or cfg.n_kv_heads, cfg.head_dim
     if cfg.kv_cache_dtype == "int4":
         raise ValueError(
             "int4 KV is only supported by the paged layout "
@@ -431,7 +484,7 @@ def cache_from_prefill(cfg: ModelConfig, k, v, length: int):
     S <= length: slots 0..S-1 hold positions 0..S-1 (quantized for an
     int8 slab)."""
     B, S = k.shape[:2]
-    cache = init_kv_cache(cfg, B, length, device=k.device)
+    cache = init_kv_cache(cfg, B, length, device=k.device, n_kv=k.shape[2])
     if "k_scale" in cache:
         cache["k"][:, :S], cache["k_scale"][:, :S] = quant.quantize_int8(k)
         cache["v"][:, :S], cache["v_scale"][:, :S] = quant.quantize_int8(v)
@@ -444,17 +497,34 @@ def cache_from_prefill(cfg: ModelConfig, k, v, length: int):
 
 
 def attention_decode(params, x, cfg: ModelConfig, cache, *, pos,
-                     window=None, cross=False):
+                     window=None, cross=False, place=None):
     """One-token attention against one layer's slab cache. x: (B, 1, d);
     ``pos`` an int or (B,) absolute positions (each row decodes at its
     own offset). The new K/V go into the cache first (in place), then
     ``ops.decode_attention`` reads it. A cross-attention (``cross``)
     reads its static encoder cache as it is: no insert, no RoPE.
-    Returns (out (B, 1, d), cache)."""
+    Returns (out (B, 1, d), cache).
+
+    On a mesh (``place``, a ``dist.serving`` placement) the slab is the
+    rank's block (``train.steps.cache_axes``): its KV heads where
+    ``model`` divides them; otherwise every KV head over the rank's
+    block of slots (``kv_seq``), which ``place.kv_full`` gathers whole
+    for the step and ``place.kv_store`` writes back, the queries reading
+    the KV heads of :func:`rank_kv_heads`."""
     B = x.shape[0]
-    q = _qkv(params, x, "q")
+    split = place is not None and params["wq"].shape[1] < cfg.n_heads
+    whole = place is not None and place.kv_whole
+    if place is not None:
+        x = place.enter(x, split)
+        if split and not whole and params["wk"].shape[1] == cfg.n_kv_heads:
+            params = _rank_kv(params, cfg, place.index)
+    block = cache
+    if whole:
+        cache = place.kv_full(cache)
+    q = _qkv(params, x, "q", place)
     if not cross:
-        k_new, v_new = _qkv(params, x, "k"), _qkv(params, x, "v")
+        k_new = _qkv(params, x, "k", place)
+        v_new = _qkv(params, x, "v", place)
         if cfg.rope != "none":
             posv = torch.as_tensor(pos, device=x.device).long()
             posv = posv.reshape(-1, 1).expand(B, 1)
@@ -463,13 +533,22 @@ def attention_decode(params, x, cfg: ModelConfig, cache, *, pos,
             q = apply_rope(q, posv, theta=cfg.rope_theta)
             k_new = apply_rope(k_new, posv, theta=cfg.rope_theta)
         cache_insert(cache, k_new[:, 0], v_new[:, 0], pos)
-    out = ops.decode_attention(q, cache["k"], cache["v"], cache["slot_pos"],
+    kv = cache
+    if whole:
+        place.kv_store(block, cache)
+        if split:
+            sel = rank_kv_heads(cfg, params["wq"].shape[1], place.index)
+            idx = torch.tensor(sel, device=x.device)
+            kv = {n: t.index_select(2, idx) if t.dim() > 2 else t
+                  for n, t in cache.items()}
+    out = ops.decode_attention(q, kv["k"], kv["v"], kv["slot_pos"],
                                pos=pos, window=window,
-                               k_scale=cache.get("k_scale"),
-                               v_scale=cache.get("v_scale"))
-    wo = params["wo"]
-    H, hd, d = wo.shape
-    return out.reshape(B, 1, H * hd) @ wo.reshape(H * hd, d), cache
+                               k_scale=kv.get("k_scale"),
+                               v_scale=kv.get("v_scale"))
+    y = _attn_out(params, out, place)
+    if place is None:
+        return y, cache
+    return place.exit(y, split), block
 
 
 def attention_cross_chunk(params, x, cfg: ModelConfig, cache):

@@ -291,10 +291,12 @@ def _positions(cfg: ModelConfig, B: int, S: int, device, n_media: int = 0):
     return p3.expand(B, S, 3)
 
 
-def _embed_inputs(params, tokens, media):
+def _embed_inputs(params, tokens, media, place=None):
     """(the token embeddings with ``media`` (B, n, d), if any, cast to
-    the compute dtype and prepended, n)."""
-    x = _embed(params, tokens)
+    the compute dtype and prepended, n); on a serving mesh (``place``)
+    the embedding is ``place.embed``'s."""
+    x = _embed(params, tokens) if place is None else place.embed(params,
+                                                                 tokens)
     if media is None:
         return x, 0
     media = media.to(x.device, x.dtype)
@@ -485,8 +487,29 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page: int, *,
                                  device=resolve_device(device))
 
 
+def _serve_rows(place, *rows):
+    """On a serving mesh (``place``) whose rank computes its rows of the
+    batch: each (B, ...) input cut to them."""
+    if place is None or place.rows is None:
+        return rows
+    return tuple(t[place.rows] if torch.is_tensor(t) and t.dim() else t
+                 for t in rows)
+
+
+def _out(params, x, place=None):
+    """The head (logits) of x, on a mesh ``place.head``'s."""
+    return _head(params, x) if place is None else place.head(params, x)
+
+
+def _final(params, x, place=None):
+    """The final norm of x."""
+    final = (params["final_norm"] if place is None
+             else place.leaf(params, "final_norm"))
+    return L.apply_norm(final, x)
+
+
 def decode_chunk(params, cfg: ModelConfig, tokens, cache, page_table, pos,
-                 n_valid, *, window=None, full_logits=False):
+                 n_valid, *, window=None, full_logits=False, place=None):
     """C tokens per row against the paged cache: the serving engine's
     chunk program (chunked prefill and batched decode mixed).
 
@@ -495,19 +518,31 @@ def decode_chunk(params, cfg: ModelConfig, tokens, cache, page_table, pos,
     Returns (logits of each row's last valid token (B, vocab), cache),
     or with ``full_logits`` the head over every position (B, C, vocab).
     The cache is updated in place.
+
+    On a mesh (``place``, a ``dist.serving`` placement) ``params`` and
+    the cache are the rank's blocks; when the rank computes its rows of
+    the batch (``place.rows``) the inputs are the whole batch's and the
+    logits its rows'.
     """
-    x = _embed(params, tokens)
+    ins = None
+    if place is not None and place.rows is not None:
+        ins = (page_table, pos, n_valid)
+        tokens, page_table, pos, n_valid = _serve_rows(
+            place, tokens, page_table, pos, n_valid)
+    x, _ = _embed_inputs(params, tokens, None, place)
     for i, lp in enumerate(params["layers"]):
+        if place is not None:
+            lp = place.layer(lp, i)
         h = L.apply_norm(lp["norm1"], x)
         layer_cache = {name: pool[i] for name, pool in cache.items()}
         x = x + L.attention_decode_paged(
             lp["mixer"], h, cfg, layer_cache, page_table, pos, n_valid,
-            window=window)
-        x, _ = _ffn(cfg, _spec_of(cfg, i), lp, x)
-    x = L.apply_norm(params["final_norm"], x)
+            window=window, place=place, ins=ins)
+        x, _ = _ffn(cfg, _spec_of(cfg, i), lp, x, place)
+    x = _final(params, x, place)
     if full_logits:
-        return _head(params, x), cache
-    return _head(params, L.gather_last(x, n_valid - 1))[:, 0], cache
+        return _out(params, x, place), cache
+    return _out(params, L.gather_last(x, n_valid - 1), place)[:, 0], cache
 
 
 def _ffn(cfg: ModelConfig, spec: LayerSpec, lp, x, place=None):
@@ -545,7 +580,7 @@ def init_cache(cfg: ModelConfig, B: int, seq_len: int, window=None, *,
 
 
 def prefill(params, cfg: ModelConfig, tokens, *, media=None, cache_len=None,
-            window=None, last_pos=None):
+            window=None, last_pos=None, place=None):
     """Forward over the prompt, building the slab decode cache.
 
     tokens: (B, S); ``media`` (B, n, d) prepended (a vision frontend).
@@ -558,16 +593,23 @@ def prefill(params, cfg: ModelConfig, tokens, *, media=None, cache_len=None,
     and wkv state. Serving right-pads prompts of attention-only stacks
     to one length and reads each prompt's true last position (causality
     makes the positions up to it those of an unpadded prefill).
+
+    On a mesh (``place``, a ``dist.serving`` placement) ``params`` are the
+    rank's blocks; the cache holds every slot, and the rank's KV heads
+    (every KV head when ``place.kv_whole``).
     """
     _check_supported(cfg)
-    x, n_media = _embed_inputs(params, tokens, media)
+    x, n_media = _embed_inputs(params, tokens, media, place)
     B, S, _ = x.shape
     L_attn = _attn_cache_len(cache_len or S, window)
     positions = _positions(cfg, B, S, x.device, n_media)
     caches = []
     for i, lp in enumerate(params["layers"]):
         spec = _spec_of(cfg, i)
-        x, _, state = _apply_block_full(cfg, spec, lp, x, positions, window)
+        if place is not None:
+            lp = place.layer(lp, i)
+        x, _, state = _apply_block_full(cfg, spec, lp, x, positions, window,
+                                        place)
         if spec.mixer == "attn":
             k, v = state
             caches.append(L.cache_from_prefill(cfg, k[:, -L_attn:],
@@ -577,27 +619,37 @@ def prefill(params, cfg: ModelConfig, tokens, *, media=None, cache_len=None,
         else:
             caches.append({"shift": state["shift"].to(L.dtype_of(cfg.dtype)),
                            "wkv": state["wkv"]})
-    x = L.apply_norm(params["final_norm"], x)
-    return _head(params, L.gather_last(x, last_pos))[:, 0], caches
+    x = _final(params, x, place)
+    return _out(params, L.gather_last(x, last_pos), place)[:, 0], caches
 
 
-def decode_step(params, cfg: ModelConfig, token, cache, pos, *, window=None):
+def decode_step(params, cfg: ModelConfig, token, cache, pos, *, window=None,
+                place=None):
     """One decode step for every row. token: (B, 1) ids; ``pos`` an int
     or (B,) absolute positions (each row an independent sequence at its
     own offset, continuous batching); cache: :func:`init_cache`'s list.
     Attention K/V are written into the cache in place; Mamba and RWKV-6
-    states are replaced. Returns (logits (B, vocab), the cache)."""
-    x = _embed(params, token)
+    states are replaced. Returns (logits (B, vocab), the cache).
+
+    On a mesh (``place``, a ``dist.serving`` placement) ``params`` and the
+    cache are the rank's blocks; when the rank computes its rows of the
+    batch (``place.rows``) token and pos are the whole batch's and the
+    logits its rows'."""
+    token, pos = _serve_rows(place, token, pos)
+    x, _ = _embed_inputs(params, token, None, place)
     for i, lp in enumerate(params["layers"]):
         spec = _spec_of(cfg, i)
+        if place is not None:
+            lp = place.layer(lp, i)
         h = L.apply_norm(lp["norm1"], x)
         if spec.mixer == "attn":
             y, cache[i] = L.attention_decode(lp["mixer"], h, cfg, cache[i],
-                                             pos=pos, window=window)
+                                             pos=pos, window=window,
+                                             place=place)
         elif spec.mixer == "mamba":
             y, cache[i] = L.apply_mamba_step(lp["mixer"], h, cfg, cache[i])
         else:
             y, cache[i] = L.apply_rwkv6_step(lp["mixer"], h, cfg, cache[i])
-        x, _ = _ffn(cfg, spec, lp, x + y)  # decode drops the aux loss
-    x = L.apply_norm(params["final_norm"], x)
-    return _head(params, x)[:, 0], cache
+        x, _ = _ffn(cfg, spec, lp, x + y, place)  # decode drops the aux loss
+    x = _final(params, x, place)
+    return _out(params, x, place)[:, 0], cache

@@ -55,6 +55,15 @@ With ``temperature > 0`` every token is drawn from its own key,
 keys), by Gumbel-max over ``logits / temperature``: a draw depends on
 the request and the position alone, not on the slot or the batch.
 Speculative decoding stays greedy-only.
+
+On a mesh (``mesh=``, or ``rules=`` bound to one) every rank runs this
+host loop on the same requests and holds its block of the weights and
+caches; the programs run under the mode's placement
+(:mod:`repro_torch.dist.serving`): ``tp2d`` keeps the weights on both
+mesh axes and the batch whole over ``data``; ``fsdp``, ``wus`` and
+``replicated`` gather weights at use and split the slots over the
+batch axes, the emitted tokens gathered. Every rank takes the tokens
+from the same logits, so the host state stays the same on every rank.
 """
 from __future__ import annotations
 
@@ -153,11 +162,19 @@ class Engine:
     ``params`` from the family's init or weight bridge (``lm.init_lm``,
     ``lm.params_from_numpy``, ``encdec.init_encdec``, ...);
     ``drafter`` (optional, paged only) is any object with
-    ``propose(context, k)``. ``layout`` is the KV layout in use."""
+    ``propose(context, k)``. ``layout`` is the KV layout in use.
+
+    ``mesh`` (a ``launch.mesh.Mesh``) and ``rules`` (a
+    ``dist.sharding.Rules``; default: the config's ``param_sharding``
+    mode on ``mesh``) serve on a mesh, on the mesh's device: ``params``
+    is the whole tree, of which the engine keeps the rank's blocks.
+    ``check_ranks`` (debug) raises when any rank's tokens of a step
+    differ from rank 0's."""
 
     def __init__(self, cfg: ModelConfig, params,
-                 serve: Optional[ServeConfig] = None, *, drafter=None,
-                 device="cuda"):
+                 serve: Optional[ServeConfig] = None, *, rules=None,
+                 mesh=None, drafter=None, device="cuda",
+                 check_ranks: bool = False):
         self.scfg = serve or ServeConfig()
         if self.scfg.kv_dtype:
             cfg = dataclasses.replace(cfg, kv_cache_dtype=self.scfg.kv_dtype)
@@ -213,6 +230,19 @@ class Engine:
         self.layout = layout
         self.cfg = cfg
         self.api = ModelAPI(cfg)
+        self.plan = None
+        if rules is not None and mesh is None:
+            mesh = rules.mesh
+        if mesh is not None:
+            from repro_torch.dist.serving import ServePlan
+            from repro_torch.dist.sharding import Rules
+
+            self.plan = ServePlan(
+                cfg, rules or Rules(mesh, cfg.param_sharding), params,
+                max_batch=self.scfg.max_batch, layout=layout,
+                check_ranks=check_ranks)
+            params, device = self.plan.params, self.plan.device
+        self.rules = None if self.plan is None else self.plan.rules
         self.params = params
         self.device = resolve_device(device)
         self._key = prng_key(self.scfg.seed, self.device)
@@ -247,8 +277,11 @@ class Engine:
         self._draft_accepted = 0  # draft tokens accepted by verification
         if self.layout == "slab":
             self.sched = Scheduler(B)
-            self._slab = pool_ops.init_slab(self.cfg, B, self.scfg.max_len,
-                                            device=self.device)
+            self._slab = (
+                pool_ops.init_slab(self.cfg, B, self.scfg.max_len,
+                                   device=self.device)
+                if self.plan is None
+                else self.plan.init_slab(B, self.scfg.max_len))
             return
         self._pool = pool_ops.PagePool(self.scfg.pool_pages,
                                        self.scfg.page_size)
@@ -261,8 +294,12 @@ class Engine:
             self.sched = PagedScheduler(
                 B, self._pool, self._admission_pages,
                 on_shortfall=self._admission_preempt)
-        self._cache = self.api.init_paged_cache(
-            B, self.scfg.pool_pages, self.scfg.page_size, device=self.device)
+        self._cache = (
+            self.api.init_paged_cache(B, self.scfg.pool_pages,
+                                      self.scfg.page_size, device=self.device)
+            if self.plan is None
+            else self.plan.init_paged_cache(self.scfg.pool_pages,
+                                            self.scfg.page_size))
         self._ptab = np.full((B, self.scfg.max_pages), -1, np.int32)
         self._stream = {}
         self._admit_seq = np.zeros((B,), np.int64)
@@ -387,6 +424,13 @@ class Engine:
     def current_step(self) -> int:
         """The step index the next :meth:`step` runs as."""
         return self._step_idx
+
+    @property
+    def finished(self) -> List[Request]:
+        """Requests retired so far in the current run (cleared by
+        :meth:`finalize` and :meth:`reset`): drivers that step the engine
+        themselves, such as a fleet replica, read it between steps."""
+        return self._finished
 
     def drain(self) -> None:
         """Step until no submitted request remains unfinished, without
@@ -595,18 +639,19 @@ class Engine:
             pos_d = torch.from_numpy(posb).to(dev)
             nv_d = torch.from_numpy(nv).to(dev)
             rid_d = self._rows(self._rid)
+            place, r = self._place(rows=True)
             logits, self._cache = self.api.decode_chunk(
                 self.params, torch.from_numpy(toks).to(dev),
                 self._cache, torch.from_numpy(self._ptab).to(dev),
-                pos_d, nv_d, full_logits=spec)
+                pos_d, nv_d, full_logits=spec, place=place)
             # spec: (B, C) greedy targets, the model's next token after
             # each fed position; plain: (B,), the token drawn after the
             # last fed one, at position posb + nv.
             if spec:
                 nxt = torch.argmax(logits, dim=-1)
             else:
-                nxt = self._sample(logits, rid_d, pos_d, nv_d)
-            nxt = nxt.cpu().numpy()
+                nxt = self._sample(logits, _cut(rid_d, r), pos_d[r], nv_d[r])
+            nxt = self._emit(nxt).cpu().numpy()
         dt = time.perf_counter() - t0
 
         produced = 0
@@ -681,13 +726,19 @@ class Engine:
             batch["media"] = torch.tensor(np.asarray(req.media))[None].to(dev)
         t0 = time.perf_counter()
         with torch.inference_mode():
+            place, _ = self._place(rows=False)
             logits, cache = self._prefill(
                 self.params, batch,
-                torch.full((1,), end - 1, dtype=torch.long, device=dev))
+                torch.full((1,), end - 1, dtype=torch.long, device=dev),
+                place)
             pool_ops.invalidate_beyond(cache,
                                        torch.full((1,), end, device=dev))
-            pool_ops.write_slot(self._slab, cache, slot)
-            tok = int(self._sample(logits, req.id, end)[0])
+            if self.plan is None:
+                pool_ops.write_slot(self._slab, cache, slot)
+            else:
+                self.plan.write_slot(self._slab, cache, slot)
+            tok = int(self._emit(self._sample(logits, req.id, end),
+                                 rows=False)[0])
         dt = time.perf_counter() - t0
 
         req.tokens.append(tok)
@@ -709,11 +760,13 @@ class Engine:
         with torch.inference_mode():
             pos_d = torch.from_numpy(self._pos).to(dev)
             rid_d = self._rows(self._rid)
+            place, r = self._place(rows=True)
             logits, self._slab = self._decode(
                 self.params, torch.from_numpy(self._tok[:, None]).to(dev),
-                self._slab, pos_d)
+                self._slab, pos_d, place)
             # the fed token sits at _pos; the drawn one at _pos + 1
-            next_tok = self._sample(logits, rid_d, pos_d, 1).cpu().numpy()
+            next_tok = self._emit(self._sample(
+                logits, _cut(rid_d, r), pos_d[r], 1)).cpu().numpy()
         dt = time.perf_counter() - t0
 
         running = self.sched.running()
@@ -733,6 +786,20 @@ class Engine:
         self._finished.append(req)
 
     # ------------------------------------------------------------------ #
+    def _place(self, *, rows: bool):
+        """(the program's placement on the mesh, the slots this rank
+        computes): (None, every slot) on one device."""
+        if self.plan is None:
+            return None, slice(None)
+        place = self.plan.placement(rows=rows)
+        return place, (place.rows if place.rows is not None
+                       else slice(None))
+
+    def _emit(self, tok, rows: bool = True):
+        """A step's tokens of every slot from this rank's (on a mesh;
+        ``rows`` False: a prefill's, which every rank computes)."""
+        return tok if self.plan is None else self.plan.emit(tok, rows)
+
     def _rows(self, ids: np.ndarray):
         """Per-slot request ids on the device when sampling (uploaded
         before the step's kernels are queued), else None."""
@@ -759,6 +826,10 @@ class Engine:
 
         keys = fold_in(fold_in(self._key, rows(rid)), rows(pos) + rows(ahead))
         return sample(keys, logits, self.scfg.temperature)
+
+
+def _cut(t, rows):
+    return None if t is None else t[rows]
 
 
 def synthetic_requests(cfg, *, n: int, tokens: int, prompt_len: int,

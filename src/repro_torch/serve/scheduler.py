@@ -86,6 +86,10 @@ class Scheduler:
     def running(self) -> List[Tuple[int, Request]]:
         return [(i, r) for i, r in enumerate(self._slots) if r is not None]
 
+    def slot_of(self, slot: int) -> Optional[Request]:
+        """The request in ``slot``, or None when it is free."""
+        return self._slots[slot]
+
     @property
     def n_active(self) -> int:
         return sum(r is not None for r in self._slots)

@@ -61,19 +61,24 @@ class ModelAPI:
             return self._m.per_example_nll(params, self.cfg, batch)
         return self._m.per_example_nll(params, self.cfg, batch, place)
 
+    # ``place``: a ``dist.serving`` placement on a mesh (the decoder-only
+    # family; an enc-dec config does not serve on a mesh).
     def prefill(self, params, batch, *, cache_len=None, window=None,
-                last_pos=None):
+                last_pos=None, place=None):
         if self.cfg.is_encdec:
             return encdec.prefill(params, self.cfg, batch["media"],
                                   batch["tokens"], cache_len=cache_len,
                                   window=window, last_pos=last_pos)
         return lm.prefill(params, self.cfg, batch["tokens"],
                           media=batch.get("media"), cache_len=cache_len,
-                          window=window, last_pos=last_pos)
+                          window=window, last_pos=last_pos, place=place)
 
-    def decode(self, params, token, cache, pos, *, window=None):
-        return self._m.decode_step(params, self.cfg, token, cache, pos,
-                                   window=window)
+    def decode(self, params, token, cache, pos, *, window=None, place=None):
+        if place is None:
+            return self._m.decode_step(params, self.cfg, token, cache, pos,
+                                       window=window)
+        return lm.decode_step(params, self.cfg, token, cache, pos,
+                              window=window, place=place)
 
     def init_cache(self, B, seq_len, window=None, *, device="cuda"):
         return self._m.init_cache(self.cfg, B, seq_len, window,
@@ -87,10 +92,15 @@ class ModelAPI:
         return lm.init_paged_cache(self.cfg, n_pages, page, device=device)
 
     def decode_chunk(self, params, tokens, cache, page_table, pos, n_valid,
-                     *, window=None, full_logits=False):
-        return self._m.decode_chunk(params, self.cfg, tokens, cache,
-                                    page_table, pos, n_valid, window=window,
-                                    full_logits=full_logits)
+                     *, window=None, full_logits=False, place=None):
+        if place is None:
+            return self._m.decode_chunk(params, self.cfg, tokens, cache,
+                                        page_table, pos, n_valid,
+                                        window=window,
+                                        full_logits=full_logits)
+        return lm.decode_chunk(params, self.cfg, tokens, cache, page_table,
+                               pos, n_valid, window=window,
+                               full_logits=full_logits, place=place)
 
     def encode_cross(self, params, frames):
         """Enc-dec only: the encoder and every layer's cross K/V."""
@@ -370,19 +380,21 @@ def make_serve_prefill_step(cfg: ModelConfig, *, cache_len: int,
     engine masks them with ``serve.cache.invalidate_beyond``."""
     api = ModelAPI(cfg)
 
-    def prefill_step(params, batch, last_pos):
+    def prefill_step(params, batch, last_pos, place=None):
         return api.prefill(params, batch, cache_len=cache_len, window=window,
-                           last_pos=last_pos)
+                           last_pos=last_pos, place=place)
 
     return prefill_step
 
 
 def make_serve_decode_step(cfg: ModelConfig, *, window=None) -> Callable:
     """``decode_step(params, token, cache, pos)``: one token for every
-    slot, ``pos`` (B,) one absolute offset per slot."""
+    slot, ``pos`` (B,) one absolute offset per slot. On a mesh both
+    steps take the placement (``place``) of ``dist.serving``."""
     api = ModelAPI(cfg)
 
-    def decode_step(params, token, cache, pos):
-        return api.decode(params, token, cache, pos, window=window)
+    def decode_step(params, token, cache, pos, place=None):
+        return api.decode(params, token, cache, pos, window=window,
+                          place=place)
 
     return decode_step

@@ -31,7 +31,15 @@ PORT_MODULES = [
     "repro_torch.dist",
     "repro_torch.dist.compat",
     "repro_torch.dist.rules",
+    "repro_torch.dist.serving",
     "repro_torch.dist.sharding",
+    "repro_torch.dist.spmd",
+    "repro_torch.fleet",
+    "repro_torch.fleet.chaos",
+    "repro_torch.fleet.fleet",
+    "repro_torch.fleet.metrics",
+    "repro_torch.fleet.replica",
+    "repro_torch.fleet.router",
     "repro_torch.kernels.build",
     "repro_torch.kernels.flash_attention",
     "repro_torch.kernels.lars",

@@ -4,9 +4,11 @@ anything is written (as ``tests/test_cache.py::
 test_insert_refuses_silent_upcast_into_integer_pool`` pins for the
 reference); a batch that does not split into the microbatches raises
 ``ValueError`` instead of training on a subset of its rows; the
-messages of what is not ported name ROADMAP items, not queue numbers;
+messages of what is not ported name ROADMAP items, not queue numbers
+(the serve CLI's sharded and fleet flags, refused before, now serve);
 and Mamba's softplus passes ``jax.nn.softplus``'s gradient at 0."""
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.configs import get_config as jax_get_config  # noqa: E402
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.dist import spmd  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.serve.engine import ServeConfig  # noqa: E402
@@ -87,7 +90,7 @@ def test_microbatches_that_do_not_divide_the_batch_raise():
     assert int(state["opt"]["step"]) == 0
 
 
-def test_not_ported_messages_name_roadmap_items():
+def test_not_ported_messages_name_roadmap_items(capsys):
     assert ServeConfig(temperature=0.5, seed=1).temperature == 0.5  # ported
     assert get_config("qwen2-vl-7b").frontend == "vision_patches"  # ported
     from repro_torch.models import resnet
@@ -102,14 +105,31 @@ def test_not_ported_messages_name_roadmap_items():
             resnet.forward(params, cfg, x),
             resnet.forward(params, dataclasses.replace(cfg, bn_group_size=1),
                            x))
-    with pytest.raises(NotImplementedError,
-                       match="distribution, fleet and bench"):
-        serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",
-                        "--serve-mode", "fsdp"])
-    with pytest.raises(NotImplementedError) as err:
-        serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",
-                        "--n-replicas", "2"])
-    assert "queue" not in str(err.value)
+    # ported: sharded serving and the fleet
+    assert serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",
+                           "--tokens", "2", "--batch", "2",
+                           "--serve-mode", "fsdp"]) == 0
+    assert capsys.readouterr().out.startswith(
+        "gemma-7b [offline, mode=fsdp, device=cpu, slots=2, kv=paged]: ")
+    assert serve_cli.main(["--arch", "gemma-7b", "--device", "cpu",
+                           "--tokens", "2", "--batch", "2",
+                           "--n-replicas", "2"]) == 0
+    assert capsys.readouterr().out.startswith(
+        "gemma-7b [fleet x2, routing=prefix, slots=2/replica, kv=paged]: ")
+    # what stays refused names its queue item
+    mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
+    for what in ("train", "serve"):
+        with pytest.raises(NotImplementedError,
+                           match=r"not split over a model axis of 2 yet "
+                                 r"\(ROADMAP.md item 6.2\)") as err:
+            spmd.check_supported(get_config("mixtral-8x7b").reduced(), mesh,
+                                 what)
+        assert "queue" not in str(err.value)
+        with pytest.raises(NotImplementedError,
+                           match=f"does not {what} on a mesh yet "
+                                 r"\(ROADMAP.md item 6.2\)"):
+            spmd.check_supported(get_config("whisper-medium").reduced(),
+                                 mesh, what)
 
 
 def test_softplus_gradient_at_zero_is_the_references():

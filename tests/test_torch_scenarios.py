@@ -209,10 +209,25 @@ def test_serve_cli_new_flags_on_cpu():
     assert lines[3].startswith("  slo: goodput ")
     assert [ln.split(":")[0] for ln in lines[-4:]] == [
         f"  req {i}" for i in range(4)]
-    for bad in (["--chaos", "kill"], ["--serve-mode", "tp2d"],
-                ["--n-replicas", "2"]):
+    # sharded serving on the 1 x 1 mesh and a fleet through a kill serve
+    # the same requests to the same tokens
+    reqs = []
+    for flags, head in (
+            (["--serve-mode", "tp2d"],
+             "gemma-7b [offline, mode=tp2d, device=cpu, slots=4, kv=paged]: "
+             "4 requests, 16 tokens"),
+            (["--n-replicas", "2", "--chaos", "kill", "--chaos-step", "2"],
+             "gemma-7b [fleet x2, routing=prefix, chaos=kill, slots=4/replica"
+             ", kv=paged]: 1/2 replicas, 4 requests, 16 tokens")):
         out = subprocess.run(
             [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-             "gemma-7b", "--device", "cpu", *bad],
+             "gemma-7b", "--device", "cpu", "--tokens", "4", "--batch", "4",
+             *flags],
             capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
-        assert out.returncode != 0 and "NotImplementedError" in out.stderr
+        assert out.returncode == 0, out.stderr
+        lines = out.stdout.splitlines()
+        assert lines[0].startswith(head), lines[0]
+        reqs.append(lines[-4:])
+    assert reqs[0] == reqs[1]
+    assert [ln.split(":")[0] for ln in reqs[0]] == [
+        f"  req {i}" for i in range(4)]
