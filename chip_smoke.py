@@ -230,7 +230,21 @@ and prints no result):
    one-engine run's greedy tokens, the paged counter shows 28 launches
    a replica chunk step; fleet tokens/s, goodput, routing hit rate,
    kills and evictions printed; the paged kernel timed at a replica's
-   chunk shape.
+   chunk shape;
+18. the run layer (``run-cli``): ``python -m repro_torch run --full`` in
+   subprocesses, as a user types it, at gemma-7b's full width:
+   ``runs/serve_prefix.toml`` (``tp2d`` on a 1 x 1 NCCL mesh, prefix
+   cache, page 4) with ``--profile --trace`` (the paged counter exactly
+   28 a chunk step, the profiler's split count within 1% of it) and
+   ``runs/serve_fleet.toml`` (two replicas, a kill at fleet step 6: every
+   id once, 28 launches a replica chunk step), each request's tokens
+   equal to an in-process one-device engine's on the same spec and seed;
+   a ``--mode dryrun`` render of the fleet's manifests; the paged kernel
+   timed at serve_prefix's chunk; then ``runs/gemma_7b_train.json`` cut
+   to 8 layers, batch 4 x 2048, 3 steps with an eval: the flash
+   counters at 2 forwards and 1 backward a layer a step plus a forward a
+   layer an eval batch, the losses finite and, with eval_nll, bitwise
+   an in-process ``Trainer``'s.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -285,6 +299,8 @@ from repro_torch.models import ssd as ssd_model  # noqa: E402
 from repro_torch.models.scan_utils import _largest_divisor_leq  # noqa: E402
 from repro_torch.optim import adam, constant, lars, polynomial_warmup  # noqa: E402
 from repro_torch import random as rnd  # noqa: E402
+from repro_torch.run import apply_assignments, load_spec_file  # noqa: E402
+from repro_torch.run import dispatch as run_dispatch  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     Engine,
     ServeConfig,
@@ -320,8 +336,11 @@ TRAIN_BATCH_JAMBA = 8  # jamba's 8 microbatches, each 1 x 2048
 GNMT_BATCH, GNMT_MAX_LEN, GNMT_WINDOW, GNMT_STEPS = 128, 50, 6, 6
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _T0:.1f} s)", flush=True)
 
 
 # --------------------------------------------------------------------------- #
@@ -5722,13 +5741,13 @@ FLEET_REPLICAS, FLEET_CHAOS_STEP, FLEET_STALL, FLEET_TIMEOUT = 2, 8, 12, 4
 PAGED_SPLITS = ("paged_split_mma_kernel", "paged_split_f32_kernel")
 
 
-def paged_site_record(name, seed, label, **shape):
+def paged_site_record(name, seed, label, page=16, **shape):
     """The paged kernel at a call site's shape (bf16 pool and q, gemma's
-    16/16 heads of 256, page 16) held against its plain version, rerun
-    bitwise, and timed beside its bound and SDPA on the gathered K/V, as
-    row 1 is."""
+    16/16 heads of 256, ``page`` tokens a page) held against its plain
+    version, rerun bitwise, and timed beside its bound and SDPA on the
+    gathered K/V, as row 1 is."""
     case = paged_case(seed, dtype=torch.bfloat16, H=16, K=16, D=256,
-                      page=16, **shape)
+                      page=page, **shape)
     err = hold_paged(case, None, label, TOL[torch.bfloat16])
     nbytes, flops = work(case, None)
     b_ms, by = bound(flops, nbytes, torch.bfloat16)
@@ -5744,7 +5763,7 @@ def paged_site_record(name, seed, label, **shape):
         library_ms=time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 qs, ks, vs, attn_mask=mask)))
-    print(f"  {label}: B{shape['B']} C{shape['C']} H16 D256 page16 bf16: "
+    print(f"  {label}: B{shape['B']} C{shape['C']} H16 D256 page{page} bf16: "
           f"max|kernel-plain| {err:.3e}, rerun bitwise equal; kernel "
           f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, sdpa "
           f"{rec['library_ms']:.4f} ms (K/V gathered beforehand), "
@@ -5973,6 +5992,238 @@ def serve_fleet(params):
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# Phase 18: the run layer, ``python -m repro_torch run``, in subprocesses.
+# --------------------------------------------------------------------------- #
+RUN_CLI_TRAIN = ("--spec", "runs/gemma_7b_train.json", "--full",
+                 "--set", "model.n_layers=8", "--set", "trainer.batch=4",
+                 "--set", "trainer.seq=2048", "--set", "trainer.total_steps=3",
+                 "--set", "trainer.eval_every=3")
+
+
+def run_cli(args, workdir, tag, trace=False):
+    """``python -m repro_torch run ARGS --profile FILE [--trace]`` from
+    the root of the checkout, as a user types it (``PYTHONPATH=src``);
+    its stdout, the profile's JSON and its wall seconds. A non-zero exit
+    raises."""
+    prof = os.path.join(workdir, f"{tag}.json")
+    cmd = [sys.executable, "-m", "repro_torch", "run", *args, "--profile",
+           prof] + ["--trace"] * trace
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    print(f"  $ PYTHONPATH=src python -m repro_torch run "
+          f"{' '.join(cmd[4:])}", flush=True)
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f"run-cli {tag}: exit {out.returncode}\n"
+                             f"{out.stdout[-2000:]}\n{out.stderr[-4000:]}")
+    lines = [ln for ln in out.stdout.splitlines()
+             if not ln.startswith("USDT")]  # the profiler's own lines
+    print("\n".join(f"  | {ln}" for ln in lines[:3]), flush=True)
+    with open(prof) as f:
+        return out.stdout, json.load(f), wall
+
+
+def cli_tokens(stdout):
+    """{request id: tokens} from the CLI's ``  req N: ...`` lines."""
+    out = {}
+    for ln in stdout.splitlines():
+        if ln.startswith("  req "):
+            rid = int(ln.split(":")[0].split()[1])
+            if rid in out:
+                raise AssertionError(f"run-cli: request {rid} printed twice")
+            out[rid] = json.loads(ln[ln.index("["):])
+    return out
+
+
+def in_order(tokens):
+    return [tokens[k] for k in sorted(tokens)]
+
+
+def engine_tokens(spec, cfg, params):
+    """The spec's workload through an in-process one-device ``Engine``
+    on ``params``, warmed up as the dispatcher warms its engine."""
+    from repro_torch.serve.scenarios import scenario_driver
+
+    engine = Engine(cfg, params, run_dispatch.serve_config(spec, cfg),
+                    device="cuda")
+    run_offline(engine, synthetic_requests(
+        cfg, n=min(2, engine.scfg.max_batch), tokens=2,
+        prompt_len=spec.serve.prompt_len, seed=spec.seed + 1))
+    report = scenario_driver(spec.scenario)(
+        engine, run_dispatch.serve_trace(spec, cfg))
+    del engine
+    return in_order({r.id: list(r.tokens) for r in report.requests})
+
+
+def run_cli_paged(spec_file, params, workdir, trace):
+    """One serve spec through the CLI at full width: its paged launches
+    (the counter exactly 28 a chunk step; with ``trace`` the profiler's
+    split count within 1% of it), every id once, tokens against an
+    in-process engine. Returns (stdout, profile, wall s, the spec)."""
+    spec = apply_assignments(load_spec_file(os.path.join(ROOT, spec_file)),
+                             ["reduced=false"])
+    cfg = run_dispatch.resolve_config(spec)
+    tag = os.path.splitext(os.path.basename(spec_file))[0]
+    stdout, prof, wall = run_cli(["--spec", spec_file, "--full"], workdir,
+                                 tag, trace)
+    n, steps = prof["launches"]["paged_attention"], prof["chunk_steps"]
+    traced = n
+    busy = "untraced"
+    if trace:
+        traced = sum(k["count"] for k in prof["kernels"]
+                     if kernel_name(k["name"]) in PAGED_SPLITS)
+        busy = (f"profiler {traced}; device busy {prof['busy_ms']:.1f} ms = "
+                f"{100 * prof['busy_ms'] / prof['wall_ms']:.1f}% of the "
+                f"traced run")
+    toks = cli_tokens(stdout)
+    s = prof["summary"]
+    print(f"  {tag}: {len(toks)} requests, chunk steps {steps}, "
+          f"paged_attention launches {n} (bf16 "
+          f"{prof['launches']['paged_attention_by_kind']['bfloat16']}; "
+          f"{busy}), measured run {prof['wall_ms']:.1f} ms, tokens/s "
+          f"{s['tokens_per_s']}, command wall {wall:.1f} s", flush=True)
+    if n != cfg.n_layers * steps or steps == 0 or \
+            prof["launches"]["paged_attention_by_kind"]["bfloat16"] != n:
+        raise AssertionError(f"run-cli {tag}: paged launches "
+                             f"{prof['launches']}; expected {cfg.n_layers} "
+                             f"bf16 launches x {steps} chunk steps")
+    if not 0.99 * n <= traced <= n:
+        raise AssertionError(f"run-cli {tag}: the profiler saw {traced} "
+                             f"paged calls of {n}")
+    if len(toks) != spec.serve.batch or any(
+            len(t) != spec.serve.tokens or not all(0 <= x < cfg.vocab
+                                                   for x in t)
+            for t in toks.values()):
+        raise AssertionError(f"run-cli {tag}: requests {toks}")
+    want = engine_tokens(spec, cfg, params)
+    if in_order(toks) != want:
+        raise AssertionError(f"run-cli {tag}: the CLI's greedy tokens "
+                             f"differ from an in-process engine's")
+    print(f"  {tag}: every id once, greedy tokens equal an in-process "
+          f"one-device engine's on the same spec and seed", flush=True)
+    return stdout, prof, wall, spec
+
+
+def run_cli_serve(params):
+    """Phase 18a: ``runs/serve_prefix.toml`` (tp2d on the 1 x 1 NCCL
+    mesh, prefix cache, page 4) and ``runs/serve_fleet.toml`` (two
+    replicas, a kill at fleet step 6) through the CLI at gemma-7b's full
+    width, then one ``--mode dryrun`` render of the fleet's manifests.
+    Returns the paged record of the call site."""
+    import shutil
+    import tempfile
+
+    phase("run-cli: python -m repro_torch run --full, gemma-7b 28 layers: "
+          "runs/serve_prefix.toml, runs/serve_fleet.toml, a k8s render")
+    t0 = time.perf_counter()
+    workdir = tempfile.mkdtemp(prefix="run_cli_")
+    try:
+        _, prof, _, spec = run_cli_paged("runs/serve_prefix.toml", params,
+                                         workdir, trace=True)
+        launches = prof["launches"]["paged_attention"]
+        stdout, fprof, _, _ = run_cli_paged("runs/serve_fleet.toml", params,
+                                            workdir, trace=False)
+        if fprof["summary"]["kills"] != 1:
+            raise AssertionError(f"run-cli fleet: {fprof['summary']}")
+        print("  serve_fleet: " + next(
+            ln for ln in stdout.splitlines() if ln.startswith("gemma-7b [")),
+            flush=True)
+        yaml = subprocess.run(
+            [sys.executable, "-m", "repro_torch", "run", "--spec",
+             "runs/serve_fleet.toml", "--mode", "dryrun"], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src")),
+            capture_output=True, text=True, timeout=300, check=True).stdout
+        if yaml.count("\n---\n") != 2 or "nvidia.com/gpu: 1" not in yaml \
+                or '- "repro_torch"' not in yaml or "replicas: 2" not in yaml:
+            raise AssertionError(f"run-cli render:\n{yaml}")
+        print(f"  dryrun render: 3 manifests, {len(yaml)} B, replicas 2, "
+              f"nvidia.com/gpu 1", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_pages = -(-(spec.serve.prompt_len + spec.serve.tokens)
+                // spec.serve.kv.page_size)
+    rec = paged_site_record("paged_attention_run_cli", 330, "run-cli row "
+                            "(serve_prefix's chunk: 3 slots, chunk 4, page "
+                            "4)", page=spec.serve.kv.page_size, B=3, C=4,
+                            npg=n_pages, lens=[22, 13, 0], nvs=[1, 4, 1])
+    rec["launches"] = launches
+    print(f"  run-cli serve wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return rec
+
+
+def run_cli_train():
+    """Phase 18b: ``runs/gemma_7b_train.json --full`` cut to 8 layers,
+    batch 4 x 2048, 3 steps and an eval, through the CLI: the flash
+    forward and backward launch as the step and the eval sweep need,
+    the losses are finite and bitwise those of an in-process Trainer on
+    the same spec and seed. Returns the (forward, backward) launches."""
+    import shutil
+    import tempfile
+
+    phase("run-cli: python -m repro_torch run " + " ".join(RUN_CLI_TRAIN))
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spec = load_spec_file(os.path.join(ROOT, RUN_CLI_TRAIN[1]))
+    spec = apply_assignments(spec, ["reduced=false"] + list(
+        RUN_CLI_TRAIN[4::2]))
+    cfg = run_dispatch.resolve_config(spec)
+    t = spec.trainer
+    workdir = tempfile.mkdtemp(prefix="run_cli_")
+    try:
+        metrics = os.path.join(workdir, "metrics.jsonl")
+        stdout, prof, wall = run_cli(
+            list(RUN_CLI_TRAIN) + ["--metrics-out", metrics], workdir,
+            "train")
+        with open(metrics) as f:
+            records = [json.loads(ln) for ln in f]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    losses = [r["loss"] for r in records]
+    eval_fn = synthetic_eval_set(cfg, batch=t.batch, seq=t.seq)
+    n_eval = sum(1 for _ in eval_fn())
+    want = (2 * cfg.n_layers * t.total_steps + cfg.n_layers * n_eval,
+            cfg.n_layers * t.total_steps)
+    got = (prof["launches"]["flash_attention_fwd"],
+           prof["launches"]["flash_attention_bwd"])
+    step_ms = [r["step_ms"] for r in records]
+    print(f"  {len(records)} steps: losses {losses}; eval_nll "
+          f"{records[-1].get('eval_nll')}; step ms "
+          f"{[round(m, 1) for m in step_ms]}; flash launches forward "
+          f"{got[0]}, backward {got[1]} (expected {want[0]}, {want[1]}); "
+          f"fit {prof['wall_ms']:.1f} ms; command wall {wall:.1f} s",
+          flush=True)
+    if got != want:
+        raise AssertionError(f"run-cli train: flash launches {got} != {want}")
+    if len(losses) != t.total_steps or not all(np.isfinite(losses)):
+        raise AssertionError(f"run-cli train: losses {losses}")
+    tr = Trainer(cfg, TrainerConfig(
+        total_steps=t.total_steps, eval_every=t.eval_every,
+        log_every=0, seed=spec.seed, metrics=t.metrics), device="cuda")
+    hist = tr.fit(synthetic_lm_batches(cfg, batch=t.batch, seq=t.seq,
+                                       steps=t.total_steps, seed=spec.seed),
+                  eval_fn)
+    mine = [r["loss"] for r in hist]
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if mine != losses or hist[-1].get("eval_nll") != \
+            records[-1].get("eval_nll"):
+        raise AssertionError(f"run-cli train: the CLI's losses {losses} "
+                             f"differ from an in-process Trainer's {mine}")
+    print("  losses and eval_nll bitwise those of an in-process Trainer",
+          flush=True)
+    print(f"  run-cli train wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return got
+
+
 PHASES = {  # --only names: the phases a short run may pick
     "paged": lambda: (check_kernel(), check_paged_archs()),
     "flash": lambda: (check_flash(), check_flash_archs()),
@@ -6007,6 +6258,7 @@ PHASES = {  # --only names: the phases a short run may pick
     "dist-train": dist_train,
     "serve-tp2d": lambda: serve_tp2d(full_serve_params()),
     "serve-fleet": lambda: serve_fleet(full_serve_params()),
+    "run-cli": lambda: (run_cli_serve(full_serve_params()), run_cli_train()),
 }
 
 
@@ -6066,7 +6318,8 @@ def main(argv=None) -> int:
     paged["launches"] = serve_full(params)
     int8["launches"], int4["launches"] = serve_quant(params)
     serve_sample(params)
-    serve_recs = [serve_tp2d(params), serve_fleet(params)]
+    serve_recs = [serve_tp2d(params), serve_fleet(params),
+                  run_cli_serve(params)]
     del params
     torch.cuda.empty_cache()
     mamba["launches"], flash_jamba["launches"] = serve_jamba_full()
@@ -6087,12 +6340,18 @@ def main(argv=None) -> int:
     mlperf = mlperf_phases()
     dist_recs = dist_phase()
     dist_train()
+    # the flash kernels at the dispatcher's train shape, B 4, S 2048, 16
+    # heads of 256: the shape phase 2 timed (rows 2f/2b)
+    cli_fwd, cli_bwd = run_cli_train()
+    run_cli_recs = [
+        dict(flash_fwd, name="flash_attention_fwd_run_cli", launches=cli_fwd),
+        dict(flash_bwd, name="flash_attention_bwd_run_cli", launches=cli_bwd)]
     recs = [paged, int8, int4, flash_fwd, flash_bwd, flash_jamba, mamba,
             mamba_train, mamba_bwd, lstm_fwd, lstm_bwd, lars_norms,
             lars_update, *paged_archs.values(),
             *(r for pair in flash_archs.values() for r in pair),
             flash_jamba_fwd, flash_jamba_bwd, *whisper, *vlm, *mlperf,
-            *dist_recs, *serve_recs]
+            *dist_recs, *serve_recs, *run_cli_recs]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"  whole smoke wall {time.perf_counter() - t0:.1f} s", flush=True)

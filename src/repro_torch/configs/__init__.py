@@ -24,6 +24,8 @@ from repro_torch.configs import (
     yi_9b,
 )
 from repro_torch.configs.base import (
+    INPUT_SHAPES,
+    InputShape,
     LayerSpec,
     MambaConfig,
     ModelConfig,
@@ -59,5 +61,10 @@ def get_config(arch: str) -> ModelConfig:
     raise KeyError(f"unknown arch {arch!r}; known: {list_archs()}")
 
 
-__all__ = ["LayerSpec", "MambaConfig", "ModelConfig", "MoEConfig",
-           "RWKV6Config", "get_config", "list_archs"]
+def get_shape(name: str) -> InputShape:
+    return INPUT_SHAPES[name]
+
+
+__all__ = ["INPUT_SHAPES", "InputShape", "LayerSpec", "MambaConfig",
+           "ModelConfig", "MoEConfig", "RWKV6Config", "get_config",
+           "get_shape", "list_archs"]

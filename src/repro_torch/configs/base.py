@@ -1,12 +1,15 @@
 """Model config for the port: the ``repro.configs.base`` fields that
 the serving path and the train step read, with the same names, defaults
 and ``reduced()`` rule, so one architecture id builds the same model on
-both sides (tests compare every kept field)."""
+both sides (tests compare every kept field); the dotted-path overrides
+the run layer's ``--set model.*`` applies (``base.py:283-361``); and the
+production input shapes (``base.py:364-376``)."""
 from __future__ import annotations
 
 import dataclasses
+import typing
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -214,3 +217,103 @@ class ModelConfig:
             total += self.n_enc_layers * (attn + d * f * (3 if self.glu else 2))
             total += self.n_layers * attn
         return int(total)
+
+
+# --------------------------------------------------------------------------- #
+# Override-field introspection (the run layer's ``--set model.*`` grammar).
+#
+# The configs are frozen dataclasses, so which fields a spec may override,
+# and at what type, follows from their resolved annotations: nested config
+# dataclasses (``moe``, ``mamba``, ``rwkv6``) flatten into dotted paths
+# (``moe.top_k``); ``block_pattern`` carries structure, not a scalar, and
+# is not overridable.
+# --------------------------------------------------------------------------- #
+def resolved_field_types(cls) -> Dict[str, Any]:
+    """Dataclass field name -> resolved type annotation."""
+    hints = typing.get_type_hints(cls)
+    return {f.name: hints[f.name] for f in dataclasses.fields(cls)}
+
+
+def _unwrap_optional(typ):
+    """Optional[T] -> T (identity otherwise)."""
+    if typing.get_origin(typ) is typing.Union:
+        args = [a for a in typing.get_args(typ) if a is not type(None)]
+        if len(args) == 1:
+            return args[0]
+    return typ
+
+
+def override_paths(cls, _prefix: str = "") -> Dict[str, Any]:
+    """Flattened dotted path -> scalar type for every overridable field;
+    fields whose type is a tuple of dataclasses are left out."""
+    out: Dict[str, Any] = {}
+    for name, typ in resolved_field_types(cls).items():
+        inner = _unwrap_optional(typ)
+        if dataclasses.is_dataclass(inner):
+            out.update(override_paths(inner, f"{_prefix}{name}."))
+        elif typing.get_origin(inner) in (tuple, Tuple) and any(
+            dataclasses.is_dataclass(_unwrap_optional(a))
+            for a in typing.get_args(inner) if a is not Ellipsis
+        ):
+            continue  # structured container (block_pattern)
+        else:
+            out[f"{_prefix}{name}"] = typ
+    return out
+
+
+def replace_path(obj, dotted: str, value):
+    """``dataclasses.replace`` through a dotted path of nested dataclasses;
+    every ``__post_init__`` on the way out runs again, so the invariants
+    (divisibility, the derived head_dim) hold on the result."""
+    head, _, rest = dotted.partition(".")
+    if not rest:
+        return dataclasses.replace(obj, **{head: value})
+    child = getattr(obj, head)
+    if child is None:
+        raise ValueError(
+            f"cannot set {dotted!r}: {head!r} is not enabled on this config"
+        )
+    return dataclasses.replace(obj, **{head: replace_path(child, rest, value)})
+
+
+def apply_overrides(cfg: "ModelConfig", overrides: Mapping[str, Any]):
+    """Apply dotted-path overrides ({'param_sharding': 'wus', ...}).
+
+    ``__post_init__`` materialises head_dim, so a d_model or n_heads
+    override would carry the stale derived value: when the current
+    head_dim is the derived one and no override pins it, it is reset to
+    0 afterwards and derived again (an explicit head_dim, e.g. gemma's
+    256, is kept)."""
+    known = override_paths(type(cfg))
+    for dotted in overrides:
+        if dotted not in known:
+            raise ValueError(
+                f"{type(cfg).__name__} has no overridable field {dotted!r}"
+            )
+    rederive_head_dim = (
+        getattr(cfg, "n_heads", 0)
+        and cfg.head_dim == cfg.d_model // cfg.n_heads
+        and ("d_model" in overrides or "n_heads" in overrides)
+        and "head_dim" not in overrides
+    )
+    for dotted, value in overrides.items():
+        cfg = replace_path(cfg, dotted, value)
+    if rederive_head_dim:
+        cfg = replace_path(cfg, "head_dim", 0)
+    return cfg
+
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}

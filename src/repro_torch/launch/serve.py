@@ -55,13 +55,17 @@ seeded fault (``--chaos kill`` or ``stall`` at fleet step
 for more than ``--heartbeat-timeout`` steps is declared dead), and
 prints the fleet's summary and each request's tokens, which equal one
 engine's.
+
+The CLI is a shim over the run layer: its flags build a
+``RunSpec(mode="serve")`` and ``repro_torch.run.dispatch.run_spec`` runs
+it, as ``python -m repro_torch run --mode serve`` does.
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
-from repro_torch.configs import get_config, list_archs
+from repro_torch.configs import list_archs
 
 
 def main(argv=None) -> int:
@@ -144,131 +148,62 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="'cuda' (default) or 'cpu' (plain PyTorch path)")
     args = ap.parse_args(argv)
-    if args.n_replicas < 0:
-        ap.error("--n-replicas must be >= 0")
 
-    import torch.distributed as dist
-
-    from repro_torch.launch.mesh import single_device_mesh
-    from repro_torch.launch.train import mesh_for
-
-    mesh = mesh_for(args.mesh, args.device)
-    if mesh is None and args.serve_mode:
-        mesh = single_device_mesh(args.device)
-    try:
-        return _serve(args, mesh)
-    finally:
-        if mesh is not None and dist.is_initialized():
-            dist.destroy_process_group()
-
-
-def _serve(args, mesh) -> int:
-    from repro_torch import resolve_device
-    from repro_torch.dist.sharding import Rules
-    from repro_torch.serve.engine import Engine, ServeConfig, synthetic_requests
-    from repro_torch.serve.scenarios import make_trace, scenario_driver
-    from repro_torch.train.steps import ModelAPI
-
-    cfg = get_config(args.arch)
-    if not args.full:
-        cfg = cfg.reduced()
-    # a vision frontend's media take positions ahead of each prompt
-    n_media = cfg.n_media_tokens if cfg.frontend == "vision_patches" else 0
-    scfg = ServeConfig(
-        max_batch=args.batch if args.max_batch is None else args.max_batch,
-        max_len=n_media + args.prompt_len + args.tokens,
-        prefill_len=args.prompt_len,
-        temperature=args.temperature,
-        seed=args.seed,
-        kv_layout=args.kv_layout,
-        page_size=args.page_size,
-        prefill_chunk=args.prefill_chunk,
-        n_pages=args.n_pages,
-        prefix_cache=args.prefix_cache,
-        kv_dtype=args.kv_dtype,
-        spec_decode=args.spec_decode,
-        draft_len=args.draft_len,
+    from repro_torch.run import (
+        FleetSection,
+        KVCacheSpec,
+        RunSpec,
+        ServeSection,
+        SpecError,
     )
-    device = resolve_device(args.device)
-    params = ModelAPI(cfg).init(cfg, args.seed, device=device)
-    rules = mode = None
-    if mesh is not None:
-        mode = args.serve_mode or cfg.param_sharding
-        rules = Rules(mesh, mode)
-    lead = mesh is None or mesh.device_mesh.get_rank() == 0
-    slo_classes = tuple(c.strip() for c in args.slo_classes.split(",")
-                        if c.strip())
-    reqs = make_trace(
-        cfg, scenario=args.scenario, n=args.batch, tokens=args.tokens,
-        prompt_len=args.prompt_len, seed=args.seed, rate=args.arrival_rate,
-        pattern=args.arrival_pattern, query_size=args.query_size,
-        query_interval=args.query_interval, slo_classes=slo_classes,
-        shared_prefix_len=args.shared_prefix_len,
-        n_templates=args.n_templates)
-    engines = [Engine(cfg, params, scfg, rules=rules, device=device)
-               for _ in range(max(1, args.n_replicas))]
-    for engine in engines:
-        # warm-up: builds the kernel library outside the reported metrics
-        scenario_driver("offline")(engine, synthetic_requests(
-            cfg, n=min(2, scfg.max_batch), tokens=2,
-            prompt_len=args.prompt_len, seed=args.seed + 1))
-    engine = engines[0]
-    kv_dtype = engine.cfg.kv_cache_dtype
-    kv = engine.layout + (f"/{kv_dtype}" if args.kv_dtype
-                          or kv_dtype != cfg.dtype else "")
-    if args.n_replicas:
-        return _fleet(args, engines, reqs, kv, lead, bool(slo_classes))
-    report = scenario_driver(args.scenario)(engine, reqs)
-    if not lead:
-        return 0
-    on = "" if mode is None else f"mode={mode}, "
-    print(f"{args.arch} [{args.scenario}, {on}device={device}, "
-          f"slots={scfg.max_batch}, kv={kv}]: {report.format()}")
-    if report.prefix_hit_rate is not None:
-        print(f"  prefix cache: hit_rate {report.prefix_hit_rate:.3f}, "
-              f"{report.pages_shared} pages shared, "
-              f"{report.prefill_tokens_skipped} prefill tokens skipped, "
-              f"{report.cow_copies} cow copies")
-    if report.spec_accept_rate is not None:
-        print(f"  speculative: accept_rate {report.spec_accept_rate:.3f}, "
-              f"{report.draft_tokens} draft tokens proposed")
-    if slo_classes:
-        print(f"  slo: goodput {report.slo_goodput:.3f}, "
-              f"{report.slo_violations} violation(s)")
-        for name, m in sorted(report.per_class().items()):
-            print(f"    {name}: n={m['requests']} p99 {m['p99_ms']:.1f}ms "
-                  f"ttft_p99 {m['ttft_p99_ms']:.1f}ms violations "
-                  f"{m['violations']} goodput {m['goodput']:.3f}")
-    for req in sorted(report.requests, key=lambda r: r.id):
-        print(f"  req {req.id}: prompt {req.prompt_len} -> "
-              f"{len(req.tokens)} tokens {req.tokens}")
-    return 0
+    from repro_torch.run.dispatch import run_spec
 
-
-def _fleet(args, engines, reqs, kv: str, lead: bool, slo: bool) -> int:
-    """The workload through a fleet of ``engines`` (arrivals on the fleet
-    step clock), with the chaos of the flags; prints its summary."""
-    from repro_torch.fleet import ChaosPlan, Fleet, FleetConfig
-
-    chaos = ChaosPlan.from_spec(args.chaos, chaos_step=args.chaos_step,
-                                stall_steps=args.stall_steps, seed=args.seed)
-    fleet = Fleet(engines, FleetConfig(
-        routing=args.routing, heartbeat_timeout=args.heartbeat_timeout),
-        chaos)
-    report = fleet.run(reqs)
-    if not lead:
-        return 0
-    print(f"{args.arch} [fleet x{args.n_replicas}, routing={args.routing}"
-          f"{', chaos=' + args.chaos if args.chaos else ''}, "
-          f"slots={engines[0].scfg.max_batch}/replica, kv={kv}]: "
-          f"{report.format()}")
-    for name, m in sorted(report.per_class().items() if slo else ()):
-        print(f"    {name}: n={m['requests']} p99 {m['p99_ms']:.1f}ms "
-              f"violations {m['violations']} goodput {m['goodput']:.3f}")
-    for req in sorted(report.merged.requests, key=lambda r: r.id):
-        print(f"  req {req.id}: prompt {req.prompt_len} -> "
-              f"{len(req.tokens)} tokens {req.tokens}")
-    return 0
+    try:
+        spec = RunSpec(
+            arch=args.arch,
+            mode="serve",
+            mesh=args.mesh,
+            scenario=args.scenario,
+            reduced=not args.full,
+            seed=args.seed,
+            serve=ServeSection(
+                tokens=args.tokens,
+                batch=args.batch,
+                max_batch=args.max_batch,
+                prompt_len=args.prompt_len,
+                temperature=args.temperature,
+                serve_mode=args.serve_mode or "",
+                kv=KVCacheSpec(
+                    layout=args.kv_layout,
+                    page_size=args.page_size,
+                    prefill_chunk=args.prefill_chunk,
+                    n_pages=args.n_pages,
+                    prefix_cache=args.prefix_cache,
+                    dtype=args.kv_dtype,
+                    spec_decode=args.spec_decode,
+                    draft_len=args.draft_len,
+                ),
+                shared_prefix_len=args.shared_prefix_len,
+                n_templates=args.n_templates,
+                arrival_rate=args.arrival_rate,
+                arrival_pattern=args.arrival_pattern,
+                query_size=args.query_size,
+                query_interval=args.query_interval,
+                slo_classes=tuple(c.strip() for c in
+                                  args.slo_classes.split(",") if c.strip()),
+            ),
+            fleet=FleetSection(
+                n_replicas=args.n_replicas,
+                routing=args.routing,
+                chaos=args.chaos,
+                chaos_step=args.chaos_step,
+                stall_steps=args.stall_steps,
+                heartbeat_timeout=args.heartbeat_timeout,
+            ),
+        )
+    except SpecError as e:
+        ap.error(str(e))
+    return run_spec(spec, device=args.device)["exit_code"]
 
 
 if __name__ == "__main__":

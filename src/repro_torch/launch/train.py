@@ -21,42 +21,15 @@ group: one already up, or one started from the launcher's environment
 ``torchrun`` sets them). A world size that is not the mesh's raises
 before any work; rank 0 prints. ``--mesh single`` is one device, no
 mesh.
+
+The CLI is a shim over the run layer: its flags build a
+``RunSpec(mode="train")`` and ``repro_torch.run.dispatch.run_spec`` runs
+it, as ``python -m repro_torch run --mode train`` does.
 """
 from __future__ import annotations
 
 import argparse
-import itertools
-import math
-import os
 import sys
-
-
-def mesh_for(kind: str, device):
-    """The mesh ``--mesh kind`` names, or None for ``single``."""
-    if kind == "single":
-        return None
-    import torch
-    import torch.distributed as dist
-
-    from repro_torch import resolve_device
-    from repro_torch.launch.mesh import BACKENDS, make_mesh, \
-        production_mesh_shape
-
-    shape, names = production_mesh_shape(multi_pod=kind == "multipod")
-    need = math.prod(shape)
-    world = (dist.get_world_size() if dist.is_initialized()
-             else int(os.environ.get("WORLD_SIZE", "1")))
-    if world != need:
-        raise ValueError(
-            f"--mesh {kind} is a {' x '.join(map(str, shape))} mesh over "
-            f"{names}: it needs {need} ranks, one process each; this run "
-            f"has {world}")
-    dev = resolve_device(device)
-    if not dist.is_initialized():
-        dist.init_process_group(BACKENDS[dev.type], init_method="env://")
-        if dev.type == "cuda":
-            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-    return make_mesh(shape, names, device=dev)
 
 
 def main(argv=None):
@@ -82,37 +55,27 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain path)")
     args = ap.parse_args(argv)
-    mesh = mesh_for(args.mesh, args.device)
 
-    from repro_torch.configs import get_config
-    from repro_torch.data.pipeline import (
-        synthetic_eval_set,
-        synthetic_lm_batches,
+    from repro_torch.run import RunSpec, TrainerSection
+    from repro_torch.run.dispatch import run_spec
+
+    spec = RunSpec(
+        arch=args.arch,
+        mode="train",
+        mesh=args.mesh,
+        reduced=args.reduced,
+        trainer=TrainerSection(
+            total_steps=args.steps,
+            batch=args.batch,
+            seq=args.seq,
+            eval_every=args.eval_every,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_dir=args.checkpoint_dir,
+            log_every=max(1, args.steps // 10),
+            resume=args.resume or "",
+        ),
     )
-    from repro_torch.train import Trainer, TrainerConfig
-
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    lead = mesh is None or mesh.device_mesh.get_rank() == 0
-    tcfg = TrainerConfig(total_steps=args.steps, eval_every=args.eval_every,
-                         checkpoint_every=args.checkpoint_every,
-                         checkpoint_dir=args.checkpoint_dir,
-                         log_every=max(1, args.steps // 10) if lead else 0)
-    trainer = Trainer(cfg, tcfg, device=args.device, mesh=mesh)
-    start = trainer.resume(args.resume) if args.resume else 0
-    # one stream for the whole run: a resumed run skips what its
-    # checkpointed steps consumed
-    batches = itertools.islice(
-        synthetic_lm_batches(cfg, batch=args.batch, seq=args.seq,
-                             steps=args.steps), start, None)
-    eval_fn = None
-    if args.eval_every:
-        eval_fn = synthetic_eval_set(cfg, batch=args.batch, seq=args.seq)
-    history = trainer.fit(batches, eval_fn)
-    if lead:
-        print("done", history[-1] if history else "")
-    return 0
+    return run_spec(spec, device=args.device)["exit_code"]
 
 
 if __name__ == "__main__":

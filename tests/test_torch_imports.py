@@ -71,6 +71,15 @@ PORT_MODULES = [
     "repro_torch.serve.scheduler",
     "repro_torch.serve.slo",
     "repro_torch.serve.speculative",
+    "repro_torch.__main__",
+    "repro_torch.run",
+    "repro_torch.run.cli",
+    "repro_torch.run.dispatch",
+    "repro_torch.run.overrides",
+    "repro_torch.run.spec",
+    "repro_torch.run.specfile",
+    "repro_torch.launch.dryrun",
+    "repro_torch.launch.k8s",
     "repro_torch.launch.gnmt",
     "repro_torch.launch.mesh",
     "repro_torch.launch.mlperf",
@@ -134,6 +143,19 @@ def test_default_device_refuses_without_cuda(monkeypatch):
         resnet.main(["--steps", "1"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mlperf.main(["--model", "maskrcnn", "--steps", "1"])
+
+
+def test_run_layer_refuses_without_cuda(monkeypatch):
+    """``python -m repro_torch run`` and ``run_spec`` default to the card:
+    without one, a serve or train spec raises before any work."""
+    from repro_torch.run import cli, load_spec_file, run_spec
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = load_spec_file(str(ROOT / "runs" / "serve_prefix.toml"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run_spec(spec)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["run", "--spec", str(ROOT / "runs" / "gemma_7b_train.json")])
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
