@@ -84,9 +84,9 @@ and prints no result):
    through them (forward twice per layer per step, with the remat
    recompute, and once per layer per eval batch; backward once per
    layer per step), and a second run from the same seed must give the
-   same losses. Then (``train-resume``) the same model cut to 2 layers
-   (1 when the temporary directory cannot hold two of their 16 GB
-   checkpoints) takes 6 steps from the streaming pipeline through the
+   same losses. Then (``train-resume``) the same model cut to 1 layer
+   (two checkpoints of 12.7 GB in the temporary directory) takes 6
+   steps from the streaming pipeline through the
    double buffer with async checkpoints at steps 3 and 6, and a fresh
    trainer resumed from step 3 takes steps 4-6: its losses and final
    state must equal the first run's bitwise, both checkpoints and a sync
@@ -211,7 +211,11 @@ and prints no result):
    the flash counters, zeroed just before, at forward twice and backward
    once a layer a step; each trainer's step time, the mesh path's
    overhead and both peak memories printed. The group is destroyed in a
-   ``finally``;
+   ``finally``. Then the dry run of that step (``dryrun_step`` on a fake
+   1 x 1 world): its argument bytes equal the trainer's rank state plus
+   one batch byte for byte, the steps' real peak is at most 1.10 x its
+   predicted peak, and the analytic flops over the median step time are
+   printed as a share of 989 TFLOP/s;
 16. sharded serving (``serve-tp2d``, run after phase 4's serving, on its
    28-layer weights): stream (a) through the one-device engine, then
    through ``Engine(..., rules=Rules(mesh, mode))`` in ``tp2d`` and in
@@ -244,7 +248,12 @@ and prints no result):
    to 8 layers, batch 4 x 2048, 3 steps with an eval: the flash
    counters at 2 forwards and 1 backward a layer a step plus a forward a
    layer an eval batch, the losses finite and, with eval_nll, bitwise
-   an in-process ``Trainer``'s.
+   an in-process ``Trainer``'s;
+19. the dry run (``dryrun``): ``python -m repro_torch run --mode
+   dryrun`` in subprocesses (fake worlds, fake tensors, no card): gemma-7b
+   ``train_4k`` on 16 x 16 and yi-9b ``long_500k`` on 2 x 16 x 16, each
+   with flops and a peak and no error, printed beside its roofline with
+   the H100's constants (``analysis``); the card's ``total_memory``.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -298,7 +307,10 @@ from repro_torch.models import resnet  # noqa: E402
 from repro_torch.models import ssd as ssd_model  # noqa: E402
 from repro_torch.models.scan_utils import _largest_divisor_leq  # noqa: E402
 from repro_torch.optim import adam, constant, lars, polynomial_warmup  # noqa: E402
+from repro_torch import analysis  # noqa: E402
 from repro_torch import random as rnd  # noqa: E402
+from repro_torch.configs import InputShape, get_shape  # noqa: E402
+from repro_torch.launch.dryrun import dryrun_step, tree_bytes  # noqa: E402
 from repro_torch.run import apply_assignments, load_spec_file  # noqa: E402
 from repro_torch.run import dispatch as run_dispatch  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
@@ -3353,23 +3365,11 @@ def serve_sample(params):
 
 
 # --------------------------------------------------------------------------- #
-# Phase 5b: checkpoints and resume at full width (2-layer cut).
+# Phase 5b: checkpoints and resume at full width (1-layer cut: the
+# phase's checkpoint I/O is the script's largest, and the depth is the
+# lever that keeps the whole run inside its time limit).
 # --------------------------------------------------------------------------- #
-RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY = 2, 6, 3
-CKPT_BYTES_PER_PARAM = 12  # fp32 master + Adam's two fp32 moments
-
-
-def resume_layers(free_bytes):
-    """2 layers when the disk holds two of their checkpoints with 10% to
-    spare, else 1 (gemma-7b: attention q, k, v, o, the GeGLU FFN and two
-    norm scales a layer; the tied embedding and the final norm)."""
-    c = get_config("gemma-7b")
-    per_layer = (2 * c.d_model * c.n_heads * c.head_dim
-                 + 2 * c.d_model * c.n_kv_heads * c.head_dim
-                 + 3 * c.d_model * c.d_ff + 2 * c.d_model)
-    fixed = c.vocab * c.d_model + c.d_model
-    need = 2 * CKPT_BYTES_PER_PARAM * (fixed + RESUME_LAYERS * per_layer)
-    return RESUME_LAYERS if free_bytes > 1.1 * need else 1
+RESUME_LAYERS, RESUME_STEPS, RESUME_EVERY = 1, 6, 3
 
 
 def state_parts(tr):
@@ -3417,14 +3417,12 @@ def train_resume():
 
     root = tempfile.mkdtemp(prefix="repro_torch_ckpt_")
     free = shutil.disk_usage(root).free
-    n_layers = resume_layers(free)
+    n_layers = RESUME_LAYERS
     phase(f"train-resume: gemma-7b full width, {n_layers} layers, batch "
           f"{TRAIN_BATCH} x {TRAIN_SEQ}, {RESUME_STEPS} steps, async "
           f"checkpoints every {RESUME_EVERY}, resume from step "
           f"{RESUME_EVERY}, streaming pipeline + double buffer")
-    print(f"  {root}: {free / 1e9:.1f} GB free; {n_layers} layers "
-          f"({'as planned' if n_layers == RESUME_LAYERS else 'cut: the disk cannot hold two 2-layer checkpoints'})",
-          flush=True)
+    print(f"  {root}: {free / 1e9:.1f} GB free", flush=True)
     cfg = dataclasses.replace(get_config("gemma-7b"), n_layers=n_layers)
     cache_dir = os.path.join(root, "data_cache")
     run_dir = os.path.join(root, "run_a")
@@ -5652,13 +5650,18 @@ def _at(tree, path):
 def dist_train_run(cfg, batches, mesh):
     """One trainer (``mesh`` None: one device) from seed 0's weights over
     ``batches``: (losses, grad norms, step ms, peak GiB, flash launches,
-    the leaves of ``DIST_TRAIN_LEAVES`` on the host)."""
+    the leaves of ``DIST_TRAIN_LEAVES`` on the host, the steps' own peak
+    bytes (reset after the trainer is built), the bytes of the trainer's
+    state)."""
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     tr = Trainer(cfg, TrainerConfig(total_steps=DIST_TRAIN_STEPS,
                                     log_every=0, metrics=("grad_norm",)),
                  device="cuda", mesh=mesh)
+    built = torch.cuda.max_memory_allocated()
+    state_bytes = tree_bytes(tr.state)
+    torch.cuda.reset_peak_memory_stats()
     fa.flash_attention_fwd_cuda.launches = 0
     fa.flash_attention_bwd_cuda.launches = 0
     hist = tr.fit(iter(batches), hooks=[SyncEveryStep()])
@@ -5667,9 +5670,11 @@ def dist_train_run(cfg, batches, mesh):
                 fa.flash_attention_bwd_cuda.launches)
     leaves = [_at(tr.state["params"], p).detach().cpu().clone()
               for p in DIST_TRAIN_LEAVES]
+    steps_peak = torch.cuda.max_memory_allocated()
     out = ([r["loss"] for r in hist], [r["grad_norm"] for r in hist],
            [r["step_ms"] for r in hist],
-           torch.cuda.max_memory_allocated() / 2**30, launches, leaves)
+           max(built, steps_peak) / 2**30, launches, leaves, steps_peak,
+           state_bytes)
     del tr
     gc.collect()
     torch.cuda.empty_cache()
@@ -5704,7 +5709,8 @@ def dist_train():
     finally:
         dist.destroy_process_group()
     names = ("one device", "mesh")
-    for name, (loss, gn, ms, peak, launches, _) in zip(names, (one, sharded)):
+    for name, (loss, gn, ms, peak, launches, *_) in zip(names,
+                                                         (one, sharded)):
         print(f"  {name}: losses {loss}; grad norms {gn}; step ms "
               f"{[round(m, 1) for m in ms]} (median of steps 2-"
               f"{DIST_TRAIN_STEPS}: {float(np.median(ms[1:])):.1f}); peak "
@@ -5728,7 +5734,120 @@ def dist_train():
                              "the one-device trainer")
     if not all(np.isfinite(one[0])):
         raise AssertionError(f"non-finite losses {one[0]}")
+    dryrun_vs_mesh_trainer(cfg, batches[0], sharded, step[1])
     print(f"  dist-train phase wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def dryrun_vs_mesh_trainer(cfg, batch, run, step_ms):
+    """The card's check of the dry run: ``dryrun_step`` on a fake 1 x 1
+    world for the mesh trainer's config, batch shape and mode (its NCCL
+    group already destroyed). Its argument bytes must equal the trainer's
+    rank state plus one batch, byte for byte, and the steps' real peak
+    (``max_memory_allocated`` from after the trainer was built) must be
+    at most ``DRYRUN_PEAK_RATIO`` x the predicted peak. The analytic
+    flops of the step (block-skip attention) over the median step time
+    give its share of the card's bf16 peak."""
+    shape = InputShape("dist_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    t0 = time.perf_counter()
+    got = dryrun_step(cfg, shape, {"data": 1, "model": 1},
+                      cfg.param_sharding)
+    wall = time.perf_counter() - t0
+    steps_peak, state_bytes = run[6], run[7]
+    real_args = state_bytes + sum(v.nbytes for v in batch.values())
+    ratio = steps_peak / got["peak_bytes_per_device"]
+    fl = analysis.analytic_flops(cfg, shape)["total_flops"]
+    print(f"  dry run of the mesh trainer's step ({got['mode']}, 1 x 1 "
+          f"fake world, {wall:.1f} s): args {got['argument_bytes_per_device']}"
+          f" B (trainer state {state_bytes} B + batch "
+          f"{real_args - state_bytes} B = {real_args} B), predicted peak "
+          f"{got['peak_bytes_per_device'] / 2**30:.2f} GiB (temp "
+          f"{got['temp_bytes_per_device'] / 2**30:.2f} GiB), real steps' "
+          f"peak {steps_peak / 2**30:.2f} GiB, real / predicted "
+          f"{ratio:.3f}; traced flops {got['flops_per_device']:.4e}, "
+          f"analytic (block-skip) {fl:.4e}: {fl / (step_ms * 1e-3) / 1e12:.1f}"
+          f" TFLOP/s at the median step {step_ms:.1f} ms, "
+          f"{100 * fl / (step_ms * 1e-3) / analysis.HW['peak_flops']:.1f}% "
+          f"of 989 TFLOP/s; collectives {got['collective_counts']}",
+          flush=True)
+    if got["argument_bytes_per_device"] != real_args:
+        raise AssertionError(f"dry-run argument bytes "
+                             f"{got['argument_bytes_per_device']} != the "
+                             f"trainer's {real_args}")
+    if ratio > DRYRUN_PEAK_RATIO:
+        raise AssertionError(f"the real peak is {ratio:.3f} x the dry "
+                             f"run's predicted peak (limit "
+                             f"{DRYRUN_PEAK_RATIO})")
+
+
+# --------------------------------------------------------------------------- #
+# Phase 19: the dry run, ``python -m repro_torch run --mode dryrun``.
+# --------------------------------------------------------------------------- #
+DRYRUN_PEAK_RATIO = 1.10
+DRYRUN_CLI = (("gemma-7b", "train_4k", "pod"),
+              ("yi-9b", "long_500k", "multipod"))
+
+
+def dryrun_cli():
+    """``python -m repro_torch run --mode dryrun`` in two subprocesses
+    started together, as a user types it: gemma-7b's train step on the 16
+    x 16 mesh and yi-9b's 500k-token decode (B 1, replicated over the
+    batch axes) on 2 x 16 x 16. Each result must carry flops and a peak
+    and no error; its roofline with the H100's constants is printed."""
+    phase("dryrun: python -m repro_torch run --mode dryrun (fake worlds "
+          "of 256 and 512 ranks, no card)")
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"  card total_memory {total} B ({total / 2**30:.2f} GiB); "
+          f"analysis.HW hbm_cap {analysis.HW['hbm_cap']} B", flush=True)
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = []
+    for arch, shape, mesh in DRYRUN_CLI:  # both processes at once
+        out_json = os.path.join(workdir, f"dryrun_{arch}_{shape}.json")
+        cmd = [sys.executable, "-m", "repro_torch", "run", "--mode",
+               "dryrun", "--arch", arch, "--mesh", mesh, "--set",
+               f"dryrun.shape={shape}", "--set", f"dryrun.json_out={out_json}"]
+        print(f"  $ PYTHONPATH=src python -m repro_torch run "
+              f"{' '.join(cmd[4:])}", flush=True)
+        runs.append((arch, shape, mesh, out_json, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    for arch, shape, mesh, out_json, proc in runs:
+        try:
+            stdout, stderr = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"dryrun {arch} x {shape}: exit "
+                                 f"{proc.returncode}\n{stdout[-2000:]}\n"
+                                 f"{stderr[-4000:]}")
+        print("\n".join(f"  | {ln}" for ln in stdout.splitlines()),
+              flush=True)
+        with open(out_json) as f:
+            (r,) = json.load(f)
+        if "error" in r or r["flops_per_device"] <= 0 or \
+                r["peak_bytes_per_device"] <= 0:
+            raise AssertionError(f"dryrun {arch} x {shape}: {r}")
+        roof = analysis.roofline(get_config(arch), get_shape(shape), r,
+                                 multi_pod=mesh == "multipod")
+        print(f"  {arch} x {shape} on {roof['mesh']} ({r['devices']} ranks, "
+              f"{r['mode']}; done at {wall:.1f} s, trace {r['trace_s']} s): "
+              f"traced {r['flops_per_device']:.4e} FLOPs/dev, analytic "
+              f"{roof['analytic_flops_per_device']:.4e}; collectives "
+              f"{r['collective_bytes_per_device']} B; peak "
+              f"{r['peak_bytes_per_device'] / 2**30:.2f} GiB; roofline "
+              f"compute {roof['compute_s'] * 1e3:.3f} ms, memory "
+              f"{roof['memory_s'] * 1e3:.3f} ms, collective "
+              f"{roof['collective_s'] * 1e3:.3f} ms ({roof['dominant']}); "
+              f"budget {roof['mem_budget_GiB']:.2f} GiB, fits_80GB "
+              f"{roof['fits_80GB']}", flush=True)
+    shutil.rmtree(workdir, ignore_errors=True)
+    print(f"  dryrun phase wall {time.perf_counter() - t0:.1f} s",
           flush=True)
 
 
@@ -6259,6 +6378,7 @@ PHASES = {  # --only names: the phases a short run may pick
     "serve-tp2d": lambda: serve_tp2d(full_serve_params()),
     "serve-fleet": lambda: serve_fleet(full_serve_params()),
     "run-cli": lambda: (run_cli_serve(full_serve_params()), run_cli_train()),
+    "dryrun": dryrun_cli,
 }
 
 
@@ -6340,6 +6460,7 @@ def main(argv=None) -> int:
     mlperf = mlperf_phases()
     dist_recs = dist_phase()
     dist_train()
+    dryrun_cli()
     # the flash kernels at the dispatcher's train shape, B 4, S 2048, 16
     # heads of 256: the shape phase 2 timed (rows 2f/2b)
     cli_fwd, cli_bwd = run_cli_train()

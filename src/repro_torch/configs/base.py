@@ -2,8 +2,11 @@
 the serving path and the train step read, with the same names, defaults
 and ``reduced()`` rule, so one architecture id builds the same model on
 both sides (tests compare every kept field); the dotted-path overrides
-the run layer's ``--set model.*`` applies (``base.py:283-361``); and the
-production input shapes (``base.py:364-376``)."""
+the run layer's ``--set model.*`` applies (``base.py:283-361``); the
+methods the dry run and the roofline read (``uses_attention``,
+``supports_long_context``, ``effective_window``, ``active_param_count``;
+``base.py:128-156, 258-269``); and the production input shapes
+(``base.py:364-376``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -118,12 +121,35 @@ class ModelConfig:
         return self.n_layers // len(self.block_pattern)
 
     @property
+    def uses_attention(self) -> bool:
+        return any(s.mixer == "attn" for s in self.block_pattern)
+
+    @property
     def uses_moe(self) -> bool:
         return any(s.ffn == "moe" for s in self.block_pattern)
 
     @property
     def is_encdec(self) -> bool:
         return self.n_enc_layers > 0
+
+    def supports_long_context(self) -> bool:
+        """True when a 524k-token decode is sub-quadratic for this arch:
+        an SSM or hybrid stack, or attention with a window; never the
+        enc-dec family."""
+        if self.is_encdec:
+            return False
+        only_attn = all(s.mixer == "attn" for s in self.block_pattern)
+        if not only_attn:
+            return True
+        return (self.sliding_window or self.long_context_window) is not None
+
+    def effective_window(self, shape: "InputShape") -> Optional[int]:
+        """Attention window for an input shape (None: full causal)."""
+        if self.sliding_window is not None:
+            return self.sliding_window
+        if shape.name == "long_500k":
+            return self.long_context_window
+        return None
 
     def reduced(self) -> "ModelConfig":
         """CPU smoke variant: same family and pattern, tiny dims
@@ -216,6 +242,18 @@ class ModelConfig:
             attn = d * (self.n_heads * hd) * 2 + d * (self.n_kv_heads * hd) * 2
             total += self.n_enc_layers * (attn + d * f * (3 if self.glu else 2))
             total += self.n_layers * attn
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: ``top_k`` of ``n_experts``)."""
+        if not self.uses_moe:
+            return self.param_count()
+        total = self.param_count()
+        m = self.moe
+        dense_eq = self.d_model * self.d_ff * (3 if self.glu else 2)
+        n_moe_layers = sum(
+            self.n_blocks for s in self.block_pattern if s.ffn == "moe")
+        total -= n_moe_layers * (m.n_experts - m.top_k) * dense_eq
         return int(total)
 
 

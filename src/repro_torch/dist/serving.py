@@ -53,7 +53,9 @@ each step's tokens from every rank and raises if any differs from rank
 
 MoE, Mamba and RWKV-6 layers over a ``model`` axis larger than 1, and an
 enc-dec config on any mesh, raise ``NotImplementedError``
-(``dist.spmd.check_supported``, ROADMAP.md item 6.2).
+(``dist.spmd.check_supported``, ROADMAP.md item 6.2). A batch whose rows
+the batch axes do not divide (``long_500k``'s one row) is computed whole
+on every rank.
 """
 from __future__ import annotations
 
@@ -106,8 +108,10 @@ def shard_blocks(tree, specs, mesh):
 class ServePlan:
     """The layout of one serving engine on a mesh: the rank's weight
     blocks (``params``), its rows of the batch (``rows``), its caches,
-    and the placements the programs run under. ``max_batch`` must split
-    over the batch axes of the mode."""
+    and the placements the programs run under. ``max_batch`` slots that
+    the mode's batch axes do not divide are replicated over them (the
+    reference's ``spec_for`` gives such a dim no axis): every rank then
+    computes every row."""
 
     def __init__(self, cfg: ModelConfig, rules: Rules, params, *,
                  max_batch: int, layout: str, check_ranks: bool = False):
@@ -124,9 +128,9 @@ class ServePlan:
                          if a in mesh.shape and a in rules.table["batch"]]
         idx, n = _index(mesh, self.row_axes)
         if max_batch % n:
-            raise ValueError(
-                f"max_batch={max_batch} slots do not split over the {n} "
-                f"ranks of the batch axes {self.row_axes} ({self.mode})")
+            # replicated over the batch axes, as the rules' divisibility
+            # fallback gives the batch dim: every rank computes every row
+            self.row_axes, idx, n = [], 0, 1
         b = max_batch // n
         self.local_batch = b
         self.rows = None if n == 1 else slice(idx * b, (idx + 1) * b)
@@ -174,9 +178,11 @@ class ServePlan:
                                      n_layers=self.cfg.n_layers,
                                      device=self.device, n_kv=self.pool_kv)
 
-    def init_slab(self, max_batch: int, max_len: int):
-        """The rank's block of the slot slab (``cache_pspecs``)."""
-        full = lm.init_cache(self.cfg, max_batch, max_len, device="meta")
+    def init_slab(self, max_batch: int, max_len: int, window=None):
+        """The rank's block of the slot slab (``cache_pspecs``): an
+        attention layer's ``min(max_len, window)`` slots."""
+        full = lm.init_cache(self.cfg, max_batch, max_len, window,
+                             device="meta")
         self._full_slab = full
         self._slab_specs = cache_pspecs(self.cfg, full, self.rules)
         m = self.mesh.shape.get("model", 1)

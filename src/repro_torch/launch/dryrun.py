@@ -1,27 +1,98 @@
-"""Derived sharding-spec tables on the production meshes (the port's
-``repro.launch.dryrun.spec_table`` / ``print_spec_table``).
+"""The dry run (``repro.launch.dryrun``): one rank's train, prefill and
+decode steps for every (architecture x input shape) on the production
+meshes, sized from one process, and the derived sharding-spec tables.
 
-Every parameter's logical axes and the specs ``dist.sharding.Rules``
-derives for its master weight and its optimizer moments, on the 16 x 16
-(``multi_pod=False``) or 2 x 16 x 16 mesh. Nothing is allocated and no
-process group is needed: the shapes come from the family's init under
-``FakeTensorMode`` and the rules from a shape-only mesh. Specs print in
-the reference's ``PartitionSpec(...)`` form. The rows are in the port's
-layout, one tree a layer (``['layers'][i]...``), where the reference
-stacks a pattern position's layers under a leading ``layer`` dim.
-
+    python -m repro_torch run --arch gemma-7b --mode dryrun \
+        --set dryrun.shape=train_4k [--mesh multipod]
+    python -m repro_torch run --mode dryrun --set dryrun.all=true
     python -m repro_torch run --arch gemma-7b --mode dryrun \
         --set dryrun.specs=true [--mesh multipod]
 
-The reference's AOT compile of every (arch x input shape)
-(``dryrun_one``) is ROADMAP.md item 6.4's next step.
+The reference lowers and compiles each step for 256 or 512 placeholder
+CPU devices and reads XLA's analyses. The port traces rank 0's step of
+the mesh's real program (``dist.spmd``, ``dist.serving``) instead:
+
+- **A fake world.** :func:`fake_world` opens a default process group of
+  the ``fake`` backend (``torch.testing``'s ``FakeStore``) with the mesh's
+  world size and this process as rank 0, and builds the port's
+  :class:`~repro_torch.launch.mesh.Mesh` over ``init_device_mesh("cpu",
+  ...)``. Collectives on it complete at once and move nothing. The dry
+  run owns the process: an open default group raises ``RuntimeError``.
+- **Fake tensors.** Everything runs under one ``FakeTensorMode`` on the
+  CPU, so nothing is allocated and every kernel wrapper takes its plain
+  version (the reference's dry run lowers its pure-JAX paths alike). A
+  step that reads a value on the host (``.item()``, a data-dependent
+  branch) raises, naming the line.
+- *Train:* the state from the family's init, cut to the rank's blocks by
+  ``spmd.plan_of`` / ``shard_tree``, and the mode's ``make_train_step``
+  on the rank's rows of the global batch. *Prefill* and *decode:* the
+  serving weights (cast to bf16 as the reference's dry run casts its
+  stacked tree, :func:`serving_cast`) placed by ``dist.serving.ServePlan``,
+  the slot slab's block for decode, and ``train.steps``'
+  ``make_prefill_step`` / ``make_decode_step`` under the plan's
+  placement. Serving runs the config's ``param_sharding``, or
+  ``REPRO_SERVE_MODE`` where that is set.
+- **FLOPs** come from ``FlopCounterMode`` over the step (forward and
+  backward, what the plain kernels compute: masked attention visits every
+  key). **Collectives** from a dispatch mode over the ``c10d`` ops: the
+  bytes of each op's result on this rank, summed by the reference's kind
+  names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
+  ``collective-permute`` for the point-to-point pairs of a ``ppermute``,
+  ``all-to-all``).
+- **Memory.** Arguments: the bytes of the rank's state (or serving
+  weights and cache) and its batch rows or token rows. Outputs: the bytes
+  of the returned tree (the train state is updated in place and returned,
+  so it counts again, as a donated state does in the reference). Peak:
+  the high-water mark of live storage bytes during the step, the
+  arguments included; temporary: peak minus arguments. The reference's
+  ``peak`` is arguments + outputs + temporaries, so a donated state
+  counts twice there; the port's counts live bytes once. The plain
+  attention holds (B, H, Sq, Sk) fp32 scores that the flash kernels never
+  hold, so at long sequences (``prefill_32k``) the peak is far above the
+  card's.
+
+The reference's ``hbm_bytes_accessed_per_device`` has no counterpart
+here, and its ``lower_s`` / ``compile_s`` become one ``trace_s``. The
+dry run touches no device: it builds fake CPU tensors whatever
+``--device`` says, as the reference compiles for placeholder CPU
+devices.
+
+The spec tables (``spec_table``) list every parameter's logical axes and
+the specs ``dist.sharding.Rules`` derives for its master weight and its
+optimizer moments. Specs print in the reference's ``PartitionSpec(...)``
+form; rows are in the port's layout, one tree a layer
+(``['layers'][i]...``), where the reference stacks a pattern position's
+layers under a leading ``layer`` dim.
 """
 from __future__ import annotations
 
+import argparse
+import contextlib
+import math
+import os
 import sys
+import time
+import traceback
+import warnings
+import weakref
+from collections import defaultdict
 from typing import Dict, List, Tuple
 
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
 from repro_torch.configs import get_config
+
+# c10d op (the calls of ``dist.compat``) -> the reference's collective
+# kind; an op not listed is recorded under its own name. A ``send``
+# carries no result: a point-to-point pair counts at its ``recv_``.
+COLLECTIVE_KINDS = {
+    "_allgather_base_": "all-gather",
+    "allreduce_": "all-reduce",
+    "_reduce_scatter_base_": "reduce-scatter",
+    "recv_": "collective-permute",
+    "alltoall_base_": "all-to-all",
+}
 
 
 class ShapeMesh:
@@ -33,6 +104,9 @@ class ShapeMesh:
         self.axis_names = tuple(names)
 
 
+# --------------------------------------------------------------------------- #
+# Derived sharding-spec tables (--set dryrun.specs=true).
+# --------------------------------------------------------------------------- #
 def partition_spec_str(spec) -> str:
     """A port spec (one tuple of mesh axes or None a dim) as the
     reference prints its ``PartitionSpec``: the tuple of its entries, a
@@ -58,7 +132,6 @@ def _leaves(tree, path=""):
 def spec_table(arch: str, *, multi_pod: bool = False, mode: str = None
                ) -> Tuple[Dict, List[Dict]]:
     """Rows of (param, shape, logical axes, param spec, opt spec)."""
-    import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.dist.sharding import Rules
@@ -107,3 +180,337 @@ def print_spec_table(arch: str, *, multi_pod: bool = False,
               f"{str(r['axes']):28s} {r['param_spec']:26s} {r['opt_spec']}")
     sys.stdout.flush()
     return meta, rows
+
+
+# --------------------------------------------------------------------------- #
+# The fake world and what is recorded in it.
+# --------------------------------------------------------------------------- #
+@contextlib.contextmanager
+def fake_world(mesh_shape: Dict[str, int]):
+    """A :class:`~repro_torch.launch.mesh.Mesh` of ``mesh_shape`` (axis
+    name -> size) over a ``fake`` default group in which this process is
+    rank 0; the group is destroyed on exit."""
+    import torch.distributed as dist
+
+    world = math.prod(mesh_shape.values())
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError(
+            f"the dry run opens a fake world of {world} "
+            f"ranks and must own the process, but a default process group "
+            f"({dist.get_backend()}, {dist.get_world_size()} rank(s)) is "
+            f"already up: run `python -m repro_torch run --mode dryrun ...` "
+            f"as its own command")
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import Mesh
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
+    try:
+        yield Mesh(init_device_mesh("cpu", tuple(mesh_shape.values()),
+                                    mesh_dim_names=tuple(mesh_shape)))
+    finally:
+        dist.destroy_process_group()
+
+
+def _tensors(x):
+    if torch.is_tensor(x):
+        yield x
+    elif isinstance(x, dict):
+        for v in x.values():
+            yield from _tensors(v)
+    elif isinstance(x, (list, tuple)):
+        for v in x:
+            yield from _tensors(v)
+
+
+def tree_bytes(tree) -> int:
+    """Bytes of the distinct storages the tensors of ``tree`` hold."""
+    seen = {}
+    for t in _tensors(tree):
+        st = t.untyped_storage()
+        seen[st._cdata] = st.nbytes()
+    return sum(seen.values())
+
+
+class CollectiveRecorder(TorchDispatchMode):
+    """Bytes and counts of this rank's collective results, by kind. Over
+    a real step on a real process group it counts what the dry run
+    counts."""
+
+    def __init__(self):
+        super().__init__()
+        self.bytes = defaultdict(int)
+        self.counts = defaultdict(int)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.namespace == "c10d":
+            name = func.name().split("::")[-1]
+            if name != "send":
+                kind = COLLECTIVE_KINDS.get(name, name)
+                self.bytes[kind] += sum(t.numel() * t.element_size()
+                                        for t in _tensors(args[0]))
+                self.counts[kind] += 1
+        return func(*args, **(kwargs or {}))
+
+
+class LiveBytes(TorchDispatchMode):
+    """The high-water mark of live storage bytes: ``base`` (the bytes of
+    ``held``, the arguments, live throughout) plus every storage an op
+    makes, until it is freed."""
+
+    def __init__(self, held, base: int):
+        super().__init__()
+        self.live = self.peak = base
+        self._seen = {t.untyped_storage()._cdata for t in _tensors(held)}
+
+    def _free(self, key, n):
+        self._seen.discard(key)
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in _tensors(out):
+            st = t.untyped_storage()
+            key = st._cdata
+            if key not in self._seen:
+                self._seen.add(key)
+                n = st.nbytes()
+                self.live += n
+                self.peak = max(self.peak, self.live)
+                weakref.finalize(st, self._free, key, n)
+        return out
+
+
+@contextlib.contextmanager
+def _fresh(cached):
+    """An ``lru_cache`` emptied on the way in and on the way out."""
+    cached.cache_clear()
+    try:
+        yield
+    finally:
+        cached.cache_clear()
+
+
+def _host_read(e: BaseException) -> str:
+    """The innermost line outside torch that the exception passed."""
+    lib = os.path.dirname(os.path.abspath(torch.__file__))
+    here = os.path.abspath(__file__)
+    where = "the step"
+    for fr in traceback.extract_tb(e.__traceback__):
+        f = os.path.abspath(fr.filename)
+        if not f.startswith(lib) and f != here:
+            where = f"{fr.filename}:{fr.lineno} ({fr.line})"
+    return where
+
+
+# --------------------------------------------------------------------------- #
+# One rank's steps.
+# --------------------------------------------------------------------------- #
+def _train_step(cfg, shape, mesh):
+    """(the step, its arguments, the arguments as counted)."""
+    from repro_torch.dist import spmd
+    from repro_torch.launch import specs as S
+    from repro_torch.train import steps as T
+
+    spmd.check_supported(cfg, mesh)
+    optimizer = T.make_optimizer(cfg)
+    api = T.ModelAPI(cfg)
+    params = api.init(cfg, 0, device="cpu",
+                      dtype=getattr(torch, cfg.param_dtype))
+    plan = spmd.plan_of(cfg, mesh, api.param_axes(), params)
+    blocks = spmd.shard_tree(params, plan.pspecs, mesh)
+    state = {"params": blocks, "opt": optimizer.init(plan.views_tree(blocks))}
+    batch = {k: v.clone() for k, v in spmd.batch_rows(
+        S.batch_structure(cfg, shape), mesh).items()}
+    step = T.make_train_step(cfg, optimizer, plan=plan)
+    return (lambda: step(state, batch)), (state, batch), (state, batch)
+
+
+def serving_cast(tree, stacked: bool = False):
+    """Serving checkpoints are bf16: the fp32 leaves that the reference's
+    dry run casts, which are those of two or more dims in its layout,
+    where each layer list is stacked under a leading ``layer`` dim (a
+    layer's norm scale is one such leaf)."""
+    if isinstance(tree, dict):
+        return {k: serving_cast(v, stacked) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [serving_cast(v, True) for v in tree]
+    if tree.dtype == torch.float32 and tree.dim() + stacked > 1:
+        return tree.to(torch.bfloat16)
+    return tree
+
+
+def _serve_step(cfg, shape, mesh, mode):
+    """As :func:`_train_step`; a decode step is handed every row's token
+    and counted with its own rows'."""
+    from repro_torch.dist.serving import ServePlan
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.launch import specs as S
+    from repro_torch.train import steps as T
+
+    rules = Rules(mesh, mode, seq_parallel=cfg.seq_parallel)
+    params = serving_cast(T.ModelAPI(cfg).init(cfg, 0, device="cpu",
+                                               dtype=torch.float32))
+    plan = ServePlan(cfg, rules, params, max_batch=shape.global_batch,
+                     layout="slab")
+    del params
+    weights = plan.params
+    if shape.kind == "prefill":
+        place = plan.placement(rows=True)
+        batch = S.batch_structure(cfg, shape)
+        if place.rows is not None:
+            batch = {k: v[place.rows].clone() for k, v in batch.items()}
+        step = T.make_prefill_step(cfg, shape, rules)
+        return ((lambda: step(weights, batch, place)), (weights, batch),
+                (weights, batch))
+    cache = plan.init_slab(shape.global_batch, shape.seq_len,
+                           cfg.effective_window(shape))
+    place = plan.placement(rows=True)
+    d = S.decode_structure(cfg, shape)
+    token, pos = d["token"], d["pos"]
+    rows = token if place.rows is None else token[place.rows].clone()
+    step = T.make_decode_step(cfg, shape, rules)
+    return ((lambda: step(weights, token, cache, pos, place)),
+            (weights, token, cache, pos), (weights, rows, cache, pos))
+
+
+def dryrun_step(cfg, shape, mesh_shape: Dict[str, int], mode: str = None
+                ) -> Dict:
+    """Trace rank 0's step of ``shape.kind`` for ``cfg`` on a fake world
+    of ``mesh_shape`` (axis name -> size) in ``mode`` (default: the
+    config's ``param_sharding``; for serving ``REPRO_SERVE_MODE`` where
+    set). Returns the dry run's measured keys."""
+    import dataclasses
+
+    from torch._subclasses.fake_tensor import (
+        DataDependentOutputException,
+        DynamicOutputShapeException,
+        FakeTensorMode,
+    )
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.models import layers
+
+    if mode is None:
+        mode = cfg.param_sharding
+        if shape.kind != "train" and os.environ.get("REPRO_SERVE_MODE"):
+            mode = os.environ["REPRO_SERVE_MODE"]
+    t0 = time.perf_counter()
+    # the rotary tables are cached a (width, theta, device): tensors made
+    # under the fake mode must not outlive it, nor real ones enter it
+    with warnings.catch_warnings(), _fresh(layers._rope_tables), \
+            fake_world(mesh_shape) as mesh, FakeTensorMode():
+        # c10d's deprecation notes on the collectives the port calls
+        warnings.simplefilter("ignore", FutureWarning)
+        if shape.kind == "train":
+            cfg = dataclasses.replace(cfg, param_sharding=mode)
+            run, passed, counted = _train_step(cfg, shape, mesh)
+        else:
+            run, passed, counted = _serve_step(cfg, shape, mesh, mode)
+        args = tree_bytes(counted)
+        coll = CollectiveRecorder()
+        live = LiveBytes(passed, args)
+        try:
+            with FlopCounterMode(display=False) as flops, coll, live:
+                out = run()
+        except (DataDependentOutputException,
+                DynamicOutputShapeException) as e:
+            raise RuntimeError(
+                f"{cfg.name} x {shape.name}: the step reads a value on the "
+                f"host at {_host_read(e)}; a dry-run step must not") from e
+        result = {
+            "devices": math.prod(mesh_shape.values()),
+            "mode": mode,
+            "flops_per_device": float(flops.get_total_flops()),
+            "collective_bytes_per_device": dict(coll.bytes),
+            "collective_counts": dict(coll.counts),
+            "argument_bytes_per_device": args,
+            "output_bytes_per_device": tree_bytes(out),
+            "temp_bytes_per_device": live.peak - args,
+            "peak_bytes_per_device": live.peak,
+        }
+    result["trace_s"] = round(time.perf_counter() - t0, 1)
+    return result
+
+
+def dryrun_one(arch: str, shape_name: str, *, multi_pod: bool = False,
+               verbose: bool = True) -> Dict:
+    """The dry run of one (arch, input shape) on the 16 x 16 mesh (256
+    ranks) or, ``multi_pod``, the 2 x 16 x 16 mesh (512)."""
+    from repro_torch.analysis import mesh_shape
+    from repro_torch.configs import get_shape
+
+    cfg = get_config(arch)
+    shape = get_shape(shape_name)
+    if shape.kind == "decode" and shape_name == "long_500k":
+        if not cfg.supports_long_context():
+            return {"arch": arch, "shape": shape_name,
+                    "multi_pod": multi_pod, "skipped": "no sub-quadratic "
+                    "long-context path (see DESIGN.md §Arch-applicability)"}
+    ms = mesh_shape(multi_pod)
+    result = {"arch": arch, "shape": shape_name, "multi_pod": multi_pod,
+              **dryrun_step(cfg, shape, ms)}
+    if verbose:
+        r, gib = result, 2 ** 30
+        mib = {k: f"{v / 2**20:.1f}MiB"
+               for k, v in r["collective_bytes_per_device"].items()}
+        print(f"== {arch} x {shape_name} ({'2-pod' if multi_pod else '1-pod'},"
+              f" {r['devices']} devices) ==")
+        print(f"  memory: args={r['argument_bytes_per_device'] / gib:.2f}GiB"
+              f" out={r['output_bytes_per_device'] / gib:.2f}GiB"
+              f" temp={r['temp_bytes_per_device'] / gib:.2f}GiB"
+              f" peak={r['peak_bytes_per_device'] / gib:.2f}GiB")
+        print(f"  flops: {r['flops_per_device']:.3e} FLOPs/dev ({r['mode']})")
+        print(f"  collectives: {mib} counts {r['collective_counts']}")
+        print(f"  trace {r['trace_s']:.1f}s")
+        sys.stdout.flush()
+    return result
+
+
+def main(argv=None):
+    """The reference's flags over the run layer: they map onto a
+    ``RunSpec(mode="dryrun")`` that ``run.dispatch.run_spec`` runs."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--all", action="store_true",
+                    help="all (arch x shape) on the single-pod mesh")
+    ap.add_argument("--json", default=None)
+    ap.add_argument("--bench-out", default=None,
+                    help="a BENCH_*.json artifact of the results (the "
+                         "port has none yet: ROADMAP.md item 6.5)")
+    ap.add_argument("--bench-tag", default="dryrun")
+    ap.add_argument("--specs", action="store_true",
+                    help="print the Rules-derived sharding-spec table "
+                         "per arch instead of tracing the steps")
+    args = ap.parse_args(argv)
+
+    from repro_torch.run.dispatch import run_spec
+    from repro_torch.run.spec import DryrunSection, RunSpec
+
+    do_all = args.all or (args.specs and not args.arch)
+    if not do_all and not args.arch:
+        ap.error("--arch (with --shape) or --all is required")
+    if not do_all and not args.specs and not args.shape:
+        ap.error("--shape is required with --arch")
+    spec = RunSpec(
+        arch=args.arch or "gemma-7b",
+        mode="dryrun",
+        mesh="multipod" if args.multi_pod else "pod",
+        dryrun=DryrunSection(
+            shape=args.shape or "train_4k",
+            all=do_all,
+            specs=args.specs,
+            json_out=args.json or "",
+            bench_out=args.bench_out or "",
+            bench_tag=args.bench_tag,
+        ),
+    )
+    return run_spec(spec, device="cpu")["exit_code"]
+
+
+if __name__ == "__main__":
+    sys.exit(main())

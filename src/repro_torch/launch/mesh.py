@@ -77,6 +77,10 @@ class Mesh:
         self.shape: Dict[str, int] = dict(zip(
             self.axis_names, device_mesh.mesh.shape))
         self._subgroups: Dict[Tuple[str, int], object] = {}
+        # read once, so that no step reads the rank tensor (a dry run's
+        # steps run under a fake-tensor mode)
+        self._by_axis = {a: self._read_lines(d)
+                         for d, a in enumerate(self.axis_names)}
 
     def axis_index(self, axis: str) -> int:
         return int(self.device_mesh.get_local_rank(axis))
@@ -84,12 +88,14 @@ class Mesh:
     def group(self, axis: str):
         return self.device_mesh.get_group(axis)
 
+    def _read_lines(self, d: int) -> List[List[int]]:
+        ranks = self.device_mesh.mesh.movedim(d, -1)
+        return ranks.reshape(-1, ranks.shape[-1]).tolist()
+
     def _lines(self, axis: str) -> List[List[int]]:
         """Global ranks of every line of the mesh along ``axis``, each line
         in axis order; lines in row-major order of the other axes."""
-        d = self.axis_names.index(axis)
-        ranks = self.device_mesh.mesh.movedim(d, -1)
-        return ranks.reshape(-1, ranks.shape[-1]).tolist()
+        return self._by_axis[axis]
 
     def line(self, axis: str) -> List[int]:
         """Global ranks of this rank's line along ``axis``, in axis order."""

@@ -17,11 +17,16 @@ One runner per mode:
     ``fleet.n_replicas >= 1`` a :class:`repro_torch.fleet.Fleet` of that
     many engines behind the prefix router, with the spec's seeded chaos;
   * ``dryrun`` — a fleet spec renders its Kubernetes manifests
-    (``launch.k8s``); ``dryrun.specs`` prints the sharding-spec tables
-    (``launch.dryrun``).
+    (``launch.k8s``); otherwise ``launch.dryrun.dryrun_one`` sizes one
+    rank's step of one (arch, ``dryrun.shape``), or of every (arch x
+    shape) with ``dryrun.all``, on the ``pod`` or ``multipod`` mesh in a
+    fake world of this process (an error is a row, and the exit code 1);
+    ``dryrun.specs`` prints the sharding-spec tables instead. The dry
+    run builds fake CPU tensors whatever ``device`` says and must own
+    the process (an open default process group raises).
 
-The ``bench`` mode, ``trainer.bench_out`` and the compiling dry run
-raise ``NotImplementedError`` naming their ROADMAP.md items.
+The ``bench`` mode, ``trainer.bench_out`` and ``dryrun.bench_out`` raise
+``NotImplementedError`` naming ROADMAP.md item 6.5.
 
 ``device`` (default ``"cuda"``, which raises where no card is) is where
 the run happens. ``params`` starts train, eval and serve from a numpy
@@ -148,7 +153,8 @@ def run_spec(spec: RunSpec, *, device="cuda", params=None,
         "bench": _run_bench,
         "dryrun": _run_dryrun,
     }[spec.mode]
-    dev = resolve_device(device)
+    # the dry run touches no device (fake CPU tensors in a fake world)
+    dev = None if spec.mode == "dryrun" else resolve_device(device)
     had_group = dist.is_available() and dist.is_initialized()
     try:
         result = runner(spec, dev, params,
@@ -498,27 +504,49 @@ def _run_dryrun(spec: RunSpec, device, params, measure) -> Dict[str, Any]:
             print(text, end="")
         return {"manifests": k8s.render_manifests(spec), "yaml": text}
 
-    d = spec.dryrun
-    if not d.specs:
-        raise NotImplementedError(
-            "--mode dryrun compiles every (arch x shape) on the production "
-            "meshes in the reference; the port prints the spec tables "
-            "(--set dryrun.specs=true) and renders a fleet's manifests "
-            "only (ROADMAP.md item 6.4)")
-    from repro_torch.configs import list_archs
+    from repro_torch.configs import INPUT_SHAPES, list_archs
     from repro_torch.launch import dryrun as D
 
-    tables = []
-    for arch in list_archs() if d.all else [spec.arch]:
-        meta, rows = D.print_spec_table(
-            arch, multi_pod=spec.mesh == "multipod",
-            mode=os.environ.get("REPRO_SERVE_MODE"))
-        tables.append({**meta, "rows": [
-            {**r, "shape": list(r["shape"]), "axes": list(r["axes"])}
-            for r in rows
-        ]})
-        print()
+    d = spec.dryrun
+    if d.bench_out:
+        raise NotImplementedError(
+            "dryrun.bench_out: the port writes no BENCH_*.json of a dry run "
+            "yet (ROADMAP.md item 6.5)")
+    multi_pod = spec.mesh == "multipod"
+    archs = list_archs() if d.all else [spec.arch]
+    if d.specs:
+        tables = []
+        for arch in archs:
+            meta, rows = D.print_spec_table(
+                arch, multi_pod=multi_pod,
+                mode=os.environ.get("REPRO_SERVE_MODE"))
+            tables.append({**meta, "rows": [
+                {**r, "shape": list(r["shape"]), "axes": list(r["axes"])}
+                for r in rows
+            ]})
+            print()
+        if d.json_out:
+            with open(d.json_out, "w") as f:
+                json.dump(tables, f, indent=1)
+        return {"tables": tables}
+
+    results = []
+    if d.all:
+        for arch in archs:
+            for shape in INPUT_SHAPES:
+                try:
+                    results.append(
+                        D.dryrun_one(arch, shape, multi_pod=multi_pod))
+                except Exception as e:  # noqa: BLE001 (a row, not a crash)
+                    print(f"FAILED {arch} x {shape}: {type(e).__name__}: {e}")
+                    results.append({"arch": arch, "shape": shape,
+                                    "multi_pod": multi_pod,
+                                    "error": str(e)[:500]})
+    else:
+        results.append(D.dryrun_one(spec.arch, d.shape, multi_pod=multi_pod))
     if d.json_out:
         with open(d.json_out, "w") as f:
-            json.dump(tables, f, indent=1)
-    return {"tables": tables}
+            json.dump(results, f, indent=1)
+    ok = sum(1 for r in results if "error" not in r)
+    print(f"\n{ok}/{len(results)} dry-runs succeeded")
+    return {"results": results, "exit_code": 0 if ok == len(results) else 1}

@@ -283,12 +283,11 @@ class BenchSection:
 
 @dataclass(frozen=True)
 class DryrunSection:
-    """Dryrun-mode knobs (mirrors ``repro.launch.dryrun``; the port
-    prints the spec tables, ``specs``)."""
+    """Dryrun-mode knobs (mirrors ``repro.launch.dryrun``)."""
 
     shape: str = "train_4k"
     all: bool = False           # every (arch x shape) instead of one
-    specs: bool = False         # print sharding-spec tables, no compile
+    specs: bool = False         # print sharding-spec tables, no trace
     json_out: str = ""
     bench_out: str = ""
     bench_tag: str = "dryrun"

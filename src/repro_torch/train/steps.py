@@ -1,7 +1,8 @@
-"""Train, eval and slab serving step factories (``repro.train.steps``),
-the sharding specs of the train state, batches and caches, and
-:class:`ModelAPI`, the family dispatch over the decoder-only
-(``models.lm``) and encoder-decoder (``models.encdec``) modules.
+"""Train, eval, prefill / decode and slab serving step factories
+(``repro.train.steps``), the sharding specs of the train state, batches
+and caches, and :class:`ModelAPI`, the family dispatch over the
+decoder-only (``models.lm``) and encoder-decoder (``models.encdec``)
+modules.
 
 The reference's steps are pure functions that XLA compiles and shards;
 here they run eagerly. ``train_step(state, batch)`` computes the loss
@@ -369,6 +370,39 @@ def make_eval_step(cfg: ModelConfig, *, plan=None) -> Callable:
         return out[0], out[1]
 
     return eval_step
+
+
+def make_prefill_step(cfg: ModelConfig, shape, rules: Optional[Rules] = None
+                      ) -> Callable:
+    """``prefill_step(params, batch, place=None) -> (logits, cache)``
+    over a whole prompt of ``shape`` (an ``InputShape``): a cache of
+    ``shape.seq_len`` slots, the config's window for the shape. On a mesh
+    it takes a ``dist.serving`` placement (``place``), under ``rules``."""
+    api = ModelAPI(cfg)
+    window = cfg.effective_window(shape)
+
+    def prefill_step(params, batch, place=None):
+        with use_rules(rules):
+            return api.prefill(params, batch, cache_len=shape.seq_len,
+                               window=window, place=place)
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, shape, rules: Optional[Rules] = None
+                     ) -> Callable:
+    """``decode_step(params, token, cache, pos, place=None) -> (logits,
+    cache)``: one token a row at the shape's window; on a mesh as
+    :func:`make_prefill_step`."""
+    api = ModelAPI(cfg)
+    window = cfg.effective_window(shape)
+
+    def decode_step(params, token, cache, pos, place=None):
+        with use_rules(rules):
+            return api.decode(params, token, cache, pos, window=window,
+                              place=place)
+
+    return decode_step
 
 
 def make_serve_prefill_step(cfg: ModelConfig, *, cache_len: int,

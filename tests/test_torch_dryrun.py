@@ -1,0 +1,274 @@
+"""The port's dry run (``launch.dryrun``, ``launch.specs``) against the
+reference's input and sharding specs, and against real steps on the CPU.
+
+- *Specs.* For every architecture at its published widths and every
+  input shape, ``batch_structure`` and ``decode_structure`` have the
+  shapes and dtypes of the reference's ``ShapeDtypeStruct``s (token ids
+  int32 on both sides), and ``cache_structure``'s leaves those of the
+  reference's ``jax.eval_shape`` cache, layer ``i`` of the port's list at
+  the reference's pattern position ``i % len(block_pattern)``, the
+  stacked ``layer`` dim dropped (``tests/test_torch_dist_specs.py``'s
+  mapping).
+- *Fake is real.* On a one-rank mesh, ``dryrun_step``'s flops for reduced
+  yi-9b (train and decode) and reduced jamba-1.5-large (train) equal
+  exactly ``FlopCounterMode``'s count of the same step run on real CPU
+  tensors over a one-rank gloo mesh (the trainer's own step for train),
+  and its argument bytes the real tensors' bytes.
+- *Blocks on the pod mesh.* Reduced yi-9b in ``wus`` and ``fsdp`` on a
+  fake 16 x 16 world, train and decode: the argument bytes equal the sum,
+  over the reference's ``train_state_specs``, ``param_specs_serving``,
+  ``batch_pspecs`` and ``cache_pspecs`` on an ``AbstractMesh``, of each
+  leaf's bytes over the product of the axes it is split over (shapes
+  only: nothing is compiled).
+- The collective recorder names each ``dist.compat`` collective by the
+  reference's kind; ``dryrun_one`` skips ``long_500k`` where the config
+  has no long-context path, and a step that reads a value on the host
+  raises naming the line.
+
+The collectives of a real (4, 2) step against the dry run's are held in
+``tests/test_torch_sharded_trainer.py`` (its 8 gloo ranks).
+"""
+import dataclasses
+import math
+
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+from torch.utils.flop_counter import FlopCounterMode
+
+jax = pytest.importorskip("jax")
+import jax.numpy as jnp  # noqa: E402
+from jax.sharding import AbstractMesh, PartitionSpec  # noqa: E402
+
+from repro.configs import INPUT_SHAPES as JSHAPES  # noqa: E402
+from repro.configs import get_config as jax_get_config  # noqa: E402
+from repro.dist import Rules as JRules  # noqa: E402
+from repro.launch import specs as JS  # noqa: E402
+from repro.train import steps as JT  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    INPUT_SHAPES,
+    InputShape,
+    get_config,
+    list_archs,
+)
+from repro_torch.launch import dryrun as D  # noqa: E402
+from repro_torch.launch import specs as S  # noqa: E402
+
+ARCHS = list_archs()
+ONE = {"data": 1, "model": 1}
+POD = {"data": 16, "model": 16}
+
+
+def dtype_name(t):
+    return str(t.dtype).replace("torch.", "")
+
+
+def unstack_shape(shape, stacked):
+    return tuple(shape[1:]) if stacked else tuple(shape)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_input_structures_are_the_references(arch):
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    for name, shape in INPUT_SHAPES.items():
+        with FakeTensorMode():
+            got = {**S.batch_structure(cfg, shape),
+                   **S.decode_structure(cfg, shape)}
+            specs = S.input_specs(cfg, shape)
+        want = {**JS.batch_structure(jcfg, JSHAPES[name]),
+                **JS.decode_structure(jcfg, JSHAPES[name])}
+        assert set(got) == set(want)
+        for k, w in want.items():
+            assert tuple(got[k].shape) == tuple(w.shape), (name, k)
+            assert dtype_name(got[k]) == str(w.dtype), (name, k)
+        assert set(specs) == ({"batch"} if shape.kind != "decode"
+                              else {"token", "pos", "cache"})
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cache_structure_is_the_references(arch):
+    cfg, jcfg = get_config(arch), jax_get_config(arch)
+    for name, shape in INPUT_SHAPES.items():
+        with FakeTensorMode():
+            got = S.cache_structure(cfg, shape)
+        want = JS.cache_structure(jcfg, JSHAPES[name])
+        if cfg.is_encdec:
+            pairs = [(g, want[part]) for part in ("self", "cross")
+                     for g in got[part]]
+        else:
+            n = len(cfg.block_pattern)
+            assert len(got) == cfg.n_layers
+            pairs = [(g, want[i % n]) for i, g in enumerate(got)]
+        for g, w in pairs:
+            assert set(g) == set(w), name
+            for k in g:
+                assert tuple(g[k].shape) == unstack_shape(w[k].shape, True), \
+                    (name, k)
+                assert dtype_name(g[k]) == str(w[k].dtype), (name, k)
+
+
+def test_demo_batch_draws_from_its_generator():
+    cfg = get_config("qwen2-vl-7b").reduced()
+    shape = InputShape("small", 40, 2, "train")
+    a = S.demo_batch(cfg, shape, torch.Generator().manual_seed(3))
+    b = S.demo_batch(cfg, shape, torch.Generator().manual_seed(3))
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert a["tokens"].dtype == torch.int32 and a["tokens"].shape == (2, 24)
+    assert a["media"].shape == (2, 16, cfg.d_model)
+    assert int(a["tokens"].max()) < cfg.vocab
+
+
+# --------------------------------------------------------------------------- #
+# Fake is real: a one-rank mesh, fake tensors against real ones.
+# --------------------------------------------------------------------------- #
+def real_train(cfg, shape):
+    """(flops, argument bytes) of the trainer's own step on real CPU
+    tensors over a one-rank gloo mesh."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import spmd
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.train import Trainer, TrainerConfig
+
+    mesh = single_device_mesh("cpu")
+    try:
+        tr = Trainer(cfg, TrainerConfig(total_steps=1, log_every=0),
+                     device="cpu", mesh=mesh)
+        rows = spmd.batch_rows(S.demo_batch(cfg, shape), mesh)
+        with FlopCounterMode(display=False) as flops:
+            tr._train_step(tr.state, rows)
+        return flops.get_total_flops(), D.tree_bytes((tr.state, rows))
+    finally:
+        dist.destroy_process_group()
+
+
+def real_serve(cfg, shape):
+    """The same for the dry run's serving step built on real tensors."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import single_device_mesh
+
+    mesh = single_device_mesh("cpu")
+    try:
+        run, _, counted = D._serve_step(cfg, shape, mesh, cfg.param_sharding)
+        with FlopCounterMode(display=False) as flops:
+            run()
+        return flops.get_total_flops(), D.tree_bytes(counted)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("arch,kind", [("yi-9b", "train"),
+                                       ("yi-9b", "decode"),
+                                       ("jamba-1.5-large-398b", "train")])
+def test_fake_step_counts_what_the_real_step_does(arch, kind):
+    cfg = dataclasses.replace(get_config(arch).reduced(),
+                              param_sharding="wus")
+    shape = InputShape("small", 32 if kind == "train" else 64, 4, kind)
+    fake = D.dryrun_step(cfg, shape, ONE)
+    flops, args = (real_train if kind == "train" else real_serve)(cfg, shape)
+    assert fake["flops_per_device"] == flops > 0
+    assert fake["argument_bytes_per_device"] == args > 0
+    assert fake["peak_bytes_per_device"] >= args
+    if kind == "train":  # the gradient sums run on a 1 x 1 mesh too
+        assert fake["collective_counts"]
+
+
+# --------------------------------------------------------------------------- #
+# Blocks on the pod mesh against the reference's specs (shapes only).
+# --------------------------------------------------------------------------- #
+def block_bytes(tree, specs, mesh):
+    is_spec = lambda x: isinstance(x, PartitionSpec)  # noqa: E731
+    total = 0
+    for leaf, spec in zip(jax.tree_util.tree_leaves(tree),
+                          jax.tree_util.tree_leaves(specs, is_leaf=is_spec)):
+        split = math.prod(mesh.shape[a] for e in spec if e is not None
+                          for a in ((e,) if isinstance(e, str) else e))
+        n = math.prod(leaf.shape) * jnp.dtype(leaf.dtype).itemsize
+        assert n % split == 0
+        total += n // split
+    return total
+
+
+def reference_argument_bytes(jcfg, shape, mode):
+    mesh = AbstractMesh((16, 16), ("data", "model"))
+    rules = JRules(mesh, mode, seq_parallel=jcfg.seq_parallel)
+    key = jax.random.PRNGKey(0)
+    if shape.kind == "train":
+        state, axes = JT.init_train_state(jcfg, JT.make_optimizer(jcfg), key)
+        batch = JS.batch_structure(jcfg, shape)
+        return (block_bytes(state, JT.train_state_specs(jcfg, state, axes,
+                                                        rules), mesh)
+                + block_bytes(batch, JT.batch_pspecs(batch, rules), mesh))
+    params, axes = JT.init_params_and_axes(jcfg, key)
+    params = jax.tree_util.tree_map(
+        lambda s: jax.ShapeDtypeStruct(
+            s.shape, jnp.bfloat16 if (s.dtype == jnp.float32
+                                      and len(s.shape) > 1) else s.dtype),
+        params)
+    cache = JS.cache_structure(jcfg, shape)
+    d = JS.decode_structure(jcfg, shape)
+    tok = {"t": d["token"]}
+    return (block_bytes(params, JT.param_specs_serving(jcfg, params, axes,
+                                                       rules), mesh)
+            + block_bytes(cache, JT.cache_pspecs(jcfg, cache, rules), mesh)
+            + block_bytes(tok, JT.batch_pspecs(tok, rules), mesh)
+            + block_bytes(d["pos"], PartitionSpec(), mesh))
+
+
+@pytest.mark.parametrize("mode", ["wus", "fsdp"])
+@pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])
+def test_pod_blocks_are_the_references(mode, shape):
+    cfg = dataclasses.replace(get_config("yi-9b").reduced(),
+                              param_sharding=mode)
+    jcfg = dataclasses.replace(jax_get_config("yi-9b").reduced(),
+                               param_sharding=mode)
+    got = D.dryrun_step(cfg, INPUT_SHAPES[shape], POD, mode)
+    assert got["devices"] == 256
+    assert got["argument_bytes_per_device"] == \
+        reference_argument_bytes(jcfg, JSHAPES[shape], mode)
+    assert got["flops_per_device"] > 0
+    assert got["peak_bytes_per_device"] == (
+        got["argument_bytes_per_device"] + got["temp_bytes_per_device"])
+
+
+def test_recorder_names_the_references_kinds():
+    """Each collective of ``dist.compat`` on a fake (1, 4) world is
+    recorded under the reference's kind with its result's bytes; a
+    ``ppermute`` pair counts once, at its receive."""
+    from repro_torch.dist import compat
+
+    with D.fake_world({"data": 1, "model": 4}) as mesh, FakeTensorMode():
+        x = torch.zeros(8, 16)
+        with D.CollectiveRecorder() as rec:
+            compat.ppermute(x, mesh, "model", [(i, (i + 1) % 4)
+                                                for i in range(4)])
+            compat.all_gather(x, mesh, "model")
+            compat.psum_scatter(x, mesh, "model")
+            compat.psum(x, mesh, "model")
+    n = 8 * 16 * 4
+    assert dict(rec.counts) == {"collective-permute": 1, "all-gather": 1,
+                                "reduce-scatter": 1, "all-reduce": 1}
+    assert dict(rec.bytes) == {"collective-permute": n, "all-gather": 4 * n,
+                               "reduce-scatter": n // 4, "all-reduce": n}
+
+
+# --------------------------------------------------------------------------- #
+# Rows and refusals.
+# --------------------------------------------------------------------------- #
+def test_long_context_skip_and_host_reads_raise(monkeypatch):
+    r = D.dryrun_one("whisper-medium", "long_500k", verbose=False)
+    assert set(r) == {"arch", "shape", "multi_pod", "skipped"}
+    from repro_torch.train import steps as T
+
+    real = T.make_train_step
+
+    def reads_the_loss(*a, **k):
+        step = real(*a, **k)
+        return lambda state, batch: float(step(state, batch)[1]["loss"])
+
+    monkeypatch.setattr(T, "make_train_step", reads_the_loss)
+    cfg = get_config("yi-9b").reduced()
+    with pytest.raises(RuntimeError, match=r"reads a value on the host at "
+                       r".*test_torch_dryrun\.py:\d+"):
+        D.dryrun_step(cfg, InputShape("small", 32, 4, "train"), ONE)

@@ -14,6 +14,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 PORT_MODULES = [
     "repro_torch",
+    "repro_torch.analysis",
     "repro_torch.configs",
     "repro_torch.configs.base",
     "repro_torch.configs.gemma_7b",
@@ -85,6 +86,7 @@ PORT_MODULES = [
     "repro_torch.launch.mlperf",
     "repro_torch.launch.resnet",
     "repro_torch.launch.serve",
+    "repro_torch.launch.specs",
     "repro_torch.launch.train",
     "repro_torch.train.hooks",
     "repro_torch.train.steps",

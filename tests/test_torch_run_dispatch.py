@@ -15,9 +15,15 @@ through ``params=`` (the weight bridge).
   losses, nlls and grad norms, and ``--mode eval``'s nll, within rtol
   1e-4 (``tests/test_torch_train.py``'s tolerance).
 - ``runs/rwkv6_3b_server.toml`` serves its four requests (port only).
-- ``--mode bench``, ``trainer.bench_out`` and a plain ``--mode dryrun``
-  raise ``NotImplementedError`` naming their ROADMAP.md items; the CLI
-  exits 2.
+- ``--mode bench``, ``trainer.bench_out`` and ``dryrun.bench_out``
+  raise ``NotImplementedError`` naming ROADMAP.md item 6.5; the CLI exits
+  2.
+- The dry run on reduced configs: one (arch, shape) through ``run_spec``
+  and the CLI (its JSON written, whatever ``--device`` says), and
+  ``dryrun.all`` over reduced yi-9b, mixtral-8x7b and whisper-medium: 12
+  rows, mixtral's 4 and whisper's 3 naming item 6.2, whisper's
+  ``long_500k`` skipped, exit code 1; an open process group makes it
+  raise.
 - The k8s manifests equal the reference's but for the container's
   command and its GPU limit.
 - The spec-table rows of reduced yi-9b and mixtral-8x7b on 16 x 16, in
@@ -234,8 +240,7 @@ def test_profile_writes_launches_and_the_trace(tmp_path, capsys, trace):
 @pytest.mark.parametrize("sets,item", [
     (["mode=bench", "bench.smoke=true"], "6.5"),
     (["trainer.bench_out=/tmp/b.json"], "6.5"),
-    (["mode=dryrun"], "6.4"),
-    (["mode=dryrun", "dryrun.all=true", "mesh=multipod"], "6.4"),
+    (["mode=dryrun", "dryrun.bench_out=/tmp/b.json"], "6.5"),
 ])
 def test_unported_modes_raise_naming_their_item(capsys, sets, item):
     from repro_torch.run import RunSpec
@@ -250,6 +255,90 @@ def test_unported_modes_raise_naming_their_item(capsys, sets, item):
     if item == "6.5" and spec.mode == "bench":
         assert load_spec_file(os.path.join(RUNS, "bench_smoke.json")).mode \
             == "bench"
+
+
+# --------------------------------------------------------------------------- #
+# the dry run (launch.dryrun.dryrun_one over a fake world of this process)
+# --------------------------------------------------------------------------- #
+REDUCED = ("yi-9b", "mixtral-8x7b", "whisper-medium")
+
+
+@pytest.fixture
+def reduced_archs(monkeypatch):
+    """``dryrun_one`` on the reduced configs, ``list_archs`` the three."""
+    import repro_torch.configs as configs
+    from repro_torch.launch import dryrun as D
+
+    monkeypatch.setattr(D, "get_config",
+                        lambda arch: get_config(arch).reduced())
+    monkeypatch.setattr(configs, "list_archs", lambda: list(REDUCED))
+
+
+ROW_KEYS = {"arch", "shape", "multi_pod", "devices", "mode",
+            "flops_per_device", "collective_bytes_per_device",
+            "collective_counts", "argument_bytes_per_device",
+            "output_bytes_per_device", "temp_bytes_per_device",
+            "peak_bytes_per_device", "trace_s"}
+
+
+@pytest.mark.parametrize("via", ["run_spec", "cli"])
+def test_dryrun_one_shape(tmp_path, capsys, reduced_archs, via):
+    out = tmp_path / "dry.json"
+    sets = ["mode=dryrun", "arch=yi-9b", "dryrun.shape=decode_32k",
+            "mesh=multipod", f"dryrun.json_out={out}"]
+    if via == "cli":
+        argv = [a for s in sets for a in ("--set", s)]
+        assert cli.main(["run", *argv, "--device", "cuda"]) == 0
+        rows = PD.LAST_RESULT["results"]
+    else:
+        rows = PD.run_spec(apply_assignments(PD.RunSpec(), sets),
+                           device="cuda")["results"]
+    text = capsys.readouterr().out
+    assert "== yi-9b x decode_32k (2-pod, 512 devices) ==" in text
+    assert "1/1 dry-runs succeeded" in text
+    assert json.loads(out.read_text()) == rows
+    (row,) = rows
+    assert set(row) == ROW_KEYS
+    assert row["devices"] == 512 and row["multi_pod"] is True
+    assert row["flops_per_device"] > 0
+    assert 0 < row["argument_bytes_per_device"] <= row["peak_bytes_per_device"]
+
+
+def test_dryrun_all_rows_errors_and_skip(tmp_path, capsys, reduced_archs):
+    from repro_torch.run import RunSpec
+
+    spec = apply_assignments(RunSpec(), ["mode=dryrun", "dryrun.all=true"])
+    res = PD.run_spec(spec, device="cpu")
+    rows = res["results"]
+    assert res["exit_code"] == 1
+    assert [(r["arch"], r["shape"]) for r in rows] == [
+        (a, s) for a in REDUCED for s in ("train_4k", "prefill_32k",
+                                          "decode_32k", "long_500k")]
+    by = {(r["arch"], r["shape"]): r for r in rows}
+    for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        assert set(by["yi-9b", s]) == ROW_KEYS
+        assert "ROADMAP.md item 6.2" in by["mixtral-8x7b", s]["error"]
+    for s in ("train_4k", "prefill_32k", "decode_32k"):
+        assert "ROADMAP.md item 6.2" in by["whisper-medium", s]["error"]
+    assert "skipped" in by["whisper-medium", "long_500k"]
+    assert "5/12 dry-runs succeeded" in capsys.readouterr().out
+
+
+def test_dryrun_must_own_the_process():
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import single_device_mesh
+    from repro_torch.run import RunSpec
+
+    single_device_mesh("cpu")
+    try:
+        with pytest.raises(RuntimeError, match="must own the process"):
+            PD.run_spec(apply_assignments(
+                RunSpec(), ["mode=dryrun", "dryrun.shape=decode_32k"]),
+                device="cpu")
+        assert dist.is_initialized()  # the caller's group is left up
+    finally:
+        dist.destroy_process_group()
 
 
 def test_module_entry_point_runs(tmp_path):

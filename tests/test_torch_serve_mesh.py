@@ -17,7 +17,10 @@ run on 4 ranks:
 - ``fsdp`` on (2, 2), ``wus`` on (2, 2) with drafts, ``replicated`` on
   (2, 2) on the slab: each data rank computes its slots;
 - reduced mixtral-8x7b (``fsdp``, paged) and reduced jamba-1.5-large
-  (``tp2d``, slab) on (4, 1), the batch axes alone.
+  (``tp2d``, slab) on (4, 1), the batch axes alone;
+- ``tp2d`` and ``fsdp`` on (2, 2) with one slot (``max_batch`` 1, as
+  ``long_500k`` decodes): the batch axes do not divide the one row, so
+  it is replicated over them and every rank computes it.
 
 Each case holds every rank's greedy tokens bitwise to the one-device
 engine's and (gemma) to the reference's; ``check_ranks`` raises inside
@@ -72,6 +75,8 @@ CASES = {
     "replicated_2x2_slab": case("2x2", "replicated", SLAB),
     "mixtral_4x1_fsdp": case("4x1", "fsdp", PAGED, model="mixtral"),
     "jamba_4x1_tp2d_slab": case("4x1", "tp2d", SLAB, model="jamba"),
+    "tp2d_2x2_b1": case("2x2", "tp2d", dict(PAGED, max_batch=1)),
+    "fsdp_2x2_b1": case("2x2", "fsdp", dict(PAGED, max_batch=1)),
 }
 ONE = {"tp2d_1x1": case("1x1", "tp2d", dict(PAGED, **DRAFTS)),
        "fsdp_1x1": case("1x1", "fsdp", PAGED)}
@@ -92,7 +97,10 @@ def base_config(c, get_config):
 
 
 def paged_gemma(c):
-    return c["model"] == "gemma" and c["knobs"].get("kv_layout") != "slab"
+    """A case whose chunk logits are held (the scripted batch has 4 rows,
+    so the one-slot cases take no part)."""
+    return (c["model"] == "gemma" and c["knobs"].get("kv_layout") != "slab"
+            and c["knobs"]["max_batch"] == 4)
 
 
 def tree_key(c):

@@ -44,7 +44,9 @@ trainer.py ranks STORE INPUTS OUTDIR``: one process forks them from a
 fork server that imports torch once; a ``FileStore`` rendezvous; each
 rank on one thread) and the JAX subprocess; each rank runs every case
 and pickles its blocks, and each test reads its case. A rank's
-traceback fails only its case.
+traceback fails only its case. Rank 0 also records the collectives of
+one ``wus`` step on (4, 2) with the dry run's recorder, held against
+``launch.dryrun.dryrun_step`` on a fake (4, 2) world.
 
 The card's counterpart is ``tests/test_torch_sharded_cuda.py``.
 """
@@ -90,6 +92,8 @@ CASES = {
     "jamba_batch_axes": case("8x1", "fsdp", model="jamba", opt="sgd"),
     "vlm_wus_sp1": case("4x2", "wus", model="vlm"),
 }
+# the step whose collectives rank 0 records for the dry run's check
+RECORDED = case("4x2", "wus")
 ARCHS = {"yi": "yi-9b", "yi_kv1": "yi-9b", "jamba": "jamba-1.5-large-398b",
          "vlm": "qwen2-vl-7b"}
 REFUSED = {"moe": "mixtral-8x7b", "mamba": "jamba-1.5-large-398b",
@@ -202,9 +206,42 @@ def rank_main(rank, store, inputs_path, out_path):
     tr = Trainer(yi, device="cpu", mesh=meshes["4x2"])
     refused["resume"] = _raises(lambda: tr.resume(out_path + ".nothing"))
     out["refused"] = refused
+    try:
+        out["collectives"] = recorded_step(meshes[RECORDED["mesh"]])
+    except Exception:  # recorded; the test fails with it
+        out["collectives"] = {"error": traceback.format_exc()}
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
     dist.destroy_process_group()
+
+
+def recorded_config(get_config):
+    c = RECORDED
+    return dataclasses.replace(base_config(c["model"], get_config),
+                               param_sharding=c["mode"],
+                               seq_parallel=c["sp"])
+
+
+def recorded_step(mesh):
+    """One train step of the ``RECORDED`` case from a fresh trainer (the
+    default optimizer, no extra metrics) under the dry run's collective
+    recorder: this rank's (bytes, counts) by kind."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist import spmd
+    from repro_torch.launch.dryrun import CollectiveRecorder
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = recorded_config(get_config)
+    tr = Trainer(cfg, TrainerConfig(total_steps=1, log_every=0),
+                 device="cpu", mesh=mesh)
+    rows = spmd.batch_rows({k: torch.as_tensor(v) for k, v in
+                            batches(cfg, n=1)[0].items()}, mesh)
+    rec = CollectiveRecorder()
+    with rec:
+        tr._train_step(tr.state, rows)
+    return {"bytes": dict(rec.bytes), "counts": dict(rec.counts)}
 
 
 def _raises(fn):
@@ -435,3 +472,25 @@ def test_refused_on_a_mesh(runs, kind):
         assert got is not None, kind
         assert got[0] == "NotImplementedError", got
         assert "6.2" in got[1], got
+
+
+def test_collectives_equal_the_dry_run(runs):
+    """Rank 0's collectives in one real ``wus`` step with
+    ``seq_parallel`` on (4, 2): their counts and result bytes by kind
+    equal ``launch.dryrun.dryrun_step``'s on a fake (4, 2) world for the
+    same config, batch and mode."""
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.dryrun import dryrun_step
+
+    out, _, _ = runs
+    got = out[0]["collectives"]
+    assert "error" not in got, got.get("error")
+    shapes, names = MESHES[RECORDED["mesh"]]
+    want = dryrun_step(recorded_config(get_config),
+                       InputShape("recorded", S, B, "train"),
+                       dict(zip(names, shapes)), RECORDED["mode"])
+    print(f"recorded step: {got}")
+    assert got["counts"] == want["collective_counts"]
+    assert got["bytes"] == want["collective_bytes_per_device"]
+    assert set(got["counts"]) == {"all-gather", "reduce-scatter",
+                                  "all-reduce"}
