@@ -253,7 +253,20 @@ and prints no result):
    dryrun`` in subprocesses (fake worlds, fake tensors, no card): gemma-7b
    ``train_4k`` on 16 x 16 and yi-9b ``long_500k`` on 2 x 16 x 16, each
    with flops and a peak and no error, printed beside its roofline with
-   the H100's constants (``analysis``); the card's ``total_memory``.
+   the H100's constants (``analysis``); the card's ``total_memory``;
+   mixtral-8x7b ``train_4k`` on 16 x 16 (the MoE split over its hidden
+   units) and jamba-1.5-large ``decode_32k`` on 2 x 16 x 16 (the Mamba
+   decode step and the MoE split over its experts), all four at once;
+20. layers split over ``model`` (``dist-layers``, after phase 4's jamba
+   serving, on its weights): the mamba_scan forward (boundary states
+   every 16 steps) and backward at jamba's block of one rank of a 16-wide
+   ``model`` axis (Bt 1, S 2048, Di 1024, N 16, bf16 u; rows 3-m and
+   3b-m), held against their plain versions and timed beside their
+   bounds, the grid's blocks printed; then the 3-layer jamba cut serves
+   phase 4's workload through ``Engine(..., rules=Rules(mesh, "tp2d"))``
+   on a 1 x 1 NCCL mesh (destroyed in a ``finally``): greedy tokens
+   bitwise the one-device engine's, the mamba_scan counter, zeroed just
+   before, at 2 launches a prefill.
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -2443,13 +2456,33 @@ def timed_and_traced(fn, reps=3):
     return float(np.median(times)), busy, kernels
 
 
-def serve_jamba_full():
+def jamba_workload(cfg):
+    """Phase 4's 8 ragged requests of ``NEW_TOKENS`` tokens."""
+    return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
+                              prompt_len=max(PROMPT_LENS), seed=0,
+                              prompt_lens=PROMPT_LENS)
+
+
+def jamba_scfg():
+    return ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+                       kv_layout="slab")
+
+
+def jamba_params():
+    """The 3-layer cut's random bf16 weights from seed 0, on the card."""
+    gc.collect()  # earlier phases' reference cycles still hold memory
+    torch.cuda.empty_cache()
+    return lm.init_lm(jamba_cut(), seed=0, device="cuda")
+
+
+def serve_jamba_full(params=None):
     """Full-width jamba (the 3-layer cut, random bf16 weights from seed
-    0) serves 8 ragged requests offline through the slab engine: each
-    prefill runs both Mamba layers through mamba_scan and the attention
-    layer through the flash forward (asserted by the counters, zeroed
-    just before), a second run repeats the tokens, and one decode step
-    and one prefill are traced."""
+    0, made here unless given) serves 8 ragged requests offline through
+    the slab engine: each prefill runs both Mamba layers through
+    mamba_scan and the attention layer through the flash forward
+    (asserted by the counters, zeroed just before), a second run repeats
+    the tokens, and one decode step and one prefill are traced. Returns
+    (mamba_scan launches, flash launches, the greedy tokens)."""
     cfg = jamba_cut()
     phase("serve: jamba-1.5-large full width, 3-layer cut (mamba+dense, "
           "mamba+moe, attn+dense), bf16, slab, offline")
@@ -2461,24 +2494,26 @@ def serve_jamba_full():
           f"{cfg.head_dim}, vocab {cfg.vocab}", flush=True)
     gc.collect()  # earlier phases' reference cycles still hold memory
     torch.cuda.empty_cache()
-    held = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
-    params = lm.init_lm(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    print(f"  init in {time.perf_counter() - t0:.1f} s, "
-          f"{torch.cuda.memory_allocated() / 2**30 - held:.2f} GiB of "
+    if params is None:
+        held = torch.cuda.memory_allocated() / 2**30
+        params = jamba_params()
+        torch.cuda.synchronize()
+        made = torch.cuda.memory_allocated() / 2**30 - held
+    else:
+        made = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(params)) / 2**30
+        held = torch.cuda.memory_allocated() / 2**30 - made
+    print(f"  init in {time.perf_counter() - t0:.1f} s, {made:.2f} GiB of "
           f"weights ({held:.2f} GiB held by the process before the phase)",
           flush=True)
-    scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
-                       kv_layout="slab")
+    scfg = jamba_scfg()
     engine = Engine(cfg, params, scfg, device="cuda")
     run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
                                            seed=1))  # warm-up
 
     def workload():
-        return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
-                                  prompt_len=max(PROMPT_LENS), seed=0,
-                                  prompt_lens=PROMPT_LENS)
+        return jamba_workload(cfg)
 
     torch.cuda.reset_peak_memory_stats()
     mk.reset_launches()
@@ -2551,7 +2586,7 @@ def serve_jamba_full():
     del engine, params, slab, cache, report
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, flash
+    return launches, flash, got
 
 
 def full_train_config():
@@ -5785,15 +5820,21 @@ def dryrun_vs_mesh_trainer(cfg, batch, run, step_ms):
 # --------------------------------------------------------------------------- #
 DRYRUN_PEAK_RATIO = 1.10
 DRYRUN_CLI = (("gemma-7b", "train_4k", "pod"),
-              ("yi-9b", "long_500k", "multipod"))
+              ("yi-9b", "long_500k", "multipod"),
+              ("mixtral-8x7b", "train_4k", "pod"),
+              ("jamba-1.5-large-398b", "decode_32k", "multipod"))
 
 
 def dryrun_cli():
-    """``python -m repro_torch run --mode dryrun`` in two subprocesses
+    """``python -m repro_torch run --mode dryrun`` in four subprocesses
     started together, as a user types it: gemma-7b's train step on the 16
-    x 16 mesh and yi-9b's 500k-token decode (B 1, replicated over the
-    batch axes) on 2 x 16 x 16. Each result must carry flops and a peak
-    and no error; its roofline with the H100's constants is printed."""
+    x 16 mesh, yi-9b's 500k-token decode (B 1, replicated over the batch
+    axes) on 2 x 16 x 16, mixtral-8x7b's train step on 16 x 16 (8 experts
+    that 16 does not divide: each rank holds every expert's 896 hidden
+    units) and jamba-1.5-large's 32k decode step on 2 x 16 x 16 (the Mamba
+    step on 1024 channels a rank, 16 experts, one a rank). Each result
+    must carry flops and a peak and no error; its roofline with the
+    H100's constants is printed."""
     phase("dryrun: python -m repro_torch run --mode dryrun (fake worlds "
           "of 256 and 512 ranks, no card)")
     t0 = time.perf_counter()
@@ -5806,7 +5847,7 @@ def dryrun_cli():
     workdir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     runs = []
-    for arch, shape, mesh in DRYRUN_CLI:  # both processes at once
+    for arch, shape, mesh in DRYRUN_CLI:  # every process at once
         out_json = os.path.join(workdir, f"dryrun_{arch}_{shape}.json")
         cmd = [sys.executable, "-m", "repro_torch", "run", "--mode",
                "dryrun", "--arch", arch, "--mesh", mesh, "--set",
@@ -5849,6 +5890,187 @@ def dryrun_cli():
     shutil.rmtree(workdir, ignore_errors=True)
     print(f"  dryrun phase wall {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+
+# --------------------------------------------------------------------------- #
+# Phase 20: layers split over ``model``.
+# --------------------------------------------------------------------------- #
+# jamba's Mamba block of one rank of a 16-wide model axis: Di 16384 / 16
+MAMBA_POD_RANK = (1, 2048, 1024, 16)
+
+
+def scan_grid_blocks(Bt, Di, N):
+    """The forward kernel's blocks: 128 threads, kLanes (4 at N <= 16,
+    else 8) a channel (csrc/mamba_scan.cu ``launch``)."""
+    return -(-Di // (128 // (4 if N <= 16 else 8))) * Bt
+
+
+def check_mamba_pod_rank():
+    """Rows 3-m and 3b-m: the mamba_scan forward with its boundary states
+    every 16 steps and its backward at ``MAMBA_POD_RANK`` (bf16 u, B/C
+    views), each rerun bitwise equal: y to one bf16 ulp beyond rtol 1e-4,
+    atol 1e-5, h and the boundary states to rtol 1e-4, atol 1e-5
+    (``MAMBA_CASES``' tolerances), the six gradients by
+    ``hold_mamba_bwd`` (the backward's, as ``MAMBA_BWD_CASES``); then
+    both timed beside their plain versions and bounds, with the grids'
+    blocks on the card's SMs. Returns the two records (launches set by
+    the caller)."""
+    phase("dist-layers: mamba_scan forward and backward at jamba's block "
+          "of one rank of model 16 (Bt 1, S 2048, Di 1024, N 16) vs plain")
+    t0 = time.perf_counter()
+    K, shape, u_dtype = mk.STATE_EVERY, MAMBA_POD_RANK, torch.bfloat16
+    Bt, S, Di, N = shape
+    args = mamba_inputs(120, *shape, u_dtype, True)
+    before = mk.mamba_scan_cuda.launches
+    got = mk.mamba_scan_cuda(*args, state_every=K)
+    again = mk.mamba_scan_cuda(*args, state_every=K)
+    torch.cuda.synchronize()
+    if mk.mamba_scan_cuda.launches - before != 2:
+        raise AssertionError("mamba_scan: not one launch a call")
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError("mamba_scan at the pod-rank block: a rerun "
+                             "differs")
+    y, h, hs = got
+    want_y, want_h, want_hs = mk.mamba_scan_torch(*args, state_every=K)
+    wy = want_y.float()
+    diff = (y.float() - wy).abs()
+    errs = {"y": diff.max().item(),
+            "h": (h - want_h).abs().max().item(),
+            "states": (hs - want_hs).abs().max().item()}
+    ok = {"y": bool(torch.isfinite(y.float()).all() and (
+              diff <= bf16_ulp(wy) + 1e-5 + 1e-4 * wy.abs()).all()),
+          "h": torch.allclose(h, want_h, rtol=1e-4, atol=1e-5),
+          "states": torch.allclose(hs, want_hs, rtol=1e-4, atol=1e-5)}
+    failed = [f"forward {n}" for n, v in ok.items() if not v]
+    print(f"  forward {shape} bf16 u, states every {K} "
+          f"({tuple(hs.shape)}): max|kernel-plain| "
+          + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + " (y: one bf16 ulp + rtol 1e-4, atol 1e-5; h, states: rtol "
+          f"1e-4, atol 1e-5); rerun bitwise equal"
+          f"{'; FAILS ' + str(failed) if failed else ''}", flush=True)
+    fwd_err = max(errs.values())
+    del again, want_y, want_h, want_hs, wy, diff, y, h
+
+    gen = torch.Generator(device="cuda").manual_seed(121)
+    dy = torch.randn((Bt, S, Di), generator=gen, device="cuda").to(u_dtype)
+    dh = torch.randn((Bt, Di, N), generator=gen, device="cuda")
+    before = mk.mamba_scan_bwd_cuda.launches
+    grads = mk.mamba_scan_bwd_cuda(*args, hs, dy, dh, state_every=K)
+    again = mk.mamba_scan_bwd_cuda(*args, hs, dy, dh, state_every=K)
+    torch.cuda.synchronize()
+    if mk.mamba_scan_bwd_cuda.launches - before != 2:
+        raise AssertionError("mamba_scan_bwd: not one count a call")
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError("mamba_scan_bwd at the pod-rank block: a rerun "
+                             "differs")
+    want = mk.mamba_scan_bwd_torch(*args, hs, dy, dh, state_every=K)
+    berrs, bad = hold_mamba_bwd(grads, want, u_dtype)
+    failed += [f"backward {n}" for n in bad]
+    print(f"  backward {shape} bf16 u, dh given, K {K}: max|kernel-plain| "
+          + ", ".join(f"{n} {e:.2e} ({r:.1e})" for n, (e, r) in berrs.items())
+          + f"; rerun bitwise equal{'; FAILS ' + str(bad) if bad else ''}",
+          flush=True)
+    bwd_err = max(e for e, _ in berrs.values())
+    del grads, again, want
+    if failed:
+        raise AssertionError(f"mamba_scan at the pod-rank block != plain: "
+                             f"{failed}")
+
+    clock = sm_clock_hz()
+    fwd_ms = time_ms(lambda: mk.mamba_scan_cuda(*args, state_every=K))
+    fwd_plain = time_ms(lambda: mk.mamba_scan_torch(*args, state_every=K), 2)
+    bwd_ms = time_ms(lambda: mk.mamba_scan_bwd_cuda(*args, hs, dy,
+                                                    state_every=K))
+    bwd_plain = time_ms(lambda: mk.mamba_scan_bwd_torch(
+        *args, hs, dy, state_every=K), 2)
+    fb, fe = mamba_work(*shape, u_dtype)
+    fb += 4 * hs.numel()  # the boundary states written
+    f_bound, f_by, f_tb, f_te = mamba_bound(fb, fe, clock)
+    bb, be = mamba_bwd_work(*shape, u_dtype, K)
+    b_bound, b_by, b_tb, b_te = mamba_bound(bb, be, clock)
+    print(f"  timing (row 3-m) forward with states {fwd_ms:.4f} ms, plain "
+          f"{fwd_plain:.2f} ms; bound {f_bound:.4f} ms ({f_by}: {fb} B = "
+          f"{f_tb:.4f} ms, {fe} exponentials = {f_te:.4f} ms at "
+          f"{clock / 1e9:.3f} GHz; {100 * f_bound / fwd_ms:.1f}% of it); "
+          f"grid {scan_grid_blocks(Bt, Di, N)} blocks of 128 threads on "
+          f"{N_SMS} SMs", flush=True)
+    print(f"  timing (row 3b-m) backward {bwd_ms:.4f} ms, plain "
+          f"{bwd_plain:.2f} ms; bound {b_bound:.4f} ms ({b_by}: {bb} B = "
+          f"{b_tb:.4f} ms, {be} exponentials = {b_te:.4f} ms; "
+          f"{100 * b_bound / bwd_ms:.1f}% of it); backward kernel: "
+          f"{bwd_info_line(Di, N)}; library_ms null: no PyTorch call "
+          f"computes a selective scan or its gradient", flush=True)
+    del args, hs, dy, dh
+    torch.cuda.empty_cache()
+    print(f"  dist-layers kernels wall {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    common = dict(route="cuda",
+                  source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+                  replaces="src/repro/kernels/mamba.py:58", library_ms=None)
+    return (dict(name="mamba_scan_pod_rank", max_abs_err=fwd_err, ms=fwd_ms,
+                 plain_ms=fwd_plain, bound_ms=f_bound, bound_by=f_by,
+                 **common),
+            dict(name="mamba_scan_bwd_pod_rank", max_abs_err=bwd_err,
+                 ms=bwd_ms, plain_ms=bwd_plain, bound_ms=b_bound,
+                 bound_by=b_by, **common))
+
+
+def dist_layers(params=None, want=None):
+    """Phase 20: rows 3-m and 3b-m (``check_mamba_pod_rank``), then the
+    3-layer jamba cut (``params``: phase 4's weights, made here when
+    None) serves phase 4's workload through ``Engine(..., rules=
+    Rules(mesh, "tp2d"))`` on a 1 x 1 NCCL mesh, destroyed in a
+    ``finally``: with one rank every collective is a copy, so the greedy
+    tokens must be bitwise the one-device engine's (``want``, phase 4's;
+    run here when None), with the mamba_scan counter, zeroed just
+    before, at 2 launches a prefill (its two Mamba layers). Returns the
+    records of rows 3-m (launches: this run's) and 3b-m."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import Rules
+
+    fwd, bwd = check_mamba_pod_rank()
+    cfg = jamba_cut()
+    phase("dist-layers: jamba-1.5-large 3-layer cut, bf16, slab, through "
+          "Engine(rules=Rules(mesh, 'tp2d')) on a 1 x 1 NCCL mesh")
+    t0 = time.perf_counter()
+    if params is None:
+        params = jamba_params()
+    scfg = jamba_scfg()
+    if want is None:
+        one = Engine(cfg, params, scfg, device="cuda")
+        want = tokens_of(run_offline(one, jamba_workload(cfg)))
+        del one
+    mesh = single_device_mesh("cuda")
+    try:
+        engine = Engine(cfg, params, scfg, rules=Rules(mesh, "tp2d"))
+        run_offline(engine, synthetic_requests(cfg, n=2, tokens=2,
+                                               prompt_len=8, seed=1))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mk.reset_launches()
+        report = run_offline(engine, jamba_workload(cfg))
+        launches = mk.mamba_scan_cuda.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del engine
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    n_mamba = sum(sp.mixer == "mamba" for sp in cfg.block_pattern)
+    prefills = len(want)
+    print(f"  tp2d on {mesh.shape}: {report.format()}; mamba_scan launches "
+          f"{launches} (expected {n_mamba} x {prefills} prefills); peak "
+          f"memory {peak:.2f} GiB", flush=True)
+    if launches != n_mamba * prefills:
+        raise AssertionError(f"dist-layers: mamba_scan launches {launches}")
+    if tokens_of(report) != want:
+        raise AssertionError("dist-layers: tp2d's greedy tokens differ from "
+                             "the one-device engine's")
+    print(f"  greedy tokens bitwise the one-device engine's; dist-layers "
+          f"serve wall {time.perf_counter() - t0:.1f} s", flush=True)
+    fwd["launches"] = launches
+    return fwd, bwd
 
 
 # --------------------------------------------------------------------------- #
@@ -6353,6 +6575,7 @@ PHASES = {  # --only names: the phases a short run may pick
     "check-jamba": lambda: (reduced_jamba_vs_cpu(),
                             reduced_jamba_train_vs_cpu()),
     "serve-jamba": serve_jamba_full, "train-jamba": train_jamba,
+    "dist-layers": dist_layers,
     "train-gnmt": train_gnmt_full,
     "train-resnet": train_resnet_full,
     "serve-sample": lambda: serve_sample(full_serve_params()),
@@ -6442,7 +6665,11 @@ def main(argv=None) -> int:
                   run_cli_serve(params)]
     del params
     torch.cuda.empty_cache()
-    mamba["launches"], flash_jamba["launches"] = serve_jamba_full()
+    jamba_weights = jamba_params()
+    mamba["launches"], flash_jamba["launches"], jamba_tokens = \
+        serve_jamba_full(jamba_weights)
+    mamba_rank, mamba_rank_bwd = dist_layers(jamba_weights, jamba_tokens)
+    del jamba_weights
     flash_fwd["launches"], flash_bwd["launches"] = train_full()
     train_resume()
     lstm_fwd["launches"], lstm_bwd["launches"] = train_gnmt_full()
@@ -6455,6 +6682,9 @@ def main(argv=None) -> int:
             flash_archs[arch][1]["launches"] = bwd
     (mamba_train["launches"], mamba_bwd["launches"],
      flash_jamba_fwd["launches"], flash_jamba_bwd["launches"]) = train_jamba()
+    # the backward kernel at the pod-rank block runs on no one-card path:
+    # its launches are the kernel's on the path that runs it (train-jamba)
+    mamba_rank_bwd["launches"] = mamba_bwd["launches"]
     whisper = whisper_phases()
     vlm = vlm_rwkv_phases()
     mlperf = mlperf_phases()
@@ -6472,7 +6702,8 @@ def main(argv=None) -> int:
             lars_update, *paged_archs.values(),
             *(r for pair in flash_archs.values() for r in pair),
             flash_jamba_fwd, flash_jamba_bwd, *whisper, *vlm, *mlperf,
-            *dist_recs, *serve_recs, *run_cli_recs]
+            *dist_recs, *serve_recs, *run_cli_recs, mamba_rank,
+            mamba_rank_bwd]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(f"  whole smoke wall {time.perf_counter() - t0:.1f} s", flush=True)

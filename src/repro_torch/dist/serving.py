@@ -34,25 +34,32 @@ The modes:
   (:class:`StationaryPlacement`). The embedding looks up the rank's
   vocabulary rows and sums over ``model``; the head's logits of the
   rank's vocabulary block are all-gathered over ``model``. MoE, Mamba
-  and RWKV-6 layers (served on the batch axes only) gather their
-  ``data`` blocks at use.
+  and RWKV-6 layers gather their ``data`` blocks at use and keep their
+  ``model`` blocks stationary.
 - ``fsdp``, ``wus``, ``replicated``. Weights are gathered at use as the
   sharded trainer gathers them (``dist.spmd.Placement``); the batch is
   split over the batch axes (``pod``, ``data``): each rank computes its
   rows (slots) of the global batch, and the emitted tokens are
   all-gathered, so the host loop stays the same on every rank.
 
-Over ``model`` every mode splits attention by heads and the dense FFN by
-hidden units and sums the row-parallel partial products with an
-all-reduce. The emitted tokens are taken, on every rank, from logits
-that the collectives leave bitwise equal on every rank (all-gathers are
-copies, and an all-reduce hands every rank the same sum); no token is
+Over ``model`` every mode splits attention by heads, the dense FFN by
+hidden units, an MoE layer by experts or hidden units, a Mamba layer by
+channels and an RWKV-6 layer by heads, as the sharded trainer does
+(``dist.spmd.Placement.layout``), and sums the row-parallel partial
+products with an all-reduce. A Mamba layer's slab holds the rank's
+channels (``act_mlp``); an RWKV-6 layer's keeps every head (the
+reference's ``cache_axes``), so a rank of split heads gathers the new
+state of every head over ``model`` after each program
+(``Placement.heads_whole``).
+
+The emitted tokens are taken, on every rank, from logits that the
+collectives leave bitwise equal on every rank (all-gathers are copies,
+and an all-reduce hands every rank the same sum); no token is
 broadcast. ``check_ranks`` (a debug check the tests turn on) gathers
 each step's tokens from every rank and raises if any differs from rank
 0's; it corrects nothing.
 
-MoE, Mamba and RWKV-6 layers over a ``model`` axis larger than 1, and an
-enc-dec config on any mesh, raise ``NotImplementedError``
+An enc-dec config on a mesh raises ``NotImplementedError``
 (``dist.spmd.check_supported``, ROADMAP.md item 6.2). A batch whose rows
 the batch axes do not divide (``long_500k``'s one row) is computed whole
 on every rank.
@@ -249,11 +256,12 @@ class ServePlacement(Placement):
         return super().gather(w, spec, whole=whole, split=split,
                               vary=vary).contiguous()
 
-    def layer_leaf(self, lp, part, name, w, spec, *, split, vary):
-        if self.kv_whole and part == "mixer" and name in KV_LEAVES:
+    def layer_leaf(self, lp, part, name, w, spec, *, split, vary, whole):
+        if (self.kv_whole and part == "mixer" and "wq" in lp["mixer"]
+                and name in KV_LEAVES):
             split = None  # the slab keeps every KV head
         return super().layer_leaf(lp, part, name, w, spec, split=split,
-                                  vary=vary)
+                                  vary=vary, whole=whole)
 
     def embed(self, params, tokens):
         return lm._embed({"embed": self.leaf(params, "embed")}, tokens)
@@ -286,17 +294,17 @@ class StationaryPlacement(ServePlacement):
     """``tp2d``: no weight is gathered. Attention and the dense FFN
     multiply the rank's blocks in place (:meth:`proj_in`,
     :meth:`proj_out`); MoE, Mamba and RWKV-6 layers gather their ``data``
-    blocks at use."""
+    blocks at use and keep their ``model`` blocks."""
 
     def gather(self, w, spec, *, whole, split=None, vary=False):
         return self.over_model(w, spec, whole=False, split=split, vary=vary)
 
-    def layer_leaf(self, lp, part, name, w, spec, *, split, vary):
+    def layer_leaf(self, lp, part, name, w, spec, *, split, vary, whole):
         if (part == "mixer" and "wq" in lp["mixer"]) or (
                 part == "ffn" and "router" not in lp["ffn"]):
             return super().layer_leaf(lp, part, name, w, spec, split=split,
-                                      vary=vary)
-        return ServePlacement.gather(self, w, spec, whole=False, split=split,
+                                      vary=vary, whole=whole)
+        return ServePlacement.gather(self, w, spec, whole=whole, split=split,
                                      vary=vary)
 
     def proj_in(self, x, w):

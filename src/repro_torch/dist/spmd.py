@@ -49,12 +49,35 @@ through ``pvary``. Each rank backpropagates its share of the global mean
 loss (its rows' sum over the global batch), so the ranks' gradients sum
 to the gradient of the global loss.
 
-On a mesh whose ``model`` axis is larger than 1, MoE, Mamba and RWKV-6
-layers raise ``NotImplementedError``; so does an enc-dec config on any
-mesh (ROADMAP.md item 6.2). On the batch axes alone the MoE, Mamba and
-RWKV-6 layers train like the dense ones: weights gathered at use, rows
-local, and the MoE load-balance loss formed from the global batch's
-means (:meth:`Placement.batch_mean`).
+Over ``model``, the MoE, Mamba and RWKV-6 layers (:meth:`Placement.layer`)
+enter and leave as the dense path does, the whole sequence entering
+under ``seq_parallel`` (the scans and the MoE's groups of ``min(256, S)``
+tokens need it):
+
+- MoE. Where ``model`` divides the experts each rank holds its experts
+  (``expert``), else, where it divides ``d_ff``, every expert's block of
+  hidden units (``mlp``). The replicated router runs the gating whole on
+  every rank, each rank multiplies its experts or units, and the
+  combine's partial sum leaves as the dense FFN's. The load-balance
+  loss, which every model rank forms alike from inputs that entered per
+  rank, counts once (:meth:`Placement.once`).
+- Mamba. Each rank holds its block of the inner channels (``mlp``): the
+  per-channel leaves stay local; ``x_proj`` gives a partial sum over the
+  rank's channels, summed over ``model`` by :meth:`Placement.model_sum`,
+  whose backward sums as well, since each rank then uses the sum for its
+  own channels; the scan runs on the rank's channels and ``out_proj`` is
+  row-parallel.
+- RWKV-6. Where ``model`` divides the heads each rank holds its heads
+  (``wr``, ``wk``, ``wv``, ``wg`` and ``w2`` by columns, ``wo`` by rows;
+  ``u``, ``w0`` and ``ln_scale`` narrowed to its channels; ``mu`` and
+  ``w1`` used whole). Where it does not, the blocks are gathered and the
+  layer runs on whole heads on every rank, as attention does, since the
+  recurrence and the per-head norm need whole heads.
+
+A layer whose dim ``model`` does not divide runs whole on every rank. An
+enc-dec config on a mesh raises ``NotImplementedError`` (ROADMAP.md item
+6.2). On the batch axes the MoE load-balance loss is formed from the
+global batch's means (:meth:`Placement.batch_mean`).
 """
 from __future__ import annotations
 
@@ -62,7 +85,7 @@ from typing import List, Optional, Sequence
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MambaConfig, ModelConfig, RWKV6Config
 from repro_torch.core import gradient_summation as GS
 from repro_torch.dist import compat
 from repro_torch.dist.compat import _all_gather, _all_reduce, _reduce_scatter
@@ -89,21 +112,11 @@ def dim_of(spec: Spec, axis: str) -> Optional[int]:
 def check_supported(cfg: ModelConfig, mesh, what: str = "train") -> None:
     """Raise ``NotImplementedError`` for what the sharded trainer (and,
     ``what="serve"``, the sharded serving engine) does not run yet: an
-    enc-dec config on a mesh, and MoE, Mamba or RWKV-6 layers over a
-    ``model`` axis larger than 1."""
+    enc-dec config on a mesh."""
     if cfg.is_encdec:
         raise NotImplementedError(
             f"{cfg.name}: the enc-dec family does not {what} on a mesh yet "
             f"({ROADMAP})")
-    if mesh.shape.get("model", 1) > 1:
-        kinds = sorted({s.mixer for s in cfg.block_pattern
-                        if s.mixer in ("mamba", "rwkv6")}
-                       | {"moe" for s in cfg.block_pattern if s.ffn == "moe"})
-        if kinds:
-            raise NotImplementedError(
-                f"{cfg.name}: {'/'.join(kinds)} layers are not split over "
-                f"a model axis of {mesh.shape['model']} yet ({ROADMAP}); "
-                f"use a mesh whose model axis is 1")
     if "data" not in mesh.shape:
         noun = {"train": "training", "serve": "serving"}[what]
         raise ValueError(f"a {noun} mesh needs a 'data' axis; this one "
@@ -197,6 +210,33 @@ def leaf_list(tree, specs) -> List[Spec]:
                                               specs))]
 
 
+# The dims that ``model`` splits in a Mamba layer (its inner channels) and
+# in an RWKV-6 layer whose heads it divides (``Placement.layout``).
+MAMBA_SPLIT = {"wx": 1, "wz": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
+               "dt_w": 1, "dt_bias": 0, "A_log": 0, "D": 0, "out_proj": 0}
+RWKV_SPLIT = {"wr": 1, "wk": 1, "wv": 1, "wg": 1, "w2": 1, "wo": 0, "u": 0,
+              "w0": 0, "ln_scale": 0}
+RWKV_BLOCKS = ("wr", "wk", "wv", "wg", "w2", "wo")  # the ``mlp`` leaves
+NO_SPLIT = dict(split=None, vary=False, whole=False)
+
+
+def _split(dim, *, vary=False, whole=False):
+    return dict(split=dim, vary=vary, whole=whole)
+
+
+class _Share(torch.autograd.Function):
+    """The identity, whose backward divides the cotangent by ``n``."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.n = n
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return dy / ctx.n, None
+
+
 # --------------------------------------------------------------------------- #
 # The forward's view of the mesh.
 # --------------------------------------------------------------------------- #
@@ -264,33 +304,75 @@ class Placement:
                         params[name], self.plan.pspecs[name])
 
     def layer(self, lp, i: int):
-        """Layer ``i``'s tree as its ops read it: an attention layer's
-        query heads (``wq``, ``bq``, ``wo``) split over ``model`` when it
-        divides them, its KV heads too when it divides those, else the KV
-        weights whole, entering through ``pvary`` (each rank reads only
-        the KV heads of its queries); a dense FFN's hidden units (``wu``,
-        ``wg``, ``wd``) when it divides them."""
-        specs, cfg, m = self.plan.pspecs["layers"][i], self.plan.cfg, self.m
-        heads = m > 1 and "wq" in lp["mixer"] and cfg.n_heads % m == 0
-        kv = heads and cfg.n_kv_heads % m == 0
-        mlp = (m > 1 and "wu" in lp.get("ffn", {}) and "router" not in
-               lp["ffn"] and cfg.d_ff % m == 0)
-        splits = {"mixer": dict(({"wq": 1, "bq": 0, "wo": 0} if heads
-                                 else {}),
-                                **({"wk": 1, "wv": 1, "bk": 0, "bv": 0}
-                                   if kv else {})),
-                  "ffn": {"wu": 1, "wg": 1, "wd": 0} if mlp else {}}
-        kv_whole = heads and not kv
+        """Layer ``i``'s tree as its ops read it, each leaf by
+        :meth:`layout`: the rank's heads, units, experts or channels where
+        ``model`` divides them, else the leaf as the layer needs it."""
+        specs = self.plan.pspecs["layers"][i]
+        how = self.layout(lp)
         return {part: {k: self.layer_leaf(
             lp, part, k, w, specs[part][k],
-            split=splits.get(part, {}).get(k),
-            vary=kv_whole and part == "mixer" and k in KV_LEAVES)
+            **how.get(part, {}).get(k, NO_SPLIT))
             for k, w in sub.items()} for part, sub in lp.items()}
 
+    def layout(self, lp):
+        """{part: {leaf: the keywords of :meth:`gather`}} of one layer
+        (leaves left out take :data:`NO_SPLIT`): what ``model`` splits.
+
+        - Attention: the query heads (``wq``, ``bq``, ``wo``) where
+          ``model`` divides them, the KV heads too where it divides those,
+          else the KV weights whole, entering through ``pvary`` (each rank
+          reads only the KV heads of its queries).
+        - A dense FFN: the hidden units (``wu``, ``wg``, ``wd``).
+        - An MoE FFN: the experts (``act_expert``) where ``model`` divides
+          them, else the hidden units (``act_mlp``); the router, used
+          whole on every rank, enters through ``pvary``.
+        - Mamba: the inner channels of every leaf.
+        - RWKV-6: the heads (:data:`RWKV_SPLIT`; ``mu`` and ``w1``, used
+          whole, through ``pvary``) where ``model`` divides them, else the
+          :data:`RWKV_BLOCKS` gathered whole (``whole``).
+
+        ``split`` names the dim of the rank's slice; it cuts only a leaf
+        that the mode keeps whole over ``model`` (replicated mode), the
+        others being the rank's blocks already."""
+        cfg, m = self.plan.cfg, self.m
+        if m == 1:
+            return {}
+        out = {}
+        mixer, ffn = lp["mixer"], lp.get("ffn", {})
+        if "wq" in mixer:
+            if cfg.n_heads % m == 0:
+                mx = {"wq": 1, "bq": 0, "wo": 0}
+                if cfg.n_kv_heads % m == 0:
+                    mx.update(wk=1, wv=1, bk=0, bv=0)
+                out["mixer"] = {k: _split(d) for k, d in mx.items()}
+                if cfg.n_kv_heads % m:
+                    out["mixer"].update({k: _split(None, vary=True)
+                                         for k in KV_LEAVES})
+        elif "A_log" in mixer:
+            di = (cfg.mamba or MambaConfig()).expand * cfg.d_model
+            if di % m == 0:
+                out["mixer"] = {k: _split(d) for k, d in MAMBA_SPLIT.items()}
+        elif (cfg.d_model // (cfg.rwkv6 or RWKV6Config()).head_dim) % m:
+            out["mixer"] = {k: _split(None, whole=True) for k in RWKV_BLOCKS}
+        else:
+            out["mixer"] = {k: _split(d) for k, d in RWKV_SPLIT.items()}
+            out["mixer"].update(mu=_split(None, vary=True),
+                                w1=_split(None, vary=True))
+        if "router" in ffn:
+            E = cfg.moe.n_experts
+            dims = ({"wu": 0, "wg": 0, "wd": 0} if E % m == 0 else
+                    {"wu": 2, "wg": 2, "wd": 1} if cfg.d_ff % m == 0 else None)
+            if dims:
+                out["ffn"] = {k: _split(d) for k, d in dims.items()}
+                out["ffn"]["router"] = _split(None, vary=True)
+        elif "wu" in ffn and cfg.d_ff % m == 0:
+            out["ffn"] = {"wu": _split(1), "wg": _split(1), "wd": _split(0)}
+        return out
+
     def layer_leaf(self, lp, part: str, name: str, w, spec: Spec, *, split,
-                   vary):
+                   vary, whole):
         """Leaf ``name`` of ``lp[part]`` as the op reads it (:meth:`layer`)."""
-        return self.gather(w, spec, whole=False, split=split, vary=vary)
+        return self.gather(w, spec, whole=whole, split=split, vary=vary)
 
     # ---- products ------------------------------------------------------- #
     # The layers multiply through these, so that a serving placement can
@@ -357,6 +439,29 @@ class Placement:
             if a in self.mesh.shape:
                 t = compat.psum(t, self.mesh, a)
         return t / self.n_batch
+
+    def once(self, t, split: bool):
+        """A value that every model rank forms alike from inputs that
+        entered it per rank (``split``, or the sequence all-gathered under
+        ``seq_parallel``): the MoE load-balance loss. Its gradient is
+        shared out, 1/m a rank, so that the entries' backward sums count
+        it once."""
+        if self.m == 1 or not (split or self.sp):
+            return t
+        return _Share.apply(t, self.m)
+
+    def heads_whole(self, t):
+        """A serving state of the rank's heads (dim 1) gathered over
+        ``model``: every head's (no gradient)."""
+        y = _all_gather(t.movedim(1, 0).contiguous(),
+                        self.mesh.group("model"), self.m)
+        return y.movedim(0, 1).contiguous()
+
+    def model_sum(self, t):
+        """The sum over ``model`` of partial sums that each rank then uses
+        for its own channels (Mamba's ``x_proj`` product): the backward
+        sums the ranks' cotangents as well (``compat.psum``)."""
+        return compat.psum(t, self.mesh, "model")
 
 
 # --------------------------------------------------------------------------- #

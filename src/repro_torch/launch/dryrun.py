@@ -34,7 +34,10 @@ the mesh's real program (``dist.spmd``, ``dist.serving``) instead:
   ``REPRO_SERVE_MODE`` where that is set.
 - **FLOPs** come from ``FlopCounterMode`` over the step (forward and
   backward, what the plain kernels compute: masked attention visits every
-  key). **Collectives** from a dispatch mode over the ``c10d`` ops: the
+  key). The Mamba scan and the RWKV-6 recurrence, plain Python loops over
+  the positions, are traced as one product each with their loops'
+  counted flops and their outputs' shapes (:func:`recurrences_as_shapes`).
+  **Collectives** from a dispatch mode over the ``c10d`` ops: the
   bytes of each op's result on this rank, summed by the reference's kind
   names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
   ``collective-permute`` for the point-to-point pairs of a ``ppermute``,
@@ -293,6 +296,103 @@ def _fresh(cached):
         cached.cache_clear()
 
 
+# --------------------------------------------------------------------------- #
+# The recurrences as their outputs' shapes.
+# --------------------------------------------------------------------------- #
+def _products(rows, m, k, n, dtype):
+    """One (rows, m, k) @ (rows, k, n) product of empty operands: the
+    flops ``FlopCounterMode`` gives the plain loops' per-step products,
+    in one op."""
+    a = torch.empty((rows, m, k), dtype=dtype)
+    return torch.bmm(a, torch.empty((rows, k, n), dtype=dtype))
+
+
+def scan_shapes(u, dt, A, B, C, D, *, state_every=None):
+    """``kernels.mamba.mamba_scan_torch``'s outputs (y in u's dtype, h, and
+    the boundary states with ``state_every``) from one product with the
+    flops of its S per-step ``einsum`` s, 2 Bt S Di N."""
+    Bt, S, Di = u.shape
+    N = A.shape[-1]
+    y = _products(Bt, Di, N, S, torch.float32).transpose(1, 2).to(u.dtype)
+    h = torch.empty((Bt, Di, N), dtype=torch.float32)
+    if not state_every:
+        return y, h
+    from repro_torch.kernels.mamba import n_saved_states
+
+    hs = torch.empty((Bt, n_saved_states(S, state_every), Di, N),
+                     dtype=torch.float32)
+    return y, h, hs
+
+
+def scan_bwd_shapes(u, dt, A, B, C, D, hs, dy, dh=None, *, state_every):
+    """``kernels.mamba.mamba_scan_bwd_torch``'s gradients (du in u's dtype,
+    the others fp32) from one product with the flops of its rebuilt
+    forward and its two backward ``einsum`` s a step, 6 Bt S Di N."""
+    Bt, S, Di = u.shape
+    N = A.shape[-1]
+    _products(Bt, Di, N, 3 * S, torch.float32)
+    f32 = torch.float32
+    return (torch.empty_like(u), torch.empty(dt.shape, dtype=f32),
+            torch.empty(A.shape, dtype=f32), torch.empty(B.shape, dtype=f32),
+            torch.empty(C.shape, dtype=f32), torch.empty(D.shape, dtype=f32))
+
+
+class _WkvShapes(torch.autograd.Function):
+    """``models.layers._rwkv_wkv_scan`` as its outputs' shapes, with the
+    flops of its per-step ``einsum`` s: 2 B S H dh^2 forward; backward
+    twice that, and once more where ``chunked_scan`` recomputes its
+    chunks (more than one chunk of 64)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, H, dh):
+        B, S, d = r.shape
+        ctx.passes = 3 if S > 64 else 2
+        ctx.shape = (B, S, H, dh)
+        y = _products(B * H, dh, dh, S, torch.float32)
+        y = y.reshape(B, H, dh, S).permute(0, 3, 1, 2).reshape(B, S, d)
+        return y, torch.empty((B, H, dh, dh), dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        B, S, H, dh = ctx.shape
+        _products(B * H, dh, dh, ctx.passes * S, torch.float32)
+        g = torch.empty((B, S, H * dh), dtype=torch.float32)
+        return (g, torch.empty_like(g), torch.empty_like(g),
+                torch.empty_like(g), torch.empty((H * dh,),
+                                                 dtype=torch.float32),
+                None, None)
+
+
+def wkv_shapes(r, k, v, w, u, H: int, dh: int):
+    return _WkvShapes.apply(r, k, v, w, u, H, dh)
+
+
+@contextlib.contextmanager
+def recurrences_as_shapes():
+    """The plain Mamba scan (forward and backward) and RWKV-6 wkv
+    recurrence replaced by :func:`scan_shapes`, :func:`scan_bwd_shapes`
+    and :func:`wkv_shapes` while a step is traced: their Python loops
+    over every position cost seconds a layer under fake tensors (jamba's
+    ``train_4k`` would trace for hours), and the outputs, the flops
+    ``FlopCounterMode`` counts and the bytes the kernels hold (their
+    outputs, not the loops' per-step temporaries) are all the dry run
+    reads of them."""
+    from repro_torch.kernels import mamba
+    from repro_torch.models import layers
+
+    swaps = ((mamba, "mamba_scan_torch", scan_shapes),
+             (mamba, "mamba_scan_bwd_torch", scan_bwd_shapes),
+             (layers, "_rwkv_wkv_scan", wkv_shapes))
+    kept = [getattr(mod, name) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for (mod, name, _), fn in zip(swaps, kept):
+            setattr(mod, name, fn)
+
+
 def _host_read(e: BaseException) -> str:
     """The innermost line outside torch that the exception passed."""
     lib = os.path.dirname(os.path.abspath(torch.__file__))
@@ -401,7 +501,8 @@ def dryrun_step(cfg, shape, mesh_shape: Dict[str, int], mode: str = None
     # the rotary tables are cached a (width, theta, device): tensors made
     # under the fake mode must not outlive it, nor real ones enter it
     with warnings.catch_warnings(), _fresh(layers._rope_tables), \
-            fake_world(mesh_shape) as mesh, FakeTensorMode():
+            recurrences_as_shapes(), fake_world(mesh_shape) as mesh, \
+            FakeTensorMode():
         # c10d's deprecation notes on the collectives the port calls
         warnings.simplefilter("ignore", FutureWarning)
         if shape.kind == "train":

@@ -584,7 +584,7 @@ def attention_cross_chunk(params, x, cfg: ModelConfig, cache):
 MOE_GROUP = 256  # tokens per dispatch group
 
 
-def apply_moe(params, x, cfg: ModelConfig, *, batch_mean=None):
+def apply_moe(params, x, cfg: ModelConfig, *, place=None):
     """GShard-style top-k capacity dispatch. x: (B, S, d) -> (y (B, S, d)
     in x's dtype, aux loss). Tokens are grouped ``Sg = min(256, S)`` at a
     time, ``B * S // Sg`` groups, each expert taking at most
@@ -592,11 +592,22 @@ def apply_moe(params, x, cfg: ModelConfig, *, batch_mean=None):
     are dropped, as in the reference). Dispatch and combine are dense
     einsums, the combine in fp32. A token count that ``Sg`` does not
     divide (a prompt longer than 256 and not a multiple of it) raises
-    ``ValueError``, where the reference fails to reshape. On a mesh's
-    batch axes ``batch_mean`` (``Placement.batch_mean``) forms the aux
-    loss from the global batch's token means (``ops.moe_gating``)."""
-    B, S, d = x.shape
+    ``ValueError``, where the reference fails to reshape.
+
+    On a mesh (``place``, a ``dist.spmd.Placement``) the aux loss is
+    formed from the global batch's token means (``place.batch_mean``,
+    ``ops.moe_gating``), and ``wu``/``wg``/``wd`` hold the rank's block:
+    its experts (then the rank reads their slots of the dispatch and the
+    combine), or every expert's block of hidden units. The gating runs
+    whole on every model rank; the combine's partial sum over the rank's
+    experts or units leaves in fp32 through ``place``, the reference's
+    fp32 combine, and the aux loss counts once (``place.once``)."""
     E, k = cfg.moe.n_experts, cfg.moe.top_k
+    split = place is not None and (params["wu"].shape[0] < E
+                                   or params["wu"].shape[2] < cfg.d_ff)
+    if place is not None:
+        x = place.enter(x, split)
+    B, S, d = x.shape
     Sg = min(MOE_GROUP, S)
     if (B * S) % Sg:
         raise ValueError(
@@ -605,8 +616,14 @@ def apply_moe(params, x, cfg: ModelConfig, *, batch_mean=None):
             f"padding)")
     xg = x.reshape(B * S // Sg, Sg, d)
     cap = max(1, int(math.ceil(Sg * k * cfg.moe.capacity_factor / E)))
-    dispatch, combine, aux = ops.moe_gating(xg, params["router"], top_k=k,
-                                            capacity=cap, mean=batch_mean)
+    dispatch, combine, aux = ops.moe_gating(
+        xg, params["router"], top_k=k, capacity=cap,
+        mean=None if place is None else place.batch_mean)
+    El = params["wu"].shape[0]
+    if El < E:  # the rank's experts' slots
+        e0 = place.index * El
+        dispatch = dispatch[:, :, e0:e0 + El]
+        combine = combine[:, :, e0:e0 + El]
     xin = torch.einsum("gsec,gsd->egcd", dispatch.to(x.dtype), xg)
     h = torch.einsum("egcd,edf->egcf", xin, params["wu"])
     if cfg.glu:
@@ -615,8 +632,10 @@ def apply_moe(params, x, cfg: ModelConfig, *, batch_mean=None):
     else:
         h = _ACT[cfg.activation](h)
     out = torch.einsum("egcf,efd->egcd", h, params["wd"])
-    y = torch.einsum("gsec,egcd->gsd", combine, out.float())
-    return y.reshape(B, S, d).to(x.dtype), aux
+    y = torch.einsum("gsec,egcd->gsd", combine, out.float()).reshape(B, S, d)
+    if place is None:
+        return y.to(x.dtype), aux
+    return place.exit(y, split).to(x.dtype), place.once(aux, split)
 
 
 # ---- Mamba (S6 selective scan) mixer (``layers.py:609-712``) -------------- #
@@ -665,55 +684,82 @@ def _mamba_conv(u, conv_w, conv_b, state=None):
     return out, (up[:, -(Kc - 1):, :] if Kc > 1 else None)
 
 
-def _mamba_ssm_inputs(params, u, cfg: ModelConfig):
+def _mamba_ssm_inputs(params, u, cfg: ModelConfig, place=None):
     """(dt, A, B, C, D) of the scan from the post-conv activations u, in
     fp32: ``x_dbl = u @ x_proj`` split into (dt_in, B, C) column slices
     (B and C stay views), ``dt = softplus(dt_in @ dt_w + dt_bias)``,
     ``A = -exp(A_log)`` formed in ``A_log``'s own dtype and then widened,
     as the reference forms it (``layers.py:663``): fp32 when serving, bf16
     under the train step's cast. ``D`` is widened too (the kernel takes
-    fp32; the train step's cast makes it bf16)."""
+    fp32; the train step's cast makes it bf16). On a mesh whose ``model``
+    splits the channels (``place``) u and ``x_proj`` are the rank's
+    channels, and ``x_dbl`` their partial sum, summed over ``model``."""
     m, _, R = _mamba_dims(cfg)
     x_dbl = u.float() @ params["x_proj"].float()
+    if place is not None:
+        x_dbl = place.model_sum(x_dbl)
     dt_in, Bc, Cc = torch.split(x_dbl, [R, m.d_state, m.d_state], dim=-1)
     dt = _softplus(dt_in @ params["dt_w"].float() + params["dt_bias"].float())
     A = -torch.exp(params["A_log"])
     return dt, A.float(), Bc, Cc, params["D"].float()
 
 
-def apply_mamba(params, x, cfg: ModelConfig, *, cache=None):
+def _mamba_split(params, cfg: ModelConfig, place):
+    """Whether the leaves hold the rank's block of the inner channels."""
+    return place is not None and params["wx"].shape[1] < _mamba_dims(cfg)[1]
+
+
+def apply_mamba(params, x, cfg: ModelConfig, *, cache=None, place=None):
     """Full-sequence Mamba mixer (prefill). x: (B, S, d) in the compute
     dtype; ``cache`` {"conv"} continues from earlier inputs (None: from
     zeros). The scan goes through ``ops.mamba_scan`` (the CUDA kernel on
     the card). Returns (out (B, S, d), {"conv": the last d_conv - 1
-    pre-conv inputs, "ssm": the final state (B, Di, N) fp32})."""
+    pre-conv inputs, "ssm": the final state (B, Di, N) fp32}).
+
+    On a mesh (``place``, a ``dist.spmd.Placement``) the leaves hold the
+    rank's block of the Di channels where ``model`` splits them: the
+    scan and the state cover those channels, and ``out_proj``'s partial
+    sum leaves through ``place``."""
+    split = _mamba_split(params, cfg, place)
+    if place is not None:
+        x = place.enter(x, split)
     dt_c = x.dtype
     u = x @ params["wx"]
     z = x @ params["wz"]
     u, new_conv = _mamba_conv(u, params["conv_w"], params["conv_b"],
                               None if cache is None else cache["conv"])
     u = F.silu(u)
-    dt, A, Bc, Cc, D = _mamba_ssm_inputs(params, u, cfg)
+    dt, A, Bc, Cc, D = _mamba_ssm_inputs(params, u, cfg,
+                                         place if split else None)
     y, h = ops.mamba_scan(u, dt, A, Bc, Cc, D)
     y = y * F.silu(z)
     out = y.to(dt_c) @ params["out_proj"]
+    if place is not None:
+        out = place.exit(out, split)
     return out, {"conv": new_conv.to(dt_c), "ssm": h}
 
 
-def apply_mamba_step(params, x, cfg: ModelConfig, cache):
+def apply_mamba_step(params, x, cfg: ModelConfig, cache, *, place=None):
     """One-token Mamba decode. x: (B, 1, d); cache {"conv", "ssm"}.
-    Returns (out (B, 1, d), new cache)."""
+    Returns (out (B, 1, d), new cache). On a mesh (``place``) as
+    :func:`apply_mamba`: the cache holds the rank's channels."""
+    split = _mamba_split(params, cfg, place)
+    if place is not None:
+        x = place.enter(x, split)
     dt_c = x.dtype
     u = x @ params["wx"]
     z = x @ params["wz"]
     u, new_conv = _mamba_conv(u, params["conv_w"], params["conv_b"],
                               cache["conv"])
     u = F.silu(u)
-    dt, A, Bc, Cc, D = _mamba_ssm_inputs(params, u, cfg)
+    dt, A, Bc, Cc, D = _mamba_ssm_inputs(params, u, cfg,
+                                         place if split else None)
     h, y = ops.mamba_step(cache["ssm"], u[:, 0], dt[:, 0], A, Bc[:, 0],
                           Cc[:, 0], D)
     y = y[:, None] * F.silu(z)
     out = y.to(dt_c) @ params["out_proj"]
+    if place is not None:
+        out = place.exit(out, split)
     return out, {"conv": new_conv.to(cache["conv"].dtype), "ssm": h}
 
 
@@ -930,34 +976,74 @@ def _rwkv6_out(params, y, g, H: int, dh: int):
     return (y * g) @ params["wo"].float()
 
 
-def apply_rwkv6(params, x, cfg: ModelConfig, *, cache=None):
+def _rwkv6_local(params, cfg: ModelConfig, place):
+    """(split: whether the leaves hold the rank's heads, their count)."""
+    H, dh = _rwkv6_dims(cfg)
+    Hl = params["wr"].shape[1] // dh
+    return place is not None and Hl < H, Hl
+
+
+def _rwkv6_exit(out, x, split: bool, place):
+    """The time mix's fp32 output in x's dtype, on a mesh through
+    ``place`` (a partial sum over the rank's heads summed in fp32)."""
+    if place is not None:
+        out = place.exit(out, split)
+    return out.to(x.dtype)
+
+
+def apply_rwkv6(params, x, cfg: ModelConfig, *, cache=None, place=None):
     """Full-sequence RWKV-6 time mix, in fp32 throughout, cast back to
     x's dtype. x: (B, S, d); ``cache`` {"shift"} gives the token before
     x (None: zeros). Returns (out (B, S, d), {"shift": x's last token in
-    x's dtype, "wkv": the final state (B, H, dh, dh) fp32})."""
-    H, dh = _rwkv6_dims(cfg)
+    x's dtype, "wkv": the final state (B, H, dh, dh) fp32}).
+
+    On a mesh (``place``, a ``dist.spmd.Placement``) the leaves hold the
+    rank's heads where ``model`` divides them (``wo`` its rows; ``u``,
+    ``w0`` and ``ln_scale`` its channels): the state covers those heads,
+    and the output's partial sum leaves through ``place``. Where
+    ``model`` does not divide the heads the leaves arrive whole and the
+    layer runs on every head on every rank."""
+    split, Hl = _rwkv6_local(params, cfg, place)
+    if place is not None:
+        x = place.enter(x, split)
+    dh = _rwkv6_dims(cfg)[1]
     x32 = x.float()
     if cache is None:
         prev = F.pad(x32[:, :-1], (0, 0, 1, 0))
     else:
         prev = torch.cat([cache["shift"].float()[:, None], x32[:, :-1]], 1)
     r, k, v, w, g = _rwkv6_streams(params, x32, prev)
-    y, Sf = _rwkv_wkv_scan(r, k, v, w, params["u"].float(), H, dh)
-    out = _rwkv6_out(params, y, g, H, dh)
-    return out.to(x.dtype), {"shift": x[:, -1], "wkv": Sf}
+    y, Sf = _rwkv_wkv_scan(r, k, v, w, params["u"].float(), Hl, dh)
+    out = _rwkv6_out(params, y, g, Hl, dh)
+    return (_rwkv6_exit(out, x, split, place),
+            {"shift": x[:, -1], "wkv": Sf})
 
 
-def apply_rwkv6_step(params, x, cfg: ModelConfig, cache):
+def apply_rwkv6_step(params, x, cfg: ModelConfig, cache, *, place=None):
     """One-token RWKV-6 decode. x: (B, 1, d); cache {"shift" (B, d),
-    "wkv" (B, H, dh, dh) fp32}. Returns (out (B, 1, d), new cache)."""
-    H, dh = _rwkv6_dims(cfg)
+    "wkv" (B, H, dh, dh) fp32}. Returns (out (B, 1, d), new cache). On a
+    mesh (``place``, a ``dist.serving`` placement) as
+    :func:`apply_rwkv6`; the cache holds every head (the reference's
+    slab keeps ``wkv`` whole over ``model``): a rank of split heads reads
+    its own, and the new state of every head is gathered over ``model``
+    (``place.heads_whole``)."""
+    split, Hl = _rwkv6_local(params, cfg, place)
+    if place is not None:
+        x = place.enter(x, split)
+    dh = _rwkv6_dims(cfg)[1]
     B = x.shape[0]
+    wkv = cache["wkv"]
+    if split:
+        wkv = wkv[:, place.index * Hl:(place.index + 1) * Hl]
     x32 = x[:, 0].float()
     r, k, v, w, g = _rwkv6_streams(params, x32, cache["shift"].float())
-    S, y = _rwkv6_step(params["u"].float().reshape(H, dh))(
-        cache["wkv"], [a.reshape(B, H, dh) for a in (r, k, v, w)])
-    out = _rwkv6_out(params, y.reshape(B, H * dh), g, H, dh)
-    return out[:, None].to(x.dtype), {"shift": x[:, 0], "wkv": S}
+    S, y = _rwkv6_step(params["u"].float().reshape(Hl, dh))(
+        wkv, [a.reshape(B, Hl, dh) for a in (r, k, v, w)])
+    out = _rwkv6_out(params, y.reshape(B, Hl * dh), g, Hl, dh)
+    if split:
+        S = place.heads_whole(S)
+    return (_rwkv6_exit(out[:, None], x, split, place),
+            {"shift": x[:, 0], "wkv": S})
 
 
 def init_rwkv6_cache(cfg: ModelConfig, B: int, *, device):

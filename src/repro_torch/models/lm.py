@@ -316,9 +316,9 @@ def _apply_block_full(cfg: ModelConfig, spec: LayerSpec, lp, x, positions,
         y, state = L.attention_full(lp["mixer"], h, cfg, positions=positions,
                                     window=window, place=place)
     elif spec.mixer == "mamba":
-        y, state = L.apply_mamba(lp["mixer"], h, cfg)
+        y, state = L.apply_mamba(lp["mixer"], h, cfg, place=place)
     else:
-        y, state = L.apply_rwkv6(lp["mixer"], h, cfg)
+        y, state = L.apply_rwkv6(lp["mixer"], h, cfg, place=place)
     x, aux = _ffn(cfg, spec, lp, x + y, place)
     return x, aux, state
 
@@ -552,8 +552,7 @@ def _ffn(cfg: ModelConfig, spec: LayerSpec, lp, x, place=None):
         return x, 0.0
     h = L.apply_norm(lp["norm2"], x)
     if spec.ffn == "moe":
-        y, aux = L.apply_moe(lp["ffn"], h, cfg, batch_mean=(
-            None if place is None else place.batch_mean))
+        y, aux = L.apply_moe(lp["ffn"], h, cfg, place=place)
         return x + y, aux
     return x + L.apply_ffn(lp["ffn"], h, cfg, place=place), 0.0
 
@@ -617,8 +616,11 @@ def prefill(params, cfg: ModelConfig, tokens, *, media=None, cache_len=None,
         elif spec.mixer == "mamba":  # its state is its decode cache entry
             caches.append(state)
         else:
+            wkv = state["wkv"]
+            if place is not None and wkv.shape[1] < L._rwkv6_dims(cfg)[0]:
+                wkv = place.heads_whole(wkv)  # the slab keeps every head
             caches.append({"shift": state["shift"].to(L.dtype_of(cfg.dtype)),
-                           "wkv": state["wkv"]})
+                           "wkv": wkv})
     x = _final(params, x, place)
     return _out(params, L.gather_last(x, last_pos), place)[:, 0], caches
 
@@ -647,9 +649,11 @@ def decode_step(params, cfg: ModelConfig, token, cache, pos, *, window=None,
                                              pos=pos, window=window,
                                              place=place)
         elif spec.mixer == "mamba":
-            y, cache[i] = L.apply_mamba_step(lp["mixer"], h, cfg, cache[i])
+            y, cache[i] = L.apply_mamba_step(lp["mixer"], h, cfg, cache[i],
+                                             place=place)
         else:
-            y, cache[i] = L.apply_rwkv6_step(lp["mixer"], h, cfg, cache[i])
+            y, cache[i] = L.apply_rwkv6_step(lp["mixer"], h, cfg, cache[i],
+                                             place=place)
         x, _ = _ffn(cfg, spec, lp, x + y, place)  # decode drops the aux loss
     x = _final(params, x, place)
     return _out(params, x, place)[:, 0], cache

@@ -20,6 +20,9 @@ reference's input and sharding specs, and against real steps on the CPU.
   ``batch_pspecs`` and ``cache_pspecs`` on an ``AbstractMesh``, of each
   leaf's bytes over the product of the axes it is split over (shapes
   only: nothing is compiled).
+- *Layers split over ``model``.* A decode step of mixtral-8x7b and of
+  rwkv6-3b on 16 x 16 gives a result whose all-reduces are the
+  row-parallel exits of its split layers.
 - The collective recorder names each ``dist.compat`` collective by the
   reference's kind; ``dryrun_one`` skips ``long_500k`` where the config
   has no long-context path, and a step that reads a value on the host
@@ -160,7 +163,8 @@ def real_serve(cfg, shape):
 
 @pytest.mark.parametrize("arch,kind", [("yi-9b", "train"),
                                        ("yi-9b", "decode"),
-                                       ("jamba-1.5-large-398b", "train")])
+                                       ("jamba-1.5-large-398b", "train"),
+                                       ("rwkv6-3b", "train")])
 def test_fake_step_counts_what_the_real_step_does(arch, kind):
     cfg = dataclasses.replace(get_config(arch).reduced(),
                               param_sharding="wus")
@@ -230,6 +234,82 @@ def test_pod_blocks_are_the_references(mode, shape):
     assert got["flops_per_device"] > 0
     assert got["peak_bytes_per_device"] == (
         got["argument_bytes_per_device"] + got["temp_bytes_per_device"])
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "rwkv6-3b"])
+def test_split_layers_decode_on_the_pod(arch):
+    """A decode step of mixtral-8x7b (32/8 heads and 8 experts of 14336
+    hidden units on ``model`` 16: the hidden-split MoE) and of rwkv6-3b
+    (40 heads of 64, which 16 does not divide: the time mix runs whole
+    from its six ``mlp`` blocks gathered over ``model``; its FFN's 8960
+    units split) on 16 x 16: a result, whose all-reduces are the
+    row-parallel exits over ``model``, one a split layer part (mixtral:
+    attention and MoE; rwkv6: the FFN). Decode keeps it cheap: a train
+    or prefill shape traces the plain wkv and scan loops over every
+    position."""
+    cfg = get_config(arch)
+    got = D.dryrun_step(cfg, INPUT_SHAPES["decode_32k"], POD)
+    assert got["devices"] == 256
+    assert got["flops_per_device"] > 0
+    parts = 2 if arch == "mixtral-8x7b" else 1
+    assert got["collective_counts"]["all-reduce"] == parts * cfg.n_layers
+    if arch == "rwkv6-3b":
+        assert got["collective_counts"]["all-gather"] >= 6 * cfg.n_layers
+
+
+def test_recurrences_as_shapes_count_the_plain_loops():
+    """The dry run's shape-only Mamba scan (forward with and without
+    boundary states, backward) and RWKV-6 recurrence (forward, and a
+    backward over one chunk of 64 and over several) give the plain loops'
+    output shapes and dtypes and the flops ``FlopCounterMode`` counts for
+    them."""
+    from repro_torch.kernels import mamba as mk
+    from repro_torch.models import layers as L
+
+    def counted(fn, *a, **k):
+        with FlopCounterMode(display=False) as f:
+            out = fn(*a, **k)
+        return out, f.get_total_flops()
+
+    g = torch.Generator().manual_seed(0)
+    Bt, S_, Di, N = 2, 37, 24, 5
+    u = torch.randn(Bt, S_, Di, generator=g).to(torch.bfloat16)
+    dt = torch.rand(Bt, S_, Di, generator=g)
+    A = -torch.rand(Di, N, generator=g)
+    B, C = (torch.randn(Bt, S_, N, generator=g) for _ in range(2))
+    Dv = torch.randn(Di, generator=g)
+    for K in (None, 16):
+        want, wf = counted(mk.mamba_scan_torch, u, dt, A, B, C, Dv,
+                           state_every=K)
+        got, gf = counted(D.scan_shapes, u, dt, A, B, C, Dv, state_every=K)
+        assert gf == wf > 0
+        assert [(t.shape, t.dtype) for t in got] == \
+            [(t.shape, t.dtype) for t in want]
+    hs = want[2]
+    dy = torch.randn(Bt, S_, Di, generator=g).to(torch.bfloat16)
+    want, wf = counted(mk.mamba_scan_bwd_torch, u, dt, A, B, C, Dv, hs, dy,
+                       state_every=16)
+    got, gf = counted(D.scan_bwd_shapes, u, dt, A, B, C, Dv, hs, dy,
+                      state_every=16)
+    assert gf == wf > 0
+    assert [(t.shape, t.dtype) for t in got] == \
+        [(t.shape, t.dtype) for t in want]
+    H, dh = 3, 8
+    for S_ in (48, 128):
+        xs = [torch.randn(2, S_, H * dh, generator=g, requires_grad=True)
+              for _ in range(5)]
+        xs[4] = torch.randn(H * dh, generator=g, requires_grad=True)
+        flops = []
+        for fn in (L._rwkv_wkv_scan, D.wkv_shapes):
+            with FlopCounterMode(display=False) as f:
+                y, state = fn(*xs[:4], xs[4], H, dh)
+                grads = torch.autograd.grad(y.sum() + state.sum(), xs)
+            flops.append(f.get_total_flops())
+            shapes = [(t.shape, t.dtype) for t in (y, state, *grads)]
+            if fn is L._rwkv_wkv_scan:
+                want = shapes
+        assert shapes == want
+        assert flops[1] == flops[0] > 0, (S_, flops)
 
 
 def test_recorder_names_the_references_kinds():

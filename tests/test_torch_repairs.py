@@ -116,15 +116,24 @@ def test_not_ported_messages_name_roadmap_items(capsys):
                            "--n-replicas", "2"]) == 0
     assert capsys.readouterr().out.startswith(
         "gemma-7b [fleet x2, routing=prefix, slots=2/replica, kv=paged]: ")
-    # what stays refused names its queue item
+    # ported: MoE layers over a model axis (no refusal), and the MoE
+    # model's tokens on a mesh those of one device
     mesh = types.SimpleNamespace(shape={"data": 1, "model": 2})
+    argv = ["--arch", "mixtral-8x7b", "--device", "cpu", "--tokens", "2",
+            "--batch", "2"]
+    assert serve_cli.main(argv) == 0
+    plain = capsys.readouterr().out.splitlines()
+    assert serve_cli.main(argv + ["--serve-mode", "tp2d"]) == 0
+    meshed = capsys.readouterr().out.splitlines()
+    assert meshed[0].startswith("mixtral-8x7b [offline, mode=tp2d, ")
+    def reqs(lines):  # "  req ID: prompt P -> N tokens [...]", ids apart
+        return [ln.split(":", 1)[1] for ln in lines if ln.startswith("  req ")]
+
+    assert reqs(meshed) == reqs(plain) and len(reqs(plain)) == 2
     for what in ("train", "serve"):
-        with pytest.raises(NotImplementedError,
-                           match=r"not split over a model axis of 2 yet "
-                                 r"\(ROADMAP.md item 6.2\)") as err:
-            spmd.check_supported(get_config("mixtral-8x7b").reduced(), mesh,
-                                 what)
-        assert "queue" not in str(err.value)
+        assert spmd.check_supported(get_config("mixtral-8x7b").reduced(),
+                                    mesh, what) is None
+        # what stays refused names its queue item
         with pytest.raises(NotImplementedError,
                            match=f"does not {what} on a mesh yet "
                                  r"\(ROADMAP.md item 6.2\)"):

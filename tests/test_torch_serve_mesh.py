@@ -18,6 +18,12 @@ run on 4 ranks:
   (2, 2) on the slab: each data rank computes its slots;
 - reduced mixtral-8x7b (``fsdp``, paged) and reduced jamba-1.5-large
   (``tp2d``, slab) on (4, 1), the batch axes alone;
+- layers split over ``model``: reduced mixtral in ``tp2d`` on (2, 2)
+  (2 of its 4 experts a rank), with 3 experts in ``fsdp`` on (1, 4) (128
+  of each expert's 512 hidden units a rank), reduced jamba in ``tp2d`` on
+  (2, 2) from the slab (Mamba channels and experts split), reduced
+  rwkv6-3b in ``fsdp`` on (2, 2) from the slab (4 of 8 heads a rank, the
+  slab's state whole);
 - ``tp2d`` and ``fsdp`` on (2, 2) with one slot (``max_batch`` 1, as
   ``long_500k`` decodes): the batch axes do not divide the one row, so
   it is replicated over them and every rank computes it.
@@ -27,10 +33,14 @@ engine's and (gemma) to the reference's; ``check_ranks`` raises inside
 the engine if a rank's tokens differ from rank 0's. The chunk program's
 logits over a scripted batch (a prefill chunk, then decode rows) are
 held on every rank to the one-device program's at rtol 1e-5, atol 1e-5,
-and to each other bitwise. A 1 x 1 gloo mesh (its own process) gives
-``tp2d`` and ``fsdp`` tokens and logits bitwise the one-device
-engine's. MoE, Mamba and RWKV-6 over ``model`` 2 and an enc-dec config
-on a mesh raise ``NotImplementedError`` naming item 6.2.
+and to each other bitwise; in the split-layer cases every program's
+logits (chunk, prefill and decode steps of the workload) are held so,
+and each rank's slab leaves have the block shapes of ``cache_pspecs``.
+A 1 x 1 gloo mesh (its own process) gives ``tp2d`` and ``fsdp`` tokens
+and logits bitwise the one-device engine's. An enc-dec config on a mesh
+raises ``NotImplementedError`` naming item 6.2; the MoE, Mamba and
+RWKV-6 kinds that raised over ``model`` 2 serve there in their reduced
+configs' own mode (``replicated``), with the one-device tokens.
 
 One module fixture starts the ranks (``python tests/test_torch_serve_
 mesh.py ranks STORE INPUTS OUTDIR``: forked from a fork server that
@@ -77,11 +87,23 @@ CASES = {
     "jamba_4x1_tp2d_slab": case("4x1", "tp2d", SLAB, model="jamba"),
     "tp2d_2x2_b1": case("2x2", "tp2d", dict(PAGED, max_batch=1)),
     "fsdp_2x2_b1": case("2x2", "fsdp", dict(PAGED, max_batch=1)),
+    "mixtral_2x2_tp2d": case("2x2", "tp2d", PAGED, model="mixtral"),
+    "mixtral_e3_1x4_fsdp": case("1x4", "fsdp", PAGED, model="mixtral_e3"),
+    "jamba_2x2_tp2d_slab": case("2x2", "tp2d", SLAB, model="jamba"),
+    "rwkv_2x2_fsdp_slab": case("2x2", "fsdp", SLAB, model="rwkv"),
 }
+# The cases of layers split over ``model`` (MoE experts or hidden units,
+# Mamba channels, RWKV-6 heads): every program's logits are recorded.
+LAYERS = ("mixtral_2x2_tp2d", "mixtral_e3_1x4_fsdp", "jamba_2x2_tp2d_slab",
+          "rwkv_2x2_fsdp_slab")
 ONE = {"tp2d_1x1": case("1x1", "tp2d", dict(PAGED, **DRAFTS)),
        "fsdp_1x1": case("1x1", "fsdp", PAGED)}
 ARCHS = {"gemma": "gemma-7b", "mixtral": "mixtral-8x7b",
-         "jamba": "jamba-1.5-large-398b"}
+         "mixtral_e3": "mixtral-8x7b", "jamba": "jamba-1.5-large-398b",
+         "rwkv": "rwkv6-3b"}
+# The kinds that raised on a model axis before they were split over it;
+# each now serves its reduced fp32 config in the config's own mode on
+# (2, 2), held to the one-device engine (``test_refused_on_a_mesh``).
 REFUSED = {"moe": "mixtral-8x7b", "mamba": "jamba-1.5-large-398b",
            "rwkv6": "rwkv6-3b", "encdec": "whisper-medium"}
 
@@ -93,6 +115,9 @@ def base_config(c, get_config):
                                      else 2))  # jamba: its 3 positions
     if c["model"] == "gemma":
         cfg = dataclasses.replace(cfg, n_kv_heads=c["kv"])
+    if c["model"] == "mixtral_e3":  # 3 experts: model 4 splits their units
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, n_experts=3))
     return cfg
 
 
@@ -119,7 +144,10 @@ def workload(make, cfg):
 # --------------------------------------------------------------------------- #
 # The port's runs (torch only: the ranks import no JAX).
 # --------------------------------------------------------------------------- #
-def port_tokens(c, trees, **kw):
+def port_tokens(c, trees, record=None, **kw):
+    """The case's greedy tokens a request; with ``record`` (a list), the
+    logits of every program the engine runs (every row) appended to it,
+    and the engine returned beside the tokens."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, ServeConfig, \
@@ -128,10 +156,74 @@ def port_tokens(c, trees, **kw):
 
     cfg = base_config(c, get_config)
     params = lm.params_from_numpy(trees[tree_key(c)], cfg, device="cpu")
-    report = run_server(Engine(cfg, params, ServeConfig(**c["knobs"]), **kw),
-                        workload(synthetic_requests, cfg))
-    return [list(r.tokens) for r in sorted(report.requests,
-                                           key=lambda r: r.id)]
+    eng = Engine(cfg, params, ServeConfig(**c["knobs"]), **kw)
+    if record is not None:
+        recording(eng, record)
+    report = run_server(eng, workload(synthetic_requests, cfg))
+    tokens = [list(r.tokens) for r in sorted(report.requests,
+                                             key=lambda r: r.id)]
+    return tokens if record is None else (tokens, eng)
+
+
+def recording(eng, record):
+    """Wrap the engine's programs (the chunk program, or the slab's
+    prefill and decode) so that each appends its logits of every row."""
+    def keep(logits, place):
+        if place is not None and place.rows is not None:
+            logits = place.all_rows(logits)
+        record.append(logits.float().numpy().copy())
+
+    if hasattr(eng, "_decode"):
+        pre, dec = eng._prefill, eng._decode
+
+        def prefill(params, batch, last, place):
+            out = pre(params, batch, last, place)
+            keep(out[0], None)  # a prefill computes its request whole
+            return out
+
+        def decode(params, tok, slab, pos, place):
+            out = dec(params, tok, slab, pos, place)
+            keep(out[0], place)
+            return out
+
+        eng._prefill, eng._decode = prefill, decode
+    else:
+        chunk = eng.api.decode_chunk
+
+        def decode_chunk(*a, place=None, **k):
+            out = chunk(*a, place=place, **k)
+            keep(out[0], place)
+            return out
+
+        eng.api.decode_chunk = decode_chunk
+
+
+def cache_block_shapes(c, eng):
+    """(the shapes of the rank's slab leaves, those ``cache_pspecs``
+    gives the case's mesh) layer by layer."""
+    import types
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import Rules
+    from repro_torch.models import lm
+    from repro_torch.train.steps import cache_pspecs
+
+    cfg = base_config(c, get_config)
+    knobs = c["knobs"]
+    sizes = dict(zip(("data", "model"), MESHES[c["mesh"]]))
+    rules = Rules(types.SimpleNamespace(shape=sizes,
+                                        axis_names=("data", "model")),
+                  c["mode"])
+    full = lm.init_cache(cfg, knobs["max_batch"], knobs["max_len"],
+                         device="meta")
+    want = []
+    for layer, specs in zip(full, cache_pspecs(cfg, full, rules)):
+        want.append({n: tuple(
+            d // int(np.prod([sizes[a] for a in (e or ())]))
+            for d, e in zip(t.shape, specs[n])) for n, t in layer.items()})
+    got = [{n: tuple(t.shape) for n, t in layer.items()}
+           for layer in eng._slab]
+    return got, want
 
 
 def chunk_logits(trees, mesh=None, mode="tp2d", kv=4):
@@ -178,6 +270,28 @@ def chunk_logits(trees, mesh=None, mode="tp2d", kv=4):
     return out
 
 
+def pinned_tokens(arch, mesh=None):
+    """The greedy tokens of reduced ``arch`` in fp32, its config's own
+    mode and layout, from ``init_lm``'s seeded weights: 3 requests of 3
+    tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig, \
+        synthetic_requests
+    from repro_torch.serve.scenarios import run_offline
+
+    cfg = get_config(arch).reduced()
+    cfg = dataclasses.replace(cfg, **dict(
+        FP32, n_layers=max(2, len(cfg.block_pattern))))  # jamba: 3
+    eng = Engine(cfg, lm.init_lm(cfg, device="cpu"),
+                 ServeConfig(max_batch=4, max_len=40), check_ranks=True,
+                 mesh=mesh, device="cpu")
+    report = run_offline(eng, synthetic_requests(cfg, n=3, tokens=3,
+                                                 prompt_len=12, seed=4))
+    return ("tokens", [list(r.tokens) for r in sorted(report.requests,
+                                                       key=lambda r: r.id)])
+
+
 def _raises(fn):
     try:
         fn()
@@ -193,8 +307,17 @@ def rank_cases(trees, meshes, cases):
     for name, c in cases.items():  # every rank in one order
         try:
             mesh = meshes[c["mesh"]]
+            rules = Rules(mesh, c["mode"])
+            if name in LAYERS:
+                rec = []
+                tokens, eng = port_tokens(c, trees, rec, rules=rules,
+                                          check_ranks=True)
+                out[name] = {"tokens": tokens, "logits": rec}
+                if c["knobs"].get("kv_layout") == "slab":
+                    out[name]["cache"] = cache_block_shapes(c, eng)
+                continue
             out[name] = {
-                "tokens": port_tokens(c, trees, rules=Rules(mesh, c["mode"]),
+                "tokens": port_tokens(c, trees, rules=rules,
                                       check_ranks=True)}
             if paged_gemma(c):
                 out[name]["logits"] = chunk_logits(trees, mesh, c["mode"],
@@ -227,10 +350,15 @@ def rank_main(rank, store, inputs_path, out_path):
     out = rank_cases(trees, meshes, CASES)
     refused = {}
     for kind, arch in REFUSED.items():
-        cfg = get_config(arch).reduced()
-        refused[kind] = _raises(lambda: Engine(
-            cfg, lm.init_lm(cfg, device="cpu") if not cfg.is_encdec
-            else {}, mesh=meshes["2x2"]))
+        if kind == "encdec":
+            cfg = get_config(arch).reduced()
+            refused[kind] = _raises(lambda: Engine(cfg, {},
+                                                   mesh=meshes["2x2"]))
+            continue
+        try:
+            refused[kind] = pinned_tokens(arch, mesh=meshes["2x2"])
+        except Exception:  # recorded; the kind's test fails with it
+            refused[kind] = ("error", traceback.format_exc())
     out["refused"] = refused
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
@@ -365,9 +493,17 @@ def runs():
         try:
             one, ref = {}, {}
             for name, c in {**CASES, **ONE}.items():
-                one[name] = port_tokens(c, trees, device="cpu")
+                if name in LAYERS:
+                    rec = []
+                    one[name] = port_tokens(c, trees, rec, device="cpu")[0]
+                    one[name, "logits"] = rec
+                else:
+                    one[name] = port_tokens(c, trees, device="cpu")
                 if c["model"] == "gemma":
                     ref[name] = ref_tokens(c, trees)
+            for kind, arch in REFUSED.items():
+                if kind != "encdec":
+                    one[kind] = pinned_tokens(arch)
             logits = {kv: chunk_logits(trees, kv=kv) for kv in (4, 2)}
             for p in procs:
                 logs.append(p.communicate(timeout=400)[0].decode()[-3000:])
@@ -427,10 +563,37 @@ def test_one_by_one_mesh_is_bitwise_one_device(runs, name):
         assert np.array_equal(a, w)
 
 
+@pytest.mark.parametrize("name", LAYERS)
+def test_mesh_layer_logits_and_cache_blocks(runs, name):
+    """The layers split over ``model``: every program's logits (every
+    row) on every rank hold to the one-device engine's at rtol 1e-5,
+    atol 1e-5, and the ranks' to each other bitwise; each rank's slab
+    leaves have the block shapes of ``cache_pspecs``."""
+    out, _, one, _, _ = runs
+    got = _case([o[name] for o in out], name)
+    want = one[name, "logits"]
+    for g in got:
+        assert len(g["logits"]) == len(want)
+        for a, b in zip(g["logits"], got[0]["logits"]):
+            assert np.array_equal(a, b), "ranks' logits differ"
+        for a, w in zip(g["logits"], want):
+            np.testing.assert_allclose(a, w, rtol=RTOL, atol=ATOL)
+        if "cache" in g:
+            have, blocks = g["cache"]
+            assert have == blocks
+
+
 @pytest.mark.parametrize("kind", list(REFUSED))
 def test_refused_on_a_mesh(runs, kind):
-    out, _, _, _, _ = runs
+    """Enc-dec configs still raise on a mesh, naming item 6.2; the MoE,
+    Mamba and RWKV-6 kinds that raised over ``model`` 2 now serve there,
+    in their configs' own (replicated) mode, with the one-device
+    engine's tokens."""
+    out, _, one, _, _ = runs
     for o in out:
         got = o["refused"][kind]
+        if kind != "encdec":
+            assert got == one[kind], got
+            continue
         assert got is not None and got[0] == "NotImplementedError", got
         assert "item 6.2" in got[1], got

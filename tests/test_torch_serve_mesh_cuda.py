@@ -25,6 +25,21 @@ card's (bf16 sums in another order may flip a near tie, and a greedy
 stream differs from there on) and the chunk's largest logit difference
 from one card's are printed (``-s``).
 
+Layers split over ``model`` on four cards (``test_split_layers_on_four_
+cards``): jamba-1.5-large at full width cut to 3 layers (mamba + dense,
+mamba + moe, attn + dense; ``chip_smoke.py``'s ``jamba_cut``) serves
+stream (a) from the slab in ``tp2d`` on (2, 2) and (1, 4) (8192 or 4096
+of the 16384 Mamba channels, 8 or 4 of the 16 experts a rank), and
+rwkv6-3b cut to 4 layers in ``fsdp`` on (1, 4) (40 heads of 64, which 4
+divides: 10 a rank). Every rank's tokens equal rank 0's. Each request's
+prefill logits (its prompt alone, whatever the streams do after a near
+tie) are held against the same cut's prefill in fp32 on one card from
+the same bf16 weights widened, the function both bf16 runs round: the
+mesh's largest distance from it, over that logit row's largest |logit|,
+within twice one card's bf16 distance (``FLOOR_FACTOR``). Tokens/s, the
+share of tokens equal to one card's, peak memory and the mamba_scan
+launches (2 a prefill) are printed.
+
 ``python tests/test_torch_serve_mesh_cuda.py`` runs the four ranks'
 small cases over gloo on the CPU (a rehearsal of the four-card test).
 This file imports no JAX, so it runs on a card where JAX is missing."""
@@ -164,9 +179,119 @@ def test_tp2d_on_one_card_is_the_one_device_engine(cuda_device):
     assert got == want and m == n > 0
 
 
-def four_rank_main(rank, store, out_dir, device_type="cuda", full=True):
+LAYER_CASES = {"jamba_tp2d_2x2": ("jamba", (2, 2), "tp2d"),
+               "jamba_tp2d_1x4": ("jamba", (1, 4), "tp2d"),
+               "rwkv_fsdp_1x4": ("rwkv", (1, 4), "fsdp")}
+# A mesh's bf16 prefill logits against the fp32 prefill: within this
+# many times one card's bf16 distance from it. (The first four-card
+# probe held them to one card's bf16 logits within 5e-2 of its largest
+# |logit| instead and read 0.0516 on one of jamba's 8 requests in
+# (2, 2), 0.013-0.028 on the others: two bf16 roundings of one function
+# hold nothing to a fixed share without the floor they round from.)
+FLOOR_FACTOR = 2.0
+
+
+def layer_config(model):
+    """jamba-1.5-large cut to its 3 kinds of layer (pattern positions 0,
+    1 and 4), or rwkv6-3b cut to 4 layers; every width published."""
+    from repro_torch.configs import get_config
+
+    if model == "jamba":
+        cfg = get_config("jamba-1.5-large-398b")
+        pat = cfg.block_pattern
+        return dataclasses.replace(cfg, n_layers=3,
+                                   block_pattern=(pat[0], pat[1], pat[4]))
+    return dataclasses.replace(get_config("rwkv6-3b"), n_layers=4)
+
+
+def layer_stream(model, device, **kw):
+    """The cut (seed 0's bf16 weights) on stream (a) from the slab:
+    (tokens, tokens/s, mamba_scan launches, peak GiB, each request's
+    prefill logits (fp32, host), wall s)."""
+    from repro_torch.kernels import mamba as mk
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import Engine, ServeConfig, \
+        synthetic_requests
+    from repro_torch.serve.scenarios import run_offline
+
+    t0 = time.perf_counter()
+    cfg = layer_config(model)
+    params = lm.init_lm(cfg, 0, device=device)
+    engine = Engine(cfg, params, ServeConfig(
+        max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+        kv_layout="slab"), device=device, **kw)
+    del params  # the engine keeps the rank's blocks
+    torch.cuda.empty_cache()
+    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                           seed=1))
+    prefill, logits = engine._prefill, []
+
+    def keep(*a):
+        out = prefill(*a)
+        logits.append(out[0].float().cpu())
+        return out
+
+    engine._prefill = keep
+    torch.cuda.reset_peak_memory_stats(device)
+    mk.reset_launches()
+    report = run_offline(engine, synthetic_requests(
+        cfg, n=8, tokens=NEW_TOKENS, prompt_len=max(PROMPT_LENS), seed=0,
+        prompt_lens=PROMPT_LENS))
+    torch.cuda.synchronize(device)
+    out = (tokens_of(report), report.tokens_per_s,
+           mk.mamba_scan_cuda.launches,
+           torch.cuda.max_memory_allocated(device) / 2**30, logits,
+           time.perf_counter() - t0)
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp32_prefills(model, device):
+    """Each request of stream (a) prefilled alone in fp32 on one card
+    from seed 0's bf16 weights widened (leaf by leaf, so the bf16 tree
+    is freed as it goes): the logits (host) both bf16 runs round."""
+    from repro_torch.models import lm
+    from repro_torch.serve.engine import synthetic_requests
+
+    cfg = layer_config(model)
+    params = lm.init_lm(cfg, 0, device=device)
+
+    def widen(tree):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                widen(v)
+            elif isinstance(v, list):
+                for x in v:
+                    widen(x)
+            else:
+                tree[k] = v.float()
+
+    widen(params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    out = []
+    with torch.inference_mode():
+        for r in synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
+                                    prompt_len=max(PROMPT_LENS), seed=0,
+                                    prompt_lens=PROMPT_LENS):
+            toks = torch.tensor([list(r.prompt)], device=device)
+            out.append(lm.prefill(params, cfg32, toks)[0].float().cpu())
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def distance(got, want):
+    """Each request's max |got - want| over its row's max |want|."""
+    return [(a - b).abs().max().item() / b.abs().max().item()
+            for a, b in zip(got, want)]
+
+
+def four_rank_main(rank, store, out_dir, device_type="cuda", full=True,
+                   layers=False):
     """One rank of the four: the small cases, then (``full``) gemma-7b at
-    full width in tp2d on each of ``FULL_MESHES``; pickled."""
+    full width in tp2d on each of ``FULL_MESHES``; or (``layers``) only
+    ``LAYER_CASES``; pickled."""
     import torch.distributed as dist
 
     from repro_torch.dist.sharding import Rules
@@ -181,7 +306,15 @@ def four_rank_main(rank, store, out_dir, device_type="cuda", full=True):
               for s in sorted({s for s, _ in FOUR_CASES.values()})}
     out = {}
     try:
-        for name, (shape, mode) in FOUR_CASES.items():
+        for name, (model, shape, mode) in (LAYER_CASES.items() if layers
+                                           else ()):
+            try:
+                out[name] = layer_stream(model, dev,
+                                         rules=Rules(meshes[shape], mode),
+                                         check_ranks=True)
+            except Exception:  # recorded; the test fails with it
+                out[name] = {"error": traceback.format_exc()}
+        for name, (shape, mode) in (() if layers else FOUR_CASES.items()):
             try:
                 out[name] = small_tokens(dev, rules=Rules(meshes[shape], mode),
                                          check_ranks=True)
@@ -201,14 +334,15 @@ def four_rank_main(rank, store, out_dir, device_type="cuda", full=True):
         dist.destroy_process_group()
 
 
-def launch_four(out_dir, device_type="cuda", full=True, timeout=600):
+def launch_four(out_dir, device_type="cuda", full=True, timeout=600,
+                layers=False):
     """The four ranks as spawned processes; returns their results."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
     store = os.path.join(out_dir, "store")
     procs = [ctx.Process(target=four_rank_main,
-                         args=(r, store, out_dir, device_type, full))
+                         args=(r, store, out_dir, device_type, full, layers))
              for r in range(WORLD4)]
     for p in procs:
         p.start()
@@ -277,6 +411,49 @@ def test_serving_on_four_cards(cuda_device):
               f"one 8 x 8 chunk's logits: max |mesh - one card| {err:.4g} "
               f"of max |logit| {scale:.4g}, argmax equal in "
               f"{100 * same:.0f}% of rows")
+
+
+@pytest.mark.cuda
+def test_split_layers_on_four_cards(cuda_device):
+    if torch.cuda.device_count() < WORLD4:
+        pytest.skip(f"needs {WORLD4} cards; this machine has "
+                    f"{torch.cuda.device_count()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = launch_four(tmp, full=False, layers=True)
+    ones, refs, bad = {}, {}, []
+    for name, (model, shape, mode) in LAYER_CASES.items():
+        if model not in ones:
+            ones[model] = layer_stream(model, cuda_device)
+            refs[model] = fp32_prefills(model, cuda_device)
+            one = ones[model]
+            print(f"{model} cut, stream (a), one card: {one[1]:.1f} "
+                  f"tokens/s, mamba_scan launches {one[2]}, peak "
+                  f"{one[3]:.2f} GiB, wall {one[5]:.1f} s")
+        one, ref = ones[model], refs[model]
+        got = [o[name] for o in out]
+        for r, g in enumerate(got):
+            assert not isinstance(g, dict), f"rank {r}, {name}:\n" \
+                                            f"{g['error']}"
+            toks, tps, launches, peak, logits, wall = g
+            assert toks == got[0][0], (name, r)
+            assert launches == one[2], (name, r, launches, one[2])
+            print(f"  {name}, rank {r}: {tps:.1f} tokens/s, mamba_scan "
+                  f"launches {launches}, peak {peak:.2f} GiB, wall "
+                  f"{wall:.1f} s")
+        pairs = [(a, b) for ra, rb in zip(got[0][0], one[0])
+                 for a, b in zip(ra, rb)]
+        mesh, floor = distance(got[0][4], ref), distance(one[4], ref)
+        print(f"  {name}: tokens equal to one card's at "
+              f"{100 * sum(a == b for a, b in pairs) / len(pairs):.1f}% of "
+              f"positions; prefill logits' distance from fp32 (max |diff| "
+              f"over max |logit|): mesh {max(mesh):.3g} "
+              f"{[round(e, 4) for e in mesh]}, one card {max(floor):.3g} "
+              f"{[round(e, 4) for e in floor]}; mesh from one card "
+              f"{max(distance(got[0][4], one[4])):.3g}")
+        if not (len(mesh) == len(PROMPT_LENS)
+                and max(mesh) <= FLOOR_FACTOR * max(floor)):
+            bad.append(name)
+    assert not bad, bad
 
 
 if __name__ == "__main__":  # the four ranks' small cases over gloo

@@ -23,6 +23,16 @@ rank) beside the one-device trainer on card 0: each rank's step time
 and peak memory are printed (``-s``), the losses held to 1e-3 relative
 (bf16 compute, the batch's rows summed in another order).
 
+Layers split over ``model`` on four cards: mixtral-8x7b at full width
+cut to 2 layers trains 3 steps of batch 4 x 2048 on a (2, 2) ``fsdp``
+mesh (``seq_parallel`` on: 16/4 of its 32/8 heads and 4 of its 8
+experts a rank, the rest of each weight's ``fsdp`` dim over ``data``)
+beside one card: each step's loss
+on every rank equal to rank 0's, held to one card's at 1e-3 relative on
+step 1 (before any update) and 2e-2 on steps 2-3 (bf16 sums in another
+order move a near-tie route, and Adam's steps carry it); each rank's
+step time and peak memory printed.
+
 This file imports no JAX, so it runs on a card where JAX is missing."""
 import dataclasses
 import os
@@ -237,6 +247,96 @@ def hold_four(got, hist, leaves, name):
             full[i][sl] = blk
     return max(float(np.abs(f - w).max() / np.abs(w).max())
                for f, w in zip(full, leaves))
+
+
+MOE_LAYERS, MOE_BATCH, MOE_SEQ = 2, 4, 2048
+
+
+def moe_config():
+    return dataclasses.replace(get_config("mixtral-8x7b"),
+                               n_layers=MOE_LAYERS, param_sharding="fsdp",
+                               seq_parallel=True)
+
+
+def moe_run(device, mesh=None):
+    """mixtral-8x7b cut to 2 layers, seed 0's weights, 3 steps of batch
+    4 x 2048 (the config's optimizer): (losses, step ms, peak GiB of this
+    rank's card)."""
+    from repro_torch.data.pipeline import synthetic_lm_batches
+
+    cfg = moe_config()
+    torch.cuda.reset_peak_memory_stats(device)
+    tr = Trainer(cfg, TrainerConfig(total_steps=STEPS, log_every=0),
+                 device=device, mesh=mesh)
+    hist = tr.fit(synthetic_lm_batches(cfg, batch=MOE_BATCH, seq=MOE_SEQ,
+                                       steps=STEPS, seed=0),
+                  hooks=[SyncEveryStep()])
+    out = ([r["loss"] for r in hist], [r["step_ms"] for r in hist],
+           torch.cuda.max_memory_allocated(device) / 2**30)
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_rank_main(rank, store, out_dir):
+    """One rank of the four: ``moe_run`` on a (2, 2) mesh; pickled."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+
+    torch.set_num_threads(1)
+    init_process_group(device="cuda", rank=rank, world_size=WORLD4,
+                       store_path=store)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    try:
+        out = moe_run(dev, make_mesh((2, 2), ("data", "model"),
+                                     device="cuda"))
+    except Exception:  # recorded; the test fails with it
+        out = {"error": traceback.format_exc()}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"moe{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+@pytest.mark.cuda
+def test_moe_trainer_on_four_cards_matches_one_card(cuda_device):
+    import multiprocessing
+
+    if torch.cuda.device_count() < WORLD4:
+        pytest.skip(f"needs {WORLD4} cards; this machine has "
+                    f"{torch.cuda.device_count()}")
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [ctx.Process(target=moe_rank_main,
+                             args=(r, os.path.join(tmp, "store"), tmp))
+                 for r in range(WORLD4)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        assert [p.exitcode for p in procs] == [0] * WORLD4
+        out = []
+        for r in range(WORLD4):
+            with open(os.path.join(tmp, f"moe{r}.pkl"), "rb") as f:
+                out.append(pickle.load(f))
+    for r, o in enumerate(out):
+        assert not isinstance(o, dict), f"rank {r}:\n{o['error']}"
+    one = moe_run(cuda_device)
+    print(f"mixtral-8x7b {MOE_LAYERS} layers, batch {MOE_BATCH} x "
+          f"{MOE_SEQ}: one card losses {one[0]}, step ms {one[1]}, peak "
+          f"{one[2]:.2f} GiB")
+    for r, (loss, ms, peak) in enumerate(out):
+        print(f"  rank {r} of a (2, 2) fsdp mesh: losses {loss}, step ms "
+              f"{ms}, peak {peak:.2f} GiB")
+        assert loss == out[0][0], (r, loss, out[0][0])
+    got = out[0][0]
+    assert abs(got[0] - one[0][0]) <= 1e-3 * abs(one[0][0]), (got, one[0])
+    for a, b in zip(got[1:], one[0][1:]):
+        assert abs(a - b) <= 2e-2 * abs(b), (got, one[0])
 
 
 @pytest.mark.cuda
