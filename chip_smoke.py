@@ -256,7 +256,8 @@ and prints no result):
    the H100's constants (``analysis``); the card's ``total_memory``;
    mixtral-8x7b ``train_4k`` on 16 x 16 (the MoE split over its hidden
    units) and jamba-1.5-large ``decode_32k`` on 2 x 16 x 16 (the Mamba
-   decode step and the MoE split over its experts), all four at once;
+   decode step and the MoE split over its experts) and whisper-medium
+   ``train_4k`` on 16 x 16 (the enc-dec on a mesh), all five at once;
 20. layers split over ``model`` (``dist-layers``, after phase 4's jamba
    serving, on its weights): the mamba_scan forward (boundary states
    every 16 steps) and backward at jamba's block of one rank of a 16-wide
@@ -266,7 +267,19 @@ and prints no result):
    phase 4's workload through ``Engine(..., rules=Rules(mesh, "tp2d"))``
    on a 1 x 1 NCCL mesh (destroyed in a ``finally``): greedy tokens
    bitwise the one-device engine's, the mamba_scan counter, zeroed just
-   before, at 2 launches a prefill.
+   before, at 2 launches a prefill;
+21. the enc-dec on a mesh (``dist-whisper``, after phase 11, held to its
+   runs): whisper-medium at every published width and depth on a 1 x 1
+   NCCL mesh (destroyed in a ``finally``) trains 2 steps of batch 8 x
+   (1500 frames, 448 tokens) in its ``wus`` mode with ``seq_parallel``
+   through ``Trainer(cfg, tcfg, mesh=)``: losses bitwise phase 11's
+   second run, the flash counters at forward 2 x 24 and backward 24 a
+   step at each of the encoder's, cross-attention's and decoder's
+   shapes; then serves stream (a) through ``Engine(rules=Rules(mesh,
+   "tp2d"))``: greedy tokens bitwise phase 11's, the paged counter at 24
+   a chunk step and the encoder's flash at B 1 at 24 an admission; step
+   ms, tokens/s and peaks printed beside the one-device runs' (kernel
+   rows 2f-wm, 2b-wm, 1-wm).
 
 The second-to-last line is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``. ``--only mamba,serve-jamba`` (any of
@@ -4245,6 +4258,20 @@ def whisper_stream(engine, cfg, workload, run, label):
     return report, s
 
 
+def whisper_stream_a(cfg):
+    """Stream (a) for whisper: the 8 ragged requests, each with its own
+    frames."""
+    return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
+                              prompt_len=max(PROMPT_LENS), seed=0,
+                              prompt_lens=PROMPT_LENS)
+
+
+def whisper_scfg():
+    """The serving config of whisper's stream (a)."""
+    return ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
+                       page_size=16, prefill_chunk=8)
+
+
 def serve_whisper():
     """whisper-medium at every published width and depth (24 + 24
     layers, random bf16 weights from seed 0) serves stream (a), the 8
@@ -4254,7 +4281,7 @@ def serve_whisper():
     and n-gram drafts of 3, from a bf16 and from an int8 pool; one chunk
     step of 8 x 8 tokens traced. Returns the launches (encoder flash at
     B 1 in stream (a), paged bf16 in stream (a), paged int8 in stream
-    (b))."""
+    (b)), stream (a)'s greedy tokens and its summary."""
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(WHISPER)
@@ -4270,8 +4297,7 @@ def serve_whisper():
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}, "
           f"{cfg.enc_source_len} frames; init in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    scfg = ServeConfig(max_batch=8, max_len=max(PROMPT_LENS) + NEW_TOKENS,
-                       page_size=16, prefill_chunk=8)
+    scfg = whisper_scfg()
     engine = Engine(cfg, params, scfg, device="cuda")
     if engine.layout != "paged":
         raise AssertionError(f"{WHISPER} served from {engine.layout}")
@@ -4279,11 +4305,10 @@ def serve_whisper():
                                            seed=1))  # warm-up
 
     def stream_a():
-        return synthetic_requests(cfg, n=8, tokens=NEW_TOKENS,
-                                  prompt_len=max(PROMPT_LENS), seed=0,
-                                  prompt_lens=PROMPT_LENS)
+        return whisper_stream_a(cfg)
 
-    _, sa = whisper_stream(engine, cfg, stream_a, run_offline, "stream (a)")
+    report_a, sa = whisper_stream(engine, cfg, stream_a, run_offline,
+                                  "stream (a)")
     launches = (sa["flash_launches"], sa["paged_launches"])
 
     # one mixed chunk step, 8 rows x 8 tokens, against a fresh pool whose
@@ -4363,15 +4388,16 @@ def serve_whisper():
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    return (*launches, sb["paged_launches"])
+    return (*launches, sb["paged_launches"], tokens_of(report_a), sa)
 
 
-def run_whisper_trainer(cfg, steps):
-    """A fresh trainer (weights from seed 0) fitted for ``steps`` steps of
-    ``synthetic_lm_batches(seed=0)``: 8 examples of 1500 frames and 448
-    target tokens; returns (trainer, history)."""
+def run_whisper_trainer(cfg, steps, mesh=None):
+    """A fresh trainer (weights from seed 0; on ``mesh`` when given)
+    fitted for ``steps`` steps of ``synthetic_lm_batches(seed=0)``: 8
+    examples of 1500 frames and 448 target tokens; returns (trainer,
+    history)."""
     tr = Trainer(cfg, TrainerConfig(total_steps=steps, log_every=1),
-                 device="cuda")
+                 device="cuda", mesh=mesh)
     hist = tr.fit(synthetic_lm_batches(cfg, batch=WHISPER_BATCH,
                                        seq=WHISPER_SEQ, steps=steps, seed=0),
                   hooks=tr.default_hooks() + [SyncEveryStep()])
@@ -4386,7 +4412,8 @@ def train_whisper():
     per step forward 2 x 24 (with the remat recompute) and backward 24
     at each of the encoder's, the cross-attention's and the decoder's
     shapes, and a second run from the same seed must repeat the losses
-    bitwise. Returns {suffix: (forward launches, backward launches)}."""
+    bitwise. Returns ({suffix: (forward launches, backward launches)},
+    the run's summary: losses, step ms, target tokens/s, peak GiB)."""
     cfg = get_config(WHISPER)
     phase(f"train: {WHISPER} every published width and depth "
           f"({cfg.n_enc_layers} + {cfg.n_layers} layers), batch "
@@ -4442,26 +4469,189 @@ def train_whisper():
                    target_tokens_per_s=tok_s, peak_mem_gib=peak,
                    losses=losses, wall_s=wall)
     print(f"  train summary {json.dumps(summary)}", flush=True)
-    return {k: (want_f[whisper_shape(k)], want_b[whisper_shape(k)])
-            for k in per}
+    return ({k: (want_f[whisper_shape(k)], want_b[whisper_shape(k)])
+             for k in per}, summary)
 
 
 def whisper_phases():
-    """The whisper phases in turn, their wall printed. Returns (the
-    kernel records, with their launches on the serve and train paths)."""
+    """The whisper phases in turn, their wall printed, then
+    ``dist-whisper`` against their one-device runs. Returns the kernel
+    records, with their launches on the serve and train paths, and those
+    of the mesh's call sites."""
     t0 = time.perf_counter()
     flash, paged = check_whisper_kernels()
     reduced_whisper_vs_cpu()
-    enc1, paged_bf16, paged_int8 = serve_whisper()
+    enc1, paged_bf16, paged_int8, tokens, served = serve_whisper()
     flash["enc_B1"][0]["launches"] = enc1
     paged["bfloat16"]["launches"] = paged_bf16
     paged["int8"]["launches"] = paged_int8
-    for suffix, (f, b) in train_whisper().items():
+    launches, trained = train_whisper()
+    for suffix, (f, b) in launches.items():
         flash[suffix][0]["launches"], flash[suffix][1]["launches"] = f, b
     print(f"  whisper phases wall {time.perf_counter() - t0:.1f} s",
           flush=True)
+    mesh = dist_whisper(dict(trained, tokens=tokens, served=served))
     return [paged["bfloat16"], paged["int8"], flash["enc_B1"][0],
-            *(r for k in ("enc", "cross", "dec") for r in flash[k])]
+            *(r for k in ("enc", "cross", "dec") for r in flash[k]),
+            *mesh_records(flash, paged, mesh)]
+
+
+DIST_WHISPER_STEPS = 2  # train-whisper's second run
+
+
+def dist_whisper(one=None):
+    """whisper-medium on a 1 x 1 ("data", "model") NCCL mesh (phase 21,
+    ``dist-whisper``), destroyed in a ``finally``: with one rank every
+    collective is a copy and the mesh path runs the one-device arithmetic
+    in the same order. Training: every published width and depth in its
+    config's ``wus`` mode with ``seq_parallel``, 2 steps of batch 8 x
+    (1500 frames, 448 tokens) from seed 0 through ``Trainer(cfg, tcfg,
+    mesh=)``: the losses bitwise train-whisper's second run, the flash
+    counters, zeroed just before, at forward 2 x 24 and backward 24 a
+    step at each of the encoder's, the cross-attention's and the
+    decoder's shapes. Serving: stream (a) through ``Engine(rules=
+    Rules(mesh, "tp2d"))`` from bf16 weights of seed 0: greedy tokens
+    bitwise serve-whisper's, the paged counter at 24 a chunk step, the
+    encoder's flash at B 1 at 24 an admission (``whisper_stream``, which
+    repeats the stream). ``one`` holds the one-device runs' losses, step
+    ms, tokens/s, peak and stream (a)'s tokens and summary (made here
+    when None). Returns the mesh runs' launches: {"fwd": {suffix: n},
+    "bwd": {suffix: n}, "enc_B1": n, "paged": n}."""
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import Rules
+
+    cfg = get_config(WHISPER)
+    if (cfg.param_sharding, cfg.seq_parallel) != ("wus", True):
+        raise AssertionError(f"{WHISPER}'s mode {cfg.param_sharding}, "
+                             f"seq_parallel {cfg.seq_parallel}")
+    t0 = time.perf_counter()
+    if one is None:
+        one = whisper_one_device(cfg)
+    phase(f"dist-whisper: {WHISPER} every published width and depth on a "
+          f"1 x 1 NCCL mesh: {DIST_WHISPER_STEPS} train steps in "
+          f"{cfg.param_sharding} with seq_parallel, then stream (a) in tp2d")
+    mesh = single_device_mesh("cuda")
+    try:
+        print(f"  mesh {mesh.shape} over {dist.get_world_size()} rank(s), "
+              f"backend {dist.get_backend()}", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        tr, hist = run_whisper_trainer(cfg, DIST_WHISPER_STEPS, mesh)
+        torch.cuda.synchronize()
+        fwd = dict(fa.flash_attention_fwd_cuda.launches_by_shape)
+        bwd = dict(fa.flash_attention_bwd_cuda.launches_by_shape)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del tr
+        gc.collect()
+        torch.cuda.empty_cache()
+        params = encdec.init_encdec(cfg, seed=0, device="cuda")
+        engine = Engine(cfg, params, whisper_scfg(), rules=Rules(mesh,
+                                                                 "tp2d"))
+        run_offline(engine, synthetic_requests(cfg, n=2, tokens=2,
+                                               prompt_len=8, seed=1))
+        report, sa = whisper_stream(engine, cfg,
+                                    lambda: whisper_stream_a(cfg),
+                                    run_offline, "tp2d stream (a)")
+        del engine, params
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in hist]
+    step_ms = float(np.median([r["step_ms"] for r in hist[1:]]))
+    tok_s = WHISPER_BATCH * WHISPER_SEQ / (step_ms / 1e3)
+    per = {"enc": cfg.n_enc_layers, "cross": cfg.n_layers,
+           "dec": cfg.n_layers}
+    want_f = {whisper_shape(k): 2 * n * DIST_WHISPER_STEPS
+              for k, n in per.items()}
+    want_b = {whisper_shape(k): n * DIST_WHISPER_STEPS
+              for k, n in per.items()}
+    print(f"  train on the mesh: losses {losses} (one device "
+          f"{one['losses'][:DIST_WHISPER_STEPS]}); step {step_ms:.1f} ms "
+          f"(step 2; one device {one['step_ms']:.1f}, the median of its "
+          f"steps after the first), {tok_s:.0f} target tokens/s (one device "
+          f"{one['target_tokens_per_s']:.0f}); peak memory {peak:.2f} GiB "
+          f"(one device {one['peak_mem_gib']:.2f}); flash launches forward "
+          f"{fwd}, backward {bwd}", flush=True)
+    if losses != one["losses"][:DIST_WHISPER_STEPS]:
+        raise AssertionError(f"dist-whisper: the mesh trainer's losses "
+                             f"{losses} differ from one device's")
+    if fwd != want_f or bwd != want_b:
+        raise AssertionError(f"dist-whisper: flash launches {fwd}, {bwd} "
+                             f"!= {want_f}, {want_b}")
+    served = one["served"]
+    print(f"  serve in tp2d: {sa['tokens_per_s']:.1f} tokens/s (one device "
+          f"{served['tokens_per_s']:.1f}); peak memory "
+          f"{sa['peak_mem_gib']:.2f} GiB (one device "
+          f"{served['peak_mem_gib']:.2f}); paged launches "
+          f"{sa['paged_launches']} in {sa['chunk_steps']} chunk steps, "
+          f"encoder flash {sa['flash_launches']} in {sa['encodes']} "
+          f"admissions", flush=True)
+    if tokens_of(report) != one["tokens"]:
+        raise AssertionError("dist-whisper: tp2d's greedy tokens differ from "
+                             "the one-device engine's")
+    summary = dict(train_step_ms=step_ms, train_tokens_per_s=tok_s,
+                   train_peak_gib=peak, one_step_ms=one["step_ms"],
+                   one_tokens_per_s=one["target_tokens_per_s"],
+                   one_peak_gib=one["peak_mem_gib"],
+                   serve_tokens_per_s=sa["tokens_per_s"],
+                   serve_peak_gib=sa["peak_mem_gib"],
+                   one_serve_tokens_per_s=served["tokens_per_s"],
+                   one_serve_peak_gib=served["peak_mem_gib"],
+                   wall_s=time.perf_counter() - t0)
+    print(f"  losses and greedy tokens bitwise the one-device runs'; "
+          f"dist-whisper summary {json.dumps(summary)}", flush=True)
+    return {"fwd": {k: want_f[whisper_shape(k)] for k in per},
+            "bwd": {k: want_b[whisper_shape(k)] for k in per},
+            "enc_B1": sa["flash_launches"], "paged": sa["paged_launches"]}
+
+
+def whisper_one_device(cfg):
+    """The one-device runs ``dist_whisper`` is held to, when the phase
+    runs alone: 2 train steps (train-whisper's second run) and stream (a)
+    from seed 0's bf16 weights."""
+    phase(f"dist-whisper: the one-device runs ({DIST_WHISPER_STEPS} train "
+          f"steps, stream (a))")
+    torch.cuda.reset_peak_memory_stats()
+    tr, hist = run_whisper_trainer(cfg, DIST_WHISPER_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    step_ms = float(np.median([r["step_ms"] for r in hist[1:]]))
+    params = encdec.init_encdec(cfg, seed=0, device="cuda")
+    engine = Engine(cfg, params, whisper_scfg(), device="cuda")
+    run_offline(engine, synthetic_requests(cfg, n=2, tokens=2, prompt_len=8,
+                                           seed=1))
+    report, sa = whisper_stream(engine, cfg, lambda: whisper_stream_a(cfg),
+                                run_offline, "one device stream (a)")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(losses=[r["loss"] for r in hist], step_ms=step_ms,
+                target_tokens_per_s=WHISPER_BATCH * WHISPER_SEQ
+                / (step_ms / 1e3), peak_mem_gib=peak,
+                tokens=tokens_of(report), served=sa)
+
+
+def mesh_records(flash, paged, launches):
+    """The kernel records of the mesh's call sites (rows 2f-wm, 2b-wm,
+    1-wm): on a 1 x 1 mesh the rank's shapes are one device's, so each
+    is the record phase 2 timed at that shape this run, under its own
+    name, with the mesh run's launches."""
+    out = [dict(flash["enc_B1"][0], name=flash["enc_B1"][0]["name"]
+                + "_mesh", launches=launches["enc_B1"]),
+           dict(paged["bfloat16"], name=paged["bfloat16"]["name"] + "_mesh",
+                launches=launches["paged"])]
+    for k in ("enc", "cross", "dec"):
+        for rec, key in zip(flash[k], ("fwd", "bwd")):
+            out.append(dict(rec, name=rec["name"] + "_mesh",
+                            launches=launches[key][k]))
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -5822,19 +6012,22 @@ DRYRUN_PEAK_RATIO = 1.10
 DRYRUN_CLI = (("gemma-7b", "train_4k", "pod"),
               ("yi-9b", "long_500k", "multipod"),
               ("mixtral-8x7b", "train_4k", "pod"),
-              ("jamba-1.5-large-398b", "decode_32k", "multipod"))
+              ("jamba-1.5-large-398b", "decode_32k", "multipod"),
+              ("whisper-medium", "train_4k", "pod"))
 
 
 def dryrun_cli():
-    """``python -m repro_torch run --mode dryrun`` in four subprocesses
+    """``python -m repro_torch run --mode dryrun`` in five subprocesses
     started together, as a user types it: gemma-7b's train step on the 16
     x 16 mesh, yi-9b's 500k-token decode (B 1, replicated over the batch
     axes) on 2 x 16 x 16, mixtral-8x7b's train step on 16 x 16 (8 experts
     that 16 does not divide: each rank holds every expert's 896 hidden
-    units) and jamba-1.5-large's 32k decode step on 2 x 16 x 16 (the Mamba
-    step on 1024 channels a rank, 16 experts, one a rank). Each result
-    must carry flops and a peak and no error; its roofline with the
-    H100's constants is printed."""
+    units), jamba-1.5-large's 32k decode step on 2 x 16 x 16 (the Mamba
+    step on 1024 channels a rank, 16 experts, one a rank) and
+    whisper-medium's train step on 16 x 16 (the enc-dec: its 1500-frame
+    encoder stream whole, its decoder's split over ``model``). Each
+    result must carry flops and a peak and no error; its roofline with
+    the H100's constants is printed."""
     phase("dryrun: python -m repro_torch run --mode dryrun (fake worlds "
           "of 256 and 512 ranks, no card)")
     t0 = time.perf_counter()
@@ -6584,6 +6777,7 @@ PHASES = {  # --only names: the phases a short run may pick
     "kernels-whisper": check_whisper_kernels,
     "check-whisper": reduced_whisper_vs_cpu,
     "serve-whisper": serve_whisper, "train-whisper": train_whisper,
+    "dist-whisper": dist_whisper,
     "kernels-vlm": check_vlm_kernels,
     "check-vlm": lambda: reduced_slab_vs_cpu(VLM, 3),
     "check-rwkv": lambda: reduced_slab_vs_cpu(RWKV, 4),

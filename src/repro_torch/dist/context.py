@@ -38,9 +38,15 @@ methods of ``spmd.Placement``; m is the ``model`` axis):
                                             invariant all-reduce
   layers.py:537 FFN h ("act_mlp")           ``enter`` / ``exit`` around
                                             the FFN, its ``mlp`` blocks
-  layers.py:588-600 MoE, :673 Mamba         not ported over m > 1: the
-                                            trainer raises
-  encdec.py:94-148                          enc-dec: not on a mesh
+  layers.py:588-600 MoE, :673 Mamba         ``enter`` / ``exit`` around
+                                            the layer, its experts, units
+                                            or channels the rank's blocks
+                                            (``Placement.layout``)
+  encdec.py:94-148 x ("batch", "seq_res")   one ``Placement`` a stream,
+                                            the encoder's and the
+                                            decoder's; the cross K/V's
+                                            source ``enter_source``: whole
+                                            over its sequence
 
 Outside any scope (or under ``use_rules(None)``) ``current_rules()`` is
 None and the models run their one-device path.

@@ -59,10 +59,18 @@ broadcast. ``check_ranks`` (a debug check the tests turn on) gathers
 each step's tokens from every rank and raises if any differs from rank
 0's; it corrects nothing.
 
-An enc-dec config on a mesh raises ``NotImplementedError``
-(``dist.spmd.check_supported``, ROADMAP.md item 6.2). A batch whose rows
-the batch axes do not divide (``long_500k``'s one row) is computed whole
-on every rank.
+The enc-dec family (whisper) splits its encoder's and decoder's
+attention and FFNs as the decoder-only stack does. A request's encoder
+and cross K/V run at admission on every rank that holds its row
+(``models.encdec.encode_cross``; under ``tp2d`` through the stationary
+products); the dense per-slot cross slab of the paged layout holds the
+KV heads the rank's queries read, as the pool does, over the rank's
+rows (:meth:`ServePlan.write_cross`), and the slab layout's cross caches
+follow ``cache_pspecs`` as its self-attention caches do. The
+cross-attention of the chunk program runs plain on the rank's heads.
+
+A batch whose rows the batch axes do not divide (``long_500k``'s one
+row) is computed whole on every rank.
 """
 from __future__ import annotations
 
@@ -85,7 +93,7 @@ from repro_torch.dist.spmd import (
     dim_of,
 )
 from repro_torch.models import layers as L
-from repro_torch.models import lm
+from repro_torch.serve import cache as slab_ops
 from repro_torch.train.steps import ModelAPI, cache_pspecs
 from repro_torch.utils import tree_map
 
@@ -95,6 +103,12 @@ BATCH_AXES = ("pod", "data")
 def _gather_last(x, group, n):
     """The blocks of a group concatenated along x's last dim."""
     return _all_gather(x.movedim(-1, 0).contiguous(), group, n).movedim(0, -1)
+
+
+def _layers(slab):
+    """A slab's per-layer dicts in one list: an enc-dec's self-attention
+    caches, then its cross ones."""
+    return slab["self"] + slab["cross"] if isinstance(slab, dict) else slab
 
 
 @torch.no_grad()
@@ -149,8 +163,9 @@ class ServePlan:
                         else len(L.rank_kv_heads(cfg, H // m, index))
                         if heads else K)
         # the slab's layout (``init_slab``): every KV head on every model
-        # rank (``kv_whole``), its slots split over ``model`` (``slab_seq``)
-        self.kv_whole = self.slab_seq = False
+        # rank (``kv_whole``), its slots split over ``model`` (``slab_seq``;
+        # an enc-dec's cross caches ``cross_seq``)
+        self.kv_whole = self.slab_seq = self.cross_seq = False
         self._full_slab = self._slab_specs = None
 
     # ---- rows ------------------------------------------------------------ #
@@ -181,45 +196,83 @@ class ServePlan:
 
     # ---- caches ---------------------------------------------------------- #
     def init_paged_cache(self, n_pages: int, page: int):
-        return L.init_paged_kv_cache(self.cfg, n_pages, page,
+        """The pool of the rank's KV heads (every page); an enc-dec's
+        ``{"self": pool, "cross": slab}``, the cross slab one
+        ``enc_source_len``-slot cache a decoder layer over the rank's
+        rows, of the pool's KV heads."""
+        pool = L.init_paged_kv_cache(self.cfg, n_pages, page,
                                      n_layers=self.cfg.n_layers,
                                      device=self.device, n_kv=self.pool_kv)
+        if not self.cfg.is_encdec:
+            return pool
+        return {"self": pool, "cross": [
+            L.init_kv_cache(self.cfg, self.local_batch,
+                            self.cfg.enc_source_len, device=self.device,
+                            n_kv=self.pool_kv)
+            for _ in range(self.cfg.n_layers)]}
+
+    def _slot(self, slot: int) -> Optional[int]:
+        """``slot``'s row in the rank's caches, or None if not its row."""
+        if self.rows is None:
+            return slot
+        if not self.rows.start <= slot < self.rows.stop:
+            return None
+        return slot - self.rows.start
+
+    def write_cross(self, cross, kv, slot: int):
+        """A request's cross K/V (``encdec.encode_cross``'s, the pool's
+        KV heads) into ``slot`` of the rank's cross slab, if the slot is
+        one of its rows."""
+        local = self._slot(slot)
+        return cross if local is None else slab_ops.write_slot(cross, kv,
+                                                               local)
 
     def init_slab(self, max_batch: int, max_len: int, window=None):
         """The rank's block of the slot slab (``cache_pspecs``): an
-        attention layer's ``min(max_len, window)`` slots."""
-        full = lm.init_cache(self.cfg, max_batch, max_len, window,
-                             device="meta")
+        attention layer's ``min(max_len, window)`` slots, an enc-dec's
+        ``{"self", "cross"}`` lists (the cross caches of
+        ``enc_source_len`` slots)."""
+        full = ModelAPI(self.cfg).init_cache(max_batch, max_len, window,
+                                             device="meta")
         self._full_slab = full
         self._slab_specs = cache_pspecs(self.cfg, full, self.rules)
         m = self.mesh.shape.get("model", 1)
-        out = []
-        for layer, specs in zip(full, self._slab_specs):
-            if "slot_pos" in layer and m > 1:
-                self.kv_whole = dim_of(specs["k"], "model") != 2
-                self.slab_seq = dim_of(specs["k"], "model") == 1
-            out.append({n: torch.full(
-                t[block_slices(specs[n], t.shape, self.mesh)].shape,
-                -1 if n == "slot_pos" else 0, dtype=t.dtype,
-                device=self.device) for n, t in layer.items()})
-        return out
+
+        def blocks(layers, specs, key):
+            out = []
+            for layer, sp in zip(layers, specs):
+                if "slot_pos" in layer and m > 1:
+                    self.kv_whole = dim_of(sp["k"], "model") != 2
+                    seq = dim_of(sp["k"], "model") == 1
+                    if key == "cross":
+                        self.cross_seq = seq
+                    else:
+                        self.slab_seq = seq
+                out.append({n: torch.full(
+                    t[block_slices(sp[n], t.shape, self.mesh)].shape,
+                    -1 if n == "slot_pos" else 0, dtype=t.dtype,
+                    device=self.device) for n, t in layer.items()})
+            return out
+
+        if isinstance(full, dict):
+            return {k: blocks(full[k], self._slab_specs[k], k) for k in full}
+        return blocks(full, self._slab_specs, None)
 
     def write_slot(self, slab, cache, slot: int):
-        """A prefilled one-request cache (``lm.prefill``'s, every slot of
-        the sequence, the rank's KV heads or all of them) into ``slot``
-        of the rank's slab, if the slot is one of its rows."""
-        if self.rows is not None:
-            if not self.rows.start <= slot < self.rows.stop:
-                return slab
-            slot -= self.rows.start
-        for dst, src, full, specs in zip(slab, cache, self._full_slab,
-                                         self._slab_specs):
+        """A prefilled one-request cache (``ModelAPI.prefill``'s, every
+        slot of the sequence, the rank's KV heads or all of them) into
+        ``slot`` of the rank's slab, if the slot is one of its rows."""
+        local = self._slot(slot)
+        if local is None:
+            return slab
+        for dst, src, full, specs in zip(*map(_layers, (
+                slab, cache, self._full_slab, self._slab_specs))):
             for n, t in dst.items():
                 s = src[n]
                 blk = block_slices(specs[n], full[n].shape, self.mesh)
                 idx = tuple(blk[i] if s.shape[i] != t.shape[i] else slice(None)
                             for i in range(1, t.dim()))
-                t[slot:slot + 1] = s[(slice(None),) + idx].to(t.dtype)
+                t[local:local + 1] = s[(slice(None),) + idx].to(t.dtype)
         return slab
 
     # ---- placements ------------------------------------------------------ #
@@ -257,23 +310,16 @@ class ServePlacement(Placement):
                               vary=vary).contiguous()
 
     def layer_leaf(self, lp, part, name, w, spec, *, split, vary, whole):
-        if (self.kv_whole and part == "mixer" and "wq" in lp["mixer"]
-                and name in KV_LEAVES):
+        if self.kv_whole and "wq" in lp[part] and name in KV_LEAVES:
             split = None  # the slab keeps every KV head
         return super().layer_leaf(lp, part, name, w, spec, split=split,
                                   vary=vary, whole=whole)
 
-    def embed(self, params, tokens):
-        return lm._embed({"embed": self.leaf(params, "embed")}, tokens)
-
-    def head(self, params, x):
-        key = "head" if "head" in params else "embed"
-        return lm._head({key: self.leaf(params, key)}, x)
-
     # ---- the slab over its slots ----------------------------------------- #
-    def kv_full(self, cache):
-        """A slab layer whose slots are split over ``model``, gathered."""
-        if not self.serving.slab_seq:
+    def kv_full(self, cache, cross: bool = False):
+        """A slab layer whose slots are split over ``model`` (an
+        enc-dec's ``cross`` cache by its own spec), gathered."""
+        if not (self.serving.cross_seq if cross else self.serving.slab_seq):
             return cache
         group = self.mesh.group("model")
         return {n: _all_gather(t.movedim(1, 0).contiguous(), group,
@@ -300,8 +346,7 @@ class StationaryPlacement(ServePlacement):
         return self.over_model(w, spec, whole=False, split=split, vary=vary)
 
     def layer_leaf(self, lp, part, name, w, spec, *, split, vary, whole):
-        if (part == "mixer" and "wq" in lp["mixer"]) or (
-                part == "ffn" and "router" not in lp["ffn"]):
+        if "wq" in lp[part] or (part == "ffn" and "router" not in lp[part]):
             return super().layer_leaf(lp, part, name, w, spec, split=split,
                                       vary=vary, whole=whole)
         return ServePlacement.gather(self, w, spec, whole=whole, split=split,

@@ -74,10 +74,26 @@ tokens need it):
   layer runs on whole heads on every rank, as attention does, since the
   recurrence and the per-head norm need whole heads.
 
-A layer whose dim ``model`` does not divide runs whole on every rank. An
-enc-dec config on a mesh raises ``NotImplementedError`` (ROADMAP.md item
-6.2). On the batch axes the MoE load-balance loss is formed from the
-global batch's means (:meth:`Placement.batch_mean`).
+A layer whose dim ``model`` does not divide runs whole on every rank. On
+the batch axes the MoE load-balance loss is formed from the global
+batch's means (:meth:`Placement.batch_mean`).
+
+The enc-dec family (whisper) runs its encoder's and decoder's layers
+(``enc_blocks[i]``: ``attn``, ``ffn``; ``dec_blocks[i]``: ``self_attn``,
+``cross_attn``, ``ffn``) as the decoder-only stack runs its attention and
+dense FFNs, with one placement a stream: the encoder's (its frames) and
+the decoder's (its tokens) each split their sequence under
+``seq_parallel`` where ``model`` divides its own length, else keep it
+whole. The encoder's output enters each cross-attention's rank heads
+whole over the sequence (:meth:`Placement.enter_source`).
+
+A batch whose rows the batch axes do not divide is replicated over them,
+as the reference's ``batch_pspecs`` gives it no axis
+(:func:`batch_rows`): every batch rank computes every row. Each rank's
+loss then is 1/n of the global mean (the sum over its rows over B x n,
+the rule for split rows too), so the gradient sums over the batch axes
+(:meth:`Plan.reduce_grads`, the ``fsdp`` gathers' backward) add n
+shares of 1/n: one device's gradient.
 """
 from __future__ import annotations
 
@@ -110,13 +126,9 @@ def dim_of(spec: Spec, axis: str) -> Optional[int]:
 
 
 def check_supported(cfg: ModelConfig, mesh, what: str = "train") -> None:
-    """Raise ``NotImplementedError`` for what the sharded trainer (and,
-    ``what="serve"``, the sharded serving engine) does not run yet: an
-    enc-dec config on a mesh."""
-    if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the enc-dec family does not {what} on a mesh yet "
-            f"({ROADMAP})")
+    """Raise ``ValueError`` for a mesh the sharded trainer (and,
+    ``what="serve"``, the sharded serving engine) cannot run on: one
+    without a ``data`` axis."""
     if "data" not in mesh.shape:
         noun = {"train": "training", "serve": "serving"}[what]
         raise ValueError(f"a {noun} mesh needs a 'data' axis; this one "
@@ -159,14 +171,16 @@ def shard_tree(tree, specs, mesh):
 def batch_rows(batch, mesh):
     """This rank's rows of a global batch (dict of arrays or tensors,
     rows on axis 0): block ``p * |data| + d`` of the batch axes, as
-    ``batch_pspecs`` lays them out. Rows that the batch axes do not
-    divide raise ``ValueError`` (the reference would replicate them)."""
+    ``batch_pspecs`` lays them out. A batch whose rows the batch axes do
+    not divide is returned whole: ``batch_pspecs``' divisibility fallback
+    replicates it, and every batch rank computes every row (the loss
+    share and the gradient sums then count each row once: module
+    docstring)."""
     axes = [a for a in BATCH_AXES if a in mesh.shape]
     idx, n = _index(mesh, axes)
     B = next(iter(batch.values())).shape[0]
     if B % n:
-        raise ValueError(f"a batch of {B} rows does not split over the "
-                         f"{n} ranks of the batch axes {axes}")
+        return dict(batch)
     b = B // n
     return {k: v[idx * b:(idx + 1) * b] for k, v in batch.items()}
 
@@ -261,6 +275,8 @@ class Placement:
         self.seq_len = seq_len
         self.n_batch = _index(self.mesh, [a for a in BATCH_AXES
                                           if a in self.mesh.shape])[1]
+        # an enc-dec decoder's placement: the encoder stream's
+        self.source: Optional["Placement"] = None
 
     # ---- weights -------------------------------------------------------- #
     def gather(self, w, spec: Spec, *, whole: bool, split=None,
@@ -303,25 +319,30 @@ class Placement:
         return tree_map(lambda w, s: self.gather(w, s, whole=True),
                         params[name], self.plan.pspecs[name])
 
-    def layer(self, lp, i: int):
-        """Layer ``i``'s tree as its ops read it, each leaf by
+    def layer(self, lp, i: int, stack: str = "layers", parts=None):
+        """Layer ``i`` of ``params[stack]`` (``layers``, or an enc-dec's
+        ``enc_blocks`` / ``dec_blocks``) as its ops read it, each leaf by
         :meth:`layout`: the rank's heads, units, experts or channels where
-        ``model`` divides them, else the leaf as the layer needs it."""
-        specs = self.plan.pspecs["layers"][i]
+        ``model`` divides them, else the leaf as the layer needs it;
+        ``parts`` keeps only those parts of it."""
+        specs = self.plan.pspecs[stack][i]
         how = self.layout(lp)
         return {part: {k: self.layer_leaf(
             lp, part, k, w, specs[part][k],
             **how.get(part, {}).get(k, NO_SPLIT))
-            for k, w in sub.items()} for part, sub in lp.items()}
+            for k, w in sub.items()} for part, sub in lp.items()
+            if parts is None or part in parts}
 
     def layout(self, lp):
         """{part: {leaf: the keywords of :meth:`gather`}} of one layer
         (leaves left out take :data:`NO_SPLIT`): what ``model`` splits.
 
-        - Attention: the query heads (``wq``, ``bq``, ``wo``) where
-          ``model`` divides them, the KV heads too where it divides those,
-          else the KV weights whole, entering through ``pvary`` (each rank
-          reads only the KV heads of its queries).
+        - Attention (an LM's ``mixer``; an enc-dec's ``attn``,
+          ``self_attn`` and ``cross_attn``): the query heads (``wq``,
+          ``bq``, ``wo``) where ``model`` divides them, the KV heads too
+          where it divides those, else the KV weights whole, entering
+          through ``pvary`` (each rank reads only the KV heads of its
+          queries).
         - A dense FFN: the hidden units (``wu``, ``wg``, ``wd``).
         - An MoE FFN: the experts (``act_expert``) where ``model`` divides
           them, else the hidden units (``act_mlp``); the router, used
@@ -338,41 +359,61 @@ class Placement:
         if m == 1:
             return {}
         out = {}
-        mixer, ffn = lp["mixer"], lp.get("ffn", {})
-        if "wq" in mixer:
-            if cfg.n_heads % m == 0:
-                mx = {"wq": 1, "bq": 0, "wo": 0}
-                if cfg.n_kv_heads % m == 0:
-                    mx.update(wk=1, wv=1, bk=0, bv=0)
-                out["mixer"] = {k: _split(d) for k, d in mx.items()}
-                if cfg.n_kv_heads % m:
-                    out["mixer"].update({k: _split(None, vary=True)
-                                         for k in KV_LEAVES})
-        elif "A_log" in mixer:
-            di = (cfg.mamba or MambaConfig()).expand * cfg.d_model
-            if di % m == 0:
-                out["mixer"] = {k: _split(d) for k, d in MAMBA_SPLIT.items()}
-        elif (cfg.d_model // (cfg.rwkv6 or RWKV6Config()).head_dim) % m:
-            out["mixer"] = {k: _split(None, whole=True) for k in RWKV_BLOCKS}
-        else:
-            out["mixer"] = {k: _split(d) for k, d in RWKV_SPLIT.items()}
-            out["mixer"].update(mu=_split(None, vary=True),
-                                w1=_split(None, vary=True))
-        if "router" in ffn:
-            E = cfg.moe.n_experts
-            dims = ({"wu": 0, "wg": 0, "wd": 0} if E % m == 0 else
-                    {"wu": 2, "wg": 2, "wd": 1} if cfg.d_ff % m == 0 else None)
-            if dims:
-                out["ffn"] = {k: _split(d) for k, d in dims.items()}
-                out["ffn"]["router"] = _split(None, vary=True)
-        elif "wu" in ffn and cfg.d_ff % m == 0:
-            out["ffn"] = {"wu": _split(1), "wg": _split(1), "wd": _split(0)}
+        for part, sub in lp.items():
+            if "wq" in sub:
+                if cfg.n_heads % m == 0:
+                    out[part] = self._attn_layout()
+            elif "A_log" in sub:
+                di = (cfg.mamba or MambaConfig()).expand * cfg.d_model
+                if di % m == 0:
+                    out[part] = {k: _split(d) for k, d in MAMBA_SPLIT.items()}
+            elif "w0" in sub:
+                if (cfg.d_model // (cfg.rwkv6 or RWKV6Config()).head_dim) % m:
+                    out[part] = {k: _split(None, whole=True)
+                                 for k in RWKV_BLOCKS}
+                else:
+                    out[part] = {k: _split(d) for k, d in RWKV_SPLIT.items()}
+                    out[part].update(mu=_split(None, vary=True),
+                                     w1=_split(None, vary=True))
+            elif "router" in sub:
+                E = cfg.moe.n_experts
+                dims = ({"wu": 0, "wg": 0, "wd": 0} if E % m == 0 else
+                        {"wu": 2, "wg": 2, "wd": 1} if cfg.d_ff % m == 0
+                        else None)
+                if dims:
+                    out[part] = {k: _split(d) for k, d in dims.items()}
+                    out[part]["router"] = _split(None, vary=True)
+            elif "wu" in sub and cfg.d_ff % m == 0:
+                out[part] = {"wu": _split(1), "wg": _split(1), "wd": _split(0)}
+        return out
+
+    def _attn_layout(self):
+        """An attention's leaves split by heads (``model`` divides the
+        query heads)."""
+        cfg, m = self.plan.cfg, self.m
+        mx = {"wq": 1, "bq": 0, "wo": 0}
+        if cfg.n_kv_heads % m == 0:
+            mx.update(wk=1, wv=1, bk=0, bv=0)
+        out = {k: _split(d) for k, d in mx.items()}
+        if cfg.n_kv_heads % m:
+            out.update({k: _split(None, vary=True) for k in KV_LEAVES})
         return out
 
     def layer_leaf(self, lp, part: str, name: str, w, spec: Spec, *, split,
                    vary, whole):
         """Leaf ``name`` of ``lp[part]`` as the op reads it (:meth:`layer`)."""
         return self.gather(w, spec, whole=whole, split=split, vary=vary)
+
+    def embed(self, params, tokens):
+        """The token embeddings, the table gathered whole."""
+        table = self.leaf(params, "embed")
+        return table[tokens.to(table.device, torch.long)]
+
+    def head(self, params, x):
+        """The logits of x, the head (or the tied table) gathered whole."""
+        if "head" in params:
+            return x @ self.leaf(params, "head")
+        return x @ self.leaf(params, "embed").T
 
     # ---- products ------------------------------------------------------- #
     # The layers multiply through these, so that a serving placement can
@@ -412,6 +453,23 @@ class Placement:
             return compat.pvary(x, self.mesh, "model")
         return x
 
+    def enter_source(self, src, split: bool):
+        """An enc-dec encoder's output (the :attr:`source` stream's)
+        entering a cross-attention of this, the decoder's, stream: whole
+        over its sequence on every rank, since each query reads every
+        frame. Where the encoder's stream is split it is all-gathered
+        over ``model``, with the sum adjoint when the model ranks then
+        use it on different data (their heads, ``split``, or their
+        sequence blocks' queries) and the invariant one otherwise; a
+        replicated stream so used enters through ``pvary``."""
+        if self.m == 1:
+            return src
+        vary = split or self.sp
+        if self.source is not None and self.source.sp:
+            fn = compat.all_gather if vary else compat.all_gather_invariant
+            return fn(src, self.mesh, "model", dim=1)
+        return compat.pvary(src, self.mesh, "model") if vary else src
+
     def exit(self, y, split: bool):
         """A layer's output to the stream: a ``split`` layer's partial sum
         reduce-scattered over the sequence (``seq_parallel``) or summed by
@@ -434,7 +492,10 @@ class Placement:
 
     def batch_mean(self, t):
         """The mean over the batch axes of a per-rank mean (each rank
-        holds as many rows): the MoE load-balance loss's token means."""
+        holds as many rows): the MoE load-balance loss's token means.
+        Where the rows are whole on every batch rank (:func:`batch_rows`)
+        the sum adds n equal means, so the quotient is the mean again, and
+        each rank's aux term counts 1/n, as its nll does."""
         for a in BATCH_AXES:
             if a in self.mesh.shape:
                 t = compat.psum(t, self.mesh, a)

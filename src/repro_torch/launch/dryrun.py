@@ -33,10 +33,13 @@ the mesh's real program (``dist.spmd``, ``dist.serving``) instead:
   placement. Serving runs the config's ``param_sharding``, or
   ``REPRO_SERVE_MODE`` where that is set.
 - **FLOPs** come from ``FlopCounterMode`` over the step (forward and
-  backward, what the plain kernels compute: masked attention visits every
-  key). The Mamba scan and the RWKV-6 recurrence, plain Python loops over
-  the positions, are traced as one product each with their loops'
-  counted flops and their outputs' shapes (:func:`recurrences_as_shapes`).
+  backward). Full-sequence attention counts what the reference's
+  chunked path computes: the (query, key) pairs of the KV chunks each
+  query chunk visits, which block skipping halves for a causal prefill
+  (:func:`attention_as_chunks`). The Mamba scan and the RWKV-6
+  recurrence, plain Python loops over the positions, are traced as one
+  product each with their loops' counted flops and their outputs' shapes
+  (:func:`recurrences_as_shapes`).
   **Collectives** from a dispatch mode over the ``c10d`` ops: the
   bytes of each op's result on this rank, summed by the reference's kind
   names (``all-gather``, ``all-reduce``, ``reduce-scatter``,
@@ -49,10 +52,11 @@ the mesh's real program (``dist.spmd``, ``dist.serving``) instead:
   the high-water mark of live storage bytes during the step, the
   arguments included; temporary: peak minus arguments. The reference's
   ``peak`` is arguments + outputs + temporaries, so a donated state
-  counts twice there; the port's counts live bytes once. The plain
-  attention holds (B, H, Sq, Sk) fp32 scores that the flash kernels never
-  hold, so at long sequences (``prefill_32k``) the peak is far above the
-  card's.
+  counts twice there; the port's counts live bytes once. Attention
+  holds the chunked path's working set (one block of fp32 logits, the
+  fp32 accumulators and copies of q, k and v), not (B, H, Sq, Sk) scores,
+  and keeps for the backward what the flash kernels keep (q, k, v, the
+  output and the log-sum-exp).
 
 The reference's ``hbm_bytes_accessed_per_device`` has no counterpart
 here, and its ``lower_s`` / ``compile_s`` become one ``trace_s``. The
@@ -296,6 +300,19 @@ def _fresh(cached):
         cached.cache_clear()
 
 
+@contextlib.contextmanager
+def _set_aside(table: dict):
+    """A module's cache dict emptied for the block, its entries put back
+    after it."""
+    kept = dict(table)
+    table.clear()
+    try:
+        yield
+    finally:
+        table.clear()
+        table.update(kept)
+
+
 # --------------------------------------------------------------------------- #
 # The recurrences as their outputs' shapes.
 # --------------------------------------------------------------------------- #
@@ -391,6 +408,132 @@ def recurrences_as_shapes():
     finally:
         for (mod, name, _), fn in zip(swaps, kept):
             setattr(mod, name, fn)
+
+
+# --------------------------------------------------------------------------- #
+# Attention as the reference's chunked path computes it.
+# --------------------------------------------------------------------------- #
+CHUNK = 512  # ``repro.kernels.ops.attention``'s ``chunk``
+
+
+def chunk_band(Sq: int, Sk: int, *, causal: bool, window, q_offset: int,
+               k_offset: int, chunk: int = CHUNK):
+    """(the (query, key) position pairs ``_chunked_attention`` computes,
+    the query rows of its logits block): with ``ck = min(chunk, Sk)``
+    and the keys padded to whole chunks, a causal call of ``Sq > ck``
+    queries visits, for each ``ck``-query chunk, only the KV chunks its
+    causal and window band reaches (every position of each counted, as
+    the path computes it, masked or not), one (ck, ck) block at a time;
+    any other call scans every KV chunk for all ``Sq`` queries at once
+    (``repro/kernels/ops.py:53-148``)."""
+    ck = min(chunk, Sk)
+    n_chunks = -(-Sk // ck)
+    if not (causal and Sq > ck):
+        return Sq * n_chunks * ck, Sq
+    pairs = 0
+    for q_lo in range(0, Sq, ck):
+        q_hi = min(Sq, q_lo + ck)
+        chunk_hi = min(n_chunks, (q_offset + q_hi - 1 - k_offset) // ck + 1)
+        chunk_lo = 0
+        if window is not None:
+            lo_pos = max(q_offset + q_lo - window + 1 - k_offset, 0)
+            chunk_lo = min(max(lo_pos // ck, 0), chunk_hi)
+        pairs += (q_hi - q_lo) * max(chunk_hi - chunk_lo, 0) * ck
+    return pairs, ck
+
+
+def _pair_products(rows: int, pairs: int, D: int, n: int) -> None:
+    """``n`` products of 2 D flops a (query, key) pair over ``rows``
+    (batch x heads) rows: ``FlopCounterMode`` counts a bmm by its shapes,
+    and these operands are views of one element, so nothing of their
+    size is held."""
+    one = torch.empty((1, 1, 1), dtype=torch.float32)
+    for _ in range(n):
+        torch.bmm(one.expand(rows, 1, pairs * D), one.expand(rows, pairs * D,
+                                                             1))
+
+
+class _ChunkedAttentionShapes(torch.autograd.Function):
+    """``flash_attention_torch`` as the reference's chunked path costs it
+    (:func:`chunk_band`): the output's shape and dtype; forward flops
+    4 D a visited (query, key) pair and head (the two einsums), backward
+    8 D (``jax.grad`` of them: two products each); and the fp32 working
+    set the path holds at once, made and dropped so that the live-bytes
+    peak sees it: q, the padded k and v and the output in fp32, one
+    logits block and its probabilities of (B, rows, H, ck), the running
+    max, sum and accumulator of those rows. For the backward it keeps
+    what the card's flash kernels keep: q, k, v, the output and the fp32
+    log-sum-exp (B, H, Sq), not the scores; its backward holds fp32 dq,
+    dk and dv and one block's scores, probabilities and their
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, k_offset, scale):
+        B, Sq, H, D = q.shape
+        Sk, K = k.shape[1], k.shape[2]
+        pairs, rows = chunk_band(Sq, Sk, causal=causal, window=window,
+                                 q_offset=q_offset, k_offset=k_offset)
+        ck = min(CHUNK, Sk)
+        ctx.cost = (B * H, pairs, D, B, Sq, Sk, H, K, rows, ck)
+        f32 = torch.float32
+        held = [torch.empty((B, Sq, H, D), dtype=f32),
+                torch.empty((2, B, -(-Sk // ck) * ck, K, D), dtype=f32),
+                torch.empty((B, Sq, H, D), dtype=f32),
+                torch.empty((B, rows, H, D + 2), dtype=f32),
+                torch.empty((2, B, rows, H, ck), dtype=f32)]
+        _pair_products(B * H, pairs, D, 2)
+        del held
+        out = torch.empty_like(q)
+        ctx.lse = torch.empty((B, H, Sq), dtype=f32)
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, _ = ctx.saved_tensors
+        rows_bh, pairs, D, B, Sq, Sk, H, K, rows, ck = ctx.cost
+        f32 = torch.float32
+        held = [torch.empty((B, Sq, H, D), dtype=f32),
+                torch.empty((2, B, Sk, K, D), dtype=f32),
+                torch.empty((3, B, rows, H, ck), dtype=f32)]
+        _pair_products(rows_bh, pairs, D, 4)
+        del held
+        return (torch.empty_like(q), torch.empty_like(k),
+                torch.empty_like(v), None, None, None, None, None)
+
+
+def chunked_attention_shapes(q, k, v, *, causal=True, window=None,
+                             q_offset=0, k_offset=0, scale=None):
+    """:class:`_ChunkedAttentionShapes` with
+    ``flash_attention_torch``'s signature."""
+    return _ChunkedAttentionShapes.apply(q, k, v, causal, window, q_offset,
+                                         k_offset, scale)
+
+
+@contextlib.contextmanager
+def attention_as_chunks():
+    """The plain full-sequence attention (``kernels.flash_attention.
+    flash_attention_torch``, the core of ``layers.attention_full``: the
+    LMs' attention layers, whisper's encoder, decoder self- and
+    cross-attention, the prefills) replaced by
+    :func:`chunked_attention_shapes` while a step is traced: the plain
+    version holds (B, H, Sq, Sk) fp32 scores and counts every masked
+    key, where the reference's dry run lowers ``_chunked_attention``
+    (O(S) memory, and block skipping that halves a causal prefill's
+    flops) and the card's flash kernels hold no score matrix either. A
+    decode step's attention (``ops.decode_attention``, the slab layout
+    the dry run serves from) is the reference's own plain path, one
+    query against every slot, and stays as it is; the paged and
+    cross-chunk cores run only in the paged chunk program, which the dry
+    run does not trace."""
+    from repro_torch.kernels import flash_attention
+
+    kept = flash_attention.flash_attention_torch
+    flash_attention.flash_attention_torch = chunked_attention_shapes
+    try:
+        yield
+    finally:
+        flash_attention.flash_attention_torch = kept
 
 
 def _host_read(e: BaseException) -> str:
@@ -491,18 +634,20 @@ def dryrun_step(cfg, shape, mesh_shape: Dict[str, int], mode: str = None
     )
     from torch.utils.flop_counter import FlopCounterMode
 
-    from repro_torch.models import layers
+    from repro_torch.models import encdec, layers
 
     if mode is None:
         mode = cfg.param_sharding
         if shape.kind != "train" and os.environ.get("REPRO_SERVE_MODE"):
             mode = os.environ["REPRO_SERVE_MODE"]
     t0 = time.perf_counter()
-    # the rotary tables are cached a (width, theta, device): tensors made
-    # under the fake mode must not outlive it, nor real ones enter it
+    # the rotary and sinusoid tables are cached a (width, theta or dtype,
+    # device): tensors made under the fake mode must not outlive it, nor
+    # real ones enter it
     with warnings.catch_warnings(), _fresh(layers._rope_tables), \
-            recurrences_as_shapes(), fake_world(mesh_shape) as mesh, \
-            FakeTensorMode():
+            _set_aside(encdec._SIN_TABLES), recurrences_as_shapes(), \
+            attention_as_chunks(), \
+            fake_world(mesh_shape) as mesh, FakeTensorMode():
         # c10d's deprecation notes on the collectives the port calls
         warnings.simplefilter("ignore", FutureWarning)
         if shape.kind == "train":

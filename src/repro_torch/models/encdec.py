@@ -221,93 +221,163 @@ def _positions(B: int, S: int, device):
     return torch.arange(S, device=device).expand(B, S)
 
 
-def _enc_block(cfg: ModelConfig, bp, x, positions):
+def _enc_block(cfg: ModelConfig, bp, x, positions, place=None, i=0):
+    """One encoder layer; on a mesh (``place``) layer ``i``'s blocks are
+    gathered here, inside any checkpoint, as ``lm._layer_out`` does."""
+    if place is not None:
+        bp = place.layer(bp, i, "enc_blocks")
     h = L.apply_norm(bp["norm1"], x)
     y, _ = L.attention_full(bp["attn"], h, cfg, positions=positions,
-                            causal=False)
+                            causal=False, place=place)
     x = x + y
-    return x + L.apply_ffn(bp["ffn"], L.apply_norm(bp["norm2"], x), cfg)
+    return x + L.apply_ffn(bp["ffn"], L.apply_norm(bp["norm2"], x), cfg,
+                           place=place)
 
 
-def encode(params, cfg: ModelConfig, frames):
+def _final(params, name: str, x, place=None):
+    """The stack's final norm ``params[name]`` of x."""
+    norm = params[name] if place is None else place.leaf(params, name)
+    return L.apply_norm(norm, x)
+
+
+def encode(params, cfg: ModelConfig, frames, place=None):
     """frames: (B, T, d) precomputed embeddings -> (B, T, d) encoder
     output in the compute dtype. The frames are cast to the compute
     dtype and the positions added there (``encdec.py:93``). With
-    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``."""
+    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``.
+
+    On a mesh (``place``, the encoder stream's placement) the weights are
+    the rank's blocks and the output the rank's sequence block under
+    ``seq_parallel`` (``place.positions()``)."""
     dt = _cdtype(cfg)
     B, T, _ = frames.shape
     x = frames.to(dt) + sinusoid(T, cfg.d_model, dt, frames.device)
     positions = _positions(B, T, x.device)
-    for bp in params["enc_blocks"]:
+    if place is not None:
+        x = place.seq_block(x)
+    for i, bp in enumerate(params["enc_blocks"]):
+        args = (cfg, bp, x, positions, place, i)
         if cfg.remat:
-            x = checkpoint(_enc_block, cfg, bp, x, positions,
-                           use_reentrant=False, preserve_rng_state=False)
+            x = checkpoint(_enc_block, *args, use_reentrant=False,
+                           preserve_rng_state=False)
         else:
-            x = _enc_block(cfg, bp, x, positions)
-    return L.apply_norm(params["enc_norm"], x)
+            x = _enc_block(*args)
+    return _final(params, "enc_norm", x, place)
 
 
 # ---- decoder: teacher forcing and prefill ---------------------------------- #
-def _dec_block_full(cfg: ModelConfig, bp, x, enc_out, positions):
+def _dec_block_full(cfg: ModelConfig, bp, x, enc_out, positions, place=None):
     """One decoder layer over the full target: (x, ((k, v) of the self-
-    attention, (k, v) of the cross-attention))."""
+    attention, (k, v) of the cross-attention)). On a mesh ``bp`` is the
+    layer as ``place.layer`` gives it and ``enc_out`` the encoder
+    stream's output, which the cross-attention takes whole."""
     h = L.apply_norm(bp["norm1"], x)
     y, kv_self = L.attention_full(bp["self_attn"], h, cfg,
-                                  positions=positions, causal=True)
+                                  positions=positions, causal=True,
+                                  place=place)
     x = x + y
     h = L.apply_norm(bp["norm_x"], x)
     y, kv_cross = L.attention_full(bp["cross_attn"], h, cfg,
                                    positions=positions, causal=False,
-                                   kv_x=enc_out)
+                                   kv_x=enc_out, place=place)
     x = x + y
-    x = x + L.apply_ffn(bp["ffn"], L.apply_norm(bp["norm2"], x), cfg)
+    x = x + L.apply_ffn(bp["ffn"], L.apply_norm(bp["norm2"], x), cfg,
+                        place=place)
     return x, (kv_self, kv_cross)
 
 
-def _dec_layer_out(cfg, bp, x, enc_out, positions):
-    return _dec_block_full(cfg, bp, x, enc_out, positions)[0]
+def _dec_layer_out(cfg, bp, x, enc_out, positions, place=None, i=0):
+    if place is not None:
+        bp = place.layer(bp, i, "dec_blocks")
+    return _dec_block_full(cfg, bp, x, enc_out, positions, place)[0]
 
 
-def _embed_tokens(params, cfg: ModelConfig, tokens):
-    return lm._embed(params, tokens).to(_cdtype(cfg))
+def _embed_tokens(params, cfg: ModelConfig, tokens, place=None):
+    """The token embeddings in the compute dtype; on a mesh
+    ``place.embed``'s."""
+    x = (lm._embed(params, tokens) if place is None
+         else place.embed(params, tokens))
+    return x.to(_cdtype(cfg))
+
+
+def decode_hidden(params, cfg: ModelConfig, frames, tokens, place=None):
+    """Teacher-forced decode of the whole target up to the final norm:
+    (B, S, d). On a mesh (``place``, the decoder stream's placement,
+    whose ``source`` is the encoder's) the rows are the rank's and the
+    hidden states its sequence block under ``seq_parallel``."""
+    enc_out = encode(params, cfg, frames,
+                     None if place is None else place.source or place)
+    dt = _cdtype(cfg)
+    B, S = tokens.shape
+    x = _embed_tokens(params, cfg, tokens, place)
+    x = x + sinusoid(S, cfg.d_model, dt, x.device)
+    positions = _positions(B, S, x.device)
+    if place is not None:
+        x = place.seq_block(x)
+    for i, bp in enumerate(params["dec_blocks"]):
+        args = (cfg, bp, x, enc_out, positions, place, i)
+        if cfg.remat:
+            x = checkpoint(_dec_layer_out, *args, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = _dec_layer_out(*args)
+    return _final(params, "dec_norm", x, place)
 
 
 def forward(params, cfg: ModelConfig, frames, tokens):
     """Teacher-forced decode of the whole target: logits (B, S, vocab)
     (the reference's ``forward`` also returns an aux loss of 0)."""
-    enc_out = encode(params, cfg, frames)
-    dt = _cdtype(cfg)
-    B, S = tokens.shape
-    x = _embed_tokens(params, cfg, tokens)
-    x = x + sinusoid(S, cfg.d_model, dt, x.device)
-    positions = _positions(B, S, x.device)
-    for bp in params["dec_blocks"]:
-        if cfg.remat:
-            x = checkpoint(_dec_layer_out, cfg, bp, x, enc_out, positions,
-                           use_reentrant=False, preserve_rng_state=False)
-        else:
-            x = _dec_layer_out(cfg, bp, x, enc_out, positions)
-    return lm._head(params, L.apply_norm(params["dec_norm"], x))
+    return lm._head(params, decode_hidden(params, cfg, frames, tokens))
 
 
-def per_example_nll(params, cfg: ModelConfig, batch):
+def _token_nll(logits, tgt):
+    """Next-token nll (B, n) of logits (B, n, vocab) at targets (B, n),
+    in fp32."""
+    lg = logits.float()
+    logz = torch.logsumexp(lg, dim=-1)
+    return logz - torch.gather(lg, -1, tgt[..., None])[..., 0]
+
+
+def per_example_nll(params, cfg: ModelConfig, batch, place=None):
     """(mean next-token nll per example (B,), 0.0) from the full fp32
     logits, as the reference computes them (no chunked CE). batch:
-    {"media": (B, T, d) frames, "tokens": (B, S)}."""
+    {"media": (B, T, d) frames, "tokens": (B, S)}.
+
+    On a mesh (``place``, the decoder stream's placement): the rank's
+    rows, the logits of the rank's positions (``place.positions()``)
+    that predict a token; where the rank holds the whole sequence their
+    mean is one device's, else their sum is summed over ``model``
+    (``place.loss_sum``) and divided by the S - 1 predictions. A block
+    with no such position runs its part of the graph, times 0, so every
+    rank's backward calls the same collectives."""
     tokens = batch["tokens"]
-    logits = forward(params, cfg, batch["media"], tokens)
-    tgt = tokens[:, 1:].to(logits.device, torch.long)
-    lg = logits[:, :-1].float()
-    logz = torch.logsumexp(lg, dim=-1)
-    gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
-    return (logz - gold).mean(-1), 0.0
+    S = tokens.shape[1]
+    if place is None:
+        logits = forward(params, cfg, batch["media"], tokens)
+        tgt = tokens[:, 1:].to(logits.device, torch.long)
+        return _token_nll(logits[:, :-1], tgt).mean(-1), 0.0
+    hidden = decode_hidden(params, cfg, batch["media"], tokens, place)
+    logits = place.head(params, hidden)
+    lo, hi = place.positions()
+    b = min(hi, S - 1)
+    if b <= lo:
+        return place.loss_sum(0.0 * logits.float().sum((1, 2))), 0.0
+    tgt = tokens[:, lo + 1:b + 1].to(logits.device, torch.long)
+    nll = _token_nll(logits[:, :b - lo], tgt)
+    if not place.sp:
+        return nll.mean(-1), 0.0
+    return place.loss_sum(nll.sum(-1)) / (S - 1), 0.0
 
 
-def loss_fn(params, cfg: ModelConfig, batch):
+def loss_fn(params, cfg: ModelConfig, batch, place=None):
     """Next-token cross entropy in fp32. Returns (loss, {"nll",
-    "aux"})."""
-    nll_ex, aux = per_example_nll(params, cfg, batch)
-    nll = nll_ex.mean()
+    "aux"}). On a mesh (``place``) the rank's share of the global batch's:
+    its rows' sum over the global row count (``lm.loss_fn``'s rule)."""
+    nll_ex, aux = per_example_nll(params, cfg, batch, place)
+    if place is None:
+        nll = nll_ex.mean()
+    else:
+        nll = nll_ex.sum() / (nll_ex.shape[0] * place.n_batch)
     return nll, {"nll": nll, "aux": aux}
 
 
@@ -341,95 +411,134 @@ def init_paged_cache(cfg: ModelConfig, B: int, n_pages: int, page: int, *,
             "cross": cross}
 
 
-def encode_cross(params, cfg: ModelConfig, frames):
+def encode_cross(params, cfg: ModelConfig, frames, place=None):
     """The encoder and every decoder layer's cross K/V for a request:
     frames (B, T, d) -> one cache of T slots a layer (``cache_from_
     prefill``, quantized for an int8 slab), the only encoder work a
-    request needs, done once at admission."""
-    enc_out = encode(params, cfg, frames)
+    request needs, done once at admission. On a mesh (``place``, a
+    ``dist.serving`` placement over the whole request) the encoder runs
+    on every rank and each layer's K/V are those of the KV heads the
+    rank's queries read (the paged pool's)."""
+    enc_out = encode(params, cfg, frames, place)
     T = enc_out.shape[1]
-    return [L.cache_from_prefill(cfg, L._qkv(bp["cross_attn"], enc_out, "k"),
-                                 L._qkv(bp["cross_attn"], enc_out, "v"), T)
-            for bp in params["dec_blocks"]]
+    out = []
+    for i, bp in enumerate(params["dec_blocks"]):
+        p = bp["cross_attn"]
+        src = enc_out
+        if place is not None:
+            p = place.layer(bp, i, "dec_blocks", ("cross_attn",))["cross_attn"]
+            split = p["wq"].shape[1] < cfg.n_heads
+            if split and p["wk"].shape[1] == cfg.n_kv_heads:
+                p = L._rank_kv(p, cfg, place.index)
+            src = place.enter_source(enc_out, split)
+        out.append(L.cache_from_prefill(cfg, L._qkv(p, src, "k", place),
+                                        L._qkv(p, src, "v", place), T))
+    return out
 
 
 def decode_chunk(params, cfg: ModelConfig, tokens, cache, page_table, pos,
-                 n_valid, *, window=None, full_logits=False):
+                 n_valid, *, window=None, full_logits=False, place=None):
     """C decoder tokens per row against the paged self-attention pools
     and the static cross slab (``lm.decode_chunk``'s batch contract and
     ``full_logits`` variant). Positions are rows of
     :func:`sinusoid_table`. The pools are written in place; the cross
-    slab is read only. Returns (logits, cache)."""
+    slab is read only. Returns (logits, cache).
+
+    On a mesh (``place``, a ``dist.serving`` placement) as
+    ``lm.decode_chunk``: the rank's blocks, its pool heads, and, when it
+    computes its rows, the cross slab of its rows and logits of them."""
+    ins = None
+    if place is not None and place.rows is not None:
+        ins = (page_table, pos, n_valid)
+        tokens, page_table, pos, n_valid = lm._serve_rows(
+            place, tokens, page_table, pos, n_valid)
     dt = _cdtype(cfg)
     B, C = tokens.shape
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, place)
     positions = (pos.to(x.device, torch.long).reshape(B, 1)
                  + torch.arange(C, device=x.device)[None, :])
     x = x + sinusoid_table(cfg, dt, x.device)[positions]
     pools = cache["self"]
     for i, bp in enumerate(params["dec_blocks"]):
+        if place is not None:
+            bp = place.layer(bp, i, "dec_blocks")
         h = L.apply_norm(bp["norm1"], x)
         layer = {name: pool[i] for name, pool in pools.items()}
         x = x + L.attention_decode_paged(bp["self_attn"], h, cfg, layer,
                                          page_table, pos, n_valid,
-                                         window=window)
+                                         window=window, place=place, ins=ins)
         h = L.apply_norm(bp["norm_x"], x)
         x = x + L.attention_cross_chunk(bp["cross_attn"], h, cfg,
-                                        cache["cross"][i])
-        x = x + L.apply_ffn(bp["ffn"], L.apply_norm(bp["norm2"], x), cfg)
-    x = L.apply_norm(params["dec_norm"], x)
+                                        cache["cross"][i], place=place)
+        x = x + L.apply_ffn(bp["ffn"], L.apply_norm(bp["norm2"], x), cfg,
+                            place=place)
+    x = _final(params, "dec_norm", x, place)
     if full_logits:
-        return lm._head(params, x), cache
-    return lm._head(params, L.gather_last(x, n_valid - 1))[:, 0], cache
+        return lm._out(params, x, place), cache
+    return lm._out(params, L.gather_last(x, n_valid - 1), place)[:, 0], cache
 
 
 def prefill(params, cfg: ModelConfig, frames, tokens, *, cache_len=None,
-            window=None, last_pos=None):
+            window=None, last_pos=None, place=None):
     """Encode, then teacher-force the prompt, building the slab caches.
 
     frames: (B, T, d); tokens: (B, S). Returns (logits (B, vocab) at
     ``last_pos`` (B,) per row, or at S - 1 when None; {"self": per layer
     the last ``min(cache_len, window)`` prompt positions' K/V, "cross":
-    per layer the encoder K/V, T slots})."""
-    enc_out = encode(params, cfg, frames)
+    per layer the encoder K/V, T slots}). On a mesh (``place``, a
+    ``dist.serving`` placement) the rank's blocks; the caches hold every
+    slot, and the rank's KV heads (every KV head when ``place.kv_whole``),
+    as ``lm.prefill``'s."""
+    enc_out = encode(params, cfg, frames, place)
     dt = _cdtype(cfg)
     B, S = tokens.shape
     T = enc_out.shape[1]
     cache_len = cache_len or S
     Ls = min(cache_len, window) if window else cache_len
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, place)
     x = x + sinusoid(S, cfg.d_model, dt, x.device)
     positions = _positions(B, S, x.device)
     caches = {"self": [], "cross": []}
-    for bp in params["dec_blocks"]:
+    for i, bp in enumerate(params["dec_blocks"]):
+        if place is not None:
+            bp = place.layer(bp, i, "dec_blocks")
         x, ((k, v), (kc, vc)) = _dec_block_full(cfg, bp, x, enc_out,
-                                                 positions)
+                                                 positions, place)
         caches["self"].append(L.cache_from_prefill(cfg, k[:, -Ls:],
                                                    v[:, -Ls:], Ls))
         caches["cross"].append(L.cache_from_prefill(cfg, kc, vc, T))
-    x = L.apply_norm(params["dec_norm"], x)
-    return lm._head(params, L.gather_last(x, last_pos))[:, 0], caches
+    x = _final(params, "dec_norm", x, place)
+    return lm._out(params, L.gather_last(x, last_pos), place)[:, 0], caches
 
 
-def decode_step(params, cfg: ModelConfig, token, cache, pos, *, window=None):
+def decode_step(params, cfg: ModelConfig, token, cache, pos, *, window=None,
+                place=None):
     """One decoder token for every row. token: (B, 1); ``pos`` an int or
     (B,) absolute positions; cache: :func:`init_cache`'s or
     :func:`prefill`'s. The self-attention K/V are written in place; the
-    cross caches are read only. Returns (logits (B, vocab), cache)."""
+    cross caches are read only. Returns (logits (B, vocab), cache). On a
+    mesh (``place``) as ``lm.decode_step``: the rank's blocks and slab
+    blocks; token and pos the whole batch's, the logits the rank's rows'
+    when it computes its rows."""
+    token, pos = lm._serve_rows(place, token, pos)
     dt = _cdtype(cfg)
-    x = _embed_tokens(params, cfg, token)
+    x = _embed_tokens(params, cfg, token, place)
     posv = torch.as_tensor(pos, device=x.device).long().reshape(-1)
     x = x + sinusoid_table(cfg, dt, x.device)[posv][:, None]
     for i, bp in enumerate(params["dec_blocks"]):
+        if place is not None:
+            bp = place.layer(bp, i, "dec_blocks")
         h = L.apply_norm(bp["norm1"], x)
         y, cache["self"][i] = L.attention_decode(
-            bp["self_attn"], h, cfg, cache["self"][i], pos=pos, window=window)
+            bp["self_attn"], h, cfg, cache["self"][i], pos=pos, window=window,
+            place=place)
         x = x + y
         h = L.apply_norm(bp["norm_x"], x)
-        y, _ = L.attention_decode(bp["cross_attn"], h, cfg,
-                                  cache["cross"][i], pos=_CROSS_POS,
-                                  cross=True)
+        y, cache["cross"][i] = L.attention_decode(
+            bp["cross_attn"], h, cfg, cache["cross"][i], pos=_CROSS_POS,
+            cross=True, place=place)
         x = x + y
-        x = x + L.apply_ffn(bp["ffn"], L.apply_norm(bp["norm2"], x), cfg)
-    x = L.apply_norm(params["dec_norm"], x)
-    return lm._head(params, x)[:, 0], cache
+        x = x + L.apply_ffn(bp["ffn"], L.apply_norm(bp["norm2"], x), cfg,
+                            place=place)
+    x = _final(params, "dec_norm", x, place)
+    return lm._out(params, x, place)[:, 0], cache

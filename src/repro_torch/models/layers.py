@@ -350,7 +350,8 @@ def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
     rank's query and KV heads when ``model`` splits them (the KV heads
     its queries read when it splits only the queries), and the layer
     enters and leaves the residual stream through ``place``; positions
-    are the whole sequence's.
+    are the whole sequence's. A cross-attention's source enters whole
+    over its sequence (``place.enter_source``).
     """
     split = place is not None and params["wq"].shape[1] < cfg.n_heads
     sel = None
@@ -361,7 +362,8 @@ def attention_full(params, x, cfg: ModelConfig, *, positions, window=None,
                 sel = rank_kv_heads(cfg, params["wq"].shape[1], place.index)
             else:
                 params = _rank_kv(params, cfg, place.index)
-    src = x if kv_x is None else kv_x
+    src = x if kv_x is None else kv_x if place is None else \
+        place.enter_source(kv_x, split)
     q = _qkv(params, x, "q", place)
     k, v = _qkv(params, src, "k", place), _qkv(params, src, "v", place)
     if cfg.rope != "none" and kv_x is None:
@@ -520,7 +522,7 @@ def attention_decode(params, x, cfg: ModelConfig, cache, *, pos,
             params = _rank_kv(params, cfg, place.index)
     block = cache
     if whole:
-        cache = place.kv_full(cache)
+        cache = place.kv_full(cache, cross)
     q = _qkv(params, x, "q", place)
     if not cross:
         k_new = _qkv(params, x, "k", place)
@@ -551,7 +553,8 @@ def attention_decode(params, x, cfg: ModelConfig, cache, *, pos,
     return place.exit(y, split), block
 
 
-def attention_cross_chunk(params, x, cfg: ModelConfig, cache):
+def attention_cross_chunk(params, x, cfg: ModelConfig, cache, *,
+                          place=None):
     """C-query cross-attention against one layer's static (encoder) slab
     cache (``layers.py:451-476``), plain PyTorch on both devices: the
     reference has no Pallas kernel for it.
@@ -561,9 +564,17 @@ def attention_cross_chunk(params, x, cfg: ModelConfig, cache):
     sees every slot whose ``slot_pos`` is >= 0 (no causality); logits
     and softmax in fp32 with a finite -1e30 mask, so the rows of a slot
     that never admitted (``slot_pos`` -1 throughout) are a uniform mean
-    of V, not NaN. Returns (B, C, d)."""
+    of V, not NaN. Returns (B, C, d).
+
+    On a mesh (``place``, a ``dist.serving`` placement) the query and
+    output weights hold the rank's heads and the cache the KV heads they
+    read (the paged pool's), over the rank's rows; the layer enters and
+    leaves the residual stream through ``place``."""
     B, C, _ = x.shape
-    q = _qkv(params, x, "q")
+    split = place is not None and params["wq"].shape[1] < cfg.n_heads
+    if place is not None:
+        x = place.enter(x, split)
+    q = _qkv(params, x, "q", place)
     H, D = q.shape[2], q.shape[3]
     K = cache["k"].shape[2]
     kf, vf = cache["k"].float(), cache["v"].float()
@@ -575,9 +586,9 @@ def attention_cross_chunk(params, x, cfg: ModelConfig, cache):
     valid = cache["slot_pos"] >= 0
     logits = logits.masked_fill(~valid[:, None, None, None, :], -1e30)
     probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bckgs,bskd->bckgd", probs, vf).reshape(B, C, H * D)
-    wo = params["wo"]
-    return out.to(x.dtype) @ wo.reshape(H * D, wo.shape[-1])
+    out = torch.einsum("bckgs,bskd->bckgd", probs, vf).reshape(B, C, H, D)
+    y = _attn_out(params, out.to(x.dtype), place)
+    return y if place is None else place.exit(y, split)
 
 
 # ---- Mixture-of-Experts FFN (``layers.py:544-603``) ----------------------- #

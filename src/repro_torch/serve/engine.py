@@ -540,9 +540,13 @@ class Engine:
             t0 = time.perf_counter()
             with torch.inference_mode():
                 frames = torch.tensor(np.asarray(req.media))[None]
+                place, _ = self._place(rows=False)
                 kv = self.api.encode_cross(self.params,
-                                           frames.to(self.device))
-                pool_ops.write_slot(self._cache["cross"], kv, slot)
+                                           frames.to(self.device), place)
+                if self.plan is None:
+                    pool_ops.write_slot(self._cache["cross"], kv, slot)
+                else:
+                    self.plan.write_cross(self._cache["cross"], kv, slot)
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
             self._trace.append(StepTrace(

@@ -62,24 +62,21 @@ class ModelAPI:
             return self._m.per_example_nll(params, self.cfg, batch)
         return self._m.per_example_nll(params, self.cfg, batch, place)
 
-    # ``place``: a ``dist.serving`` placement on a mesh (the decoder-only
-    # family; an enc-dec config does not serve on a mesh).
+    # ``place``: a ``dist.serving`` placement on a mesh.
     def prefill(self, params, batch, *, cache_len=None, window=None,
                 last_pos=None, place=None):
         if self.cfg.is_encdec:
             return encdec.prefill(params, self.cfg, batch["media"],
                                   batch["tokens"], cache_len=cache_len,
-                                  window=window, last_pos=last_pos)
+                                  window=window, last_pos=last_pos,
+                                  place=place)
         return lm.prefill(params, self.cfg, batch["tokens"],
                           media=batch.get("media"), cache_len=cache_len,
                           window=window, last_pos=last_pos, place=place)
 
     def decode(self, params, token, cache, pos, *, window=None, place=None):
-        if place is None:
-            return self._m.decode_step(params, self.cfg, token, cache, pos,
-                                       window=window)
-        return lm.decode_step(params, self.cfg, token, cache, pos,
-                              window=window, place=place)
+        return self._m.decode_step(params, self.cfg, token, cache, pos,
+                                   window=window, place=place)
 
     def init_cache(self, B, seq_len, window=None, *, device="cuda"):
         return self._m.init_cache(self.cfg, B, seq_len, window,
@@ -94,18 +91,13 @@ class ModelAPI:
 
     def decode_chunk(self, params, tokens, cache, page_table, pos, n_valid,
                      *, window=None, full_logits=False, place=None):
-        if place is None:
-            return self._m.decode_chunk(params, self.cfg, tokens, cache,
-                                        page_table, pos, n_valid,
-                                        window=window,
-                                        full_logits=full_logits)
-        return lm.decode_chunk(params, self.cfg, tokens, cache, page_table,
-                               pos, n_valid, window=window,
-                               full_logits=full_logits, place=place)
+        return self._m.decode_chunk(params, self.cfg, tokens, cache,
+                                    page_table, pos, n_valid, window=window,
+                                    full_logits=full_logits, place=place)
 
-    def encode_cross(self, params, frames):
+    def encode_cross(self, params, frames, place=None):
         """Enc-dec only: the encoder and every layer's cross K/V."""
-        return encdec.encode_cross(params, self.cfg, frames)
+        return encdec.encode_cross(params, self.cfg, frames, place)
 
 
 # Metric names make_train_step can add to its metrics dict
@@ -262,11 +254,19 @@ def _value_and_grad(cfg: ModelConfig, params, batch, acc, place=None):
     return loss.detach(), metrics["nll"].detach()
 
 
-def _seq_len(batch) -> int:
-    """The residual stream's length: the tokens and any media."""
+def placement(cfg: ModelConfig, plan, batch) -> Placement:
+    """The step's placement on the plan's mesh, from the residual
+    stream's length: the tokens and any prepended media; for an enc-dec
+    config the decoder's (its tokens), whose ``source`` is the encoder's
+    (its frames), each stream split under ``seq_parallel`` by its own
+    length."""
     media = batch.get("media")
-    return batch["tokens"].shape[1] + (0 if media is None
-                                       else media.shape[1])
+    S = batch["tokens"].shape[1]
+    if not cfg.is_encdec:
+        return Placement(plan, S + (0 if media is None else media.shape[1]))
+    place = Placement(plan, S)
+    place.source = Placement(plan, media.shape[1])
+    return place
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
@@ -298,8 +298,7 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
         grads: List[Optional[torch.Tensor]] = [None] * len(
             tree_leaves(params))
         with use_rules(None if plan is None else plan.rules):
-            place = None if plan is None else Placement(plan,
-                                                        _seq_len(batch))
+            place = None if plan is None else placement(cfg, plan, batch)
             if M > 1:
                 B = batch["tokens"].shape[0]
                 if B % M:
@@ -358,8 +357,7 @@ def make_eval_step(cfg: ModelConfig, *, plan=None) -> Callable:
     @torch.no_grad()
     def eval_step(params, batch, mask):
         with use_rules(None if plan is None else plan.rules):
-            place = None if plan is None else Placement(plan,
-                                                        _seq_len(batch))
+            place = None if plan is None else placement(cfg, plan, batch)
             nll_ex, _ = api.per_example_nll(api.use_cast(params), batch,
                                             place)
         mask = mask.to(nll_ex.device)

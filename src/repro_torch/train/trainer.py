@@ -68,9 +68,11 @@ class Trainer:
     the trainer from the same full tree (``params``, or the seed's) and
     keeps its blocks (``plan.pspecs``; the moments by ``plan.ospecs``);
     ``fit`` takes the global batch stream and keeps the rank's rows, and
-    its records hold the global loss and metrics. Checkpoints and
-    ``resume`` over more than one rank raise ``NotImplementedError``, as
-    do the families ``spmd.check_supported`` refuses."""
+    its records hold the global loss and metrics; a batch whose rows the
+    batch axes do not divide is replicated over them. Checkpoints and
+    ``resume`` over more than one rank raise ``NotImplementedError``, and
+    a mesh without a ``data`` axis ``ValueError``
+    (``spmd.check_supported``)."""
 
     def __init__(self, cfg: ModelConfig, tcfg: Optional[TrainerConfig] = None,
                  optimizer=None, *, device="cuda", params=None, mesh=None):

@@ -10,10 +10,13 @@ reference's input and sharding specs, and against real steps on the CPU.
   stacked ``layer`` dim dropped (``tests/test_torch_dist_specs.py``'s
   mapping).
 - *Fake is real.* On a one-rank mesh, ``dryrun_step``'s flops for reduced
-  yi-9b (train and decode) and reduced jamba-1.5-large (train) equal
-  exactly ``FlopCounterMode``'s count of the same step run on real CPU
-  tensors over a one-rank gloo mesh (the trainer's own step for train),
-  and its argument bytes the real tensors' bytes.
+  yi-9b (train and decode), reduced jamba-1.5-large and rwkv6-3b (train)
+  and reduced whisper-medium (train and decode) equal exactly
+  ``FlopCounterMode``'s count of the same step run on real CPU tensors
+  over a one-rank gloo mesh (the trainer's own step for train), and its
+  argument bytes the real tensors' bytes: at these lengths (at most 512
+  keys) the chunked path scans one chunk, and its count is the plain
+  attention's.
 - *Blocks on the pod mesh.* Reduced yi-9b in ``wus`` and ``fsdp`` on a
   fake 16 x 16 world, train and decode: the argument bytes equal the sum,
   over the reference's ``train_state_specs``, ``param_specs_serving``,
@@ -23,6 +26,10 @@ reference's input and sharding specs, and against real steps on the CPU.
 - *Layers split over ``model``.* A decode step of mixtral-8x7b and of
   rwkv6-3b on 16 x 16 gives a result whose all-reduces are the
   row-parallel exits of its split layers.
+- *Attention as the chunked path.* The traced attention's flops are
+  those of the (query, key) pairs ``_chunked_attention``'s band visits
+  (causal, windowed and non-causal counts written out here), and a
+  prefill's temporaries grow with S, not S^2.
 - The collective recorder names each ``dist.compat`` collective by the
   reference's kind; ``dryrun_one`` skips ``long_500k`` where the config
   has no long-context path, and a step that reads a value on the host
@@ -164,7 +171,9 @@ def real_serve(cfg, shape):
 @pytest.mark.parametrize("arch,kind", [("yi-9b", "train"),
                                        ("yi-9b", "decode"),
                                        ("jamba-1.5-large-398b", "train"),
-                                       ("rwkv6-3b", "train")])
+                                       ("rwkv6-3b", "train"),
+                                       ("whisper-medium", "train"),
+                                       ("whisper-medium", "decode")])
 def test_fake_step_counts_what_the_real_step_does(arch, kind):
     cfg = dataclasses.replace(get_config(arch).reduced(),
                               param_sharding="wus")
@@ -310,6 +319,75 @@ def test_recurrences_as_shapes_count_the_plain_loops():
                 want = shapes
         assert shapes == want
         assert flops[1] == flops[0] > 0, (S_, flops)
+
+
+# Full-sequence attention as ``_chunked_attention`` (``repro/kernels/
+# ops.py:53-148``, ``chunk=512``) computes it. Each count is written out
+# from its band: ck = min(512, Sk) keys a chunk, the keys padded to whole
+# chunks, and a causal call of Sq > ck queries visits, for each
+# 512-query chunk [q_lo, q_hi), the KV chunks [chunk_lo, chunk_hi) with
+# chunk_hi = (q_hi - 1) // 512 + 1 and, under a window W, chunk_lo =
+# max(q_lo - W + 1, 0) // 512; any other call scans every chunk.
+CHUNKED = {
+    # causal, Sq = Sk = 1200, 3 chunks: 1, 2 and 3 chunks visited
+    "causal": ((1200, 1200, True, None),
+               512 * 1 * 512 + 512 * 2 * 512 + 176 * 3 * 512),
+    # window 300: the third query chunk starts at chunk (1024 - 299) // 512
+    # = 1, so it visits 2
+    "window": ((1200, 1200, True, 300),
+               512 * 1 * 512 + 512 * 2 * 512 + 176 * 2 * 512),
+    # non-causal (a cross-attention): every query over ceil(1500 / 512) = 3
+    # whole chunks
+    "cross": ((600, 1500, False, None), 600 * 3 * 512),
+}
+
+
+@pytest.mark.parametrize("case", list(CHUNKED))
+def test_attention_flops_are_the_chunked_paths(case):
+    """The dry run's attention (``attention_as_chunks``): forward flops 4
+    D a visited (query, key) pair and head, forward and backward 12 D (the
+    backward two products for each of the two einsums, as ``jax.grad``
+    of them), the pairs those of the chunked path's band written out in
+    :data:`CHUNKED`; the output has q's shape and dtype and the
+    gradients the inputs'."""
+    from repro_torch.kernels import ops
+
+    (Sq, Sk, causal, window), pairs = CHUNKED[case]
+    B, H, K, Dh = 2, 4, 2, 64
+    with D.attention_as_chunks(), FakeTensorMode():
+        q = torch.empty((B, Sq, H, Dh), dtype=torch.bfloat16,
+                        requires_grad=True)
+        k, v = (torch.empty((B, Sk, K, Dh), dtype=torch.bfloat16,
+                            requires_grad=True) for _ in range(2))
+        with FlopCounterMode(display=False) as f:
+            out = ops.attention(q, k, v, causal=causal, window=window)
+            fwd = f.get_total_flops()
+            out.float().sum().backward()
+        total = f.get_total_flops()
+        assert (out.shape, out.dtype) == (q.shape, q.dtype)
+        assert [t.grad.shape for t in (q, k, v)] == [q.shape, k.shape,
+                                                      k.shape]
+    assert D.chunk_band(Sq, Sk, causal=causal, window=window, q_offset=0,
+                        k_offset=0)[0] == pairs
+    assert fwd == 4 * Dh * B * H * pairs
+    assert total == 12 * Dh * B * H * pairs
+    if causal and window is None:  # block skipping: below the plain count
+        assert pairs < Sq * Sk
+
+
+def test_prefill_peak_grows_with_the_sequence_not_its_square():
+    """A prefill's temporaries at S 1024, 2048 and 4096 (reduced yi-9b,
+    one row, 4 heads) grow by equal steps per doubling, twice the last
+    (the chunked path's O(S) working set), where the plain attention's
+    (B, H, Sq, Sk) fp32 scores alone would quadruple: at S 4096 the
+    temporaries stay below those scores' bytes."""
+    cfg = dataclasses.replace(get_config("yi-9b").reduced(),
+                              param_sharding="wus")
+    temp = [D.dryrun_step(cfg, InputShape("p", S_, 1, "prefill"),
+                          ONE)["temp_bytes_per_device"]
+            for S_ in (1024, 2048, 4096)]
+    assert temp[2] - temp[1] <= 2.2 * (temp[1] - temp[0])
+    assert temp[2] < cfg.n_heads * 4096 * 4096 * 4
 
 
 def test_recorder_names_the_references_kinds():

@@ -5,8 +5,10 @@ test_insert_refuses_silent_upcast_into_integer_pool`` pins for the
 reference); a batch that does not split into the microbatches raises
 ``ValueError`` instead of training on a subset of its rows; the
 messages of what is not ported name ROADMAP items, not queue numbers
-(the serve CLI's sharded and fleet flags, refused before, now serve);
-and Mamba's softplus passes ``jax.nn.softplus``'s gradient at 0."""
+(the serve CLI's sharded and fleet flags, refused before, now serve, and
+the enc-dec family, refused on a mesh before, serves there with one
+device's tokens); and Mamba's softplus passes ``jax.nn.softplus``'s
+gradient at 0."""
 import dataclasses
 import types
 
@@ -133,12 +135,22 @@ def test_not_ported_messages_name_roadmap_items(capsys):
     for what in ("train", "serve"):
         assert spmd.check_supported(get_config("mixtral-8x7b").reduced(),
                                     mesh, what) is None
-        # what stays refused names its queue item
-        with pytest.raises(NotImplementedError,
-                           match=f"does not {what} on a mesh yet "
-                                 r"\(ROADMAP.md item 6.2\)"):
+        # ported: the enc-dec family on a mesh; a mesh without a data
+        # axis is what stays refused
+        assert spmd.check_supported(get_config("whisper-medium").reduced(),
+                                    mesh, what) is None
+        with pytest.raises(ValueError, match="needs a 'data' axis"):
             spmd.check_supported(get_config("whisper-medium").reduced(),
-                                 mesh, what)
+                                 types.SimpleNamespace(shape={"model": 2}),
+                                 what)
+    # and whisper's tokens on a mesh those of one device
+    argv[1] = "whisper-medium"
+    assert serve_cli.main(argv) == 0
+    plain = capsys.readouterr().out.splitlines()
+    assert serve_cli.main(argv + ["--serve-mode", "tp2d"]) == 0
+    meshed = capsys.readouterr().out.splitlines()
+    assert meshed[0].startswith("whisper-medium [offline, mode=tp2d, ")
+    assert reqs(meshed) == reqs(plain) and len(reqs(plain)) == 2
 
 
 def test_softplus_gradient_at_zero_is_the_references():

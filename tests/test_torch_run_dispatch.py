@@ -22,8 +22,9 @@ through ``params=`` (the weight bridge).
   and the CLI (its JSON written, whatever ``--device`` says), and
   ``dryrun.all`` over reduced yi-9b, mixtral-8x7b and whisper-medium: 12
   rows, yi's and mixtral's 4 results each (mixtral's MoE split over
-  ``model``), whisper's 3 naming item 6.2, whisper's ``long_500k``
-  skipped, exit code 1; an open process group makes it raise.
+  ``model``), whisper's 3 results (the enc-dec on 16 x 16), whisper's
+  ``long_500k`` skipped, exit code 0; an open process group makes it
+  raise.
 - The k8s manifests equal the reference's but for the container's
   command and its GPU limit.
 - The spec-table rows of reduced yi-9b and mixtral-8x7b on 16 x 16, in
@@ -310,7 +311,7 @@ def test_dryrun_all_rows_errors_and_skip(tmp_path, capsys, reduced_archs):
     spec = apply_assignments(RunSpec(), ["mode=dryrun", "dryrun.all=true"])
     res = PD.run_spec(spec, device="cpu")
     rows = res["results"]
-    assert res["exit_code"] == 1
+    assert res["exit_code"] == 0
     assert [(r["arch"], r["shape"]) for r in rows] == [
         (a, s) for a in REDUCED for s in ("train_4k", "prefill_32k",
                                           "decode_32k", "long_500k")]
@@ -318,10 +319,10 @@ def test_dryrun_all_rows_errors_and_skip(tmp_path, capsys, reduced_archs):
     for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
         assert set(by["yi-9b", s]) == ROW_KEYS
         assert set(by["mixtral-8x7b", s]) == ROW_KEYS  # MoE over model 16
-    for s in ("train_4k", "prefill_32k", "decode_32k"):
-        assert "ROADMAP.md item 6.2" in by["whisper-medium", s]["error"]
+    for s in ("train_4k", "prefill_32k", "decode_32k"):  # enc-dec on 16 x 16
+        assert set(by["whisper-medium", s]) == ROW_KEYS
     assert "skipped" in by["whisper-medium", "long_500k"]
-    assert "9/12 dry-runs succeeded" in capsys.readouterr().out
+    assert "12/12 dry-runs succeeded" in capsys.readouterr().out
 
 
 def test_dryrun_must_own_the_process():

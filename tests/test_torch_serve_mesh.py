@@ -26,7 +26,12 @@ run on 4 ranks:
   slab's state whole);
 - ``tp2d`` and ``fsdp`` on (2, 2) with one slot (``max_batch`` 1, as
   ``long_500k`` decodes): the batch axes do not divide the one row, so
-  it is replicated over them and every rank computes it.
+  it is replicated over them and every rank computes it;
+- reduced whisper-medium (2 encoder and 2 decoder layers, 4/4 heads of
+  64, 64 frames a request) on (2, 2) in ``tp2d`` (paged with the prefix
+  cache and n-gram drafts, and from the slab) and in ``fsdp`` (paged and
+  slab): each request encoded at admission on every rank, the cross slab
+  of the rank's KV heads (and, in ``fsdp``, its slots).
 
 Each case holds every rank's greedy tokens bitwise to the one-device
 engine's and (gemma) to the reference's; ``check_ranks`` raises inside
@@ -37,9 +42,8 @@ and to each other bitwise; in the split-layer cases every program's
 logits (chunk, prefill and decode steps of the workload) are held so,
 and each rank's slab leaves have the block shapes of ``cache_pspecs``.
 A 1 x 1 gloo mesh (its own process) gives ``tp2d`` and ``fsdp`` tokens
-and logits bitwise the one-device engine's. An enc-dec config on a mesh
-raises ``NotImplementedError`` naming item 6.2; the MoE, Mamba and
-RWKV-6 kinds that raised over ``model`` 2 serve there in their reduced
+and logits bitwise the one-device engine's. The MoE, Mamba, RWKV-6 and
+enc-dec kinds that raised on a mesh serve on (2, 2) in their reduced
 configs' own mode (``replicated``), with the one-device tokens.
 
 One module fixture starts the ranks (``python tests/test_torch_serve_
@@ -91,19 +95,26 @@ CASES = {
     "mixtral_e3_1x4_fsdp": case("1x4", "fsdp", PAGED, model="mixtral_e3"),
     "jamba_2x2_tp2d_slab": case("2x2", "tp2d", SLAB, model="jamba"),
     "rwkv_2x2_fsdp_slab": case("2x2", "fsdp", SLAB, model="rwkv"),
+    "whisper_2x2_tp2d_drafts": case("2x2", "tp2d", dict(PAGED, **DRAFTS),
+                                    model="whisper"),
+    "whisper_2x2_fsdp": case("2x2", "fsdp", PAGED, model="whisper"),
+    "whisper_2x2_tp2d_slab": case("2x2", "tp2d", SLAB, model="whisper"),
+    "whisper_2x2_fsdp_slab": case("2x2", "fsdp", SLAB, model="whisper"),
 }
 # The cases of layers split over ``model`` (MoE experts or hidden units,
-# Mamba channels, RWKV-6 heads): every program's logits are recorded.
+# Mamba channels, RWKV-6 heads, an enc-dec's encoder, self- and
+# cross-attention): every program's logits are recorded.
 LAYERS = ("mixtral_2x2_tp2d", "mixtral_e3_1x4_fsdp", "jamba_2x2_tp2d_slab",
-          "rwkv_2x2_fsdp_slab")
+          "rwkv_2x2_fsdp_slab", "whisper_2x2_tp2d_drafts", "whisper_2x2_fsdp",
+          "whisper_2x2_tp2d_slab", "whisper_2x2_fsdp_slab")
 ONE = {"tp2d_1x1": case("1x1", "tp2d", dict(PAGED, **DRAFTS)),
        "fsdp_1x1": case("1x1", "fsdp", PAGED)}
 ARCHS = {"gemma": "gemma-7b", "mixtral": "mixtral-8x7b",
          "mixtral_e3": "mixtral-8x7b", "jamba": "jamba-1.5-large-398b",
-         "rwkv": "rwkv6-3b"}
-# The kinds that raised on a model axis before they were split over it;
-# each now serves its reduced fp32 config in the config's own mode on
-# (2, 2), held to the one-device engine (``test_refused_on_a_mesh``).
+         "rwkv": "rwkv6-3b", "whisper": "whisper-medium"}
+# The kinds that raised on a mesh before they were split over it; each
+# now serves its reduced fp32 config in the config's own mode on (2, 2),
+# held to the one-device engine (``test_refused_on_a_mesh``).
 REFUSED = {"moe": "mixtral-8x7b", "mamba": "jamba-1.5-large-398b",
            "rwkv6": "rwkv6-3b", "encdec": "whisper-medium"}
 
@@ -132,6 +143,14 @@ def tree_key(c):
     return (c["model"], c["kv"])
 
 
+def from_numpy(tree, cfg, **kw):
+    """The family's weight bridge (``lm`` or ``encdec``)."""
+    from repro_torch.models import encdec, lm
+
+    return (encdec if cfg.is_encdec else lm).params_from_numpy(tree, cfg,
+                                                               **kw)
+
+
 def workload(make, cfg):
     """A server stream: mixed arrivals, two 8-token templates."""
     reqs = make(cfg, n=6, tokens=6, prompt_len=20, scenario="server",
@@ -149,13 +168,12 @@ def port_tokens(c, trees, record=None, **kw):
     logits of every program the engine runs (every row) appended to it,
     and the engine returned beside the tokens."""
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, ServeConfig, \
         synthetic_requests
     from repro_torch.serve.scenarios import run_server
 
     cfg = base_config(c, get_config)
-    params = lm.params_from_numpy(trees[tree_key(c)], cfg, device="cpu")
+    params = from_numpy(trees[tree_key(c)], cfg, device="cpu")
     eng = Engine(cfg, params, ServeConfig(**c["knobs"]), **kw)
     if record is not None:
         recording(eng, record)
@@ -205,8 +223,7 @@ def cache_block_shapes(c, eng):
 
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import Rules
-    from repro_torch.models import lm
-    from repro_torch.train.steps import cache_pspecs
+    from repro_torch.train.steps import ModelAPI, cache_pspecs
 
     cfg = base_config(c, get_config)
     knobs = c["knobs"]
@@ -214,15 +231,19 @@ def cache_block_shapes(c, eng):
     rules = Rules(types.SimpleNamespace(shape=sizes,
                                         axis_names=("data", "model")),
                   c["mode"])
-    full = lm.init_cache(cfg, knobs["max_batch"], knobs["max_len"],
-                         device="meta")
+    full = ModelAPI(cfg).init_cache(knobs["max_batch"], knobs["max_len"],
+                                    device="meta")
+    specs = cache_pspecs(cfg, full, rules)
+    slab = eng._slab
+    if cfg.is_encdec:  # the self-attention caches, then the cross ones
+        full, specs, slab = (x["self"] + x["cross"]
+                             for x in (full, specs, slab))
     want = []
-    for layer, specs in zip(full, cache_pspecs(cfg, full, rules)):
+    for layer, sp in zip(full, specs):
         want.append({n: tuple(
             d // int(np.prod([sizes[a] for a in (e or ())]))
-            for d, e in zip(t.shape, specs[n])) for n, t in layer.items()})
-    got = [{n: tuple(t.shape) for n, t in layer.items()}
-           for layer in eng._slab]
+            for d, e in zip(t.shape, sp[n])) for n, t in layer.items()})
+    got = [{n: tuple(t.shape) for n, t in layer.items()} for layer in slab]
     return got, want
 
 
@@ -272,32 +293,24 @@ def chunk_logits(trees, mesh=None, mode="tp2d", kv=4):
 
 def pinned_tokens(arch, mesh=None):
     """The greedy tokens of reduced ``arch`` in fp32, its config's own
-    mode and layout, from ``init_lm``'s seeded weights: 3 requests of 3
-    tokens."""
+    mode and layout, from the family's seeded weights (``init_lm``,
+    ``init_encdec``): 3 requests of 3 tokens."""
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
     from repro_torch.serve.engine import Engine, ServeConfig, \
         synthetic_requests
     from repro_torch.serve.scenarios import run_offline
+    from repro_torch.train.steps import ModelAPI
 
     cfg = get_config(arch).reduced()
     cfg = dataclasses.replace(cfg, **dict(
         FP32, n_layers=max(2, len(cfg.block_pattern))))  # jamba: 3
-    eng = Engine(cfg, lm.init_lm(cfg, device="cpu"),
+    eng = Engine(cfg, ModelAPI(cfg).init(cfg, device="cpu"),
                  ServeConfig(max_batch=4, max_len=40), check_ranks=True,
                  mesh=mesh, device="cpu")
     report = run_offline(eng, synthetic_requests(cfg, n=3, tokens=3,
                                                  prompt_len=12, seed=4))
     return ("tokens", [list(r.tokens) for r in sorted(report.requests,
                                                        key=lambda r: r.id)])
-
-
-def _raises(fn):
-    try:
-        fn()
-    except Exception as e:  # the test checks the type and message
-        return (type(e).__name__, str(e))
-    return None
 
 
 def rank_cases(trees, meshes, cases):
@@ -334,10 +347,7 @@ def rank_main(rank, store, inputs_path, out_path):
     import torch.distributed as dist
 
     sys.path.insert(0, os.path.join(ROOT, "src"))
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import init_process_group, make_mesh
-    from repro_torch.models import lm
-    from repro_torch.serve.engine import Engine
 
     warnings.filterwarnings("ignore", category=FutureWarning)
     torch.set_num_threads(1)
@@ -350,11 +360,6 @@ def rank_main(rank, store, inputs_path, out_path):
     out = rank_cases(trees, meshes, CASES)
     refused = {}
     for kind, arch in REFUSED.items():
-        if kind == "encdec":
-            cfg = get_config(arch).reduced()
-            refused[kind] = _raises(lambda: Engine(cfg, {},
-                                                   mesh=meshes["2x2"]))
-            continue
         try:
             refused[kind] = pinned_tokens(arch, mesh=meshes["2x2"])
         except Exception:  # recorded; the kind's test fails with it
@@ -502,8 +507,7 @@ def runs():
                 if c["model"] == "gemma":
                     ref[name] = ref_tokens(c, trees)
             for kind, arch in REFUSED.items():
-                if kind != "encdec":
-                    one[kind] = pinned_tokens(arch)
+                one[kind] = pinned_tokens(arch)
             logits = {kv: chunk_logits(trees, kv=kv) for kv in (4, 2)}
             for p in procs:
                 logs.append(p.communicate(timeout=400)[0].decode()[-3000:])
@@ -585,15 +589,11 @@ def test_mesh_layer_logits_and_cache_blocks(runs, name):
 
 @pytest.mark.parametrize("kind", list(REFUSED))
 def test_refused_on_a_mesh(runs, kind):
-    """Enc-dec configs still raise on a mesh, naming item 6.2; the MoE,
-    Mamba and RWKV-6 kinds that raised over ``model`` 2 now serve there,
-    in their configs' own (replicated) mode, with the one-device
-    engine's tokens."""
+    """The MoE, Mamba, RWKV-6 and enc-dec kinds that raised on a mesh
+    now serve on (2, 2), in their configs' own (replicated) mode, with
+    the one-device engine's tokens."""
     out, _, one, _, _ = runs
     for o in out:
         got = o["refused"][kind]
-        if kind != "encdec":
-            assert got == one[kind], got
-            continue
-        assert got is not None and got[0] == "NotImplementedError", got
-        assert "item 6.2" in got[1], got
+        assert got == one[kind], got
+        assert got[0] == "tokens" and len(got[1]) == 3, got

@@ -33,6 +33,15 @@ step 1 (before any update) and 2e-2 on steps 2-3 (bf16 sums in another
 order move a near-tie route, and Adam's steps carry it); each rank's
 step time and peak memory printed.
 
+The enc-dec on four cards: whisper-medium at every published width and
+depth trains 3 steps of batch 8 x (1500 frames, 448 tokens) in its own
+mode (``wus``, ``seq_parallel``) on a (2, 2) mesh (8/16 heads and 2048 of
+4096 FFN units a rank, both streams split over ``model``: 750 frames and
+224 tokens a rank) and on a (4, 1) mesh (2 rows a rank) beside one card:
+each step's loss on every rank equal to rank 0's, step 1 held to one
+card's at 1e-3 relative, steps 2-3 printed; each rank's step time and
+peak memory printed.
+
 This file imports no JAX, so it runs on a card where JAX is missing."""
 import dataclasses
 import os
@@ -368,3 +377,115 @@ def test_mesh_trainer_on_four_cards_matches_one_device(cuda_device):
     first = [o["full"][0][0] for o in out]
     assert len(set(first)) == 1, first
     assert abs(first[0] - one[0][0]) <= 1e-3 * abs(one[0][0]), (first, one)
+
+
+WHISPER_STEPS, WHISPER_BATCH, WHISPER_SEQ = 3, 8, 448
+WHISPER_MESHES = ((2, 2), (4, 1))
+
+
+def whisper_run(device, mesh=None, reduced=False):
+    """whisper-medium (``reduced``: its reduced config in fp32, for a
+    rehearsal on the CPU) from seed 0's weights, 3 steps of batch 8 x
+    (its frames, 448 tokens) in its own mode (``wus``, ``seq_parallel``):
+    (losses, step ms, peak GiB of this rank's card or None)."""
+    from repro_torch.data.pipeline import synthetic_lm_batches
+
+    cfg = get_config("whisper-medium")
+    if reduced:
+        cfg = dataclasses.replace(cfg.reduced(), dtype="float32",
+                                  param_sharding="wus", seq_parallel=True)
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    tr = Trainer(cfg, TrainerConfig(total_steps=WHISPER_STEPS, log_every=0),
+                 device=device, mesh=mesh)
+    seq = 32 if reduced else WHISPER_SEQ
+    hist = tr.fit(synthetic_lm_batches(cfg, batch=WHISPER_BATCH, seq=seq,
+                                       steps=WHISPER_STEPS, seed=0),
+                  hooks=[SyncEveryStep()] if cuda else [])
+    out = ([r["loss"] for r in hist], [r["step_ms"] for r in hist],
+           torch.cuda.max_memory_allocated(device) / 2**30 if cuda else None)
+    del tr
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def whisper_rank_main(rank, store, out_dir, device_type="cuda",
+                      reduced=False):
+    """One rank of the four: ``whisper_run`` on each of
+    :data:`WHISPER_MESHES`; pickled."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_process_group, make_mesh
+
+    torch.set_num_threads(1)
+    init_process_group(device=device_type, rank=rank, world_size=WORLD4,
+                       store_path=store)
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if device_type == "cuda" else torch.device("cpu"))
+    out = {}
+    try:
+        for shape in WHISPER_MESHES:
+            try:
+                out[shape] = whisper_run(dev, make_mesh(
+                    shape, ("data", "model"), device=device_type), reduced)
+            except Exception:  # recorded; the test fails with it
+                out[shape] = {"error": traceback.format_exc()}
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"whisper{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def launch_whisper(out_dir, device_type="cuda", reduced=False, timeout=900):
+    """The four ranks of ``whisper_rank_main`` as spawned processes;
+    returns their results."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=whisper_rank_main, args=(
+        r, os.path.join(out_dir, "store"), out_dir, device_type, reduced))
+        for r in range(WORLD4)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=timeout)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0] * WORLD4
+    out = []
+    for r in range(WORLD4):
+        with open(os.path.join(out_dir, f"whisper{r}.pkl"), "rb") as f:
+            out.append(pickle.load(f))
+    return out
+
+
+def hold_whisper(out, one):
+    """Every rank's losses on each mesh equal to rank 0's, step 1 within
+    1e-3 of one card's (relative)."""
+    for shape in WHISPER_MESHES:
+        runs = [o[shape] for o in out]
+        for r, got in enumerate(runs):
+            assert not isinstance(got, dict), f"rank {r}:\n{got['error']}"
+            print(f"  rank {r} of a {shape} wus mesh: losses {got[0]}, step "
+                  f"ms {got[1]}, peak {got[2]} GiB")
+            assert got[0] == runs[0][0], (shape, r, got[0], runs[0][0])
+        first = runs[0][0][0]
+        assert abs(first - one[0][0]) <= 1e-3 * abs(one[0][0]), \
+            (shape, runs[0][0], one[0])
+
+
+@pytest.mark.cuda
+def test_whisper_trainer_on_four_cards_matches_one_card(cuda_device):
+    if torch.cuda.device_count() < WORLD4:
+        pytest.skip(f"needs {WORLD4} cards; this machine has "
+                    f"{torch.cuda.device_count()}")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = launch_whisper(tmp)
+    one = whisper_run(cuda_device)
+    print(f"whisper-medium, batch {WHISPER_BATCH} x (1500, {WHISPER_SEQ}): "
+          f"one card losses {one[0]}, step ms {one[1]}, peak {one[2]:.2f} "
+          f"GiB")
+    hold_whisper(out, one)

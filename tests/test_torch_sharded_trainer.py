@@ -35,7 +35,17 @@ Adam at a constant rate unless a case says otherwise. The cases:
   every head. RWKV-6 under Adam reads 1.38e-5 on (8, 1) alone, without
   ``model`` (a near-zero gradient's rounding, normalised), above
   ``LEAF_TOL``; SGD's update is linear in the gradient and shows a split
-  that is off.
+  that is off;
+- reduced whisper-medium (2 encoder layers over 64 frames, 2 decoder
+  layers, 4/4 heads of 64) on (4, 2): in ``wus`` with and without
+  ``seq_parallel`` (with it each stream split over ``model`` by its own
+  length: 32 frames and 16 tokens a rank), in ``fsdp`` without it, and
+  in ``wus`` over 33 frames, which ``model`` 2 does not divide (the
+  encoder stream whole on every rank, the decoder's split), the last two
+  under SGD;
+- a batch of 6 rows on (4, 2), which the 4 batch ranks do not divide: it
+  is replicated over them, every rank computing every row, in ``wus``
+  (Adam) and ``fsdp`` (SGD).
 
 Each case holds the loss, nll and ``grad_norm`` of every step and the
 masked eval nll after them (``Trainer.evaluate`` over a batch whose last
@@ -46,14 +56,16 @@ global batches (sound runs read at most 1.7e-6, the worst printed by
 the ``-s`` run); the blocks that several ranks hold must agree to the
 last bit. The (4, 2) ``wus`` run with
 ``seq_parallel`` is also held against the reference's ``Trainer`` on
-``make_test_mesh(4, 2)`` over 8 host devices, in the JAX subprocess that
-runs beside the ranks, and so is ``jamba_fsdp_sp1``. The
-``NotImplementedError`` s are pinned: enc-dec configs on a mesh, and a
-checkpoint or a resume on more than one rank; the MoE, Mamba and RWKV-6
-kinds that raised over ``model`` 2 until it split them are held instead
-(``test_refused_on_a_mesh``): each reduced arch in fp32 in its own mode
-(``replicated``: whole weights, each rank cutting its block after a
-``pvary``) trains 2 steps on (4, 2), loss, nll and grad norm to
+``make_test_mesh(4, 2)`` over 8 host devices, in a JAX subprocess, and so
+are ``jamba_fsdp_sp1``, ``whisper_wus`` and ``wus_rows6`` (the
+reference replicates that batch too). Its program for whisper with
+``seq_parallel`` hangs in XLA's CPU runtime on 8 host devices under load,
+so that case is held to one device only. The ``NotImplementedError`` s are
+pinned: a checkpoint or a resume on more than one rank; the MoE, Mamba,
+RWKV-6 and enc-dec kinds that raised on a mesh until it split them are
+held instead (``test_refused_on_a_mesh``): each reduced arch in fp32 in
+its own mode (``replicated``: whole weights, each rank cutting its block
+after a ``pvary``) trains 2 steps on (4, 2), loss, nll and grad norm to
 ``LOSS_TOL`` of the one-device trainer's.
 
 One module fixture starts the ranks (``python tests/test_torch_sharded_
@@ -94,9 +106,9 @@ MESHES = {"4x2": ((4, 2), ("data", "model")),
           "8x1": ((8, 1), ("data", "model"))}
 
 
-def case(mesh, mode, sp=True, *, model="yi", opt="adam", micro=1):
+def case(mesh, mode, sp=True, *, model="yi", opt="adam", micro=1, rows=B):
     return dict(mesh=mesh, mode=mode, sp=sp, model=model, opt=opt,
-                micro=micro)
+                micro=micro, rows=rows)
 
 
 CASES = {
@@ -115,13 +127,26 @@ CASES = {
     "rwkv_wus": case("4x2", "wus", model="rwkv", opt="sgd"),
     "rwkv_mid_head": case("4x2", "fsdp", False, model="rwkv_mid",
                           opt="sgd"),
+    "whisper_wus_sp1": case("4x2", "wus", model="whisper"),
+    "whisper_wus": case("4x2", "wus", False, model="whisper"),
+    "whisper_fsdp": case("4x2", "fsdp", False, model="whisper", opt="sgd"),
+    "whisper_t33_wus": case("4x2", "wus", model="whisper_t33", opt="sgd"),
+    "wus_rows6": case("4x2", "wus", rows=6),
+    "fsdp_rows6": case("4x2", "fsdp", rows=6, opt="sgd"),
 }
 # the step whose collectives rank 0 records for the dry run's check
 RECORDED = case("4x2", "wus")
+# the cases the reference's mesh Trainer runs too, beside ``wus_sp1``.
+# Not ``whisper_wus_sp1``: on 8 host devices under load the reference's
+# program for it hangs in XLA's CPU runtime (a collective permute over all
+# 8 devices against an all-reduce of one model pair), where without
+# ``seq_parallel`` it does not.
+JAX_CASES = ("jamba_fsdp_sp1", "whisper_wus", "wus_rows6")
 ARCHS = {"yi": "yi-9b", "yi_kv1": "yi-9b", "jamba": "jamba-1.5-large-398b",
          "vlm": "qwen2-vl-7b", "mixtral": "mixtral-8x7b",
          "mixtral_e3": "mixtral-8x7b", "rwkv": "rwkv6-3b",
-         "rwkv_mid": "rwkv6-3b"}
+         "rwkv_mid": "rwkv6-3b", "whisper": "whisper-medium",
+         "whisper_t33": "whisper-medium"}
 # The kinds that raised on a model axis before they were split over it;
 # each is now held to the one-device trainer (``test_refused_on_a_mesh``).
 REFUSED = {"moe": "mixtral-8x7b", "mamba": "jamba-1.5-large-398b",
@@ -141,26 +166,38 @@ def base_config(model, get_config):
     if model == "rwkv_mid":  # 3 heads of 64: model 2 cuts one mid-head
         cfg = dataclasses.replace(cfg, d_model=192, rwkv6=dataclasses.replace(
             cfg.rwkv6, head_dim=64))
+    if model == "whisper_t33":  # 33 frames: model 2 keeps the encoder whole
+        cfg = dataclasses.replace(cfg, enc_source_len=33)
     return cfg
 
 
-def batches(cfg, seed=0, n=STEPS):
-    """``n`` global batches: tokens, and a vision frontend's media."""
+def batches(cfg, seed=0, n=STEPS, rows=B):
+    """``n`` global batches of ``rows`` rows: tokens, and a vision
+    frontend's media or an enc-dec's encoder frames."""
     rng = np.random.default_rng(seed)
+    n_media = cfg.enc_source_len if cfg.is_encdec else cfg.n_media_tokens
     out = []
     for _ in range(n):
-        b = {"tokens": rng.integers(0, cfg.vocab, (B, S)).astype(np.int64)}
-        if cfg.n_media_tokens:
+        b = {"tokens": rng.integers(0, cfg.vocab, (rows, S)).astype(np.int64)}
+        if n_media:
             b["media"] = rng.standard_normal(
-                (B, cfg.n_media_tokens, cfg.d_model)).astype(np.float32)
+                (rows, n_media, cfg.d_model)).astype(np.float32)
         out.append(b)
     return out
 
 
-def eval_set(cfg):
+def eval_set(cfg, rows=B):
     """One eval batch whose last two rows are padding (mask 0)."""
-    mask = np.array([1] * (B - 2) + [0, 0], np.float32)
-    return lambda: [(batches(cfg, seed=7, n=1)[0], mask)]
+    mask = np.array([1] * (rows - 2) + [0, 0], np.float32)
+    return lambda: [(batches(cfg, seed=7, n=1, rows=rows)[0], mask)]
+
+
+def from_numpy(tree, cfg, **kw):
+    """The family's weight bridge (``lm`` or ``encdec``)."""
+    from repro_torch.models import encdec, lm
+
+    return (encdec if cfg.is_encdec else lm).params_from_numpy(tree, cfg,
+                                                               **kw)
 
 
 # --------------------------------------------------------------------------- #
@@ -172,7 +209,6 @@ def port_run(c, trees, *, mesh=None, device="cpu"):
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.models import lm
     from repro_torch.optim import adam, constant, sgd_momentum
     from repro_torch.train import Trainer, TrainerConfig
 
@@ -181,14 +217,14 @@ def port_run(c, trees, *, mesh=None, device="cpu"):
                               seq_parallel=c["sp"], microbatches=c["micro"])
     opt = (adam(constant(LR), b1=0.9, b2=0.95, eps=EPS) if c["opt"] == "adam"
            else sgd_momentum(constant(LR), momentum=0.0))
-    params = lm.params_from_numpy(trees[c["model"]], cfg, device=device,
-                                  dtype=torch.float32)
+    params = from_numpy(trees[c["model"]], cfg, device=device,
+                        dtype=torch.float32)
     tr = Trainer(cfg, TrainerConfig(total_steps=STEPS, log_every=0,
                                     metrics=("grad_norm",)), opt,
                  device=device, params=params, mesh=mesh)
-    hist = tr.fit(batches(cfg), hooks=[])
+    hist = tr.fit(batches(cfg, rows=c["rows"]), hooks=[])
     return ([{k: r[k] for k in ("loss", "nll", "grad_norm")} for r in hist],
-            tr.evaluate(eval_set(cfg))["eval_nll"], tr)
+            tr.evaluate(eval_set(cfg, c["rows"]))["eval_nll"], tr)
 
 
 def rank_main(rank, store, inputs_path, out_path):
@@ -201,7 +237,6 @@ def rank_main(rank, store, inputs_path, out_path):
     from repro_torch.configs import get_config
     from repro_torch.dist import spmd
     from repro_torch.launch.mesh import init_process_group, make_mesh
-    from repro_torch.models import lm
     from repro_torch.train import Trainer, TrainerConfig
     from repro_torch.utils import tree_leaves
 
@@ -218,8 +253,7 @@ def rank_main(rank, store, inputs_path, out_path):
         try:
             mesh = meshes[c["mesh"]]
             hist, ev, tr = port_run(c, trees, mesh=mesh)
-            full = lm.params_from_numpy(trees[c["model"]], tr.cfg,
-                                        device="cpu")
+            full = from_numpy(trees[c["model"]], tr.cfg, device="cpu")
             specs = spmd.leaf_list(full, tr.plan.pspecs)
             out[name] = {"hist": hist, "eval": ev, "blocks": [
                 (spmd.block_slices(s, f.shape, mesh), w.detach().numpy().copy())
@@ -229,11 +263,6 @@ def rank_main(rank, store, inputs_path, out_path):
             out[name] = {"error": traceback.format_exc()}
     refused = {}
     for kind, arch in REFUSED.items():
-        if kind == "encdec":
-            cfg = get_config(arch).reduced()
-            refused[kind] = _raises(lambda: Trainer(cfg, device="cpu",
-                                                    mesh=meshes["4x2"]))
-            continue
         try:
             refused[kind] = pinned_history(arch, meshes["4x2"])
         except Exception:  # recorded; the kind's test fails with it
@@ -287,7 +316,8 @@ def recorded_step(mesh):
 def pinned_history(arch, mesh=None):
     """Two steps of reduced ``arch`` in fp32 in its config's own mode
     (``replicated``, ``seq_parallel``) and optimizer, from the trainer's
-    seeded weights: loss, nll and grad_norm a step."""
+    seeded weights (``encdec.init_encdec``'s for whisper): loss, nll and
+    grad_norm a step."""
     from repro_torch.configs import get_config
     from repro_torch.train import Trainer, TrainerConfig
 
@@ -311,9 +341,11 @@ def _raises(fn):
 def jax_main(inputs_path, out_path):
     """The reference's ``Trainer`` on ``make_test_mesh(4, 2)`` over 8
     host devices, from the same trees and batches: yi in ``wus`` with
-    ``seq_parallel`` under Adam, and (``"jamba"``) the ``jamba_fsdp_sp1``
-    case, jamba in ``fsdp`` with ``seq_parallel`` under SGD: losses, grad
-    norms and the final weights of each."""
+    ``seq_parallel`` under Adam, and the cases of :data:`JAX_CASES`
+    (jamba in ``fsdp`` with ``seq_parallel`` under SGD, reduced whisper
+    in ``wus``, and yi on a batch of 6 rows, which the reference
+    replicates over the 4 batch ranks): losses, grad norms and the final
+    weights of each."""
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     os.environ["JAX_PLATFORMS"] = "cpu"
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -343,7 +375,7 @@ def jax_main(inputs_path, out_path):
                                        "opt": opt.init(params)},
                                       tr._ns(tr.state_specs))
             hist = []
-            for b in batches(cfg):
+            for b in batches(cfg, rows=c["rows"]):
                 if tr._train_step is None:
                     tr._compile_train(b)
                 tr.state, m = tr._train_step(tr.state, b)
@@ -353,7 +385,8 @@ def jax_main(inputs_path, out_path):
         return {"hist": hist, "params": final}
 
     out = run(CASES["wus_sp1"])
-    out["jamba"] = run(CASES["jamba_fsdp_sp1"])
+    for name in JAX_CASES:
+        out[name] = run(CASES[name])
     with open(out_path, "wb") as f:
         pickle.dump(out, f)
 
@@ -444,14 +477,13 @@ def runs():
         try:
             one = {}
             for name, c in CASES.items():
-                key = (c["model"], c["opt"], c["micro"])
+                key = one_key(c)
                 if key not in one:
                     hist, ev, tr = port_run(c, trees)
                     one[key] = (hist, [w.detach().numpy().copy() for w in
                                        tree_leaves(tr.state["params"])], ev)
             for kind, arch in REFUSED.items():
-                if kind != "encdec":
-                    one[kind] = pinned_history(arch)
+                one[kind] = pinned_history(arch)
             for p in procs:
                 logs.append(p.communicate(timeout=480)[0].decode()[-3000:])
         finally:
@@ -467,6 +499,11 @@ def runs():
         with open(os.path.join(tmp, "jax.pkl"), "rb") as f:
             ref = pickle.load(f)
     return out, one, ref
+
+
+def one_key(c):
+    """The one-device run a case is held to."""
+    return (c["model"], c["opt"], c["micro"], c["rows"])
 
 
 def assemble(got, shapes):
@@ -504,8 +541,7 @@ def test_mesh_trainer_matches_one_device(runs, name):
     for r, g in enumerate(got):
         if "error" in g:
             pytest.fail(f"rank {r}, case {name}:\n{g['error']}")
-    c = CASES[name]
-    hist, leaves, ev = one[(c["model"], c["opt"], c["micro"])]
+    hist, leaves, ev = one[one_key(CASES[name])]
     for g in got:  # every rank reports the global metrics
         hold_history(g["hist"], hist)
         assert abs(g["eval"] - ev) <= LOSS_TOL * ev, (g["eval"], ev)
@@ -515,57 +551,63 @@ def test_mesh_trainer_matches_one_device(runs, name):
     assert worst <= LEAF_TOL, (name, worst)
 
 
-def test_reference_mesh_trainer_matches(runs):
-    """The port's (4, 2) ``wus`` run with ``seq_parallel`` against the
-    reference's mesh ``Trainer`` on 8 host devices."""
-    out, one, ref = runs
-    got = [o["wus_sp1"] for o in out]
+def hold_reference(runs, name, ref):
+    """Every rank's history of case ``name`` to the reference's mesh run
+    ``ref``, and the assembled leaves to its final weights."""
+    out, one, _ = runs
+    got = [o[name] for o in out]
     for g in got:
         assert "error" not in g, g.get("error")
         hold_history(g["hist"], ref["hist"])
-    _, leaves, _ = one[("yi", "adam", 1)]
+    c = CASES[name]
+    _, leaves, _ = one[one_key(c)]
     full = assemble(got, [w.shape for w in leaves])
-    cfg = base_config("yi", jax_get_config)
-    want = tree_leaves(lm.params_from_numpy(ref["params"], cfg,
-                                            device="cpu",
-                                            dtype=torch.float32))
+    cfg = base_config(c["model"], jax_get_config)
+    want = tree_leaves(from_numpy(ref["params"], cfg, device="cpu",
+                                  dtype=torch.float32))
     worst = worst_leaf(full, [w.numpy() for w in want])
-    print(f"reference mesh trainer: worst leaf error {worst:.3g}")
+    print(f"reference mesh trainer, {name}: worst leaf error {worst:.3g}")
     assert worst <= LEAF_TOL, worst
+
+
+def test_reference_mesh_trainer_matches(runs):
+    """The port's (4, 2) ``wus`` run with ``seq_parallel`` against the
+    reference's mesh ``Trainer`` on 8 host devices."""
+    hold_reference(runs, "wus_sp1", runs[2])
 
 
 def test_reference_mesh_trainer_matches_jamba(runs):
     """The port's (4, 2) ``fsdp`` jamba run with ``seq_parallel``
     (``jamba_fsdp_sp1``: Mamba channels, experts and attention heads
     split over ``model``) against the reference's mesh ``Trainer``."""
-    out, one, ref = runs
-    ref = ref["jamba"]
-    got = [o["jamba_fsdp_sp1"] for o in out]
-    for g in got:
-        assert "error" not in g, g.get("error")
-        hold_history(g["hist"], ref["hist"])
-    _, leaves, _ = one[("jamba", "sgd", 1)]
-    full = assemble(got, [w.shape for w in leaves])
-    cfg = base_config("jamba", jax_get_config)
-    want = tree_leaves(lm.params_from_numpy(ref["params"], cfg,
-                                            device="cpu",
-                                            dtype=torch.float32))
-    worst = worst_leaf(full, [w.numpy() for w in want])
-    print(f"reference mesh trainer, jamba: worst leaf error {worst:.3g}")
-    assert worst <= LEAF_TOL, worst
+    hold_reference(runs, "jamba_fsdp_sp1", runs[2]["jamba_fsdp_sp1"])
+
+
+def test_reference_mesh_trainer_matches_whisper(runs):
+    """Reduced whisper in ``wus`` on (4, 2): 2 of 4 heads and 256 of 512
+    FFN units a rank in the encoder's and decoder's layers, against the
+    reference's mesh ``Trainer``."""
+    hold_reference(runs, "whisper_wus", runs[2]["whisper_wus"])
+
+
+def test_reference_mesh_trainer_replicates_an_undivided_batch(runs):
+    """A batch of 6 rows on (4, 2): the 4 batch ranks do not divide it,
+    so every rank computes every row, as the reference's mesh ``Trainer``
+    replicates it (``batch_pspecs``' divisibility fallback)."""
+    hold_reference(runs, "wus_rows6", runs[2]["wus_rows6"])
 
 
 @pytest.mark.parametrize("kind", [*REFUSED, "checkpoint", "resume"])
 def test_refused_on_a_mesh(runs, kind):
-    """Enc-dec configs, checkpoints and resumes on more than one rank
-    still raise, naming item 6.2; the MoE, Mamba and RWKV-6 kinds that
-    raised over ``model`` 2 now train on (4, 2) in their configs' own
-    mode, each step's loss, nll and grad_norm held to the one-device
-    trainer's at ``LOSS_TOL``."""
+    """Checkpoints and resumes on more than one rank still raise, naming
+    item 6.2; the MoE, Mamba, RWKV-6 and enc-dec kinds that raised on a
+    mesh now train on (4, 2) in their configs' own mode, each step's
+    loss, nll and grad_norm held to the one-device trainer's at
+    ``LOSS_TOL``."""
     out, one, _ = runs
     for o in out:
         got = o["refused"][kind]
-        if kind in REFUSED and kind != "encdec":
+        if kind in REFUSED:
             assert "error" not in got, got
             want = one[kind]
             assert len(got) == len(want) == 2
